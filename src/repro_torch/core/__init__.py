@@ -1,0 +1,20 @@
+"""Δ-SGD client-adaptive federated optimization on the flat engine."""
+from repro_torch.core import flat
+from repro_torch.core.client_opt import ClientOpt, get_client_opt
+from repro_torch.core.delta_sgd import (FlatDeltaSGDState,
+                                        flat_delta_sgd_init,
+                                        flat_delta_sgd_step)
+from repro_torch.core.fed_loop import (FlatFLState, arena_gather,
+                                       flatten_fl_state, make_fl_loop,
+                                       unflatten_fl_state)
+from repro_torch.core.fed_round import (FLState, RoundAux, init_fl_state,
+                                        make_fl_round)
+from repro_torch.core.losses import make_loss
+from repro_torch.core.server_opt import ServerOpt, get_server_opt
+
+__all__ = ["ClientOpt", "get_client_opt",
+           "FlatDeltaSGDState", "flat_delta_sgd_init", "flat_delta_sgd_step",
+           "FLState", "RoundAux", "init_fl_state", "make_fl_round",
+           "make_loss", "FlatFLState", "arena_gather", "flatten_fl_state",
+           "make_fl_loop", "unflatten_fl_state", "ServerOpt",
+           "get_server_opt", "flat"]

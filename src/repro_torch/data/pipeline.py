@@ -1,0 +1,117 @@
+"""Federated batching: the cohort draw and (C, K, b, ...) round batches.
+
+Port of ``FederatedDataset`` from ``repro/data/pipeline.py``. Everything
+here is numpy on the host, as in the reference. The within-client
+example draw (``default_rng([seed + 17, t])``) and the eval stream
+(``default_rng(seed + 23)``) are the reference's, so given the same
+cohort ids the port gathers bit-identical batches. The cohort itself
+comes from ``scheduler`` (default: ``UniformScheduler`` over all
+clients), whose ``sample(seed, t)`` is keyed on the round; a test passes
+a scheduler that replays the reference's ids.
+
+The fleet regime (``num_registered``) and scenario-driven schedulers
+come with ROADMAP A14 and A10.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.synthetic import TaskData
+from repro_torch.federation.schedulers import UniformScheduler, cohort_size
+
+
+@dataclass
+class FederatedDataset:
+    task: TaskData
+    clients: List[np.ndarray]          # per-client example indices
+    seed: int = 0                      # cohort and example draws
+    eval_rng: Optional[np.random.Generator] = None
+    # object with ``cohort`` and ``sample(seed, t) -> (cohort,) ids``;
+    # None draws uniformly over all clients
+    scheduler: object = None
+
+    @classmethod
+    def build(cls, task: TaskData, *, num_clients: int, alpha: float,
+              samples_per_client: int = 500, seed: int = 0,
+              variable_sizes=None, scheduler=None) -> "FederatedDataset":
+        clients = dirichlet_partition(task.y, num_clients, alpha,
+                                      samples_per_client, seed=seed,
+                                      variable_sizes=variable_sizes)
+        return cls(task, clients, seed=seed,
+                   eval_rng=np.random.default_rng(seed + 23),
+                   scheduler=scheduler)
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.clients)
+
+    def client_sizes(self) -> np.ndarray:
+        return np.array([len(c) for c in self.clients], np.float32)
+
+    def _scheduler(self, C: int):
+        sch = self.scheduler
+        if sch is None:
+            return UniformScheduler(self.num_clients, C)
+        if sch.cohort != C:
+            raise ValueError(f"scheduler draws cohorts of {sch.cohort}, the "
+                             f"round needs {C}")
+        return sch
+
+    def sample_round_indices(self, participation: float, local_steps: int,
+                             batch_size: int, round_idx: int):
+        """Cohort draw + within-client example draw WITHOUT gathering:
+        (take (C, K, b) int32 indices into the task arrays, client
+        weights (C,), client ids (C,)). Both draws are keyed on
+        (seed, round), never on call history."""
+        C = cohort_size(participation, self.num_clients)
+        t = int(round_idx)
+        ids = np.asarray(self._scheduler(C).sample(self.seed, t))
+        ex_rng = np.random.default_rng([self.seed + 17, t])
+        takes = []
+        for i in ids:
+            idx = self.clients[i]
+            take = ex_rng.choice(idx, size=local_steps * batch_size,
+                                 replace=len(idx) < local_steps * batch_size)
+            takes.append(take.reshape(local_steps, batch_size))
+        weights = self.client_sizes()[ids]
+        return (np.stack(takes).astype(np.int32),
+                weights.astype(np.float32), ids)
+
+    def sample_round(self, participation: float, local_steps: int,
+                     batch_size: int, round_idx: int):
+        """(client_batches {"x", "y"} of (C, K, b, ...) arrays,
+        client_weights (C,), client_ids (C,))."""
+        take, weights, ids = self.sample_round_indices(
+            participation, local_steps, batch_size, round_idx)
+        batches = {"x": self.task.x[take], "y": self.task.y[take]}
+        return batches, weights, ids
+
+    def sample_block(self, participation: float, local_steps: int,
+                     batch_size: int, *, round0: int, rounds: int):
+        """R rounds of gather indices for ONE round-fused loop call:
+        (idx (R, C, K, b) int32, weights (R, C), ids (R, C)), equal to R
+        ``sample_round_indices`` calls for rounds round0..round0+R-1."""
+        take, w, ids = zip(*(self.sample_round_indices(
+            participation, local_steps, batch_size, round_idx=round0 + r)
+            for r in range(rounds)))
+        return np.stack(take), np.stack(w), np.stack(ids)
+
+    def arena(self):
+        """The example arena the fused loop gathers from: the full task
+        arrays, staged on the device once per run."""
+        return {"x": self.task.x, "y": self.task.y}
+
+    def epoch_steps(self, batch_size: int) -> int:
+        """K for one local epoch (paper: K = E·n_i / b with E = 1)."""
+        n = int(np.median(self.client_sizes()))
+        return max(1, n // batch_size)
+
+    def test_batch(self, n: Optional[int] = None):
+        if n is None or n >= len(self.task.y_test):
+            return self.task.x_test, self.task.y_test
+        idx = self.eval_rng.choice(len(self.task.y_test), n, replace=False)
+        return self.task.x_test[idx], self.task.y_test[idx]

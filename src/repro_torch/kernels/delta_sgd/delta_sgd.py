@@ -1,0 +1,164 @@
+"""Δ-SGD's per-local-step kernel pair: wrappers around the CUDA kernels.
+
+Port of the packed (C, N) functions of ``repro/kernels/delta_sgd/
+delta_sgd.py``:
+
+  batched_norms  — per-client ``(Σ(g−g_prev)², Σg²)``: the dual norms of
+                   Eq. (4), one pass over (G, G_prev). Replaces the TPU
+                   kernel ``_batched_norms_kernel``.
+  batched_apply  — ``P ← P − η_c·G`` IN PLACE on P, with an optional (N,)
+                   bf16 round mask. Replaces ``_batched_apply_kernel`` and
+                   ``_batched_apply_masked_kernel``.
+
+Both are bound by memory on the card; what their CUDA design does about
+it is written at the top of ``csrc/delta_sgd.cu``. A wrapper given CUDA
+tensors launches its kernel (built from that source at first use, see
+``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
+plain version in ``ref.py``. There is no other switch.
+
+``LAUNCHES`` counts calls per ``(function, device type)``: a wrapper
+adds one to its ``"cuda"`` entry after its kernel launched without
+error, and to its ``"cpu"`` entry when it ran the plain version, so the
+``"cuda"`` entries count exactly the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.flat import LANES
+from repro_torch.kernels import build
+from repro_torch.kernels.delta_sgd import ref
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "delta_sgd.cu",)
+
+# the client index is the kernels' grid y dimension
+_MAX_CLIENTS = 65535
+
+LAUNCHES: Counter = Counter()
+
+
+def reset_launch_count() -> None:
+    LAUNCHES.clear()
+
+
+def launch_count(device_type: Optional[str] = None) -> int:
+    """Total calls, or only those on ``device_type`` ("cuda"/"cpu")."""
+    return sum(v for (_, dev), v in LAUNCHES.items()
+               if device_type is None or dev == device_type)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library (compiled from SOURCES at first use)."""
+    lib = build.load_library("delta_sgd", SOURCES)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.dsgd_norms_chunk.argtypes = []
+    lib.dsgd_norms_chunk.restype = ctypes.c_int
+    lib.dsgd_batched_norms.argtypes = [vp, vp, i64, i64, vp, vp, vp, vp, vp]
+    lib.dsgd_batched_norms.restype = ctypes.c_int
+    lib.dsgd_batched_apply.argtypes = [vp, vp, vp, vp, i64, i64, vp]
+    lib.dsgd_batched_apply.restype = ctypes.c_int
+    return lib
+
+
+def _check_slab(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.shape != like.shape or x.dim() != 2:
+        raise ValueError(f"{name} must be (C, N) like {tuple(like.shape)}, "
+                         f"got {tuple(x.shape)}")
+    if x.device != like.device:
+        raise ValueError(f"{name} is on {x.device}, expected {like.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.shape[1] % LANES or x.shape[1] == 0:
+        raise ValueError(f"{name}: flat length {x.shape[1]} is not a "
+                         f"positive multiple of {LANES} (pack it with "
+                         f"repro_torch.core.flat)")
+    if x.is_cuda and x.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+    if x.shape[0] > _MAX_CLIENTS:
+        raise ValueError(f"{name}: {x.shape[0]} clients exceed the "
+                         f"kernels' grid limit of {_MAX_CLIENTS}")
+
+
+def _check_vec(name: str, x: torch.Tensor, n: int, like: torch.Tensor, *,
+               aligned: bool = False) -> None:
+    if x.dtype != torch.float32 or x.shape != (n,):
+        raise ValueError(f"{name} must be float32 ({n},), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device != like.device or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {like.device}")
+    if aligned and x.is_cuda and x.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _device_type(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def batched_norms(g: torch.Tensor, g_prev: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-client ``(Σ(g−g_prev)², Σg²)`` over packed (C, N) f32 slabs.
+
+    One launch for all clients and all packed leaves; returns two (C,)
+    f32 vectors. On CUDA the sums are bitwise reproducible."""
+    _check_slab("g", g, g)
+    _check_slab("g_prev", g_prev, g)
+    if _device_type(g) == "cpu":
+        LAUNCHES[("batched_norms", "cpu")] += 1
+        return ref.batched_norms_ref(g, g_prev)
+    lib = library()
+    C, n = g.shape
+    chunk = lib.dsgd_norms_chunk()
+    partial = torch.empty((C, -(-n // chunk), 2), dtype=torch.float32,
+                          device=g.device)
+    counter = torch.zeros((C,), dtype=torch.int32, device=g.device)
+    dg = torch.empty((C,), dtype=torch.float32, device=g.device)
+    gg = torch.empty((C,), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    _raise_on(lib.dsgd_batched_norms(
+        g.data_ptr(), g_prev.data_ptr(), C, n, partial.data_ptr(),
+        counter.data_ptr(), dg.data_ptr(), gg.data_ptr(), stream),
+        "batched_norms")
+    LAUNCHES[("batched_norms", "cuda")] += 1
+    return dg, gg
+
+
+def batched_apply(p: torch.Tensor, g: torch.Tensor, eta: torch.Tensor, *,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``P ← P − η_c·G`` on packed (C, N) slabs with per-client η (C,).
+
+    Updates ``p`` IN PLACE and returns it (the TPU kernel aliased P to
+    its output). ``mask`` is the optional (N,) round mask from
+    ``repro_torch.core.flat.round_mask``: where it is > 0 the result is
+    rounded to bf16, as a bf16 leaf is after every step."""
+    _check_slab("p", p, p)
+    _check_slab("g", g, p)
+    C, n = p.shape
+    _check_vec("eta", eta, C, p)
+    if mask is not None:
+        _check_vec("mask", mask, n, p, aligned=True)
+    if _device_type(p) == "cpu":
+        LAUNCHES[("batched_apply", "cpu")] += 1
+        return p.copy_(ref.batched_apply_ref(p, g, eta, mask))
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    _raise_on(library().dsgd_batched_apply(
+        p.data_ptr(), g.data_ptr(), eta.data_ptr(),
+        mask.data_ptr() if mask is not None else None, C, n, stream),
+        "batched_apply")
+    LAUNCHES[("batched_apply", "cuda")] += 1
+    return p

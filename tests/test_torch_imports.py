@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro``."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _banned(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _banned(node.module):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and _banned(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_package_is_complete():
+    """Every module of the slice exists beside its reference counterpart."""
+    for rel in ("core/flat.py", "core/delta_sgd.py", "core/fed_round.py",
+                "core/fed_loop.py", "core/losses.py", "core/client_opt.py",
+                "core/server_opt.py", "kernels/delta_sgd/delta_sgd.py",
+                "kernels/delta_sgd/ref.py", "models/small.py",
+                "models/common.py", "data/pipeline.py", "data/synthetic.py",
+                "data/dirichlet.py", "federation/schedulers.py",
+                "configs/paper_tasks.py", "launch/train.py"):
+        assert (ROOT / "src" / "repro" / rel).exists(), rel
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "delta_sgd" / "csrc"
+            / "delta_sgd.cu").exists()

@@ -7,22 +7,31 @@ Phases, in order; any failure raises and the script exits non-zero
 without its final line:
 
   1. header   the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build    the CUDA kernels from the repository's sources (set-up).
+  2. build    the CUDA kernels from the repository's sources, one nvcc
+              per kernel namespace, all started together (set-up).
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5 and two calls
               bitwise equal; apply: bitwise equal, masked lanes exactly
-              bf16), timed with CUDA events (median of 60 launches queued
-              behind a device sleep, so the times are device times) beside
-              the plain version, a library call where one exists, and the
-              bound from the bytes moved and the card's peak rates. One
-              JSON line per kernel and shape.
-  4. path     the paper's CNN federation through the training entry point
-              (100 clients, alpha 0.1, batch 64, 4 rounds, 2 rounds per
-              call) on cuda: 2*K*rounds kernel launches, all on CUDA,
-              finite losses; the host loop (--flat) on cuda is bitwise
-              equal; the same run on the CPU agrees on round 0 within rtol
-              1e-4 (cuDNN/cuBLAS and kernel sum order differ).
+              bf16; quantize/dequantize: bitwise equal, and a NaN chunk
+              like the plain version; top-k: exact; trimmed mean: rtol
+              1e-6 / atol 1e-7 and two calls bitwise equal), timed with
+              CUDA events (median of 60 launches queued behind a device
+              sleep, so the times are device times) beside the plain
+              version, a library call where one exists, and the bound
+              from the bytes moved and the card's peak rates. One JSON
+              line per kernel and shape.
+  4. paths    the paper's CNN federation through the training entry point
+              (100 clients, alpha 0.1, participation 0.1, batch 64, 4
+              rounds, 2 rounds per call) on cuda, three times: plain
+              (slice 1), dirichlet_dropouts + trimmed mean + int8 + EF21,
+              and bandwidth_tiered + median + EF21. Each path is driven
+              with every launch count at 0 and read just after: 2*K*rounds
+              Delta-SGD launches, the compression and robust-aggregation
+              launches its round tail makes, all on CUDA, finite metrics.
+              The host loop (--flat) on cuda is bitwise equal; the same
+              run on the CPU agrees on round 0 within rtol 1e-4
+              (cuDNN/cuBLAS and kernel sum order differ).
   5. the summary line {"kernels": [...]} and, last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
@@ -35,13 +44,28 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-KERNEL_SOURCE = "src/repro_torch/kernels/delta_sgd/csrc/delta_sgd.cu"
-TPU_KERNELS = {"batched_norms": "src/repro/kernels/delta_sgd/delta_sgd.py:111",
-               "batched_apply": "src/repro/kernels/delta_sgd/delta_sgd.py:137"}
+_CSRC = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+# kernel -> (its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "batched_norms": (_CSRC.format("delta_sgd"),
+                      "src/repro/kernels/delta_sgd/delta_sgd.py:111"),
+    "batched_apply": (_CSRC.format("delta_sgd"),
+                      "src/repro/kernels/delta_sgd/delta_sgd.py:137"),
+    "quantize_int8": (_CSRC.format("compress"),
+                      "src/repro/kernels/compress/compress.py:94"),
+    "dequantize_int8": (_CSRC.format("compress"),
+                        "src/repro/kernels/compress/compress.py:117"),
+    "topk_mask": (_CSRC.format("compress"),
+                  "src/repro/kernels/compress/compress.py:136"),
+    "batched_trimmed_mean": (_CSRC.format("robust_agg"),
+                             "src/repro/kernels/robust_agg/robust_agg.py"
+                             ":100"),
+}
 MAIN_SHAPE = (10, 71808)          # C = 10 clients, N of the paper's CNN
 LARGE_SHAPE = (10, 2 ** 24)       # 671 MB per buffer, far past the L2
 SAMPLES = 60
@@ -54,6 +78,25 @@ CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
 TRAIN_ARGS = ["--task", "image", "--model", "cnn", "--num-clients", "100",
               "--alpha", "0.1", "--participation", "0.1", "--batch", "64",
               "--rounds", "4", "--seed", "0"]
+ROUNDS = 4
+K = 500 // 64      # one local epoch: 500 examples per client
+# path -> (extra flags, launches per round of each compress / robust_agg
+# kernel)
+SCENARIO_PATHS = {
+    "dropouts_trimmed_int8_ef21": (
+        ["--scenario", "dirichlet_dropouts", "--robust-agg", "trimmed",
+         "--compression", "int8", "--error-feedback"],
+        {"quantize_int8": 1, "dequantize_int8": 1,
+         "batched_trimmed_mean": 1}),
+    "bandwidth_median_ef21": (
+        ["--scenario", "bandwidth_tiered", "--robust-agg", "median",
+         "--error-feedback"],
+        {"quantize_int8": 1, "dequantize_int8": 1, "topk_mask": 1,
+         "batched_trimmed_mean": 1}),
+}
+# the trimmed-mean trim count on the dirichlet_dropouts path (C = 10,
+# trim_frac 0.2) and the median's; top-k slots per chunk at k_frac 0.25
+TRIM_T, MEDIAN_T, TOPK_K = 2, 4, 32
 
 
 def fail(msg: str) -> int:
@@ -153,26 +196,134 @@ def check_kernels(torch, tk, tref, bw, f32):
     return rows
 
 
-def run_path(torch, tk, train):
-    """Phase 4. Returns the main-path launch counts."""
-    tk.reset_launch_count()
-    fused = train.main(TRAIN_ARGS + ["--rounds-per-call", "2",
-                                     "--device", "cuda"])
-    torch.cuda.synchronize()
-    launches = dict(tk.LAUNCHES)
-    K = 500 // 64      # one local epoch: 500 examples per client
-    want = 2 * K * 4
-    if tk.launch_count() != want or tk.launch_count("cuda") != want:
-        raise AssertionError(f"main path launched {launches}, expected "
-                             f"{want} kernel launches, all on cuda")
-    for t, row in enumerate(fused.history):
-        if not all(math.isfinite(float(v)) for v in row.values()):
-            raise AssertionError(f"round {t}: non-finite metrics {row}")
-        print("path round", t, json.dumps({k: float(v)
-                                           for k, v in row.items()}))
+def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
+    """Phase 3, the compression and robust-aggregation kernels. Returns
+    {(name, shape): row}."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
 
-    host = train.main(TRAIN_ARGS + ["--flat", "--device", "cuda"])
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for C, N in (MAIN_SHAPE, LARGE_SHAPE):
+        M = N // 128
+        # round-delta-like: a different scale per 128-chunk, a zero chunk
+        scale = torch.exp(3 * torch.randn((C, M, 1), generator=gen,
+                                          device="cuda"))
+        x = (torch.randn((C, M, 128), generator=gen, device="cuda")
+             * scale).view(C, N)
+        x[:, :128] = 0.0
+        q, s = tcomp.quantize_int8(x)
+        want_q, want_s = tcref.quantize_int8_ref(x)
+        out = tcomp.dequantize_int8(q, s)
+        want_out = tcref.dequantize_int8_ref(q, s)
+        top = tcomp.topk_mask(x, TOPK_K)
+        want_top = tcref.topk_mask_ref(x, TOPK_K)
+        torch.cuda.synchronize()
+        for name, a, b in (("quantize_int8 q", q, want_q),
+                           ("quantize_int8 scales", s, want_s),
+                           ("dequantize_int8", out, want_out),
+                           ("topk_mask", top, want_top)):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{name} is not bitwise equal to the "
+                                     "plain version")
+        if (C, N) == MAIN_SHAPE:
+            bad = x.clone()
+            bad[0, 130] = float("nan")
+            q_nan, s_nan = tcomp.quantize_int8(bad)
+            wq, ws = tcref.quantize_int8_ref(bad)
+            torch.cuda.synchronize()
+            if not (torch.isnan(s_nan[0, 1]) and torch.equal(q_nan, wq)
+                    and torch.equal(s_nan.nan_to_num(-1.0),
+                                    ws.nan_to_num(-1.0))):
+                raise AssertionError("quantize_int8 treats a NaN chunk "
+                                     "unlike the plain version")
+
+        cn = C * N
+        s_bytes = 4 * C * M
+        rows[("quantize_int8", (C, N))] = dict(
+            name="quantize_int8", shape=[C, N],
+            max_abs_err=float((q.int() - want_q.int()).abs().max()),
+            ms=device_ms(lambda: tcomp.quantize_int8(x), torch),
+            plain_ms=device_ms(lambda: tcref.quantize_int8_ref(x), torch),
+            library_ms=None,
+            bound_ms=max((4 * cn + cn + s_bytes) / bw, 6 * cn / f32) * 1e3,
+            bound_by="bytes")
+        rows[("dequantize_int8", (C, N))] = dict(
+            name="dequantize_int8", shape=[C, N],
+            max_abs_err=float((out - want_out).abs().max()),
+            ms=device_ms(lambda: tcomp.dequantize_int8(q, s), torch),
+            plain_ms=device_ms(lambda: tcref.dequantize_int8_ref(q, s),
+                               torch),
+            library_ms=device_ms(
+                lambda: torch.mul(q.view(C, M, 128), s[..., None]), torch),
+            bound_ms=max((cn + s_bytes + 4 * cn) / bw, cn / f32) * 1e3,
+            bound_by="bytes")
+        rows[("topk_mask", (C, N))] = dict(
+            name="topk_mask", shape=[C, N],
+            max_abs_err=float((top - want_top).abs().max()),
+            ms=device_ms(lambda: tcomp.topk_mask(x, TOPK_K), torch),
+            plain_ms=device_ms(lambda: tcref.topk_mask_ref(x, TOPK_K),
+                               torch),
+            library_ms=None,
+            # ~32 radix passes of 2 ops per element, then the keep test
+            bound_ms=max(8 * cn / bw, 70 * cn / f32) * 1e3,
+            bound_by="bytes")
+
+        # trimmed mean (t = 2, the dirichlet_dropouts path) and the
+        # median (t = 4): rtol 1e-6 / atol 1e-7, two calls bitwise equal
+        for t in (TRIM_T, MEDIAN_T):
+            got = tra.batched_trimmed_mean(x, t)
+            again = tra.batched_trimmed_mean(x, t)
+            want = traref.batched_trimmed_mean_ref(x, t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("batched_trimmed_mean: two calls differ")
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+            if t == TRIM_T:
+                err = float((got - want).abs().max())
+        p2 = 1 << (C - 1).bit_length()
+        lg = p2.bit_length() - 1
+        sort_ops = 2 * (p2 // 2) * lg * (lg + 1) // 2   # min + max
+        rows[("batched_trimmed_mean", (C, N))] = dict(
+            name="batched_trimmed_mean", shape=[C, N], max_abs_err=err,
+            ms=device_ms(lambda: tra.batched_trimmed_mean(x, TRIM_T),
+                         torch),
+            plain_ms=device_ms(
+                lambda: traref.batched_trimmed_mean_ref(x, TRIM_T), torch),
+            library_ms=None,
+            bound_ms=max((4 * cn + 4 * N) / bw,
+                         (sort_ops + C) * N / f32) * 1e3,
+            bound_by="bytes")
+        for key, row in rows.items():
+            if key[1] == (C, N):
+                row["gbps_achieved"] = (row["bound_ms"] / row["ms"]) * bw / 1e9
+                print(json.dumps(row), flush=True)
+    return rows
+
+
+def _counts(mods):
+    """{(kernel, device): launches} over the kernel namespaces."""
+    out = {}
+    for mod in mods:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _reset(mods):
+    for mod in mods:
+        mod.reset_launch_count()
+
+
+def _finite(row):
+    import numpy as np
+    return all(bool(np.isfinite(v).all()) for v in row.values())
+
+
+def _fused_equals_host(torch, fused, host):
     for t, (a, b) in enumerate(zip(fused.history, host.history)):
+        if a.keys() != b.keys():
+            raise AssertionError(f"round {t}: metric keys differ")
         for k in a:
             if a[k].tobytes() != b[k].tobytes():
                 raise AssertionError(f"round {t} {k}: fused {a[k]!r} != "
@@ -181,6 +332,68 @@ def run_path(torch, tk, train):
         for leaf, v in layer.items():
             if not torch.equal(v, host.state.params[k][leaf]):
                 raise AssertionError(f"param {k}.{leaf}: fused != host")
+
+
+def run_scenario_path(torch, mods, train, name):
+    """Phase 4, one scenario path. Returns its launch counts."""
+    flags, per_round = SCENARIO_PATHS[name]
+    args = TRAIN_ARGS + flags
+    _reset(mods)
+    fused = train.main(args + ["--rounds-per-call", "2", "--device",
+                               "cuda"])
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * ROUNDS,
+            ("batched_apply", "cuda"): K * ROUNDS}
+    want.update({(k, "cuda"): n * ROUNDS for k, n in per_round.items()})
+    if launches != want:
+        raise AssertionError(f"path {name} launched {launches}, expected "
+                             f"{want}")
+    for t, row in enumerate(fused.history):
+        if not _finite(row):
+            raise AssertionError(f"path {name} round {t}: non-finite "
+                                 f"metrics {row}")
+        print(f"path {name} round {t}", json.dumps(
+            {k: float(row[k]) for k in ("loss", "eta_mean", "valid_count",
+                                        "round_skipped", "wire_bytes",
+                                        "comp_ratio")}), flush=True)
+
+    host = train.main(args + ["--flat", "--device", "cuda"])
+    _fused_equals_host(torch, fused, host)
+    print(f"path {name}: fused == host loop, bitwise (params and metrics)")
+
+    cpu = train.main(args + ["--rounds", "1", "--device", "cpu"])
+    for k in ("loss", "eta_mean"):
+        a, b = float(fused.history[0][k]), float(cpu.history[0][k])
+        print(f"path {name} round 0 {k} cuda {a!r} cpu {b!r}")
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"path {name} round 0 {k}: cuda {a} vs "
+                                 f"cpu {b}")
+    print(f"path {name}: round 0 loss/eta_mean agree with the CPU within "
+          "1e-4")
+    return launches
+
+
+def run_path(torch, mods, train):
+    """Phase 4, the plain (slice-1) path. Returns its launch counts."""
+    _reset(mods)
+    fused = train.main(TRAIN_ARGS + ["--rounds-per-call", "2",
+                                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * ROUNDS,
+            ("batched_apply", "cuda"): K * ROUNDS}
+    if launches != want:
+        raise AssertionError(f"main path launched {launches}, expected "
+                             f"{want}")
+    for t, row in enumerate(fused.history):
+        if not all(math.isfinite(float(v)) for v in row.values()):
+            raise AssertionError(f"round {t}: non-finite metrics {row}")
+        print("path round", t, json.dumps({k: float(v)
+                                           for k, v in row.items()}))
+
+    host = train.main(TRAIN_ARGS + ["--flat", "--device", "cuda"])
+    _fused_equals_host(torch, fused, host)
     print("path: fused == host loop, bitwise (params and metrics)")
 
     cpu = train.main(TRAIN_ARGS + ["--rounds-per-call", "2",
@@ -208,9 +421,14 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
+    from repro_torch.kernels.compress import compress as tcomp
+    from repro_torch.kernels.compress import ref as tcref
     from repro_torch.kernels.delta_sgd import delta_sgd as tk
     from repro_torch.kernels.delta_sgd import ref as tref
+    from repro_torch.kernels.robust_agg import ref as traref
+    from repro_torch.kernels.robust_agg import robust_agg as tra
     from repro_torch.launch import train
+    mods = (tk, tcomp, tra)
 
     # 1. header
     smi = subprocess.run(
@@ -224,31 +442,40 @@ def main() -> int:
     resolve_device("cuda")
     bw, f32 = peaks(name)
 
-    # 2. build
+    # 2. build: one nvcc per namespace, all started together
     t0 = time.perf_counter()
-    tk.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (set-up)")
-    log = build.library_path("delta_sgd", tk.SOURCES).with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.library(), mods))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(mods)} "
+          "libraries in parallel (set-up)")
+    for mod, ns in zip(mods, ("delta_sgd", "compress", "robust_agg")):
+        log = build.library_path(ns, mod.SOURCES).with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
     # 3. kernels
     rows = check_kernels(torch, tk, tref, bw, f32)
+    rows.update(check_round_tail_kernels(torch, tcomp, tcref, tra, traref,
+                                         bw, f32))
 
-    # 4. path
-    launches = run_path(torch, tk, train)
+    # 4. paths
+    paths = {"plain": run_path(torch, mods, train)}
+    for pname in SCENARIO_PATHS:
+        paths[pname] = run_scenario_path(torch, mods, train, pname)
 
     # 5. summary
     kernels = []
-    for kname in ("batched_norms", "batched_apply"):
+    for kname, (source, replaces) in KERNELS.items():
         row = rows[(kname, MAIN_SHAPE)]
+        by_path = {p: c.get((kname, "cuda"), 0) for p, c in paths.items()}
         kernels.append(dict(
-            name=kname, route="cuda", source=KERNEL_SOURCE,
-            replaces=TPU_KERNELS[kname],
-            launches=launches.get((kname, "cuda"), 0),
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        if kernels[-1]["launches"] == 0:
+            raise AssertionError(f"{kname} was not launched on any path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

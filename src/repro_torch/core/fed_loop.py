@@ -11,8 +11,11 @@ batches come pre-stacked with a leading R axis, or as (R, C, K, b)
 gather indices into a device-resident example arena (``arena_gather``).
 Metrics come back stacked over the R rounds.
 
-Capturing a block as a CUDA graph is later performance work; the fleet
-loop (ROADMAP A14) and the block-sharded loop (A17) are not ported.
+Scenarios and compression compose with the loop as with the single
+round, because the loop runs the round's own body; the EF21 slab rides
+in the carried state. Capturing a block as a CUDA graph is later
+performance work; the fleet loop (ROADMAP A14) and the block-sharded
+loop (A17) are not ported.
 """
 from __future__ import annotations
 
@@ -27,24 +30,36 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 
 class FlatFLState(NamedTuple):
     """FLState in persistent flat form: ``P`` is the packed (N,) f32
-    global params; ``server_state`` keeps its tree form."""
+    global params; ``ef`` (EF21 compression) the packed (C, N) f32
+    reconstruction slab; ``server_state`` keeps its tree form and
+    ``buffer`` (the async FedBuff buffer, ROADMAP A10) is always None."""
     P: torch.Tensor
     server_state: Any
     round: int
+    buffer: Any = None
+    ef: Any = None
 
 
 def flatten_fl_state(state: FLState, layout: flatlib.FlatLayout
                      ) -> FlatFLState:
-    """Pack an FLState once per R-round block (exact: bf16 -> f32 widens)."""
+    """Pack an FLState once per R-round block (exact: bf16 -> f32 widens,
+    and the ef tree is f32 already)."""
+    ef = state.ef
+    if ef is not None:
+        ef = flatlib.pack_batched(ef, layout)
     return FlatFLState(flatlib.pack(state.params, layout),
-                       state.server_state, state.round)
+                       state.server_state, state.round, state.buffer, ef)
 
 
 def unflatten_fl_state(fstate: FlatFLState, layout: flatlib.FlatLayout
                        ) -> FLState:
-    """Back to tree form: eval / checkpoint cadence only."""
+    """Back to tree form: eval / checkpoint cadence only. The ef tree
+    stays f32 (views of the slab)."""
+    ef = fstate.ef
+    if ef is not None:
+        ef = flatlib.unpack_batched(ef, layout, cast=False)
     return FLState(flatlib.unpack(fstate.P, layout), fstate.server_state,
-                   fstate.round)
+                   fstate.round, fstate.buffer, ef)
 
 
 def arena_gather(arena, idx: torch.Tensor):

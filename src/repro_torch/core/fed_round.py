@@ -9,6 +9,31 @@ packs the gradients, and runs ``flat_delta_sgd_step``: exactly two
 kernel launches for all leaves and all clients. Aggregation is one
 (weighted) mean over the client axis, then the ServerOpt step.
 
+Scenarios (``scenario=``, ``repro_torch.federation``) add, for the
+synchronous round:
+  * heterogeneous K: per-client step counts K_c ≤ K, folded into the
+    Δ-SGD step as η=0 lanes (no extra launches);
+  * fault lanes: mid-round drops (folded into the same lane budget), NaN
+    gradients injected on the wire side of the in-step guard, byzantine
+    delta scaling;
+  * the guarded tail: the RobustAgg ladder (mean/clip/trimmed/median)
+    over the survivors' deltas, re-anchored on the round-start params,
+    and quorum degradation (fewer than Q valid clients: the round keeps
+    the previous params and server state). The quorum test is one host
+    read of the (C,) survivor count per round;
+  * cohort reporting (``cohort_ids``) and effective-K metrics.
+The draws are the scenario's (``Scenario.draw_*``), keyed on the round.
+
+Compression (``compression=``, ``repro_torch.compression``) compresses
+each client's round delta Δ_c = x_c^K − x_t before any aggregation:
+int8 per chunk or top-k per chunk, optionally behind EF21 error feedback
+(the (C, N) ``ef`` slab of the flat state), with per-client bandwidth
+levels drawn by a bandwidth-heterogeneous scenario. Wire bytes and the
+compression ratio ride in the round metrics.
+
+With no scenario (or ``sync_iid``) and an inert compression spec the
+round takes the exact slice-1 code path, bit for bit.
+
 The round logic lives in ``flat_body``, which works on the flat state of
 ``repro_torch.core.fed_loop.FlatFLState``; ``round_fn`` is a pack/unpack
 wrapper around it and exposes it as ``round_fn.flat_body``, which the
@@ -16,9 +41,9 @@ round-fused loop chains. Fused and host-loop rounds are therefore the
 same computation.
 
 Not ported yet, and rejected with the ROADMAP item that brings them: the
-vmap engine (``flat=False``, A7), scenarios (A10), faults and robust
-aggregation (A11), compression (A12), telemetry (A13), mesh sharding
-(A17) and the per-client η₀ warm start of the fleet loop (A14).
+vmap engine (``flat=False``, A7), async scenarios (the FedBuff buffer,
+A10), telemetry (A13), mesh sharding (A17) and the per-client η₀ warm
+start of the fleet loop (A14).
 """
 from __future__ import annotations
 
@@ -33,13 +58,20 @@ from repro_torch.core.delta_sgd import flat_delta_sgd_init, flat_delta_sgd_step
 from repro_torch.core.server_opt import ServerOpt
 from repro_torch.utils.tree import tree_leaves, tree_map
 
+_ASYNC = ("async aggregation (scenario {name!r}) needs the FedBuff delta "
+          "buffer, which is not ported yet: it comes with ROADMAP A10")
+
 
 class FLState(NamedTuple):
-    """The synchronous round's state; the async buffer (ROADMAP A10) and
-    the EF21 state (A12) join it with their items."""
+    """The synchronous round's state. ``buffer`` is the async FedBuff
+    buffer (ROADMAP A10; always None here). ``ef`` is the EF21 state
+    under error-feedback compression: a tree like ``params`` with a
+    leading cohort axis, f32."""
     params: Any
     server_state: Any
     round: int
+    buffer: Any = None
+    ef: Any = None
 
 
 class RoundAux(NamedTuple):
@@ -53,15 +85,26 @@ class RoundAux(NamedTuple):
 
 def init_fl_state(params, server_opt: ServerOpt, scenario=None,
                   compression=None, cohort: Optional[int] = None) -> FLState:
-    _reject(scenario=scenario, compression=compression)
-    return FLState(params, server_opt.init(params), 0)
+    """``compression`` with ``error_feedback=True`` allocates the
+    per-cohort-slot EF21 reconstruction tree; ``cohort`` (C, clients per
+    round) sizes its leading axis. Async scenarios are refused (their
+    buffer is ROADMAP A10)."""
+    if scenario is not None and scenario.is_async:
+        raise NotImplementedError(_ASYNC.format(name=scenario.name))
+    ef = None
+    if compression is not None and compression.error_feedback:
+        if cohort is None:
+            raise ValueError("error-feedback compression needs cohort= "
+                             "(clients per round) to size FLState.ef")
+        ef = tree_map(lambda p: torch.zeros((cohort,) + tuple(p.shape),
+                                            dtype=torch.float32,
+                                            device=p.device), params)
+    return FLState(params, server_opt.init(params), 0, None, ef)
 
 
 def _reject(**kw) -> None:
     """Raise for an argument whose feature is not ported yet."""
-    items = {"scenario": "the scenario axes, ROADMAP A10",
-             "compression": "delta compression, ROADMAP A12",
-             "telemetry": "the telemetry plane, ROADMAP A13",
+    items = {"telemetry": "the telemetry plane, ROADMAP A13",
              "mesh": "mesh sharding, ROADMAP A17",
              "federation": "mesh sharding, ROADMAP A17",
              "eta0_c": "the fleet loop's per-client η₀, ROADMAP A14",
@@ -73,24 +116,41 @@ def _reject(**kw) -> None:
                 f"{name}= is not ported yet: it comes with {items[name]}")
 
 
-def _round_metrics(losses: torch.Tensor, etas: torch.Tensor) -> dict:
-    """``losses`` is (C, K), ``etas`` (C,)."""
-    return {"loss": losses.mean(),
-            "loss_last_step": losses[:, -1].mean(),
+def _round_metrics(losses: torch.Tensor, etas: torch.Tensor,
+                   step_counts: Optional[torch.Tensor] = None) -> dict:
+    """``losses`` is (C, K), ``etas`` (C,). Under heterogeneous K the
+    per-step losses of a finished client are masked out of the mean and
+    "last step" is the client's K_c-th step."""
+    if step_counts is None:
+        loss = losses.mean()
+        last = losses[:, -1].mean()
+    else:
+        from repro_torch.federation.heterogeneity import active_mask
+        amask = active_mask(step_counts, losses.shape[1])
+        loss = (losses * amask).sum() / amask.sum()
+        last = losses.gather(1, (step_counts - 1).long()[:, None])[:, 0]
+        last = last.mean()
+    return {"loss": loss, "loss_last_step": last,
             "eta_mean": etas.mean(),
             "eta_min": etas.min(),
             "eta_max": etas.max()}
 
 
-def _finish_round(state: FLState, agg, losses, etas, server_opt: ServerOpt,
-                  *, extra=None):
-    """Shared synchronous round tail: server update + metrics."""
-    params, sstate = server_opt.update(state.params, agg,
-                                       state.server_state)
-    metrics = _round_metrics(losses, etas)
-    if extra:
-        metrics.update(extra)
-    return FLState(params, sstate, state.round + 1), metrics
+def _scenario_extras(scenario, round_idx: int, C: int, num_clients,
+                     client_sizes, step_counts, device) -> dict:
+    """Cohort and effective-K metrics of a scenario round."""
+    extra = {}
+    if scenario is None:
+        return extra
+    if num_clients is not None:
+        ids = scenario.draw_cohort(round_idx, num_clients, C,
+                                   sizes=client_sizes)
+        extra["cohort_ids"] = torch.tensor(ids, device=device)
+    if step_counts is not None:
+        sc = step_counts.to(torch.float32)
+        extra.update(k_eff_mean=sc.mean(), k_eff_min=sc.min(),
+                     k_eff_max=sc.max())
+    return extra
 
 
 def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
@@ -105,32 +165,68 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     leaf of ``client_batches`` is (C, K, ...).
 
     ``flat``: True (or the reference's "pallas"/"xla") selects the flat
-    Δ-SGD engine; its two kernels run on the device of the tensors.
-    ``num_rounds``, ``num_clients`` and ``client_sizes`` are accepted for
-    signature parity; the flat sync round reads none of them."""
-    _reject(mesh=mesh, federation=federation, scenario=scenario,
-            compression=compression, telemetry=telemetry)
+    Δ-SGD engine; its kernels run on the device of the tensors.
+    ``scenario`` (a ``repro_torch.federation.Scenario``) and
+    ``compression`` (a ``CompressionSpec`` or a kind name) are described
+    in the module docstring; ``num_clients``/``client_sizes`` let the
+    round report the scenario's cohort ids. An inert compression spec
+    (kind "none", no error feedback, no bandwidth-heterogeneous
+    scenario) leaves the round on its exact uncompressed path.
+    ``num_rounds`` is accepted for signature parity."""
+    _reject(mesh=mesh, federation=federation, telemetry=telemetry)
     if not flat:
         raise NotImplementedError(
             "the vmap engine (flat=False) comes with ROADMAP A7; the port "
             "runs the flat engine (flat=True)")
+    if scenario is not None and scenario.is_async:
+        raise NotImplementedError(_ASYNC.format(name=scenario.name))
+    if compression is not None or (
+            scenario is not None and scenario.bandwidth_heterogeneous):
+        # a bandwidth-heterogeneous scenario implies compression even if
+        # the caller passed none: the inert "none" spec (level 0 of the
+        # ladder) makes the per-client level draws happen
+        from repro_torch.compression import get_compression
+        compression = get_compression(compression)
     return _make_flat_round(loss_fn, client_opt, server_opt,
-                            weighted=weighted)
+                            weighted=weighted, scenario=scenario,
+                            num_clients=num_clients,
+                            client_sizes=client_sizes,
+                            compression=compression)
 
 
 def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
-                     *, weighted: bool):
+                     *, weighted: bool, scenario=None, num_clients=None,
+                     client_sizes=None, compression=None):
+    from repro_torch.compression import compress_flat
+    from repro_torch.federation.faults import FaultLanes, robust_aggregate
     hyper = client_opt.hyper
     if (client_opt.name != "delta_sgd" or hyper is None
             or hyper.get("groupwise")):
         raise ValueError("flat engine requires the global-rule delta_sgd "
                          f"client optimizer, got {client_opt.name!r}")
-    gamma, delta = hyper["gamma"], hyper["delta"]
+    gamma, delta_ = hyper["gamma"], hyper["delta"]
     eta0, theta0 = hyper["eta0"], hyper["theta0"]
     # per-client (grads, (loss, aux)): params and batch carry the client
     # axis; the global params are shared
     vgrad = vmap(grad_and_value(loss_fn, has_aux=True),
                  in_dims=(0, 0, None))
+
+    # build-time flags: with all of them off every branch below is the
+    # slice-1 code path
+    hetero = scenario is not None and scenario.heterogeneous
+    bw_hetero = scenario is not None and scenario.bandwidth_heterogeneous
+    comp = compression if (compression is not None
+                           and compression.active(scenario)) else None
+    use_ef = comp is not None and comp.error_feedback
+    fm = scenario.fault_model if scenario is not None else None
+    faults_on = fm is not None and fm.active
+    ragg = scenario.robust_model if scenario is not None else None
+    robust_on = ragg is not None and ragg.robust
+    quorum = scenario.quorum if scenario is not None else 0
+    guard_tail = faults_on or robust_on or quorum > 0
+    drops_on = faults_on and fm.drop_rate > 0.0
+    nan_on = faults_on and fm.nan_rate > 0.0
+    byz_on = faults_on and fm.byzantine_rate > 0.0
 
     def flat_body(fstate, client_batches, layout, client_weights=None,
                   prev_local_params=None, gp=None, eta0_c=None):
@@ -145,9 +241,31 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         device = fstate.P.device
         mask = flatlib.round_mask(layout, device)
         C, K = tree_leaves(client_batches)[0].shape[:2]
+
+        def on_device(a):
+            return torch.tensor(a, device=device)
+
+        step_counts = (on_device(scenario.draw_step_counts(
+            fstate.round, C, K)) if hetero else None)
+        # fault lanes: drops fold into the SAME per-step lane budget as
+        # heterogeneous K (a dropped client runs out of budget at its
+        # drop step), so the step stays at two kernel launches
+        lanes = (FaultLanes(*map(on_device, scenario.draw_faults(
+            fstate.round, C, K))) if faults_on else None)
+        if drops_on:
+            budget = (torch.minimum(step_counts, lanes.drop_step) if hetero
+                      else lanes.drop_step)
+            # loss metrics mask on the effective budget; clamp >= 1 so a
+            # step-0 drop (K=1) still indexes a defined "last step"
+            mcounts = torch.clamp(budget, min=1)
+        else:
+            budget = mcounts = step_counts
+
         # the client slab is owned by this round: the apply kernel
         # updates it in place, step after step
         P = fstate.P[None].expand(C, layout.padded_size).clone()
+        P_start = (fstate.P[None].expand(C, layout.padded_size)
+                   if (comp is not None or guard_tail) else None)
         S = flat_delta_sgd_init(C, layout, eta0=eta0, theta0=theta0,
                                 device=device)
         losses = []
@@ -156,27 +274,123 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             params_c = flatlib.unpack_batched(P, layout)
             g, (loss, _) = vgrad(params_c, batch_k, gp)
             G = flatlib.pack_batched(g, layout)
-            P, S = flat_delta_sgd_step(P, G, S, gamma=gamma, delta=delta,
-                                       eta0=eta0, mask=mask)
+            if nan_on:
+                # NaN gradients from the drawn step on, injected on the
+                # wire side of the guard: the in-step guard must catch
+                # them (valid latches off, η=0, lane sanitised)
+                G = torch.where((k >= lanes.nan_step)[:, None],
+                                float("nan"), G)
+            active = (k < budget) if budget is not None else None
+            P, S = flat_delta_sgd_step(P, G, S, gamma=gamma, delta=delta_,
+                                       eta0=eta0, mask=mask, active=active)
             losses.append(loss)
         losses = torch.stack(losses, dim=1)       # (C, K)
 
-        if weighted and client_weights is not None:
-            w = client_weights.to(torch.float32)
-            agg_flat = torch.tensordot(w / w.sum(), P, dims=([0], [0]))
-        else:
-            agg_flat = P.mean(dim=0)
+        extra = _scenario_extras(scenario, fstate.round, C, num_clients,
+                                 client_sizes, step_counts, device)
         # numerical-guard telemetry: how often η hit the ETA_CLAMP
         # ceiling, and the share of lanes the NaN guard dropped
-        guard = dict(
+        extra.update(
             eta_clip_rate=S.clips.to(torch.float32).sum() / float(C * K),
             nan_guard_rate=(~S.valid).to(torch.float32).mean())
-        state = FLState(gp, fstate.server_state, fstate.round)
-        new_state, metrics = _finish_round(
-            state, flatlib.unpack(agg_flat, layout), losses, S.eta,
-            server_opt, extra=guard)
-        new_fstate = FlatFLState(flatlib.pack(new_state.params, layout),
-                                 *new_state[1:])
+
+        # survivor mask + byzantine factor of the guarded tail: a client
+        # is excluded when its NaN guard latched or it dropped mid-round
+        byz = valid = None
+        if guard_tail:
+            valid = S.valid
+            if drops_on:
+                valid = valid & (lanes.drop_step >= K)
+            if byz_on:
+                byz = torch.where(lanes.byzantine, fm.byzantine_scale, 1.0)
+
+        # delta compression: each client's round delta is compressed
+        # before any aggregation; EF21 ships C(Δ_c − g_c) and rolls
+        # g_c ← g_c + C(Δ_c − g_c), so Δ̂_c is the new g_c
+        new_ef = E = None
+        if comp is not None:
+            levels = (on_device(scenario.draw_compression_levels(
+                fstate.round, C)) if bw_hetero else None)
+            delta = P - P_start
+            if byz is not None:
+                # byzantine corruption happens client-side, before the
+                # (honest) compression transport
+                delta = delta * byz[:, None]
+            if use_ef:
+                if fstate.ef is None:
+                    raise ValueError(
+                        "error-feedback compression needs FLState.ef: "
+                        "allocate it with init_fl_state(..., compression="
+                        "spec, cohort=C)")
+                E = fstate.ef
+                chat = compress_flat(delta - E, comp, levels=levels)
+                delta_hat = new_ef = E + chat
+            else:
+                delta_hat = compress_flat(delta, comp, levels=levels)
+            # wire accounting over the VALID elements (layout.size)
+            wire = comp.wire_bytes(layout.size, levels=levels,
+                                   num_clients=C, device=device)
+            total = wire.sum()
+            extra.update(wire_bytes=total,
+                         comp_ratio=total.new_full(
+                             (), 4.0 * layout.size * C) / total)
+            if levels is not None:
+                extra["comp_level_mean"] = levels.to(torch.float32).mean()
+            P_agg = P_start + delta_hat
+        else:
+            delta_hat = None
+            P_agg = P
+
+        if not guard_tail:
+            # aggregate: single (weighted) mean over the packed client
+            # axis
+            if weighted and client_weights is not None:
+                w = client_weights.to(torch.float32)
+                agg_flat = torch.tensordot(w / w.sum(), P_agg,
+                                           dims=([0], [0]))
+            else:
+                agg_flat = P_agg.mean(dim=0)
+            new_params, sstate = server_opt.update(
+                gp, flatlib.unpack(agg_flat, layout), fstate.server_state)
+            newP = flatlib.pack(new_params, layout)
+            metrics = _round_metrics(losses, S.eta, step_counts)
+        else:
+            # guarded tail: the RobustAgg ladder aggregates the survivors'
+            # deltas and the result re-anchors on the round-start params
+            delta_eff = delta_hat if comp is not None else (P - P_start)
+            if byz is not None and comp is None:
+                delta_eff = delta_eff * byz[:, None]
+            w_raw = (client_weights.to(torch.float32)
+                     if weighted and client_weights is not None else None)
+            agg_delta, rinfo = robust_aggregate(delta_eff, ragg, valid,
+                                                weights=w_raw)
+            n_valid = valid.to(torch.float32).sum()
+            # quorum degradation: with < Q valid clients the round keeps
+            # the previous params, server state and EF21 state
+            skipped = quorum > 0 and float(n_valid) < quorum
+            if skipped:
+                newP, sstate = fstate.P, fstate.server_state
+                if new_ef is not None:
+                    new_ef = E
+            else:
+                agg = flatlib.unpack(fstate.P + agg_delta, layout)
+                new_params, sstate = server_opt.update(
+                    gp, agg, fstate.server_state)
+                newP = flatlib.pack(new_params, layout)
+            metrics = _round_metrics(losses, S.eta, mcounts)
+            extra.update(rinfo)
+            extra.update(valid_count=n_valid,
+                         round_skipped=n_valid.new_full(
+                             (), float(skipped)))
+            if drops_on:
+                extra["drop_frac"] = (lanes.drop_step < K).to(
+                    torch.float32).mean()
+            if byz is not None:
+                extra["byz_frac"] = lanes.byzantine.to(torch.float32).mean()
+        metrics.update(extra)
+        new_fstate = FlatFLState(newP, sstate, fstate.round + 1,
+                                 fstate.buffer,
+                                 fstate.ef if new_ef is None else new_ef)
         return new_fstate, metrics, RoundAux(P, S.eta, S.valid)
 
     def round_fn(state: FLState, client_batches, client_weights=None,
@@ -195,4 +409,3 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
 
     round_fn.flat_body = flat_body
     return round_fn
-

@@ -136,10 +136,13 @@ def pack_batched(tree, layout: Optional[FlatLayout] = None
     return torch.cat(parts, dim=1)
 
 
-def unpack_batched(buf: torch.Tensor, layout: FlatLayout):
-    """(C, N) buffer -> tree with (C, *shape) leaves. f32 leaves are
-    views of ``buf``."""
+def unpack_batched(buf: torch.Tensor, layout: FlatLayout, *,
+                   cast: bool = True):
+    """(C, N) buffer -> tree with (C, *shape) leaves. f32 leaves (every
+    leaf, with ``cast=False``) are views of ``buf``."""
     C = buf.shape[0]
     leaves = [buf[:, s.offset:s.offset + s.size].view((C,) + s.shape)
-              .to(s.dtype) for s in layout.leaves]
+              for s in layout.leaves]
+    if cast:
+        leaves = [l.to(s.dtype) for l, s in zip(leaves, layout.leaves)]
     return treelib.tree_unflatten(layout.treedef, leaves)

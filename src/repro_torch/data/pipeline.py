@@ -5,12 +5,13 @@ here is numpy on the host, as in the reference. The within-client
 example draw (``default_rng([seed + 17, t])``) and the eval stream
 (``default_rng(seed + 23)``) are the reference's, so given the same
 cohort ids the port gathers bit-identical batches. The cohort itself
-comes from ``scheduler`` (default: ``UniformScheduler`` over all
-clients), whose ``sample(seed, t)`` is keyed on the round; a test passes
-a scheduler that replays the reference's ids.
+is keyed on the round: an explicit ``scheduler`` (``sample(seed, t)``,
+the hook a test uses to replay the reference's ids) wins; otherwise a
+``scenario`` draws it from its scheduler kind and seed
+(``Scenario.draw_cohort``, the same draw the round reports); otherwise
+it is the uniform scheduler over all clients on the dataset seed.
 
-The fleet regime (``num_registered``) and scenario-driven schedulers
-come with ROADMAP A14 and A10.
+The fleet regime (``num_registered``) comes with ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -31,19 +32,21 @@ class FederatedDataset:
     seed: int = 0                      # cohort and example draws
     eval_rng: Optional[np.random.Generator] = None
     # object with ``cohort`` and ``sample(seed, t) -> (cohort,) ids``;
-    # None draws uniformly over all clients
+    # None leaves the draw to the scenario, or to the uniform scheduler
     scheduler: object = None
+    scenario: object = None            # repro_torch.federation.Scenario
 
     @classmethod
     def build(cls, task: TaskData, *, num_clients: int, alpha: float,
               samples_per_client: int = 500, seed: int = 0,
-              variable_sizes=None, scheduler=None) -> "FederatedDataset":
+              variable_sizes=None, scheduler=None,
+              scenario=None) -> "FederatedDataset":
         clients = dirichlet_partition(task.y, num_clients, alpha,
                                       samples_per_client, seed=seed,
                                       variable_sizes=variable_sizes)
         return cls(task, clients, seed=seed,
                    eval_rng=np.random.default_rng(seed + 23),
-                   scheduler=scheduler)
+                   scheduler=scheduler, scenario=scenario)
 
     @property
     def num_clients(self) -> int:
@@ -52,14 +55,17 @@ class FederatedDataset:
     def client_sizes(self) -> np.ndarray:
         return np.array([len(c) for c in self.clients], np.float32)
 
-    def _scheduler(self, C: int):
+    def _cohort_ids(self, C: int, t: int) -> np.ndarray:
         sch = self.scheduler
-        if sch is None:
-            return UniformScheduler(self.num_clients, C)
-        if sch.cohort != C:
-            raise ValueError(f"scheduler draws cohorts of {sch.cohort}, the "
-                             f"round needs {C}")
-        return sch
+        if sch is not None:
+            if sch.cohort != C:
+                raise ValueError(f"scheduler draws cohorts of {sch.cohort}, "
+                                 f"the round needs {C}")
+            return np.asarray(sch.sample(self.seed, t))
+        if self.scenario is not None:
+            return self.scenario.draw_cohort(t, self.num_clients, C,
+                                             sizes=self.client_sizes())
+        return UniformScheduler(self.num_clients, C).sample(self.seed, t)
 
     def sample_round_indices(self, participation: float, local_steps: int,
                              batch_size: int, round_idx: int):
@@ -69,7 +75,7 @@ class FederatedDataset:
         (seed, round), never on call history."""
         C = cohort_size(participation, self.num_clients)
         t = int(round_idx)
-        ids = np.asarray(self._scheduler(C).sample(self.seed, t))
+        ids = self._cohort_ids(C, t)
         ex_rng = np.random.default_rng([self.seed + 17, t])
         takes = []
         for i in ids:

@@ -4,10 +4,14 @@ The reference's params are a nested dict of arrays; after
 ``jax.device_get`` (or ``np.asarray`` per leaf) they are numpy arrays,
 with bf16 leaves in the ``ml_dtypes`` bfloat16 dtype. These helpers map
 such a tree to the port's dict of tensors and back, with the same names,
-shapes and dtypes, so both packages can start from the same params. This
-module imports neither ``jax`` nor ``repro``.
+shapes and dtypes, so both packages can start from the same params.
+``draws_from_numpy`` turns the reference's per-round scenario draws into
+a draw source that the port's scenarios replay. This module imports
+neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -45,12 +49,58 @@ def params_to_numpy(params):
 
 def fl_state_from_numpy(state, device="cpu") -> FLState:
     """A reference ``FLState`` whose leaves are numpy arrays -> the port's
-    FLState. Only the fields of the ported sync round are carried: an
-    async buffer or EF21 state is rejected."""
-    if getattr(state, "buffer", None) is not None or \
-            getattr(state, "ef", None) is not None:
-        raise NotImplementedError("async buffers (ROADMAP A10) and EF21 "
-                                  "state (ROADMAP A12) are not ported")
+    FLState, EF21 state (``ef``) included. An async buffer is refused:
+    the FedBuff round is ROADMAP A10."""
+    if getattr(state, "buffer", None) is not None:
+        raise NotImplementedError("async buffers are not ported yet: they "
+                                  "come with ROADMAP A10")
+    ef = getattr(state, "ef", None)
     return FLState(params_from_numpy(state.params, device),
                    params_from_numpy(state.server_state, device),
-                   int(np.asarray(state.round)))
+                   int(np.asarray(state.round)), None,
+                   None if ef is None else params_from_numpy(ef, device))
+
+
+class ReplayDraws:
+    """A scenario draw source (``Scenario(draws=...)``) that replays
+    recorded per-round draws instead of drawing."""
+
+    def __init__(self, rounds: Dict[int, Dict[str, Any]]):
+        self.rounds = rounds
+
+    def _get(self, t: int, what: str, shape):
+        try:
+            value = self.rounds[t][what]
+        except KeyError:
+            raise KeyError(f"no recorded {what} for round {t}") from None
+        if what != "faults" and np.shape(value) != tuple(shape):
+            raise ValueError(f"recorded {what} of round {t} has shape "
+                             f"{np.shape(value)}, the round needs {shape}")
+        return value
+
+    def cohort_ids(self, t, num_clients, cohort, sizes):
+        return self._get(t, "cohort_ids", (cohort,))
+
+    def step_counts(self, t, num_clients, k_max):
+        return self._get(t, "step_counts", (num_clients,))
+
+    def compression_levels(self, t, num_clients):
+        return self._get(t, "levels", (num_clients,))
+
+    def faults(self, t, num_clients, k_max):
+        return self._get(t, "faults", None)
+
+
+def draws_from_numpy(rounds: Dict[int, Dict[str, Any]]) -> ReplayDraws:
+    """The reference's per-round scenario draws -> the port's replay
+    source. ``rounds[t]`` maps any of ``"cohort_ids"``, ``"step_counts"``,
+    ``"levels"`` (numpy arrays) and ``"faults"`` (the four lanes of a
+    reference ``FaultLanes``, as numpy arrays) to round t's draw, for
+    example ``np.asarray(scn.draw_step_counts(t, C, K))`` taken from the
+    reference scenario."""
+    def convert(key, value):
+        if key == "faults":
+            return tuple(np.asarray(v) for v in value)
+        return np.asarray(value)
+    return ReplayDraws({int(t): {k: convert(k, v) for k, v in d.items()}
+                        for t, d in rounds.items()})

@@ -31,8 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.flat import LANES
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.delta_sgd import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "delta_sgd.cu",)
@@ -49,8 +48,7 @@ def reset_launch_count() -> None:
 
 def launch_count(device_type: Optional[str] = None) -> int:
     """Total calls, or only those on ``device_type`` ("cuda"/"cpu")."""
-    return sum(v for (_, dev), v in LAUNCHES.items()
-               if device_type is None or dev == device_type)
+    return common.count(LAUNCHES, device_type)
 
 
 @functools.cache
@@ -68,21 +66,7 @@ def library() -> ctypes.CDLL:
 
 
 def _check_slab(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if x.shape != like.shape or x.dim() != 2:
-        raise ValueError(f"{name} must be (C, N) like {tuple(like.shape)}, "
-                         f"got {tuple(x.shape)}")
-    if x.device != like.device:
-        raise ValueError(f"{name} is on {x.device}, expected {like.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.shape[1] % LANES or x.shape[1] == 0:
-        raise ValueError(f"{name}: flat length {x.shape[1]} is not a "
-                         f"positive multiple of {LANES} (pack it with "
-                         f"repro_torch.core.flat)")
-    if x.is_cuda and x.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")
+    common.check_slab(name, x, like)
     if x.shape[0] > _MAX_CLIENTS:
         raise ValueError(f"{name}: {x.shape[0]} clients exceed the "
                          f"kernels' grid limit of {_MAX_CLIENTS}")
@@ -90,24 +74,7 @@ def _check_slab(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
 
 def _check_vec(name: str, x: torch.Tensor, n: int, like: torch.Tensor, *,
                aligned: bool = False) -> None:
-    if x.dtype != torch.float32 or x.shape != (n,):
-        raise ValueError(f"{name} must be float32 ({n},), got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    if x.device != like.device or not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous on {like.device}")
-    if aligned and x.is_cuda and x.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")
-
-
-def _device_type(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+    common.check_tensor(name, x, (n,), torch.float32, like, aligned=aligned)
 
 
 def batched_norms(g: torch.Tensor, g_prev: torch.Tensor
@@ -118,7 +85,7 @@ def batched_norms(g: torch.Tensor, g_prev: torch.Tensor
     f32 vectors. On CUDA the sums are bitwise reproducible."""
     _check_slab("g", g, g)
     _check_slab("g_prev", g_prev, g)
-    if _device_type(g) == "cpu":
+    if common.device_type(g) == "cpu":
         LAUNCHES[("batched_norms", "cpu")] += 1
         return ref.batched_norms_ref(g, g_prev)
     lib = library()
@@ -130,7 +97,7 @@ def batched_norms(g: torch.Tensor, g_prev: torch.Tensor
     dg = torch.empty((C,), dtype=torch.float32, device=g.device)
     gg = torch.empty((C,), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    _raise_on(lib.dsgd_batched_norms(
+    common.raise_on(lib.dsgd_batched_norms(
         g.data_ptr(), g_prev.data_ptr(), C, n, partial.data_ptr(),
         counter.data_ptr(), dg.data_ptr(), gg.data_ptr(), stream),
         "batched_norms")
@@ -152,11 +119,11 @@ def batched_apply(p: torch.Tensor, g: torch.Tensor, eta: torch.Tensor, *,
     _check_vec("eta", eta, C, p)
     if mask is not None:
         _check_vec("mask", mask, n, p, aligned=True)
-    if _device_type(p) == "cpu":
+    if common.device_type(p) == "cpu":
         LAUNCHES[("batched_apply", "cpu")] += 1
         return p.copy_(ref.batched_apply_ref(p, g, eta, mask))
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    _raise_on(library().dsgd_batched_apply(
+    common.raise_on(library().dsgd_batched_apply(
         p.data_ptr(), g.data_ptr(), eta.data_ptr(),
         mask.data_ptr() if mask is not None else None, C, n, stream),
         "batched_apply")

@@ -1,18 +1,21 @@
 """Where the time of a training step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --task image \\
-        --model cnn --rounds-per-call 2
+        --model cnn --rounds-per-call 2 [--scenario dirichlet_dropouts \\
+        --robust-agg trimmed --compression int8 --error-feedback]
 
 Builds the paper-task run of ``repro_torch.launch.train`` with the same
-flags, runs one round-fused block to warm up, then
+flags (scenario, compression and EF21 state included), runs one
+round-fused block to warm up, then
 
   * times ``--repeat`` further blocks on the host clock (each ends in a
     device synchronise): the steady-state wall time per local step;
   * runs one more block under ``torch.profiler`` (CPU + CUDA activity):
     the device-busy time (union of kernel and copy intervals), the idle
-    share of the block's span, device operations per local step, and
-    the device time by kernel name, and the host-side operators by their
-    own CPU time.
+    share of the block's span, device operations per local step, the
+    kernel launches of each namespace (Δ-SGD per local step, compression
+    and robust aggregation per round), the device time by kernel name,
+    and the host-side operators by their own CPU time.
 
 Prints one JSON object per line. Fails when the profiler records no
 device activity.
@@ -27,8 +30,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import flatten_fl_state, init_fl_state
+from repro_torch.core import flatten_fl_state
+from repro_torch.kernels.compress import compress as tcomp
 from repro_torch.kernels.delta_sgd import delta_sgd as tk
+from repro_torch.kernels.robust_agg import robust_agg as tra
 from repro_torch.launch import train
 
 
@@ -57,8 +62,7 @@ def main(argv=None):
     pt = train.setup_paper_task(args)
     R, K = args.rounds_per_call, pt.local_steps
     loop, arena = train.make_fused_loop(pt, args)
-    fstate = flatten_fl_state(init_fl_state(pt.params, pt.server_opt),
-                              loop.layout)
+    fstate = flatten_fl_state(train.init_state(pt), loop.layout)
 
     def block(fs):
         idx = train.block_indices(pt, args, fs.round, R)
@@ -73,13 +77,16 @@ def main(argv=None):
         t0 = time.perf_counter()
         fstate = block(fstate)
         walls.append(time.perf_counter() - t0)
-    tk.reset_launch_count()
+    for mod in (tk, tcomp, tra):
+        mod.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fstate = block(fstate)
         wall_prof = time.perf_counter() - t0
     launches = tk.launch_count("cuda")
+    per_round = {name: n / R for (name, dev), n in
+                 (tcomp.LAUNCHES + tra.LAUNCHES).items() if dev == "cuda"}
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -97,6 +104,9 @@ def main(argv=None):
         "device": (torch.cuda.get_device_name(pt.device)
                    if pt.device.type == "cuda" else "cpu"),
         "rounds_per_call": R, "local_steps": K,
+        "scenario": pt.scenario.name if pt.scenario else None,
+        "compression": pt.compression.kind,
+        "error_feedback": pt.compression.error_feedback,
         "clients": int(round(pt.participation * args.num_clients)),
         "batch": args.batch,
         "wall_ms_per_step": [w / steps * 1e3 for w in walls],
@@ -109,7 +119,8 @@ def main(argv=None):
         "idle_share_of_span": 1.0 - busy_us / span_us,
         "idle_share_of_wall": 1.0 - busy_us / (wall_prof * 1e6),
         "device_ops_per_step": len(dev) / steps,
-        "delta_sgd_kernel_launches_per_step": launches / steps}))
+        "delta_sgd_kernel_launches_per_step": launches / steps,
+        "other_kernel_launches_per_round": per_round}))
     for name, (us, n) in top:
         print(json.dumps({"kernel": name[:120], "ms_per_step":
                           us / steps / 1e3, "calls_per_step": n / steps}))

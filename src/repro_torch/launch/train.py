@@ -18,8 +18,24 @@ reference's own tests hold within 1e-5 of the vmap engine for Δ-SGD (the
 vmap engine is ROADMAP A7). ``--use-pallas`` is accepted and changes
 nothing: the port always goes through its kernel wrappers.
 
+``--scenario`` picks a synchronous federation preset
+(``repro_torch.federation.scenarios``: participation scheduler,
+per-client step counts, bandwidth levels, fault lanes, robust
+aggregation, quorum), seeded with ``--seed``; ``--robust-agg`` and
+``--quorum`` fold onto it (a bare run becomes ``sync_iid``).
+``--compression {int8,topk}`` (with ``--k-frac``) and
+``--error-feedback`` compress the client deltas
+(``repro_torch.compression``); the round log then shows the wire bytes,
+and under a guarded tail the survivor count and skipped rounds.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --task image \\
+      --model cnn --rounds 4 --rounds-per-call 2 \\
+      --scenario dirichlet_dropouts --robust-agg trimmed \\
+      --compression int8 --error-feedback
+
 Flags of features not ported yet exit with an error naming their
-ROADMAP item.
+ROADMAP item, and so do the async presets (the FedBuff buffer, A10) and
+the fleet presets (the fleet loop, A14).
 """
 from __future__ import annotations
 
@@ -29,6 +45,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from repro_torch.compression import CompressionSpec
 from repro_torch.configs import CNN_PAPER, MLP_SMALL, MLP_WIDE, FLConfig
 from repro_torch.core import (arena_gather, flatten_fl_state,
                               get_client_opt, get_server_opt, init_fl_state,
@@ -37,6 +54,7 @@ from repro_torch.core import (arena_gather, flatten_fl_state,
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.data.synthetic import get_task
 from repro_torch.device import resolve_device
+from repro_torch.federation import cohort_size, get_scenario
 from repro_torch.models.small import accuracy, make_small_model, softmax_ce
 from repro_torch.utils.tree import tree_map
 
@@ -53,18 +71,12 @@ _NOT_PORTED = {
     "local_steps": (4, "A15 (LM zoo)"),
     "seq": (256, "A15 (LM zoo)"),
     "lr": (0.05, "A6 (client optimizers)"),
-    "scenario": (None, "A10 (scenario axes)"),
-    "compression": ("none", "A12 (compression)"),
-    "k_frac": (0.25, "A12 (compression)"),
-    "robust_agg": ("mean", "A11 (faults + robust aggregation)"),
-    "quorum": (0, "A11 (faults + robust aggregation)"),
     "num_registered": (None, "A14 (fleet)"),
     "telemetry": (False, "A13 (telemetry)"),
     "events": (None, "A13 (telemetry)"),
     "profile": (0, "A13 (telemetry)"),
     "profile_dir": ("experiments/profile", "A13 (telemetry)"),
     "log_every": (0, "A13 (telemetry)"),
-    "error_feedback": (False, "A12 (compression)"),
     "eta_carry": (False, "A14 (fleet)"),
     "ckpt_dir": (None, "A9 (checkpointing)"),
     "ckpt_every": (20, "A9 (checkpointing)"),
@@ -87,6 +99,54 @@ def check_ported(args) -> None:
                              f"comes with ROADMAP {item}")
 
 
+def resolve_scenario(args):
+    """The preset with the run's --seed threaded in; --robust-agg and
+    --quorum fold onto it (and promote a bare run to sync_iid). Async and
+    fleet presets exit naming their ROADMAP item."""
+    overrides = {}
+    if args.robust_agg != "mean":
+        overrides["robust_agg"] = args.robust_agg
+    if args.quorum:
+        overrides["quorum"] = args.quorum
+    if not args.scenario and not overrides:
+        return None
+    scn = get_scenario(args.scenario or "sync_iid", seed=args.seed,
+                       **overrides)
+    if scn.is_async:
+        raise SystemExit(f"--scenario {scn.name} aggregates asynchronously: "
+                         "the FedBuff buffer is not ported to repro_torch "
+                         "yet, it comes with ROADMAP A10")
+    if scn.registered_hint is not None or scn.participation_hint is not None:
+        raise SystemExit(f"--scenario {scn.name} runs the fleet loop, which "
+                         "is not ported to repro_torch yet: it comes with "
+                         "ROADMAP A14")
+    return scn
+
+
+def resolve_compression(args) -> CompressionSpec:
+    """The run's CompressionSpec; an inert kind="none" spec leaves the
+    round on its uncompressed path."""
+    return CompressionSpec(kind=args.compression, k_frac=args.k_frac,
+                           error_feedback=args.error_feedback)
+
+
+def _health_str(row) -> str:
+    """Round-health suffix of the round log: survivors, NaN-guard share
+    and quorum skips under a guarded tail, wire bytes under compression.
+    Empty for a plain round."""
+    s = ""
+    if "valid_count" in row:
+        s += f" valid {int(float(row['valid_count']))}"
+        ng = float(row.get("nan_guard_rate", 0.0))
+        if ng > 0:
+            s += f" nan {ng:.2f}"
+        if float(row.get("round_skipped", 0.0)) > 0:
+            s += " SKIPPED(quorum)"
+    if "wire_bytes" in row:
+        s += f" wire {float(row['wire_bytes']):.0f}B"
+    return s
+
+
 def _rows(metrics) -> List[dict]:
     """Stacked (R,) device metrics -> R rows of numpy f32 scalars, with
     one device-to-host copy per key."""
@@ -106,14 +166,19 @@ class PaperTask(NamedTuple):
     params: dict               # initial params, on ``device``
     local_steps: int           # K: one local epoch
     participation: float
+    scenario: object           # resolved Scenario, or None
+    compression: CompressionSpec
+    cohort: int                # C, clients per round
 
 
 def setup_paper_task(args) -> PaperTask:
     check_ported(args)
+    scn = resolve_scenario(args)
     device = resolve_device(args.device)
     task = get_task(args.task, seed=args.seed)
     fed = FederatedDataset.build(task, num_clients=args.num_clients,
-                                 alpha=args.alpha, seed=args.seed)
+                                 alpha=args.alpha, seed=args.seed,
+                                 scenario=scn)
     init_fn, logits_fn = make_small_model(MODELS[args.model])
     participation = 0.1 if args.participation is None else args.participation
     fl = FLConfig(client_opt=args.client_opt, server_opt=args.server_opt,
@@ -126,7 +191,23 @@ def setup_paper_task(args) -> PaperTask:
                      get_client_opt(fl.client_opt, fl),
                      get_server_opt(fl.server_opt),
                      tree_map(lambda t: t.to(device), init_fn(args.seed)),
-                     fed.epoch_steps(args.batch), participation)
+                     fed.epoch_steps(args.batch), participation, scn,
+                     resolve_compression(args),
+                     cohort_size(participation, args.num_clients))
+
+
+def init_state(pt: PaperTask):
+    """The run's initial FLState, with the EF21 slab when it needs one."""
+    return init_fl_state(pt.params, pt.server_opt, pt.scenario,
+                         compression=pt.compression, cohort=pt.cohort)
+
+
+def _round_kw(pt: PaperTask, args) -> dict:
+    """The scenario and compression arguments of the run's round."""
+    return dict(scenario=pt.scenario, num_clients=args.num_clients,
+                client_sizes=(pt.fed.client_sizes() if pt.scenario
+                              else None),
+                compression=pt.compression)
 
 
 def make_fused_loop(pt: PaperTask, args):
@@ -135,7 +216,7 @@ def make_fused_loop(pt: PaperTask, args):
     loop = make_fl_loop(pt.loss_fn, pt.client_opt, pt.server_opt,
                         params_like=pt.params, num_rounds=args.rounds,
                         rounds_per_call=args.rounds_per_call,
-                        gather=arena_gather)
+                        gather=arena_gather, **_round_kw(pt, args))
     arena = {k: torch.from_numpy(v).to(pt.device)
              for k, v in pt.fed.arena().items()}
     return loop, arena
@@ -149,7 +230,7 @@ def block_indices(pt: PaperTask, args, round0: int, rounds: int):
 
 def train_paper_task(args) -> TrainResult:
     pt = setup_paper_task(args)
-    state = init_fl_state(pt.params, pt.server_opt)
+    state = init_state(pt)
     history: List[dict] = []
     t0 = time.time()
 
@@ -157,7 +238,7 @@ def train_paper_task(args) -> TrainResult:
         history.append(row)
         if t % max(1, args.rounds // 10) == 0 or t == args.rounds - 1:
             print(f"round {t:4d} loss {float(row['loss']):.4f} "
-                  f"eta {float(row['eta_mean']):.4f} "
+                  f"eta {float(row['eta_mean']):.4f}{_health_str(row)} "
                   f"({time.time() - t0:.1f}s)", flush=True)
 
     if args.rounds_per_call > 1:
@@ -174,7 +255,8 @@ def train_paper_task(args) -> TrainResult:
         state = unflatten_fl_state(fstate, loop.layout)
     else:
         round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
-                                 num_rounds=args.rounds, flat=True)
+                                 num_rounds=args.rounds, flat=True,
+                                 **_round_kw(pt, args))
         for t in range(args.rounds):
             batches, _, _ = pt.fed.sample_round(
                 pt.participation, pt.local_steps, args.batch,
@@ -210,7 +292,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--client-opt", default="delta_sgd")
     ap.add_argument("--server-opt", default="fedavg")
-    ap.add_argument("--scenario", default=None)
+    ap.add_argument("--scenario", default=None,
+                    help="synchronous federation preset "
+                         "(repro_torch.federation.scenarios)")
     ap.add_argument("--compression", default="none",
                     choices=["none", "int8", "topk"])
     ap.add_argument("--robust-agg", default="mean",

@@ -10,8 +10,12 @@ import pytest
 import torch
 
 from repro_torch.configs import paper_tasks as tcfg
+from repro_torch.kernels.compress import compress as tcomp
+from repro_torch.kernels.compress import ref as tcref
 from repro_torch.kernels.delta_sgd import delta_sgd as tk
 from repro_torch.kernels.delta_sgd import ref as tref
+from repro_torch.kernels.robust_agg import ref as traref
+from repro_torch.kernels.robust_agg import robust_agg as tra
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +90,91 @@ def test_fused_equals_host_loop_bitwise_on_the_card(dev):
     for a, b in zip(fused.history, host.history):
         assert all(a[k].tobytes() == b[k].tobytes() for k in a)
     assert tcfg.CNN_PAPER.fc_dim == fused.state.params["fc1"]["w"].shape[1]
+
+
+def _deltas(C, N, dev, seed):
+    """Round-delta-like slabs: mixed scales per chunk, exact ties, a zero
+    chunk, a constant chunk and a denormal-scaled chunk."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(C, N)) * np.exp(r.normal(size=(C, N // 128, 1)) * 3
+                                       ).repeat(128, axis=2).reshape(C, N)
+    x = x.astype(np.float32)
+    x[:, :128] = 0.0
+    if N >= 512:
+        x[:, 128:256] = -0.5
+        x[:, 256:384] = np.round(x[:, 256:384] * 4) / 4   # many ties
+        x[:, 384:512] *= np.float32(1e-39)
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("C,N", SHAPES)
+def test_quantize_dequantize_kernels_are_bitwise_plain(C, N, dev):
+    x = _deltas(C, N, dev, 2)
+    tcomp.reset_launch_count()
+    q, s = tcomp.quantize_int8(x)
+    want_q, want_s = tcref.quantize_int8_ref(x)
+    out = tcomp.dequantize_int8(q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q)
+    assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(out.view(torch.int32),
+                       tcref.dequantize_int8_ref(q, s).view(torch.int32))
+    assert tcomp.launch_count("cuda") == 2
+
+
+def test_quantize_kernel_keeps_a_nan_chunk_like_the_plain_version(dev):
+    x = _deltas(2, 512, dev, 3)
+    x[0, 5] = float("nan")
+    x[1, 300] = float("inf")
+    q, s = tcomp.quantize_int8(x)
+    want_q, want_s = tcref.quantize_int8_ref(x)
+    torch.cuda.synchronize()
+    assert torch.isnan(s[0, 0]) and torch.isinf(s[1, 2])
+    assert torch.equal(q, want_q)
+    assert torch.equal(torch.nan_to_num(s, nan=-1.0),
+                       torch.nan_to_num(want_s, nan=-1.0))
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+@pytest.mark.parametrize("C,N", SHAPES)
+def test_topk_kernel_is_exact(C, N, k, dev):
+    x = _deltas(C, N, dev, 4)
+    got = tcomp.topk_mask(x, k)
+    want = tcref.topk_mask_ref(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    kept = (got.view(C, -1, 128) != 0).sum(-1)
+    assert int(kept.max()) <= k
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 7, 10, 16, 50, 256])
+def test_trimmed_mean_kernel_matches_plain_and_repeats(C, dev):
+    x = _deltas(C, 128 * 67, dev, 5)
+    for t in sorted({0, (C - 1) // 4, (C - 1) // 2}):
+        a = tra.batched_trimmed_mean(x, t)
+        b = tra.batched_trimmed_mean(x, t)
+        want = traref.batched_trimmed_mean_ref(x, t)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, want, rtol=1e-6, atol=1e-7)
+        # the plain version sums the window in the kernel's order
+        assert torch.equal(a, want)
+    with pytest.raises(ValueError, match="limit"):
+        tra.batched_trimmed_mean(torch.zeros(257, 128, device=dev), 0)
+
+
+def test_scenario_paths_launch_their_kernels_on_the_card(dev):
+    from repro_torch.launch import train
+    common = ["--device", "cuda", "--task", "image", "--model", "cnn",
+              "--num-clients", "20", "--batch", "32", "--rounds", "2",
+              "--participation", "0.5"]
+    scenario = ["--scenario", "bandwidth_tiered", "--robust-agg", "median",
+                "--error-feedback"]
+    for mod in (tk, tcomp, tra):
+        mod.reset_launch_count()
+    fused = train.main(common + scenario + ["--rounds-per-call", "2"])
+    assert tcomp.launch_count("cuda") == tcomp.launch_count() == 3 * 2
+    assert tra.launch_count("cuda") == tra.launch_count() == 2
+    host = train.main(common + scenario + ["--flat"])
+    for a, b in zip(fused.history, host.history):
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a)

@@ -92,5 +92,5 @@ def test_uniform_scheduler_is_keyed_on_seed_and_round():
     counts = np.bincount(np.concatenate([s.sample(0, t)
                                          for t in range(2000)]), minlength=100)
     assert counts.min() > 140 and counts.max() < 270
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_scheduler("zipf", num_clients=10, cohort=2)
+    with pytest.raises(KeyError, match="lottery"):
+        make_scheduler("lottery", num_clients=10, cohort=2)

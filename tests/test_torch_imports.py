@@ -44,8 +44,14 @@ def test_port_package_is_complete():
                 "kernels/delta_sgd/ref.py", "models/small.py",
                 "models/common.py", "data/pipeline.py", "data/synthetic.py",
                 "data/dirichlet.py", "federation/schedulers.py",
-                "configs/paper_tasks.py", "launch/train.py"):
+                "configs/paper_tasks.py", "launch/train.py",
+                "compression/spec.py", "compression/ops.py",
+                "kernels/compress/compress.py", "kernels/compress/ref.py",
+                "kernels/robust_agg/robust_agg.py",
+                "kernels/robust_agg/ref.py", "federation/heterogeneity.py",
+                "federation/faults.py", "federation/scenarios.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "delta_sgd" / "csrc"
-            / "delta_sgd.cu").exists()
+    for ns in ("delta_sgd", "compress", "robust_agg"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / ns / "csrc"
+                / f"{ns}.cu").exists(), ns

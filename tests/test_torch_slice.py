@@ -38,6 +38,7 @@ from repro_torch.core import (arena_gather, flatten_fl_state,
                               unflatten_fl_state)
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.data.synthetic import get_task
+from repro_torch.federation import get_scenario
 from repro_torch.kernels.delta_sgd import delta_sgd as tk
 from repro_torch.launch import train as ttrain
 from repro_torch.models.small import make_small_model, softmax_ce
@@ -162,14 +163,19 @@ def test_unported_arguments_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A7"):
         make_fl_round(loss, copt, sopt, num_rounds=1, flat=False)
     with pytest.raises(NotImplementedError, match="A10"):
-        make_fl_round(loss, copt, sopt, num_rounds=1, scenario="sync_iid")
+        make_fl_round(loss, copt, sopt, num_rounds=1,
+                      scenario=get_scenario("zipf_async"))
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_fl_round(loss, copt, sopt, num_rounds=1, telemetry=True)
     with pytest.raises(NotImplementedError, match="A6"):
         get_client_opt("adam")
     with pytest.raises(NotImplementedError, match="A6"):
         get_server_opt("fedadam")
-    with pytest.raises(SystemExit, match="A12"):
-        ttrain.main(["--task", "easy", "--compression", "int8",
+    with pytest.raises(SystemExit, match="A14"):
+        ttrain.main(["--task", "easy", "--num-registered", "1000",
                      "--device", "cpu"])
+    with pytest.raises(SystemExit, match="A13"):
+        ttrain.main(["--task", "easy", "--telemetry", "--device", "cpu"])
     with pytest.raises(SystemExit, match="A9"):
         ttrain.main(["--task", "easy", "--ckpt-dir", "x", "--device",
                      "cpu"])

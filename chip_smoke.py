@@ -32,7 +32,28 @@ without its final line:
               The host loop (--flat) on cuda is bitwise equal; the same
               run on the CPU agrees on round 0 within rtol 1e-4
               (cuDNN/cuBLAS and kernel sum order differ).
-  5. the summary line {"kernels": [...]} and, last, the device line.
+  5. lm kernels  flash attention at TinyLlama's prefill shape (1, 64,
+              32, 4, 64), at S = 2048, at Zamba2's shared block (1, 64,
+              32, 32, 112), with a window of 256 at S = 1024, and in bf16
+              at S = 2048 (f32 within 2e-5, bf16 within 3e-2); the SSD
+              chunk kernel at (1, 64, 112, 64, 64), S = 2048, S = 96
+              (L = 48) and S = 67 (L = 1), rtol 1e-3 / atol 1e-4. Timed
+              and bounded like phase 3; SDPA (enable_gqa, explicit mask)
+              is timed beside flash attention as a yardstick only.
+  6. serving  TinyLlama-1.1B whole (22 layers) and Zamba2-7B at full
+              width cut to 14 layers, random weights from seed 0, through
+              DecodeEngine: 4 prompts of 64 tokens, 32 new tokens, 4 slots,
+              flush 8; then 6 prompts on 4 slots (continuous admission).
+              Each run starts with every count at 0 and must launch flash
+              attention once per attention site per request (22 and 2)
+              and the SSD kernel once per Mamba2 layer per request (12),
+              nothing else. Then: the decode logits of every generated
+              position equal the teacher-forced full forward's within
+              2e-3; the card's prefill logits equal the CPU's within 2e-3
+              at full width and 2 layers (7 for Zamba2, so the shared block
+              is there); prefill and one decode block are timed and
+              profiled (device busy, idle share).
+  7. the summary line {"kernels": [...]} and, last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
 """
@@ -65,6 +86,11 @@ KERNELS = {
     "batched_trimmed_mean": (_CSRC.format("robust_agg"),
                              "src/repro/kernels/robust_agg/robust_agg.py"
                              ":100"),
+    "flash_attention": (_CSRC.format("flash_attention"),
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:80"),
+    "ssd_chunks": ("src/repro_torch/kernels/mamba2_scan/csrc/mamba2_scan.cu",
+                   "src/repro/kernels/mamba2_scan/mamba2_scan.py:64"),
 }
 MAIN_SHAPE = (10, 71808)          # C = 10 clients, N of the paper's CNN
 LARGE_SHAPE = (10, 2 ** 24)       # 671 MB per buffer, far past the L2
@@ -97,6 +123,25 @@ SCENARIO_PATHS = {
 # the trimmed-mean trim count on the dirichlet_dropouts path (C = 10,
 # trim_frac 0.2) and the median's; top-k slots per chunk at k_frac 0.25
 TRIM_T, MEDIAN_T, TOPK_K = 2, 4, 32
+
+# flash attention cases (B, S, H, KV, hd, window, dtype name), the first
+# two the prefill shapes of the two serve paths
+FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
+            (1, 64, 32, 32, 112, None, "float32"),
+            (1, 2048, 32, 4, 64, None, "float32"),
+            (1, 1024, 32, 4, 64, 256, "float32"),
+            (1, 2048, 32, 4, 64, None, "bfloat16"))
+# SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
+SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
+             (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
+# bf16 dense tensor-core rate of the H100 SXM (the bound of bf16 inputs)
+BF16_FLOPS = 989e12
+# serve paths: arch -> layers kept (None: all), the runs' request counts
+SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
+SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
+SERVE_RUNS = (4, 6)
+# depth of the card-vs-CPU prefill check (Zamba2: with its shared block)
+CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7}
 
 
 def fail(msg: str) -> int:
@@ -410,6 +455,255 @@ def run_path(torch, mods, train):
     return launches
 
 
+def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
+    """Phase 5. Returns {(name, case): row}."""
+    import numpy as np
+    from repro_torch.kernels.mamba2_scan.ops import chunk_len
+    F = torch.nn.functional
+    rows = {}
+    r = np.random.default_rng(2)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dtype)
+
+    for B, S, H, KV, hd, window, dname in FA_CASES:
+        dtype = getattr(torch, dname)
+        q = t(r.normal(size=(B, S, H, hd)), dtype)
+        k = t(r.normal(size=(B, S, KV, hd)), dtype)
+        v = t(r.normal(size=(B, S, KV, hd)), dtype)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = faref.attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        rows_i = torch.arange(S, device="cuda")
+        mask = rows_i[None, :] <= rows_i[:, None]
+        if window is not None:
+            mask &= (rows_i[:, None] - rows_i[None, :]) < window
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = int(mask.sum())              # visible (query, key) pairs
+        item = q.element_size()
+        moved = (2 * B * S * H * hd + 2 * B * S * KV * hd) * item
+        ops = 4 * hd * pairs * B * H         # q·k and p·v multiply-adds
+        peak = f32 if dtype == torch.float32 else BF16_FLOPS
+        case = (B, S, H, KV, hd, window, dname)
+        rows[("flash_attention", case)] = dict(
+            name="flash_attention", shape=list(case),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    window=window), torch),
+            plain_ms=device_ms(lambda: faref.attention_ref(
+                q, k, v, causal=True, window=window), torch),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), torch),
+            bound_ms=max(moved / bw, ops / peak) * 1e3,
+            bound_by="bytes" if moved / bw > ops / peak else "operations")
+        print(json.dumps(rows[("flash_attention", case)]), flush=True)
+
+    for B, S, H, P, G, N in SSD_CASES:
+        x = t(r.normal(size=(B, S, H, P)))
+        dt = t(r.uniform(0.001, 0.1, (B, S, H)))
+        A_log = t(np.log(r.uniform(1, 16, (H,))))
+        Bm, Cm = t(r.normal(size=(B, S, G, N))), t(r.normal(size=(B, S, G, N)))
+        dA = (dt * -torch.exp(A_log)).contiguous()
+        L = chunk_len(S)
+        got = m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L)
+        want = m2ref.ssd_chunks_ref(x, dt, dA, Bm, Cm, L)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+        nc = S // L
+        moved = 4 * (2 * B * S * H * P + 3 * B * S * H + 2 * B * S * G * N
+                     + B * nc * H * P * N + B * nc * H)
+        tri = L * (L + 1) // 2
+        ops = 2 * B * nc * H * (tri * (N + P) + L * P * N)
+        case = (B, S, H, P, G, N)
+        rows[("ssd_chunks", case)] = dict(
+            name="ssd_chunks", shape=list(case), chunk=L,
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+            ms=device_ms(lambda: m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L),
+                         torch),
+            plain_ms=device_ms(lambda: m2ref.ssd_chunks_ref(
+                x, dt, dA, Bm, Cm, L), torch),
+            library_ms=None,
+            bound_ms=max(moved / bw, ops / f32) * 1e3,
+            bound_by="bytes" if moved / bw > ops / f32 else "operations")
+        print(json.dumps(rows[("ssd_chunks", case)]), flush=True)
+    return rows
+
+
+def _profile_ms(torch, fn, top=5):
+    """(wall ms, device busy ms, {top kernels and host ops by time}) of
+    one synchronised call of ``fn`` under torch.profiler."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile import busy_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device activity")
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    split = {"device_ops": len(events),
+             "top_kernels_ms": dict(sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:top]),
+             "top_host_ops_self_ms": {a.key[:60]: a.self_cpu_time_total / 1e3
+                                      for a in host[:top]}}
+    return (wall * 1e3,
+            busy_us([(e.time_range.start, e.time_range.end)
+                      for e in events]) / 1e3, split)
+
+
+def _host_ms(torch, fn, n):
+    """Median host-clock ms of ``n`` synchronised calls of ``fn``."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def run_serve_path(torch, mods, arch, layers):
+    """Phase 6, one serve path. Returns its launch counts over its runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.serving.engine import _decode_block
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    name = f"{arch}[{cfg.num_layers}L]"
+    attn_sites = sum(t in ("attn", "shared_attn") for t in cfg.layer_types)
+    ssd_sites = sum(t == "mamba2" for t in cfg.layer_types)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    total = {}
+    for n_req in SERVE_RUNS:
+        prompts = rng.integers(0, cfg.vocab_size, (n_req, SERVE_PROMPT))
+        engine = DecodeEngine(model, params, slots=SERVE_SLOTS,
+                              cache_len=cache_len, flush_tokens=SERVE_FLUSH)
+        _reset(mods)
+        t0 = time.perf_counter()
+        rids = [engine.submit(p, SERVE_GEN) for p in prompts]
+        done = {c.request_id: c.tokens for c in engine.run_until_idle()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(mods)
+        want = {("flash_attention", "cuda"): n_req * attn_sites}
+        if ssd_sites:
+            want[("ssd_chunks", "cuda")] = n_req * ssd_sites
+        if launches != want:
+            raise AssertionError(f"serve {name} ({n_req} requests) launched "
+                                 f"{launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        gen = np.stack([done[r] for r in rids])
+        if gen.shape != (n_req, SERVE_GEN) or gen.min() < 0 or \
+                gen.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve {name}: bad tokens {gen.shape}")
+        print(f"serve {name}", json.dumps({
+            "requests": n_req, "slots": SERVE_SLOTS,
+            "flush_tokens": SERVE_FLUSH, "flushes": engine.stats["flushes"],
+            "wall_s": wall, "tok_per_s": n_req * SERVE_GEN / wall,
+            "occupancy_mean": engine.metrics()["serve_occupancy_mean"],
+            "launches": {f"{k}/{d}": v for (k, d), v in launches.items()}}),
+            flush=True)
+        if n_req == SERVE_RUNS[0]:
+            first = (prompts, gen, engine)
+
+    # prefill and decode agree: every generated position's decode logits
+    # against the teacher-forced full forward
+    prompts, gen, engine = first
+    V = cfg.vocab_size
+    seq = torch.from_numpy(np.concatenate([prompts, gen], 1)).cuda()
+    full, _ = model.apply(params, {"tokens": seq[:, :-1]})
+    logits, cache = model.prefill(params, {"tokens": seq[:, :SERVE_PROMPT]},
+                                  cache_len=cache_len)
+    dec = [logits[:, 0]]
+    for j in range(SERVE_GEN - 1):
+        lg, cache = model.decode_step(
+            params, cache, seq[:, SERVE_PROMPT + j:SERVE_PROMPT + j + 1])
+        dec.append(lg[:, 0])
+    dec = torch.stack(dec, 1)[..., :V]
+    ref_ = full[:, SERVE_PROMPT - 1:, :V]
+    err = float((dec - ref_).abs().max())
+    torch.testing.assert_close(dec, ref_, rtol=2e-3, atol=2e-3)
+    print(f"serve {name}: decode logits == full forward at all "
+          f"{SERVE_GEN} generated positions, max abs diff {err:.3g} "
+          f"(tolerance 2e-3)", flush=True)
+
+    # where the time goes: one prefill (B = 1) and one decode block of
+    # SERVE_FLUSH steps over the full pool
+    one = {"tokens": seq[:1, :SERVE_PROMPT]}
+    act = torch.ones((SERVE_SLOTS,), dtype=torch.bool, device="cuda")
+
+    def prefill():
+        model.prefill(params, one, cache_len=cache_len)
+
+    def block():
+        _decode_block(model, params, engine.pool, engine._tok, act,
+                      SERVE_FLUSH, None)
+
+    prefill(), block()
+    torch.cuda.synchronize()
+    pre_ms, blk_ms = _host_ms(torch, prefill, 5), _host_ms(torch, block, 3)
+    pre_wall, pre_busy, pre_split = _profile_ms(torch, prefill)
+    blk_wall, blk_busy, blk_split = _profile_ms(torch, block)
+    print(f"serve {name} time", json.dumps({
+        "prefill_ms": pre_ms, "prefill_tokens": SERVE_PROMPT,
+        "prefill_device_busy_ms": pre_busy,
+        "prefill_idle_share": 1 - pre_busy / pre_wall,
+        "decode_block_ms": blk_ms, "decode_ms_per_step": blk_ms / SERVE_FLUSH,
+        "decode_rows": SERVE_SLOTS,
+        "decode_device_busy_ms_per_step": blk_busy / SERVE_FLUSH,
+        "decode_idle_share": 1 - blk_busy / blk_wall}), flush=True)
+    print(f"serve {name} prefill profile", json.dumps(pre_split))
+    print(f"serve {name} decode block profile", json.dumps(blk_split),
+          flush=True)
+    del params, engine, first, cache
+    torch.cuda.empty_cache()
+
+    # the card agrees with the CPU: prefill at full width, fewer layers
+    small = dataclasses.replace(cfg, num_layers=CPU_CHECK_LAYERS[arch])
+    model = build_model(small)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": seq[:2, :SERVE_PROMPT]}
+    card, _ = model.prefill(params, batch)
+    card_full, _ = model.apply(params, batch)
+    params = tree_map(lambda a: a.cpu(), params)
+    batch = {"tokens": batch["tokens"].cpu()}
+    host, _ = model.prefill(params, batch)
+    host_full, _ = model.apply(params, batch)
+    for a, b in ((card, host), (card_full, host_full)):
+        torch.testing.assert_close(a.cpu()[..., :V], b[..., :V], rtol=2e-3,
+                                   atol=2e-3)
+    print(f"serve {name}: prefill logits on the card == CPU at "
+          f"{small.num_layers} layers, full width, max abs diff "
+          f"{float((card_full.cpu() - host_full)[..., :V].abs().max()):.3g}"
+          " (tolerance 2e-3)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         return fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -427,8 +721,14 @@ def main() -> int:
     from repro_torch.kernels.delta_sgd import ref as tref
     from repro_torch.kernels.robust_agg import ref as traref
     from repro_torch.kernels.robust_agg import robust_agg as tra
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.kernels.mamba2_scan import ref as m2ref
     from repro_torch.launch import train
-    mods = (tk, tcomp, tra)
+    mods = (tk, tcomp, tra, fa, m2)
+    namespaces = ("delta_sgd", "compress", "robust_agg", "flash_attention",
+                  "mamba2_scan")
 
     # 1. header
     smi = subprocess.run(
@@ -448,7 +748,7 @@ def main() -> int:
         list(pool.map(lambda m: m.library(), mods))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(mods)} "
           "libraries in parallel (set-up)")
-    for mod, ns in zip(mods, ("delta_sgd", "compress", "robust_agg")):
+    for mod, ns in zip(mods, namespaces):
         log = build.library_path(ns, mod.SOURCES).with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
@@ -463,10 +763,18 @@ def main() -> int:
     for pname in SCENARIO_PATHS:
         paths[pname] = run_scenario_path(torch, mods, train, pname)
 
-    # 5. summary
+    # 5. lm kernels
+    rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))
+
+    # 6. serving
+    for arch, layers in SERVE_PATHS.items():
+        paths[arch] = run_serve_path(torch, mods, arch, layers)
+
+    # 7. summary: each kernel at its main-path shape
+    main_case = {"flash_attention": FA_CASES[0], "ssd_chunks": SSD_CASES[0]}
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
-        row = rows[(kname, MAIN_SHAPE)]
+        row = rows[(kname, main_case.get(kname, MAIN_SHAPE))]
         by_path = {p: c.get((kname, "cuda"), 0) for p, c in paths.items()}
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,

@@ -4,7 +4,10 @@ The reference's params are a nested dict of arrays; after
 ``jax.device_get`` (or ``np.asarray`` per leaf) they are numpy arrays,
 with bf16 leaves in the ``ml_dtypes`` bfloat16 dtype. These helpers map
 such a tree to the port's dict of tensors and back, with the same names,
-shapes and dtypes, so both packages can start from the same params.
+shapes and dtypes, so both packages can start from the same params. The
+LM zoo's trees cross as they are: runs of n > 1 blocks with every leaf
+stacked on a leading layer axis, the shared block once at the top, and
+decode caches (their 0-d ``t`` included).
 ``draws_from_numpy`` turns the reference's per-round scenario draws into
 a draw source that the port's scenarios replay. This module imports
 neither ``jax`` nor ``repro``.

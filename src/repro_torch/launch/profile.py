@@ -37,7 +37,7 @@ from repro_torch.kernels.robust_agg import robust_agg as tra
 from repro_torch.launch import train
 
 
-def _busy_us(intervals):
+def busy_us(intervals):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -93,7 +93,7 @@ def main(argv=None):
         raise SystemExit("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     span_us = max(e for _, e in spans) - min(s for s, _ in spans)
-    busy_us = _busy_us(spans)
+    busy_us = busy_us(spans)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += e.time_range.elapsed_us()

@@ -1,0 +1,266 @@
+"""Continuous-batching decode engine: a fixed-slot KV-cache pool with
+per-slot sequence state and flush-interval decode blocks. Port of
+``repro/serving/engine.py`` without the registry and hot swap,
+personalization and events (ROADMAP A16, A13).
+
+  * POOL — one vectorized decode cache for S slots built from
+    ``model.init_cache``: every ``runs`` leaf keeps its batch axis
+    (axis 1), ``t`` is (S,) and ``positions`` (S, W). Slot s is row s of
+    every leaf; ``model.decode_step`` runs each row at its own position
+    and ring slot, so admitting or retiring one sequence never touches
+    another row's state.
+  * DECODE BLOCK — ``flush_tokens`` greedy steps, a Python loop over
+    pool tensors of fixed shape (the reference fuses them into one
+    ``lax.scan``). Inactive slots are kept out of the new state by
+    ``_merge_cache``: their cache rows, t and last token stay bit for
+    bit as they were while the active rows advance. Nothing in the block
+    reads the device from the host.
+  * ONE COPY PER FLUSH — the host reads the flush's (S, flush_tokens)
+    token matrix, together with the first token of every request
+    admitted in this flush, in one device-to-host copy (the reference's
+    one ``device_get`` per flush).
+  * ADMIT / EVICT — at flush boundaries only. Admission prefills the
+    request alone (B = 1; on the card that runs the flash-attention and
+    SSD kernels) and copies the resulting cache rows into its pool row;
+    eviction frees the host-side slot record (the pool row is garbage
+    until the next admission overwrites it).
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# greedy decode (lockstep)
+# ---------------------------------------------------------------------------
+def greedy_decode(model, params, cache, tok, n, *, window=None):
+    """n greedy decode steps on either cache form. Returns (tokens (B, n),
+    cache, last token (B, 1))."""
+    step = make_serve_step(model, window=window)
+    toks = []
+    for _ in range(n):
+        tok, cache = step(params, cache, tok)
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), cache, tok
+
+
+# ---------------------------------------------------------------------------
+# masked decode block (per-slot): the engine's flush interval
+# ---------------------------------------------------------------------------
+def _bcast(mask: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    shape = [1] * ndim
+    shape[axis] = mask.shape[0]
+    return mask.reshape(shape)
+
+
+def _merge_cache(active: torch.Tensor, new: Dict, old: Dict) -> Dict:
+    """Keep ``new`` state only on active rows; inactive rows stay
+    bit-identical to ``old`` (runs leaves carry the batch on axis 1,
+    t and positions on axis 0)."""
+    return {"runs": tree_map(
+        lambda n_, o: torch.where(_bcast(active, n_.dim(), 1), n_, o),
+        new["runs"], old["runs"]),
+        "t": torch.where(active, new["t"], old["t"]),
+        "positions": torch.where(active[:, None], new["positions"],
+                                 old["positions"])}
+
+
+def _decode_block(model, params, cache, tok, active, n, window):
+    """n masked greedy steps; returns (cache, tok, tokens (S, n))."""
+    step = make_serve_step(model, window=window)
+    toks = []
+    for _ in range(n):
+        nxt, new_cache = step(params, cache, tok)
+        nxt = torch.where(active[:, None], nxt, tok)
+        cache = _merge_cache(active, new_cache, cache)
+        tok = nxt
+        toks.append(nxt[:, 0])
+    return cache, tok, torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# requests
+# ---------------------------------------------------------------------------
+@dataclass
+class Request:
+    prompt: np.ndarray                 # (S,) int32 token ids
+    max_new_tokens: int
+    request_id: int = 0
+    submit_time: float = field(default_factory=time.time)
+
+
+class Completion(NamedTuple):
+    request_id: int
+    tokens: np.ndarray                 # (max_new_tokens,) int32
+    latency_s: float
+
+
+class _Slot(NamedTuple):
+    req: Request
+    remaining: int
+    out: List[int]
+
+
+class DecodeEngine:
+    """Fixed-slot continuous-batching greedy decode; see module doc."""
+
+    def __init__(self, model, params, *, slots: int = 4,
+                 cache_len: int = 64, flush_tokens: int = 8,
+                 window: Optional[int] = None):
+        self.model, self.params = model, params
+        self.slots = int(slots)
+        self.cache_len, self.flush_tokens = int(cache_len), int(flush_tokens)
+        self.window = window
+        self.device = tree_leaves(params)[0].device
+        self._ids = itertools.count()
+        self.queue: List[Request] = []
+        self._slots: List[Optional[_Slot]] = [None] * self.slots
+        self.pool = self._init_pool()
+        self._tok = torch.zeros((self.slots, 1), dtype=torch.long,
+                                device=self.device)
+        self._prefill = make_prefill_step(model, window=window,
+                                          cache_len=self.cache_len)
+        self.history: List[dict] = []
+        self.completed: List[Completion] = []
+        self.stats = {"tokens": 0, "flushes": 0, "occupancy_sum": 0.0,
+                      "admitted": 0, "completed": 0}
+
+    # --------------------------------------------------------------- pool
+    def _init_pool(self) -> Dict:
+        cache = self.model.init_cache(self.slots, self.cache_len,
+                                      device=self.device)
+        cache["t"] = torch.zeros((self.slots,), dtype=torch.int32,
+                                 device=self.device)
+        cache["positions"] = torch.full((self.slots, self.cache_len), -1,
+                                        dtype=torch.int32,
+                                        device=self.device)
+        return cache
+
+    def _insert(self, c1: Dict, tok0: torch.Tensor, s: int) -> None:
+        """Copy a B = 1 prefill cache into pool row s, in place."""
+        tree_map(lambda pl, cl: pl[:, s].copy_(cl[:, 0]), self.pool["runs"],
+                 c1["runs"])
+        self.pool["t"][s] = c1["t"]
+        self.pool["positions"][s] = c1["positions"]
+        self._tok[s] = tok0[0]
+
+    # ------------------------------------------------------------ submit
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1:
+            raise ValueError(f"prompt must be (S,), got {prompt.shape}")
+        need = prompt.shape[0] + max_new_tokens
+        if self.window is None and need > self.cache_len:
+            raise ValueError(
+                f"request needs {need} cache entries > pool cache_len "
+                f"{self.cache_len} (pass a sliding window to roll)")
+        rid = next(self._ids)
+        self.queue.append(Request(prompt=prompt,
+                                  max_new_tokens=int(max_new_tokens),
+                                  request_id=rid))
+        return rid
+
+    # ------------------------------------------------------------- admit
+    def _admit(self) -> List[tuple]:
+        """Prefill queued requests into free slots. Returns (slot index or
+        None, slot record, first token on the device) per admission; a
+        request of one token completes here (slot index None)."""
+        admitted = []
+        for s in range(self.slots):
+            if not self.queue:
+                break
+            if self._slots[s] is not None:
+                continue
+            req = self.queue.pop(0)
+            tokens = torch.from_numpy(req.prompt[None]).to(self.device)
+            logits, c1 = self._prefill(self.params, {"tokens": tokens})
+            tok0 = torch.argmax(logits[:, -1:], dim=-1)
+            self._insert(c1, tok0, s)
+            slot = _Slot(req=req, remaining=req.max_new_tokens - 1, out=[])
+            self.stats["admitted"] += 1
+            if slot.remaining == 0:
+                admitted.append((None, slot, tok0))
+            else:
+                self._slots[s] = slot
+                admitted.append((s, slot, tok0))
+        return admitted
+
+    def _finish_slot(self, slot: _Slot) -> Completion:
+        self.stats["completed"] += 1
+        c = Completion(request_id=slot.req.request_id,
+                       tokens=np.asarray(slot.out, np.int32),
+                       latency_s=time.time() - slot.req.submit_time)
+        self.completed.append(c)
+        return c
+
+    # -------------------------------------------------------------- step
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(s is not None for s in self._slots)
+
+    def step(self) -> List[Completion]:
+        """One flush interval: admit -> one decode block over the active
+        slots -> ONE device-to-host copy -> harvest. Returns the requests
+        completed this flush."""
+        completions: List[Completion] = []
+        admitted = self._admit()
+        active = [s for s, sl in enumerate(self._slots) if sl is not None]
+        parts = [tok0.reshape(1) for _, _, tok0 in admitted]
+        if active:
+            act = torch.zeros((self.slots,), dtype=torch.bool)
+            act[active] = True
+            self.pool, self._tok, toks = _decode_block(
+                self.model, self.params, self.pool, self._tok,
+                act.to(self.device), self.flush_tokens, self.window)
+            parts.append(toks.reshape(-1))
+        host = (torch.cat(parts).cpu().numpy() if parts     # the ONE copy
+                else np.zeros((0,), np.int64))
+        for k, (s, slot, _) in enumerate(admitted):
+            slot.out.append(int(host[k]))
+            if s is None:
+                completions.append(self._finish_slot(slot))
+        mat = host[len(admitted):].reshape(self.slots, -1)
+        emitted = 0
+        for s in active:
+            sl = self._slots[s]
+            take = min(sl.remaining, self.flush_tokens)
+            sl.out.extend(int(x) for x in mat[s, :take])
+            emitted += take
+            sl = sl._replace(remaining=sl.remaining - take)
+            self._slots[s] = sl
+            if sl.remaining == 0:
+                self._slots[s] = None
+                completions.append(self._finish_slot(sl))
+        occ = len(active) / self.slots
+        self.stats["tokens"] += emitted
+        self.stats["flushes"] += 1
+        self.stats["occupancy_sum"] += occ
+        self.history.append({"flush": self.stats["flushes"] - 1,
+                             "groups": {None: active} if active else {},
+                             "tokens": emitted, "occupancy": occ})
+        return completions
+
+    def run_until_idle(self, max_flushes: int = 100_000
+                       ) -> List[Completion]:
+        out: List[Completion] = []
+        while self.has_work():
+            out.extend(self.step())
+            if self.stats["flushes"] >= max_flushes:
+                raise RuntimeError("run_until_idle: flush budget "
+                                   "exhausted with work pending")
+        return out
+
+    # ------------------------------------------------------------ report
+    def metrics(self) -> dict:
+        f = max(1, self.stats["flushes"])
+        return {"serve_tokens_total": self.stats["tokens"],
+                "serve_occupancy_mean": self.stats["occupancy_sum"] / f,
+                "requests_completed": self.stats["completed"]}

@@ -178,3 +178,119 @@ def test_scenario_paths_launch_their_kernels_on_the_card(dev):
     host = train.main(common + scenario + ["--flat"])
     for a, b in zip(fused.history, host.history):
         assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+# ------------------------------------------------------- LM serving slice
+def _qkv(B, S, H, KV, hd, dtype, dev, seed):
+    r = np.random.default_rng(seed)
+    def t(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(np.float32)).to(
+            dev, dtype)
+    return t(B, S, H, hd), t(B, S, KV, hd), t(B, S, KV, hd)
+
+
+# (B, S, H, KV, hd, window): a single row, a ragged tile, exactly one
+# tile, several ragged tiles, the GQA ratios 1/2/4/8 and the three head
+# dims of the zoo (64 TinyLlama, 112 Zamba2's shared block, 128)
+FA_CASES = [(1, 1, 4, 4, 64, None), (2, 50, 8, 4, 64, None),
+            (1, 64, 32, 4, 64, None), (2, 130, 8, 1, 112, None),
+            (1, 130, 8, 8, 128, None), (1, 300, 4, 2, 112, 100),
+            (1, 257, 16, 2, 64, 64), (1, 64, 32, 32, 112, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(case, dtype, dev):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    B, S, H, KV, hd, window = case
+    q, k, v = _qkv(B, S, H, KV, hd, dtype, dev, 6)
+    fa.reset_launch_count()
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = faref.attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert fa.LAUNCHES == {("flash_attention", "cuda"): 1}
+
+
+def test_flash_attention_kernel_refuses_grad_and_odd_head_dims(dev):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _qkv(1, 8, 2, 1, 64, torch.float32, dev, 7)
+    with pytest.raises(RuntimeError, match="backward"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    q, k, v = _qkv(1, 8, 2, 1, 72, torch.float32, dev, 7)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention(q, k, v)
+
+
+def _ssd_inputs(B, S, H, P, G, N, dev, seed):
+    r = np.random.default_rng(seed)
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    dt = t(r.uniform(0.001, 0.1, (B, S, H)))
+    A_log = t(np.log(r.uniform(1, 16, (H,))))
+    return (t(r.normal(size=(B, S, H, P))), dt, A_log,
+            t(r.normal(size=(B, S, G, N))), t(r.normal(size=(B, S, G, N))))
+
+
+# (B, S, H, P, G, N): L = 64 one chunk, L = 48, L = 1 (prime S), several
+# chunks with groups, the reduced Zamba2 widths
+SSD_CASES = [(1, 64, 8, 64, 1, 64), (2, 96, 4, 64, 2, 64),
+             (1, 67, 4, 64, 1, 64), (1, 256, 6, 32, 3, 16),
+             (2, 128, 16, 32, 1, 16)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_chunks_kernel_matches_plain(case, dev):
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.kernels.mamba2_scan import ref as m2ref
+    from repro_torch.kernels.mamba2_scan.ops import chunk_len, ssd_scan
+    x, dt, A_log, Bm, Cm = _ssd_inputs(*case, dev, 8)
+    dA = (dt * -torch.exp(A_log)).contiguous()
+    L = chunk_len(case[1])
+    m2.reset_launch_count()
+    got = m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L)
+    want = m2ref.ssd_chunks_ref(x, dt, dA, Bm, Cm, L)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+    y, h = ssd_scan(x, dt, A_log, Bm, Cm)
+    yc, hc = ssd_scan(*(a.cpu() for a in (x, dt, A_log, Bm, Cm)))
+    torch.testing.assert_close(y.cpu(), yc, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(h.cpu(), hc, rtol=1e-3, atol=1e-4)
+    assert m2.LAUNCHES[("ssd_chunks", "cuda")] == 2
+
+
+@pytest.mark.parametrize("arch,layers", [("tinyllama-1.1b", 2),
+                                         ("zamba2-7b", 7)])
+def test_serving_runs_the_kernels_once_per_site_and_matches_cpu(arch, layers,
+                                                                dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config(arch).reduced(num_layers=layers, vocab=500)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, 500, (5, 16))
+    engine = DecodeEngine(model, params, slots=2, cache_len=28,
+                          flush_tokens=5)
+    fa.reset_launch_count()
+    m2.reset_launch_count()
+    rids = [engine.submit(p, 12) for p in prompts]
+    done = {c.request_id: c.tokens for c in engine.run_until_idle()}
+    attn_sites = sum(t in ("attn", "shared_attn") for t in cfg.layer_types)
+    ssd_sites = sum(t == "mamba2" for t in cfg.layer_types)
+    assert fa.LAUNCHES == {("flash_attention", "cuda"): 5 * attn_sites}
+    assert m2.launch_count() == m2.launch_count("cuda") == 5 * ssd_sites
+    # the card's prefill logits are the CPU's
+    toks = torch.from_numpy(np.stack([np.concatenate([prompts[i], done[r]])
+                                      for i, r in enumerate(rids)]))
+    cpu = tree_map(lambda a: a.cpu(), params)
+    card, _ = model.apply(params, {"tokens": toks.to(dev)})
+    host, _ = model.apply(cpu, {"tokens": toks})
+    torch.testing.assert_close(card.cpu(), host, rtol=2e-3, atol=2e-3)

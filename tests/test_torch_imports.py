@@ -49,9 +49,18 @@ def test_port_package_is_complete():
                 "kernels/compress/compress.py", "kernels/compress/ref.py",
                 "kernels/robust_agg/robust_agg.py",
                 "kernels/robust_agg/ref.py", "federation/heterogeneity.py",
-                "federation/faults.py", "federation/scenarios.py"):
+                "federation/faults.py", "federation/scenarios.py",
+                "configs/base.py", "configs/tinyllama_1_1b.py",
+                "configs/zamba2_7b.py", "models/attention.py",
+                "models/ssm.py", "models/transformer.py", "models/model.py",
+                "kernels/flash_attention/flash_attention.py",
+                "kernels/flash_attention/ref.py",
+                "kernels/mamba2_scan/mamba2_scan.py",
+                "kernels/mamba2_scan/ops.py", "kernels/mamba2_scan/ref.py",
+                "launch/steps.py", "launch/serve.py", "serving/engine.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
-    for ns in ("delta_sgd", "compress", "robust_agg"):
+    for ns in ("delta_sgd", "compress", "robust_agg", "flash_attention",
+               "mamba2_scan"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / ns / "csrc"
                 / f"{ns}.cu").exists(), ns

@@ -53,7 +53,31 @@ without its final line:
               at full width and 2 layers (7 for Zamba2, so the shared block
               is there); prefill and one decode block are timed and
               profiled (device busy, idle share).
-  7. the summary line {"kernels": [...]} and, last, the device line.
+  3b. slice-4 kernels  lane_histogram and lane_quantiles at C = 10, 1000
+              and 16,384 with NaN lanes of both signs, ±0, ±inf and ties
+              (exact, quantiles bit for bit; torch.quantile(nearest) is
+              checked equal on the NaN-free lanes and timed as the
+              quantiles' yardstick), and the single-tensor norms (rtol
+              1e-5 f32, 3e-3 bf16, two calls bitwise) and apply_update
+              (bitwise, η a float and a 0-d device tensor; torch.add with
+              alpha timed beside it) at (71,808) and 2**24 in f32 and
+              bf16. Timed and bounded like phase 3.
+  4b. telemetry  the plain CNN path with --telemetry, fused and host loop:
+              params and every metric bitwise equal to telemetry off, 2
+              telemetry launches per round and 2*K*rounds Delta-SGD
+              launches, sum(eta_hist) = C with finite eta, non-decreasing
+              loss deciles, the same host syncs in a fused block with
+              telemetry on as off (torch.cuda.set_sync_debug_mode), the
+              host-clock wall per local step on and off (blocks in turns),
+              and the CLI's event log with --events --profile 1 (header,
+              one round event per round, a static event with one
+              lane_histogram launch per round, a spans event).
+  7. matrix   the port's kernel parity matrix (repro_torch.conformance,
+              32 cells, every kernel namespace) on cuda through check_cell,
+              every count at 0 before and read after: every cell passes
+              and every cell's kernel launched on the card.
+  8. the summary line {"kernels": [...]} (all twelve kernels) and, last,
+              the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
 """
@@ -77,6 +101,10 @@ KERNELS = {
                       "src/repro/kernels/delta_sgd/delta_sgd.py:111"),
     "batched_apply": (_CSRC.format("delta_sgd"),
                       "src/repro/kernels/delta_sgd/delta_sgd.py:137"),
+    "norms": (_CSRC.format("delta_sgd"),
+              "src/repro/kernels/delta_sgd/delta_sgd.py:217"),
+    "apply_update": (_CSRC.format("delta_sgd"),
+                     "src/repro/kernels/delta_sgd/delta_sgd.py:243"),
     "quantize_int8": (_CSRC.format("compress"),
                       "src/repro/kernels/compress/compress.py:94"),
     "dequantize_int8": (_CSRC.format("compress"),
@@ -86,6 +114,10 @@ KERNELS = {
     "batched_trimmed_mean": (_CSRC.format("robust_agg"),
                              "src/repro/kernels/robust_agg/robust_agg.py"
                              ":100"),
+    "lane_histogram": (_CSRC.format("telemetry"),
+                       "src/repro/kernels/telemetry/telemetry.py:75"),
+    "lane_quantiles": (_CSRC.format("telemetry"),
+                       "src/repro/kernels/telemetry/telemetry.py:103"),
     "flash_attention": (_CSRC.format("flash_attention"),
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:80"),
@@ -136,6 +168,12 @@ SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
 # bf16 dense tensor-core rate of the H100 SXM (the bound of bf16 inputs)
 BF16_FLOPS = 989e12
+# telemetry lane counts (the CNN path's cohort, a fleet-size cohort, the
+# one-block quantile limit); single-tensor sizes (the CNN's packed N, 2^24)
+TELE_LANES = (10, 1000, 16384)
+SINGLE_SIZES = (71808, 2 ** 24)
+# blocks timed per variant for the telemetry path's wall per local step
+TELE_TIMED_BLOCKS = 6
 # serve paths: arch -> layers kept (None: all), the runs' request counts
 SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
@@ -347,6 +385,132 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
     return rows
 
 
+def _tele_lanes(C, seed):
+    """C lanes with NaN of both signs, ±0, ±inf and ties, the rest
+    log-spread over nine decades, both signs."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    x = (10.0 ** r.uniform(-6.0, 3.0, C)).astype(np.float32)
+    x *= np.where(r.uniform(size=C) < 0.3, -1.0, 1.0).astype(np.float32)
+    special = np.asarray([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0,
+                          1.0, -0.0, 0.5, 0.5], np.float32)
+    n = min(C, len(special))
+    x[r.permutation(C)[:n]] = special[:n]
+    return x
+
+
+def check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32):
+    """Phase 3b. Returns {(name, case): row}."""
+    import numpy as np
+    from repro_torch.telemetry import TelemetrySpec
+    rows = {}
+    edges = TelemetrySpec().edges_on("cuda")
+    B = edges.numel() - 1
+    Q = 11
+    q = torch.linspace(0.0, 1.0, Q, device="cuda")
+    for C in TELE_LANES:
+        x = torch.from_numpy(_tele_lanes(C, C)).cuda()
+        ax = x.abs()
+        hist, want_hist = tt.lane_histogram(ax, edges), \
+            ttref.lane_histogram_ref(ax, edges)
+        quant, want_quant = tt.lane_quantiles(x, Q), \
+            ttref.lane_quantiles_ref(x, Q)
+        torch.cuda.synchronize()
+        if not torch.equal(hist, want_hist):
+            raise AssertionError(f"lane_histogram C={C}: {hist} != plain "
+                                 f"{want_hist}")
+        if not torch.equal(quant.view(torch.int32),
+                           want_quant.view(torch.int32)):
+            raise AssertionError(f"lane_quantiles C={C}: {quant} != plain "
+                                 f"{want_quant}")
+        if float(hist.sum()) != C - int((~torch.isfinite(ax)).sum()):
+            raise AssertionError(f"lane_histogram C={C}: NaN or inf counted")
+        # the library yardstick on the NaN-free lanes, where it is the
+        # same function
+        fin = torch.nan_to_num(x, nan=0.25)
+        lib = torch.quantile(fin, q, interpolation="nearest")
+        same = torch.equal(lib, tt.lane_quantiles(fin, Q))
+        print(f"torch.quantile(nearest) at C={C} equals lane_quantiles on "
+              f"NaN-free lanes: {same}", flush=True)
+        p2 = 1 << max(1, (C - 1).bit_length())
+        lg = p2.bit_length() - 1
+        sort_ops = 2 * (p2 // 2) * lg * (lg + 1) // 2
+        h_bytes, h_ops = 4 * C + 4 * (B + 1) + 4 * B, 2 * C * B
+        q_bytes = 4 * C + 4 * Q
+        rows[("lane_histogram", C)] = dict(
+            name="lane_histogram", shape=[C], bins=B,
+            max_abs_err=float((hist - want_hist).abs().max()),
+            ms=device_ms(lambda: tt.lane_histogram(ax, edges), torch),
+            plain_ms=device_ms(lambda: ttref.lane_histogram_ref(ax, edges),
+                               torch),
+            library_ms=None,
+            bound_ms=max(h_bytes / bw, h_ops / f32) * 1e3,
+            bound_by="bytes" if h_bytes / bw > h_ops / f32 else "operations")
+        rows[("lane_quantiles", C)] = dict(
+            name="lane_quantiles", shape=[C], quantiles=Q,
+            max_abs_err=float(torch.nan_to_num(quant - want_quant).abs()
+                              .max()),
+            ms=device_ms(lambda: tt.lane_quantiles(x, Q), torch),
+            plain_ms=device_ms(lambda: ttref.lane_quantiles_ref(x, Q),
+                               torch),
+            library_ms=(device_ms(lambda: torch.quantile(
+                fin, q, interpolation="nearest"), torch) if same else None),
+            bound_ms=max(q_bytes / bw, sort_ops / f32) * 1e3,
+            bound_by="bytes" if q_bytes / bw > sort_ops / f32
+            else "operations")
+        for name in ("lane_histogram", "lane_quantiles"):
+            print(json.dumps(rows[(name, C)]), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    eta = 0.37
+    eta_t = torch.tensor(eta, device="cuda")
+    for n in SINGLE_SIZES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            g, gp, p = (torch.randn((n,), generator=gen, device="cuda")
+                        .to(dtype) for _ in range(3))
+            got = torch.stack(tk.norms(g, gp))
+            again = torch.stack(tk.norms(g, gp))
+            want = torch.stack(tref.norms_ref(g, gp))
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"norms {n} {dname}: two calls differ")
+            torch.testing.assert_close(
+                got, want, rtol=1e-5 if dtype == torch.float32 else 3e-3,
+                atol=0.0)
+            for e in (eta, eta_t):
+                out = tk.apply_update(p, g, e)
+                if not torch.equal(out, tref.apply_ref(p, g, e)):
+                    raise AssertionError(f"apply_update {n} {dname} (eta "
+                                         f"{type(e).__name__}) is not "
+                                         "bitwise equal to the plain version")
+            item = g.element_size()
+            case = (n, dname)
+            rows[("norms", case)] = dict(
+                name="norms", shape=[n], dtype=dname,
+                max_abs_err=float((got - want).abs().max()),
+                ms=device_ms(lambda: tk.norms(g, gp), torch),
+                plain_ms=device_ms(lambda: tref.norms_ref(g, gp), torch),
+                library_ms=None,
+                bound_ms=max((2 * n * item + 8) / bw, 5 * n / f32) * 1e3,
+                bound_by="bytes")
+            rows[("apply_update", case)] = dict(
+                name="apply_update", shape=[n], dtype=dname,
+                max_abs_err=0.0,
+                ms=device_ms(lambda: tk.apply_update(p, g, eta), torch),
+                plain_ms=device_ms(lambda: tref.apply_ref(p, g, eta), torch),
+                library_ms=device_ms(lambda: torch.add(p, g, alpha=-eta),
+                                     torch),
+                bound_ms=max(3 * n * item / bw, 2 * n / f32) * 1e3,
+                bound_by="bytes")
+            for name in ("norms", "apply_update"):
+                row = rows[(name, case)]
+                row["gbps_achieved"] = (row["bound_ms"] / row["ms"]) * bw / 1e9
+                print(json.dumps(row), flush=True)
+            del g, gp, p
+    return rows
+
+
 def _counts(mods):
     """{(kernel, device): launches} over the kernel namespaces."""
     out = {}
@@ -452,6 +616,166 @@ def run_path(torch, mods, train):
             raise AssertionError(f"round 0 {k}: cuda {a} vs cpu {b}")
     print("path: round 0 loss/eta_mean agree with the CPU within 1e-4")
 
+    return launches
+
+
+def _fused_setup(train, torch, telemetry):
+    """A plain CNN fused loop on the card (the phase 4 configuration),
+    warmed by one block -> (run one block, state)."""
+    from repro_torch.core import flatten_fl_state
+    args = train.build_parser().parse_args(
+        TRAIN_ARGS + ["--rounds-per-call", "2", "--device", "cuda"]
+        + (["--telemetry"] if telemetry else []))
+    pt = train.setup_paper_task(args)
+    loop, arena = train.make_fused_loop(pt, args)
+    state = {"fs": flatten_fl_state(train.init_state(pt), loop.layout)}
+
+    def block():
+        idx = train.block_indices(pt, args, state["fs"].round, 2)
+        state["fs"], mets = loop(state["fs"], idx, arena=arena)
+        return mets
+
+    block()
+    torch.cuda.synchronize()
+    return block
+
+
+def _block_syncs(torch, block):
+    """Host syncs torch reports during one fused block -> (count, the
+    first line of each distinct report)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            block()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    msgs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    return len(msgs), sorted({m.splitlines()[0][:160] for m in msgs})
+
+
+def run_telemetry_path(torch, mods, train):
+    """Phase 4b. Returns the launch counts of the telemetry-on fused run."""
+    import tempfile
+    import numpy as np
+    from repro_torch.telemetry import load_events
+    C = 10
+    args = TRAIN_ARGS + ["--rounds-per-call", "2", "--device", "cuda"]
+    off = train.main(args)
+    _reset(mods)
+    on = train.main(args + ["--telemetry"])
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * ROUNDS,
+            ("batched_apply", "cuda"): K * ROUNDS,
+            ("lane_histogram", "cuda"): ROUNDS,
+            ("lane_quantiles", "cuda"): ROUNDS}
+    if launches != want:
+        raise AssertionError(f"telemetry path launched {launches}, expected "
+                             f"{want}")
+    for t, (a, b) in enumerate(zip(off.history, on.history)):
+        extra = set(b) - set(a)
+        if extra != {"eta_hist", "loss_deciles", "eta_clip_count",
+                     "nan_guard_count"}:
+            raise AssertionError(f"round {t}: telemetry added {extra}")
+        for k in a:
+            if a[k].tobytes() != b[k].tobytes():
+                raise AssertionError(f"round {t} {k}: telemetry on "
+                                     f"{b[k]!r} != off {a[k]!r}")
+        if not (math.isfinite(float(b["eta_min"]))
+                and math.isfinite(float(b["eta_max"]))
+                and float(np.sum(b["eta_hist"])) == C):
+            raise AssertionError(f"round {t}: eta_hist {b['eta_hist']} does "
+                                 f"not count the {C} finite eta lanes")
+        if not bool(np.all(np.diff(b["loss_deciles"]) >= 0)):
+            raise AssertionError(f"round {t}: loss deciles decrease: "
+                                 f"{b['loss_deciles']}")
+        print("telemetry round", t, json.dumps(
+            {"eta_hist": b["eta_hist"].tolist(),
+             "loss_deciles": b["loss_deciles"].tolist(),
+             "eta_clip_count": float(b["eta_clip_count"]),
+             "nan_guard_count": float(b["nan_guard_count"])}), flush=True)
+    for k, layer in off.state.params.items():
+        for leaf, v in layer.items():
+            if not torch.equal(v, on.state.params[k][leaf]):
+                raise AssertionError(f"param {k}.{leaf}: telemetry on != off")
+    host = train.main(TRAIN_ARGS + ["--flat", "--device", "cuda",
+                                    "--telemetry", "--log-every", "3"])
+    _fused_equals_host(torch, on, host)
+    print("telemetry path: on == off (params and metrics) and fused == host "
+          "loop, bitwise", flush=True)
+
+    # host syncs in one fused block, and the wall per local step, on and
+    # off in turns (off, on, on, off, ...)
+    blocks = {False: _fused_setup(train, torch, False),
+              True: _fused_setup(train, torch, True)}
+    # a first pass takes the reports torch makes once per process
+    first = [_block_syncs(torch, blocks[tele]) for tele in (False, True)]
+    syncs = {tele: _block_syncs(torch, blocks[tele])[0]
+             for tele in (True, False)}
+    print("telemetry path host syncs", json.dumps(
+        {"first_pass_off_on": first, "off": syncs[False],
+         "on": syncs[True]}), flush=True)
+    if syncs[True] != syncs[False]:
+        raise AssertionError(f"telemetry changed the host syncs of a fused "
+                             f"block: {syncs}")
+    walls = {False: [], True: []}
+    for i in range(TELE_TIMED_BLOCKS):
+        for tele in ((False, True) if i % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            blocks[tele]()
+            torch.cuda.synchronize()
+            walls[tele].append((time.perf_counter() - t0) / (2 * K) * 1e3)
+    print("telemetry path time", json.dumps({
+        "host_syncs_per_block": {"off": syncs[False], "on": syncs[True]},
+        "wall_ms_per_step_off": walls[False],
+        "wall_ms_per_step_on": walls[True],
+        "median_off": statistics.median(walls[False]),
+        "median_on": statistics.median(walls[True])}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = Path(tmp) / "events.jsonl"
+        train.main(args + ["--telemetry", "--events", str(ev), "--profile",
+                           "1", "--profile-dir", str(Path(tmp) / "prof")])
+        header, events = load_events(str(ev))
+        kinds = [e["kind"] for e in events]
+        static = [e for e in events if e["kind"] == "static"]
+        if (header.get("device_name") != torch.cuda.get_device_name(0)
+                or kinds.count("round") != ROUNDS or len(static) != 1
+                or static[0]["kernel_launches_per_round"].get(
+                    "telemetry/lane_histogram") != 1
+                or kinds[-1] != "spans"
+                or not (Path(tmp) / "prof" / "trace.json").exists()):
+            raise AssertionError(f"event log {kinds}: {static}")
+        print("telemetry CLI event log", json.dumps(
+            {"kinds": kinds, "static": static[0], "spans": events[-1]}),
+            flush=True)
+    return launches
+
+
+def run_matrix(torch, mods):
+    """Phase 7. Returns the launch counts of the 32 cells on cuda."""
+    from collections import Counter
+    from repro_torch.conformance import KERNEL_MATRIX, check_cell
+    _reset(mods)
+    bad, passed = [], Counter()
+    for cell in KERNEL_MATRIX:
+        v = check_cell(cell, 0, "cuda")
+        bad += v
+        passed[cell.ns] += not v
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    print("matrix cells passed per namespace", json.dumps(dict(passed)),
+          flush=True)
+    if bad:
+        raise AssertionError(f"kernel matrix violations: {bad}")
+    if any(dev != "cuda" for _, dev in launches):
+        raise AssertionError(f"a matrix cell ran a plain version through "
+                             f"its wrapper: {launches}")
+    print("matrix launches", json.dumps(
+        {k: v for (k, _), v in launches.items()}), flush=True)
     return launches
 
 
@@ -725,10 +1049,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as faref
     from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
     from repro_torch.kernels.mamba2_scan import ref as m2ref
+    from repro_torch.kernels.telemetry import ref as ttref
+    from repro_torch.kernels.telemetry import telemetry as tt
     from repro_torch.launch import train
-    mods = (tk, tcomp, tra, fa, m2)
+    mods = (tk, tcomp, tra, fa, m2, tt)
     namespaces = ("delta_sgd", "compress", "robust_agg", "flash_attention",
-                  "mamba2_scan")
+                  "mamba2_scan", "telemetry")
 
     # 1. header
     smi = subprocess.run(
@@ -757,11 +1083,13 @@ def main() -> int:
     rows = check_kernels(torch, tk, tref, bw, f32)
     rows.update(check_round_tail_kernels(torch, tcomp, tcref, tra, traref,
                                          bw, f32))
+    rows.update(check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32))
 
     # 4. paths
     paths = {"plain": run_path(torch, mods, train)}
     for pname in SCENARIO_PATHS:
         paths[pname] = run_scenario_path(torch, mods, train, pname)
+    paths["telemetry"] = run_telemetry_path(torch, mods, train)
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))
@@ -770,8 +1098,15 @@ def main() -> int:
     for arch, layers in SERVE_PATHS.items():
         paths[arch] = run_serve_path(torch, mods, arch, layers)
 
-    # 7. summary: each kernel at its main-path shape
-    main_case = {"flash_attention": FA_CASES[0], "ssd_chunks": SSD_CASES[0]}
+    # 7. the kernel parity matrix
+    paths["matrix"] = run_matrix(torch, mods)
+
+    # 8. summary: each kernel at its main-path shape
+    main_case = {"flash_attention": FA_CASES[0], "ssd_chunks": SSD_CASES[0],
+                 "norms": (SINGLE_SIZES[0], "float32"),
+                 "apply_update": (SINGLE_SIZES[0], "float32"),
+                 "lane_histogram": TELE_LANES[0],
+                 "lane_quantiles": TELE_LANES[0]}
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         row = rows[(kname, main_case.get(kname, MAIN_SHAPE))]

@@ -11,9 +11,10 @@ batches come pre-stacked with a leading R axis, or as (R, C, K, b)
 gather indices into a device-resident example arena (``arena_gather``).
 Metrics come back stacked over the R rounds.
 
-Scenarios and compression compose with the loop as with the single
-round, because the loop runs the round's own body; the EF21 slab rides
-in the carried state. Capturing a block as a CUDA graph is later
+Scenarios, compression and telemetry compose with the loop as with the
+single round, because the loop runs the round's own body; the EF21 slab
+rides in the carried state, and the telemetry distributions stack like
+the scalars (``eta_hist`` (R, B), ``loss_deciles`` (R, Q)). Capturing a block as a CUDA graph is later
 performance work; the fleet loop (ROADMAP A14) and the block-sharded
 loop (A17) are not ported.
 """
@@ -84,7 +85,8 @@ def make_fl_loop(loss_fn, client_opt, server_opt, *, params_like,
     optional (R, C) block; ``metrics`` leaves are stacked over R.
     ``params_like`` (a params tree, or anything with shapes and dtypes)
     fixes the flat layout. ``rounds_per_call`` is advisory: the R of a
-    call is the leading axis of ``round_data``."""
+    call is the leading axis of ``round_data``. ``telemetry`` is passed
+    to the round (``make_fl_round``)."""
     _reject(block_sharded=block_sharded)
     if not flat:
         raise ValueError("the round-fused loop requires the flat engine "

@@ -31,6 +31,13 @@ int8 per chunk or top-k per chunk, optionally behind EF21 error feedback
 levels drawn by a bandwidth-heterogeneous scenario. Wire bytes and the
 compression ratio ride in the round metrics.
 
+Telemetry (``telemetry=``, ``repro_torch.telemetry``) adds the round's
+distribution block to the metrics: the η histogram and the per-client
+mean-loss deciles (two kernel launches per round, in the telemetry
+namespace), and the absolute η-clamp and NaN-guard counts. It only reads
+round-end values, so params and every other metric are bitwise equal
+with it on and off.
+
 With no scenario (or ``sync_iid``) and an inert compression spec the
 round takes the exact slice-1 code path, bit for bit.
 
@@ -42,8 +49,8 @@ same computation.
 
 Not ported yet, and rejected with the ROADMAP item that brings them: the
 vmap engine (``flat=False``, A7), async scenarios (the FedBuff buffer,
-A10), telemetry (A13), mesh sharding (A17) and the per-client η₀ warm
-start of the fleet loop (A14).
+A10), mesh sharding (A17) and the per-client η₀ warm start of the fleet
+loop (A14).
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.core import flat as flatlib
 from repro_torch.core.client_opt import ClientOpt
 from repro_torch.core.delta_sgd import flat_delta_sgd_init, flat_delta_sgd_step
 from repro_torch.core.server_opt import ServerOpt
+from repro_torch.telemetry.spec import resolve_telemetry, round_telemetry
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 _ASYNC = ("async aggregation (scenario {name!r}) needs the FedBuff delta "
@@ -104,8 +112,7 @@ def init_fl_state(params, server_opt: ServerOpt, scenario=None,
 
 def _reject(**kw) -> None:
     """Raise for an argument whose feature is not ported yet."""
-    items = {"telemetry": "the telemetry plane, ROADMAP A13",
-             "mesh": "mesh sharding, ROADMAP A17",
+    items = {"mesh": "mesh sharding, ROADMAP A17",
              "federation": "mesh sharding, ROADMAP A17",
              "eta0_c": "the fleet loop's per-client η₀, ROADMAP A14",
              "prev_local_params": "the MOON loss, ROADMAP A5",
@@ -172,8 +179,11 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     round report the scenario's cohort ids. An inert compression spec
     (kind "none", no error feedback, no bandwidth-heterogeneous
     scenario) leaves the round on its exact uncompressed path.
+    ``telemetry`` (None, a bool or a ``TelemetrySpec``) adds the round's
+    telemetry block to the metrics, read-only over round-end values.
     ``num_rounds`` is accepted for signature parity."""
-    _reject(mesh=mesh, federation=federation, telemetry=telemetry)
+    _reject(mesh=mesh, federation=federation)
+    tele = resolve_telemetry(telemetry)
     if not flat:
         raise NotImplementedError(
             "the vmap engine (flat=False) comes with ROADMAP A7; the port "
@@ -191,12 +201,12 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
                             weighted=weighted, scenario=scenario,
                             num_clients=num_clients,
                             client_sizes=client_sizes,
-                            compression=compression)
+                            compression=compression, tele=tele)
 
 
 def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      *, weighted: bool, scenario=None, num_clients=None,
-                     client_sizes=None, compression=None):
+                     client_sizes=None, compression=None, tele=None):
     from repro_torch.compression import compress_flat
     from repro_torch.federation.faults import FaultLanes, robust_aggregate
     hyper = client_opt.hyper
@@ -227,6 +237,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     drops_on = faults_on and fm.drop_rate > 0.0
     nan_on = faults_on and fm.nan_rate > 0.0
     byz_on = faults_on and fm.byzantine_rate > 0.0
+    # the telemetry bin edges, built once per device (not once per round)
+    edges = {}
 
     def flat_body(fstate, client_batches, layout, client_weights=None,
                   prev_local_params=None, gp=None, eta0_c=None):
@@ -293,6 +305,13 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         extra.update(
             eta_clip_rate=S.clips.to(torch.float32).sum() / float(C * K),
             nan_guard_rate=(~S.valid).to(torch.float32).mean())
+        if tele is not None and tele.enabled:
+            # the distribution block: read-only over round-end values,
+            # so the trajectory is unperturbed
+            if device not in edges:
+                edges[device] = tele.edges_on(device)
+            extra.update(round_telemetry(tele, S.eta, losses, S.clips,
+                                         S.valid, edges=edges[device]))
 
         # survivor mask + byzantine factor of the guarded tail: a client
         # is excluded when its NaN guard latched or it dropped mid-round

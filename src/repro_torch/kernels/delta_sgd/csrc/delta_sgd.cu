@@ -30,6 +30,22 @@
 //   stores. The multiply and the subtract use __fmul_rn/__fsub_rn so
 //   they are never contracted into an FMA: the result rounds exactly
 //   like the plain PyTorch version's separate multiply and subtract.
+//
+// dsgd_norms and dsgd_apply_update replace the TPU kernels _norms_kernel
+//   and _apply_kernel (norms, apply_update): the same two sums and the
+//   same update on ONE tensor of any shape, f32 or bf16, with a scalar η.
+//   Their one caller is the kernel parity matrix
+//   (repro_torch.conformance.kernels). Both are bound by memory: norms
+//   reads 2·n elements, apply reads 2·n and writes n. The TPU kernels
+//   flattened and zero-padded a copy to (rows, 128); here the kernels
+//   read the tensors where they lie, with 16-byte loads (4 f32 or 8
+//   bf16) when every pointer is 16-byte aligned and one element a thread
+//   otherwise, and mask the ragged end. norms is the same two-stage
+//   reduction as batched_norms (per-block partials, the last block sums
+//   them in order, no float atomics), so repeated calls are bitwise
+//   equal. apply_update computes p − η·g in f32 with __fmul_rn/__fsub_rn
+//   and rounds to p's dtype to nearest even, as the plain version does;
+//   η is a value or, to keep it on the card, a pointer to a device f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,9 +199,262 @@ batched_apply_kernel(float* __restrict__ p, const float* __restrict__ g,
   }
 }
 
+// 16 bytes of T: kN elements, unpacked to and packed from f32
+template <typename T>
+struct Pack16;
+
+template <>
+struct Pack16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+
+template <>
+struct Pack16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& r, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static uint4 pack(const float* v) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);
+}
+
+// elements of one tensor that one single-tensor norms block reduces
+template <typename T>
+__host__ __device__ constexpr int norms_chunk() {
+  return kThreads * kNormsVecs * Pack16<T>::kN;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+norms_kernel(const T* __restrict__ g, const T* __restrict__ gp, int64_t n,
+             int chunks, float2* __restrict__ partial,
+             unsigned int* __restrict__ counter, float* __restrict__ out) {
+  using P = Pack16<T>;
+  constexpr int kN = P::kN;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * norms_chunk<T>();
+  float dg = 0.0f;
+  float gg = 0.0f;
+  if (kVec) {
+    // vector i of this thread holds elements e .. e + kN − 1; all loads
+    // are issued before any is summed
+    uint4 a[kNormsVecs];
+    uint4 b[kNormsVecs];
+#pragma unroll
+    for (int i = 0; i < kNormsVecs; ++i) {
+      const int64_t e = base + (static_cast<int64_t>(i) * kThreads +
+                                threadIdx.x) * kN;
+      if (e + kN <= n) {
+        a[i] = __ldcs(reinterpret_cast<const uint4*>(g + e));
+        b[i] = __ldcs(reinterpret_cast<const uint4*>(gp + e));
+      } else {
+        a[i] = make_uint4(0u, 0u, 0u, 0u);
+        b[i] = a[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kNormsVecs; ++i) {
+      const int64_t e = base + (static_cast<int64_t>(i) * kThreads +
+                                threadIdx.x) * kN;
+      float x[kN];
+      float y[kN];
+      if (e + kN <= n) {
+        P::unpack(a[i], x);
+        P::unpack(b[i], y);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          x[j] = e + j < n ? to_f32(g[e + j]) : 0.0f;
+          y[j] = e + j < n ? to_f32(gp[e + j]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float d = x[j] - y[j];
+        dg += d * d;
+        gg += x[j] * x[j];
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < kNormsVecs * kN; ++i) {
+      const int64_t e = base + static_cast<int64_t>(i) * kThreads +
+                        threadIdx.x;
+      if (e < n) {
+        const float x = to_f32(g[e]);
+        const float d = x - to_f32(gp[e]);
+        dg += d * d;
+        gg += x * x;
+      }
+    }
+  }
+  block_sum2(dg, gg);
+
+  __shared__ bool is_last;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = make_float2(dg, gg);
+    __threadfence();
+    const unsigned int done = atomicAdd(counter, 1u);
+    is_last = (done == static_cast<unsigned int>(chunks - 1));
+  }
+  __syncthreads();
+  if (!is_last) return;
+  // the last block sums the partials in chunk order (as batched_norms)
+  __threadfence();
+  float sdg = 0.0f;
+  float sgg = 0.0f;
+  for (int i = threadIdx.x; i < chunks; i += kThreads) {
+    const float2 p = __ldcg(partial + i);
+    sdg += p.x;
+    sgg += p.y;
+  }
+  block_sum2(sdg, sgg);
+  if (threadIdx.x == 0) {
+    out[0] = sdg;
+    out[1] = sgg;
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+apply_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
+                    const float* __restrict__ eta_ptr, float eta_val,
+                    T* __restrict__ out, int64_t n) {
+  using P = Pack16<T>;
+  constexpr int kN = P::kN;
+  const float e = eta_ptr != nullptr ? *eta_ptr : eta_val;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  int64_t done = 0;
+  if (kVec) {
+    const int64_t nv = n / kN;
+    for (int64_t j = first; j < nv; j += stride) {
+      float x[kN];
+      float y[kN];
+      P::unpack(reinterpret_cast<const uint4*>(p)[j], x);
+      P::unpack(__ldcs(reinterpret_cast<const uint4*>(g) + j), y);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) x[k] = axpy_rn(x[k], e, y[k]);
+      __stcs(reinterpret_cast<uint4*>(out) + j, P::pack(x));
+    }
+    done = nv * kN;
+  }
+  for (int64_t i = done + first; i < n; i += stride) {
+    from_f32(axpy_rn(to_f32(p[i]), e, to_f32(g[i])), out + i);
+  }
+}
+
+template <typename T>
+int launch_norms(const void* g, const void* gp, int64_t n, bool vec,
+                 void* partial, void* counter, float* out,
+                 cudaStream_t s) {
+  const int chunks =
+      static_cast<int>((n + norms_chunk<T>() - 1) / norms_chunk<T>());
+  const T* a = static_cast<const T*>(g);
+  const T* b = static_cast<const T*>(gp);
+  float2* pp = static_cast<float2*>(partial);
+  unsigned int* c = static_cast<unsigned int*>(counter);
+  if (vec)
+    norms_kernel<T, true><<<chunks, kThreads, 0, s>>>(a, b, n, chunks, pp,
+                                                      c, out);
+  else
+    norms_kernel<T, false><<<chunks, kThreads, 0, s>>>(a, b, n, chunks, pp,
+                                                       c, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply(const void* p, const void* g, const float* eta_ptr,
+                 float eta, void* out, int64_t n, bool vec, cudaStream_t s) {
+  const int64_t per_block =
+      static_cast<int64_t>(kThreads) * kApplyVecs * Pack16<T>::kN;
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + per_block - 1) / per_block);
+  const T* a = static_cast<const T*>(p);
+  const T* b = static_cast<const T*>(g);
+  T* o = static_cast<T*>(out);
+  if (vec)
+    apply_update_kernel<T, true><<<blocks, kThreads, 0, s>>>(a, b, eta_ptr,
+                                                             eta, o, n);
+  else
+    apply_update_kernel<T, false><<<blocks, kThreads, 0, s>>>(a, b, eta_ptr,
+                                                              eta, o, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// dtype codes of the single-tensor entry points
+// (kDtypes in ../delta_sgd.py): 0 = f32, 1 = bf16.
+
+// Elements of one tensor that one single-tensor norms block reduces:
+// the wrapper sizes the (chunks,) float2 partial scratch with it.
+int dsgd_single_norms_chunk(int dtype) {
+  return dtype == 0 ? norms_chunk<float>() : norms_chunk<__nv_bfloat16>();
+}
+
+// g, g_prev: n elements of dtype, n >= 1. vec: both 16-byte aligned.
+// partial: (ceil(n / chunk),) float2 scratch. counter: one uint32, ZERO
+// on entry. out: (2,) f32, Σ(g−g_prev)² then Σg².
+int dsgd_norms(const void* g, const void* g_prev, int dtype, int64_t n,
+               int vec, void* partial, void* counter, float* out,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_norms<float>(g, g_prev, n, vec != 0, partial, counter,
+                               out, s);
+  if (dtype == 1)
+    return launch_norms<__nv_bfloat16>(g, g_prev, n, vec != 0, partial,
+                                       counter, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// p, g, out: n elements of dtype, n >= 1. vec: all three 16-byte
+// aligned. eta_ptr: a device f32, or NULL to use eta.
+int dsgd_apply_update(const void* p, const void* g, const float* eta_ptr,
+                      float eta, void* out, int dtype, int64_t n, int vec,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_apply<float>(p, g, eta_ptr, eta, out, n, vec != 0, s);
+  if (dtype == 1)
+    return launch_apply<__nv_bfloat16>(p, g, eta_ptr, eta, out, n,
+                                       vec != 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Elements of one client row that one norms block reduces: the wrapper
 // sizes the (C, chunks) float2 partial scratch with it.

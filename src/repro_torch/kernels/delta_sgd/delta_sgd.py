@@ -1,7 +1,7 @@
-"""Δ-SGD's per-local-step kernel pair: wrappers around the CUDA kernels.
+"""Δ-SGD's kernels: wrappers around the CUDA kernels.
 
-Port of the packed (C, N) functions of ``repro/kernels/delta_sgd/
-delta_sgd.py``:
+Port of ``repro/kernels/delta_sgd/delta_sgd.py``. The per-local-step
+pair, on packed (C, N) slabs:
 
   batched_norms  — per-client ``(Σ(g−g_prev)², Σg²)``: the dual norms of
                    Eq. (4), one pass over (G, G_prev). Replaces the TPU
@@ -10,8 +10,16 @@ delta_sgd.py``:
                    bf16 round mask. Replaces ``_batched_apply_kernel`` and
                    ``_batched_apply_masked_kernel``.
 
-Both are bound by memory on the card; what their CUDA design does about
-it is written at the top of ``csrc/delta_sgd.cu``. A wrapper given CUDA
+and the single-tensor pair, whose one caller is the kernel parity matrix
+(``repro_torch.conformance.kernels``):
+
+  norms          — ``(Σ(g−g_prev)², Σg²)`` over one tensor of any shape,
+                   f32 or bf16. Replaces ``_norms_kernel``.
+  apply_update   — ``p − η·g`` with a scalar η, in p's dtype, into a new
+                   tensor. Replaces ``_apply_kernel``.
+
+All four are bound by memory on the card; what their CUDA design does
+about it is written at the top of ``csrc/delta_sgd.cu``. A wrapper given CUDA
 tensors launches its kernel (built from that source at first use, see
 ``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
 plain version in ``ref.py``. There is no other switch.
@@ -19,7 +27,9 @@ plain version in ``ref.py``. There is no other switch.
 ``LAUNCHES`` counts calls per ``(function, device type)``: a wrapper
 adds one to its ``"cuda"`` entry after its kernel launched without
 error, and to its ``"cpu"`` entry when it ran the plain version, so the
-``"cuda"`` entries count exactly the kernel launches.
+``"cuda"`` entries count exactly the kernel launches. The single-tensor
+pair counts under its own keys (``"norms"``, ``"apply_update"``), so the
+two launches per local step of the batched pair stay what they count.
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ import ctypes
 import functools
 from collections import Counter
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -38,6 +48,8 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "delta_sgd.cu",)
 
 # the client index is the kernels' grid y dimension
 _MAX_CLIENTS = 65535
+# dtype codes of the single-tensor entry points (csrc/delta_sgd.cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Counter = Counter()
 
@@ -62,6 +74,14 @@ def library() -> ctypes.CDLL:
     lib.dsgd_batched_norms.restype = ctypes.c_int
     lib.dsgd_batched_apply.argtypes = [vp, vp, vp, vp, i64, i64, vp]
     lib.dsgd_batched_apply.restype = ctypes.c_int
+    lib.dsgd_single_norms_chunk.argtypes = [ctypes.c_int]
+    lib.dsgd_single_norms_chunk.restype = ctypes.c_int
+    lib.dsgd_norms.argtypes = [vp, vp, ctypes.c_int, i64, ctypes.c_int, vp,
+                               vp, vp, vp]
+    lib.dsgd_norms.restype = ctypes.c_int
+    lib.dsgd_apply_update.argtypes = [vp, vp, vp, ctypes.c_float, vp,
+                                      ctypes.c_int, i64, ctypes.c_int, vp]
+    lib.dsgd_apply_update.restype = ctypes.c_int
     return lib
 
 
@@ -129,3 +149,71 @@ def batched_apply(p: torch.Tensor, g: torch.Tensor, eta: torch.Tensor, *,
         "batched_apply")
     LAUNCHES[("batched_apply", "cuda")] += 1
     return p
+
+
+def _check_pair(a_name: str, a: torch.Tensor, b_name: str,
+                b: torch.Tensor) -> None:
+    """``a`` and ``b``: contiguous, non-empty, the same shape, both f32
+    or both bf16, on one device."""
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"{a_name} must be float32 or bfloat16, got "
+                        f"{a.dtype}")
+    common.check_tensor(a_name, a, a.shape, a.dtype, a)
+    common.check_tensor(b_name, b, a.shape, a.dtype, a)
+    if a.numel() == 0:
+        raise ValueError(f"{a_name} is empty")
+
+
+def _aligned(*ts: torch.Tensor) -> int:
+    return int(all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def norms(g: torch.Tensor, g_prev: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ(g−g_prev)², Σg²)`` over one tensor of any shape, f32 or bf16,
+    summed in f32 -> two 0-d f32 tensors on g's device. One launch, read
+    in place (no cast, no pad); on CUDA the sums are bitwise
+    reproducible."""
+    _check_pair("g", g, "g_prev", g_prev)
+    if common.device_type(g) == "cpu":
+        LAUNCHES[("norms", "cpu")] += 1
+        return ref.norms_ref(g, g_prev)
+    lib = library()
+    n = g.numel()
+    chunk = lib.dsgd_single_norms_chunk(_DTYPES[g.dtype])
+    partial = torch.empty((-(-n // chunk), 2), dtype=torch.float32,
+                          device=g.device)
+    counter = torch.zeros((1,), dtype=torch.int32, device=g.device)
+    out = torch.empty((2,), dtype=torch.float32, device=g.device)
+    common.raise_on(lib.dsgd_norms(
+        g.data_ptr(), g_prev.data_ptr(), _DTYPES[g.dtype], n,
+        _aligned(g, g_prev), partial.data_ptr(), counter.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
+        "norms")
+    LAUNCHES[("norms", "cuda")] += 1
+    return out[0], out[1]
+
+
+def apply_update(p: torch.Tensor, g: torch.Tensor,
+                 eta: Union[float, torch.Tensor]) -> torch.Tensor:
+    """``p − η·g`` in f32, rounded to p's dtype (f32 or bf16) -> a new
+    tensor shaped like p. ``eta`` is a Python float or a 0-d f32 tensor
+    on p's device, which the kernel reads where it lies (never
+    ``.item()``)."""
+    _check_pair("p", p, "g", g)
+    if isinstance(eta, torch.Tensor):
+        common.check_tensor("eta", eta, (), torch.float32, p)
+    else:
+        eta = float(eta)
+    if common.device_type(p) == "cpu":
+        LAUNCHES[("apply_update", "cpu")] += 1
+        return ref.apply_ref(p, g, eta)
+    out = torch.empty_like(p)
+    on_device = isinstance(eta, torch.Tensor)
+    common.raise_on(library().dsgd_apply_update(
+        p.data_ptr(), g.data_ptr(), eta.data_ptr() if on_device else None,
+        0.0 if on_device else eta, out.data_ptr(), _DTYPES[p.dtype],
+        p.numel(), _aligned(p, g, out),
+        torch.cuda.current_stream(p.device).cuda_stream), "apply_update")
+    LAUNCHES[("apply_update", "cuda")] += 1
+    return out

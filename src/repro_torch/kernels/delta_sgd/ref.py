@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the Δ-SGD kernel pair.
 
-Port of ``repro/kernels/delta_sgd/ref.py`` (batched functions only).
-The wrappers in ``delta_sgd.py`` use these for CPU tensors; the tests
+Port of ``repro/kernels/delta_sgd/ref.py``: the packed (C, N) pair and
+the single-tensor pair (``norms_ref``, ``apply_ref``). The wrappers in ``delta_sgd.py`` use these for CPU tensors; the tests
 and ``chip_smoke.py`` hold the CUDA kernels against them.
 """
 from __future__ import annotations
@@ -9,6 +9,22 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def norms_ref(g: torch.Tensor, g_prev: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ(g−g_prev)², Σg²)`` over one tensor of any shape, in f32 ->
+    two 0-d f32 tensors."""
+    g32 = g.to(torch.float32)
+    d = g32 - g_prev.to(torch.float32)
+    return (d * d).sum(), (g32 * g32).sum()
+
+
+def apply_ref(p: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor:
+    """``p − η·g`` in f32, rounded to p's dtype (round to nearest even).
+    ``eta`` is a Python float or a 0-d f32 tensor; the multiply and the
+    subtract round separately."""
+    return (p.to(torch.float32) - eta * g.to(torch.float32)).to(p.dtype)
 
 
 def batched_norms_ref(g: torch.Tensor, g_prev: torch.Tensor

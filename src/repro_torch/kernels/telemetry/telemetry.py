@@ -1,0 +1,134 @@
+"""Telemetry kernels: wrappers around the CUDA kernels.
+
+Port of ``repro/kernels/telemetry/telemetry.py``. Both reduce a (C,)
+per-client vector to a fixed-shape summary, once per round when the
+round's telemetry is on:
+
+  lane_histogram  (C,) values + (B+1,) bin edges -> (B,) f32 counts.
+                  Replaces ``_hist_kernel``.
+  lane_quantiles  (C,) values -> (Q,) order statistics (min, deciles,
+                  max at Q = 11). Replaces ``_quantile_kernel``.
+
+Both results are exact: counts are small integers in f32, and the
+quantiles are entries of the input. What the CUDA designs do is written
+at the top of ``csrc/telemetry.cu``. A wrapper given CUDA tensors
+launches its kernel (built from that source at first use, see
+``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
+plain version in ``ref.py``. There is no other switch.
+
+``LAUNCHES`` counts calls per ``(function, device type)`` in its own
+book: the Δ-SGD counter of ``repro_torch.kernels.delta_sgd`` (two
+launches per local step) never moves for telemetry.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, common
+from repro_torch.kernels.telemetry import ref
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "telemetry.cu",)
+
+# the kernels' limits (kMaxBins, kMaxQuantiles, kMaxLanes in
+# csrc/telemetry.cu): lane_quantiles sorts all C lanes in one block's
+# shared memory, 8 bytes a lane
+MAX_BINS = 4096
+MAX_QUANTILES = 256
+MAX_LANES = 1 << 14
+
+LAUNCHES: Counter = Counter()
+
+
+def reset_launch_count() -> None:
+    LAUNCHES.clear()
+
+
+def launch_count(device_type: Optional[str] = None) -> int:
+    """Total calls, or only those on ``device_type`` ("cuda"/"cpu")."""
+    return common.count(LAUNCHES, device_type)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library (compiled from SOURCES at first use)."""
+    lib = build.load_library("telemetry", SOURCES)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.tele_max_bins, lib.tele_max_quantiles,
+               lib.tele_max_lanes):
+        fn.argtypes = []
+        fn.restype = i32
+    lib.tele_lane_histogram.argtypes = [vp, i32, vp, i32, vp, vp]
+    lib.tele_lane_histogram.restype = i32
+    lib.tele_lane_quantiles.argtypes = [vp, i32, ctypes.POINTER(i32), i32,
+                                        vp, vp]
+    lib.tele_lane_quantiles.restype = i32
+    if (lib.tele_max_bins(), lib.tele_max_quantiles(),
+            lib.tele_max_lanes()) != (MAX_BINS, MAX_QUANTILES, MAX_LANES):
+        raise RuntimeError("csrc/telemetry.cu and telemetry.py disagree on "
+                           "the kernels' limits")
+    return lib
+
+
+def _check_lanes(x: torch.Tensor) -> int:
+    if x.dim() != 1:
+        raise ValueError(f"x must be a (C,) vector, got {tuple(x.shape)}")
+    common.check_tensor("x", x, x.shape, torch.float32, x)
+    return x.shape[0]
+
+
+def lane_histogram(x: torch.Tensor, edges) -> torch.Tensor:
+    """(C,) f32 values, (B+1,) bin edges -> (B,) f32 counts of
+    ``edges[b] <= x < edges[b+1]``; NaN counts in no bin.
+
+    ``edges`` is best a contiguous f32 tensor on x's device (the round
+    builds it once); anything else is converted, a copy per call."""
+    C = _check_lanes(x)
+    if not (isinstance(edges, torch.Tensor) and edges.dtype == torch.float32
+            and edges.device == x.device and edges.is_contiguous()):
+        edges = torch.as_tensor(edges, dtype=torch.float32,
+                                device=x.device).contiguous()
+    if edges.dim() != 1 or not 2 <= edges.shape[0] <= MAX_BINS + 1:
+        raise ValueError(f"edges must be (B+1,) with 1 <= B <= {MAX_BINS}, "
+                         f"got {tuple(edges.shape)}")
+    B = edges.shape[0] - 1
+    if common.device_type(x) == "cpu":
+        LAUNCHES[("lane_histogram", "cpu")] += 1
+        return ref.lane_histogram_ref(x, edges)
+    out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    common.raise_on(library().tele_lane_histogram(
+        x.data_ptr(), C, edges.data_ptr(), B, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream), "lane_histogram")
+    LAUNCHES[("lane_histogram", "cuda")] += 1
+    return out
+
+
+def lane_quantiles(x: torch.Tensor, Q: int = 11) -> torch.Tensor:
+    """(C,) f32 values -> (Q,) f32 order statistics at the sorted
+    positions ``quantile_indices(C, Q)``, sorted as ``jnp.sort`` sorts
+    (NaN last, ties in lane order). The kernel sorts in one block: C is
+    at most MAX_LANES."""
+    C = _check_lanes(x)
+    idx = ref.quantile_indices(C, Q)       # host ints, raises on C < 1
+    if Q > MAX_QUANTILES:
+        raise ValueError(f"Q = {Q} exceeds the kernel's limit of "
+                         f"{MAX_QUANTILES}")
+    if C > MAX_LANES:
+        raise ValueError(f"lane_quantiles sorts at most {MAX_LANES} lanes "
+                         f"in one block, got C = {C}: a larger cohort (the "
+                         f"fleet loop, ROADMAP A14) needs a multi-block "
+                         f"selection")
+    if common.device_type(x) == "cpu":
+        LAUNCHES[("lane_quantiles", "cpu")] += 1
+        return ref.lane_quantiles_ref(x, Q)
+    out = torch.empty((Q,), dtype=torch.float32, device=x.device)
+    common.raise_on(library().tele_lane_quantiles(
+        x.data_ptr(), C, (ctypes.c_int * Q)(*idx), Q, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream), "lane_quantiles")
+    LAUNCHES[("lane_quantiles", "cuda")] += 1
+    return out

@@ -13,8 +13,8 @@ round-fused block to warm up, then
   * runs one more block under ``torch.profiler`` (CPU + CUDA activity):
     the device-busy time (union of kernel and copy intervals), the idle
     share of the block's span, device operations per local step, the
-    kernel launches of each namespace (Δ-SGD per local step, compression
-    and robust aggregation per round), the device time by kernel name,
+    kernel launches of each namespace (Δ-SGD per local step; compression,
+    robust aggregation and, with ``--telemetry``, telemetry per round), the device time by kernel name,
     and the host-side operators by their own CPU time.
 
 Prints one JSON object per line. Fails when the profiler records no
@@ -34,6 +34,7 @@ from repro_torch.core import flatten_fl_state
 from repro_torch.kernels.compress import compress as tcomp
 from repro_torch.kernels.delta_sgd import delta_sgd as tk
 from repro_torch.kernels.robust_agg import robust_agg as tra
+from repro_torch.kernels.telemetry import telemetry as tt
 from repro_torch.launch import train
 
 
@@ -77,7 +78,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         fstate = block(fstate)
         walls.append(time.perf_counter() - t0)
-    for mod in (tk, tcomp, tra):
+    for mod in (tk, tcomp, tra, tt):
         mod.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -86,14 +87,15 @@ def main(argv=None):
         wall_prof = time.perf_counter() - t0
     launches = tk.launch_count("cuda")
     per_round = {name: n / R for (name, dev), n in
-                 (tcomp.LAUNCHES + tra.LAUNCHES).items() if dev == "cuda"}
+                 (tcomp.LAUNCHES + tra.LAUNCHES + tt.LAUNCHES).items()
+                 if dev == "cuda"}
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise SystemExit("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     span_us = max(e for _, e in spans) - min(s for s, _ in spans)
-    busy_us = busy_us(spans)
+    busy = busy_us(spans)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += e.time_range.elapsed_us()
@@ -114,10 +116,10 @@ def main(argv=None):
         / steps * 1e3}))
     print(json.dumps({
         "profiled_wall_ms_per_step": wall_prof / steps * 1e3,
-        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_ms_per_step": busy / steps / 1e3,
         "device_span_ms_per_step": span_us / steps / 1e3,
-        "idle_share_of_span": 1.0 - busy_us / span_us,
-        "idle_share_of_wall": 1.0 - busy_us / (wall_prof * 1e6),
+        "idle_share_of_span": 1.0 - busy / span_us,
+        "idle_share_of_wall": 1.0 - busy / (wall_prof * 1e6),
         "device_ops_per_step": len(dev) / steps,
         "delta_sgd_kernel_launches_per_step": launches / steps,
         "other_kernel_launches_per_round": per_round}))

@@ -44,7 +44,8 @@ _NOT_PORTED = {
     "arrival": ("poisson", "A16 (serving: load generator)"),
     "rate": (100.0, "A16 (serving: load generator)"),
     "personalize": (0, "A16 (serving: personalization)"),
-    "events": (None, "A13 (telemetry)"),
+    "events": (None, "A16 (serving events: the registry's version and "
+                      "swap fields)"),
 }
 
 

@@ -33,6 +33,21 @@ and under a guarded tail the survivor count and skipped rounds.
       --scenario dirichlet_dropouts --robust-agg trimmed \\
       --compression int8 --error-feedback
 
+``--telemetry`` adds the round's telemetry block (η histogram, loss
+deciles, guard counts: ``repro_torch.telemetry``) to the metrics without
+changing a trained bit. ``--events PATH`` writes a JSONL event log (a
+header, one ``round`` event per round, a ``spans`` event, and with
+``--profile N`` a ``static`` event of the kernel launches of the block
+that holds round N, which runs under ``torch.profiler`` with its trace
+in ``--profile-dir``). With a scenario, compression or ``--telemetry``
+the run ends with a ``scenario report:`` (``launch/report.py``), also
+written to ``--out``. Metrics reach the host with one device-to-host
+copy per fused block, or per ``--log-every`` rounds in the host loop.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --task easy --rounds 4 --rounds-per-call 2 --telemetry \\
+      --events /tmp/e.jsonl --profile 1
+
 Flags of features not ported yet exit with an error naming their
 ROADMAP item, and so do the async presets (the FedBuff buffer, A10) and
 the fleet presets (the fleet loop, A14).
@@ -40,9 +55,12 @@ the fleet presets (the fleet loop, A14).
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.compression import CompressionSpec
@@ -55,7 +73,12 @@ from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.data.synthetic import get_task
 from repro_torch.device import resolve_device
 from repro_torch.federation import cohort_size, get_scenario
+from repro_torch.launch.report import scenario_summary
 from repro_torch.models.small import accuracy, make_small_model, softmax_ce
+from repro_torch.telemetry import (EventLog, SpanTimer,
+                                   kernel_launch_snapshot, schema,
+                                   static_telemetry, trace_block)
+from repro_torch.telemetry.events import to_host
 from repro_torch.utils.tree import tree_map
 
 MODELS = {"mlp": MLP_SMALL, "mlp-wide": MLP_WIDE, "cnn": CNN_PAPER}
@@ -72,11 +95,6 @@ _NOT_PORTED = {
     "seq": (256, "A15 (LM zoo)"),
     "lr": (0.05, "A6 (client optimizers)"),
     "num_registered": (None, "A14 (fleet)"),
-    "telemetry": (False, "A13 (telemetry)"),
-    "events": (None, "A13 (telemetry)"),
-    "profile": (0, "A13 (telemetry)"),
-    "profile_dir": ("experiments/profile", "A13 (telemetry)"),
-    "log_every": (0, "A13 (telemetry)"),
     "eta_carry": (False, "A14 (fleet)"),
     "ckpt_dir": (None, "A9 (checkpointing)"),
     "ckpt_every": (20, "A9 (checkpointing)"),
@@ -148,11 +166,110 @@ def _health_str(row) -> str:
 
 
 def _rows(metrics) -> List[dict]:
-    """Stacked (R,) device metrics -> R rows of numpy f32 scalars, with
-    one device-to-host copy per key."""
-    host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
-    n = len(next(iter(host.values())))
+    """Stacked (R, ...) device metrics -> R rows of numpy values (f32
+    scalars, and the telemetry vectors), with ONE device-to-host copy for
+    the whole block (``telemetry.events.to_host``)."""
+    keys = list(metrics)
+    host = dict(zip(keys, to_host([metrics[k] for k in keys])))
+    n = len(host[keys[0]])
     return [{k: v[r] for k, v in host.items()} for r in range(n)]
+
+
+class _ScenarioStats:
+    """Per-run accumulator for the scenario report (``launch/report.py``):
+    cohort ids per round and every metric the round emits, routed through
+    the ``repro_torch.telemetry.schema`` registry. An unregistered key
+    warns once and is still kept."""
+
+    def __init__(self, scenario, num_clients):
+        self.scenario, self.num_clients = scenario, num_clients
+        self.ids, self.metrics = [], []
+
+    def update(self, ids, metrics):
+        if ids is not None:
+            self.ids.append(np.asarray(ids))
+        elif "cohort_ids" in metrics:
+            self.ids.append(np.asarray(metrics["cohort_ids"]))
+        row = {}
+        for k, v in metrics.items():
+            if k == "cohort_ids":
+                continue        # carried in the ids stream above
+            spec = schema.get(k)
+            if spec is None:
+                schema.warn_unregistered(k, producer="round metrics")
+            if spec is not None and spec.shape != "()":
+                row[k] = np.asarray(v, np.float64)
+            else:
+                row[k] = float(v)
+        self.metrics.append(row)
+
+    def summary(self):
+        name = self.scenario.name if self.scenario else "none"
+        return scenario_summary(name, self.ids, self.num_clients,
+                                self.metrics)
+
+    def report(self, out_path=None, extra=None):
+        s = self.summary()
+        if extra:
+            s.update(extra)
+        print("scenario report:", json.dumps(s, indent=2, default=float))
+        if out_path:
+            os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+            with open(out_path, "w") as f:
+                json.dump(s, f, indent=2, default=float)
+        return s
+
+
+class _RoundLog:
+    """Buffered round log of the HOST loop: per-round metric dicts stay
+    on the device and are converted with ONE device-to-host copy per
+    ``--log-every`` interval; the converted rows then go to ``on_round``
+    and the event log."""
+
+    def __init__(self, log_every, on_round, events, spans):
+        self.log_every = max(1, int(log_every))
+        self.on_round, self.events, self.spans = on_round, events, spans
+        self._buf = []
+
+    def push(self, t, rnd, metrics, ids=None):
+        self._buf.append((t, rnd, ids, metrics))
+        if len(self._buf) >= self.log_every:
+            self.flush()
+
+    def flush(self):
+        if not self._buf:
+            return
+        with self.spans.span("convert"):
+            keys = [(i, k) for i, (_, _, _, m) in enumerate(self._buf)
+                    for k in m]
+            host = to_host([self._buf[i][3][k] for i, k in keys])
+            rows = [{} for _ in self._buf]
+            for (i, k), v in zip(keys, host):
+                rows[i][k] = v
+        for (t, rnd, ids, _), row in zip(self._buf, rows):
+            self.on_round(t, row, ids)
+            if self.events is not None:
+                self.events.emit("round", t=t, round=rnd, **row)
+        if self.events is not None:
+            self.events.flush()
+        self._buf.clear()
+
+
+def _log_every(args) -> int:
+    """--log-every N; 0 = ~10 conversions per run."""
+    return args.log_every if args.log_every > 0 else max(1, args.rounds // 10)
+
+
+def _finish_run(events, spans, show_spans: bool) -> None:
+    """Common tail: the span summary into the event log, and to stdout
+    when telemetry output was asked for."""
+    if show_spans and spans.summary():
+        print(f"spans: {spans}", flush=True)
+    if events is not None:
+        events.emit("spans", **spans.summary())
+        events.close()
+        print(f"event log: {events.path} "
+              f"({events.events_written} events)", flush=True)
 
 
 class PaperTask(NamedTuple):
@@ -207,7 +324,7 @@ def _round_kw(pt: PaperTask, args) -> dict:
     return dict(scenario=pt.scenario, num_clients=args.num_clients,
                 client_sizes=(pt.fed.client_sizes() if pt.scenario
                               else None),
-                compression=pt.compression)
+                compression=pt.compression, telemetry=args.telemetry)
 
 
 def make_fused_loop(pt: PaperTask, args):
@@ -228,49 +345,118 @@ def block_indices(pt: PaperTask, args, round0: int, rounds: int):
     return torch.from_numpy(idx).to(pt.device)
 
 
+def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
+    """R-round blocks of the fused loop. The block boundary is the host
+    sync point: one device-to-host copy for the block's metric rows,
+    and the event log flushes there. ``--profile r`` runs the block that
+    holds (1-based) round r under ``torch.profiler`` and emits its
+    kernel launches as a ``static`` event. Returns the final FLState."""
+    loop, arena = make_fused_loop(pt, args)
+    with spans.span("pack"):
+        fstate = flatten_fl_state(state, loop.layout)
+    base, t, profiled = state.round, 0, False
+    while t < args.rounds:
+        n = min(args.rounds_per_call, args.rounds - t)
+        with spans.span("stage"):
+            idx = block_indices(pt, args, fstate.round, n)
+        do_profile = (args.profile > 0 and not profiled
+                      and t <= args.profile - 1 < t + n)
+
+        def call(fs=fstate, ix=idx):
+            return loop(fs, ix, arena=arena)
+
+        with spans.span("block_execute"):
+            if do_profile:
+                before = kernel_launch_snapshot(pt.device.type)
+                fstate, mets = trace_block(call, args.profile_dir)
+                after = kernel_launch_snapshot(pt.device.type)
+                profiled = True
+            else:
+                fstate, mets = call()
+        if do_profile:
+            static = static_telemetry(rounds=n, launches={
+                k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)})
+            print("static telemetry:", json.dumps(static), flush=True)
+            if events is not None:
+                events.emit("static", **static)
+        with spans.span("convert"):
+            rows = _rows(mets)
+        for r, row in enumerate(rows):
+            on_round(t + r, row)
+            if events is not None:
+                events.emit("round", t=t + r, round=base + t + r, **row)
+        if events is not None:
+            events.flush()
+        t += n
+    if args.profile > 0 and not profiled:
+        print(f"--profile {args.profile}: no block contained that round "
+              f"(run is {args.rounds} rounds); no trace captured",
+              flush=True)
+    with spans.span("unpack"):
+        return unflatten_fl_state(fstate, loop.layout)
+
+
+def _run_host(pt: PaperTask, args, state, on_round, events, spans):
+    """Rounds one at a time on the flat engine; metric rows buffer on the
+    device and reach the host once per ``--log-every`` rounds."""
+    round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
+                             num_rounds=args.rounds, flat=True,
+                             **_round_kw(pt, args))
+    rlog = _RoundLog(_log_every(args), on_round, events, spans)
+    for t in range(args.rounds):
+        with spans.span("stage"):
+            batches, _, ids = pt.fed.sample_round(
+                pt.participation, pt.local_steps, args.batch,
+                round_idx=state.round)
+            batches = {k: torch.from_numpy(v).to(pt.device)
+                       for k, v in batches.items()}
+        with spans.span("block_execute"):
+            state, mets, _ = round_fn(state, batches)
+        rlog.push(t, state.round - 1, mets, ids)
+    rlog.flush()
+    return state
+
+
 def train_paper_task(args) -> TrainResult:
     pt = setup_paper_task(args)
     state = init_state(pt)
     history: List[dict] = []
+    stats = (_ScenarioStats(pt.scenario, args.num_clients)
+             if (pt.scenario is not None
+                 or pt.compression.active(pt.scenario) or args.telemetry)
+             else None)
+    events = (EventLog(args.events, config=vars(args), device=pt.device)
+              if args.events else None)
+    spans = SpanTimer()
     t0 = time.time()
 
-    def log_round(t, row):
+    def log_round(t, row, ids=None):
         history.append(row)
+        if stats is not None:
+            stats.update(ids, row)
         if t % max(1, args.rounds // 10) == 0 or t == args.rounds - 1:
             print(f"round {t:4d} loss {float(row['loss']):.4f} "
                   f"eta {float(row['eta_mean']):.4f}{_health_str(row)} "
                   f"({time.time() - t0:.1f}s)", flush=True)
 
     if args.rounds_per_call > 1:
-        loop, arena = make_fused_loop(pt, args)
-        fstate = flatten_fl_state(state, loop.layout)
-        t = 0
-        while t < args.rounds:
-            n = min(args.rounds_per_call, args.rounds - t)
-            fstate, mets = loop(fstate, block_indices(pt, args, fstate.round,
-                                                      n), arena=arena)
-            for r, row in enumerate(_rows(mets)):
-                log_round(t + r, row)
-            t += n
-        state = unflatten_fl_state(fstate, loop.layout)
+        state = _run_fused(pt, args, state, log_round, events, spans)
     else:
-        round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
-                                 num_rounds=args.rounds, flat=True,
-                                 **_round_kw(pt, args))
-        for t in range(args.rounds):
-            batches, _, _ = pt.fed.sample_round(
-                pt.participation, pt.local_steps, args.batch,
-                round_idx=state.round)
-            batches = {k: torch.from_numpy(v).to(pt.device)
-                       for k, v in batches.items()}
-            state, mets, _ = round_fn(state, batches)
-            log_round(t, _rows({k: v[None] for k, v in mets.items()})[0])
+        state = _run_host(pt, args, state, log_round, events, spans)
 
-    xt, yt = pt.fed.test_batch(2000)
-    with torch.no_grad():
-        logits = pt.logits_fn(state.params, torch.from_numpy(xt).to(pt.device))
-        acc = float(accuracy(logits, torch.from_numpy(yt).to(pt.device)))
+    with spans.span("eval"):
+        xt, yt = pt.fed.test_batch(2000)
+        with torch.no_grad():
+            logits = pt.logits_fn(state.params,
+                                  torch.from_numpy(xt).to(pt.device))
+            acc = float(accuracy(logits,
+                                 torch.from_numpy(yt).to(pt.device)))
+    if stats is not None:
+        stats.report(args.out, extra={"final_acc": acc})
     print(f"final test-acc {acc:.4f}", flush=True)
+    _finish_run(events, spans, bool(args.telemetry or args.events
+                                    or args.profile))
     return TrainResult(state, history, acc)
 
 
@@ -295,6 +481,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--scenario", default=None,
                     help="synchronous federation preset "
                          "(repro_torch.federation.scenarios)")
+    ap.add_argument("--out", default=None,
+                    help="write the scenario report JSON here")
     ap.add_argument("--compression", default="none",
                     choices=["none", "int8", "topk"])
     ap.add_argument("--robust-agg", default="mean",
@@ -315,11 +503,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--telemetry", action="store_true")
-    ap.add_argument("--log-every", type=int, default=0)
-    ap.add_argument("--events", default=None)
-    ap.add_argument("--profile", type=int, default=0)
-    ap.add_argument("--profile-dir", default="experiments/profile")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="the round's telemetry block (repro_torch."
+                         "telemetry): eta histogram, loss deciles, guard "
+                         "counts; the trajectory stays bitwise the same")
+    ap.add_argument("--log-every", type=int, default=0,
+                    help="host-loop metric conversion interval (rounds "
+                         "per device-to-host copy); 0 = ~10 per run")
+    ap.add_argument("--events", default=None,
+                    help="write a JSONL event log here (header, round, "
+                         "static and spans events)")
+    ap.add_argument("--profile", type=int, default=0,
+                    help="profile the fused block holding this (1-based) "
+                         "round: torch.profiler trace to --profile-dir "
+                         "and a static event of its kernel launches; "
+                         "needs --rounds-per-call > 1")
+    ap.add_argument("--profile-dir", default="experiments/profile",
+                    help="torch.profiler trace output directory")
     ap.add_argument("--k-frac", type=float, default=0.25)
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--eta-carry", action="store_true")
@@ -337,6 +537,9 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     args = ap.parse_args(argv)
     if not args.task:
         ap.error("pass --task")
+    if args.profile and args.rounds_per_call <= 1:
+        ap.error("--profile needs the round-fused engine: pass "
+                 "--rounds-per-call > 1")
     return train_paper_task(args)
 
 

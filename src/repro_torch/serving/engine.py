@@ -1,7 +1,7 @@
 """Continuous-batching decode engine: a fixed-slot KV-cache pool with
 per-slot sequence state and flush-interval decode blocks. Port of
 ``repro/serving/engine.py`` without the registry and hot swap,
-personalization and events (ROADMAP A16, A13).
+personalization and events (ROADMAP A16).
 
   * POOL — one vectorized decode cache for S slots built from
     ``model.init_cache``: every ``runs`` leaf keeps its batch axis

@@ -294,3 +294,150 @@ def test_serving_runs_the_kernels_once_per_site_and_matches_cpu(arch, layers,
     card, _ = model.apply(params, {"tokens": toks.to(dev)})
     host, _ = model.apply(cpu, {"tokens": toks})
     torch.testing.assert_close(card.cpu(), host, rtol=2e-3, atol=2e-3)
+
+
+# ----------------------------------------- telemetry, single-tensor pair
+def _telemetry_lanes(C, seed, dev, nan=True):
+    """Lanes with NaN of both signs, ±0, ±inf and ties."""
+    r = np.random.default_rng(seed)
+    x = (10.0 ** r.uniform(-6.0, 3.0, C)).astype(np.float32)
+    special = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0, 1.0, -0.0]
+    if not nan:
+        special = special[2:]
+    n = min(C, len(special))
+    x[r.permutation(C)[:n]] = np.asarray(special[:n], np.float32)
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("C", [1, 10, 1000, 16384])
+def test_telemetry_kernels_equal_their_plain_versions(C, dev):
+    from repro_torch.kernels.telemetry import ref as ttref
+    from repro_torch.kernels.telemetry import telemetry as tt
+    from repro_torch.telemetry import TelemetrySpec
+    x = _telemetry_lanes(C, C, dev)
+    edges = TelemetrySpec().edges_on(dev)
+    tt.reset_launch_count()
+    hist = tt.lane_histogram(x.abs(), edges)
+    quant = tt.lane_quantiles(x)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, ttref.lane_histogram_ref(x.abs(), edges))
+    want = ttref.lane_quantiles_ref(x)
+    assert torch.equal(quant.view(torch.int32), want.view(torch.int32))
+    assert tt.LAUNCHES == {("lane_histogram", "cuda"): 1,
+                           ("lane_quantiles", "cuda"): 1}
+    with pytest.raises(ValueError, match="A14"):
+        tt.lane_quantiles(torch.zeros(tt.MAX_LANES + 1, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7,), (257, 33), (71808,), (3, 5, 129)])
+def test_single_tensor_pair_matches_plain(shape, dtype, dev):
+    r = np.random.default_rng(len(shape))
+    def t(*s):
+        return torch.from_numpy(r.normal(size=s).astype(np.float32)).to(
+            dev, dtype)
+    g, gp, p = t(*shape), t(*shape), t(*shape)
+    tk.reset_launch_count()
+    a = torch.stack(tk.norms(g, gp))
+    b = torch.stack(tk.norms(g, gp))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, torch.stack(tref.norms_ref(g, gp)),
+                               rtol=1e-5 if dtype == torch.float32 else 3e-3,
+                               atol=0.0)
+    eta = torch.tensor(0.37, device=dev)
+    for e in (0.37, eta):
+        out = tk.apply_update(p, g, e)
+        assert out.dtype == dtype and out.shape == p.shape
+        assert torch.equal(out, tref.apply_ref(p, g, e))
+    # unaligned views take the one-element path and agree too
+    flat_g, flat_p = g.reshape(-1)[1:], p.reshape(-1)[1:]
+    assert torch.equal(tk.apply_update(flat_p, flat_g, 0.37),
+                       tref.apply_ref(flat_p, flat_g, 0.37))
+    torch.testing.assert_close(
+        torch.stack(tk.norms(flat_g, flat_p)),
+        torch.stack(tref.norms_ref(flat_g, flat_p)),
+        rtol=1e-5 if dtype == torch.float32 else 3e-3, atol=0.0)
+    assert tk.LAUNCHES == {("norms", "cuda"): 3, ("apply_update", "cuda"): 3}
+
+
+def test_kernel_matrix_passes_on_the_card(dev):
+    from repro_torch.conformance import KERNEL_MATRIX, check_cell
+    bad = [v for c in KERNEL_MATRIX for v in check_cell(c, 0, "cuda")]
+    assert bad == []
+
+
+def test_telemetry_path_is_bitwise_neutral_and_sync_free(dev, tmp_path):
+    import warnings
+    from repro_torch.core import flatten_fl_state
+    from repro_torch.kernels.telemetry import telemetry as tt
+    from repro_torch.launch import train
+    from repro_torch.telemetry import load_events
+    common = ["--device", "cuda", "--task", "image", "--model", "cnn",
+              "--num-clients", "20", "--batch", "32", "--rounds", "2"]
+    off = train.main(common + ["--rounds-per-call", "2"])
+    tk.reset_launch_count()
+    tt.reset_launch_count()
+    ev = tmp_path / "e.jsonl"
+    on = train.main(common + ["--rounds-per-call", "2", "--telemetry",
+                              "--events", str(ev)])
+    K = 500 // 32
+    assert tk.launch_count("cuda") == 2 * K * 2
+    assert tt.LAUNCHES == {("lane_histogram", "cuda"): 2,
+                           ("lane_quantiles", "cuda"): 2}
+    for a, b in zip(off.history, on.history):
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+        assert float(b["eta_hist"].sum()) == 2      # C = 0.1 · 20 clients
+    _, events = load_events(str(ev))
+    assert [e["kind"] for e in events].count("round") == 2
+
+    def block_fn(telemetry):
+        args = train.build_parser().parse_args(
+            common + ["--rounds-per-call", "2"] +
+            (["--telemetry"] if telemetry else []))
+        pt = train.setup_paper_task(args)
+        loop, arena = train.make_fused_loop(pt, args)
+        fs = flatten_fl_state(train.init_state(pt), loop.layout)
+        fs, _ = loop(fs, train.block_indices(pt, args, 0, 2), arena=arena)
+        idx = train.block_indices(pt, args, 2, 2)
+        torch.cuda.synchronize()
+        return lambda: loop(fs, idx, arena=arena)
+
+    def syncs(block):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                block()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    blocks = [block_fn(False), block_fn(True)]
+    for b in blocks:        # reports torch makes once per process
+        syncs(b)
+    assert syncs(blocks[1]) == syncs(blocks[0])
+
+
+def test_event_log_flush_is_one_copy(dev, tmp_path, monkeypatch):
+    from repro_torch.telemetry import EventLog, load_events
+    calls = []
+    real = torch.Tensor.cpu
+
+    def counted(self, *a, **kw):
+        calls.append(self.device.type)
+        return real(self, *a, **kw)
+
+    with EventLog(str(tmp_path / "e.jsonl"), device=dev) as log:
+        for t in range(3):
+            log.emit("round", t=t, loss=torch.tensor(0.5, device=dev),
+                     hist=torch.arange(4.0, device=dev),
+                     ids=torch.arange(3, device=dev))
+        monkeypatch.setattr(torch.Tensor, "cpu", counted)
+        log.flush()
+        monkeypatch.undo()
+    assert calls == ["cuda"]
+    header, events = load_events(str(tmp_path / "e.jsonl"))
+    assert header["device_name"] == torch.cuda.get_device_name(dev)
+    assert events[2] == {"kind": "round", "t": 2, "loss": 0.5,
+                         "hist": [0.0, 1.0, 2.0, 3.0], "ids": [0, 1, 2]}

@@ -37,7 +37,8 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 
 def test_port_package_is_complete():
-    """Every module of the slice exists beside its reference counterpart."""
+    """Every module of the slices exists beside its reference counterpart,
+    and every kernel namespace has its CUDA source."""
     for rel in ("core/flat.py", "core/delta_sgd.py", "core/fed_round.py",
                 "core/fed_loop.py", "core/losses.py", "core/client_opt.py",
                 "core/server_opt.py", "kernels/delta_sgd/delta_sgd.py",
@@ -57,10 +58,16 @@ def test_port_package_is_complete():
                 "kernels/flash_attention/ref.py",
                 "kernels/mamba2_scan/mamba2_scan.py",
                 "kernels/mamba2_scan/ops.py", "kernels/mamba2_scan/ref.py",
-                "launch/steps.py", "launch/serve.py", "serving/engine.py"):
+                "launch/steps.py", "launch/serve.py", "serving/engine.py",
+                "kernels/telemetry/telemetry.py", "kernels/telemetry/ref.py",
+                "telemetry/__init__.py", "telemetry/spec.py",
+                "telemetry/schema.py", "telemetry/events.py",
+                "telemetry/spans.py", "telemetry/profiling.py",
+                "launch/report.py", "conformance/__init__.py",
+                "conformance/kernels.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     for ns in ("delta_sgd", "compress", "robust_agg", "flash_attention",
-               "mamba2_scan"):
+               "mamba2_scan", "telemetry"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / ns / "csrc"
                 / f"{ns}.cu").exists(), ns

@@ -224,7 +224,7 @@ def test_cli_window_needs_roll_cache_like_the_reference():
     (["--ckpt-dir", "x"], "A9"), (["--ckpt-step", "3"], "A9"),
     (["--loadgen", "4"], "A16"), (["--arrival", "closed"], "A16"),
     (["--rate", "5"], "A16"), (["--personalize", "2"], "A16"),
-    (["--events", "e.jsonl"], "A13")])
+    (["--events", "e.jsonl"], "A16")])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         serve.run(_args(*flags))

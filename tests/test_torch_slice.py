@@ -165,8 +165,8 @@ def test_unported_arguments_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A10"):
         make_fl_round(loss, copt, sopt, num_rounds=1,
                       scenario=get_scenario("zipf_async"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_fl_round(loss, copt, sopt, num_rounds=1, telemetry=True)
+    with pytest.raises(NotImplementedError, match="A17"):
+        make_fl_round(loss, copt, sopt, num_rounds=1, mesh=object())
     with pytest.raises(NotImplementedError, match="A6"):
         get_client_opt("adam")
     with pytest.raises(NotImplementedError, match="A6"):
@@ -174,8 +174,8 @@ def test_unported_arguments_name_their_roadmap_item():
     with pytest.raises(SystemExit, match="A14"):
         ttrain.main(["--task", "easy", "--num-registered", "1000",
                      "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A13"):
-        ttrain.main(["--task", "easy", "--telemetry", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="A9"):
+        ttrain.main(["--task", "easy", "--resume", "--device", "cpu"])
     with pytest.raises(SystemExit, match="A9"):
         ttrain.main(["--task", "easy", "--ckpt-dir", "x", "--device",
                      "cpu"])

@@ -7,10 +7,13 @@ Port of ``repro/kernels/flash_attention/flash_attention.py``:
                     q's dtype. Replaces the TPU kernel ``_fa_kernel``.
 
 It is bound by operations on the card; what its CUDA design does about
-it is written at the top of ``csrc/flash_attention.cu``. Given CUDA
-tensors the wrapper launches the kernel (built from that source at first
-use, see ``repro_torch.kernels.build``) or raises; given CPU tensors it
-runs the plain version in ``ref.py``. There is no other switch. The
+it is written at the top of ``csrc/flash_attention.cu``: f32 inputs run
+f32 FMA on the CUDA cores, bf16 inputs the tensor cores. For f32 the
+wrapper picks the rows of a q tile (``q_tile_rows``) so that short
+prefills still give every SM a block. Given CUDA tensors the wrapper launches
+the kernel (built from that source at first use, see
+``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
+plain version in ``ref.py``. There is no other switch. The
 kernel has no backward: an input that requires grad is refused, so
 training cannot run through it silently.
 
@@ -40,6 +43,9 @@ DEFAULT_BLOCK_K = 128
 # the kernel's largest head dim (kMaxHeadDim in csrc/flash_attention.cu);
 # it takes multiples of 16 up to it
 MAX_HEAD_DIM = 128
+# the q-tile heights the f32 kernel is built for, the preferred first;
+# the bf16 kernel has 64-row tiles only (smaller ones measured no faster)
+Q_TILE_ROWS = (64, 32, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Counter = Counter()
@@ -62,12 +68,31 @@ def library() -> ctypes.CDLL:
     lib.fa_max_head_dim.argtypes = []
     lib.fa_max_head_dim.restype = i32
     lib.fa_forward.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-                               i32, i32, i32, ctypes.c_float, vp]
+                               i32, i32, i32, ctypes.c_float, i32, vp]
     lib.fa_forward.restype = i32
     if lib.fa_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("csrc/flash_attention.cu and flash_attention.py "
                            "disagree on the largest head dim")
     return lib
+
+
+def q_tile_rows(batch: int, s_len: int, heads: int, sms: int,
+                dtype: torch.dtype) -> int:
+    """Rows of a q tile: 64 for bf16. For f32, 64 unless that grid (one
+    block per q tile, head and batch) has fewer blocks than the card has
+    SMs; then the first of 32 and 16 that fills them, else 16."""
+    if dtype == torch.bfloat16:
+        return Q_TILE_ROWS[0]
+    for rows in Q_TILE_ROWS:
+        if -(-s_len // rows) * heads * batch >= sms:
+            return rows
+    return Q_TILE_ROWS[-1]
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (cudaGetDeviceProperties, read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -79,9 +104,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     T, KV = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    common.check_tensor("q", q, q.shape, q.dtype, q)
-    common.check_tensor("k", k, (B, T, KV, hd), q.dtype, q)
-    common.check_tensor("v", v, (B, T, KV, hd), q.dtype, q)
+    # the bf16 kernel copies rows in 16-byte pieces
+    aligned = q.dtype == torch.bfloat16
+    common.check_tensor("q", q, q.shape, q.dtype, q, aligned=aligned)
+    common.check_tensor("k", k, (B, T, KV, hd), q.dtype, q, aligned=aligned)
+    common.check_tensor("v", v, (B, T, KV, hd), q.dtype, q, aligned=aligned)
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if any(t.requires_grad for t in (q, k, v)):
@@ -107,15 +134,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         LAUNCHES[("flash_attention", "cpu")] += 1
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
     if hd % 16 or hd > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims that are "
                          f"multiples of 16 up to {MAX_HEAD_DIM}, got {hd}")
+    T, KV = k.shape[1], k.shape[2]
+    # the tile decides only which block computes a row, not how
+    rows = q_tile_rows(B, S, H, sm_count(q.device.index), q.dtype)
     out = torch.empty_like(q)
     common.raise_on(library().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], B, S, T, H, KV, hd, int(causal),
-        -1 if window is None else int(window), 1.0 / math.sqrt(hd),
+        -1 if window is None else int(window), 1.0 / math.sqrt(hd), rows,
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
     LAUNCHES[("flash_attention", "cuda")] += 1
     return out

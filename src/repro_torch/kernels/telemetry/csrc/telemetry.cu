@@ -23,21 +23,44 @@
 //   as NaN.
 //
 // tele_lane_quantiles replaces the TPU kernel _quantile_kernel
-//   (lane_quantiles). It sorts the C values and writes the entries at
+//   (lane_quantiles). It orders the C values and writes the entries at
 //   the Q sorted positions it is given by value (the nearest-rank
 //   indices, computed on the host from C and Q: no host-to-device copy
-//   per call). Design: one block; each lane becomes a 64-bit key in
-//   dynamic shared memory, the order-preserving bits of its canonical
-//   value (every zero +0.0, every NaN the same NaN, so NaN sorts after
-//   +inf) above its lane index, so the key order is total and equals a
-//   stable sort: jnp.sort's order. The keys are padded to a power of two
-//   with all-ones keys, which sort after every lane (the TPU kernel
-//   padded with +inf, which sorts before NaN lanes), and sorted with a
-//   bitonic network, one compare-exchange per thread and step. The
-//   output reads the original value of the lane, so −0.0 and NaN keep
-//   their bits. 2^14 lanes take 128 KB of keys: the block opts in to
-//   more than 48 KB of dynamic shared memory. Bound by the sort's
-//   O(C log² C) shared-memory steps and their barriers, not by bytes.
+//   per call). Each lane becomes a 64-bit key: the order-preserving bits
+//   of its canonical value (every zero +0.0, every NaN the same NaN, so
+//   NaN sorts after +inf) above its lane index, so the keys are unique,
+//   their order is total and equals a stable sort: jnp.sort's order.
+//   The output reads the original value of the lane, so −0.0 and NaN
+//   keep their bits. Bound on this card by the sort's shared-memory
+//   steps and barriers, not by bytes (C = 16,384 moves 64 KB).
+//   Design, by size:
+//   - C <= kQuantTile (2,048): one block sorts the keys, padded to a
+//     power of two with all-ones keys (which sort after every lane; the
+//     TPU kernel padded with +inf, which sorts before NaN lanes), with a
+//     bitonic network in shared memory, one compare-exchange per thread
+//     and step, and reads the Q positions. The telemetry path's cohort
+//     (C = 10) takes this path.
+//   - larger C, two launches: (1) ⌈C / 2,048⌉ blocks each sort one tile
+//     of keys the same way and write it to a scratch buffer the wrapper
+//     allocates; (2) one block per tile, two keys a thread: each thread
+//     counts, for each other tile, the keys below its own by a binary
+//     search of that tile, staged whole in shared memory (one 16-byte
+//     load a thread, the next tile in registers while this one is
+//     searched). The key's global rank is those counts plus its place in
+//     its own tile; the keys are unique, so the ranks are a permutation,
+//     and the thread whose rank is a requested position writes that
+//     output. No atomics: every output is written by one thread, the
+//     same bits on every run. Sorting all of a large C in one block
+//     would leave every other SM idle. The work of (2) grows as
+//     C² / 2,048, so C is capped at 2^17. C is the per-round cohort: the
+//     CNN paths send 10 lanes and the fleet presets 50 (10^5 registered
+//     clients at participation 0.0005), so no path of the port or the
+//     reference sends more than 2,048 today. This path lifts the port's
+//     earlier 2^14 cap toward the reference kernel's any C, and is held
+//     bit for bit at 16,385 and 100,000 lanes on the card.
+//   Registers (ptxas -v, sm_90a, CUDA 12.8), no spills: one-block sort
+//   18, tile sort 18, select 30; 16 KB and 32 KB of static shared
+//   memory. lane_histogram 19.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,9 +71,9 @@ namespace {
 constexpr int kHistThreads = 512;
 constexpr int kMaxBins = 4096;
 constexpr int kMaxQuantiles = 256;
-constexpr int kMaxLanesLog2 = 14;
-constexpr int kMaxLanes = 1 << kMaxLanesLog2;
-constexpr int kSortThreads = 1024;
+constexpr int kMaxLanes = 1 << 17;
+constexpr int kQuantTile = 2048;                // keys a block sorts
+constexpr int kSortThreads = kQuantTile / 2;    // one compare-exchange each
 
 struct QuantileIndex {
   int v[kMaxQuantiles];
@@ -91,15 +114,16 @@ __device__ __forceinline__ uint32_t ordered_bits(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kSortThreads)
-lane_quantiles_kernel(const float* __restrict__ x, int C, int P,
-                      QuantileIndex idx, int Q, float* __restrict__ out) {
-  extern __shared__ unsigned long long keys[];
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    keys[i] = i < C ? (static_cast<unsigned long long>(ordered_bits(x[i]))
-                       << 32) | static_cast<unsigned int>(i)
-                    : ~0ull;
-  __syncthreads();
+__device__ __forceinline__ unsigned long long lane_key(
+    const float* __restrict__ x, int i, int C) {
+  return i < C ? (static_cast<unsigned long long>(ordered_bits(x[i])) << 32) |
+                     static_cast<unsigned int>(i)
+               : ~0ull;
+}
+
+// Sorts P keys (a power of two) ascending in shared memory; the block's
+// threads take the P / 2 compare-exchanges of a step between them.
+__device__ void bitonic_sort(unsigned long long* keys, int P) {
   const int half = P >> 1;
   for (int k = 2; k <= P; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
@@ -118,10 +142,81 @@ lane_quantiles_kernel(const float* __restrict__ x, int C, int P,
       __syncthreads();
     }
   }
+}
+
+// C <= kQuantTile: one block sorts every key and reads the Q positions.
+__global__ void __launch_bounds__(kSortThreads)
+lane_quantiles_kernel(const float* __restrict__ x, int C, int P,
+                      QuantileIndex idx, int Q, float* __restrict__ out) {
+  __shared__ unsigned long long keys[kQuantTile];
+  for (int i = threadIdx.x; i < P; i += blockDim.x) keys[i] = lane_key(x, i, C);
+  __syncthreads();
+  bitonic_sort(keys, P);
   if (threadIdx.x < Q) {
     const unsigned int lane =
         static_cast<unsigned int>(keys[idx.v[threadIdx.x]] & 0xffffffffu);
     out[threadIdx.x] = x[lane];
+  }
+}
+
+// Launch 1 of a larger C: block b sorts lanes [b·T, b·T + T), padded with
+// all-ones keys, into sorted[b·T, b·T + T).
+__global__ void __launch_bounds__(kSortThreads)
+quantile_tile_sort_kernel(const float* __restrict__ x, int C,
+                          unsigned long long* __restrict__ sorted) {
+  __shared__ unsigned long long keys[kQuantTile];
+  const int base = blockIdx.x * kQuantTile;
+  for (int i = threadIdx.x; i < kQuantTile; i += blockDim.x)
+    keys[i] = lane_key(x, base + i, C);
+  __syncthreads();
+  bitonic_sort(keys, kQuantTile);
+  for (int i = threadIdx.x; i < kQuantTile; i += blockDim.x)
+    sorted[base + i] = keys[i];
+}
+
+// The number of the kQuantTile sorted keys s[] below key.
+__device__ __forceinline__ int keys_below(const unsigned long long* s,
+                                          unsigned long long key) {
+  int pos = 0;
+#pragma unroll
+  for (int step = kQuantTile >> 1; step > 0; step >>= 1)
+    if (s[pos + step - 1] < key) pos += step;
+  return pos + (s[pos] < key ? 1 : 0);
+}
+
+// Launch 2: block b ranks the keys of sorted tile b against every other
+// tile; the thread whose key has a requested rank writes that output.
+__global__ void __launch_bounds__(kSortThreads)
+quantile_select_kernel(const float* __restrict__ x,
+                       const unsigned long long* __restrict__ sorted,
+                       int tiles, QuantileIndex idx, int Q,
+                       float* __restrict__ out) {
+  __shared__ __align__(16) unsigned long long stage[2][kQuantTile];
+  const int own = blockIdx.x;
+  const int t = threadIdx.x;
+  const unsigned long long key0 = sorted[own * kQuantTile + t];
+  const unsigned long long key1 = sorted[own * kQuantTile + t + kSortThreads];
+  int rank0 = t, rank1 = t + kSortThreads;    // places in the own tile
+  // each thread moves 16 bytes of a tile: kSortThreads · 16 = 16 KB
+  const ulonglong2* src = reinterpret_cast<const ulonglong2*>(sorted);
+  int j = own == 0 ? 1 : 0;
+  ulonglong2 next = make_ulonglong2(0ull, 0ull);
+  if (j < tiles) next = src[j * kSortThreads + t];
+  for (int buf = 0; j < tiles; buf ^= 1) {
+    reinterpret_cast<ulonglong2*>(stage[buf])[t] = next;
+    __syncthreads();
+    int jn = j + 1;
+    if (jn == own) ++jn;
+    if (jn < tiles) next = src[jn * kSortThreads + t];   // in flight
+    rank0 += keys_below(stage[buf], key0);
+    rank1 += keys_below(stage[buf], key1);
+    j = jn;
+  }
+  for (int q = 0; q < Q; ++q) {
+    if (key0 != ~0ull && rank0 == idx.v[q])
+      out[q] = x[static_cast<unsigned int>(key0 & 0xffffffffu)];
+    if (key1 != ~0ull && rank1 == idx.v[q])
+      out[q] = x[static_cast<unsigned int>(key1 & 0xffffffffu)];
   }
 }
 
@@ -132,6 +227,7 @@ extern "C" {
 int tele_max_bins(void) { return kMaxBins; }
 int tele_max_quantiles(void) { return kMaxQuantiles; }
 int tele_max_lanes(void) { return kMaxLanes; }
+int tele_quantile_tile(void) { return kQuantTile; }
 
 // x: (C,) f32. edges: (B+1,) f32. out: (B,) f32.
 int tele_lane_histogram(const float* x, int C, const float* edges, int B,
@@ -144,32 +240,34 @@ int tele_lane_histogram(const float* x, int C, const float* edges, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (C,) f32, 1 <= C <= 2^14. idx: Q host ints in [0, C), passed to the
-// kernel by value. out: (Q,) f32.
+// x: (C,) f32, 1 <= C <= 2^17. idx: Q host ints in [0, C), passed to the
+// kernels by value. out: (Q,) f32. scratch: ⌈C / kQuantTile⌉ · kQuantTile
+// 64-bit keys when C > kQuantTile (both launches go on the stream in
+// order), else unused and may be null.
 int tele_lane_quantiles(const float* x, int C, const int* idx, int Q,
-                        float* out, void* stream) {
+                        void* scratch, float* out, void* stream) {
   if (C < 1 || C > kMaxLanes || Q < 1 || Q > kMaxQuantiles)
     return static_cast<int>(cudaErrorInvalidValue);
   QuantileIndex qi;
   for (int q = 0; q < Q; ++q) qi.v[q] = idx[q];
-  int P = 2;
-  while (P < C) P <<= 1;
-  const size_t smem = sizeof(unsigned long long) * P;
-  // opt in once to the most shared memory any C can ask for
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_quantiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(unsigned long long) * kMaxLanes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= kQuantTile) {
+    int P = 2;
+    while (P < C) P <<= 1;
+    int threads = P / 2 < kSortThreads ? P / 2 : kSortThreads;
+    if (threads < Q) threads = Q;
+    threads = (threads + 31) / 32 * 32;
+    lane_quantiles_kernel<<<1, threads, 0, st>>>(x, C, P, qi, Q, out);
+    return static_cast<int>(cudaGetLastError());
   }
-  int threads = P / 2 < kSortThreads ? P / 2 : kSortThreads;
-  if (threads < Q) threads = Q;
-  threads = (threads + 31) / 32 * 32;
-  lane_quantiles_kernel<<<1, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(x, C, P, qi,
-                                                               Q, out);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned long long* sorted = static_cast<unsigned long long*>(scratch);
+  const int tiles = (C + kQuantTile - 1) / kQuantTile;
+  quantile_tile_sort_kernel<<<tiles, kSortThreads, 0, st>>>(x, C, sorted);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quantile_select_kernel<<<tiles, kSortThreads, 0, st>>>(x, sorted, tiles,
+                                                          qi, Q, out);
   return static_cast<int>(cudaGetLastError());
 }
 

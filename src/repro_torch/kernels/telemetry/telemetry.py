@@ -35,12 +35,14 @@ from repro_torch.kernels.telemetry import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "telemetry.cu",)
 
-# the kernels' limits (kMaxBins, kMaxQuantiles, kMaxLanes in
-# csrc/telemetry.cu): lane_quantiles sorts all C lanes in one block's
-# shared memory, 8 bytes a lane
+# the kernels' limits (kMaxBins, kMaxQuantiles, kMaxLanes, kQuantTile in
+# csrc/telemetry.cu): lane_quantiles sorts up to QUANTILE_TILE lanes in
+# one block, more in tiles of QUANTILE_TILE that a second launch ranks
+# against each other (work growing as C² / QUANTILE_TILE, hence the cap)
 MAX_BINS = 4096
 MAX_QUANTILES = 256
-MAX_LANES = 1 << 14
+MAX_LANES = 1 << 17
+QUANTILE_TILE = 2048
 
 LAUNCHES: Counter = Counter()
 
@@ -60,16 +62,17 @@ def library() -> ctypes.CDLL:
     lib = build.load_library("telemetry", SOURCES)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tele_max_bins, lib.tele_max_quantiles,
-               lib.tele_max_lanes):
+               lib.tele_max_lanes, lib.tele_quantile_tile):
         fn.argtypes = []
         fn.restype = i32
     lib.tele_lane_histogram.argtypes = [vp, i32, vp, i32, vp, vp]
     lib.tele_lane_histogram.restype = i32
     lib.tele_lane_quantiles.argtypes = [vp, i32, ctypes.POINTER(i32), i32,
-                                        vp, vp]
+                                        vp, vp, vp]
     lib.tele_lane_quantiles.restype = i32
-    if (lib.tele_max_bins(), lib.tele_max_quantiles(),
-            lib.tele_max_lanes()) != (MAX_BINS, MAX_QUANTILES, MAX_LANES):
+    if (lib.tele_max_bins(), lib.tele_max_quantiles(), lib.tele_max_lanes(),
+            lib.tele_quantile_tile()) != (MAX_BINS, MAX_QUANTILES,
+                                          MAX_LANES, QUANTILE_TILE):
         raise RuntimeError("csrc/telemetry.cu and telemetry.py disagree on "
                            "the kernels' limits")
     return lib
@@ -111,24 +114,29 @@ def lane_histogram(x: torch.Tensor, edges) -> torch.Tensor:
 def lane_quantiles(x: torch.Tensor, Q: int = 11) -> torch.Tensor:
     """(C,) f32 values -> (Q,) f32 order statistics at the sorted
     positions ``quantile_indices(C, Q)``, sorted as ``jnp.sort`` sorts
-    (NaN last, ties in lane order). The kernel sorts in one block: C is
-    at most MAX_LANES."""
+    (NaN last, ties in lane order). C is at most MAX_LANES; above
+    QUANTILE_TILE the call makes two kernel launches (counted as one
+    call) and a scratch buffer of 8 bytes a lane."""
     C = _check_lanes(x)
     idx = ref.quantile_indices(C, Q)       # host ints, raises on C < 1
     if Q > MAX_QUANTILES:
         raise ValueError(f"Q = {Q} exceeds the kernel's limit of "
                          f"{MAX_QUANTILES}")
     if C > MAX_LANES:
-        raise ValueError(f"lane_quantiles sorts at most {MAX_LANES} lanes "
-                         f"in one block, got C = {C}: a larger cohort (the "
-                         f"fleet loop, ROADMAP A14) needs a multi-block "
-                         f"selection")
+        raise ValueError(f"lane_quantiles takes at most {MAX_LANES} lanes "
+                         f"(2^17), got C = {C}")
     if common.device_type(x) == "cpu":
         LAUNCHES[("lane_quantiles", "cpu")] += 1
         return ref.lane_quantiles_ref(x, Q)
     out = torch.empty((Q,), dtype=torch.float32, device=x.device)
+    scratch = None
+    if C > QUANTILE_TILE:
+        tiles = -(-C // QUANTILE_TILE)
+        scratch = torch.empty((tiles * QUANTILE_TILE,), dtype=torch.int64,
+                              device=x.device)
     common.raise_on(library().tele_lane_quantiles(
-        x.data_ptr(), C, (ctypes.c_int * Q)(*idx), Q, out.data_ptr(),
+        x.data_ptr(), C, (ctypes.c_int * Q)(*idx), Q,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream), "lane_quantiles")
     LAUNCHES[("lane_quantiles", "cuda")] += 1
     return out

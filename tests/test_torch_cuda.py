@@ -210,9 +210,68 @@ def test_flash_attention_kernel_matches_plain(case, dtype, dev):
     want = faref.attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # f32 within 2e-5; bf16 within about one bf16 ulp of the output
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 4e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
     assert fa.LAUNCHES == {("flash_attention", "cuda"): 1}
+
+
+# bf16 on the tensor cores, (B, S, H, KV, hd, window, causal): both serve
+# prefill shapes, every head dim of the zoo and the matrix (16, 32, 64,
+# 112, 128), S = 64, 67, 130 and 2048, GQA, MQA, windows, and
+# bidirectional attention at B = 2
+FA_BF16_CASES = [(1, 64, 32, 4, 64, None, True),
+                 (1, 64, 32, 32, 112, None, True),
+                 (1, 67, 8, 2, 16, None, True),
+                 (1, 130, 8, 1, 32, None, True),
+                 (1, 2048, 8, 2, 128, None, True),
+                 (1, 2048, 32, 4, 64, None, True),
+                 (2, 130, 4, 4, 112, 40, True),
+                 (2, 2048, 4, 1, 64, 256, True),
+                 (2, 128, 4, 2, 64, None, False),
+                 (2, 256, 8, 8, 128, 100, False)]
+
+
+@pytest.mark.parametrize("case", FA_BF16_CASES, ids=str)
+def test_flash_attention_bf16_kernel_matches_plain_and_repeats(case, dev):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    B, S, H, KV, hd, window, causal = case
+    q, k, v = _qkv(B, S, H, KV, hd, torch.bfloat16, dev, 9)
+    fa.reset_launch_count()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = faref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)
+    # bf16 output rounding: within about one bf16 ulp of the plain version
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=4e-3)
+    assert fa.LAUNCHES == {("flash_attention", "cuda"): 2}
+
+
+@pytest.mark.parametrize("case", [(1, 64, 32, 4, 64, None, True),
+                                  (2, 300, 4, 2, 112, 100, True),
+                                  (1, 128, 4, 1, 32, None, False)], ids=str)
+def test_flash_attention_q_tile_changes_no_value(case, dev, monkeypatch):
+    """The f32 kernel's 16-, 32- and 64-row q tiles give the same output:
+    the tile decides which block computes a row, not how. Each tile is
+    chosen by the SM count the rule reads."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    B, S, H, KV, hd, window, causal = case
+    q, k, v = _qkv(B, S, H, KV, hd, torch.float32, dev, 10)
+    outs = []
+    for rows in fa.Q_TILE_ROWS:
+        sms = -(-S // rows) * H * B     # the grid at ``rows`` just fills it
+        assert fa.q_tile_rows(B, S, H, sms, q.dtype) == rows
+        monkeypatch.setattr(fa, "sm_count", lambda index, sms=sms: sms)
+        outs.append(fa.flash_attention(q, k, v, causal=causal,
+                                       window=window))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=0, atol=0)
 
 
 def test_flash_attention_kernel_refuses_grad_and_odd_head_dims(dev):
@@ -223,6 +282,12 @@ def test_flash_attention_kernel_refuses_grad_and_odd_head_dims(dev):
     q, k, v = _qkv(1, 8, 2, 1, 72, torch.float32, dev, 7)
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.flash_attention(q, k, v)
+    # the bf16 kernel copies 16-byte pieces: an unaligned view is refused
+    q, k, v = _qkv(1, 8, 2, 1, 64, torch.bfloat16, dev, 7)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    bad = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(bad, k, v)
 
 
 def _ssd_inputs(B, S, H, P, G, N, dev, seed):
@@ -309,7 +374,8 @@ def _telemetry_lanes(C, seed, dev, nan=True):
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize("C", [1, 10, 1000, 16384])
+@pytest.mark.parametrize("C", [1, 10, 1000, 2048, 2049, 16384, 16385,
+                               100000])
 def test_telemetry_kernels_equal_their_plain_versions(C, dev):
     from repro_torch.kernels.telemetry import ref as ttref
     from repro_torch.kernels.telemetry import telemetry as tt
@@ -325,8 +391,26 @@ def test_telemetry_kernels_equal_their_plain_versions(C, dev):
     assert torch.equal(quant.view(torch.int32), want.view(torch.int32))
     assert tt.LAUNCHES == {("lane_histogram", "cuda"): 1,
                            ("lane_quantiles", "cuda"): 1}
-    with pytest.raises(ValueError, match="A14"):
+    with pytest.raises(ValueError, match=f"at most {tt.MAX_LANES} lanes"):
         tt.lane_quantiles(torch.zeros(tt.MAX_LANES + 1, device=dev))
+
+
+@pytest.mark.parametrize("C", [16385, 100000, 1 << 17])
+def test_lane_quantiles_multi_block_repeats_and_takes_every_q(C, dev):
+    """Two calls give the same bits; Q = 2 and Q = 256 (repeated
+    positions) equal the plain version; the two launches count once."""
+    from repro_torch.kernels.telemetry import ref as ttref
+    from repro_torch.kernels.telemetry import telemetry as tt
+    x = _telemetry_lanes(C, C + 1, dev)
+    tt.reset_launch_count()
+    a, b = tt.lane_quantiles(x), tt.lane_quantiles(x)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for Q in (2, 256):
+        got = tt.lane_quantiles(x, Q)
+        want = ttref.lane_quantiles_ref(x, Q)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert tt.LAUNCHES == {("lane_quantiles", "cuda"): 4}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -127,3 +127,104 @@ def test_plain_version_blocks_rows_like_one_block():
     finally:
         faref.BLOCK_Q = whole
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------- the CUDA kernels' q tiles
+@pytest.mark.parametrize("shape,sms,rows", [
+    ((1, 64, 32), 132, 16),        # TinyLlama / Zamba2 prefill: 128 blocks
+    ((1, 2048, 32), 132, 64),      # a long prefill fills the card at 64
+    ((1, 200, 32), 132, 32),       # 7 tiles of 32 rows x 32 heads
+    ((4, 64, 32), 132, 32),        # 4 requests: 128 blocks at 64 rows
+    ((5, 64, 32), 132, 64),        # 5 requests: 160 blocks at 64 rows
+    ((1, 64, 32), 32, 64),         # a card of 32 SMs
+    ((1, 1, 4), 132, 16)])         # nothing fills it: the smallest tile
+def test_q_tile_rows_fill_the_card(shape, sms, rows):
+    assert fa.q_tile_rows(*shape, sms, torch.float32) == rows
+
+
+@pytest.mark.parametrize("shape,sms", [((1, 64, 32), 132), ((1, 2048, 32), 132),
+                                       ((4, 64, 32), 132), ((1, 1, 4), 132)])
+def test_q_tile_rows_bf16_keeps_64_rows(shape, sms):
+    """The bf16 kernel is built for 64-row tiles alone: 16 and 32 rows
+    measured no faster at either serve prefill shape."""
+    assert fa.q_tile_rows(*shape, sms, torch.bfloat16) == 64
+
+
+# --------------------------- the bf16 kernel's arithmetic, emulated here
+def _emulate_bf16_kernel(q, k, v, *, causal, window, split=True):
+    """The bf16 tensor-core kernel's arithmetic on the CPU: exact bf16
+    products summed in f32 (a bf16 x bf16 product is exact in f32), the
+    scale on the f32 scores after the product, -1e30 masking, an online
+    softmax over 64-key tiles in f32, and P·V with P split as
+    P_hi = bf16(P), P_lo = bf16(P - P_hi) (``split``) or P rounded once
+    to bf16 (SDPA's way). Returns the f32 output before its rounding."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().permute(0, 2, 1, 3)                        # (B,H,S,hd)
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, T, 64):
+        cols = torch.arange(k0, min(k0 + 64, T))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * scale
+        ok = torch.ones((S, cols.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= cols <= rows
+        if window is not None:
+            ok &= rows - cols < window
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        vt = vf[:, :, k0:k0 + 64]
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = alpha * acc + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+# the kernel matrix's bf16 flash cells (repro/conformance/kernels.py) and
+# the serve paths' head dims: (B, S, H, KV, hd, causal, window)
+BF16_CASES = [(1, 64, 2, 2, 16, True, 16), (1, 128, 4, 1, 64, True, None),
+              (2, 128, 4, 4, 32, False, None), (1, 64, 8, 2, 64, True, None),
+              (1, 130, 4, 2, 112, True, None), (1, 64, 4, 4, 112, True, 20)]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_bf16_kernel_arithmetic_matches_reference(case):
+    """The emulated bf16 kernel against the reference's attention_ref and
+    its Pallas kernel in interpret mode (bf16, within 3e-2) and the port's
+    plain version; with P split into hi + lo it stays far closer to the
+    exact f32 attention of the same bf16 inputs than P rounded once."""
+    B, S, H, KV, hd, causal, window = case
+    q, k, v = (a.astype(jnp.bfloat16).astype(np.float32)
+               for a in _inputs(B, S, H, KV, hd, seed=11))
+    tq, tk, tv = (_torch(a, torch.bfloat16) for a in (q, k, v))
+    got = _emulate_bf16_kernel(tq, tk, tv, causal=causal, window=window)
+    once = _emulate_bf16_kernel(tq, tk, tv, causal=causal, window=window,
+                                split=False)
+    out = got.bfloat16().float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    for want in (jref(jq, jk, jv, causal=causal, window=window),
+                 jflash(jq, jk, jv, causal=causal, window=window,
+                        block_q=64, block_k=64, interpret=True)):
+        np.testing.assert_allclose(out, np.asarray(want, np.float32),
+                                   rtol=3e-2, atol=3e-2)
+    plain = faref.attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(out, plain.float().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    exact = np.asarray(jref(q, k, v, causal=causal, window=window))
+    err_split = float(np.abs(got.numpy() - exact).max())
+    err_once = float(np.abs(once.numpy() - exact).max())
+    print(f"{case}: max |out - exact f32| with P split {err_split:.3g}, "
+          f"P rounded once {err_once:.3g}")
+    assert err_split < 1e-4 < err_once

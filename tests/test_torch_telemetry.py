@@ -142,6 +142,60 @@ def test_lane_quantiles_with_nan_lanes_match_the_reference_ref(C):
     assert kernel[-1] == np.inf
 
 
+@pytest.mark.parametrize("C", [16385, 100000])
+def test_lane_quantiles_past_one_tile_match_the_reference(C):
+    """Cohorts the CUDA kernel ranks across tiles of QUANTILE_TILE lanes:
+    with NaN of both signs against ref.py (NaN after +inf), without NaN
+    against the reference's kernel in interpret mode; ±0, ±inf and ties
+    in both."""
+    assert C > tt.QUANTILE_TILE
+    x = _lanes(C, 300 + C, nan=True)
+    got = tt.lane_quantiles(torch.from_numpy(x))
+    want = np.asarray(r_tref.lane_quantiles_ref(jnp.asarray(x)))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    assert np.isnan(got[-1].item())
+    x = _lanes(C, 400 + C)
+    got = tt.lane_quantiles(torch.from_numpy(x), 21)
+    want = r_tk.lane_quantiles(jnp.asarray(x), 21, interpret=True)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def _ordered_keys(x):
+    """The CUDA kernel's 64-bit keys: the order-preserving bits of each
+    lane's canonical value (zeros +0.0, NaN one NaN) above the lane."""
+    u = np.where(x == 0.0, np.float32(0.0), x).view(np.uint32)
+    u = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    u = np.where(np.isnan(x), np.uint64(0xffc00000), u)
+    return (u << np.uint64(32)) | np.arange(x.size, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("C", [2049, 16385, 100000])
+def test_multi_block_selection_is_the_sort(C):
+    """The two launches of the CUDA path, emulated: each tile of
+    QUANTILE_TILE keys sorted alone (padded with all-ones keys), then
+    every key ranked by its place in its tile plus a binary search of
+    every other tile. The ranks are a permutation, and the keys at the
+    requested ranks give ref.py's quantiles bit for bit."""
+    T = tt.QUANTILE_TILE
+    x = _lanes(C, 500 + C, nan=True)
+    tiles = -(-C // T)
+    keys = np.full(tiles * T, np.iinfo(np.uint64).max, np.uint64)
+    keys[:C] = _ordered_keys(x)
+    srt = np.sort(keys.reshape(tiles, T), axis=1)
+    rank = np.tile(np.arange(T), (tiles, 1))
+    for j in range(tiles):
+        below = np.searchsorted(srt[j], srt, side="left")
+        below[j] = 0
+        rank += below
+    real = srt != np.iinfo(np.uint64).max
+    assert np.array_equal(np.sort(rank[real]), np.arange(C))
+    lane_at = np.empty(C, np.int64)
+    lane_at[rank[real]] = (srt[real] & np.uint64(0xffffffff)).astype(np.int64)
+    got = x[lane_at[list(tref.quantile_indices(C, 11))]]
+    want = tref.lane_quantiles_ref(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 def test_sort_is_bitwise_jnp_sort():
     r = np.random.default_rng(0)
     for n in (1, 5, 64, 333):
@@ -156,7 +210,7 @@ def test_sort_is_bitwise_jnp_sort():
 
 
 def test_quantile_indices_are_the_references():
-    for C in (1, 2, 3, 9, 10, 11, 77, 1000, 16384):
+    for C in (1, 2, 3, 9, 10, 11, 77, 1000, 16384, 16385, 100000, 1 << 17):
         for Q in (2, 3, 5, 11, 21):
             assert tref.quantile_indices(C, Q) == r_tref.quantile_indices(C, Q)
     with pytest.raises(ValueError):
@@ -168,7 +222,7 @@ def test_wrappers_check_their_inputs():
         tt.lane_quantiles(torch.zeros(4, dtype=torch.float64))
     with pytest.raises(ValueError, match="vector"):
         tt.lane_histogram(torch.zeros(2, 2), [0.0, 1.0])
-    with pytest.raises(ValueError, match="A14"):
+    with pytest.raises(ValueError, match=f"at most {tt.MAX_LANES} lanes"):
         tt.lane_quantiles(torch.zeros(tt.MAX_LANES + 1))
     with pytest.raises(ValueError, match="edges"):
         tt.lane_histogram(torch.zeros(3), [0.0])

@@ -12,7 +12,9 @@ without its final line:
               cuobjdump --dump-sass on the flash-attention library: every
               bf16 instantiation must hold tensor-core instructions
               (HMMA), and ptxas must report no spill in any of its 32
-              instantiations.
+              instantiations; and on the SSD chunk library: both
+              instantiations (one and two warp groups) hold TF32 HMMA
+              (its 3xTF32 products) and none spills.
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5 and two calls
@@ -43,13 +45,19 @@ without its final line:
               within atol 4e-3 + rtol 8e-3, about one bf16 ulp of the
               output; two calls bitwise equal); the SSD chunk kernel
               at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48) and
-              S = 67 (L = 1), rtol 1e-3 / atol 1e-4. Timed and bounded
-              like phase 3; SDPA (enable_gqa) is timed beside flash
-              attention as a yardstick only, with the explicit mask and,
-              without a window, with is_causal=True: the faster is
-              library_ms, library_call names it. At the f32 prefill
-              shapes each q-tile height (16, 32, 64 rows) is timed alone
-              and must give the same bits.
+              S = 67 (L = 1), rtol 1e-3 / atol 1e-4, two calls bitwise
+              equal. Timed and bounded like phase 3; the SSD's bound is
+              the lesser of its f32-FMA route's and its tensor-core
+              route's (three TF32 products per f32 product at 494.7
+              TFLOP/s), bound_route names it; SDPA (enable_gqa) is
+              timed beside flash attention as a yardstick only, with the
+              explicit mask and, without a window, with is_causal=True:
+              the faster is library_ms, library_call names it. At the
+              f32 prefill shapes each q-tile height (16, 32, 64 rows) is
+              timed alone and must give the same bits; at each SSD shape
+              blocks of one and of two warp groups, and at L = 1 each
+              packing of chunks per block (1, 16, 32, 64), are timed
+              alone, all with the same bits.
   6. serving  TinyLlama-1.1B whole (22 layers) and Zamba2-7B at full
               width cut to 14 layers, random weights from seed 0, through
               DecodeEngine: 4 prompts of 64 tokens, 32 new tokens, 4 slots,
@@ -73,7 +81,8 @@ without its final line:
               1e-5 f32, 3e-3 bf16, two calls bitwise) and apply_update
               (bitwise, η a float and a 0-d device tensor; torch.add with
               alpha timed beside it) at (71,808) and 2**24 in f32 and
-              bf16. Timed and bounded like phase 3.
+              bf16, apply_update also at 71,809 and on an unaligned view.
+              Timed and bounded like phase 3.
   4b. telemetry  the plain CNN path with --telemetry, fused and host loop:
               params and every metric bitwise equal to telemetry off, 2
               telemetry launches per round and 2*K*rounds Delta-SGD
@@ -184,8 +193,12 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
 # SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
-# bf16 dense tensor-core rate of the H100 SXM (the bound of bf16 inputs)
+# bf16 and TF32 dense tensor-core rates of the H100 SXM (the bound of
+# bf16 inputs, and of the SSD kernel's 3xTF32 products)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
+# chunks-per-block packings timed at L = 1 (PACK_ROWS of the SSD wrapper)
+SSD_PACKINGS = (1, 16, 32, 64)
 # telemetry lane counts (the CNN path's cohort, a larger cohort, the
 # old one-block quantile limit and one past it, 10^5 lanes: the reference
 # takes any C, though no path of either sends more than 2,048 a round);
@@ -505,12 +518,18 @@ def check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32):
             torch.testing.assert_close(
                 got, want, rtol=1e-5 if dtype == torch.float32 else 3e-3,
                 atol=0.0)
-            for e in (eta, eta_t):
-                out = tk.apply_update(p, g, e)
-                if not torch.equal(out, tref.apply_ref(p, g, e)):
-                    raise AssertionError(f"apply_update {n} {dname} (eta "
-                                         f"{type(e).__name__}) is not "
-                                         "bitwise equal to the plain version")
+            # aligned, one element past (a ragged end), an unaligned view
+            views = [(p, g), (torch.cat([p, p[:1]]), torch.cat([g, g[:1]])),
+                     (p[1:], g[1:])]
+            for pp, gg in views:
+                for e in (eta, eta_t):
+                    out = tk.apply_update(pp, gg, e)
+                    if not torch.equal(out, tref.apply_ref(pp, gg, e)):
+                        raise AssertionError(
+                            f"apply_update {pp.numel()} {dname} (eta "
+                            f"{type(e).__name__}, aligned "
+                            f"{pp.data_ptr() % 16 == 0}) is not bitwise "
+                            "equal to the plain version")
             item = g.element_size()
             case = (n, dname)
             rows[("norms", case)] = dict(
@@ -908,8 +927,12 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
         dA = (dt * -torch.exp(A_log)).contiguous()
         L = chunk_len(S)
         got = m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L)
+        again = m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L)
         want = m2ref.ssd_chunks_ref(x, dt, dA, Bm, Cm, L)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_chunks {(B, S, H, P, G, N)}: two "
+                                 "calls differ")
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
         nc = S // L
@@ -918,8 +941,13 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
         tri = L * (L + 1) // 2
         ops = 2 * B * nc * H * (tri * (N + P) + L * P * N)
         case = (B, S, H, P, G, N)
+        fma_ms = max(moved / bw, ops / f32) * 1e3
+        tf32_ms = max(moved / bw, 3 * ops / TF32_FLOPS) * 1e3
+        # the kernel's own route (3xTF32) unless f32 FMA bounds it lower
+        route = "3xTF32" if tf32_ms <= fma_ms else "f32 FMA"
         rows[("ssd_chunks", case)] = dict(
             name="ssd_chunks", shape=list(case), chunk=L,
+            grid=m2.ssd_grid(B, S, H, P, L, m2.sm_count(x.device.index)),
             max_abs_err=max(float((a - b).abs().max())
                             for a, b in zip(got, want)),
             ms=device_ms(lambda: m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L),
@@ -927,10 +955,48 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
             plain_ms=device_ms(lambda: m2ref.ssd_chunks_ref(
                 x, dt, dA, Bm, Cm, L), torch),
             library_ms=None,
-            bound_ms=max(moved / bw, ops / f32) * 1e3,
-            bound_by="bytes" if moved / bw > ops / f32 else "operations")
+            bound_ms=min(fma_ms, tf32_ms), bound_route=route,
+            bound_by=("bytes" if moved / bw * 1e3 >= min(fma_ms, tf32_ms)
+                      else "operations"),
+            bound_fma_ms=fma_ms, bound_tf32_ms=tf32_ms)
         print(json.dumps(rows[("ssd_chunks", case)]), flush=True)
+        check_ssd_variants(torch, m2, "groups", (x, dt, dA, Bm, Cm), L)
+        if L == 1:
+            check_ssd_variants(torch, m2, "packing", (x, dt, dA, Bm, Cm), L)
     return rows
+
+
+def check_ssd_variants(torch, m2, kind, args, L):
+    """Phase 5: each kind of block ("groups": one or two warp groups,
+    chosen through the SM count ``ssd_grid`` reads) or each packing of
+    chunks per block ("packing", through PACK_ROWS) timed alone; every
+    variant must give the same bits."""
+    x = args[0]
+    B, S, H, P = x.shape
+    sm_count, pack_rows = m2.sm_count, m2.PACK_ROWS
+    variants = ({"one": 0, "two": 2 ** 30} if kind == "groups"
+                else {str(v): v for v in SSD_PACKINGS})
+    outs, us = [], {}
+    try:
+        for name, v in variants.items():
+            if kind == "groups":
+                m2.sm_count = lambda index, sms=v: sms
+            else:
+                m2.PACK_ROWS = v * L
+            outs.append(m2.ssd_chunks(*args, chunk=L))
+            us[name] = device_ms(lambda: m2.ssd_chunks(*args, chunk=L),
+                                 torch) * 1e3
+    finally:
+        m2.sm_count, m2.PACK_ROWS = sm_count, pack_rows
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(o, outs[0])):
+            raise AssertionError(f"ssd_chunks {tuple(x.shape)}: {kind} "
+                                 "give different bits")
+    print(f"ssd_chunks {kind}", json.dumps({
+        "shape": [B, S, H, P], "chunk": L,
+        "chosen": m2.ssd_grid(B, S, H, P, L, sm_count(x.device.index)),
+        "us_by_variant": us}), flush=True)
 
 
 def check_tensor_core_sass(build, fa):
@@ -973,6 +1039,40 @@ def check_tensor_core_sass(build, fa):
                              f"{len(f32)} f32 instantiations (want "
                              f"{want_bf16} and {want_f32}), HMMA counts "
                              f"{sorted(bf16)}")
+    return hmma
+
+
+def check_ssd_sass(build, m2):
+    """Phase 2: the built SSD chunk library holds its two instantiations
+    (one and two warp groups), each with TF32 tensor-core instructions
+    (HMMA ... TF32) and no spill (the build's -Xptxas -v log). Returns
+    the HMMA counts."""
+    import re
+    import shutil
+    lib = build.library_path("mamba2_scan", m2.SOURCES)
+    log = lib.with_suffix(".log").read_text()
+    props = re.findall(r"Function properties for (\S+)\n\s+(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores", log)
+    spills = {n: int(st) for n, _, st in props if int(st)}
+    if len(props) != 2 or spills:
+        raise AssertionError(f"mamba2_scan build: {len(props)} kernels in "
+                             f"the ptxas log, spills {spills}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hmma = {}
+    for fn in sass.split("Function : ")[1:]:
+        lines = fn.splitlines()
+        hmma[lines[0].strip()] = sum("HMMA" in ln and "TF32" in ln
+                                     for ln in lines)
+    print("mamba2_scan SASS", json.dumps({
+        "instantiations": len(hmma),
+        "tf32_hmma_per_instantiation": sorted(hmma.values())}), flush=True)
+    if len(hmma) != len(props) or min(hmma.values(), default=0) == 0:
+        raise AssertionError(f"mamba2_scan SASS: {len(hmma)} functions "
+                             f"for {len(props)} in the ptxas log, TF32 "
+                             f"HMMA counts {sorted(hmma.values())}")
     return hmma
 
 
@@ -1197,6 +1297,7 @@ def main() -> int:
         if log.exists():
             print(log.read_text().strip())
     check_tensor_core_sass(build, fa)
+    check_ssd_sass(build, m2)
 
     # 3. kernels
     rows = check_kernels(torch, tk, tref, bw, f32)
@@ -1236,7 +1337,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            library_call=row.get("library_call")))
+            library_call=row.get("library_call"),
+            bound_route=row.get("bound_route")))
         if kernels[-1]["launches"] == 0:
             raise AssertionError(f"{kname} was not launched on any path")
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,12 @@ kernel (dtype, shape, device, contiguity, 16-byte alignment), raises when
 the C entry point returns a CUDA error, and counts its calls in its
 namespace's ``LAUNCHES`` counter keyed on ``(function, device type)``: the
 ``"cuda"`` entries count exactly the kernel launches, the ``"cpu"`` entries
-the runs of the plain version.
+the runs of the plain version. ``sm_count`` is the one place a wrapper
+reads the card's SM count from.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Optional, Sequence
 
@@ -21,6 +23,12 @@ def count(launches: Counter, device_type: Optional[str] = None) -> int:
     """Total calls in ``launches``, or only those on ``device_type``."""
     return sum(v for (_, dev), v in launches.items()
                if device_type is None or dev == device_type)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (cudaGetDeviceProperties, read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def device_type(x: torch.Tensor) -> str:

@@ -46,6 +46,12 @@
 //   equal. apply_update computes p − η·g in f32 with __fmul_rn/__fsub_rn
 //   and rounds to p's dtype to nearest even, as the plain version does;
 //   η is a value or, to keep it on the card, a pointer to a device f32.
+//   At the paper's width (71,808 elements) the call is all latency: its
+//   grid is sized from the element count and the SM count so that every
+//   SM gets a block (the block shrinks to as little as a warp) and each
+//   thread issues its loads of p, g and η together before it computes;
+//   large tensors take blocks of 256 threads with four 16-byte pieces
+//   each, at most 32 blocks per SM, grid-stride past that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,8 +65,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNormsVecs = 8;
 // elements of one client row that one norms block reduces
 constexpr int kNormsChunk = kThreads * kNormsVecs * 4;
-// float4 elements per thread in one apply block
+// float4 elements per thread in one batched_apply block
 constexpr int kApplyVecs = 4;
+// 16-byte pieces per thread of a large apply_update, and its most blocks
+// per SM before the grid strides
+constexpr int kUpdateVecs = 4;
+constexpr int kUpdateWaves = 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -345,32 +355,77 @@ norms_kernel(const T* __restrict__ g, const T* __restrict__ gp, int64_t n,
   }
 }
 
-template <typename T, bool kVec>
+// One apply_update thread: kV 16-byte pieces (kVec) or kV elements, a
+// block's threads on neighbouring pieces, every load issued before any
+// arithmetic; grid-stride past the grid. The ragged end (n not a whole
+// number of pieces) is block 0's. Large tensors (kV > 1) stream through
+// L2 with evict-first loads of g and stores; small ones, which the
+// caller reads back from L2, keep plain ones.
+template <typename T, bool kVec, int kV>
 __global__ void __launch_bounds__(kThreads)
 apply_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
                     const float* __restrict__ eta_ptr, float eta_val,
                     T* __restrict__ out, int64_t n) {
   using P = Pack16<T>;
-  constexpr int kN = P::kN;
-  const float e = eta_ptr != nullptr ? *eta_ptr : eta_val;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads +
-                        threadIdx.x;
-  int64_t done = 0;
-  if (kVec) {
-    const int64_t nv = n / kN;
-    for (int64_t j = first; j < nv; j += stride) {
-      float x[kN];
-      float y[kN];
-      P::unpack(reinterpret_cast<const uint4*>(p)[j], x);
-      P::unpack(__ldcs(reinterpret_cast<const uint4*>(g) + j), y);
+  constexpr int kN = kVec ? P::kN : 1;
+  const float e = eta_ptr != nullptr ? __ldg(eta_ptr) : eta_val;
+  const int64_t units = n / kN;
+  const int64_t step = static_cast<int64_t>(blockDim.x);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * step * kV;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * step * kV +
+                      threadIdx.x;
+       base < units; base += stride) {
+    if (kVec) {
+      const uint4* p4 = reinterpret_cast<const uint4*>(p);
+      const uint4* g4 = reinterpret_cast<const uint4*>(g);
+      uint4 a[kV];
+      uint4 b[kV];
 #pragma unroll
-      for (int k = 0; k < kN; ++k) x[k] = axpy_rn(x[k], e, y[k]);
-      __stcs(reinterpret_cast<uint4*>(out) + j, P::pack(x));
+      for (int i = 0; i < kV; ++i) {
+        const int64_t j = base + i * step;
+        if (j < units) {
+          a[i] = p4[j];
+          b[i] = kV > 1 ? __ldcs(g4 + j) : g4[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const int64_t j = base + i * step;
+        if (j < units) {
+          float x[P::kN];
+          float y[P::kN];
+          P::unpack(a[i], x);
+          P::unpack(b[i], y);
+#pragma unroll
+          for (int k = 0; k < P::kN; ++k) x[k] = axpy_rn(x[k], e, y[k]);
+          if (kV > 1)
+            __stcs(reinterpret_cast<uint4*>(out) + j, P::pack(x));
+          else
+            reinterpret_cast<uint4*>(out)[j] = P::pack(x);
+        }
+      }
+    } else {
+      T a[kV];
+      T b[kV];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const int64_t j = base + i * step;
+        if (j < units) {
+          a[i] = p[j];
+          b[i] = g[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const int64_t j = base + i * step;
+        if (j < units) from_f32(axpy_rn(to_f32(a[i]), e, to_f32(b[i])),
+                                out + j);
+      }
     }
-    done = nv * kN;
+    if (kV == 1) break;   // the small grid covers every piece at once
   }
-  for (int64_t i = done + first; i < n; i += stride) {
+  if (kVec && blockIdx.x == 0 && threadIdx.x < n - units * kN) {
+    const int64_t i = units * kN + threadIdx.x;
     from_f32(axpy_rn(to_f32(p[i]), e, to_f32(g[i])), out + i);
   }
 }
@@ -394,22 +449,44 @@ int launch_norms(const void* g, const void* gp, int64_t n, bool vec,
   return static_cast<int>(cudaGetLastError());
 }
 
+// apply_update's grid. Large tensors: 256 threads of kUpdateVecs pieces,
+// at most kUpdateWaves blocks per SM (grid-stride past them). Smaller
+// ones: one piece a thread, the block halved (down to a warp) until the
+// grid has a block for every SM, so that no SM idles and no thread
+// waits on a second trip.
 template <typename T>
 int launch_apply(const void* p, const void* g, const float* eta_ptr,
-                 float eta, void* out, int64_t n, bool vec, cudaStream_t s) {
-  const int64_t per_block =
-      static_cast<int64_t>(kThreads) * kApplyVecs * Pack16<T>::kN;
-  const unsigned int blocks =
-      static_cast<unsigned int>((n + per_block - 1) / per_block);
+                 float eta, void* out, int64_t n, bool vec, int sms,
+                 cudaStream_t s) {
+  const int64_t units = vec ? n / Pack16<T>::kN : n;
   const T* a = static_cast<const T*>(p);
   const T* b = static_cast<const T*>(g);
   T* o = static_cast<T*>(out);
-  if (vec)
-    apply_update_kernel<T, true><<<blocks, kThreads, 0, s>>>(a, b, eta_ptr,
-                                                             eta, o, n);
-  else
-    apply_update_kernel<T, false><<<blocks, kThreads, 0, s>>>(a, b, eta_ptr,
-                                                              eta, o, n);
+  const int64_t wide = static_cast<int64_t>(kThreads) * kUpdateVecs;
+  if (units >= sms * wide) {
+    const int64_t want = (units + wide - 1) / wide;
+    const int64_t cap = static_cast<int64_t>(sms) * kUpdateWaves;
+    const unsigned int blocks =
+        static_cast<unsigned int>(want < cap ? want : cap);
+    if (vec)
+      apply_update_kernel<T, true, kUpdateVecs><<<blocks, kThreads, 0, s>>>(
+          a, b, eta_ptr, eta, o, n);
+    else
+      apply_update_kernel<T, false, kUpdateVecs><<<blocks, kThreads, 0, s>>>(
+          a, b, eta_ptr, eta, o, n);
+  } else {
+    int threads = kThreads;
+    while (threads > 32 && (units + threads - 1) / threads < sms)
+      threads /= 2;
+    const int64_t want = (units + threads - 1) / threads;
+    const unsigned int blocks = static_cast<unsigned int>(want > 0 ? want : 1);
+    if (vec)
+      apply_update_kernel<T, true, 1><<<blocks, threads, 0, s>>>(
+          a, b, eta_ptr, eta, o, n);
+    else
+      apply_update_kernel<T, false, 1><<<blocks, threads, 0, s>>>(
+          a, b, eta_ptr, eta, o, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,16 +520,19 @@ int dsgd_norms(const void* g, const void* g_prev, int dtype, int64_t n,
 }
 
 // p, g, out: n elements of dtype, n >= 1. vec: all three 16-byte
-// aligned. eta_ptr: a device f32, or NULL to use eta.
+// aligned. eta_ptr: a device f32, or NULL to use eta. sms: the device's
+// SM count (the wrapper reads it once), which sizes the grid.
 int dsgd_apply_update(const void* p, const void* g, const float* eta_ptr,
                       float eta, void* out, int dtype, int64_t n, int vec,
-                      void* stream) {
+                      int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_apply<float>(p, g, eta_ptr, eta, out, n, vec != 0, s);
+    return launch_apply<float>(p, g, eta_ptr, eta, out, n, vec != 0, sms,
+                               s);
   if (dtype == 1)
     return launch_apply<__nv_bfloat16>(p, g, eta_ptr, eta, out, n,
-                                       vec != 0, s);
+                                       vec != 0, sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

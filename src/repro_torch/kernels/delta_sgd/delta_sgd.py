@@ -80,7 +80,8 @@ def library() -> ctypes.CDLL:
                                vp, vp, vp]
     lib.dsgd_norms.restype = ctypes.c_int
     lib.dsgd_apply_update.argtypes = [vp, vp, vp, ctypes.c_float, vp,
-                                      ctypes.c_int, i64, ctypes.c_int, vp]
+                                      ctypes.c_int, i64, ctypes.c_int,
+                                      ctypes.c_int, vp]
     lib.dsgd_apply_update.restype = ctypes.c_int
     return lib
 
@@ -213,7 +214,7 @@ def apply_update(p: torch.Tensor, g: torch.Tensor,
     common.raise_on(library().dsgd_apply_update(
         p.data_ptr(), g.data_ptr(), eta.data_ptr() if on_device else None,
         0.0 if on_device else eta, out.data_ptr(), _DTYPES[p.dtype],
-        p.numel(), _aligned(p, g, out),
+        p.numel(), _aligned(p, g, out), common.sm_count(p.device.index),
         torch.cuda.current_stream(p.device).cuda_stream), "apply_update")
     LAUNCHES[("apply_update", "cuda")] += 1
     return out

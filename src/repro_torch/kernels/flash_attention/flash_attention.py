@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, common
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.flash_attention import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
@@ -87,12 +88,6 @@ def q_tile_rows(batch: int, s_len: int, heads: int, sms: int,
         if -(-s_len // rows) * heads * batch >= sms:
             return rows
     return Q_TILE_ROWS[-1]
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """SMs of CUDA device ``index`` (cudaGetDeviceProperties, read once)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

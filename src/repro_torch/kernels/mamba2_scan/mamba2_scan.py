@@ -9,8 +9,12 @@ Port of ``repro/kernels/mamba2_scan/mamba2_scan.py``:
 
 The inter-chunk combine is ``ops.ssd_scan``, in plain PyTorch. What the
 CUDA design does about the card is written at the top of
-``csrc/mamba2_scan.cu``. Given CUDA tensors the wrapper launches the
-kernel (built from that source at first use, see
+``csrc/mamba2_scan.cu``; ``ssd_grid`` picks its grid (chunks packed per
+block, slices of P, warp groups per block) from the shape and the SM
+count; neither the slicing nor the warp groups change a bit of the
+output, and the packing, which may at L not a multiple of 8, follows
+from L alone. Given CUDA tensors
+the wrapper launches the kernel (built from that source at first use, see
 ``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
 plain version in ``ref.py``. There is no other switch. The kernel has no
 backward: an input that requires grad is refused.
@@ -26,11 +30,12 @@ import ctypes
 import functools
 from collections import Counter
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, common
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.mamba2_scan import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu",)
@@ -38,6 +43,11 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu",)
 CHUNK = 64
 # the kernel's largest P and N (kMaxDim in csrc/mamba2_scan.cu)
 MAX_DIM = 128
+# the most columns of P one block owns (kMaxSlice)
+MAX_SLICE = 64
+# chunks shorter than this many steps share a block, PACK_ROWS // L of
+# them
+PACK_ROWS = 32
 
 LAUNCHES: Counter = Counter()
 
@@ -60,12 +70,34 @@ def library() -> ctypes.CDLL:
     lib.ssd_max_chunk.restype = i32
     lib.ssd_max_dim.argtypes = []
     lib.ssd_max_dim.restype = i32
-    lib.ssd_chunks_forward.argtypes = [vp] * 9 + [i32] * 7 + [vp]
+    lib.ssd_max_slice.argtypes = []
+    lib.ssd_max_slice.restype = i32
+    lib.ssd_chunks_forward.argtypes = [vp] * 9 + [i32] * 10 + [vp]
     lib.ssd_chunks_forward.restype = i32
-    if lib.ssd_max_chunk() != CHUNK or lib.ssd_max_dim() != MAX_DIM:
+    if (lib.ssd_max_chunk() != CHUNK or lib.ssd_max_dim() != MAX_DIM
+            or lib.ssd_max_slice() != MAX_SLICE):
         raise RuntimeError("csrc/mamba2_scan.cu and mamba2_scan.py disagree "
-                           "on the largest chunk or dim")
+                           "on the largest chunk, dim or slice")
     return lib
+
+
+def ssd_grid(batch: int, s_len: int, heads: int, p_dim: int, chunk: int,
+             sms: int) -> Tuple[int, int, bool]:
+    """(chunks per block, slices of P, two groups) of the kernel's grid.
+    Chunks shorter than PACK_ROWS steps are packed PACK_ROWS // L to a
+    block, so that the chunk states stream out of few blocks. P is cut
+    into the fewest slices of at most MAX_SLICE columns: slicing further,
+    to fill the SMs at a short prefill, was measured slower on the H100
+    (PERF.md), since a block's time is its chain of dependent
+    tensor-core products, which a slice shortens little. A grid whose
+    blocks each have an SM of their own takes blocks of two warp groups,
+    one on C Bᵀ, M and y and one on S_c at the same time; a larger grid
+    takes one group a block, two blocks to an SM, one's staging beside
+    the other's products (chip_smoke.py's "ssd_chunks groups" line)."""
+    cpb = max(1, PACK_ROWS // chunk)
+    split = -(-p_dim // MAX_SLICE)
+    blocks = batch * heads * -(-(s_len // chunk) // cpb) * split
+    return cpb, split, blocks <= sms
 
 
 def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
@@ -102,6 +134,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
         raise ValueError(f"the CUDA kernel takes chunks up to {CHUNK} and "
                          f"P, N up to {MAX_DIM}, got L={L}, P={P}, N={N}")
     nc = S // L
+    cpb, split, two = ssd_grid(Bsz, S, H, P, L, sm_count(x.device.index))
     y = torch.empty_like(x)
     s_c = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=x.device)
     cd = torch.empty((Bsz, nc, H), dtype=f32, device=x.device)
@@ -109,7 +142,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     common.raise_on(library().ssd_chunks_forward(
         x.data_ptr(), dt.data_ptr(), dA.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), s_c.data_ptr(), cd.data_ptr(),
-        ecs.data_ptr(), Bsz, S, H, G, P, N, L,
+        ecs.data_ptr(), Bsz, S, H, G, P, N, L, cpb, split, int(two),
         torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunks")
     LAUNCHES[("ssd_chunks", "cuda")] += 1
     return y, s_c, cd, ecs

@@ -301,10 +301,12 @@ def _ssd_inputs(B, S, H, P, G, N, dev, seed):
 
 
 # (B, S, H, P, G, N): L = 64 one chunk, L = 48, L = 1 (prime S), several
-# chunks with groups, the reduced Zamba2 widths
+# chunks with groups, the reduced Zamba2 widths, then the full-width
+# Zamba2 prefill (L = 64) and its prime-length case (L = 1)
 SSD_CASES = [(1, 64, 8, 64, 1, 64), (2, 96, 4, 64, 2, 64),
              (1, 67, 4, 64, 1, 64), (1, 256, 6, 32, 3, 16),
-             (2, 128, 16, 32, 1, 16)]
+             (2, 128, 16, 32, 1, 16), (1, 64, 112, 64, 1, 64),
+             (1, 67, 112, 64, 1, 64)]
 
 
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
@@ -326,6 +328,53 @@ def test_ssd_chunks_kernel_matches_plain(case, dev):
     torch.testing.assert_close(y.cpu(), yc, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(h.cpu(), hc, rtol=1e-3, atol=1e-4)
     assert m2.LAUNCHES[("ssd_chunks", "cuda")] == 2
+
+
+# chunks of 5 steps packed six to a block with odd widths (P, N not
+# multiples of 4 take the 4-byte copies), chunks of 8 steps packed four
+# to a block, P = N = 128 (two slices), one chunk of 35 steps
+SSD_GRID_CASES = SSD_CASES + [(1, 335, 3, 18, 1, 10),
+                              (1, 536, 2, 64, 1, 64),
+                              (2, 96, 4, 128, 2, 128),
+                              (1, 35, 6, 24, 3, 12)]
+
+
+@pytest.mark.parametrize("case", SSD_GRID_CASES, ids=str)
+def test_ssd_chunks_every_grid_gives_the_same_bits(case, dev, monkeypatch):
+    """Blocks of one and of two warp groups (set through the SM count
+    ``ssd_grid`` reads), each called twice, give the same bits at one
+    chunk a block and at every packing up to CHUNK rows (through
+    PACK_ROWS). Packings give the same bits as each other where every
+    chunk starts on an 8-row k tile (L = 1 or a multiple of 8); at other
+    L each is within the plain version's tolerance."""
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.kernels.mamba2_scan import ref as m2ref
+    from repro_torch.kernels.mamba2_scan.ops import chunk_len
+    B, S, H, P = case[:4]
+    x, dt, A_log, Bm, Cm = _ssd_inputs(*case, dev, 9)
+    dA = (dt * -torch.exp(A_log)).contiguous()
+    L = chunk_len(S)
+    by_packing = []
+    for cpb in sorted({c for c in (1, 2, m2.CHUNK // L) if c * L <= m2.CHUNK}):
+        monkeypatch.setattr(m2, "PACK_ROWS", cpb * L)
+        outs = []
+        for sms, two in ((0, False), (2 ** 30, True)):
+            monkeypatch.setattr(m2, "sm_count", lambda index, sms=sms: sms)
+            assert m2.ssd_grid(B, S, H, P, L, sms)[::2] == (cpb, two)
+            outs.append(m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L))
+            outs.append(m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=L))
+        torch.cuda.synchronize()
+        for got in outs[1:]:
+            for a, b in zip(got, outs[0]):
+                assert torch.equal(a, b)
+        by_packing.append(outs[0])
+    want = m2ref.ssd_chunks_ref(x, dt, dA, Bm, Cm, L)
+    for got in by_packing:
+        if L == 1 or L % 8 == 0:
+            for a, b in zip(got, by_packing[0]):
+                assert torch.equal(a, b)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch,layers", [("tinyllama-1.1b", 2),
@@ -443,6 +492,29 @@ def test_single_tensor_pair_matches_plain(shape, dtype, dev):
         torch.stack(tref.norms_ref(flat_g, flat_p)),
         rtol=1e-5 if dtype == torch.float32 else 3e-3, atol=0.0)
     assert tk.LAUNCHES == {("norms", "cuda"): 3, ("apply_update", "cuda"): 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(71808, 0), (71809, 0), (71808, 1),
+                                      (2 ** 20 + 3, 0)])
+def test_apply_update_grid_is_bitwise_plain(n, offset, dtype, dev):
+    """apply_update at the paper's width (the grid sized to the SMs), one
+    past it (a ragged end), an unaligned view (one element a thread) and
+    past the large-grid threshold: bitwise equal to the plain version for
+    η a float and a device tensor."""
+    r = np.random.default_rng(n + offset)
+    def t():
+        full = torch.from_numpy(r.normal(size=n + offset).astype(
+            np.float32)).to(dev, dtype)
+        return full[offset:]
+    p, g = t(), t()
+    assert (p.data_ptr() % 16 == 0) == (offset == 0)
+    tk.reset_launch_count()
+    for e in (0.37, torch.tensor(0.37, device=dev)):
+        out = tk.apply_update(p, g, e)
+        assert out.dtype == dtype and out.shape == p.shape
+        assert torch.equal(out, tref.apply_ref(p, g, e))
+    assert tk.LAUNCHES == {("apply_update", "cuda"): 2}
 
 
 def test_kernel_matrix_passes_on_the_card(dev):

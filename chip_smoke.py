@@ -17,16 +17,20 @@ without its final line:
               (its 3xTF32 products) and none spills.
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
-              PyTorch version on the card (norms: rtol 1e-5 and two calls
-              bitwise equal; apply: bitwise equal, masked lanes exactly
-              bf16; quantize/dequantize: bitwise equal, and a NaN chunk
-              like the plain version; top-k: exact; trimmed mean: rtol
-              1e-6 / atol 1e-7 and two calls bitwise equal), timed with
-              CUDA events (median of 60 launches queued behind a device
-              sleep, so the times are device times) beside the plain
-              version, a library call where one exists, and the bound
-              from the bytes moved and the card's peak rates. One JSON
-              line per kernel and shape.
+              PyTorch version on the card (norms: rtol 1e-5, two calls
+              bitwise equal, a NaN and an inf each only in its own
+              client's sums; apply: bitwise equal, masked lanes exactly
+              bf16; with the SM count patched to 114 the norms keep
+              their bits and the apply, on another grid, stays bitwise
+              plain; norms, apply and masked apply one device op a call
+              under torch.profiler; quantize/dequantize: bitwise equal,
+              and a NaN chunk like the plain version; top-k: exact; trimmed
+              mean: rtol 1e-6 / atol 1e-7 and two calls bitwise equal),
+              timed with CUDA events (median of 60 launches queued
+              behind a device sleep, so the times are device times)
+              beside the plain version, a library call where one exists,
+              and the bound from the bytes moved and the card's peak
+              rates. One JSON line per kernel and shape.
   4. paths    the paper's CNN federation through the training entry point
               (100 clients, alpha 0.1, participation 0.1, batch 64, 4
               rounds, 2 rounds per call) on cuda, three times: plain
@@ -252,6 +256,43 @@ def device_ms(fn, torch):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def _one_device_op(torch, name, fn):
+    """One call of ``fn`` is one device operation under torch.profiler:
+    its kernel, and no fill, memset or copy beside it."""
+    ops = _profile_ms(torch, fn)[2]["device_ops"]
+    if ops != 1:
+        raise AssertionError(f"{name}: {ops} device ops a call, not 1")
+
+
+def check_sm_count(torch, tk, tref, g, gp, p, eta, mask, norms):
+    """With the H100 PCIe's 114 SMs in place of the card's own count (132
+    on a card of 114): the norms keep their bits ``norms`` (their grid is
+    a function of (C, N), ``norms_grid``), and the apply, whose grid
+    follows the SM count (it does at LARGE_SHAPE), stays bitwise plain."""
+    C, N = g.shape
+    own_sms = tk.common.sm_count
+    own = own_sms(0)
+    other = 132 if own == 114 else 114
+    if (C, N) == LARGE_SHAPE and (tk.apply_grid(C, N, other)
+                                  == tk.apply_grid(C, N, own)):
+        raise AssertionError("the SM count moves no batched_apply grid")
+    tk.common.sm_count = lambda index: other
+    try:
+        again = torch.stack(tk.batched_norms(g, gp))
+        applied = [tk.batched_apply(p.clone(), g, eta, mask=m)
+                   for m in (None, mask)]
+    finally:
+        tk.common.sm_count = own_sms
+    torch.cuda.synchronize()
+    if not torch.equal(again, norms):
+        raise AssertionError("batched_norms: the SM count moved bits")
+    for m, got in zip((None, mask), applied):
+        if not torch.equal(got, tref.batched_apply_ref(p, g, eta, m)):
+            raise AssertionError(f"batched_apply at {other} SMs "
+                                 f"(masked={m is not None}) is not bitwise "
+                                 "equal to the plain version")
+
+
 def check_kernels(torch, tk, tref, bw, f32):
     """Phase 3. Returns {(name, shape): row}."""
     rows = {}
@@ -263,14 +304,26 @@ def check_kernels(torch, tk, tref, bw, f32):
         eta = torch.rand((C,), generator=gen, device="cuda") * 0.99 + 0.01
         mask = (torch.rand((N,), generator=gen, device="cuda") < 0.5).float()
 
-        # batched_norms: rtol 1e-5 (sum order), bitwise across calls
-        got = torch.stack(tk.batched_norms(g, gp))
+        # batched_norms: rtol 1e-5 (sum order), bitwise across calls, and
+        # a NaN or inf only in its own client's sums
+        got = norms = torch.stack(tk.batched_norms(g, gp))
         again = torch.stack(tk.batched_norms(g, gp))
         want = torch.stack(tref.batched_norms_ref(g, gp))
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError("batched_norms: two calls differ")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        bad = g.clone()
+        bad[0, N // 2 + 1] = float("nan")
+        bad[C - 1, 5] = float("inf")
+        dirty = torch.stack(tk.batched_norms(bad, gp))
+        torch.cuda.synchronize()
+        if (torch.isfinite(dirty[:, [0, C - 1]]).any()
+                or not torch.equal(dirty[:, 1:C - 1], got[:, 1:C - 1])):
+            raise AssertionError("batched_norms: a NaN or inf left its "
+                                 "client")
+        del bad
+        _one_device_op(torch, "batched_norms", lambda: tk.batched_norms(g, gp))
         row = dict(
             name="batched_norms", shape=[C, N],
             max_abs_err=float((got - want).abs().max()),
@@ -298,6 +351,8 @@ def check_kernels(torch, tk, tref, bw, f32):
                     raise AssertionError("masked lanes are not bf16")
             work = p.clone()
             name = "batched_apply" + ("[masked]" if masked else "")
+            _one_device_op(torch, name,
+                           lambda: tk.batched_apply(work, g, eta, mask=m))
             moved = 3 * C * N * 4 + C * 4 + (N * 4 if masked else 0)
             row = dict(
                 name=name, shape=[C, N],
@@ -312,6 +367,7 @@ def check_kernels(torch, tk, tref, bw, f32):
                 bound_ms=max(moved / bw, 2 * C * N / f32) * 1e3,
                 bound_by="bytes")
             rows[(name, (C, N))] = row
+        check_sm_count(torch, tk, tref, g, gp, p, eta, mask, norms)
         for key, row in rows.items():
             if key[1] == (C, N):
                 row["gbps_achieved"] = (row["bound_ms"] / row["ms"]) * bw / 1e9

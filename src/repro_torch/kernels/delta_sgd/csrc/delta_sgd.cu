@@ -3,22 +3,29 @@
 // Both kernels work on the packed (C, N) f32 client slabs of
 // repro_torch.core.flat (N a multiple of 128, rows 16-byte aligned) and
 // launch on the caller's stream. They allocate nothing: the Python
-// wrappers in ../delta_sgd.py allocate outputs and scratch, check
-// device, dtype, shape, contiguity and alignment, and raise when a
-// launch returns an error.
+// wrappers in ../delta_sgd.py allocate the outputs and batched_norms'
+// workspace, check device, dtype, shape, contiguity and alignment,
+// choose the grid (norms_grid, apply_grid) and raise when a launch
+// returns an error.
 //
 // dsgd_batched_norms replaces the TPU kernel _batched_norms_kernel
 //   (repro/kernels/delta_sgd/delta_sgd.py, batched_norms). Per client it
 //   computes Σ(g−g_prev)² and Σg² in one pass. It is bound by memory: it
-//   reads 2·C·N·4 bytes and does ~5 flops per element pair. Design: one
-//   launch over a (chunk, client) grid, 16-byte loads, each thread
-//   issuing all its loads before it sums them, a warp-shuffle block
-//   reduction. The TPU kernel carried the sum across its sequential grid
-//   axis; here blocks run in no order, so each block writes its partial
-//   to scratch and the LAST block of each client (found with an integer
-//   atomic counter after __threadfence) sums the partials in chunk
-//   order. No float atomics: the result is bitwise the same on every
-//   call, which matters because η's min branch amplifies reduction noise.
+//   reads 2·C·N·4 bytes and does ~5 flops per element pair. The TPU
+//   kernel carried the sum across its sequential grid axis; here one
+//   launch runs a (chunk, client) grid of 256-thread blocks, each
+//   summing kNormsChunk elements of a row with 16-byte loads, every load
+//   issued before any sum, and a fixed warp-shuffle tree. Blocks run in
+//   no order, so each leaves its (dg, gg) pair in a workspace and the
+//   LAST block of each client (an integer ticket after __threadfence)
+//   sums the pairs in chunk order and puts the ticket back to zero. The
+//   wrapper keeps one workspace per (device, stream), filled once when it
+//   is made, so a call is one device op with no counter fill; calls on
+//   one stream are ordered, so they never share a ticket. No float
+//   atomics: the summation order is a function of (C, N) only (not of
+//   the SM count, the call or the stream), so every bit of the result
+//   is too. That matters because η's min branch amplifies reduction
+//   noise. A NaN or inf in one row reaches only that row's sums.
 //
 // dsgd_batched_apply replaces _batched_apply_kernel and
 //   _batched_apply_masked_kernel (batched_apply). It computes
@@ -26,10 +33,20 @@
 //   input_output_aliases={1: 0}); where the (N,) mask is > 0 the result
 //   is rounded to bf16 and back (round to nearest even). It is bound by
 //   memory: it reads 2·C·N·4 bytes (plus the mask) and writes C·N·4.
-//   Design: a grid-stride elementwise pass with 16-byte loads and
-//   stores. The multiply and the subtract use __fmul_rn/__fsub_rn so
-//   they are never contracted into an FMA: the result rounds exactly
-//   like the plain PyTorch version's separate multiply and subtract.
+//   One thread owns one 16-byte column of the slab across a group of
+//   clients: it loads the mask column once, then η, p and g of each of
+//   its clients, all before any arithmetic, then stores. The group is
+//   one client while a client row of p, g and the mask fits in L2, as
+//   at the paper's width; longer rows take groups of up to kApplyGroup
+//   clients (apply_grid), so that the mask is read from HBM once per
+//   group, not once per client. Up to four units (a column of a group)
+//   per thread of a full wave, one unit a thread: the block halves
+//   (down to a warp) until every SM has a block; larger slabs take
+//   blocks of kThreads with evict-first loads of g and evict-first
+//   stores, at most 32 blocks per SM, grid-stride past that.
+//   The multiply and the subtract use __fmul_rn/__fsub_rn so they are
+//   never contracted into an FMA: the result rounds exactly like the
+//   plain PyTorch version's separate multiply and subtract.
 //
 // dsgd_norms and dsgd_apply_update replace the TPU kernels _norms_kernel
 //   and _apply_kernel (norms, apply_update): the same two sums and the
@@ -61,12 +78,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// float4 loads per thread per input in one norms block
+// 16-byte loads per thread per input in one norms block, and the
+// elements of one client row that one batched_norms block sums
 constexpr int kNormsVecs = 8;
-// elements of one client row that one norms block reduces
 constexpr int kNormsChunk = kThreads * kNormsVecs * 4;
-// float4 elements per thread in one batched_apply block
-constexpr int kApplyVecs = 4;
+// most clients one batched_apply thread updates
+constexpr int kApplyGroup = 8;
 // 16-byte pieces per thread of a large apply_update, and its most blocks
 // per SM before the grid strides
 constexpr int kUpdateVecs = 4;
@@ -101,6 +118,14 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
+// A (chunk, client) grid of kThreads-thread blocks, each summing
+// kNormsChunk elements of a row (every load issued before any is summed),
+// so that the whole card streams one or two client rows at a time. Each
+// block leaves its pair in the caller's partial workspace; the LAST
+// block of a client, found with an integer atomic ticket after
+// __threadfence, sums the pairs in chunk order and puts the ticket back
+// to zero for the next call on the stream. No float atomics: the sum
+// order is a function of (C, N).
 __global__ void __launch_bounds__(kThreads)
 batched_norms_kernel(const float* __restrict__ g,
                      const float* __restrict__ gp, int64_t n, int chunks,
@@ -108,7 +133,7 @@ batched_norms_kernel(const float* __restrict__ g,
                      unsigned int* __restrict__ counter,
                      float* __restrict__ dg_out,
                      float* __restrict__ gg_out) {
-  const int c = blockIdx.y;
+  const int64_t c = blockIdx.y;
   const int chunk = blockIdx.x;
   const int64_t n4 = n / 4;
   const float4* g4 = reinterpret_cast<const float4*>(g + c * n);
@@ -142,7 +167,7 @@ batched_norms_kernel(const float* __restrict__ g,
 
   __shared__ bool is_last;
   if (threadIdx.x == 0) {
-    partial[static_cast<int64_t>(c) * chunks + chunk] = make_float2(dg, gg);
+    partial[c * chunks + chunk] = make_float2(dg, gg);
     __threadfence();
     const unsigned int done = atomicAdd(counter + c, 1u);
     is_last = (done == static_cast<unsigned int>(chunks - 1));
@@ -150,13 +175,12 @@ batched_norms_kernel(const float* __restrict__ g,
   __syncthreads();
   if (!is_last) return;
 
-  // Last block of client c: every other block's partial is visible
-  // (they fenced before counting). Sum them in chunk order: thread t
-  // takes chunks t, t + kThreads, ... then the fixed block tree.
+  // every other block's pair is visible (they fenced before counting):
+  // thread t sums chunks t, t + kThreads, ..., then the fixed block tree
   __threadfence();
   float sdg = 0.0f;
   float sgg = 0.0f;
-  const float2* row = partial + static_cast<int64_t>(c) * chunks;
+  const float2* row = partial + c * chunks;
   for (int i = threadIdx.x; i < chunks; i += kThreads) {
     const float2 p = __ldcg(row + i);
     sdg += p.x;
@@ -166,6 +190,7 @@ batched_norms_kernel(const float* __restrict__ g,
   if (threadIdx.x == 0) {
     dg_out[c] = sdg;
     gg_out[c] = sgg;
+    counter[c] = 0u;   // every block of this client has counted
   }
 }
 
@@ -177,35 +202,67 @@ __device__ __forceinline__ float round_bf16(float r, float m) {
   return m > 0.0f ? __bfloat162float(__float2bfloat16_rn(r)) : r;
 }
 
-template <bool kMasked>
+// Unit u of batched_apply: float4 column u % n4 of the clients
+// [grp·group, min(C, (grp + 1)·group)), grp = u / n4. A thread loads the
+// mask column, η and the p and g columns of its clients before any
+// arithmetic, then stores; grid-stride over the units. stream: large
+// slabs, streamed through L2 with evict-first loads of g and
+// evict-first stores. kG (1 or kApplyGroup) bounds the group, so a
+// thread of one client holds just that client's registers.
+template <int kG>
 __global__ void __launch_bounds__(kThreads)
 batched_apply_kernel(float* __restrict__ p, const float* __restrict__ g,
                      const float* __restrict__ eta,
-                     const float* __restrict__ mask, int64_t n) {
-  const int c = blockIdx.y;
-  const float e = eta[c];
-  const int64_t n4 = n / 4;
-  float4* p4 = reinterpret_cast<float4*>(p + c * n);
-  const float4* g4 = reinterpret_cast<const float4*>(g + c * n);
+                     const float* __restrict__ mask, int64_t C, int64_t n4,
+                     int group, int64_t units, int stream) {
+  float4* p4 = reinterpret_cast<float4*>(p);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
   const float4* m4 = reinterpret_cast<const float4*>(mask);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       j < n4; j += stride) {
-    const float4 pv = p4[j];
-    const float4 gv = __ldcs(g4 + j);
-    float4 r;
-    r.x = axpy_rn(pv.x, e, gv.x);
-    r.y = axpy_rn(pv.y, e, gv.y);
-    r.z = axpy_rn(pv.z, e, gv.z);
-    r.w = axpy_rn(pv.w, e, gv.w);
-    if (kMasked) {
-      const float4 mv = __ldg(m4 + j);
-      r.x = round_bf16(r.x, mv.x);
-      r.y = round_bf16(r.y, mv.y);
-      r.z = round_bf16(r.z, mv.z);
-      r.w = round_bf16(r.w, mv.w);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       u < units; u += stride) {
+    const int64_t grp = u / n4;
+    const int64_t col = u - grp * n4;
+    const int64_t c0 = grp * group;
+    const int64_t left = C - c0;
+    const int cn = left < group ? static_cast<int>(left) : group;
+    const int64_t at0 = c0 * n4 + col;
+    float4 mv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mask != nullptr) mv = __ldg(m4 + col);
+    float4 pv[kG];
+    float4 gv[kG];
+    float e[kG];
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (i < cn) {
+        const int64_t at = at0 + i * n4;
+        e[i] = __ldg(eta + c0 + i);
+        pv[i] = p4[at];
+        gv[i] = stream ? __ldcs(g4 + at) : g4[at];
+      }
     }
-    p4[j] = r;
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (i < cn) {
+        float4 r;
+        r.x = axpy_rn(pv[i].x, e[i], gv[i].x);
+        r.y = axpy_rn(pv[i].y, e[i], gv[i].y);
+        r.z = axpy_rn(pv[i].z, e[i], gv[i].z);
+        r.w = axpy_rn(pv[i].w, e[i], gv[i].w);
+        if (mask != nullptr) {
+          r.x = round_bf16(r.x, mv.x);
+          r.y = round_bf16(r.y, mv.y);
+          r.z = round_bf16(r.z, mv.z);
+          r.w = round_bf16(r.w, mv.w);
+        }
+        const int64_t at = at0 + i * n4;
+        if (stream)
+          __stcs(p4 + at, r);
+        else
+          p4[at] = r;
+      }
+    }
   }
 }
 
@@ -536,40 +593,44 @@ int dsgd_apply_update(const void* p, const void* g, const float* eta_ptr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Elements of one client row that one norms block reduces: the wrapper
-// sizes the (C, chunks) float2 partial scratch with it.
-int dsgd_norms_chunk(void) { return kNormsChunk; }
-
-// g, g_prev: (C, n) f32. partial: (C, ceil(n / chunk)) float2 scratch.
-// counter: (C,) uint32, ZERO on entry. dg, gg: (C,) f32 outputs.
+// g, g_prev: (C, n) f32, n >= 4. chunks: blocks a row, ceil(n /
+// kNormsChunk) (norms_grid in ../delta_sgd.py; any other count is
+// refused, so the wrapper's rule cannot drift from the kernel's).
+// partial: (C, chunks) float2 workspace. counter: (C,) uint32, ZERO on
+// entry and left zero. dg, gg: (C,) f32 outputs.
 int dsgd_batched_norms(const float* g, const float* g_prev, int64_t C,
-                       int64_t n, void* partial, void* counter, float* dg,
-                       float* gg, void* stream) {
-  const int chunks = static_cast<int>((n + kNormsChunk - 1) / kNormsChunk);
-  const dim3 grid(chunks, static_cast<unsigned int>(C));
-  batched_norms_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      g, g_prev, n, chunks, static_cast<float2*>(partial),
+                       int64_t n, int64_t chunks, void* partial,
+                       void* counter, float* dg, float* gg, void* stream) {
+  if (n < 4 || C < 1 || C > 65535 ||
+      chunks != (n + kNormsChunk - 1) / kNormsChunk || chunks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  batched_norms_kernel<<<dim3(static_cast<unsigned int>(chunks),
+                              static_cast<unsigned int>(C)),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, g_prev, n, static_cast<int>(chunks), static_cast<float2*>(partial),
       static_cast<unsigned int*>(counter), dg, gg);
   return static_cast<int>(cudaGetLastError());
 }
 
 // p: (C, n) f32, updated in place. g: (C, n) f32. eta: (C,) f32.
-// mask: (n,) f32 or NULL for the unmasked variant.
+// mask: (n,) f32 or NULL for the unmasked variant. group: clients a
+// thread updates (1 .. kApplyGroup); threads (1 .. kThreads), blocks:
+// the grid; stream_l2: evict-first loads and stores (apply_grid in
+// ../delta_sgd.py).
 int dsgd_batched_apply(float* p, const float* g, const float* eta,
-                       const float* mask, int64_t C, int64_t n,
+                       const float* mask, int64_t C, int64_t n, int group,
+                       int threads, int64_t blocks, int stream_l2,
                        void* stream) {
+  if (group < 1 || group > kApplyGroup || threads < 1 ||
+      threads > kThreads || blocks < 1 || blocks > 0x7fffffff || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n4 = n / 4;
-  const int64_t per_block = static_cast<int64_t>(kThreads) * kApplyVecs;
-  const unsigned int bx =
-      static_cast<unsigned int>((n4 + per_block - 1) / per_block);
-  const dim3 grid(bx, static_cast<unsigned int>(C));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != nullptr)
-    batched_apply_kernel<true><<<grid, kThreads, 0, s>>>(p, g, eta, mask, n);
-  else
-    batched_apply_kernel<false><<<grid, kThreads, 0, s>>>(p, g, eta, mask,
-                                                          n);
+  const int64_t units = (C + group - 1) / group * n4;
+  auto kernel = group == 1 ? &batched_apply_kernel<1>
+                           : &batched_apply_kernel<kApplyGroup>;
+  kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(p, g, eta, mask, C, n4,
+                                                 group, units, stream_l2);
   return static_cast<int>(cudaGetLastError());
 }
 

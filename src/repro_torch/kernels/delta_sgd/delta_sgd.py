@@ -19,7 +19,11 @@ and the single-tensor pair, whose one caller is the kernel parity matrix
                    tensor. Replaces ``_apply_kernel``.
 
 All four are bound by memory on the card; what their CUDA design does
-about it is written at the top of ``csrc/delta_sgd.cu``. A wrapper given CUDA
+about it is written at the top of ``csrc/delta_sgd.cu``. The batched
+pair's grids are chosen here, by ``norms_grid`` (a block per
+NORMS_CHUNK elements of a row, from N alone, so the sums' order and
+bits depend on (C, N) only) and ``apply_grid`` (a thread per 16-byte
+column and group of clients, sized to the SMs). A wrapper given CUDA
 tensors launches its kernel (built from that source at first use, see
 ``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
 plain version in ``ref.py``. There is no other switch.
@@ -37,7 +41,7 @@ import ctypes
 import functools
 from collections import Counter
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -46,12 +50,28 @@ from repro_torch.kernels.delta_sgd import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "delta_sgd.cu",)
 
-# the client index is the kernels' grid y dimension
+# batched_norms: the client index is its grid's y dimension
 _MAX_CLIENTS = 65535
+# batched_norms: elements of one client row that one block sums
+# (kNormsChunk; the library refuses a grid cut otherwise)
+NORMS_CHUNK = 8192
+# batched_apply: most clients a thread updates (kApplyGroup); the row
+# length from which threads take groups of clients (a client row of p
+# in, g in, p out and the mask, 16·N bytes, then passes the 50 MB L2,
+# so the mask would come from HBM once per client); widest block; most
+# blocks per SM before the grid strides
+APPLY_GROUP = 8
+APPLY_GROUP_N = 2 ** 22
+APPLY_THREADS = 256
+APPLY_WAVES = 32
 # dtype codes of the single-tensor entry points (csrc/delta_sgd.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Counter = Counter()
+# batched_norms' (partial pairs, per-client tickets) for each (device
+# index, stream). The kernel leaves every ticket at zero, so only a new
+# or larger workspace is filled.
+_NORMS_WORKSPACE: dict = {}
 
 
 def reset_launch_count() -> None:
@@ -68,11 +88,12 @@ def library() -> ctypes.CDLL:
     """The built kernel library (compiled from SOURCES at first use)."""
     lib = build.load_library("delta_sgd", SOURCES)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.dsgd_norms_chunk.argtypes = []
-    lib.dsgd_norms_chunk.restype = ctypes.c_int
-    lib.dsgd_batched_norms.argtypes = [vp, vp, i64, i64, vp, vp, vp, vp, vp]
+    i32 = ctypes.c_int
+    lib.dsgd_batched_norms.argtypes = [vp, vp, i64, i64, i64, vp, vp, vp,
+                                       vp, vp]
     lib.dsgd_batched_norms.restype = ctypes.c_int
-    lib.dsgd_batched_apply.argtypes = [vp, vp, vp, vp, i64, i64, vp]
+    lib.dsgd_batched_apply.argtypes = [vp, vp, vp, vp, i64, i64, i32, i32,
+                                       i64, i32, vp]
     lib.dsgd_batched_apply.restype = ctypes.c_int
     lib.dsgd_single_norms_chunk.argtypes = [ctypes.c_int]
     lib.dsgd_single_norms_chunk.restype = ctypes.c_int
@@ -86,11 +107,67 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check_slab(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
-    common.check_slab(name, x, like)
-    if x.shape[0] > _MAX_CLIENTS:
-        raise ValueError(f"{name}: {x.shape[0]} clients exceed the "
-                         f"kernels' grid limit of {_MAX_CLIENTS}")
+class ApplyGrid(NamedTuple):
+    group: int        # clients a thread updates
+    threads: int      # threads a block
+    blocks: int
+    stream: bool      # evict-first loads and stores (large slabs)
+
+
+def norms_grid(C: int, N: int) -> int:
+    """``batched_norms``' blocks a row: one per NORMS_CHUNK elements, the
+    last one ragged. Block b sums elements [b·NORMS_CHUNK, (b + 1)·
+    NORMS_CHUNK) of its row in a fixed tree, and the last block of the
+    row adds the blocks' pairs in block order (a fixed tree over them).
+    A function of N alone (C only sets the grid's rows), never of the
+    SM count, so the summation order, and the bits, depend on (C, N)
+    only."""
+    del C   # every row is cut alike
+    return -(-N // NORMS_CHUNK)
+
+
+def _norms_workspace(device: torch.device, stream: int, C: int,
+                     chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``batched_norms``' (partial, tickets) on this stream, at least
+    (C·chunks, 2) f32 and (C,) int32; tickets zero. Calls on one stream
+    run in order, so they share it safely; another stream has its own."""
+    key = (device.index, stream)
+    partial, tickets = _NORMS_WORKSPACE.get(key, (None, None))
+    if partial is None or partial.shape[0] < C * chunks \
+            or tickets.shape[0] < C:
+        rows = max(C * chunks, 0 if partial is None else partial.shape[0])
+        clients = max(C, 0 if tickets is None else tickets.shape[0])
+        partial = torch.empty((rows, 2), dtype=torch.float32, device=device)
+        tickets = torch.zeros((clients,), dtype=torch.int32, device=device)
+        _NORMS_WORKSPACE[key] = (partial, tickets)
+    return partial, tickets
+
+
+def apply_grid(C: int, N: int, sms: int) -> ApplyGrid:
+    """``batched_apply``'s grid. A thread owns one 16-byte column of a
+    group of clients and reads the mask column once for all of them.
+    Rows shorter than APPLY_GROUP_N take one client a thread: the mask
+    stays in L2 between clients (287 KB at the paper's width). Longer
+    rows take the fewest groups of at most APPLY_GROUP clients, of equal
+    size (the last one may be short), so the mask is read from HBM once
+    a group.
+
+    A unit is one column of one group. Up to four units per thread of a
+    full wave (sms blocks of APPLY_THREADS), one unit a thread: the
+    block halves, down to a warp, until every SM has a block. Larger
+    slabs: blocks of APPLY_THREADS, at most APPLY_WAVES per SM,
+    grid-stride past that, with evict-first loads and stores."""
+    group = 1
+    if N >= APPLY_GROUP_N:
+        group = -(-C // -(-C // APPLY_GROUP))
+    units = -(-C // group) * (N // 4)
+    if units >= sms * APPLY_THREADS * 4:
+        blocks = min(-(-units // APPLY_THREADS), sms * APPLY_WAVES)
+        return ApplyGrid(group, APPLY_THREADS, blocks, True)
+    threads = APPLY_THREADS
+    while threads > 32 and -(-units // threads) < sms:
+        threads //= 2
+    return ApplyGrid(group, threads, -(-units // threads), False)
 
 
 def _check_vec(name: str, x: torch.Tensor, n: int, like: torch.Tensor, *,
@@ -102,25 +179,30 @@ def batched_norms(g: torch.Tensor, g_prev: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-client ``(Σ(g−g_prev)², Σg²)`` over packed (C, N) f32 slabs.
 
-    One launch for all clients and all packed leaves; returns two (C,)
-    f32 vectors. On CUDA the sums are bitwise reproducible."""
-    _check_slab("g", g, g)
-    _check_slab("g_prev", g_prev, g)
+    One launch for all clients and all packed leaves (``norms_grid``);
+    returns two (C,) f32 vectors and issues no other device work (the
+    workspace is filled once, when it is made for a stream). On CUDA the
+    sums' order is a function of (C, N) only, so they are bitwise
+    reproducible on any card and stream; a non-finite element reaches
+    only its own client's sums."""
+    common.check_slab("g", g, g)
+    common.check_slab("g_prev", g_prev, g)
+    if g.shape[0] > _MAX_CLIENTS:
+        raise ValueError(f"batched_norms: {g.shape[0]} clients exceed "
+                         f"{_MAX_CLIENTS}, its grid's y limit (a grid row "
+                         "per client)")
     if common.device_type(g) == "cpu":
         LAUNCHES[("batched_norms", "cpu")] += 1
         return ref.batched_norms_ref(g, g_prev)
-    lib = library()
     C, n = g.shape
-    chunk = lib.dsgd_norms_chunk()
-    partial = torch.empty((C, -(-n // chunk), 2), dtype=torch.float32,
-                          device=g.device)
-    counter = torch.zeros((C,), dtype=torch.int32, device=g.device)
+    chunks = norms_grid(C, n)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    partial, tickets = _norms_workspace(g.device, stream, C, chunks)
     dg = torch.empty((C,), dtype=torch.float32, device=g.device)
     gg = torch.empty((C,), dtype=torch.float32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    common.raise_on(lib.dsgd_batched_norms(
-        g.data_ptr(), g_prev.data_ptr(), C, n, partial.data_ptr(),
-        counter.data_ptr(), dg.data_ptr(), gg.data_ptr(), stream),
+    common.raise_on(library().dsgd_batched_norms(
+        g.data_ptr(), g_prev.data_ptr(), C, n, chunks, partial.data_ptr(),
+        tickets.data_ptr(), dg.data_ptr(), gg.data_ptr(), stream),
         "batched_norms")
     LAUNCHES[("batched_norms", "cuda")] += 1
     return dg, gg
@@ -133,9 +215,10 @@ def batched_apply(p: torch.Tensor, g: torch.Tensor, eta: torch.Tensor, *,
     Updates ``p`` IN PLACE and returns it (the TPU kernel aliased P to
     its output). ``mask`` is the optional (N,) round mask from
     ``repro_torch.core.flat.round_mask``: where it is > 0 the result is
-    rounded to bf16, as a bf16 leaf is after every step."""
-    _check_slab("p", p, p)
-    _check_slab("g", g, p)
+    rounded to bf16, as a bf16 leaf is after every step. One launch
+    (``apply_grid``); bitwise equal to the plain version."""
+    common.check_slab("p", p, p)
+    common.check_slab("g", g, p)
     C, n = p.shape
     _check_vec("eta", eta, C, p)
     if mask is not None:
@@ -143,11 +226,12 @@ def batched_apply(p: torch.Tensor, g: torch.Tensor, eta: torch.Tensor, *,
     if common.device_type(p) == "cpu":
         LAUNCHES[("batched_apply", "cpu")] += 1
         return p.copy_(ref.batched_apply_ref(p, g, eta, mask))
-    stream = torch.cuda.current_stream(p.device).cuda_stream
+    grid = apply_grid(C, n, common.sm_count(p.device.index))
     common.raise_on(library().dsgd_batched_apply(
         p.data_ptr(), g.data_ptr(), eta.data_ptr(),
-        mask.data_ptr() if mask is not None else None, C, n, stream),
-        "batched_apply")
+        mask.data_ptr() if mask is not None else None, C, n, grid.group,
+        grid.threads, grid.blocks, int(grid.stream),
+        torch.cuda.current_stream(p.device).cuda_stream), "batched_apply")
     LAUNCHES[("batched_apply", "cuda")] += 1
     return p
 

@@ -19,8 +19,9 @@ from repro_torch.kernels.robust_agg import robust_agg as tra
 
 pytestmark = pytest.mark.cuda
 
-# ragged last norms chunk, a single 128-lane row, the paper's CNN width
-SHAPES = [(3, 128 * 67), (1, 128), (10, 71808)]
+# a ragged last norms block, a single 128-lane row, the paper's CNN
+# width, many clients on a short row, a long row
+SHAPES = [(3, 128 * 67), (1, 128), (10, 71808), (200, 1024), (10, 2 ** 20)]
 
 
 @pytest.fixture
@@ -69,6 +70,105 @@ def test_apply_kernel_is_bitwise_plain(C, N, masked, dev):
     if masked:
         sel = out[:, mask > 0]
         assert torch.equal(sel, sel.bfloat16().float())
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) of one call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("C,N", [(10, 71808), (10, 2 ** 20)])
+def test_batched_pair_is_one_device_op_a_call(C, N, dev):
+    """No counter fill, memset or copy beside the kernel."""
+    g, gp, p, eta, mask = _inputs(C, N, dev, seed=2)
+    tk.batched_norms(g, gp)
+    torch.cuda.synchronize()
+    for fn in (lambda: tk.batched_norms(g, gp),
+               lambda: tk.batched_apply(p, g, eta),
+               lambda: tk.batched_apply(p, g, eta, mask=mask)):
+        ops = _device_ops(fn)
+        assert len(ops) == 1, ops
+
+
+def test_batched_pair_refuses_a_grid_the_kernels_do_not_cut(dev):
+    """The library holds the wrappers' mirrors of its constants: a norms
+    grid of other than ceil(N / NORMS_CHUNK) blocks a row, or a group
+    past APPLY_GROUP, is refused before any launch."""
+    C, N = 3, 128 * 67
+    g, gp, p, eta, _ = _inputs(C, N, dev, seed=6)
+    lib = tk.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    chunks = tk.norms_grid(C, N)
+    partial, tickets = tk._norms_workspace(g.device, stream, C, chunks + 1)
+    out = torch.empty((2, C), device=dev)
+    for blocks in (chunks, chunks + 1, chunks - 1):
+        got = lib.dsgd_batched_norms(
+            g.data_ptr(), gp.data_ptr(), C, N, blocks, partial.data_ptr(),
+            tickets.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), stream)
+        assert (got == 0) == (blocks == chunks), (blocks, got)
+    for group in (tk.APPLY_GROUP, tk.APPLY_GROUP + 1):
+        got = lib.dsgd_batched_apply(
+            p.data_ptr(), g.data_ptr(), eta.data_ptr(), None, C, N, group,
+            32, 1, 0, stream)
+        assert (got == 0) == (group == tk.APPLY_GROUP), (group, got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C,N", [(10, 71808), (3, 128 * 67), (10, 2 ** 20)])
+def test_batched_norms_keeps_nan_and_inf_in_their_clients(C, N, dev):
+    g, gp, *_ = _inputs(C, N, dev, seed=3)
+    clean = torch.stack(tk.batched_norms(g, gp))
+    bad = g.clone()
+    bad[0, N // 2 + 1] = float("nan")
+    bad[C - 1, 5] = float("inf")
+    dirty = torch.stack(tk.batched_norms(bad, gp))
+    torch.cuda.synchronize()
+    assert not torch.isfinite(dirty[:, 0]).any()
+    assert not torch.isfinite(dirty[:, C - 1]).any()
+    assert torch.equal(dirty[:, 1:C - 1], clean[:, 1:C - 1])
+
+
+@pytest.mark.parametrize("C,N", [(10, 71808), (10, 2 ** 20)])
+def test_batched_pair_bits_do_not_depend_on_the_sm_count(C, N, dev,
+                                                          monkeypatch):
+    """With the H100 PCIe's 114 SMs in place of the card's own count (or
+    132 on a card of 114): the norms keep their bits (their grid is a
+    function of (C, N), ``norms_grid``), and the apply, whose grid
+    follows the SM count (it does at (10, 2**20)), stays bitwise plain."""
+    from repro_torch.kernels import common
+    own_sms = common.sm_count(torch.cuda.current_device())
+    other = 132 if own_sms == 114 else 114
+    if N == 2 ** 20:
+        assert tk.apply_grid(C, N, other) != tk.apply_grid(C, N, own_sms)
+    g, gp, p, eta, mask = _inputs(C, N, dev, seed=4)
+    own = torch.stack(tk.batched_norms(g, gp))
+    monkeypatch.setattr(common, "sm_count", lambda index: other)
+    assert torch.equal(torch.stack(tk.batched_norms(g, gp)), own)
+    for m in (None, mask):
+        out = tk.batched_apply(p.clone(), g, eta, mask=m)
+        assert torch.equal(out, tref.batched_apply_ref(p, g, eta, m))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_batched_apply_with_a_short_client_group(masked, dev):
+    """C = 17 on a row long enough for groups (6, 6, 5): the last group
+    of clients is not full."""
+    from repro_torch.kernels import common
+    C, N = 17, tk.APPLY_GROUP_N
+    sms = common.sm_count(torch.cuda.current_device())
+    assert C % tk.apply_grid(C, N, sms).group
+    g, _, p, eta, mask = _inputs(C, N, dev, seed=5)
+    m = mask if masked else None
+    want = tref.batched_apply_ref(p, g, eta, m)
+    out = tk.batched_apply(p.clone(), g, eta, mask=m)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_unaligned_input_is_rejected(dev):

@@ -11,10 +11,14 @@ without its final line:
               per kernel namespace, all started together (set-up); then
               cuobjdump --dump-sass on the flash-attention library: every
               bf16 instantiation must hold tensor-core instructions
-              (HMMA), and ptxas must report no spill in any of its 32
-              instantiations; and on the SSD chunk library: both
-              instantiations (one and two warp groups) hold TF32 HMMA
-              (its 3xTF32 products) and none spills.
+              (HMMA), and ptxas must report no stack frame or spill in
+              any of its 32 instantiations; and on the SSD chunk
+              library: both instantiations (one and two warp groups)
+              hold TF32 HMMA (its 3xTF32 products) and none has a stack
+              frame or spills; the compress (3
+              kernels) and robust_agg (the trimmed mean's six register
+              networks and its shared-memory path) libraries: no stack
+              frame and no spill in any function.
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5, two calls
@@ -23,9 +27,14 @@ without its final line:
               bf16; with the SM count patched to 114 the norms keep
               their bits and the apply, on another grid, stays bitwise
               plain; norms, apply and masked apply one device op a call
-              under torch.profiler; quantize/dequantize: bitwise equal,
-              and a NaN chunk like the plain version; top-k: exact; trimmed
-              mean: rtol 1e-6 / atol 1e-7 and two calls bitwise equal),
+              (the CUDA calls that enqueue work, as torch.profiler
+              records them on the host); quantize/dequantize: bitwise equal,
+              and a NaN chunk like the plain version; top-k: exact, one
+              device op a call; trimmed mean at t = 2 and the median at
+              t = 4, a row each: bitwise equal to the plain version, two
+              calls bitwise equal, one device op a call, the median
+              beside torch.quantile(midpoint), the same function at
+              even C, within 1e-6 of the middle values),
               timed with CUDA events (median of 60 launches queued
               behind a device sleep, so the times are device times)
               beside the plain version, a library call where one exists,
@@ -183,6 +192,9 @@ SCENARIO_PATHS = {
 # the trimmed-mean trim count on the dirichlet_dropouts path (C = 10,
 # trim_frac 0.2) and the median's; top-k slots per chunk at k_frac 0.25
 TRIM_T, MEDIAN_T, TOPK_K = 2, 4, 32
+# compare-exchanges of the trimmed mean's odd-even merge network on P2
+# values (csrc/robust_agg.cu; tests/test_torch_select.py counts them)
+MERGE_NETWORK_SIZE = {2: 1, 4: 5, 8: 19, 16: 63, 32: 191, 64: 543}
 
 # flash attention cases (B, S, H, KV, hd, window, dtype name), the first
 # two the prefill shapes of the two serve paths (f32, as they run), then
@@ -256,12 +268,28 @@ def device_ms(fn, torch):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+# CUDA runtime and driver calls that put work on the device
+ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+                 "cudaMemcpy", "cuMemcpy")
+
+
 def _one_device_op(torch, name, fn):
-    """One call of ``fn`` is one device operation under torch.profiler:
-    its kernel, and no fill, memset or copy beside it."""
-    ops = _profile_ms(torch, fn)[2]["device_ops"]
-    if ops != 1:
-        raise AssertionError(f"{name}: {ops} device ops a call, not 1")
+    """One call of ``fn`` puts one operation on the device: its kernel,
+    and no fill, memset or copy beside it. Counted from the CUDA runtime
+    and driver calls torch.profiler records on the host: on this card
+    the profiler now and then drops the device record of a kernel
+    launched from the port's libraries, never the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CPU
+           and e.name.startswith(ENQUEUE_CALLS)]
+    if len(ops) != 1:
+        raise AssertionError(f"{name}: {len(ops)} device ops a call, not 1: "
+                             f"{ops}")
 
 
 def check_sm_count(torch, tk, tref, g, gp, p, eta, mask, norms):
@@ -438,6 +466,7 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
                 lambda: torch.mul(q.view(C, M, 128), s[..., None]), torch),
             bound_ms=max((cn + s_bytes + 4 * cn) / bw, cn / f32) * 1e3,
             bound_by="bytes")
+        _one_device_op(torch, "topk_mask", lambda: tcomp.topk_mask(x, TOPK_K))
         rows[("topk_mask", (C, N))] = dict(
             name="topk_mask", shape=[C, N],
             max_abs_err=float((top - want_top).abs().max()),
@@ -445,35 +474,65 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
             plain_ms=device_ms(lambda: tcref.topk_mask_ref(x, TOPK_K),
                                torch),
             library_ms=None,
-            # ~32 radix passes of 2 ops per element, then the keep test
-            bound_ms=max(8 * cn / bw, 70 * cn / f32) * 1e3,
-            bound_by="bytes")
+            # the select's work depends on the data (its search stops
+            # early): the bytes alone, each read and written once
+            bound_ms=8 * cn / bw * 1e3, bound_by="bytes")
 
         # trimmed mean (t = 2, the dirichlet_dropouts path) and the
-        # median (t = 4): rtol 1e-6 / atol 1e-7, two calls bitwise equal
-        for t in (TRIM_T, MEDIAN_T):
+        # median (t = 4): bitwise equal to the plain version, two calls
+        # bitwise equal, one device op a call; one row each
+        sort_ops = 2 * MERGE_NETWORK_SIZE[1 << (C - 1).bit_length()]
+        for t, name in ((TRIM_T, "batched_trimmed_mean"),
+                        (MEDIAN_T, "batched_trimmed_mean[median]")):
             got = tra.batched_trimmed_mean(x, t)
             again = tra.batched_trimmed_mean(x, t)
             want = traref.batched_trimmed_mean_ref(x, t)
             torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError("batched_trimmed_mean: two calls differ")
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
-            if t == TRIM_T:
-                err = float((got - want).abs().max())
-        p2 = 1 << (C - 1).bit_length()
-        lg = p2.bit_length() - 1
-        sort_ops = 2 * (p2 // 2) * lg * (lg + 1) // 2   # min + max
-        rows[("batched_trimmed_mean", (C, N))] = dict(
-            name="batched_trimmed_mean", shape=[C, N], max_abs_err=err,
-            ms=device_ms(lambda: tra.batched_trimmed_mean(x, TRIM_T),
-                         torch),
-            plain_ms=device_ms(
-                lambda: traref.batched_trimmed_mean_ref(x, TRIM_T), torch),
-            library_ms=None,
-            bound_ms=max((4 * cn + 4 * N) / bw,
-                         (sort_ops + C) * N / f32) * 1e3,
-            bound_by="bytes")
+            if not torch.equal(bits(got), bits(again)):
+                raise AssertionError(f"{name}: two calls differ")
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"{name} is not bitwise equal to the "
+                                     "plain version")
+            _one_device_op(torch, name,
+                           lambda t=t: tra.batched_trimmed_mean(x, t))
+            row = dict(
+                name=name, shape=[C, N], t=t,
+                max_abs_err=float((got - want).abs().max()),
+                ms=device_ms(lambda t=t: tra.batched_trimmed_mean(x, t),
+                             torch),
+                plain_ms=device_ms(
+                    lambda t=t: traref.batched_trimmed_mean_ref(x, t),
+                    torch),
+                library_ms=None,
+                bound_ms=max((4 * cn + 4 * N) / bw,
+                             (sort_ops + C) * N / f32) * 1e3,
+                bound_by="bytes")
+            if t == MEDIAN_T:
+                # the median of an even cohort is torch.quantile's
+                # midpoint: the same function, one library call
+                try:
+                    lib = torch.quantile(x, 0.5, dim=0,
+                                         interpolation="midpoint")
+                except RuntimeError as err:
+                    row["library_refused"] = str(err).splitlines()[0]
+                else:
+                    # quantile's midpoint is a lerp, a + (b − a)/2, which
+                    # rounds b − a: within 1e-6 of the larger middle value
+                    mid = torch.sort(x, dim=0).values[C // 2 - 1:C // 2 + 1]
+                    scale = mid.abs().amax(dim=0)
+                    if not ((lib - got).abs() <= 1e-6 * scale).all():
+                        raise AssertionError(
+                            "torch.quantile(midpoint) differs from the "
+                            "median by more than 1e-6 of the middle values")
+                    row["library_max_rel_err_of_middle"] = float(
+                        ((lib - got).abs() / scale.clamp(min=1e-30)).max())
+                    del lib, mid, scale
+                    row["library_ms"] = device_ms(
+                        lambda: torch.quantile(x, 0.5, dim=0,
+                                               interpolation="midpoint"),
+                        torch)
+                    row["library_call"] = "torch.quantile(midpoint)"
+            rows[(name, (C, N))] = row
         for key, row in rows.items():
             if key[1] == (C, N):
                 row["gbps_achieved"] = (row["bound_ms"] / row["ms"]) * bw / 1e9
@@ -1055,24 +1114,40 @@ def check_ssd_variants(torch, m2, kind, args, L):
         "us_by_variant": us}), flush=True)
 
 
+def check_no_spill(build, mod, namespace, kernels):
+    """Phase 2: the -Xptxas -v log of a kernel library lists ``kernels``
+    functions, none with a stack frame or a spill (a register array
+    indexed at run time lands in local memory). Returns {function:
+    registers}."""
+    import re
+    log = build.library_path(namespace, mod.SOURCES).with_suffix(
+        ".log").read_text()
+    props = re.findall(r"Function properties for (\S+)\n\s+(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads\n.*?Used (\d+) registers", log)
+    bad = {n: (int(f), int(st), int(ld)) for n, f, st, ld, _ in props
+           if int(f) or int(st) or int(ld)}
+    regs = {n: int(r) for n, *_, r in props}
+    print(f"{namespace} ptxas", json.dumps({
+        "functions": len(props), "registers": sorted(regs.values()),
+        "stack_or_spill": bad}), flush=True)
+    if len(props) != kernels or bad:
+        raise AssertionError(f"{namespace} build: {len(props)} kernels in "
+                             f"the ptxas log (want {kernels}), stack "
+                             f"frames or spills {bad}")
+    return regs
+
+
 def check_tensor_core_sass(build, fa):
     """Phase 2: every bf16 flash-attention instantiation in the built
     library holds HMMA (tensor-core) instructions, and no instantiation of
-    either dtype spills (the build's -Xptxas -v log). Returns the HMMA
-    counts."""
-    import re
+    either dtype has a stack frame or spills (check_no_spill). Returns
+    the HMMA counts."""
     import shutil
-    log = build.library_path("flash_attention", fa.SOURCES).with_suffix(
-        ".log").read_text()
-    props = re.findall(r"Function properties for (\S+)\n\s+(\d+) bytes stack "
-                       r"frame, (\d+) bytes spill stores", log)
-    spills = {n: int(st) for n, _, st in props if int(st)}
     # hd = 16..128 in steps of 16: f32 with q tiles of 16, 32 and 64
     # rows, bf16 with 64-row tiles
     want_f32, want_bf16 = 8 * len(fa.Q_TILE_ROWS), 8
-    if len(props) != want_f32 + want_bf16 or spills:
-        raise AssertionError(f"flash_attention build: {len(props)} kernels "
-                             f"in the ptxas log, spills {spills}")
+    check_no_spill(build, fa, "flash_attention", want_f32 + want_bf16)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = build.library_path("flash_attention", fa.SOURCES)
     sass = subprocess.run([tool, "--dump-sass", str(lib)],
@@ -1101,18 +1176,11 @@ def check_tensor_core_sass(build, fa):
 def check_ssd_sass(build, m2):
     """Phase 2: the built SSD chunk library holds its two instantiations
     (one and two warp groups), each with TF32 tensor-core instructions
-    (HMMA ... TF32) and no spill (the build's -Xptxas -v log). Returns
-    the HMMA counts."""
-    import re
+    (HMMA ... TF32) and no stack frame or spill (check_no_spill).
+    Returns the HMMA counts."""
     import shutil
     lib = build.library_path("mamba2_scan", m2.SOURCES)
-    log = lib.with_suffix(".log").read_text()
-    props = re.findall(r"Function properties for (\S+)\n\s+(\d+) bytes stack "
-                       r"frame, (\d+) bytes spill stores", log)
-    spills = {n: int(st) for n, _, st in props if int(st)}
-    if len(props) != 2 or spills:
-        raise AssertionError(f"mamba2_scan build: {len(props)} kernels in "
-                             f"the ptxas log, spills {spills}")
+    check_no_spill(build, m2, "mamba2_scan", 2)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True,
@@ -1125,10 +1193,10 @@ def check_ssd_sass(build, m2):
     print("mamba2_scan SASS", json.dumps({
         "instantiations": len(hmma),
         "tf32_hmma_per_instantiation": sorted(hmma.values())}), flush=True)
-    if len(hmma) != len(props) or min(hmma.values(), default=0) == 0:
+    if len(hmma) != 2 or min(hmma.values(), default=0) == 0:
         raise AssertionError(f"mamba2_scan SASS: {len(hmma)} functions "
-                             f"for {len(props)} in the ptxas log, TF32 "
-                             f"HMMA counts {sorted(hmma.values())}")
+                             f"for 2 in the ptxas log, TF32 HMMA counts "
+                             f"{sorted(hmma.values())}")
     return hmma
 
 
@@ -1354,6 +1422,10 @@ def main() -> int:
             print(log.read_text().strip())
     check_tensor_core_sass(build, fa)
     check_ssd_sass(build, m2)
+    # top-k and the three other compress kernels; the trimmed mean's six
+    # register networks and its shared-memory path
+    check_no_spill(build, tcomp, "compress", 3)
+    check_no_spill(build, tra, "robust_agg", 7)
 
     # 3. kernels
     rows = check_kernels(torch, tk, tref, bw, f32)

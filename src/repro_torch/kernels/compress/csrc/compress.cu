@@ -29,17 +29,39 @@
 //   4 written per element).
 //
 // cmp_topk_mask replaces _topk_kernel (topk_mask): keeps exactly k slots
-//   per chunk by |x| (ties by first index) and zeroes the rest. Bound by
-//   bytes (4 read, 4 written per element); the selection is ~32 warp
-//   reductions per chunk, all in registers. Design: the TPU kernel sorted
-//   the chunk in VMEM; here the k-th largest |x| is found exactly by a
-//   32-step radix select on the bits of |x| (non-negative floats order
-//   like their uint32 bits; NaN sorts last, as in jnp.sort) with
-//   __reduce_add_sync counts. The keep test then compares floats, as the
-//   reference does, and ranks the elements equal to the threshold in
-//   element order with a warp prefix sum.
+//   per chunk by |x| (ties by first index) and zeroes the rest; NaN sorts
+//   last (largest), as in jnp.sort and torch.sort. Bound by bytes (4 read,
+//   4 written per element) once the select costs a few integer and float
+//   operations per element. Design: the TPU kernel sorted the chunk in
+//   VMEM; here the k-th largest |x| is found exactly by a binary search on
+//   its bit pattern (non-negative floats order like their uint32 bits),
+//   all in registers, one warp-uniform step per bit:
+//   - the NaN lanes are counted once; if k or more, the threshold is NaN
+//     and, as in the plain version, no slot is kept;
+//   - the largest and smallest non-NaN |x| (fmaxf/fminf drop NaN, then
+//     __reduce_max_sync/__reduce_min_sync on the bits) share their bits
+//     above the highest bit where they differ: the search starts there,
+//     so a constant or all-zero chunk takes no step at all;
+//   - a step probes T = prefix | bit and counts |x| >= T with one float
+//     compare and one add per element (a NaN compares false and is
+//     counted apart; denormals are compared exactly, the build has no
+//     --use_fast_math), then one __reduce_add_sync; T becomes the prefix
+//     when k or more lie at or above it;
+//   - it stops as soon as exactly k lie at or above the prefix: the
+//     threshold is then the least of them, one __reduce_min_sync.
+//   The keep test then compares floats, as the reference does. Only when
+//   more elements equal the threshold than slots are left does it rank
+//   them in element order, with a warp prefix sum. The parent's 32-pass
+//   radix select (and + compare + add per element a pass), the same
+//   passes stopping early, ballot counts, two bits a step, set.ge
+//   counts, integer counts on the bits (1.7 % faster at 2^24, but NaN
+//   then counts only while the probe stays at or below +inf's bits),
+//   the tie scan on every chunk, and a grid of resident warps that each
+//   walk many chunks, loading the next before selecting in the current
+//   one, were measured beside it (scripts/topk_probe.py).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -105,37 +127,52 @@ topk_mask_kernel(const float* __restrict__ x, float* __restrict__ out,
                  int64_t chunks, int k) {
   const int64_t chunk =
       static_cast<int64_t>(blockIdx.x) * kChunksPerBlock + (threadIdx.x >> 5);
-  if (chunk >= chunks) return;
+  if (chunk >= chunks) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const float4 v =
       __ldcs(reinterpret_cast<const float4*>(x + chunk * kLanes) + lane);
   const float xs[4] = {v.x, v.y, v.z, v.w};
   float a[4];
-  unsigned bits[4];
+  int nan = 0;
+  float top = 0.0f, bottom = INFINITY;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     a[i] = fabsf(xs[i]);
-    bits[i] = __float_as_uint(a[i]);
+    nan += a[i] != a[i];
+    top = fmaxf(top, a[i]);
+    bottom = fminf(bottom, a[i]);
   }
+  nan = __reduce_add_sync(kFull, nan);
 
-  // radix select: the bit pattern of the k-th largest |x| of the chunk
-  unsigned prefix = 0u, mask = 0u;
-  int remaining = k;
-  for (int bit = 31; bit >= 0; --bit) {
-    const unsigned probe = 1u << bit;
-    const unsigned want = prefix | probe;
-    const unsigned m = mask | probe;
-    unsigned c = 0u;
+  // the k-th largest |x| (NaN last); NaN itself when k or more are NaN
+  float thr = __uint_as_float(0x7fc00000u);
+  if (nan < k) {
+    const unsigned hi = __reduce_max_sync(kFull, __float_as_uint(top));
+    const unsigned lo = __reduce_min_sync(kFull, __float_as_uint(bottom));
+    // every non-NaN |x| has the bits of hi above the highest bit where
+    // hi and lo differ, so all kLanes lie at or above that prefix
+    int bit = 31 - __clz(hi ^ lo);
+    unsigned prefix = bit < 0 ? hi : hi & ~((2u << bit) - 1u);
+    int at_or_above = kLanes;
+    for (; bit >= 0 && at_or_above != k; --bit) {
+      const unsigned probe = prefix | (1u << bit);
+      const float p = __uint_as_float(probe);
+      int c = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) c += (bits[i] & m) == want;
-    c = __reduce_add_sync(kFull, c);
-    if (static_cast<int>(c) >= remaining)
-      prefix = want;
-    else
-      remaining -= static_cast<int>(c);
-    mask = m;
+      for (int i = 0; i < 4; ++i) c += a[i] >= p;
+      c = __reduce_add_sync(kFull, c) + nan;
+      if (c >= k) {
+        prefix = probe;
+        at_or_above = c;
+      }
+    }
+    const float p = __uint_as_float(prefix);
+    float least = INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (a[i] >= p) least = fminf(least, a[i]);
+    thr = __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(least)));
   }
-  const float thr = __uint_as_float(prefix);
 
   unsigned n_greater = 0u, n_eq = 0u;
 #pragma unroll
@@ -143,7 +180,19 @@ topk_mask_kernel(const float* __restrict__ x, float* __restrict__ out,
     n_greater += a[i] > thr;
     n_eq += a[i] == thr;
   }
-  n_greater = __reduce_add_sync(kFull, n_greater);
+  // both counts (at most kLanes each) in one warp sum
+  const unsigned both = __reduce_add_sync(kFull, n_greater | (n_eq << 16));
+  n_greater = both & 0xffffu;
+  float r[4];
+  if (static_cast<int>(n_greater + (both >> 16)) <= k) {
+    // every element equal to the threshold is kept: no rank needed (a
+    // NaN threshold keeps nothing)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = a[i] >= thr ? xs[i] : 0.0f;
+    reinterpret_cast<float4*>(out + chunk * kLanes)[lane] =
+        make_float4(r[0], r[1], r[2], r[3]);
+    return;
+  }
   // inclusive prefix sum of the per-lane counts of equal elements
   unsigned scan = n_eq;
 #pragma unroll
@@ -153,7 +202,6 @@ topk_mask_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
   int rank = static_cast<int>(scan - n_eq);  // equal elements before mine
   const int quota = k - static_cast<int>(n_greater);
-  float r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     bool keep = a[i] > thr;

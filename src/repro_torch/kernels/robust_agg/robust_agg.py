@@ -9,10 +9,12 @@ Port of ``repro/kernels/robust_agg/robust_agg.py``:
                          Replaces the kernel of ``_make_trimmed_kernel``.
 
 It is bound by memory on the card; what its CUDA design does about it is
-written at the top of ``csrc/robust_agg.cu``. Given CUDA tensors the
-wrapper launches the kernel (built from that source at first use) or
-raises; given CPU tensors it runs the plain version in ``ref.py``. There
-is no other switch. ``LAUNCHES`` counts calls per ``(function, device
+written at the top of ``csrc/robust_agg.cu``: up to 64 clients the
+values sort in registers, and the grid is sized from N and the SM count
+(``common.sm_count``). Given CUDA tensors the wrapper launches the
+kernel (built from that source at first use) or raises; given CPU
+tensors it runs the plain version in ``ref.py``. There is no other
+switch. ``LAUNCHES`` counts calls per ``(function, device
 type)``, one book per kernel namespace, so the Δ-SGD launch invariant
 counts only its own module's launches.
 """
@@ -55,7 +57,7 @@ def library() -> ctypes.CDLL:
     lib.ra_max_clients.argtypes = []
     lib.ra_max_clients.restype = ctypes.c_int
     lib.ra_trimmed_mean.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64,
-                                    i64, i64, ctypes.c_void_p]
+                                    i64, i64, ctypes.c_int, ctypes.c_void_p]
     lib.ra_trimmed_mean.restype = ctypes.c_int
     if lib.ra_max_clients() != MAX_CLIENTS:
         raise RuntimeError("csrc/robust_agg.cu and robust_agg.py disagree "
@@ -83,6 +85,7 @@ def batched_trimmed_mean(x: torch.Tensor, t: int) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     common.raise_on(library().ra_trimmed_mean(
         x.data_ptr(), out.data_ptr(), C, n, t,
+        common.sm_count(x.device.index),
         torch.cuda.current_stream(x.device).cuda_stream),
         "batched_trimmed_mean")
     LAUNCHES[("batched_trimmed_mean", "cuda")] += 1

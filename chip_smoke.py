@@ -8,7 +8,8 @@ without its final line:
 
   1. header   the card's name and power limit (nvidia-smi), torch/CUDA.
   2. build    the CUDA kernels from the repository's sources, one nvcc
-              per kernel namespace, all started together (set-up); then
+              per kernel namespace, all started together, and an empty
+              kernel (launch_floor) beside them (set-up); then
               cuobjdump --dump-sass on the flash-attention library: every
               bf16 instantiation must hold tensor-core instructions
               (HMMA), and ptxas must report no stack frame or spill in
@@ -17,8 +18,10 @@ without its final line:
               hold TF32 HMMA (its 3xTF32 products) and none has a stack
               frame or spills; the compress (3
               kernels) and robust_agg (the trimmed mean's six register
-              networks and its shared-memory path) libraries: no stack
-              frame and no spill in any function.
+              networks and its shared-memory path) libraries, and the
+              telemetry library (the histogram's two one-warp
+              instances and its grid kernel, the quantiles' three
+              kernels): no stack frame and no spill in any function.
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5, two calls
@@ -29,17 +32,23 @@ without its final line:
               plain; norms, apply and masked apply one device op a call
               (the CUDA calls that enqueue work, as torch.profiler
               records them on the host); quantize/dequantize: bitwise equal,
-              and a NaN chunk like the plain version; top-k: exact, one
-              device op a call; trimmed mean at t = 2 and the median at
-              t = 4, a row each: bitwise equal to the plain version, two
-              calls bitwise equal, one device op a call, the median
-              beside torch.quantile(midpoint), the same function at
-              even C, within 1e-6 of the middle values),
+              and a NaN chunk like the plain version; quantize also at
+              ragged chunk counts (1, 7, 4k + 3 and 32k + 5 chunks, NaN
+              and inf chunks), at 114 SMs (patched) with the same bits,
+              the same bits on two calls, one device op a call; top-k:
+              exact, one device op a call; trimmed mean at t = 2 and the
+              median at t = 4, a row each: bitwise equal to the plain
+              version, two calls bitwise equal, one device op a call, the
+              median beside torch.quantile(midpoint), the same function
+              at even C, within 1e-6 of the middle values),
               timed with CUDA events (median of 60 launches queued
               behind a device sleep, so the times are device times)
               beside the plain version, a library call where one exists,
               and the bound from the bytes moved and the card's peak
-              rates. One JSON line per kernel and shape.
+              rates. One JSON line per kernel and shape, after a
+              "launch floor" line: an empty kernel from a library built
+              as the port's are, and torch.cuda._sleep(0), in the same
+              timing.
   4. paths    the paper's CNN federation through the training entry point
               (100 clients, alpha 0.1, participation 0.1, batch 64, 4
               rounds, 2 rounds per call) on cuda, three times: plain
@@ -84,10 +93,15 @@ without its final line:
               at full width and 2 layers (7 for Zamba2, so the shared block
               is there); prefill and one decode block are timed and
               profiled (device busy, idle share).
-  3b. slice-4 kernels  lane_histogram and lane_quantiles at C = 10,
-              1000, 16,384, 16,385 and 100,000 (one block up to 2,048
-              lanes, two launches past it) with NaN lanes of both signs,
-              ±0, ±inf and ties
+  3b. slice-4 kernels  lane_histogram exact at C = 1, 10, its
+              crossover HIST_WARP_LANES (one warp up to it, a grid of
+              blocks past it) and one either side, 16,384 and 100,000
+              lanes, with B = 1, 16, 33 and 4,096 bins of ascending and of
+              shuffled edges (a NaN edge, an empty bin), the same bits on
+              two calls, one device op a call; then lane_histogram (B =
+              16) and lane_quantiles (one block up to 2,048 lanes, two
+              launches past it) at C = 10, 1000, 16,384, 16,385 and
+              100,000 with NaN lanes of both signs, ±0, ±inf and ties
               (exact, quantiles bit for bit; torch.quantile(nearest) is
               checked equal on the NaN-free lanes and timed as the
               quantiles' yardstick), and the single-tensor norms (rtol
@@ -215,11 +229,18 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 494.7e12
 # chunks-per-block packings timed at L = 1 (PACK_ROWS of the SSD wrapper)
 SSD_PACKINGS = (1, 16, 32, 64)
+# quantize_int8's ragged (clients, chunks a row): one chunk, a ragged
+# warp (7), a ragged last warp after whole ones (4k + 3), a part-filled
+# last block (32k + 5)
+QUANT_RAGGED = ((1, 1), (1, 7), (1, 4 * 1000 + 3), (3, 7), (1, 32 * 41 + 5))
 # telemetry lane counts (the CNN path's cohort, a larger cohort, the
 # old one-block quantile limit and one past it, 10^5 lanes: the reference
 # takes any C, though no path of either sends more than 2,048 a round);
 # single-tensor sizes (the CNN's packed N, 2^24)
 TELE_LANES = (10, 1000, 16384, 16385, 100000)
+# lane_histogram's exactness cases: bins from one to its most (the lanes
+# follow its crossover, check_histogram_cases)
+HIST_CHECK_BINS = (1, 16, 33, 4096)
 SINGLE_SIZES = (71808, 2 ** 24)
 # blocks timed per variant for the telemetry path's wall per local step
 TELE_TIMED_BLOCKS = 6
@@ -266,6 +287,35 @@ def device_ms(fn, torch):
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+# an empty kernel behind a plain C entry point, built and loaded as the
+# port's libraries are: the floor of any launch in device_ms's timing
+FLOOR_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor(torch, build):
+    """A call that launches FLOOR_SOURCE's empty kernel on the current
+    stream (built at first use under build/probe)."""
+    import ctypes
+    src = build.BUILD_DIR.parent / "probe" / "launch_floor.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(FLOOR_SOURCE)
+    lib = build.load_library("launch_floor", [src])
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+
+    def launch():
+        err = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: CUDA error {err}")
+    return launch
 
 
 # CUDA runtime and driver calls that put work on the device
@@ -403,6 +453,51 @@ def check_kernels(torch, tk, tref, bw, f32):
     return rows
 
 
+def _quant_bits_equal(torch, got, want):
+    (q, s), (wq, ws) = got, want
+    return torch.equal(q, wq) and torch.equal(
+        s.nan_to_num(-1.0).view(torch.int32),
+        ws.nan_to_num(-1.0).view(torch.int32))
+
+
+def check_quantize_grids(torch, tcomp, tcref):
+    """Phase 3: quantize_int8 bitwise plain at ragged chunk counts (one
+    chunk, a ragged warp, a ragged last warp after whole ones, a
+    part-filled last block), each with a NaN and an inf chunk where
+    there are three chunks or more."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for C, M in QUANT_RAGGED:
+        x = (torch.randn((C, M, 128), generator=gen, device="cuda")
+             * torch.exp(3 * torch.randn((C, M, 1), generator=gen,
+                                         device="cuda"))).view(C, M * 128)
+        x[:, :128] = 0.0
+        if M >= 3:
+            x[0, 130] = float("nan")
+            x[C - 1, 300] = float("inf")
+        if not _quant_bits_equal(torch, tcomp.quantize_int8(x),
+                                 tcref.quantize_int8_ref(x)):
+            raise AssertionError(f"quantize_int8 at {(C, M)} chunks is not "
+                                 "bitwise equal to the plain version")
+    print("quantize_int8 ragged chunk counts bitwise plain:",
+          json.dumps([[C, M, tcomp.quantize_grid(C * M)]
+                      for C, M in QUANT_RAGGED]), flush=True)
+
+
+def check_sm_count_moves_no_quantize_bit(torch, tcomp, x, q, s):
+    """Phase 3: with 114 SMs in place of the card's own count (132 on a
+    card of 114), quantize_int8 gives the same bits."""
+    own_sms = tcomp.common.sm_count
+    other = 132 if own_sms(0) == 114 else 114
+    tcomp.common.sm_count = lambda index: other
+    try:
+        got = tcomp.quantize_int8(x)
+    finally:
+        tcomp.common.sm_count = own_sms
+    torch.cuda.synchronize()
+    if not _quant_bits_equal(torch, got, (q, s)):
+        raise AssertionError(f"quantize_int8 at {other} SMs moved bits")
+
+
 def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
     """Phase 3, the compression and robust-aggregation kernels. Returns
     {(name, shape): row}."""
@@ -445,6 +540,15 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
                                     ws.nan_to_num(-1.0))):
                 raise AssertionError("quantize_int8 treats a NaN chunk "
                                      "unlike the plain version")
+            check_quantize_grids(torch, tcomp, tcref)
+        check_sm_count_moves_no_quantize_bit(torch, tcomp, x, q, s)
+        q2, s2 = tcomp.quantize_int8(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q2, q) and torch.equal(bits(s2), bits(s))):
+            raise AssertionError("quantize_int8: two calls differ")
+        del q2, s2
+        _one_device_op(torch, "quantize_int8",
+                       lambda: tcomp.quantize_int8(x))
 
         cn = C * N
         s_bytes = 4 * C * M
@@ -554,11 +658,58 @@ def _tele_lanes(C, seed):
     return x
 
 
+def _hist_edges(B, mixed):
+    """B + 1 log-spaced edges from 0 (the telemetry spec's kind), or the
+    same shuffled, with a NaN edge and an empty bin of equal edges."""
+    import numpy as np
+    e = np.concatenate([[0.0], np.logspace(-6, 3, B)]).astype(np.float32)
+    if mixed:
+        r = np.random.default_rng(B)
+        e = r.permutation(e)
+        e[r.integers(0, B + 1)] = np.nan
+        e[min(B, 1)] = e[0]
+    return e
+
+
+def check_histogram_cases(torch, tt, ttref):
+    """Phase 3b: lane_histogram exact at C = 1, 10, the crossover
+    HIST_WARP_LANES (the one-warp path's last) and one either side,
+    16,384 and 100,000 (the grid), at each B of HIST_CHECK_BINS, with
+    ascending and non-ascending edges; two calls give the same bits; one
+    device op a call on both paths."""
+    X = tt.HIST_WARP_LANES
+    lanes = (1, 10, X - 1, X, X + 1, 16384, 100000)
+    n = 0
+    for C in lanes:
+        x = torch.from_numpy(_tele_lanes(C, C + 7)).cuda().abs()
+        for B in HIST_CHECK_BINS:
+            for mixed in (False, True):
+                e = torch.from_numpy(_hist_edges(B, mixed)).cuda()
+                got, again = tt.lane_histogram(x, e), tt.lane_histogram(x, e)
+                want = ttref.lane_histogram_ref(x, e)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got, again)):
+                    raise AssertionError(
+                        f"lane_histogram C={C} B={B} mixed={mixed}: "
+                        f"{got[:8].tolist()} != plain {want[:8].tolist()} "
+                        "or two calls differ")
+                n += 1
+        e = torch.from_numpy(_hist_edges(16, False)).cuda()
+        _one_device_op(torch, f"lane_histogram C={C}",
+                       lambda x=x, e=e: tt.lane_histogram(x, e))
+    sms = tt.common.sm_count(0)
+    print("lane_histogram exact, same bits twice, one device op a call:",
+          json.dumps({"cases": n, "grids": {
+              C: list(tt.hist_grid(C, 16, sms)) for C in lanes}}),
+          flush=True)
+
+
 def check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32):
     """Phase 3b. Returns {(name, case): row}."""
     import numpy as np
     from repro_torch.telemetry import TelemetrySpec
     rows = {}
+    check_histogram_cases(torch, tt, ttref)
     edges = TelemetrySpec().edges_on("cuda")
     B = edges.numel() - 1
     Q = 11
@@ -1412,9 +1563,11 @@ def main() -> int:
 
     # 2. build: one nvcc per namespace, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
+    with ThreadPoolExecutor(len(mods) + 1) as pool:
+        floor = pool.submit(launch_floor, torch, build)
         list(pool.map(lambda m: m.library(), mods))
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(mods)} "
+        floor = floor.result()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(mods) + 1} "
           "libraries in parallel (set-up)")
     for mod, ns in zip(mods, namespaces):
         log = build.library_path(ns, mod.SOURCES).with_suffix(".log")
@@ -1426,8 +1579,16 @@ def main() -> int:
     # register networks and its shared-memory path
     check_no_spill(build, tcomp, "compress", 3)
     check_no_spill(build, tra, "robust_agg", 7)
+    # the histogram's two one-warp instances and its grid kernel, the
+    # quantiles' three kernels
+    check_no_spill(build, tt, "telemetry", 6)
 
-    # 3. kernels
+    # 3. kernels, beside the floor of any launch in this timing
+    print(json.dumps({
+        "name": "launch floor", "ms": device_ms(floor, torch),
+        "torch_sleep0_ms": device_ms(lambda: torch.cuda._sleep(0), torch),
+        "what": "an empty kernel from a library built as the port's are; "
+                "torch.cuda._sleep(0) beside it"}), flush=True)
     rows = check_kernels(torch, tk, tref, bw, f32)
     rows.update(check_round_tail_kernels(torch, tcomp, tcref, tra, traref,
                                          bw, f32))

@@ -14,6 +14,7 @@ consecutive elements:
 Per round, int8 costs exactly 2 launches and top-k 1, whatever the leaf
 and client counts. All three are bound by memory on the card; what their
 CUDA design does about it is written at the top of ``csrc/compress.cu``.
+``quantize_grid`` gives quantize a warp for every QUANT_STEP chunks.
 A wrapper given CUDA tensors launches its kernel (built from that source
 at first use, see ``repro_torch.kernels.build``) or raises; given CPU
 tensors it runs the plain version in ``ref.py``. There is no other
@@ -36,6 +37,11 @@ from repro_torch.kernels.compress import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "compress.cu",)
 
+# quantize_int8: chunks a warp takes (kQuantStep), threads a block
+# (kThreads)
+QUANT_STEP = 4
+QUANT_THREADS = 256
+
 LAUNCHES: Counter = Counter()
 
 
@@ -53,13 +59,29 @@ def library() -> ctypes.CDLL:
     """The built kernel library (compiled from SOURCES at first use)."""
     lib = build.load_library("compress", SOURCES)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.cmp_quantize_int8.argtypes = [vp, vp, vp, i64, vp]
+    lib.cmp_quantize_int8.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.cmp_dequantize_int8.argtypes = [vp, vp, vp, i64, vp]
     lib.cmp_topk_mask.argtypes = [vp, vp, i64, ctypes.c_int, vp]
     for fn in (lib.cmp_quantize_int8, lib.cmp_dequantize_int8,
                lib.cmp_topk_mask):
         fn.restype = ctypes.c_int
+    for fn in (lib.cmp_quantize_chunks_a_step, lib.cmp_quantize_threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if (lib.cmp_quantize_chunks_a_step(), lib.cmp_quantize_threads()) != (
+            QUANT_STEP, QUANT_THREADS):
+        raise RuntimeError("csrc/compress.cu and compress.py disagree on "
+                           "quantize_int8's grid")
     return lib
+
+
+def quantize_grid(chunks: int) -> int:
+    """``quantize_int8``'s blocks of QUANT_THREADS threads: warp w of the
+    grid takes chunks QUANT_STEP·w .. QUANT_STEP·w + QUANT_STEP − 1 (the
+    last warp's ragged), every warp one step. A grid of resident warps
+    that stride over the steps was slower (scripts/hist_quant_probe.py),
+    so the grid reads no SM count."""
+    return max(1, -(-chunks // (QUANT_STEP * (QUANT_THREADS // 32))))
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -77,9 +99,10 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     C, n = x.shape
     q = torch.empty((C, n), dtype=torch.int8, device=x.device)
     s = torch.empty((C, n // LANES), dtype=torch.float32, device=x.device)
+    chunks = C * (n // LANES)
     common.raise_on(library().cmp_quantize_int8(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), C * (n // LANES),
-        _stream(x)), "quantize_int8")
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), chunks,
+        quantize_grid(chunks), _stream(x)), "quantize_int8")
     LAUNCHES[("quantize_int8", "cuda")] += 1
     return q, s
 

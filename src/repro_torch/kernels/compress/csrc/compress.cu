@@ -10,19 +10,33 @@
 // nothing is contracted, so every output is bitwise equal to the plain
 // PyTorch version in ../ref.py.
 //
-// Layout shared by the three: one warp per chunk, lane j holding the
-// chunk's elements 4j..4j+3 (one 16-byte load), so the chunk's element
-// order is the lane order and a warp reads 512 contiguous bytes.
+// Layout of dequantize_int8 and topk_mask: one warp per chunk, lane j
+// holding the chunk's elements 4j..4j+3 (one 16-byte load), so the
+// chunk's element order is the lane order and a warp reads 512
+// contiguous bytes.
 //
 // cmp_quantize_int8 replaces the TPU kernel _quantize_kernel
 //   (repro/kernels/compress/compress.py, quantize_int8). Per chunk:
 //   s = absmax/127, q = clamp(round_half_even(x * (127/absmax)), ±127).
 //   Bound by bytes: it reads 4 bytes per element and writes 1 (plus one
-//   f32 scale per chunk), a few flops per element. Design: the absmax is
-//   a warp butterfly (__shfl_xor_sync) over a max that keeps NaN, as
-//   jnp.max does (fmaxf drops it); __float2int_rn rounds half to even
-//   and turns NaN into 0, as XLA's float-to-int conversion does; each
-//   lane stores one char4, lane 0 the scale.
+//   f32 scale per chunk), a few flops per element. Design: a chunk is
+//   spread over 8 lanes, lane j of the group holding its 16-byte pieces
+//   j, j + 8, j + 16 and j + 24 (four loads, each instruction of the
+//   warp reading whole 128-byte lines), so a warp takes 4 consecutive
+//   chunks, 2 KB, its one step (quantize_grid in ../compress.py). The
+//   absmax is a 3-step __shfl_xor_sync butterfly of width 8 over a max
+//   that keeps NaN, as jnp.max does (fmaxf drops it); max is exact, so
+//   the tree changes no finite scale. Each lane stores its pieces as
+//   four 4-byte words (8 lanes write 32 contiguous bytes), and lane 0
+//   the step's 4 contiguous scales as one 16-byte store. __float2int_rn
+//   rounds half to even and turns NaN into 0, as XLA's float-to-int
+//   conversion does; 127/absmax and absmax/127 are true divisions. The
+//   parent gave each warp one chunk (one 16-byte load a lane, a 5-step
+//   butterfly, a 4-byte scale store from lane 0): 292.5 against 284.5 µs
+//   at (10, 2^24). A grid sized to the SMs whose warps walk their steps,
+//   loading the next before reducing this one, was 4 % slower there, and
+//   16 contiguous elements a lane with one 16-byte store 1 % slower
+//   (scripts/hist_quant_probe.py, H100 SXM, 700 W).
 //
 // cmp_dequantize_int8 replaces _dequantize_kernel (dequantize_int8):
 //   q * s per chunk, char4 in, float4 out. Bound by bytes (1 byte read,
@@ -80,28 +94,68 @@ __device__ __forceinline__ signed char quant(float x, float inv) {
   return static_cast<signed char>(min(max(r, -127), 127));
 }
 
+// quantize_int8: lanes a chunk, chunks a warp step
+constexpr int kQuantGroup = 8;
+constexpr int kQuantStep = 32 / kQuantGroup;
+
+__device__ __forceinline__ unsigned int quant4(const float4 v, float inv) {
+  return static_cast<unsigned char>(quant(v.x, inv)) |
+         static_cast<unsigned int>(static_cast<unsigned char>(
+             quant(v.y, inv))) << 8 |
+         static_cast<unsigned int>(static_cast<unsigned char>(
+             quant(v.z, inv))) << 16 |
+         static_cast<unsigned int>(static_cast<unsigned char>(
+             quant(v.w, inv))) << 24;
+}
+
+// Warp w takes chunks 4w..4w+3; lane (group, j) the 16-byte pieces
+// j + 8m (m < 4) of chunk 4w + group.
 __global__ void __launch_bounds__(kThreads)
-quantize_int8_kernel(const float* __restrict__ x, char4* __restrict__ q,
-                     float* __restrict__ s, int64_t chunks) {
-  const int64_t chunk =
-      static_cast<int64_t>(blockIdx.x) * kChunksPerBlock + (threadIdx.x >> 5);
-  if (chunk >= chunks) return;  // whole warps leave together
+quantize_int8_kernel(const float* __restrict__ x,
+                     unsigned int* __restrict__ q, float* __restrict__ s,
+                     int64_t chunks) {
   const int lane = threadIdx.x & 31;
-  const float4 v =
-      __ldcs(reinterpret_cast<const float4*>(x + chunk * kLanes) + lane);
-  float m = nan_max(nan_max(fabsf(v.x), fabsf(v.y)),
-                    nan_max(fabsf(v.z), fabsf(v.w)));
+  const int j = lane & (kQuantGroup - 1);
+  const int64_t c0 =
+      (static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+       (threadIdx.x >> 5)) * kQuantStep;
+  if (c0 >= chunks) return;   // whole warps leave together
+  const int64_t chunk = c0 + (lane >> 3);
+  const bool live = chunk < chunks;
+  const float4* src = reinterpret_cast<const float4*>(x + chunk * kLanes) + j;
+  float4 v[4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(kFull, m, off));
-  const float inv = m > 0.0f ? 127.0f / m : 0.0f;
-  char4 out;
-  out.x = quant(v.x, inv);
-  out.y = quant(v.y, inv);
-  out.z = quant(v.z, inv);
-  out.w = quant(v.w, inv);
-  q[chunk * (kLanes / 4) + lane] = out;
-  if (lane == 0) s[chunk] = m / 127.0f;
+  for (int m = 0; m < 4; ++m)
+    v[m] = live ? __ldcs(src + kQuantGroup * m)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float a = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    a = nan_max(a, nan_max(nan_max(fabsf(v[m].x), fabsf(v[m].y)),
+                           nan_max(fabsf(v[m].z), fabsf(v[m].w))));
+#pragma unroll
+  for (int off = kQuantGroup / 2; off > 0; off >>= 1)
+    a = nan_max(a, __shfl_xor_sync(kFull, a, off));
+  const float inv = a > 0.0f ? 127.0f / a : 0.0f;
+  const float sc = a / 127.0f;
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      q[chunk * (kLanes / 4) + j + kQuantGroup * m] = quant4(v[m], inv);
+  }
+  // the step's scales, one from each group, to lane 0
+  const float s1 = __shfl_sync(kFull, sc, 8);
+  const float s2 = __shfl_sync(kFull, sc, 16);
+  const float s3 = __shfl_sync(kFull, sc, 24);
+  if (lane == 0) {
+    if (c0 + kQuantStep <= chunks) {
+      *reinterpret_cast<float4*>(s + c0) = make_float4(sc, s1, s2, s3);
+    } else {   // the ragged last step: 1 to 3 chunks
+      s[c0] = sc;
+      if (c0 + 1 < chunks) s[c0 + 1] = s1;
+      if (c0 + 2 < chunks) s[c0 + 2] = s2;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -224,12 +278,21 @@ unsigned int blocks_for(int64_t chunks) {
 
 extern "C" {
 
-// x: (C, N) f32. q: (C, N) int8. s: (C, N / 128) f32. chunks = C*N/128.
+int cmp_quantize_chunks_a_step(void) { return kQuantStep; }
+int cmp_quantize_threads(void) { return kThreads; }
+
+// x: (C, N) f32. q: (C, N) int8. s: (C, N / 128) f32, 16-byte aligned.
+// chunks = C*N/128. blocks: quantize_grid in ../compress.py, a warp for
+// each kQuantStep chunks.
 int cmp_quantize_int8(const float* x, void* q, float* s, int64_t chunks,
-                      void* stream) {
-  quantize_int8_kernel<<<blocks_for(chunks), kThreads, 0,
+                      int64_t blocks, void* stream) {
+  if (blocks < 1 || blocks > 0x7fffffff ||
+      blocks * (kThreads / 32) * kQuantStep < chunks ||
+      reinterpret_cast<uintptr_t>(s) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  quantize_int8_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<char4*>(q), s, chunks);
+      x, static_cast<unsigned int*>(q), s, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

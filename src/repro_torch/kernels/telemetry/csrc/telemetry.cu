@@ -9,18 +9,50 @@
 // tele_lane_histogram replaces the TPU kernel _hist_kernel
 //   (repro/kernels/telemetry/telemetry.py, lane_histogram). Bin b counts
 //   the lanes with edges[b] <= x < edges[b+1]; NaN fails both
-//   comparisons and counts nowhere. At the cohorts of a round (C = 10 on
-//   the paper task) it moves a few hundred bytes and is bound by launch
-//   latency. Design: one block; the B+1 edges and B int counters live in
-//   shared memory; each warp takes 32 lanes at a time and tests every bin
-//   (no binary search, so edges that are not ascending give the plain
-//   version's answer too) with a warp ballot, whose population count
-//   lane 0 adds to the bin's shared counter: one integer atomic per warp
-//   and bin, not one per lane, so a bin that most lanes fall in is not
-//   a queue. Integer sums are the same in any order: the counts are
-//   exact. The counters are written out as f32. The TPU kernel padded
-//   the vector with NaN to a (rows, 128) tile; here lanes past C test
-//   as NaN.
+//   comparisons and counts nowhere. Bound on this card by instructions
+//   and latency, not bytes (100,000 lanes are 400 KB). Each lane is
+//   compared with every EDGE, not every bin: G(e) counts the lanes with
+//   x >= e (one compare and one add a lane and edge), and bin b holds
+//   G(edges[b]) - G(edges[b+1]) where edges[b] <= edges[b+1], else 0.
+//   That is exact for any edges: for lo <= hi, {lo <= x < hi} is
+//   {x >= lo} less {x >= hi}, which it contains; for lo > hi, or a NaN
+//   edge, no lane is in the bin. So edges that are not ascending give
+//   the plain version's answer, and there is no binary search. A warp
+//   holds V lanes a thread in registers; for each edge it counts them
+//   with a ballot (V = 1) or a per-thread sum and one warp sum
+//   (__reduce_add_sync), and the lane that owns the edge (lane l owns
+//   edges l, l + 32, l + 64, l + 96 of a tile of 128) keeps the count in
+//   a register, so a bin that most lanes fall in is no queue of atomics.
+//   The counts are integers, so every design and order gives the same
+//   bits. Two paths, picked by hist_grid in ../telemetry.py:
+//   - up to HIST_WARP_LANES (128) lanes (the paper's cohort, C = 10):
+//     one warp. x (V = 1 or 4 lanes a thread) and the owned edges are
+//     loaded together, with no shared memory and no barrier; tiles of
+//     128 edges 127 bins apart put both edges of every bin in one tile,
+//     and each bin's owner reads its upper edge's count from the next
+//     lane. From 256 lanes one block of the grid path is as fast as a
+//     warp holding 16 lanes a thread (7.49-7.58 against 7.44-7.49 µs).
+//   - more lanes: a grid of up to a block an SM (one for every 4,096
+//     lanes) of 512 threads, 8 lanes a thread a sweep, the next sweep's
+//     lanes loaded while this one is counted. Each warp adds its edge
+//     counts to its block's B + 1 shared counters (one atomic a warp and
+//     edge). One block writes the bins from them; more write them to a
+//     workspace, edge-major, and the last block to take an integer
+//     ticket (after __threadfence) sums them, a warp an edge, writes the
+//     f32 bins and puts the ticket back to zero. The wrapper keeps the
+//     workspace per (device, stream), its ticket zeroed once when made,
+//     so a call is one device op.
+//   The parent ran one block of 512 threads on one SM, staged the edges
+//   and zeroed the counters before a barrier, then took one ballot and
+//   one shared atomic a warp and bin (43.78 µs at 16,384 lanes, against
+//   24.54 for the plain version). A thread-block cluster of up to 8
+//   blocks that gathers the counts in block 0's shared memory over
+//   distributed shared memory (no workspace, no ticket) was faster at
+//   16,384 lanes (8.5 against 9.7 µs) and slower at 1,000 (8.6 against
+//   7.7) and at 100,000 (14.7 against 10.0), where 8 SMs count what the
+//   grid spreads over 25 (scripts/hist_quant_probe.py, H100 SXM, 700 W).
+//   No stack frame or spill (ptxas -v, sm_90a, CUDA 12.8; chip_smoke.py
+//   phase 2 checks it).
 //
 // tele_lane_quantiles replaces the TPU kernel _quantile_kernel
 //   (lane_quantiles). It orders the C values and writes the entries at
@@ -60,7 +92,7 @@
 //     bit for bit at 16,385 and 100,000 lanes on the card.
 //   Registers (ptxas -v, sm_90a, CUDA 12.8), no spills: one-block sort
 //   18, tile sort 18, select 30; 16 KB and 32 KB of static shared
-//   memory. lane_histogram 19.
+//   memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,8 +100,15 @@
 
 namespace {
 
-constexpr int kHistThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxBins = 4096;
+constexpr int kRegEdges = 4;                    // edges a lane owns a tile
+constexpr int kTileEdges = 32 * kRegEdges;      // edges a warp counts at once
+constexpr int kEdgeRun = 8;                     // edges counted unbranched
+constexpr int kWarpMaxLanes = 32 * 4;           // the one-warp path's most
+constexpr int kHistThreads = 512;               // a grid block's threads
+constexpr int kHistPerThread = 8;               // lanes a thread a sweep
+constexpr int kHistBlockLanes = kHistThreads * kHistPerThread;
 constexpr int kMaxQuantiles = 256;
 constexpr int kMaxLanes = 1 << 17;
 constexpr int kQuantTile = 2048;                // keys a block sorts
@@ -79,30 +118,176 @@ struct QuantileIndex {
   int v[kMaxQuantiles];
 };
 
+// How many of the warp's lanes v[0..V) (absent lanes NaN) are >= e.
+template <int V>
+__device__ __forceinline__ int warp_at_or_above(const float (&v)[V],
+                                                float e) {
+  if constexpr (V == 1) {
+    return __popc(__ballot_sync(kFull, v[0] >= e));
+  } else {
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k) n += v[k] >= e;
+    return __reduce_add_sync(kFull, n);
+  }
+}
+
+// Adds to g[j] of lane l the warp's lanes at or above edge e[j] of lane
+// l, the tile's edge 32 j + l, for each of the tile's ne edges. Edges
+// go in straight runs of kEdgeRun with no branch between them, so their
+// warp sums overlap; an edge past B is NaN and counts no lane.
+template <int V>
+__device__ __forceinline__ void count_tile(const float (&v)[V],
+                                           const float (&e)[kRegEdges],
+                                           int ne, int lane,
+                                           int (&g)[kRegEdges]) {
+#pragma unroll
+  for (int j = 0; j < kRegEdges; ++j) {
+#pragma unroll
+    for (int r = 0; r < 32; r += kEdgeRun) {
+      if (32 * j + r >= ne) return;   // the same for the whole warp
+#pragma unroll
+      for (int l = r; l < r + kEdgeRun; ++l) {
+        const int n = warp_at_or_above<V>(v, __shfl_sync(kFull, e[j], l));
+        if (lane == l) g[j] += n;
+      }
+    }
+  }
+}
+
+// Edge `first + 32 j + lane` of each slot j, NaN past edge B.
+__device__ __forceinline__ void load_edges(const float* __restrict__ edges,
+                                           int B, int first, int lane,
+                                           float (&e)[kRegEdges]) {
+#pragma unroll
+  for (int j = 0; j < kRegEdges; ++j) {
+    const int i = first + 32 * j + lane;
+    e[j] = i <= B ? edges[i] : __int_as_float(0x7fc00000);
+  }
+}
+
+// The one-warp path: lane l holds lanes 32 k + l (k < V) of x.
+template <int V>
+__global__ void __launch_bounds__(32)
+hist_warp_kernel(const float* __restrict__ x, int C,
+                 const float* __restrict__ edges, int B,
+                 float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  float v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = 32 * k + lane;
+    v[k] = i < C ? x[i] : __int_as_float(0x7fc00000);
+  }
+  // tiles of kTileEdges edges, kTileEdges - 1 bins apart
+  for (int first = 0; first < B; first += kTileEdges - 1) {
+    float e[kRegEdges];
+    int g[kRegEdges] = {};
+    load_edges(edges, B, first, lane, e);
+    count_tile<V>(v, e, min(kTileEdges, B + 1 - first), lane, g);
+#pragma unroll
+    for (int j = 0; j < kRegEdges; ++j) {
+      // bin first + 32 j + lane: its upper edge is the next lane's, or
+      // lane 0's of the next slot for lane 31
+      const int jn = (j + 1) % kRegEdges;
+      const int g_up = __shfl_down_sync(kFull, g[j], 1);
+      const float e_up = __shfl_down_sync(kFull, e[j], 1);
+      const int g_wrap = __shfl_sync(kFull, g[jn], 0);
+      const float e_wrap = __shfl_sync(kFull, e[jn], 0);
+      const int t = 32 * j + lane;
+      if (t < kTileEdges - 1 && first + t < B) {
+        const int g_hi = lane == 31 ? g_wrap : g_up;
+        const float e_hi = lane == 31 ? e_wrap : e_up;
+        out[first + t] = e[j] <= e_hi ? static_cast<float>(g[j] - g_hi)
+                                      : 0.0f;
+      }
+    }
+  }
+}
+
+// Lanes s0 + m * kHistThreads + threadIdx.x (m < kHistPerThread) of x,
+// NaN past C.
+__device__ __forceinline__ void load_sweep(const float* __restrict__ x,
+                                           int C, int s0,
+                                           float (&v)[kHistPerThread]) {
+#pragma unroll
+  for (int m = 0; m < kHistPerThread; ++m) {
+    const int i = s0 + m * kHistThreads + threadIdx.x;
+    v[m] = i < C ? x[i] : __int_as_float(0x7fc00000);
+  }
+}
+
+// The grid path: block r of k takes sweeps of k * kHistBlockLanes lanes,
+// its own kHistBlockLanes of each, and leaves its B + 1 edge counts in
+// partial[e * k + r]; the last block to take a ticket sums them, writes
+// the f32 bins and puts the ticket back to zero for the next call. A
+// grid of one block writes its bins from its own counts.
 __global__ void __launch_bounds__(kHistThreads)
-lane_histogram_kernel(const float* __restrict__ x, int C,
-                      const float* __restrict__ edges, int B,
-                      float* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  float* e = reinterpret_cast<float*>(smem);
-  int* counts = reinterpret_cast<int*>(e + B + 1);
-  for (int b = threadIdx.x; b <= B; b += blockDim.x) e[b] = edges[b];
-  for (int b = threadIdx.x; b < B; b += blockDim.x) counts[b] = 0;
-  __syncthreads();
+hist_grid_kernel(const float* __restrict__ x, int C,
+                 const float* __restrict__ edges, int B,
+                 int* __restrict__ partial, unsigned int* __restrict__ ticket,
+                 float* __restrict__ out) {
+  extern __shared__ int total[];                // B + 1 edge counts
+  __shared__ bool last;
+  const int k = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
+  const int stride = k * kHistBlockLanes;
   const int lane = threadIdx.x & 31;
-  // the warp walks its lanes together, so every ballot is warp-wide
-  for (int i0 = threadIdx.x - lane; i0 < C; i0 += blockDim.x) {
-    const int i = i0 + lane;
-    const float v = i < C ? x[i] : __int_as_float(0x7fc00000);
-    for (int b = 0; b < B; ++b) {
-      const unsigned int hit =
-          __ballot_sync(0xffffffffu, e[b] <= v && v < e[b + 1]);
-      if (lane == 0 && hit != 0u) atomicAdd(counts + b, __popc(hit));
+  const int warp = threadIdx.x >> 5;
+  const int s_first = rank * kHistBlockLanes;
+  float cur[kHistPerThread];
+  load_sweep(x, C, s_first, cur);
+  // the bins of the end, loaded now
+  const int b0 = threadIdx.x;
+  const float lo0 = b0 < B ? edges[b0] : 0.0f;
+  const float hi0 = b0 < B ? edges[b0 + 1] : 0.0f;
+  for (int i = threadIdx.x; i <= B; i += kHistThreads) total[i] = 0;
+  __syncthreads();
+  for (int first = 0; first <= B; first += kTileEdges) {
+    if (first > 0) load_sweep(x, C, s_first, cur);
+    float e[kRegEdges];
+    int g[kRegEdges] = {};
+    load_edges(edges, B, first, lane, e);
+    const int ne = min(kTileEdges, B + 1 - first);
+    for (int s0 = s_first; s0 < C; s0 += stride) {   // uniform
+      float next[kHistPerThread];
+      load_sweep(x, C, s0 + stride, next);          // in flight
+      count_tile<kHistPerThread>(cur, e, ne, lane, g);
+#pragma unroll
+      for (int m = 0; m < kHistPerThread; ++m) cur[m] = next[m];
+    }
+#pragma unroll
+    for (int j = 0; j < kRegEdges; ++j) {
+      const int i = first + 32 * j + lane;
+      if (i <= B && g[j] != 0) atomicAdd(total + i, g[j]);
     }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < B; b += blockDim.x)
-    out[b] = static_cast<float>(counts[b]);
+  if (k > 1) {
+    for (int i = threadIdx.x; i <= B; i += kHistThreads)
+      partial[i * k + rank] = total[i];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == k - 1u;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // warp w sums edges w, w + 16, ... over the k blocks
+    for (int i = warp; i <= B; i += kHistThreads / 32) {
+      int n = 0;
+#pragma unroll 4
+      for (int r = lane; r < k; r += 32) n += __ldcg(partial + i * k + r);
+      n = __reduce_add_sync(kFull, n);
+      if (lane == 0) total[i] = n;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
+  for (int b = b0; b < B; b += kHistThreads) {
+    const float lo = b == b0 ? lo0 : edges[b];
+    const float hi = b == b0 ? hi0 : edges[b + 1];
+    out[b] = lo <= hi ? static_cast<float>(total[b] - total[b + 1]) : 0.0f;
+  }
 }
 
 // Order-preserving unsigned image of a float's canonical value: every
@@ -229,14 +414,37 @@ int tele_max_quantiles(void) { return kMaxQuantiles; }
 int tele_max_lanes(void) { return kMaxLanes; }
 int tele_quantile_tile(void) { return kQuantTile; }
 
-// x: (C,) f32. edges: (B+1,) f32. out: (B,) f32.
+int tele_hist_warp_max_lanes(void) { return kWarpMaxLanes; }
+int tele_hist_block_lanes(void) { return kHistBlockLanes; }
+
+// x: (C,) f32. edges: (B+1,) f32. out: (B,) f32. blocks == 0: the
+// one-warp path, per_thread = V in {1, 4} lanes a thread, C <= 32 V;
+// else a grid of blocks blocks, per_thread == kHistPerThread, and past
+// one block partial: (B + 1) * blocks ints and ticket: one zero int that
+// the call leaves at zero (hist_grid and the workspace in
+// ../telemetry.py).
 int tele_lane_histogram(const float* x, int C, const float* edges, int B,
-                        float* out, void* stream) {
-  if (B < 1 || B > kMaxBins) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (B + 1) + sizeof(int) * B;
-  lane_histogram_kernel<<<1, kHistThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(x, C, edges,
-                                                               B, out);
+                        int blocks, int per_thread, int* partial,
+                        unsigned int* ticket, float* out, void* stream) {
+  if (B < 1 || B > kMaxBins || C < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) {
+    if (C > 32 * per_thread) return static_cast<int>(cudaErrorInvalidValue);
+    if (per_thread == 1)
+      hist_warp_kernel<1><<<1, 32, 0, st>>>(x, C, edges, B, out);
+    else if (per_thread == 4)
+      hist_warp_kernel<4><<<1, 32, 0, st>>>(x, C, edges, B, out);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (blocks < 1 || blocks > 65535 || per_thread != kHistPerThread ||
+      (blocks > 1 && (partial == nullptr || ticket == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  hist_grid_kernel<<<blocks, kHistThreads,
+                     sizeof(int) * static_cast<size_t>(B + 1), st>>>(
+      x, C, edges, B, partial, ticket, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,10 +11,12 @@ round's telemetry is on:
 
 Both results are exact: counts are small integers in f32, and the
 quantiles are entries of the input. What the CUDA designs do is written
-at the top of ``csrc/telemetry.cu``. A wrapper given CUDA tensors
-launches its kernel (built from that source at first use, see
-``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
-plain version in ``ref.py``. There is no other switch.
+at the top of ``csrc/telemetry.cu``; ``hist_grid`` picks the
+histogram's path (one warp up to HIST_WARP_LANES lanes, a grid of
+blocks past them, with a workspace kept per stream). A wrapper given
+CUDA tensors launches its kernel (built from that source at first use,
+see ``repro_torch.kernels.build``) or raises; given CPU tensors it runs
+the plain version in ``ref.py``. There is no other switch.
 
 ``LAUNCHES`` counts calls per ``(function, device type)`` in its own
 book: the Δ-SGD counter of ``repro_torch.kernels.delta_sgd`` (two
@@ -26,7 +28,7 @@ import ctypes
 import functools
 from collections import Counter
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,8 +45,23 @@ MAX_BINS = 4096
 MAX_QUANTILES = 256
 MAX_LANES = 1 << 17
 QUANTILE_TILE = 2048
+# lane_histogram: lanes up to which one warp counts (the crossover,
+# measured by scripts/hist_quant_probe.py) and the lanes a thread holds
+# on it (32 times the last is kWarpMaxLanes in csrc/telemetry.cu); lanes
+# a grid block takes a sweep (kHistBlockLanes; a block for each, up to
+# one an SM) and a thread of it
+HIST_WARP_LANES = 128
+HIST_WARP_PER_THREAD = (1, 4)
+HIST_BLOCK_LANES = 4096
+HIST_PER_THREAD = 8
+# the kernels index lanes, and a sweep past the last, with 32-bit ints
+MAX_HIST_LANES = 2 ** 30
 
 LAUNCHES: Counter = Counter()
+# lane_histogram's grid path: (edge counts of each block, ticket) for
+# each (device index, stream). The last block puts the ticket back to
+# zero, so only a new workspace is filled.
+_HIST_WORKSPACE: dict = {}
 
 
 def reset_launch_count() -> None:
@@ -65,7 +82,11 @@ def library() -> ctypes.CDLL:
                lib.tele_max_lanes, lib.tele_quantile_tile):
         fn.argtypes = []
         fn.restype = i32
-    lib.tele_lane_histogram.argtypes = [vp, i32, vp, i32, vp, vp]
+    for fn in (lib.tele_hist_warp_max_lanes, lib.tele_hist_block_lanes):
+        fn.argtypes = []
+        fn.restype = i32
+    lib.tele_lane_histogram.argtypes = [vp, i32, vp, i32, i32, i32, vp, vp,
+                                        vp, vp]
     lib.tele_lane_histogram.restype = i32
     lib.tele_lane_quantiles.argtypes = [vp, i32, ctypes.POINTER(i32), i32,
                                         vp, vp, vp]
@@ -75,7 +96,50 @@ def library() -> ctypes.CDLL:
                                           MAX_LANES, QUANTILE_TILE):
         raise RuntimeError("csrc/telemetry.cu and telemetry.py disagree on "
                            "the kernels' limits")
+    if (lib.tele_hist_warp_max_lanes(), lib.tele_hist_block_lanes()) != (
+            32 * HIST_WARP_PER_THREAD[-1], HIST_BLOCK_LANES):
+        raise RuntimeError("csrc/telemetry.cu and telemetry.py disagree on "
+                           "the histogram's grid")
     return lib
+
+
+class HistGrid(NamedTuple):
+    blocks: int       # 0: one warp; else the blocks of the grid
+    per_thread: int   # lanes of x a thread holds (a sweep, on the grid)
+
+
+def hist_grid(C: int, B: int, sms: int) -> HistGrid:
+    """``lane_histogram``'s path. Up to HIST_WARP_LANES lanes, one warp
+    whose lane l holds lanes 32 k + l of x, k < per_thread (the fewest of
+    HIST_WARP_PER_THREAD that cover C). Past that, a grid of
+    ⌈C / HIST_BLOCK_LANES⌉ blocks, at most one an SM: block r of k
+    takes lanes [s + r·HIST_BLOCK_LANES, s + (r + 1)·HIST_BLOCK_LANES) of
+    each sweep s = 0, k·HIST_BLOCK_LANES, ..., thread t lanes s +
+    r·HIST_BLOCK_LANES + m·512 + t, m < per_thread. Every lane is
+    counted once on either path, and the counts are integers, so the
+    path moves no bit."""
+    del B   # the bins cut neither path: each counts every bin's edges
+    if C <= HIST_WARP_LANES:
+        per = next(v for v in HIST_WARP_PER_THREAD if 32 * v >= C)
+        return HistGrid(0, per)
+    return HistGrid(min(sms, -(-C // HIST_BLOCK_LANES)), HIST_PER_THREAD)
+
+
+def _hist_workspace(device: torch.device, stream: int, B: int, blocks: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid path's (edge counts, ticket) on this stream, for a grid
+    of more than one block: at least (B + 1)·blocks int32 and one int32,
+    the ticket zero. Calls on one stream run in order, so they share it
+    safely; another stream has its own."""
+    key = (device.index, stream)
+    partial, ticket = _HIST_WORKSPACE.get(key, (None, None))
+    if partial is None or partial.numel() < (B + 1) * blocks:
+        partial = torch.empty(((B + 1) * blocks,), dtype=torch.int32,
+                              device=device)
+        if ticket is None:
+            ticket = torch.zeros((1,), dtype=torch.int32, device=device)
+        _HIST_WORKSPACE[key] = (partial, ticket)
+    return partial, ticket
 
 
 def _check_lanes(x: torch.Tensor) -> int:
@@ -100,13 +164,23 @@ def lane_histogram(x: torch.Tensor, edges) -> torch.Tensor:
         raise ValueError(f"edges must be (B+1,) with 1 <= B <= {MAX_BINS}, "
                          f"got {tuple(edges.shape)}")
     B = edges.shape[0] - 1
+    if C > MAX_HIST_LANES:
+        raise ValueError(f"lane_histogram takes at most {MAX_HIST_LANES} "
+                         f"lanes, got C = {C}")
     if common.device_type(x) == "cpu":
         LAUNCHES[("lane_histogram", "cpu")] += 1
         return ref.lane_histogram_ref(x, edges)
     out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    grid = hist_grid(C, B, common.sm_count(x.device.index))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = ticket = None
+    if grid.blocks > 1:
+        partial, ticket = _hist_workspace(x.device, stream, B, grid.blocks)
     common.raise_on(library().tele_lane_histogram(
-        x.data_ptr(), C, edges.data_ptr(), B, out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream), "lane_histogram")
+        x.data_ptr(), C, edges.data_ptr(), B, grid.blocks, grid.per_thread,
+        None if partial is None else partial.data_ptr(),
+        None if ticket is None else ticket.data_ptr(), out.data_ptr(),
+        stream), "lane_histogram")
     LAUNCHES[("lane_histogram", "cuda")] += 1
     return out
 

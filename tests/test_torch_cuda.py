@@ -16,6 +16,7 @@ from repro_torch.kernels.delta_sgd import delta_sgd as tk
 from repro_torch.kernels.delta_sgd import ref as tref
 from repro_torch.kernels.robust_agg import ref as traref
 from repro_torch.kernels.robust_agg import robust_agg as tra
+from repro_torch.kernels.telemetry import telemetry as tt
 
 pytestmark = pytest.mark.cuda
 
@@ -243,6 +244,38 @@ def test_quantize_kernel_keeps_a_nan_chunk_like_the_plain_version(dev):
     assert torch.equal(q, want_q)
     assert torch.equal(torch.nan_to_num(s, nan=-1.0),
                        torch.nan_to_num(want_s, nan=-1.0))
+
+
+# (clients, chunks a row): one chunk, a ragged warp (7), a ragged last
+# warp after whole ones (4k + 3), three rows of 7, a part-filled last
+# block (32k + 5)
+QUANT_RAGGED = [(1, 1), (1, 7), (1, 4 * 1000 + 3), (3, 7), (1, 32 * 41 + 5)]
+
+
+@pytest.mark.parametrize("sms", [None, 114])
+@pytest.mark.parametrize("C,M", QUANT_RAGGED)
+def test_quantize_kernel_is_bitwise_plain_at_ragged_chunk_counts(
+        C, M, sms, dev, monkeypatch):
+    """Every chunk of a ragged warp or block is quantized once, a NaN and
+    an inf chunk as the plain version has them; the SM count (patched to
+    114) moves no bit; two calls give the same bits, one device op each."""
+    from repro_torch.kernels import common
+    x = _deltas(C, M * 128, dev, 7)
+    if M >= 3:
+        x[0, 130] = float("nan")
+        x[C - 1, 300] = float("inf")
+    if sms is not None:
+        monkeypatch.setattr(common, "sm_count", lambda index: sms)
+    q, s = tcomp.quantize_int8(x)
+    q2, s2 = tcomp.quantize_int8(x)
+    want_q, want_s = tcref.quantize_int8_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(q2, q)
+    assert torch.equal(s.nan_to_num(-1.0).view(torch.int32),
+                       want_s.nan_to_num(-1.0).view(torch.int32))
+    assert torch.equal(s2.nan_to_num(-1.0).view(torch.int32),
+                       s.nan_to_num(-1.0).view(torch.int32))
+    assert len(_device_ops(lambda: tcomp.quantize_int8(x))) == 1
 
 
 @pytest.mark.parametrize("k", [1, 32, 128])
@@ -666,6 +699,37 @@ def test_telemetry_kernels_equal_their_plain_versions(C, dev):
                            ("lane_quantiles", "cuda"): 1}
     with pytest.raises(ValueError, match=f"at most {tt.MAX_LANES} lanes"):
         tt.lane_quantiles(torch.zeros(tt.MAX_LANES + 1, device=dev))
+
+
+def _hist_edges(B, mixed):
+    """B + 1 log-spaced edges from 0, or the same shuffled with a NaN
+    edge and an empty bin of equal edges."""
+    e = np.concatenate([[0.0], np.logspace(-6, 3, B)]).astype(np.float32)
+    if mixed:
+        r = np.random.default_rng(B)
+        e = r.permutation(e)
+        e[r.integers(0, B + 1)] = np.nan
+        e[min(B, 1)] = e[0]
+    return e
+
+
+@pytest.mark.parametrize("B", [1, 16, 33, 4096])
+@pytest.mark.parametrize("C", [1, 10, tt.HIST_WARP_LANES - 1,
+                               tt.HIST_WARP_LANES, tt.HIST_WARP_LANES + 1,
+                               16384, 100000])
+def test_lane_histogram_is_exact_on_both_paths(C, B, dev):
+    """Exact on the one-warp path (up to the crossover HIST_WARP_LANES)
+    and on the grid (past it), with ascending and shuffled edges; two
+    calls give the same bits and one device op each."""
+    from repro_torch.kernels.telemetry import ref as ttref
+    x = _telemetry_lanes(C, C + B, dev).abs()
+    for mixed in (False, True):
+        e = torch.from_numpy(_hist_edges(B, mixed)).to(dev)
+        got, again = tt.lane_histogram(x, e), tt.lane_histogram(x, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ttref.lane_histogram_ref(x, e))
+        assert torch.equal(got, again)
+        assert len(_device_ops(lambda: tt.lane_histogram(x, e))) == 1
 
 
 @pytest.mark.parametrize("C", [16385, 100000, 1 << 17])

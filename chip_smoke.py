@@ -18,10 +18,12 @@ without its final line:
               hold TF32 HMMA (its 3xTF32 products) and none has a stack
               frame or spills; the compress (3
               kernels) and robust_agg (the trimmed mean's six register
-              networks and its shared-memory path) libraries, and the
+              networks and its shared-memory path) libraries, the
               telemetry library (the histogram's two one-warp
               instances and its grid kernel, the quantiles' three
-              kernels): no stack frame and no spill in any function.
+              kernels) and the delta_sgd library (the norms' and the
+              applies' instances): no stack frame and no spill in any
+              function.
   3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
               a large shape (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5, two calls
@@ -32,10 +34,11 @@ without its final line:
               plain; norms, apply and masked apply one device op a call
               (the CUDA calls that enqueue work, as torch.profiler
               records them on the host); quantize/dequantize: bitwise equal,
-              and a NaN chunk like the plain version; quantize also at
+              and a NaN chunk like the plain version; both also at
               ragged chunk counts (1, 7, 4k + 3 and 32k + 5 chunks, NaN
-              and inf chunks), at 114 SMs (patched) with the same bits,
-              the same bits on two calls, one device op a call; top-k:
+              and inf chunks; dequantize with NaN, ±inf and zero scales
+              too), the same bits on two calls, one device op a call;
+              quantize at 114 SMs (patched) with the same bits; top-k:
               exact, one device op a call; trimmed mean at t = 2 and the
               median at t = 4, a row each: bitwise equal to the plain
               version, two calls bitwise equal, one device op a call, the
@@ -105,7 +108,8 @@ without its final line:
               (exact, quantiles bit for bit; torch.quantile(nearest) is
               checked equal on the NaN-free lanes and timed as the
               quantiles' yardstick), and the single-tensor norms (rtol
-              1e-5 f32, 3e-3 bf16, two calls bitwise) and apply_update
+              1e-5 f32, 3e-3 bf16, two calls bitwise, the same bits at
+              114 SMs (patched), one device op a call) and apply_update
               (bitwise, η a float and a 0-d device tensor; torch.add with
               alpha timed beside it) at (71,808) and 2**24 in f32 and
               bf16, apply_update also at 71,809 and on an unaligned view.
@@ -342,25 +346,36 @@ def _one_device_op(torch, name, fn):
                              f"{ops}")
 
 
+def _other_sm_count(common):
+    """The H100 PCIe's 114 SMs, or 132 on a card of 114."""
+    return 132 if common.sm_count(0) == 114 else 114
+
+
+def _at_other_sm_count(common, fn):
+    """``fn()`` with ``_other_sm_count`` in place of the card's own."""
+    own_sms = common.sm_count
+    other = _other_sm_count(common)
+    common.sm_count = lambda index: other
+    try:
+        return fn()
+    finally:
+        common.sm_count = own_sms
+
+
 def check_sm_count(torch, tk, tref, g, gp, p, eta, mask, norms):
     """With the H100 PCIe's 114 SMs in place of the card's own count (132
     on a card of 114): the norms keep their bits ``norms`` (their grid is
     a function of (C, N), ``norms_grid``), and the apply, whose grid
     follows the SM count (it does at LARGE_SHAPE), stays bitwise plain."""
     C, N = g.shape
-    own_sms = tk.common.sm_count
-    own = own_sms(0)
-    other = 132 if own == 114 else 114
+    other = _other_sm_count(tk.common)
     if (C, N) == LARGE_SHAPE and (tk.apply_grid(C, N, other)
-                                  == tk.apply_grid(C, N, own)):
+                                  == tk.apply_grid(C, N,
+                                                   tk.common.sm_count(0))):
         raise AssertionError("the SM count moves no batched_apply grid")
-    tk.common.sm_count = lambda index: other
-    try:
-        again = torch.stack(tk.batched_norms(g, gp))
-        applied = [tk.batched_apply(p.clone(), g, eta, mask=m)
-                   for m in (None, mask)]
-    finally:
-        tk.common.sm_count = own_sms
+    again, applied = _at_other_sm_count(tk.common, lambda: (
+        torch.stack(tk.batched_norms(g, gp)),
+        [tk.batched_apply(p.clone(), g, eta, mask=m) for m in (None, mask)]))
     torch.cuda.synchronize()
     if not torch.equal(again, norms):
         raise AssertionError("batched_norms: the SM count moved bits")
@@ -483,19 +498,47 @@ def check_quantize_grids(torch, tcomp, tcref):
                       for C, M in QUANT_RAGGED]), flush=True)
 
 
+def check_dequantize_grids(torch, tcomp, tcref):
+    """Phase 3: dequantize_int8 bitwise plain at ragged chunk counts (one
+    chunk, a ragged warp, a ragged last warp after whole ones, a
+    part-filled last block), with NaN, ±inf and zero scales and zero
+    codes beside them (0 · inf is NaN), the same bits on two calls, one
+    device op a call."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0],
+                           device="cuda")
+    for C, M in QUANT_RAGGED:
+        q = torch.randint(-127, 128, (C, M * 128), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        s = torch.exp(3 * torch.randn((C, M), generator=gen, device="cuda"))
+        q[:, :64] = 0
+        s.view(-1)[:4] = special[:min(4, C * M)]
+        got = tcomp.dequantize_int8(q, s)
+        again = tcomp.dequantize_int8(q, s)
+        want = tcref.dequantize_int8_ref(q, s)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(again.view(torch.int32),
+                                got.view(torch.int32))):
+            raise AssertionError(f"dequantize_int8 at {(C, M)} chunks is "
+                                 "not bitwise equal to the plain version "
+                                 "on two calls")
+        _one_device_op(torch, f"dequantize_int8 {(C, M)} chunks",
+                       lambda: tcomp.dequantize_int8(q, s))
+    print("dequantize_int8 ragged chunk counts and NaN/inf scales bitwise "
+          "plain:", json.dumps([[C, M, tcomp.dequantize_grid(C * M)]
+                                for C, M in QUANT_RAGGED]), flush=True)
+
+
 def check_sm_count_moves_no_quantize_bit(torch, tcomp, x, q, s):
     """Phase 3: with 114 SMs in place of the card's own count (132 on a
     card of 114), quantize_int8 gives the same bits."""
-    own_sms = tcomp.common.sm_count
-    other = 132 if own_sms(0) == 114 else 114
-    tcomp.common.sm_count = lambda index: other
-    try:
-        got = tcomp.quantize_int8(x)
-    finally:
-        tcomp.common.sm_count = own_sms
+    got = _at_other_sm_count(tcomp.common, lambda: tcomp.quantize_int8(x))
     torch.cuda.synchronize()
     if not _quant_bits_equal(torch, got, (q, s)):
-        raise AssertionError(f"quantize_int8 at {other} SMs moved bits")
+        raise AssertionError(f"quantize_int8 at "
+                             f"{_other_sm_count(tcomp.common)} SMs moved "
+                             "bits")
 
 
 def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
@@ -541,6 +584,7 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
                 raise AssertionError("quantize_int8 treats a NaN chunk "
                                      "unlike the plain version")
             check_quantize_grids(torch, tcomp, tcref)
+            check_dequantize_grids(torch, tcomp, tcref)
         check_sm_count_moves_no_quantize_bit(torch, tcomp, x, q, s)
         q2, s2 = tcomp.quantize_int8(x)
         torch.cuda.synchronize()
@@ -549,6 +593,13 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
         del q2, s2
         _one_device_op(torch, "quantize_int8",
                        lambda: tcomp.quantize_int8(x))
+        again = tcomp.dequantize_int8(q, s)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(again), bits(out)):
+            raise AssertionError("dequantize_int8: two calls differ")
+        del again
+        _one_device_op(torch, "dequantize_int8",
+                       lambda: tcomp.dequantize_int8(q, s))
 
         cn = C * N
         s_bytes = 4 * C * M
@@ -562,6 +613,7 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
             bound_by="bytes")
         rows[("dequantize_int8", (C, N))] = dict(
             name="dequantize_int8", shape=[C, N],
+            grid=tcomp.dequantize_grid(C * M),
             max_abs_err=float((out - want_out).abs().max()),
             ms=device_ms(lambda: tcomp.dequantize_int8(q, s), torch),
             plain_ms=device_ms(lambda: tcref.dequantize_int8_ref(q, s),
@@ -779,11 +831,19 @@ def check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32):
             again = torch.stack(tk.norms(g, gp))
             want = torch.stack(tref.norms_ref(g, gp))
             torch.cuda.synchronize()
+            other = torch.stack(_at_other_sm_count(
+                tk.common, lambda: tk.norms(g, gp)))
+            torch.cuda.synchronize()
             if not torch.equal(got, again):
                 raise AssertionError(f"norms {n} {dname}: two calls differ")
+            if not torch.equal(got, other):
+                raise AssertionError(f"norms {n} {dname}: the SM count "
+                                     "moved bits")
             torch.testing.assert_close(
                 got, want, rtol=1e-5 if dtype == torch.float32 else 3e-3,
                 atol=0.0)
+            _one_device_op(torch, f"norms {n} {dname}",
+                           lambda: tk.norms(g, gp))
             # aligned, one element past (a ragged end), an unaligned view
             views = [(p, g), (torch.cat([p, p[:1]]), torch.cat([g, g[:1]])),
                      (p[1:], g[1:])]
@@ -800,6 +860,7 @@ def check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32):
             case = (n, dname)
             rows[("norms", case)] = dict(
                 name="norms", shape=[n], dtype=dname,
+                grid=list(tk.single_norms_grid(n, dtype)),
                 max_abs_err=float((got - want).abs().max()),
                 ms=device_ms(lambda: tk.norms(g, gp), torch),
                 plain_ms=device_ms(lambda: tref.norms_ref(g, gp), torch),
@@ -1582,6 +1643,10 @@ def main() -> int:
     # the histogram's two one-warp instances and its grid kernel, the
     # quantiles' three kernels
     check_no_spill(build, tt, "telemetry", 6)
+    # the norms' instances (f32 and bf16, each load count, 16-byte and
+    # one-element paths; batched_norms' is f32's at 8 loads),
+    # batched_apply's two and apply_update's eight
+    check_no_spill(build, tk, "delta_sgd", 2 * 2 * len(tk.NORMS_VECS) + 2 + 8)
 
     # 3. kernels, beside the floor of any launch in this timing
     print(json.dumps({

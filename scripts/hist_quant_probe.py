@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the designs of ``lane_histogram`` and ``quantize_int8`` on the card.
+"""Times the histogram's and the int8 (de)quantizer's designs on the card.
 
     python3 scripts/hist_quant_probe.py
 
@@ -32,6 +32,36 @@ Each runs at each (C, N) of QUANT_SHAPES on round-delta-like data (as
 chip_smoke.py makes it), is held bitwise to the plain version, and is
 timed in ROUNDS interleaved rounds (chip_smoke.py's device_ms, median
 device time of 60 launches) beside the bytes' bound.
+
+``dequantize_int8`` (``out = q · s`` per chunk) gives each warp one
+chunk, a lane one 4-byte load and one 16-byte store, stored evict-first
+(``dequantize_grid``). The script runs the kernel through its C entry
+point against DEQUANT_SOURCE's instances, the designs it was chosen
+over:
+
+  parent layout        the parent's kernel: the same layout, plain
+                       stores; "..., streaming stores" is the kernel's
+                       own design built in the probe;
+  ..., 2 or 4 chunks a warp
+                       2 or 4 consecutive chunks a warp, every load
+                       issued before any product;
+  16 bytes a lane, shuffled to whole stores
+                       one 16-byte load a lane (a warp 4 chunks), the
+                       words shuffled so that each of the warp's four
+                       stores writes one chunk's 512 bytes;
+  8 lanes interleaved  quantize's layout mirrored: a chunk over 8 lanes,
+                       lane j its 4-byte pieces j, j + 8, j + 16, j + 24,
+                       a warp 4 chunks, four whole-line stores a lane;
+  16 contiguous a lane 8 lanes a chunk, lane j one 16-byte load of
+                       elements 16j..16j+15 and four 16-byte stores;
+  ..., streaming stores, ..., 2 steps a warp
+                       either of the last two with evict-first stores or
+                       8 chunks a warp;
+
+and torch.mul (the same products, one library call), at each (C, N) of
+DEQUANT_SHAPES, each bitwise equal to the plain version (NaN and inf
+scales among them), in ROUNDS interleaved rounds beside the bytes'
+bound and the launch floor.
 
 ``lane_histogram`` counts with one warp up to HIST_WARP_LANES lanes and
 with a grid of blocks past that, whose last block, found by a ticket,
@@ -68,6 +98,20 @@ QUANT_VARIANTS = {"parent layout": 0, "grid stride": 1,
                   "8 lanes interleaved, grid stride": 5,
                   "8 lanes interleaved, 2 steps a warp": 6,
                   "8 lanes interleaved, streaming stores": 7}
+# name -> dequant_variant_launch's (layout, steps a warp, streaming)
+DEQUANT_SHAPES = ((10, 71808), (10, 2 ** 18), (10, 2 ** 19), (10, 2 ** 20),
+                  (10, 2 ** 24))
+DEQUANT_VARIANTS = {"parent layout": (0, 1, 0),
+                    "parent layout, 2 chunks a warp": (0, 2, 0),
+                    "parent layout, 4 chunks a warp": (0, 4, 0),
+                    "parent layout, streaming stores": (0, 1, 1),
+                    "16 bytes a lane, shuffled to whole stores": (3, 1, 0),
+                    "8 lanes interleaved": (1, 1, 0),
+                    "16 contiguous a lane": (2, 1, 0),
+                    "8 lanes interleaved, streaming stores": (1, 1, 1),
+                    "16 contiguous a lane, streaming stores": (2, 1, 1),
+                    "8 lanes interleaved, 2 steps a warp": (1, 2, 0),
+                    "16 contiguous a lane, 2 steps a warp": (2, 2, 0)}
 CROSS_LANES = (10, 32, 64, 128, 129, 256, 512)
 HIST_LANES = (1000, 16384, 100000)
 ROUNDS = 3
@@ -239,6 +283,166 @@ extern "C" int quant_variant_launch(const float* x, void* q, float* s,
 }
 """
 
+DEQUANT_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float4 scale4(char4 c, float s) {
+  return make_float4(__fmul_rn(static_cast<float>(c.x), s),
+                     __fmul_rn(static_cast<float>(c.y), s),
+                     __fmul_rn(static_cast<float>(c.z), s),
+                     __fmul_rn(static_cast<float>(c.w), s));
+}
+
+__device__ __forceinline__ void put(float4* p, float4 v, bool stream) {
+  if (stream) __stcs(p, v); else *p = v;
+}
+
+union Int4Chars {
+  int4 i;
+  char4 c[4];
+};
+
+// LAYOUT 0: a warp a chunk, lane j its char4 j (the parent's, plain
+// load and store). 1: 8 lanes a chunk, lane j its char4s j + 8m, m < 4.
+// 2: 8 lanes a chunk, lane j its 16 contiguous int8 16j..16j+15 by one
+// 16-byte load, four 16-byte stores. Each warp takes STEPS consecutive
+// steps (a step: the chunks a warp takes at once), every load issued
+// before any product. STCS: evict-first stores.
+template <int LAYOUT, int STEPS, bool STCS>
+__global__ void __launch_bounds__(kThreads)
+dequant_variant(const char4* __restrict__ q, const float* __restrict__ s,
+                float* __restrict__ out, int64_t chunks) {
+  constexpr int G = LAYOUT == 0 ? 32 : 8;     // lanes a chunk
+  constexpr int NV = LAYOUT == 0 ? 1 : 4;     // char4s a lane
+  constexpr int U = 32 / G;                   // chunks a step
+  const int lane = threadIdx.x & 31;
+  const int j = lane % G;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  char4 v[STEPS][NV];
+  float sc[STEPS];
+#pragma unroll
+  for (int u = 0; u < STEPS; ++u) {
+    const int64_t c = (warp * STEPS + u) * U + lane / G;
+    if (c < chunks) {
+      const char4* src = q + c * (kLanes / 4);
+      if (LAYOUT == 0) {
+        v[u][0] = src[j];
+      } else if (LAYOUT == 1) {
+#pragma unroll
+        for (int m = 0; m < NV; ++m) v[u][m] = __ldcs(src + j + G * m);
+      } else {
+        Int4Chars w;
+        w.i = __ldcs(reinterpret_cast<const int4*>(src) + j);
+#pragma unroll
+        for (int m = 0; m < NV; ++m) v[u][m] = w.c[m];
+      }
+      sc[u] = __ldg(s + c);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < STEPS; ++u) {
+    const int64_t c = (warp * STEPS + u) * U + lane / G;
+    if (c >= chunks) continue;
+    float4* dst = reinterpret_cast<float4*>(out + c * kLanes);
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      const int piece = LAYOUT == 2 ? 4 * j + m : j + G * m;
+      put(dst + piece, scale4(v[u][m], sc[u]), STCS);
+    }
+  }
+}
+
+union Int4Words {
+  int4 i;
+  int w[4];
+};
+
+// 16 contiguous int8 a lane (one 16-byte load; a warp 4 chunks, 512
+// bytes), then shuffled so that store m of the warp writes chunk m's 512
+// output bytes contiguously: lane l stores elements 4l..4l+3 of the
+// chunk, held by lane 8m + l / 4 as its word l % 4.
+__global__ void __launch_bounds__(kThreads)
+dequant_shuffled(const char4* __restrict__ q, const float* __restrict__ s,
+                 float* __restrict__ out, int64_t chunks) {
+  const int lane = threadIdx.x & 31;
+  const int64_t c0 =
+      (static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+       (threadIdx.x >> 5)) * 4;
+  if (c0 >= chunks) return;   // whole warps leave together
+  Int4Words v;
+  v.i = c0 + lane / 8 < chunks
+            ? __ldcs(reinterpret_cast<const int4*>(q + c0 * (kLanes / 4)) +
+                     lane)
+            : make_int4(0, 0, 0, 0);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int src = 8 * m + (lane >> 2);
+    int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __shfl_sync(0xffffffffu, v.w[i], src);
+    const int at = lane & 3;
+    const int mine = at == 0 ? w[0] : at == 1 ? w[1] : at == 2 ? w[2] : w[3];
+    if (c0 + m < chunks) {
+      const char4 c = *reinterpret_cast<const char4*>(&mine);
+      reinterpret_cast<float4*>(out + (c0 + m) * kLanes)[lane] =
+          scale4(c, __ldg(s + c0 + m));
+    }
+  }
+}
+
+int launch_shuffled(const void* q, const float* s, float* out,
+                    int64_t chunks, cudaStream_t st) {
+  const int64_t blocks = (chunks + 4 * (kThreads / 32) - 1) /
+                         (4 * (kThreads / 32));
+  dequant_shuffled<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
+      static_cast<const char4*>(q), s, out, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LAYOUT, int STEPS, bool STCS>
+int launch(const void* q, const float* s, float* out, int64_t chunks,
+           cudaStream_t st) {
+  constexpr int U = LAYOUT == 0 ? 1 : 4;
+  const int64_t per_block = (kThreads / 32) * STEPS * U;
+  const int64_t blocks = (chunks + per_block - 1) / per_block;
+  dequant_variant<LAYOUT, STEPS, STCS>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
+          static_cast<const char4*>(q), s, out, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int dequant_variant_launch(const void* q, const float* s,
+                                      float* out, int64_t chunks,
+                                      int layout, int steps, int stream_st,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int code = layout * 100 + steps * 10 + stream_st;
+  switch (code) {
+    case 10: return launch<0, 1, false>(q, s, out, chunks, st);
+    case 20: return launch<0, 2, false>(q, s, out, chunks, st);
+    case 40: return launch<0, 4, false>(q, s, out, chunks, st);
+    case 11: return launch<0, 1, true>(q, s, out, chunks, st);
+    case 310: return launch_shuffled(q, s, out, chunks, st);
+    case 110: return launch<1, 1, false>(q, s, out, chunks, st);
+    case 210: return launch<2, 1, false>(q, s, out, chunks, st);
+    case 111: return launch<1, 1, true>(q, s, out, chunks, st);
+    case 211: return launch<2, 1, true>(q, s, out, chunks, st);
+    case 120: return launch<1, 2, false>(q, s, out, chunks, st);
+    case 220: return launch<2, 2, false>(q, s, out, chunks, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+
 # Appended to the text of csrc/telemetry.cu (one translation unit), so
 # it counts with the kernel's own load_sweep / load_edges / count_tile.
 CLUSTER_SOURCE = r"""
@@ -347,6 +551,59 @@ def probe_library(name, text):
         name, [src]).with_suffix(".log")
 
 
+def probe_dequantize(torch, tcomp, tcref, dlib, floor, gen, C, N, bw):
+    """dequantize_int8's layouts at (C, N): one JSON line."""
+    from chip_smoke import device_ms
+    from repro_torch.kernels import common
+    M = N // 128
+    chunks = C * M
+    stream = torch.cuda.current_stream().cuda_stream
+    q = torch.randint(-127, 128, (C, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.exp(3 * torch.randn((C, M), generator=gen, device="cuda"))
+    q[0, :128] = 0
+    s[0, 1:4] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    s[0, 0] = float("inf")        # 0 · inf: NaN
+    want = tcref.dequantize_int8_ref(q, s).view(torch.int32)
+    out = torch.empty((C, N), device="cuda")
+
+    def variant(layout, steps, st):
+        common.raise_on(dlib.dequant_variant_launch(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), chunks, layout,
+            steps, st, stream), "dequant_variant")
+        return out
+
+    def kernel():
+        common.raise_on(tcomp.library().cmp_dequantize_int8(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), chunks,
+            tcomp.dequantize_grid(chunks), stream), "dequantize_int8")
+        return out
+
+    timed = {"the kernel": kernel}
+    timed.update({name: (lambda a=a: variant(*a))
+                  for name, a in DEQUANT_VARIANTS.items()})
+    for name, fn in timed.items():
+        out.fill_(-1.0)
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want):
+            raise AssertionError(f"dequantize {name} at {(C, N)}: not "
+                                 "bitwise equal to the plain version")
+    timed["torch.mul"] = lambda: torch.mul(q.view(C, M, 128), s[..., None])
+    timed["launch floor"] = floor
+    us = {name: [] for name in timed}
+    for _ in range(ROUNDS):
+        for name, fn in timed.items():
+            us[name].append(round(device_ms(fn, torch) * 1e3, 3))
+    print(json.dumps({
+        "dequantize_int8": [C, N], "us": us,
+        "grid": tcomp.dequantize_grid(chunks),
+        "bound_us": round((5 * C * N + 4 * chunks) / bw * 1e6, 3)}),
+        flush=True)
+    del q, s, out, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -369,6 +626,9 @@ def main() -> int:
     qlib, qlog = probe_library("quant_variants", QUANT_SOURCE)
     qlib.quant_variant_launch.argtypes = [vp, vp, vp, i64, i32, i32, i32,
                                           vp]
+    dlib, dlog = probe_library("dequant_variants", DEQUANT_SOURCE)
+    dlib.dequant_variant_launch.argtypes = [vp, vp, vp, i64, i32, i32, i32,
+                                            vp]
     clib, clog = probe_library("hist_cluster", tt.SOURCES[0].read_text()
                                + CLUSTER_SOURCE)
     clib.hist_cluster_launch.argtypes = [vp, i32, vp, i32, i32, vp, vp]
@@ -377,7 +637,7 @@ def main() -> int:
     for log in (build.library_path("compress", tcomp.SOURCES)
                 .with_suffix(".log"),
                 build.library_path("telemetry", tt.SOURCES)
-                .with_suffix(".log"), qlog, clog):
+                .with_suffix(".log"), qlog, dlog, clog):
         print("\n".join(line for line in log.read_text().splitlines()
                         if "Used" in line or "spill" in line
                         or "error" in line))
@@ -433,6 +693,8 @@ def main() -> int:
             flush=True)
         del x, q, s, want_q, want_s
         torch.cuda.empty_cache()
+    for C, N in DEQUANT_SHAPES:
+        probe_dequantize(torch, tcomp, tcref, dlib, floor, gen, C, N, bw)
 
     edges = TelemetrySpec().edges_on("cuda")
     B = edges.numel() - 1

@@ -14,7 +14,8 @@ consecutive elements:
 Per round, int8 costs exactly 2 launches and top-k 1, whatever the leaf
 and client counts. All three are bound by memory on the card; what their
 CUDA design does about it is written at the top of ``csrc/compress.cu``.
-``quantize_grid`` gives quantize a warp for every QUANT_STEP chunks.
+``quantize_grid`` gives quantize a warp for every QUANT_STEP chunks,
+``dequantize_grid`` dequantize one for every DEQUANT_STEP.
 A wrapper given CUDA tensors launches its kernel (built from that source
 at first use, see ``repro_torch.kernels.build``) or raises; given CPU
 tensors it runs the plain version in ``ref.py``. There is no other
@@ -37,9 +38,10 @@ from repro_torch.kernels.compress import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "compress.cu",)
 
-# quantize_int8: chunks a warp takes (kQuantStep), threads a block
-# (kThreads)
+# quantize_int8 and dequantize_int8: chunks a warp takes (kQuantStep,
+# kDequantStep), threads a block (kThreads)
 QUANT_STEP = 4
+DEQUANT_STEP = 1
 QUANT_THREADS = 256
 
 LAUNCHES: Counter = Counter()
@@ -60,18 +62,20 @@ def library() -> ctypes.CDLL:
     lib = build.load_library("compress", SOURCES)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.cmp_quantize_int8.argtypes = [vp, vp, vp, i64, i64, vp]
-    lib.cmp_dequantize_int8.argtypes = [vp, vp, vp, i64, vp]
+    lib.cmp_dequantize_int8.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.cmp_topk_mask.argtypes = [vp, vp, i64, ctypes.c_int, vp]
     for fn in (lib.cmp_quantize_int8, lib.cmp_dequantize_int8,
                lib.cmp_topk_mask):
         fn.restype = ctypes.c_int
-    for fn in (lib.cmp_quantize_chunks_a_step, lib.cmp_quantize_threads):
+    for fn in (lib.cmp_quantize_chunks_a_step,
+               lib.cmp_dequantize_chunks_a_step, lib.cmp_quantize_threads):
         fn.argtypes = []
         fn.restype = ctypes.c_int
-    if (lib.cmp_quantize_chunks_a_step(), lib.cmp_quantize_threads()) != (
-            QUANT_STEP, QUANT_THREADS):
+    if (lib.cmp_quantize_chunks_a_step(), lib.cmp_dequantize_chunks_a_step(),
+            lib.cmp_quantize_threads()) != (QUANT_STEP, DEQUANT_STEP,
+                                            QUANT_THREADS):
         raise RuntimeError("csrc/compress.cu and compress.py disagree on "
-                           "quantize_int8's grid")
+                           "the (de)quantize grids")
     return lib
 
 
@@ -82,6 +86,14 @@ def quantize_grid(chunks: int) -> int:
     that stride over the steps was slower (scripts/hist_quant_probe.py),
     so the grid reads no SM count."""
     return max(1, -(-chunks // (QUANT_STEP * (QUANT_THREADS // 32))))
+
+
+def dequantize_grid(chunks: int) -> int:
+    """``dequantize_int8``'s blocks of QUANT_THREADS threads: warp w
+    takes chunks DEQUANT_STEP·w .. DEQUANT_STEP·(w + 1) − 1 (one chunk a
+    warp, the parent's layout; more chunks a warp measured slower,
+    scripts/hist_quant_probe.py). Reads no SM count."""
+    return max(1, -(-chunks // (DEQUANT_STEP * (QUANT_THREADS // 32))))
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -108,7 +120,9 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """((C, N) int8, (C, N/128) f32) -> (C, N) f32. One launch."""
+    """((C, N) int8, (C, N/128) f32) -> (C, N) f32. One launch
+    (``dequantize_grid``); bitwise equal to ``ref.dequantize_int8_ref``,
+    NaN and inf scales included."""
     common.check_slab("q", q, q, dtype=torch.int8)
     C, n = q.shape
     common.check_tensor("scales", scales, (C, n // LANES), torch.float32, q)
@@ -116,9 +130,10 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         LAUNCHES[("dequantize_int8", "cpu")] += 1
         return ref.dequantize_int8_ref(q, scales)
     out = torch.empty((C, n), dtype=torch.float32, device=q.device)
+    chunks = C * (n // LANES)
     common.raise_on(library().cmp_dequantize_int8(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(), C * (n // LANES),
-        _stream(q)), "dequantize_int8")
+        q.data_ptr(), scales.data_ptr(), out.data_ptr(), chunks,
+        dequantize_grid(chunks), _stream(q)), "dequantize_int8")
     LAUNCHES[("dequantize_int8", "cuda")] += 1
     return out
 

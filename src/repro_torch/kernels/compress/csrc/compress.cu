@@ -11,9 +11,9 @@
 // PyTorch version in ../ref.py.
 //
 // Layout of dequantize_int8 and topk_mask: one warp per chunk, lane j
-// holding the chunk's elements 4j..4j+3 (one 16-byte load), so the
-// chunk's element order is the lane order and a warp reads 512
-// contiguous bytes.
+// holding the chunk's elements 4j..4j+3, so the chunk's element order is
+// the lane order and a warp reads (top-k) or writes 512 contiguous
+// bytes.
 //
 // cmp_quantize_int8 replaces the TPU kernel _quantize_kernel
 //   (repro/kernels/compress/compress.py, quantize_int8). Per chunk:
@@ -39,8 +39,21 @@
 //   (scripts/hist_quant_probe.py, H100 SXM, 700 W).
 //
 // cmp_dequantize_int8 replaces _dequantize_kernel (dequantize_int8):
-//   q * s per chunk, char4 in, float4 out. Bound by bytes (1 byte read,
-//   4 written per element).
+//   out = q * s per chunk, each product rounded by __fmul_rn (bitwise the
+//   plain version's, NaN and inf scales too). Bound by bytes: it reads 1
+//   byte per element (plus one f32 scale per chunk) and writes 4. Design:
+//   a warp a chunk, lane j its 4-byte piece j (one char4 load, one
+//   float4 store: each store instruction writes the chunk's 512 bytes
+//   in one piece), 8 chunks a block (dequantize_grid in ../compress.py),
+//   the stores evict-first (__stcs): at (10, 2^20), where the output
+//   passes the L2, they took the parent's 23.3 µs to 20.6, and they
+//   measured level with plain stores at every other shape from the
+//   paper's width to 2^24. More bytes in flight a thread measured
+//   slower at every shape, with the writes 4x the reads: 8 lanes a
+//   chunk holding pieces j + 8m (2-3 % at (10, 2^24)), 16 contiguous
+//   int8 a lane with four strided stores (76 %), 2 or 4 chunks a warp
+//   (1-2 %), and 16 bytes a lane shuffled so each store writes a chunk
+//   whole (1 %) (scripts/hist_quant_probe.py, H100 SXM, 700 W).
 //
 // cmp_topk_mask replaces _topk_kernel (topk_mask): keeps exactly k slots
 //   per chunk by |x| (ties by first index) and zeroes the rest; NaN sorts
@@ -158,6 +171,11 @@ quantize_int8_kernel(const float* __restrict__ x,
   }
 }
 
+// dequantize_int8: chunks a warp
+constexpr int kDequantStep = 1;
+
+// Warp w takes chunk w: lane j its char4 j (elements 4j..4j+3) and their
+// 16-byte product, stored evict-first.
 __global__ void __launch_bounds__(kThreads)
 dequantize_int8_kernel(const char4* __restrict__ q,
                        const float* __restrict__ s, float* __restrict__ out,
@@ -168,12 +186,11 @@ dequantize_int8_kernel(const char4* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const char4 c = q[chunk * (kLanes / 4) + lane];
   const float sc = __ldg(s + chunk);
-  float4 r;
-  r.x = __fmul_rn(static_cast<float>(c.x), sc);
-  r.y = __fmul_rn(static_cast<float>(c.y), sc);
-  r.z = __fmul_rn(static_cast<float>(c.z), sc);
-  r.w = __fmul_rn(static_cast<float>(c.w), sc);
-  reinterpret_cast<float4*>(out + chunk * kLanes)[lane] = r;
+  __stcs(reinterpret_cast<float4*>(out + chunk * kLanes) + lane,
+         make_float4(__fmul_rn(static_cast<float>(c.x), sc),
+                     __fmul_rn(static_cast<float>(c.y), sc),
+                     __fmul_rn(static_cast<float>(c.z), sc),
+                     __fmul_rn(static_cast<float>(c.w), sc)));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -279,6 +296,7 @@ unsigned int blocks_for(int64_t chunks) {
 extern "C" {
 
 int cmp_quantize_chunks_a_step(void) { return kQuantStep; }
+int cmp_dequantize_chunks_a_step(void) { return kDequantStep; }
 int cmp_quantize_threads(void) { return kThreads; }
 
 // x: (C, N) f32. q: (C, N) int8. s: (C, N / 128) f32, 16-byte aligned.
@@ -296,10 +314,15 @@ int cmp_quantize_int8(const float* x, void* q, float* s, int64_t chunks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: (C, N) int8. s: (C, N / 128) f32. out: (C, N) f32.
+// q: (C, N) int8. s: (C, N / 128) f32. out: (C, N) f32. chunks =
+// C*N/128. blocks: dequantize_grid in ../compress.py, a warp for each
+// kDequantStep chunks.
 int cmp_dequantize_int8(const void* q, const float* s, float* out,
-                        int64_t chunks, void* stream) {
-  dequantize_int8_kernel<<<blocks_for(chunks), kThreads, 0,
+                        int64_t chunks, int64_t blocks, void* stream) {
+  if (blocks < 1 || blocks > 0x7fffffff ||
+      blocks * (kThreads / 32) * kDequantStep < chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dequantize_int8_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char4*>(q), s, out, chunks);
   return static_cast<int>(cudaGetLastError());

@@ -1,31 +1,49 @@
 // Δ-SGD per-local-step kernels for Hopper (sm_90a), plain C interface.
 //
-// Both kernels work on the packed (C, N) f32 client slabs of
-// repro_torch.core.flat (N a multiple of 128, rows 16-byte aligned) and
-// launch on the caller's stream. They allocate nothing: the Python
-// wrappers in ../delta_sgd.py allocate the outputs and batched_norms'
-// workspace, check device, dtype, shape, contiguity and alignment,
-// choose the grid (norms_grid, apply_grid) and raise when a launch
+// The batched pair works on the packed (C, N) f32 client slabs of
+// repro_torch.core.flat (N a multiple of 128, rows 16-byte aligned); the
+// single-tensor pair on one tensor of any shape. All launch on the
+// caller's stream and allocate nothing: the Python wrappers in
+// ../delta_sgd.py allocate the outputs and the norms' workspace, check
+// device, dtype, shape, contiguity and alignment, choose the grid
+// (norms_grid, single_norms_grid, apply_grid) and raise when a launch
 // returns an error.
 //
-// dsgd_batched_norms replaces the TPU kernel _batched_norms_kernel
-//   (repro/kernels/delta_sgd/delta_sgd.py, batched_norms). Per client it
-//   computes Σ(g−g_prev)² and Σg² in one pass. It is bound by memory: it
-//   reads 2·C·N·4 bytes and does ~5 flops per element pair. The TPU
-//   kernel carried the sum across its sequential grid axis; here one
-//   launch runs a (chunk, client) grid of 256-thread blocks, each
-//   summing kNormsChunk elements of a row with 16-byte loads, every load
-//   issued before any sum, and a fixed warp-shuffle tree. Blocks run in
-//   no order, so each leaves its (dg, gg) pair in a workspace and the
-//   LAST block of each client (an integer ticket after __threadfence)
-//   sums the pairs in chunk order and puts the ticket back to zero. The
-//   wrapper keeps one workspace per (device, stream), filled once when it
-//   is made, so a call is one device op with no counter fill; calls on
-//   one stream are ordered, so they never share a ticket. No float
-//   atomics: the summation order is a function of (C, N) only (not of
-//   the SM count, the call or the stream), so every bit of the result
+// dsgd_batched_norms and dsgd_norms replace the TPU kernels
+//   _batched_norms_kernel and _norms_kernel (repro/kernels/delta_sgd/
+//   delta_sgd.py, batched_norms and norms): Σ(g−g_prev)² and Σg² in one
+//   pass, per client of a (C, N) slab or over one tensor of f32 or bf16
+//   (summed in f32). Both are bound by memory: they read 2·n elements
+//   and do ~5 flops per element pair. The TPU kernels carried the sum
+//   across a sequential grid axis; here both run ONE kernel,
+//   norms_kernel<T, kV, kVec>: a (chunk, client) grid of 256-thread
+//   blocks, each summing a chunk of kV 16-byte pieces a thread of each
+//   input (every load issued before any sum; one element a thread, kV·8
+//   or kV·4 of them, when a pointer is not 16-byte aligned) in a fixed
+//   warp-shuffle tree. Blocks run in no order, so each leaves its pair in
+//   a workspace and the LAST block of a row (an integer ticket after
+//   __threadfence) sums the pairs in chunk order, adds the ragged end
+//   (the elements past the last whole 16-byte piece) and puts the ticket
+//   back to zero. The wrapper keeps one workspace per (device, stream),
+//   filled once when it is made, shared by both entry points, so a call
+//   is one device op with no counter fill; calls on one stream are
+//   ordered, so they never share a ticket. No float atomics: the order
+//   of the sums is a function of (C, N) for batched_norms (kV = 8, 8,192
+//   elements a block, norms_grid) and of (n, dtype, alignment) for norms
+//   (single_norms_grid: the most loads a thread, up to 8, that still
+//   leave 64 blocks, so the paper's width, 71,808 elements, takes 71
+//   blocks of one load a thread where the parent took 9 of eight), never
+//   of the SM count, the call or the stream, so every bit of the result
 //   is too. That matters because η's min branch amplifies reduction
-//   noise. A NaN or inf in one row reaches only that row's sums.
+//   noise. A NaN or inf reaches the sums of its own row. batched_norms'
+//   instance does the parent's arithmetic in the parent's order, so its
+//   bits are the parent's (scripts/norms_probe.py holds them); norms'
+//   order, and so its bits, changed. One thread-block cluster of up to
+//   16 blocks gathering the pairs over distributed shared memory (no
+//   workspace, no ticket) was 0.6-1.7 µs slower at the paper's width,
+//   and a fixed grid of blocks striding over the chunks with the next
+//   chunk's loads in flight at most 0.4 µs faster at 2^24
+//   (scripts/norms_probe.py, H100 SXM, 700 W).
 //
 // dsgd_batched_apply replaces _batched_apply_kernel and
 //   _batched_apply_masked_kernel (batched_apply). It computes
@@ -48,22 +66,18 @@
 //   never contracted into an FMA: the result rounds exactly like the
 //   plain PyTorch version's separate multiply and subtract.
 //
-// dsgd_norms and dsgd_apply_update replace the TPU kernels _norms_kernel
-//   and _apply_kernel (norms, apply_update): the same two sums and the
-//   same update on ONE tensor of any shape, f32 or bf16, with a scalar η.
-//   Their one caller is the kernel parity matrix
-//   (repro_torch.conformance.kernels). Both are bound by memory: norms
-//   reads 2·n elements, apply reads 2·n and writes n. The TPU kernels
-//   flattened and zero-padded a copy to (rows, 128); here the kernels
-//   read the tensors where they lie, with 16-byte loads (4 f32 or 8
-//   bf16) when every pointer is 16-byte aligned and one element a thread
-//   otherwise, and mask the ragged end. norms is the same two-stage
-//   reduction as batched_norms (per-block partials, the last block sums
-//   them in order, no float atomics), so repeated calls are bitwise
-//   equal. apply_update computes p − η·g in f32 with __fmul_rn/__fsub_rn
-//   and rounds to p's dtype to nearest even, as the plain version does;
-//   η is a value or, to keep it on the card, a pointer to a device f32.
-//   At the paper's width (71,808 elements) the call is all latency: its
+// dsgd_apply_update replaces the TPU kernel _apply_kernel (apply_update):
+//   the same update on ONE tensor of any shape, f32 or bf16, with a
+//   scalar η. Its one caller, as norms', is the kernel parity matrix
+//   (repro_torch.conformance.kernels). It is bound by memory: it reads
+//   2·n elements and writes n. The TPU kernel flattened and zero-padded
+//   a copy to (rows, 128); here the kernel reads the tensors where they
+//   lie, with 16-byte loads (4 f32 or 8 bf16) when every pointer is
+//   16-byte aligned and one element a thread otherwise, and masks the
+//   ragged end. It computes p − η·g in f32 with __fmul_rn/__fsub_rn and
+//   rounds to p's dtype to nearest even, as the plain version does; η is
+//   a value or, to keep it on the card, a pointer to a device f32. At
+//   the paper's width (71,808 elements) the call is all latency: its
 //   grid is sized from the element count and the SM count so that every
 //   SM gets a block (the block shrinks to as little as a warp) and each
 //   thread issues its loads of p, g and η together before it computes;
@@ -78,10 +92,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// 16-byte loads per thread per input in one norms block, and the
+// 16-byte loads per thread per input in one batched_norms block, and the
 // elements of one client row that one batched_norms block sums
 constexpr int kNormsVecs = 8;
 constexpr int kNormsChunk = kThreads * kNormsVecs * 4;
+// partial pairs one thread of a norms row's last block loads at once
+constexpr int kSumVecs = 4;
 // most clients one batched_apply thread updates
 constexpr int kApplyGroup = 8;
 // 16-byte pieces per thread of a large apply_update, and its most blocks
@@ -115,82 +131,6 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
     b = lane < kWarps ? sb[lane] : 0.0f;
     a = warp_sum(a);
     b = warp_sum(b);
-  }
-}
-
-// A (chunk, client) grid of kThreads-thread blocks, each summing
-// kNormsChunk elements of a row (every load issued before any is summed),
-// so that the whole card streams one or two client rows at a time. Each
-// block leaves its pair in the caller's partial workspace; the LAST
-// block of a client, found with an integer atomic ticket after
-// __threadfence, sums the pairs in chunk order and puts the ticket back
-// to zero for the next call on the stream. No float atomics: the sum
-// order is a function of (C, N).
-__global__ void __launch_bounds__(kThreads)
-batched_norms_kernel(const float* __restrict__ g,
-                     const float* __restrict__ gp, int64_t n, int chunks,
-                     float2* __restrict__ partial,
-                     unsigned int* __restrict__ counter,
-                     float* __restrict__ dg_out,
-                     float* __restrict__ gg_out) {
-  const int64_t c = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int64_t n4 = n / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g + c * n);
-  const float4* gp4 = reinterpret_cast<const float4*>(gp + c * n);
-  const int64_t base = static_cast<int64_t>(chunk) * (kNormsChunk / 4);
-
-  float4 a[kNormsVecs];
-  float4 b[kNormsVecs];
-#pragma unroll
-  for (int i = 0; i < kNormsVecs; ++i) {
-    const int64_t j = base + i * kThreads + threadIdx.x;
-    if (j < n4) {
-      a[i] = __ldcs(g4 + j);
-      b[i] = __ldcs(gp4 + j);
-    } else {
-      a[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      b[i] = a[i];
-    }
-  }
-  float dg = 0.0f;
-  float gg = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kNormsVecs; ++i) {
-    const float dx = a[i].x - b[i].x, dy = a[i].y - b[i].y;
-    const float dz = a[i].z - b[i].z, dw = a[i].w - b[i].w;
-    dg += dx * dx + dy * dy + dz * dz + dw * dw;
-    gg += a[i].x * a[i].x + a[i].y * a[i].y + a[i].z * a[i].z +
-          a[i].w * a[i].w;
-  }
-  block_sum2(dg, gg);
-
-  __shared__ bool is_last;
-  if (threadIdx.x == 0) {
-    partial[c * chunks + chunk] = make_float2(dg, gg);
-    __threadfence();
-    const unsigned int done = atomicAdd(counter + c, 1u);
-    is_last = (done == static_cast<unsigned int>(chunks - 1));
-  }
-  __syncthreads();
-  if (!is_last) return;
-
-  // every other block's pair is visible (they fenced before counting):
-  // thread t sums chunks t, t + kThreads, ..., then the fixed block tree
-  __threadfence();
-  float sdg = 0.0f;
-  float sgg = 0.0f;
-  const float2* row = partial + c * chunks;
-  for (int i = threadIdx.x; i < chunks; i += kThreads) {
-    const float2 p = __ldcg(row + i);
-    sdg += p.x;
-    sgg += p.y;
-  }
-  block_sum2(sdg, sgg);
-  if (threadIdx.x == 0) {
-    dg_out[c] = sdg;
-    gg_out[c] = sgg;
-    counter[c] = 0u;   // every block of this client has counted
   }
 }
 
@@ -316,67 +256,66 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(v);
 }
 
-// elements of one tensor that one single-tensor norms block reduces
-template <typename T>
-__host__ __device__ constexpr int norms_chunk() {
-  return kThreads * kNormsVecs * Pack16<T>::kN;
+// Adds (x − y)² and x² of four elements to dg and gg, each four summed
+// left to right first: the order batched_norms' bits are defined by.
+__device__ __forceinline__ void add_quad(const float* x, const float* y,
+                                         float& dg, float& gg) {
+  const float dx = x[0] - y[0], dy = x[1] - y[1];
+  const float dz = x[2] - y[2], dw = x[3] - y[3];
+  dg += dx * dx + dy * dy + dz * dz + dw * dw;
+  gg += x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3];
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-norms_kernel(const T* __restrict__ g, const T* __restrict__ gp, int64_t n,
-             int chunks, float2* __restrict__ partial,
-             unsigned int* __restrict__ counter, float* __restrict__ out) {
+// Elements of one norms chunk: kV 16-byte pieces a thread of the block.
+template <typename T>
+__host__ __device__ constexpr int64_t norms_chunk(int vecs) {
+  return static_cast<int64_t>(kThreads) * vecs * Pack16<T>::kN;
+}
+
+// This thread's share of chunk `chunk` of one row of g and gp, added to
+// dg and gg. kVec: piece i of the thread is 16-byte piece chunk·kThreads·
+// kV + i·kThreads + threadIdx.x of the row, all loads issued before any
+// is summed; whole pieces only (tail_sums adds the ragged end). Else one
+// element a thread per step, kV·kN steps.
+template <typename T, int kV, bool kVec>
+__device__ __forceinline__ void chunk_sums(const T* __restrict__ g,
+                                           const T* __restrict__ gp,
+                                           int64_t n, int64_t chunk,
+                                           float& dg, float& gg) {
   using P = Pack16<T>;
   constexpr int kN = P::kN;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * norms_chunk<T>();
-  float dg = 0.0f;
-  float gg = 0.0f;
-  if (kVec) {
-    // vector i of this thread holds elements e .. e + kN − 1; all loads
-    // are issued before any is summed
-    uint4 a[kNormsVecs];
-    uint4 b[kNormsVecs];
+  if constexpr (kVec) {
+    const int64_t units = n / kN;
+    const uint4* g16 = reinterpret_cast<const uint4*>(g);
+    const uint4* gp16 = reinterpret_cast<const uint4*>(gp);
+    const int64_t base = chunk * (kThreads * kV) + threadIdx.x;
+    uint4 a[kV];
+    uint4 b[kV];
 #pragma unroll
-    for (int i = 0; i < kNormsVecs; ++i) {
-      const int64_t e = base + (static_cast<int64_t>(i) * kThreads +
-                                threadIdx.x) * kN;
-      if (e + kN <= n) {
-        a[i] = __ldcs(reinterpret_cast<const uint4*>(g + e));
-        b[i] = __ldcs(reinterpret_cast<const uint4*>(gp + e));
+    for (int i = 0; i < kV; ++i) {
+      const int64_t j = base + i * kThreads;
+      if (j < units) {
+        a[i] = __ldcs(g16 + j);
+        b[i] = __ldcs(gp16 + j);
       } else {
         a[i] = make_uint4(0u, 0u, 0u, 0u);
         b[i] = a[i];
       }
     }
 #pragma unroll
-    for (int i = 0; i < kNormsVecs; ++i) {
-      const int64_t e = base + (static_cast<int64_t>(i) * kThreads +
-                                threadIdx.x) * kN;
+    for (int i = 0; i < kV; ++i) {
       float x[kN];
       float y[kN];
-      if (e + kN <= n) {
-        P::unpack(a[i], x);
-        P::unpack(b[i], y);
-      } else {
+      P::unpack(a[i], x);
+      P::unpack(b[i], y);
 #pragma unroll
-        for (int j = 0; j < kN; ++j) {
-          x[j] = e + j < n ? to_f32(g[e + j]) : 0.0f;
-          y[j] = e + j < n ? to_f32(gp[e + j]) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const float d = x[j] - y[j];
-        dg += d * d;
-        gg += x[j] * x[j];
-      }
+      for (int q = 0; q < kN; q += 4) add_quad(x + q, y + q, dg, gg);
     }
   } else {
+    const int64_t base = chunk * norms_chunk<T>(kV) + threadIdx.x;
 #pragma unroll 8
-    for (int i = 0; i < kNormsVecs * kN; ++i) {
-      const int64_t e = base + static_cast<int64_t>(i) * kThreads +
-                        threadIdx.x;
+    for (int i = 0; i < kV * kN; ++i) {
+      const int64_t e = base + static_cast<int64_t>(i) * kThreads;
       if (e < n) {
         const float x = to_f32(g[e]);
         const float d = x - to_f32(gp[e]);
@@ -385,31 +324,115 @@ norms_kernel(const T* __restrict__ g, const T* __restrict__ gp, int64_t n,
       }
     }
   }
+}
+
+// The ragged end of the 16-byte path, in element order: the fewer than
+// kN elements past the row's last whole piece (none in a packed slab).
+template <typename T, bool kVec>
+__device__ __forceinline__ void tail_sums(const T* __restrict__ g,
+                                          const T* __restrict__ gp,
+                                          int64_t n, float& dg, float& gg) {
+  if constexpr (kVec) {
+    for (int64_t e = n / Pack16<T>::kN * Pack16<T>::kN; e < n; ++e) {
+      const float x = to_f32(g[e]);
+      const float d = x - to_f32(gp[e]);
+      dg += d * d;
+      gg += x * x;
+    }
+  }
+}
+
+// The ticket grid: block (chunk, c) sums chunk `chunk` of row c and
+// leaves its pair in partial[c·chunks + chunk]; the LAST block of the
+// row, found with an integer atomic ticket after __threadfence, sums the
+// pairs in chunk order (thread t takes chunks t, t + kThreads, ..., its
+// loads kSumVecs at a time, then the block tree), adds the ragged end,
+// writes the row's sums and puts the ticket back to zero for the next
+// call on the stream. No float atomics.
+template <typename T, int kV, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+norms_kernel(const T* __restrict__ g, const T* __restrict__ gp, int64_t n,
+             int chunks, float2* __restrict__ partial,
+             unsigned int* __restrict__ counter,
+             float* __restrict__ dg_out, float* __restrict__ gg_out) {
+  const int64_t c = blockIdx.y;
+  g += c * n;
+  gp += c * n;
+  float dg = 0.0f;
+  float gg = 0.0f;
+  chunk_sums<T, kV, kVec>(g, gp, n, blockIdx.x, dg, gg);
   block_sum2(dg, gg);
 
   __shared__ bool is_last;
   if (threadIdx.x == 0) {
-    partial[blockIdx.x] = make_float2(dg, gg);
+    partial[c * chunks + blockIdx.x] = make_float2(dg, gg);
     __threadfence();
-    const unsigned int done = atomicAdd(counter, 1u);
+    const unsigned int done = atomicAdd(counter + c, 1u);
     is_last = (done == static_cast<unsigned int>(chunks - 1));
   }
   __syncthreads();
   if (!is_last) return;
-  // the last block sums the partials in chunk order (as batched_norms)
+
+  // every other block's pair is visible (they fenced before counting)
   __threadfence();
   float sdg = 0.0f;
   float sgg = 0.0f;
-  for (int i = threadIdx.x; i < chunks; i += kThreads) {
-    const float2 p = __ldcg(partial + i);
-    sdg += p.x;
-    sgg += p.y;
+  const float2* row = partial + c * chunks;
+  for (int i = threadIdx.x; i < chunks; i += kThreads * kSumVecs) {
+    float2 p[kSumVecs];
+#pragma unroll
+    for (int u = 0; u < kSumVecs; ++u) {
+      const int k = i + u * kThreads;
+      p[u] = k < chunks ? __ldcg(row + k) : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kSumVecs; ++u) {
+      sdg += p[u].x;
+      sgg += p[u].y;
+    }
   }
   block_sum2(sdg, sgg);
   if (threadIdx.x == 0) {
-    out[0] = sdg;
-    out[1] = sgg;
+    tail_sums<T, kVec>(g, gp, n, sdg, sgg);
+    dg_out[c] = sdg;
+    gg_out[c] = sgg;
+    counter[c] = 0u;   // every block of this row has counted
   }
+}
+
+// One tensor: the ticket grid, a block a chunk.
+template <typename T, int kV>
+int launch_single_norms(const void* g, const void* gp, int64_t n, bool vec,
+                        int64_t chunks, void* partial, void* counter,
+                        float* out, cudaStream_t s) {
+  auto kernel =
+      vec ? &norms_kernel<T, kV, true> : &norms_kernel<T, kV, false>;
+  kernel<<<dim3(static_cast<unsigned int>(chunks), 1), kThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(gp), n,
+      static_cast<int>(chunks), static_cast<float2*>(partial),
+      static_cast<unsigned int*>(counter), out, out + 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_single_norms_v(const void* g, const void* gp, int64_t n,
+                          bool vec, int vecs, int64_t chunks, void* partial,
+                          void* counter, float* out, cudaStream_t s) {
+  switch (vecs) {
+    case 1:
+      return launch_single_norms<T, 1>(g, gp, n, vec, chunks, partial,
+                                       counter, out, s);
+    case 2:
+      return launch_single_norms<T, 2>(g, gp, n, vec, chunks, partial,
+                                       counter, out, s);
+    case 4:
+      return launch_single_norms<T, 4>(g, gp, n, vec, chunks, partial,
+                                       counter, out, s);
+    case 8:
+      return launch_single_norms<T, 8>(g, gp, n, vec, chunks, partial,
+                                       counter, out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One apply_update thread: kV 16-byte pieces (kVec) or kV elements, a
@@ -487,25 +510,6 @@ apply_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
   }
 }
 
-template <typename T>
-int launch_norms(const void* g, const void* gp, int64_t n, bool vec,
-                 void* partial, void* counter, float* out,
-                 cudaStream_t s) {
-  const int chunks =
-      static_cast<int>((n + norms_chunk<T>() - 1) / norms_chunk<T>());
-  const T* a = static_cast<const T*>(g);
-  const T* b = static_cast<const T*>(gp);
-  float2* pp = static_cast<float2*>(partial);
-  unsigned int* c = static_cast<unsigned int*>(counter);
-  if (vec)
-    norms_kernel<T, true><<<chunks, kThreads, 0, s>>>(a, b, n, chunks, pp,
-                                                      c, out);
-  else
-    norms_kernel<T, false><<<chunks, kThreads, 0, s>>>(a, b, n, chunks, pp,
-                                                       c, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // apply_update's grid. Large tensors: 256 threads of kUpdateVecs pieces,
 // at most kUpdateWaves blocks per SM (grid-stride past them). Smaller
 // ones: one piece a thread, the block halved (down to a warp) until the
@@ -552,28 +556,38 @@ int launch_apply(const void* p, const void* g, const float* eta_ptr,
 extern "C" {
 
 // dtype codes of the single-tensor entry points
-// (kDtypes in ../delta_sgd.py): 0 = f32, 1 = bf16.
+// (_DTYPES in ../delta_sgd.py): 0 = f32, 1 = bf16.
 
-// Elements of one tensor that one single-tensor norms block reduces:
-// the wrapper sizes the (chunks,) float2 partial scratch with it.
-int dsgd_single_norms_chunk(int dtype) {
-  return dtype == 0 ? norms_chunk<float>() : norms_chunk<__nv_bfloat16>();
+// Elements of one norms chunk of dtype at vecs 16-byte loads a thread
+// (1, 2, 4 or 8); 0 for any other (dtype, vecs). The wrapper checks its
+// mirror (single_norms_grid) against it when it loads the library.
+int64_t dsgd_norms_chunk(int dtype, int vecs) {
+  if (vecs != 1 && vecs != 2 && vecs != 4 && vecs != 8) return 0;
+  if (dtype == 0) return norms_chunk<float>(vecs);
+  if (dtype == 1) return norms_chunk<__nv_bfloat16>(vecs);
+  return 0;
 }
 
-// g, g_prev: n elements of dtype, n >= 1. vec: both 16-byte aligned.
-// partial: (ceil(n / chunk),) float2 scratch. counter: one uint32, ZERO
-// on entry. out: (2,) f32, Σ(g−g_prev)² then Σg².
+// g, g_prev: n >= 1 elements of dtype. vec: both 16-byte aligned. vecs:
+// 16-byte loads a thread of each input in a chunk; chunks: ceil(n /
+// dsgd_norms_chunk(dtype, vecs)), a block each (single_norms_grid in
+// ../delta_sgd.py; any other count is refused). partial: a (chunks,)
+// float2 workspace. counter: one uint32, ZERO on entry and left zero.
+// out: (2,) f32, Σ(g−g_prev)² then Σg².
 int dsgd_norms(const void* g, const void* g_prev, int dtype, int64_t n,
-               int vec, void* partial, void* counter, float* out,
-               void* stream) {
+               int vec, int vecs, int64_t chunks, void* partial,
+               void* counter, float* out, void* stream) {
+  const int64_t chunk = dsgd_norms_chunk(dtype, vecs);
+  if (n < 1 || chunk == 0 || chunks != (n + chunk - 1) / chunk ||
+      chunks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_norms<float>(g, g_prev, n, vec != 0, partial, counter,
-                               out, s);
-  if (dtype == 1)
-    return launch_norms<__nv_bfloat16>(g, g_prev, n, vec != 0, partial,
-                                       counter, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_single_norms_v<float>(g, g_prev, n, vec != 0, vecs,
+                                        chunks, partial, counter, out, s);
+  return launch_single_norms_v<__nv_bfloat16>(g, g_prev, n, vec != 0, vecs,
+                                              chunks, partial, counter, out,
+                                              s);
 }
 
 // p, g, out: n elements of dtype, n >= 1. vec: all three 16-byte
@@ -604,11 +618,13 @@ int dsgd_batched_norms(const float* g, const float* g_prev, int64_t C,
   if (n < 4 || C < 1 || C > 65535 ||
       chunks != (n + kNormsChunk - 1) / kNormsChunk || chunks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  batched_norms_kernel<<<dim3(static_cast<unsigned int>(chunks),
-                              static_cast<unsigned int>(C)),
-                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, g_prev, n, static_cast<int>(chunks), static_cast<float2*>(partial),
-      static_cast<unsigned int*>(counter), dg, gg);
+  norms_kernel<float, kNormsVecs, true>
+      <<<dim3(static_cast<unsigned int>(chunks),
+              static_cast<unsigned int>(C)),
+         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          g, g_prev, n, static_cast<int>(chunks),
+          static_cast<float2*>(partial), static_cast<unsigned int*>(counter),
+          dg, gg);
   return static_cast<int>(cudaGetLastError());
 }
 

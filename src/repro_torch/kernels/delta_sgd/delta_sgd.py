@@ -19,14 +19,18 @@ and the single-tensor pair, whose one caller is the kernel parity matrix
                    tensor. Replaces ``_apply_kernel``.
 
 All four are bound by memory on the card; what their CUDA design does
-about it is written at the top of ``csrc/delta_sgd.cu``. The batched
-pair's grids are chosen here, by ``norms_grid`` (a block per
-NORMS_CHUNK elements of a row, from N alone, so the sums' order and
-bits depend on (C, N) only) and ``apply_grid`` (a thread per 16-byte
-column and group of clients, sized to the SMs). A wrapper given CUDA
-tensors launches its kernel (built from that source at first use, see
-``repro_torch.kernels.build``) or raises; given CPU tensors it runs the
-plain version in ``ref.py``. There is no other switch.
+about it is written at the top of ``csrc/delta_sgd.cu``. Both norms run
+one kernel, whose last block of a row sums the blocks' pairs from a
+workspace kept per (device, stream) (``_norms_workspace``). The grids
+are chosen here: ``norms_grid`` (a block per NORMS_CHUNK elements of a
+row, from N alone, so the sums' order and bits depend on (C, N) only),
+``single_norms_grid`` (a function of (n, dtype) alone: a chunk that
+shrinks with n, so that small tensors still spread over the card) and
+``apply_grid`` (a thread per 16-byte column and group of clients, sized
+to the SMs). A wrapper given CUDA tensors launches its kernel (built
+from that source at first use, see ``repro_torch.kernels.build``) or
+raises; given CPU tensors it runs the plain version in ``ref.py``.
+There is no other switch.
 
 ``LAUNCHES`` counts calls per ``(function, device type)``: a wrapper
 adds one to its ``"cuda"`` entry after its kernel launched without
@@ -64,13 +68,19 @@ APPLY_GROUP = 8
 APPLY_GROUP_N = 2 ** 22
 APPLY_THREADS = 256
 APPLY_WAVES = 32
+# norms: threads a block (kThreads); the 16-byte loads a thread of each
+# input a chunk may take (the library's instances); the least chunks a
+# grid takes the most loads a thread for
+NORMS_THREADS = 256
+NORMS_VECS = (1, 2, 4, 8)
+NORMS_MIN_CHUNKS = 64
 # dtype codes of the single-tensor entry points (csrc/delta_sgd.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Counter = Counter()
-# batched_norms' (partial pairs, per-client tickets) for each (device
-# index, stream). The kernel leaves every ticket at zero, so only a new
-# or larger workspace is filled.
+# the norms' (partial pairs, per-row tickets) for each (device index,
+# stream), shared by batched_norms and norms. The kernel leaves every
+# ticket at zero, so only a new or larger workspace is filled.
 _NORMS_WORKSPACE: dict = {}
 
 
@@ -95,15 +105,20 @@ def library() -> ctypes.CDLL:
     lib.dsgd_batched_apply.argtypes = [vp, vp, vp, vp, i64, i64, i32, i32,
                                        i64, i32, vp]
     lib.dsgd_batched_apply.restype = ctypes.c_int
-    lib.dsgd_single_norms_chunk.argtypes = [ctypes.c_int]
-    lib.dsgd_single_norms_chunk.restype = ctypes.c_int
-    lib.dsgd_norms.argtypes = [vp, vp, ctypes.c_int, i64, ctypes.c_int, vp,
-                               vp, vp, vp]
+    lib.dsgd_norms_chunk.argtypes = [i32, i32]
+    lib.dsgd_norms_chunk.restype = i64
+    lib.dsgd_norms.argtypes = [vp, vp, i32, i64, i32, i32, i64, vp, vp, vp,
+                               vp]
     lib.dsgd_norms.restype = ctypes.c_int
     lib.dsgd_apply_update.argtypes = [vp, vp, vp, ctypes.c_float, vp,
                                       ctypes.c_int, i64, ctypes.c_int,
                                       ctypes.c_int, vp]
     lib.dsgd_apply_update.restype = ctypes.c_int
+    chunks = {(dt, v): lib.dsgd_norms_chunk(code, v)
+              for dt, code in _DTYPES.items() for v in NORMS_VECS}
+    if chunks != {(dt, v): _norms_chunk(v, dt) for dt, v in chunks}:
+        raise RuntimeError("csrc/delta_sgd.cu and delta_sgd.py disagree on "
+                           "norms' grid")
     return lib
 
 
@@ -126,9 +141,33 @@ def norms_grid(C: int, N: int) -> int:
     return -(-N // NORMS_CHUNK)
 
 
+class NormsGrid(NamedTuple):
+    vecs: int         # 16-byte loads a thread of each input a chunk
+    chunks: int       # chunks of NORMS_THREADS·vecs pieces, a block each
+
+
+def _norms_chunk(vecs: int, dtype: torch.dtype) -> int:
+    """Elements of one norms chunk: ``vecs`` 16-byte pieces a thread."""
+    return NORMS_THREADS * vecs * (16 // dtype.itemsize)
+
+
+def single_norms_grid(n: int, dtype: torch.dtype) -> NormsGrid:
+    """``norms``' grid: a block a chunk, with the most 16-byte loads a
+    thread that still leaves NORMS_MIN_CHUNKS blocks, down to one (71
+    blocks of 1,024 f32 elements at the paper's width, where the parent
+    ran 9 of 8,192). A function of (n, dtype) alone, never of the SM
+    count, so the order of the sums, and the bits, are the same on any
+    card."""
+    for vecs in sorted(NORMS_VECS, reverse=True):
+        chunks = -(-n // _norms_chunk(vecs, dtype))
+        if chunks >= NORMS_MIN_CHUNKS:
+            break
+    return NormsGrid(vecs, chunks)
+
+
 def _norms_workspace(device: torch.device, stream: int, C: int,
                      chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``batched_norms``' (partial, tickets) on this stream, at least
+    """The norms' (partial, tickets) on this stream, at least
     (C·chunks, 2) f32 and (C,) int32; tickets zero. Calls on one stream
     run in order, so they share it safely; another stream has its own."""
     key = (device.index, stream)
@@ -256,25 +295,26 @@ def _aligned(*ts: torch.Tensor) -> int:
 def norms(g: torch.Tensor, g_prev: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(Σ(g−g_prev)², Σg²)`` over one tensor of any shape, f32 or bf16,
-    summed in f32 -> two 0-d f32 tensors on g's device. One launch, read
-    in place (no cast, no pad); on CUDA the sums are bitwise
-    reproducible."""
+    summed in f32 -> two 0-d f32 tensors on g's device. One launch and no
+    other device work (``single_norms_grid``; the workspace, shared with
+    ``batched_norms``, is filled once, when it is made for a stream),
+    read in place (no cast, no pad); on CUDA the sums' order is a
+    function of (n, dtype, alignment), so they are bitwise reproducible
+    on any card and stream. A NaN or inf reaches both sums."""
     _check_pair("g", g, "g_prev", g_prev)
     if common.device_type(g) == "cpu":
         LAUNCHES[("norms", "cpu")] += 1
         return ref.norms_ref(g, g_prev)
     lib = library()
     n = g.numel()
-    chunk = lib.dsgd_single_norms_chunk(_DTYPES[g.dtype])
-    partial = torch.empty((-(-n // chunk), 2), dtype=torch.float32,
-                          device=g.device)
-    counter = torch.zeros((1,), dtype=torch.int32, device=g.device)
+    grid = single_norms_grid(n, g.dtype)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    partial, tickets = _norms_workspace(g.device, stream, 1, grid.chunks)
     out = torch.empty((2,), dtype=torch.float32, device=g.device)
     common.raise_on(lib.dsgd_norms(
         g.data_ptr(), g_prev.data_ptr(), _DTYPES[g.dtype], n,
-        _aligned(g, g_prev), partial.data_ptr(), counter.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
-        "norms")
+        _aligned(g, g_prev), grid.vecs, grid.chunks, partial.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), stream), "norms")
     LAUNCHES[("norms", "cuda")] += 1
     return out[0], out[1]
 

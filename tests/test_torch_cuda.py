@@ -278,6 +278,28 @@ def test_quantize_kernel_is_bitwise_plain_at_ragged_chunk_counts(
     assert len(_device_ops(lambda: tcomp.quantize_int8(x))) == 1
 
 
+@pytest.mark.parametrize("C,M", QUANT_RAGGED)
+def test_dequantize_kernel_is_bitwise_plain_at_ragged_chunk_counts(C, M,
+                                                                    dev):
+    """Every chunk of a ragged warp or block is dequantized once, NaN,
+    ±inf and zero scales beside zero codes (0 · inf is NaN) as the plain
+    version has them; two calls give the same bits, one device op each."""
+    r = np.random.default_rng(C * M + 1)
+    q = r.integers(-127, 128, (C, M * 128)).astype(np.int8)
+    s = np.exp(r.normal(size=(C, M)) * 3).astype(np.float32)
+    q[:, :64] = 0
+    s.reshape(-1)[:4] = np.array([np.nan, np.inf, -np.inf, 0.0],
+                                 np.float32)[:min(4, C * M)]
+    q, s = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    out = tcomp.dequantize_int8(q, s)
+    again = tcomp.dequantize_int8(q, s)
+    want = tcref.dequantize_int8_ref(q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+    assert len(_device_ops(lambda: tcomp.dequantize_int8(q, s))) == 1
+
+
 @pytest.mark.parametrize("k", [1, 32, 128])
 @pytest.mark.parametrize("C,N", SHAPES)
 def test_topk_kernel_is_exact(C, N, k, dev):
@@ -780,6 +802,31 @@ def test_single_tensor_pair_matches_plain(shape, dtype, dev):
         torch.stack(tref.norms_ref(flat_g, flat_p)),
         rtol=1e-5 if dtype == torch.float32 else 3e-3, atol=0.0)
     assert tk.LAUNCHES == {("norms", "cuda"): 3, ("apply_update", "cuda"): 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [71808, 2 ** 20 + 3])
+def test_norms_is_one_device_op_and_leaves_its_ticket_at_zero(n, dtype,
+                                                              dev):
+    """One device op a call (no counter fill, no scratch) on each of two
+    streams, the same bits on both; each stream's ticket is back at zero
+    after its calls."""
+    r = np.random.default_rng(n)
+    g, gp = (torch.from_numpy(r.normal(size=n).astype(np.float32)).to(
+        dev, dtype) for _ in range(2))
+    torch.cuda.synchronize()
+    got = []
+    for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            tk.norms(g, gp)   # makes this stream's workspace
+            ops = _device_ops(lambda: tk.norms(g, gp))
+            assert len(ops) == 1, ops
+            got.append(torch.stack(tk.norms(g, gp)))
+            torch.cuda.synchronize()
+            _, tickets = tk._NORMS_WORKSPACE[(g.device.index,
+                                              stream.cuda_stream)]
+            assert not tickets.any()
+    assert torch.equal(got[0], got[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

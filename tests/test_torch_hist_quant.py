@@ -33,6 +33,7 @@ from repro_torch.kernels.compress import compress as tc
 from repro_torch.kernels.compress import ref as tcref
 from repro_torch.kernels.telemetry import ref as ttref
 from repro_torch.kernels.telemetry import telemetry as tt
+from test_torch_delta_sgd_grid import FakeLibrary
 
 SMS = [132, 114]
 X = tt.HIST_WARP_LANES          # the crossover
@@ -278,3 +279,107 @@ def test_quantize_emulation_rounds_half_to_even():
     q, s = emulate_quantize(x)
     assert q[0, :9].tolist() == [127, 0, 2, 2, 0, -2, -2, 4, 126]
     assert s[0, 0] == np.float32(1.0)
+
+
+def test_dequantize_grid_reads_no_sm_count(monkeypatch):
+    assert list(inspect.signature(tc.dequantize_grid).parameters) == [
+        "chunks"]
+
+    def no_sm_count(index):
+        raise AssertionError("dequantize_grid read the SM count")
+    monkeypatch.setattr(common, "sm_count", no_sm_count)
+    tc.dequantize_grid(10 * 561)
+
+
+def dequantize_lanes(chunks):
+    """(chunk, elements) each thread of dequantize_int8_kernel's grid
+    writes: warp w takes chunk w (DEQUANT_STEP = 1), if it is one; lane
+    j its elements 4j .. 4j + 3."""
+    assert tc.DEQUANT_STEP == 1
+    warps = tc.dequantize_grid(chunks) * (tc.QUANT_THREADS // 32)
+    chunk = np.repeat(np.arange(warps), 32)
+    j = np.tile(np.arange(32), warps)
+    live = chunk < chunks
+    chunk, j = chunk[live], j[live]
+    return chunk, 4 * j[:, None] + np.arange(4)
+
+
+@pytest.mark.parametrize("chunks", CHUNKS)
+def test_dequantize_grid_writes_every_element_once(chunks):
+    """Every element of every chunk is written once, by a thread of its
+    own chunk (so with its chunk's scale), at ragged chunk counts; every
+    block has a warp with a chunk."""
+    blocks = tc.dequantize_grid(chunks)
+    assert (blocks - 1) * (tc.QUANT_THREADS // 32) * tc.DEQUANT_STEP \
+        < chunks <= blocks * (tc.QUANT_THREADS // 32) * tc.DEQUANT_STEP
+    chunk, elem = dequantize_lanes(chunks)
+    flat = (chunk[:, None] * 128 + elem).ravel()
+    assert np.bincount(flat, minlength=chunks * 128).tolist() == [1] * (
+        chunks * 128)
+
+
+# (clients, chunks a row): ragged warps and blocks, each row at most the
+# reference's 1,024-row block (its grid takes no ragged block)
+@pytest.mark.parametrize("C,M", [(1, 1), (3, 7), (1, 4 * 250 + 3),
+                                 (2, 32 * 31 + 5), (3, 1024)])
+def test_dequantize_layout_equals_plain_and_reference(C, M):
+    """The kernel's layout, each product an f32 multiply of the code by
+    its chunk's scale, bit for bit the plain version, with NaN, ±inf,
+    zero and denormal scales beside zero codes (0 · inf is NaN); and the
+    reference's kernel in interpret mode (NaN where it has NaN: XLA's
+    NaN may carry another payload; scales normal or non-finite, as XLA
+    on the CPU flushes denormals)."""
+    r = np.random.default_rng(C * M)
+    q = r.integers(-127, 128, (C, M * 128)).astype(np.int8)
+    s = np.exp(r.normal(size=(C, M)) * 3).astype(np.float32)
+    q[:, :64] = 0
+    s.reshape(-1)[:5] = np.array([np.nan, np.inf, -np.inf, 0.0, 1e-40],
+                                 np.float32)[:min(5, C * M)]
+    chunk, elem = dequantize_lanes(C * M)
+    out = np.full(C * M * 128, np.float32(-1.0))
+    qf = q.reshape(-1).astype(np.float32)
+    idx = chunk[:, None] * 128 + elem
+    with np.errstate(invalid="ignore"):
+        out[idx] = qf[idx] * s.reshape(-1)[chunk][:, None]
+    out = out.reshape(C, M * 128)
+    plain = tcref.dequantize_int8_ref(torch.from_numpy(q),
+                                      torch.from_numpy(s)).numpy()
+    np.testing.assert_array_equal(out.view(np.uint32), plain.view(np.uint32))
+    np.testing.assert_array_equal(
+        out.view(np.uint32),
+        tc.dequantize_int8(torch.from_numpy(q),
+                           torch.from_numpy(s)).numpy().view(np.uint32))
+    s_ref = np.where(np.abs(s) < np.finfo(np.float32).tiny, 0.0, s).astype(
+        np.float32)
+    with np.errstate(invalid="ignore"):
+        want = (q.reshape(C, M, 128).astype(np.float32)
+                * s_ref[..., None]).reshape(C, M * 128)
+    ref = np.asarray(rk.dequantize_int8(jnp.asarray(q), jnp.asarray(s_ref),
+                                        interpret=True))
+    _nan_eq_bits(ref, want)
+
+
+@pytest.mark.parametrize("quant,dequant,threads,ok", [
+    (tc.QUANT_STEP, tc.DEQUANT_STEP, tc.QUANT_THREADS, True),
+    (tc.QUANT_STEP, 4, tc.QUANT_THREADS, False),
+    (tc.QUANT_STEP, 8, tc.QUANT_THREADS, False),
+    (1, tc.DEQUANT_STEP, tc.QUANT_THREADS, False),
+    (tc.QUANT_STEP, tc.DEQUANT_STEP, 128, False)])
+def test_library_whose_quantize_grids_disagree_is_refused(
+        quant, dequant, threads, ok, monkeypatch):
+    """The wrapper checks the library's chunks a warp step of both
+    kernels and its block width when it loads it."""
+    from repro_torch.kernels import build
+    fake = FakeLibrary(cmp_quantize_chunks_a_step=lambda: quant,
+                        cmp_dequantize_chunks_a_step=lambda: dequant,
+                        cmp_quantize_threads=lambda: threads)
+    monkeypatch.setattr(build, "load_library", lambda name, sources: fake)
+    tc.library.cache_clear()
+    try:
+        if ok:
+            assert tc.library() is fake
+        else:
+            with pytest.raises(RuntimeError, match="grids"):
+                tc.library()
+    finally:
+        tc.library.cache_clear()

@@ -124,17 +124,38 @@ without its final line:
               and the CLI's event log with --events --profile 1 (header,
               one round event per round, a static event with one
               lane_histogram launch per round, a spans event).
+  4c. vmap    the vmap engine at the phase-4 configuration on cuda: the
+              CLI with R = 1 and no --flat (Δ-SGD's plain per-leaf route,
+              4 rounds: finite, no kernel launched, round 0 = the CPU's
+              and phase 4's flat engine's within 1e-4); the kernel route
+              (get_client_opt("delta_sgd", use_pallas=True), 2 rounds:
+              exactly 2*K*rounds batched_norms and batched_apply launches,
+              round 0 within 1e-5 of the plain route on the card); the
+              baselines sgd, sgdm_decay, adam, adagrad and sps (--lr the
+              paper grids' middle) and Δ-SGD under fedavgm, fedadam,
+              fedyogi and FedProx, 2 rounds each (finite, η NaN for the
+              baselines, round 0 loss = the CPU's within 1e-4); sgd with
+              --telemetry (one lane_histogram and one lane_quantiles launch
+              a round, an all-zero η histogram); the host syncs of one
+              vmap round (torch.cuda.set_sync_debug_mode: none on the
+              plain route, for Adam and Δ-SGD; the kernel route's and the
+              flat engine's printed); and the wall per local step of the
+              vmap engine's plain and kernel routes beside the flat
+              engine's R = 1 host loop, a round each in turns, with the
+              card's name and power limit.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
-  8. the summary line {"kernels": [...]} (all twelve kernels) and, last,
-              the device line.
+  8. the summary line {"kernels": [...]} (all twelve kernels, with their
+              launches by path, the vmap runs of 4c among them) and,
+              last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -248,6 +269,22 @@ HIST_CHECK_BINS = (1, 16, 33, 4096)
 SINGLE_SIZES = (71808, 2 ** 24)
 # blocks timed per variant for the telemetry path's wall per local step
 TELE_TIMED_BLOCKS = 6
+# phase 4c, the vmap engine: rounds of its CLI run and of each other run;
+# the baselines (flags, each over 2 rounds, --lr the middle of the paper
+# grids of benchmarks/fl_common.py); rounds timed per engine
+VMAP_ROUNDS = 2
+VMAP_BASELINES = {
+    "sgd": ["--client-opt", "sgd", "--lr", "0.05"],
+    "sgdm_decay": ["--client-opt", "sgdm_decay", "--lr", "0.05"],
+    "adam": ["--client-opt", "adam", "--lr", "0.01"],
+    "adagrad": ["--client-opt", "adagrad", "--lr", "0.01"],
+    "sps": ["--client-opt", "sps"],
+    "delta_sgd_fedavgm": ["--server-opt", "fedavgm"],
+    "delta_sgd_fedadam": ["--server-opt", "fedadam"],
+    "delta_sgd_fedyogi": ["--server-opt", "fedyogi"],
+    "delta_sgd_fedprox": ["--fedprox-mu", "0.01"],
+}
+VMAP_TIMED_ROUNDS = 12
 # serve paths: arch -> layers kept (None: all), the runs' request counts
 SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
@@ -957,7 +994,8 @@ def run_scenario_path(torch, mods, train, name):
 
 
 def run_path(torch, mods, train):
-    """Phase 4, the plain (slice-1) path. Returns its launch counts."""
+    """Phase 4, the plain (slice-1) path. Returns its launch counts and
+    the fused run's round-0 metrics."""
     _reset(mods)
     fused = train.main(TRAIN_ARGS + ["--rounds-per-call", "2",
                                      "--device", "cuda"])
@@ -989,7 +1027,7 @@ def run_path(torch, mods, train):
             raise AssertionError(f"round 0 {k}: cuda {a} vs cpu {b}")
     print("path: round 0 loss/eta_mean agree with the CPU within 1e-4")
 
-    return launches
+    return launches, fused.history[0]
 
 
 def _fused_setup(train, torch, telemetry):
@@ -1126,6 +1164,193 @@ def run_telemetry_path(torch, mods, train):
             {"kinds": kinds, "static": static[0], "spans": events[-1]}),
             flush=True)
     return launches
+
+
+def _close_rel(a, b):
+    """|a − b| / |b|, 0 where both are equal (NaN included)."""
+    if a == b or (math.isnan(a) and math.isnan(b)):
+        return 0.0
+    return abs(a - b) / abs(b)
+
+
+def _vmap_setup(torch, train, flags, client_opt=None):
+    """The phase-4 configuration on cuda, and one round function of it
+    -> (PaperTask, round_fn, batches of rounds 0..VMAP_TIMED_ROUNDS on
+    the card). ``client_opt`` replaces the run's client optimizer."""
+    from repro_torch.core import make_fl_round
+    args = train.build_parser().parse_args(TRAIN_ARGS + ["--device", "cuda"])
+    pt = train.setup_paper_task(args)
+    rnd = make_fl_round(pt.loss_fn, client_opt or pt.client_opt,
+                        pt.server_opt, num_rounds=ROUNDS, **flags)
+    batches = []
+    for t in range(VMAP_TIMED_ROUNDS + 1):
+        b, _, _ = pt.fed.sample_round(pt.participation, pt.local_steps,
+                                      args.batch, round_idx=t)
+        batches.append({k: torch.from_numpy(v).to(pt.device)
+                        for k, v in b.items()})
+    return pt, rnd, batches
+
+
+def run_vmap_path(torch, mods, train, flat_round0, smi):
+    """Phase 4c, the vmap engine. Returns its launch counts by run."""
+    from repro_torch.core import get_client_opt
+    import numpy as np
+    paths = {}
+
+    # the CLI with R = 1 and no --flat: the vmap engine, plain Δ-SGD
+    _reset(mods)
+    vm = train.main(TRAIN_ARGS + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    paths["vmap_cli"] = _counts(mods)
+    if any(paths["vmap_cli"].values()):
+        raise AssertionError(f"the vmap CLI run launched "
+                             f"{paths['vmap_cli']}: its plain route "
+                             "launches no kernel")
+    for t, row in enumerate(vm.history):
+        if not _finite(row) or "eta_clip_rate" in row:
+            raise AssertionError(f"vmap round {t}: {row}")
+        print("vmap round", t, json.dumps({k: float(v)
+                                           for k, v in row.items()}))
+    cpu = train.main(TRAIN_ARGS + ["--rounds", "1", "--device", "cpu"])
+    for k in ("loss", "eta_mean"):
+        a = float(vm.history[0][k])
+        b, f = float(cpu.history[0][k]), float(flat_round0[k])
+        print(f"vmap round 0 {k} cuda {a!r} cpu {b!r} flat engine {f!r}")
+        if not (math.isclose(a, b, rel_tol=1e-4)
+                and math.isclose(a, f, rel_tol=1e-4)):
+            raise AssertionError(f"vmap round 0 {k}: cuda {a}, cpu {b}, "
+                                 f"flat engine {f}")
+    print("vmap: round 0 loss/eta_mean agree with the CPU and with the "
+          "flat engine within 1e-4", flush=True)
+
+    # the kernel route: fused_delta_sgd_update on the stacked cohort,
+    # two launches a step, against the plain route on the card
+    runs = {}
+    for route, kw in (("plain", {}), ("kernel", dict(use_pallas=True))):
+        pt, rnd, batches = _vmap_setup(
+            torch, train, {}, get_client_opt("delta_sgd", **kw))
+        state, rows = train.init_state(pt), []
+        _reset(mods)
+        for t in range(VMAP_ROUNDS):
+            state, m, _ = rnd(state, batches[t])
+            rows.append({k: float(v) for k, v in m.items()})
+            if t == 0:
+                p0 = {k: {n: v.clone() for n, v in layer.items()}
+                      for k, layer in state.params.items()}
+        torch.cuda.synchronize()
+        runs[route] = (rows, p0, _counts(mods))
+    paths["vmap_kernel_route"] = runs["kernel"][2]
+    want = {("batched_norms", "cuda"): K * VMAP_ROUNDS,
+            ("batched_apply", "cuda"): K * VMAP_ROUNDS}
+    if runs["kernel"][2] != want or any(runs["plain"][2].values()):
+        raise AssertionError(f"kernel route launched {runs['kernel'][2]}, "
+                             f"plain {runs['plain'][2]}; expected {want} "
+                             "and none")
+    errs = {k: _close_rel(runs["kernel"][0][0][k], runs["plain"][0][0][k])
+            for k in ("loss", "eta_mean", "eta_min", "eta_max")}
+    perr = max(float((runs["kernel"][1][k][n] - v).abs().max()
+                     / v.abs().max())
+               for k, layer in runs["plain"][1].items()
+               for n, v in layer.items())
+    print("vmap kernel route", json.dumps({
+        "launches": {f"{k}/{d}": n for (k, d), n in runs["kernel"][2].items()},
+        "round0_rel_err": errs, "round0_param_err_rel_to_leaf_max": perr,
+        "rounds": [{k: r[k] for k in ("loss", "eta_mean")}
+                   for r in runs["kernel"][0]]}), flush=True)
+    if max(errs.values()) > 1e-5 or perr > 1e-5:
+        raise AssertionError(f"kernel route vs plain: {errs}, params {perr}")
+
+    # the paper's baselines, Δ-SGD under the other server optimizers and
+    # with FedProx: finite, round 0 = CPU's within 1e-4
+    for name, flags in VMAP_BASELINES.items():
+        args = TRAIN_ARGS + flags + ["--rounds", str(VMAP_ROUNDS)]
+        _reset(mods)
+        card = train.main(args + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        if any(_counts(mods).values()):
+            raise AssertionError(f"baseline {name} launched {_counts(mods)}")
+        delta = "--client-opt" not in flags
+        for t, row in enumerate(card.history):
+            finite = {k: v for k, v in row.items()
+                      if delta or not k.startswith("eta_")}
+            if not _finite(finite) or not (
+                    delta or math.isnan(float(row["eta_mean"]))):
+                raise AssertionError(f"baseline {name} round {t}: {row}")
+        host = train.main(args + ["--rounds", "1", "--device", "cpu"])
+        a, b = float(card.history[0]["loss"]), float(host.history[0]["loss"])
+        print(f"vmap baseline {name}", json.dumps({
+            "loss": [float(r["loss"]) for r in card.history],
+            "eta_mean": [float(r["eta_mean"]) for r in card.history],
+            "round0_loss_cpu": b}), flush=True)
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"baseline {name} round 0 loss: cuda {a} "
+                                 f"vs cpu {b}")
+
+    # telemetry on the vmap engine: one histogram and one quantiles
+    # launch a round; no η lane to count for sgd
+    _reset(mods)
+    tele = train.main(TRAIN_ARGS + VMAP_BASELINES["sgd"]
+                      + ["--rounds", str(VMAP_ROUNDS), "--telemetry",
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    paths["vmap_telemetry"] = _counts(mods)
+    want = {("lane_histogram", "cuda"): VMAP_ROUNDS,
+            ("lane_quantiles", "cuda"): VMAP_ROUNDS}
+    if paths["vmap_telemetry"] != want:
+        raise AssertionError(f"vmap telemetry launched "
+                             f"{paths['vmap_telemetry']}, expected {want}")
+    for t, row in enumerate(tele.history):
+        if (float(np.sum(row["eta_hist"])) != 0.0
+                or not np.isfinite(row["loss_deciles"]).all()):
+            raise AssertionError(f"vmap telemetry round {t}: {row}")
+    print("vmap telemetry", json.dumps(
+        {"eta_hist": [r["eta_hist"].tolist() for r in tele.history],
+         "loss_deciles_round0": tele.history[0]["loss_deciles"].tolist()}),
+        flush=True)
+
+    # host syncs in one vmap round: the plain route (Adam, Δ-SGD) makes
+    # none; the kernel route's and the flat host loop's are printed
+    engines = {"vmap": _vmap_setup(torch, train, dict(flat=False)),
+               "vmap_kernel": _vmap_setup(
+                   torch, train, dict(flat=False),
+                   get_client_opt("delta_sgd", use_pallas=True)),
+               "flat": _vmap_setup(torch, train, dict(flat=True))}
+    adam = _vmap_setup(torch, train, dict(flat=False), get_client_opt(
+        "adam", lr=float(VMAP_BASELINES["adam"][-1])))
+    syncs = {}
+    for e, (pt, rnd, batches) in (("adam", adam), *engines.items()):
+        one_round = functools.partial(rnd, train.init_state(pt),
+                                      batches[0])
+        one_round()              # the reports torch makes once a process
+        torch.cuda.synchronize()
+        syncs[e] = _block_syncs(torch, one_round)
+    print("vmap path host syncs per round", json.dumps(syncs), flush=True)
+    if syncs["adam"][0] or syncs["vmap"][0]:
+        raise AssertionError(f"the vmap engine's plain route synced the "
+                             f"host: {syncs}")
+
+    # wall per local step: the vmap engine's plain and kernel routes
+    # beside the flat engine's R = 1 host loop, one round each in turns,
+    # batches staged beforehand
+    states = {e: train.init_state(engines[e][0]) for e in engines}
+    walls = {e: [] for e in engines}
+    order = list(engines)
+    for t in range(VMAP_TIMED_ROUNDS + 1):
+        for e in order[t % 3:] + order[:t % 3]:
+            _, rnd, batches = engines[e]
+            t0 = time.perf_counter()
+            states[e], _, _ = rnd(states[e], batches[t])
+            torch.cuda.synchronize()
+            if t > 0:            # round 0 warms each engine up
+                walls[e].append((time.perf_counter() - t0) / K * 1e3)
+    print("vmap path time", json.dumps({
+        "card": smi, "wall_ms_per_step_vmap": walls["vmap"],
+        "wall_ms_per_step_vmap_kernel_route": walls["vmap_kernel"],
+        "wall_ms_per_step_flat_host": walls["flat"],
+        "median_vmap": statistics.median(walls["vmap"]),
+        "median_vmap_kernel_route": statistics.median(walls["vmap_kernel"]),
+        "median_flat_host": statistics.median(walls["flat"])}), flush=True)
+    return paths
 
 
 def run_matrix(torch, mods):
@@ -1660,10 +1885,13 @@ def main() -> int:
     rows.update(check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32))
 
     # 4. paths
-    paths = {"plain": run_path(torch, mods, train)}
+    paths = {}
+    paths["plain"], flat_round0 = run_path(torch, mods, train)
     for pname in SCENARIO_PATHS:
         paths[pname] = run_scenario_path(torch, mods, train, pname)
     paths["telemetry"] = run_telemetry_path(torch, mods, train)
+    # 4c. the vmap engine
+    paths.update(run_vmap_path(torch, mods, train, flat_round0, smi))
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))

@@ -144,3 +144,6 @@ class FLConfig:
     eta0: float = 0.2
     theta0: float = 1.0
     delta: float = 0.1
+    # generic client-opt hparams
+    lr: float = 0.01
+    momentum: float = 0.9

@@ -1,29 +1,35 @@
-"""Δ-SGD (DELTA-SGD), the paper's contribution: Eq. (4) + Algorithm 1,
-on the flat engine.
+"""Δ-SGD (DELTA-SGD), the paper's contribution: Eq. (4) + Algorithm 1.
 
     η_{t,k}^i = min( γ·‖x_k − x_{k−1}‖ / (2‖∇̃f_i(x_k) − ∇̃f_i(x_{k−1})‖),
                      sqrt(1 + δ·θ_{k−1})·η_{k−1} )
     θ_k = η_k / η_{k−1}
 
-Port of the flat engine of ``repro/core/delta_sgd.py``:
-``FlatDeltaSGDState`` + ``flat_delta_sgd_step`` run the rule for all C
-participating clients at once on packed ``(C, N)`` buffers
-(``repro_torch.core.flat``), with exactly two kernel launches per local
-step (``batched_norms`` + ``batched_apply``) whatever the leaf and
-client counts. For SGD updates ‖x_k − x_{k−1}‖ = η_{k−1}·‖g_{k−1}‖, so
-the state carries only the previous gradient, η, θ and ‖g_{k−1}‖.
+Port of ``repro/core/delta_sgd.py``. For SGD updates
+‖x_k − x_{k−1}‖ = η_{k−1}·‖g_{k−1}‖, so the state carries only the
+previous gradient, η, θ and ‖g_{k−1}‖. Norms are global over the param
+tree, in f32.
 
-The per-leaf engine (``delta_sgd_init/reset/update``) belongs to the
-vmap engine (ROADMAP A3/A7) and the sharded step to ROADMAP A17.
+Per-leaf engine (the vmap engine's client optimizer): ``DeltaSGDState``
+and ``delta_sgd_init/reset/update`` for one client's param tree, with
+the beyond-paper ``groupwise`` variant (one step size per top-level
+param group). ``use_pallas=True`` hands the global rule to the kernel
+route, ``repro_torch.kernels.delta_sgd.ops.fused_delta_sgd_update``.
+
+Flat engine: ``FlatDeltaSGDState`` + ``flat_delta_sgd_step`` run the
+rule for all C participating clients at once on packed ``(C, N)``
+buffers (``repro_torch.core.flat``), with exactly two kernel launches
+per local step (``batched_norms`` + ``batched_apply``) whatever the leaf
+and client counts. The sharded step is ROADMAP A17.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.core import flat as flatlib
 from repro_torch.kernels.delta_sgd import delta_sgd as kernels
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 # Numerical guard ceiling on η: Eq. (4)'s cand1 can blow up when
 # ‖∇̃f(x_k) − ∇̃f(x_{k−1})‖ underflows, and a non-finite η would poison the
@@ -34,12 +40,112 @@ from repro_torch.kernels.delta_sgd import delta_sgd as kernels
 ETA_CLAMP = 1e3
 
 
+class DeltaSGDState(NamedTuple):
+    prev_grads: Any               # tree like params
+    eta: Any                      # step size: 0-d f32, or a dict per group
+    theta: Any                    # η_k / η_{k-1}
+    prev_grad_norm: Any
+    k: torch.Tensor               # local step counter, int32 (resets per round)
+
+
+def _global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum((l.to(torch.float32) ** 2).sum()
+                          for l in tree_leaves(tree)))
+
+
+def _group_norms(tree) -> dict:
+    """One norm per top-level key (beyond-paper groupwise variant)."""
+    return {k: _global_norm(v) for k, v in tree.items()}
+
+
+def _f32(x, like) -> torch.Tensor:
+    """A 0-d f32 state tensor on like's device: a fill, no host copy."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def delta_sgd_init(params, *, eta0: float, theta0: float,
+                   groupwise: bool = False) -> DeltaSGDState:
+    zeros = tree_map(torch.zeros_like, params)
+    like = tree_leaves(params)[0]
+    if groupwise:
+        eta = {k: _f32(eta0, like) for k in params}
+        theta = {k: _f32(theta0, like) for k in params}
+        pgn = {k: _f32(0.0, like) for k in params}
+    else:
+        eta, theta, pgn = (_f32(eta0, like), _f32(theta0, like),
+                           _f32(0.0, like))
+    return DeltaSGDState(zeros, eta, theta, pgn,
+                         torch.zeros((), dtype=torch.int32,
+                                     device=like.device))
+
+
+def delta_sgd_reset(state: DeltaSGDState, *, eta0: float,
+                    theta0: float) -> DeltaSGDState:
+    """Round-start reset (Alg. 1 line 6): η ← η₀, θ ← θ₀, k ← 0."""
+    eta = tree_map(lambda e: torch.full_like(e, eta0), state.eta)
+    theta = tree_map(lambda t: torch.full_like(t, theta0), state.theta)
+    pgn = tree_map(torch.zeros_like, state.prev_grad_norm)
+    return DeltaSGDState(state.prev_grads, eta, theta, pgn,
+                         torch.zeros_like(state.k))
+
+
+def _sgd_apply(params, grads, eta):
+    """x ← x − η·g in f32, cast back to each leaf's dtype."""
+    return tree_map(lambda p, g: (p.to(torch.float32)
+                                  - eta * g.to(torch.float32)).to(p.dtype),
+                    params, grads)
+
+
+def _diff_norm(grads, prev_grads) -> torch.Tensor:
+    """‖g − g_prev‖ with the difference in f32 (exact for bf16 inputs)."""
+    return _global_norm(tree_map(
+        lambda a, b: a.to(torch.float32) - b.to(torch.float32),
+        grads, prev_grads))
+
+
+def delta_sgd_update(params, grads, state: DeltaSGDState, *, gamma: float,
+                     delta: float, eta0: float, use_pallas: bool = False):
+    """One local step: η by Eq. (4) (η₀ on the first local step), then
+    x ← x − η·g, and the state rolls. Tensor ops only, with no host
+    read, so it runs under ``torch.func.vmap`` over a client axis."""
+    first = state.k == 0
+    if isinstance(state.eta, dict):
+        new_eta, new_theta = {}, {}
+        for k in params:
+            dx = state.eta[k] * state.prev_grad_norm[k]
+            e, t = _eta_rule(state.eta[k], state.theta[k], dx,
+                             _diff_norm(grads[k], state.prev_grads[k]),
+                             gamma, delta)
+            new_eta[k] = torch.where(first, eta0, e)
+            new_theta[k] = torch.where(first, state.theta[k], t)
+        new_params = {k: _sgd_apply(params[k], grads[k], new_eta[k])
+                      for k in params}
+        return new_params, DeltaSGDState(grads, new_eta, new_theta,
+                                         _group_norms(grads), state.k + 1)
+
+    if use_pallas:
+        from repro_torch.kernels.delta_sgd import ops
+        return ops.fused_delta_sgd_update(params, grads, state, gamma=gamma,
+                                          delta=delta, eta0=eta0)
+
+    dx_norm = state.eta * state.prev_grad_norm
+    eta, theta = _eta_rule(state.eta, state.theta, dx_norm,
+                           _diff_norm(grads, state.prev_grads), gamma, delta)
+    eta = torch.clamp(torch.where(first, eta0, eta), max=ETA_CLAMP)
+    theta = torch.where(first, state.theta, theta)
+    return _sgd_apply(params, grads, eta), DeltaSGDState(
+        grads, eta, theta, _global_norm(grads), state.k + 1)
+
+
 class FlatDeltaSGDState(NamedTuple):
     prev_grads: torch.Tensor      # (C, N) packed previous gradients, f32
     eta: torch.Tensor             # (C,) per-client step size
     theta: torch.Tensor           # (C,) η_k / η_{k-1}
     prev_grad_norm: torch.Tensor  # (C,)
-    k: int                        # local step counter (resets per round)
+    k: Union[int, torch.Tensor]   # local step counter (resets per round):
+    #                               the flat engines' Python int, or the
+    #                               per-leaf state's int32 tensor on the
+    #                               kernel route (``kernels.delta_sgd.ops``)
     valid: torch.Tensor           # (C,) bool: lane healthy, LATCHES off
     clips: torch.Tensor           # (C,) int32: η-clamp hits
 
@@ -105,13 +211,21 @@ def flat_delta_sgd_step(P: torch.Tensor, G: torch.Tensor,
     dg2, gg2 = kernels.batched_norms(G, state.prev_grads)
     dg_norm = torch.sqrt(dg2)
     grad_norm = torch.sqrt(gg2)
-    if state.k == 0:
-        # first local step: η₀ (Alg. 1 line 6), θ unchanged
+    # a client's first local step takes η₀ (Alg. 1 line 6), θ unchanged.
+    # ``first`` is a Python bool on the flat engines, whose counter is a
+    # host int shared by all clients: their first step skips the rule's
+    # device ops. The kernel route counts per client (an int32 tensor, as
+    # the reference's vmapped call has it) and picks with torch.where.
+    first = state.k == 0
+    if first is True:
         eta, theta = torch.full_like(state.eta, eta0), state.theta
     else:
-        dx_norm = state.eta * state.prev_grad_norm
-        eta, theta = _eta_rule(state.eta, state.theta, dx_norm, dg_norm,
+        eta, theta = _eta_rule(state.eta, state.theta,
+                               state.eta * state.prev_grad_norm, dg_norm,
                                gamma, delta)
+        if isinstance(first, torch.Tensor):
+            eta = torch.where(first, eta0, eta)
+            theta = torch.where(first, state.theta, theta)
     eta, valid, clip_hit = _guard(eta, dg_norm, grad_norm, state.valid)
     act = valid if active is None else (active & valid)
     eta_applied, eta, theta, grad_norm = _mask_inactive(

@@ -1,6 +1,23 @@
-"""One federated round on the flat Δ-SGD engine (Algorithm 1).
+"""One federated round (Algorithm 1), on the vmap engine or the flat
+Δ-SGD engine. Port of ``repro/core/fed_round.py``.
 
-Port of the flat engine of ``repro/core/fed_round.py``. The round-start
+The vmap engine (``flat=False``, the default, as in the reference) runs
+any client optimizer (``repro_torch.core.client_opt``). Every client
+starts from the round-start params; ``torch.func.vmap`` over the client
+axis runs one local step (the loss's ``grad_and_value`` with the global
+and, for MOON, the previous local params, then the per-leaf
+``client_opt.update``), and a Python loop runs K of them. Under
+heterogeneous K a client past its K_c keeps its params and optimizer
+state, through ``torch.where``. Aggregation is the (weighted) mean of
+the round-end local params over the client axis, then the ServerOpt
+step. The global-rule Δ-SGD client with ``use_pallas`` takes the kernel
+route: vmap runs only the gradient, and one ``fused_delta_sgd_update``
+a step, on the stacked cohort, makes the step's two kernel launches
+(``torch.func.vmap`` cannot trace the kernels' ctypes calls). Faults,
+robust aggregation, quorum and active compression need the flat engine,
+and the vmap engine refuses them as the reference does.
+
+The flat engine (``flat=True``, Δ-SGD only): the round-start
 params are packed into an ``(N,)`` f32 buffer (``repro_torch.core.flat``)
 and broadcast to a ``(C, N)`` client slab. Each of the K local steps
 evaluates per-client losses and gradients with ``torch.func.vmap`` of
@@ -47,23 +64,29 @@ wrapper around it and exposes it as ``round_fn.flat_body``, which the
 round-fused loop chains. Fused and host-loop rounds are therefore the
 same computation.
 
-Not ported yet, and rejected with the ROADMAP item that brings them: the
-vmap engine (``flat=False``, A7), async scenarios (the FedBuff buffer,
-A10), mesh sharding (A17) and the per-client η₀ warm start of the fleet
-loop (A14).
+Cohort means and fractions (``k_eff_mean``, ``nan_guard_rate``,
+``drop_frac``, ...) are the sum times f32(1/C), as XLA takes the
+reference's ``jnp.mean`` (``repro_torch.utils.numerics``).
+
+Not ported yet, and rejected with the ROADMAP item that brings them:
+async scenarios (the FedBuff buffer, A10), mesh sharding (A17) and the
+per-client η₀ warm start of the fleet loop (A14).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.utils._pytree as pytree
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import flat as flatlib
 from repro_torch.core.client_opt import ClientOpt
-from repro_torch.core.delta_sgd import flat_delta_sgd_init, flat_delta_sgd_step
+from repro_torch.core.delta_sgd import (DeltaSGDState, flat_delta_sgd_init,
+                                        flat_delta_sgd_step)
 from repro_torch.core.server_opt import ServerOpt
 from repro_torch.telemetry.spec import resolve_telemetry, round_telemetry
+from repro_torch.utils.numerics import reciprocal, round_frac, xla_mean
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 _ASYNC = ("async aggregation (scenario {name!r}) needs the FedBuff delta "
@@ -115,7 +138,6 @@ def _reject(**kw) -> None:
     items = {"mesh": "mesh sharding, ROADMAP A17",
              "federation": "mesh sharding, ROADMAP A17",
              "eta0_c": "the fleet loop's per-client η₀, ROADMAP A14",
-             "prev_local_params": "the MOON loss, ROADMAP A5",
              "block_sharded": "the block-sharded loop, ROADMAP A17"}
     for name, value in kw.items():
         if value is not None and value is not False:
@@ -155,13 +177,13 @@ def _scenario_extras(scenario, round_idx: int, C: int, num_clients,
         extra["cohort_ids"] = torch.tensor(ids, device=device)
     if step_counts is not None:
         sc = step_counts.to(torch.float32)
-        extra.update(k_eff_mean=sc.mean(), k_eff_min=sc.min(),
+        extra.update(k_eff_mean=xla_mean(sc), k_eff_min=sc.min(),
                      k_eff_max=sc.max())
     return extra
 
 
 def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
-                  num_rounds: int, weighted: bool = False, flat=True,
+                  num_rounds: int, weighted: bool = False, flat=False,
                   mesh=None, federation=None, scenario=None,
                   num_clients: Optional[int] = None, client_sizes=None,
                   compression=None, telemetry=None):
@@ -171,8 +193,9 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     prev_local_params=None) -> (state, metrics, new_local_params). Every
     leaf of ``client_batches`` is (C, K, ...).
 
-    ``flat``: True (or the reference's "pallas"/"xla") selects the flat
-    Δ-SGD engine; its kernels run on the device of the tensors.
+    ``flat``: False runs the vmap engine (any client optimizer); True
+    (or the reference's "pallas"/"xla") the flat Δ-SGD engine. Kernels
+    run on the device of the tensors.
     ``scenario`` (a ``repro_torch.federation.Scenario``) and
     ``compression`` (a ``CompressionSpec`` or a kind name) are described
     in the module docstring; ``num_clients``/``client_sizes`` let the
@@ -181,15 +204,19 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     scenario) leaves the round on its exact uncompressed path.
     ``telemetry`` (None, a bool or a ``TelemetrySpec``) adds the round's
     telemetry block to the metrics, read-only over round-end values.
-    ``num_rounds`` is accepted for signature parity."""
+    ``num_rounds`` (T) sets round_frac = t/T of the (↓) client
+    optimizers."""
     _reject(mesh=mesh, federation=federation)
     tele = resolve_telemetry(telemetry)
-    if not flat:
-        raise NotImplementedError(
-            "the vmap engine (flat=False) comes with ROADMAP A7; the port "
-            "runs the flat engine (flat=True)")
     if scenario is not None and scenario.is_async:
         raise NotImplementedError(_ASYNC.format(name=scenario.name))
+    if scenario is not None and not flat and (
+            scenario.faulty or scenario.robust or scenario.quorum > 0):
+        raise ValueError(
+            "fault injection / robust aggregation / quorum degradation "
+            "require the flat engine (flat=...): faults are lowered as "
+            "per-client lanes on the packed (C, N) buffer and the "
+            "RobustAgg ladder runs on it (repro.federation.faults)")
     if compression is not None or (
             scenario is not None and scenario.bandwidth_heterogeneous):
         # a bandwidth-heterogeneous scenario implies compression even if
@@ -197,11 +224,151 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
         # ladder) makes the per-client level draws happen
         from repro_torch.compression import get_compression
         compression = get_compression(compression)
+        if compression.active(scenario) and not flat:
+            raise ValueError(
+                "delta compression requires the flat engine (flat=...): "
+                "the compressors operate on the packed (C, N) buffer")
+    if not flat:
+        return _make_vmap_round(loss_fn, client_opt, server_opt,
+                                num_rounds=num_rounds, weighted=weighted,
+                                scenario=scenario, num_clients=num_clients,
+                                client_sizes=client_sizes, tele=tele)
     return _make_flat_round(loss_fn, client_opt, server_opt,
                             weighted=weighted, scenario=scenario,
                             num_clients=num_clients,
                             client_sizes=client_sizes,
                             compression=compression, tele=tele)
+
+
+def _client_grads(loss_fn):
+    """Per-client ``(grads, (loss, aux))`` of ``loss_fn``: params, batch
+    and, for MOON, the previous local params carry the client axis; the
+    global params are shared."""
+    gv = grad_and_value(loss_fn, has_aux=True)
+    by_prev = {False: vmap(gv, in_dims=(0, 0, None, None)),
+               True: vmap(gv, in_dims=(0, 0, None, 0))}
+
+    def grads(params_c, batch, gp, prev_c=None):
+        return by_prev[prev_c is not None](params_c, batch, gp, prev_c)
+
+    return grads
+
+
+def _batch_dims(tree):
+    """vmap in/out dims of a client-stacked tree: 0 per tensor leaf,
+    None where the tree holds None (an optimizer without momentum)."""
+    return pytree.tree_map(lambda x: None if x is None else 0, tree)
+
+
+def _stack_clients(tree, C: int):
+    """The same tree for each of C clients: every tensor leaf gains a
+    leading client axis (a broadcast view)."""
+    return pytree.tree_map(
+        lambda x: None if x is None else x.expand((C,) + tuple(x.shape)),
+        tree)
+
+
+def _queued_copy(a, device) -> torch.Tensor:
+    """A host array on ``device`` with no host sync: on a GPU the copy
+    leaves pinned memory, queued on the current stream."""
+    t = torch.tensor(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _freeze(active: torch.Tensor, new, old):
+    """Heterogeneous K: keep ``old`` where the client is past its K_c."""
+    def pick(a, o):
+        if a is None:
+            return None
+        return torch.where(active.view((-1,) + (1,) * (a.dim() - 1)), a, o)
+    return pytree.tree_map(pick, new, old)
+
+
+def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
+                     *, num_rounds: int, weighted: bool, scenario=None,
+                     num_clients=None, client_sizes=None, tele=None):
+    hyper = client_opt.hyper or {}
+    # the kernel route: vmap runs the gradient only, and the stacked
+    # cohort's Δ-SGD step is one fused_delta_sgd_update (2 launches)
+    kernel_route = (client_opt.name == "delta_sgd"
+                    and bool(hyper.get("use_pallas"))
+                    and not hyper.get("groupwise"))
+    hetero = scenario is not None and scenario.heterogeneous
+    vgrad = _client_grads(loss_fn)
+    grad_fn = grad_and_value(loss_fn, has_aux=True)
+    edges = {}
+
+    def local_step(p, os, batch, gp, prev_c):
+        g, (loss, _) = grad_fn(p, batch, gp, prev_c)
+        p_new, os_new = client_opt.update(p, g, os, loss)
+        return p_new, os_new, loss
+
+    def round_fn(state: FLState, client_batches, client_weights=None,
+                 prev_local_params=None):
+        """-> (new_state, metrics, new_local_params (C, ...))."""
+        gp = state.params
+        device = tree_leaves(gp)[0].device
+        C, K = tree_leaves(client_batches)[0].shape[:2]
+        step_counts = (_queued_copy(scenario.draw_step_counts(
+            state.round, C, K), device) if hetero else None)
+        # round_frac stays a host scalar: only the (↓) optimizers read
+        # it, at reset, on the host
+        os = _stack_clients(client_opt.reset(
+            client_opt.init(gp), round_frac(state.round, num_rounds)), C)
+        p = _stack_clients(gp, C)
+        prev_dim = None if prev_local_params is None else 0
+        vstep = vmap(local_step, in_dims=(0, _batch_dims(os), 0, None,
+                                          prev_dim),
+                     out_dims=(0, _batch_dims(os), 0))
+        losses = []
+        for k in range(K):
+            batch_k = tree_map(lambda x: x[:, k], client_batches)
+            if kernel_route:
+                g, (loss, _) = vgrad(p, batch_k, gp, prev_local_params)
+                p_new, os_new = client_opt.update(p, g, os, loss)
+            else:
+                p_new, os_new, loss = vstep(p, os, batch_k, gp,
+                                            prev_local_params)
+            if hetero:
+                # past its K_c a client's params and optimizer state
+                # (Adam's t, momenta, Δ-SGD's k) stay frozen
+                active = k < step_counts
+                p_new = _freeze(active, p_new, p)
+                os_new = _freeze(active, os_new, os)
+            p, os = p_new, os_new
+            losses.append(loss)
+        losses = torch.stack(losses, dim=1)       # (C, K)
+        etas = (os.eta if isinstance(os, DeltaSGDState)
+                and not isinstance(os.eta, dict)
+                else torch.full((C,), float("nan"), device=device))
+
+        if weighted and client_weights is not None:
+            w = client_weights / client_weights.sum()
+            agg = tree_map(lambda x: torch.tensordot(
+                w.to(torch.float32), x.to(torch.float32),
+                dims=([0], [0])).to(x.dtype), p)
+        else:
+            agg = tree_map(lambda x: xla_mean(x.to(torch.float32), dim=0
+                                              ).to(x.dtype), p)
+
+        extra = _scenario_extras(scenario, state.round, C, num_clients,
+                                 client_sizes, step_counts, device)
+        if tele is not None and tele.enabled:
+            # η is NaN for non-Δ-SGD and groupwise optimizers: NaN counts
+            # in no histogram bin, so eta_hist reads all zeros there
+            if device not in edges:
+                edges[device] = tele.edges_on(device)
+            extra.update(round_telemetry(tele, etas, losses,
+                                         edges=edges[device]))
+        params, sstate = server_opt.update(gp, agg, state.server_state)
+        metrics = _round_metrics(losses, etas, step_counts)
+        metrics.update(extra)
+        return (FLState(params, sstate, state.round + 1, state.buffer,
+                        state.ef), metrics, p)
+
+    return round_fn
 
 
 def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
@@ -216,10 +383,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                          f"client optimizer, got {client_opt.name!r}")
     gamma, delta_ = hyper["gamma"], hyper["delta"]
     eta0, theta0 = hyper["eta0"], hyper["theta0"]
-    # per-client (grads, (loss, aux)): params and batch carry the client
-    # axis; the global params are shared
-    vgrad = vmap(grad_and_value(loss_fn, has_aux=True),
-                 in_dims=(0, 0, None))
+    vgrad = _client_grads(loss_fn)
 
     # build-time flags: with all of them off every branch below is the
     # slice-1 code path
@@ -247,7 +411,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         global params tree when the caller has it; otherwise the body
         takes views of the carried flat buffer."""
         from repro_torch.core.fed_loop import FlatFLState
-        _reject(prev_local_params=prev_local_params, eta0_c=eta0_c)
+        _reject(eta0_c=eta0_c)
         if gp is None:
             gp = flatlib.unpack(fstate.P, layout)
         device = fstate.P.device
@@ -284,7 +448,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         for k in range(K):
             batch_k = tree_map(lambda x: x[:, k], client_batches)
             params_c = flatlib.unpack_batched(P, layout)
-            g, (loss, _) = vgrad(params_c, batch_k, gp)
+            g, (loss, _) = vgrad(params_c, batch_k, gp, prev_local_params)
             G = flatlib.pack_batched(g, layout)
             if nan_on:
                 # NaN gradients from the drawn step on, injected on the
@@ -303,8 +467,9 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         # numerical-guard telemetry: how often η hit the ETA_CLAMP
         # ceiling, and the share of lanes the NaN guard dropped
         extra.update(
-            eta_clip_rate=S.clips.to(torch.float32).sum() / float(C * K),
-            nan_guard_rate=(~S.valid).to(torch.float32).mean())
+            eta_clip_rate=(S.clips.to(torch.float32).sum()
+                           * reciprocal(C * K)),
+            nan_guard_rate=xla_mean((~S.valid).to(torch.float32)))
         if tele is not None and tele.enabled:
             # the distribution block: read-only over round-end values,
             # so the trajectory is unperturbed
@@ -354,7 +519,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                          comp_ratio=total.new_full(
                              (), 4.0 * layout.size * C) / total)
             if levels is not None:
-                extra["comp_level_mean"] = levels.to(torch.float32).mean()
+                extra["comp_level_mean"] = xla_mean(
+                    levels.to(torch.float32))
             P_agg = P_start + delta_hat
         else:
             delta_hat = None
@@ -402,10 +568,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                          round_skipped=n_valid.new_full(
                              (), float(skipped)))
             if drops_on:
-                extra["drop_frac"] = (lanes.drop_step < K).to(
-                    torch.float32).mean()
+                extra["drop_frac"] = xla_mean(
+                    (lanes.drop_step < K).to(torch.float32))
             if byz is not None:
-                extra["byz_frac"] = lanes.byzantine.to(torch.float32).mean()
+                extra["byz_frac"] = xla_mean(
+                    lanes.byzantine.to(torch.float32))
         metrics.update(extra)
         new_fstate = FlatFLState(newP, sstate, fstate.round + 1,
                                  fstate.buffer,

@@ -7,7 +7,10 @@ such a tree to the port's dict of tensors and back, with the same names,
 shapes and dtypes, so both packages can start from the same params. The
 LM zoo's trees cross as they are: runs of n > 1 blocks with every leaf
 stacked on a leading layer axis, the shared block once at the top, and
-decode caches (their 0-d ``t`` included).
+decode caches (their 0-d ``t`` included). An ``FLState`` crosses in both
+directions with its server state (fedavgm's ``m``, fedadam's and
+fedyogi's f32 ``m``, ``v`` and ``t``), and so does a per-leaf Δ-SGD
+``DeltaSGDState``; the port keeps its round counter a Python int.
 ``draws_from_numpy`` turns the reference's per-round scenario draws into
 a draw source that the port's scenarios replay. This module imports
 neither ``jax`` nor ``repro``.
@@ -19,6 +22,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.delta_sgd import DeltaSGDState
 from repro_torch.core.fed_round import FLState
 from repro_torch.utils.tree import tree_map
 
@@ -62,6 +66,32 @@ def fl_state_from_numpy(state, device="cpu") -> FLState:
                    params_from_numpy(state.server_state, device),
                    int(np.asarray(state.round)), None,
                    None if ef is None else params_from_numpy(ef, device))
+
+
+def fl_state_to_numpy(state: FLState) -> FLState:
+    """The port's FLState -> the same fields as numpy arrays (the round
+    an int32 0-d array, as the reference carries it), ready for the
+    reference's ``FLState(*...)``."""
+    if state.buffer is not None:
+        raise NotImplementedError("async buffers are not ported yet: they "
+                                  "come with ROADMAP A10")
+    return FLState(params_to_numpy(state.params),
+                   params_to_numpy(state.server_state),
+                   np.asarray(state.round, np.int32), None,
+                   None if state.ef is None else params_to_numpy(state.ef))
+
+
+def delta_sgd_state_from_numpy(state, device="cpu") -> DeltaSGDState:
+    """A reference per-leaf ``DeltaSGDState`` (numpy leaves; η, θ and
+    ‖g_prev‖ scalars, or dicts of them under the groupwise rule) -> the
+    port's."""
+    return DeltaSGDState(*(params_from_numpy(f, device) for f in state))
+
+
+def delta_sgd_state_to_numpy(state: DeltaSGDState) -> DeltaSGDState:
+    """The port's per-leaf ``DeltaSGDState`` -> numpy leaves, for the
+    reference's ``DeltaSGDState(*...)``."""
+    return DeltaSGDState(*(params_to_numpy(f) for f in state))
 
 
 class ReplayDraws:

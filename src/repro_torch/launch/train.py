@@ -7,16 +7,22 @@ runs the plain versions of the kernels on the CPU).
   PYTHONPATH=src python -m repro_torch.launch.train --task image \\
       --model cnn --rounds 4 --rounds-per-call 2
 
-``--rounds-per-call R`` (R > 1) runs the round-fused loop
+The engine is chosen as the reference chooses it. ``--rounds-per-call
+R`` (R > 1) runs the round-fused loop on the flat Δ-SGD engine
 (``repro_torch.core.fed_loop``): the example arena is staged on the
 device once and each R-round block ships only (R, C, K, b) gather
-indices. Otherwise rounds run one at a time in a host loop on the same
-flat engine (``--flat`` forces it, as in the reference); the two give
-bitwise equal params and metrics. The reference runs its vmap engine
-when neither is given; the port runs the flat engine there, which the
-reference's own tests hold within 1e-5 of the vmap engine for Δ-SGD (the
-vmap engine is ROADMAP A7). ``--use-pallas`` is accepted and changes
-nothing: the port always goes through its kernel wrappers.
+indices; a client optimizer other than Δ-SGD fails there, as in the
+reference. Otherwise rounds run one at a time in a host loop: on the
+flat engine with ``--flat`` or active compression (bitwise equal to the
+fused loop), else on the vmap engine, which runs every client optimizer
+(``--client-opt``, with ``--lr``) and server optimizer
+(``--server-opt``). A faulty or robust scenario then needs ``--flat``
+or compression, and fails without them as the reference's does.
+``--use-pallas`` changes nothing, as in the reference's paper task; the
+flat engines always run the kernels.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --task image \\
+      --model cnn --client-opt adam --lr 0.01 --rounds 2
 
 ``--scenario`` picks a synchronous federation preset
 (``repro_torch.federation.scenarios``: participation scheduler,
@@ -65,10 +71,10 @@ import torch
 
 from repro_torch.compression import CompressionSpec
 from repro_torch.configs import CNN_PAPER, MLP_SMALL, MLP_WIDE, FLConfig
-from repro_torch.core import (arena_gather, flatten_fl_state,
-                              get_client_opt, get_server_opt, init_fl_state,
-                              make_fl_loop, make_fl_round, make_loss,
-                              unflatten_fl_state)
+from repro_torch.core import (CLIENT_OPTS, SERVER_OPTS, arena_gather,
+                              flatten_fl_state, get_client_opt,
+                              get_server_opt, init_fl_state, make_fl_loop,
+                              make_fl_round, make_loss, unflatten_fl_state)
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.data.synthetic import get_task
 from repro_torch.device import resolve_device
@@ -93,7 +99,6 @@ _NOT_PORTED = {
     "clients_per_round": (4, "A15 (LM zoo)"),
     "local_steps": (4, "A15 (LM zoo)"),
     "seq": (256, "A15 (LM zoo)"),
-    "lr": (0.05, "A6 (client optimizers)"),
     "num_registered": (None, "A14 (fleet)"),
     "eta_carry": (False, "A14 (fleet)"),
     "ckpt_dir": (None, "A9 (checkpointing)"),
@@ -299,7 +304,7 @@ def setup_paper_task(args) -> PaperTask:
     init_fn, logits_fn = make_small_model(MODELS[args.model])
     participation = 0.1 if args.participation is None else args.participation
     fl = FLConfig(client_opt=args.client_opt, server_opt=args.server_opt,
-                  fedprox_mu=args.fedprox_mu,
+                  lr=args.lr, fedprox_mu=args.fedprox_mu,
                   num_clients=args.num_clients, participation=participation)
     loss_fn = make_loss(
         lambda p, b: (softmax_ce(logits_fn(p, b["x"]), b["y"]), {}),
@@ -398,10 +403,13 @@ def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
 
 
 def _run_host(pt: PaperTask, args, state, on_round, events, spans):
-    """Rounds one at a time on the flat engine; metric rows buffer on the
-    device and reach the host once per ``--log-every`` rounds."""
+    """Rounds one at a time: on the flat engine with ``--flat`` or active
+    compression, else on the vmap engine (the reference's rule). Metric
+    rows buffer on the device and reach the host once per
+    ``--log-every`` rounds."""
+    flat = args.flat or pt.compression.active(pt.scenario)
     round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
-                             num_rounds=args.rounds, flat=True,
+                             num_rounds=args.rounds, flat=flat,
                              **_round_kw(pt, args))
     rlog = _RoundLog(_log_every(args), on_round, events, spans)
     for t in range(args.rounds):
@@ -476,8 +484,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="participation rate p (|S_t| = p*m), default 0.1")
     ap.add_argument("--alpha", type=float, default=0.1)
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--client-opt", default="delta_sgd")
-    ap.add_argument("--server-opt", default="fedavg")
+    ap.add_argument("--client-opt", default="delta_sgd",
+                    choices=CLIENT_OPTS)
+    ap.add_argument("--server-opt", default="fedavg", choices=SERVER_OPTS)
     ap.add_argument("--scenario", default=None,
                     help="synchronous federation preset "
                          "(repro_torch.federation.scenarios)")
@@ -488,17 +497,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--robust-agg", default="mean",
                     choices=["mean", "clip", "trimmed", "median"])
     ap.add_argument("--quorum", type=int, default=0)
-    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--lr", type=float, default=0.05,
+                    help="step size of the sgd, sgdm (and their decayed "
+                         "variants), adam and adagrad clients")
     ap.add_argument("--fedprox-mu", type=float, default=0.0)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="accepted for parity with the reference; the port "
-                         "always runs its kernel wrappers")
+                    help="accepted for parity with the reference, whose "
+                         "paper task ignores it too: the flat engines "
+                         "always run the kernels, the vmap engine never")
     ap.add_argument("--rounds-per-call", type=int, default=1,
                     help="R > 1 fuses R rounds per call on persistent flat "
                          "state (repro_torch.core.fed_loop)")
     ap.add_argument("--flat", action="store_true",
-                    help="host loop on the flat engine (the engine "
-                         "--rounds-per-call fuses, for bitwise parity runs)")
+                    help="host loop on the flat Δ-SGD engine (the engine "
+                         "--rounds-per-call fuses, for bitwise parity "
+                         "runs) instead of the vmap engine")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.telemetry import telemetry as tk
+from repro_torch.utils.numerics import xla_mean
 
 
 class TelemetrySpec(NamedTuple):
@@ -83,11 +84,9 @@ def round_telemetry(tele: TelemetrySpec, etas: torch.Tensor,
         edges = tele.edges_on(etas.device)
     out = {"eta_hist": tk.lane_histogram(etas, edges)}
     if tele.loss_deciles:
-        # the per-client mean as XLA computes the reference's jnp.mean:
-        # the sum times the f32 reciprocal of K, so the same losses give
-        # the reference's deciles bit for bit
-        inv_k = float(np.float32(1.0) / np.float32(losses.shape[1]))
-        client_loss = losses.to(torch.float32).sum(dim=1) * inv_k
+        # the per-client mean as XLA computes the reference's jnp.mean,
+        # so the same losses give the reference's deciles bit for bit
+        client_loss = xla_mean(losses.to(torch.float32), dim=1)
         out["loss_deciles"] = tk.lane_quantiles(client_loss, tele.quantiles)
     if clips is not None:
         out["eta_clip_count"] = clips.to(torch.float32).sum()

@@ -932,3 +932,96 @@ def test_event_log_flush_is_one_copy(dev, tmp_path, monkeypatch):
     assert header["device_name"] == torch.cuda.get_device_name(dev)
     assert events[2] == {"kind": "round", "t": 2, "loss": 0.5,
                          "hist": [0.0, 1.0, 2.0, 3.0], "ids": [0, 1, 2]}
+
+
+def _vmap_rounds(device, rounds, client_opt="delta_sgd", **copt_kw):
+    """The CNN paper task's rounds on the vmap engine -> (metric rows,
+    final params, Δ-SGD launches by (kernel, device))."""
+    from repro_torch.core import get_client_opt, make_fl_round
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(
+        ["--device", device, "--task", "image", "--model", "cnn",
+         "--num-clients", "20", "--batch", "32", "--rounds", str(rounds)])
+    pt = train.setup_paper_task(args)
+    rnd = make_fl_round(pt.loss_fn, get_client_opt(client_opt, **copt_kw),
+                        pt.server_opt, num_rounds=rounds)
+    state, rows = train.init_state(pt), []
+    tk.reset_launch_count()
+    for t in range(rounds):
+        batches, _, _ = pt.fed.sample_round(pt.participation, pt.local_steps,
+                                            args.batch, round_idx=t)
+        state, m, _ = rnd(state, {k: torch.from_numpy(v).to(pt.device)
+                                  for k, v in batches.items()})
+        rows.append({k: v.item() for k, v in m.items()})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rows, state.params, dict(tk.LAUNCHES)
+
+
+def test_vmap_kernel_route_matches_the_plain_route_on_the_card(dev):
+    """Global-rule Δ-SGD with use_pallas: one fused_delta_sgd_update a
+    step on the stacked cohort, 2 launches a step (2·K a round), within
+    1e-5 of the plain per-leaf route (the kernels' sum order)."""
+    K = 500 // 32
+    plain, p_plain, n_plain = _vmap_rounds("cuda", 2)
+    kern, p_kern, n_kern = _vmap_rounds("cuda", 2, use_pallas=True)
+    assert n_plain == {}
+    assert n_kern == {("batched_norms", "cuda"): 2 * K,
+                      ("batched_apply", "cuda"): 2 * K}
+    for a, b in zip(plain, kern):
+        for k in ("loss", "loss_last_step", "eta_mean", "eta_min",
+                  "eta_max"):
+            assert b[k] == pytest.approx(a[k], rel=1e-5), k
+    for name, layer in p_plain.items():
+        for leaf, v in layer.items():
+            torch.testing.assert_close(p_kern[name][leaf], v, rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("client_opt,kw", [("delta_sgd", {}),
+                                           ("adam", dict(lr=0.01))])
+def test_vmap_round_on_the_card_matches_the_cpu(dev, client_opt, kw):
+    card, _, _ = _vmap_rounds("cuda", 1, client_opt, **kw)
+    cpu, _, _ = _vmap_rounds("cpu", 1, client_opt, **kw)
+    for k in ("loss", "eta_mean"):
+        assert card[0][k] == pytest.approx(cpu[0][k], rel=1e-4,
+                                           nan_ok=True), k
+
+
+@pytest.mark.parametrize("client_opt,kw,scenario", [
+    ("adam", dict(lr=0.01), None),
+    ("sgdm", dict(lr=0.05), None),
+    ("delta_sgd", {}, None),
+    ("delta_sgd", dict(use_pallas=True), None),
+    ("adam", dict(lr=0.01), "dirichlet_stragglers")])
+def test_vmap_round_makes_no_host_sync(dev, client_opt, kw, scenario):
+    """The per-leaf scalars stay on the host as 0-d tensors, the
+    optimizer state is filled on the card and heterogeneous K's step
+    counts leave pinned memory: a vmap round syncs the host nowhere."""
+    import warnings
+    from repro_torch.core import get_client_opt, make_fl_round
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(
+        ["--device", "cuda", "--task", "image", "--model", "cnn",
+         "--num-clients", "20", "--batch", "32", "--rounds", "2"]
+        + (["--scenario", scenario] if scenario else []))
+    pt = train.setup_paper_task(args)
+    rnd = make_fl_round(pt.loss_fn, get_client_opt(client_opt, **kw),
+                        pt.server_opt, num_rounds=2, scenario=pt.scenario)
+    state = train.init_state(pt)
+    batches, _, _ = pt.fed.sample_round(pt.participation, pt.local_steps,
+                                        args.batch, round_idx=0)
+    batches = {k: torch.from_numpy(v).to(pt.device)
+               for k, v in batches.items()}
+    rnd(state, batches)             # reports torch makes once a process
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, metrics, _ = rnd(state, batches)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert [str(w.message) for w in caught
+            if "synchroniz" in str(w.message)] == []
+    assert np.isfinite(metrics["loss"].item())

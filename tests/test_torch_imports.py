@@ -42,7 +42,8 @@ def test_port_package_is_complete():
     for rel in ("core/flat.py", "core/delta_sgd.py", "core/fed_round.py",
                 "core/fed_loop.py", "core/losses.py", "core/client_opt.py",
                 "core/server_opt.py", "kernels/delta_sgd/delta_sgd.py",
-                "kernels/delta_sgd/ref.py", "models/small.py",
+                "kernels/delta_sgd/ref.py", "kernels/delta_sgd/ops.py",
+                "models/small.py",
                 "models/common.py", "data/pipeline.py", "data/synthetic.py",
                 "data/dirichlet.py", "federation/schedulers.py",
                 "configs/paper_tasks.py", "launch/train.py",

@@ -85,7 +85,8 @@ FLOAT = ("loss", "loss_last_step", "eta_mean", "eta_min", "eta_max")
 # exact: counts, and means of counts over the cohort
 EXACT = ("valid_count", "round_skipped", "drop_frac", "k_eff_mean",
          "k_eff_min", "k_eff_max", "wire_bytes", "comp_ratio",
-         "cohort_ids", "nan_guard_rate", "eta_clip_rate", "byz_frac")
+         "cohort_ids", "nan_guard_rate", "eta_clip_rate", "byz_frac",
+         "comp_level_mean")
 # launches per round: (quantize, dequantize, topk, trimmed mean)
 LAUNCHES = {"a_stragglers": (0, 0, 0, 0), "b_int8_ef21": (1, 1, 0, 0),
             "c_dropouts_trimmed": (0, 0, 0, 1),
@@ -197,9 +198,7 @@ def _assert_matches(case, mets, state, rmets, rfinal, rtol):
         if k in EXACT:
             np.testing.assert_array_equal(got, want, err_msg=k)
         else:
-            # comp_level_mean: XLA divides the level sum by C as a
-            # multiply by 1/C, one ulp off the division (13/10 -> 1.3000001)
-            assert k in FLOAT + ("agg_clip_rate", "comp_level_mean"), k
+            assert k in FLOAT + ("agg_clip_rate",), k
             np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-7,
                                        err_msg=k)
     for a, b in zip(jax.tree_util.tree_leaves(rfinal.params),

@@ -24,8 +24,9 @@ without its final line:
               kernels) and the delta_sgd library (the norms' and the
               applies' instances): no stack frame and no spill in any
               function.
-  3. kernels  each kernel at the main-path shape (C=10, N=71,808) and at
-              a large shape (C=10, N=2**24), held against its plain
+  3. kernels  each kernel at the main-path shape (C=10, N=71,808), at
+              the fleet's cohort (C=50, N=71,808) and at a large shape
+              (C=10, N=2**24), held against its plain
               PyTorch version on the card (norms: rtol 1e-5, two calls
               bitwise equal, a NaN and an inf each only in its own
               client's sums; apply: bitwise equal, masked lanes exactly
@@ -40,7 +41,7 @@ without its final line:
               too), the same bits on two calls, one device op a call;
               quantize at 114 SMs (patched) with the same bits; top-k:
               exact, one device op a call; trimmed mean at t = 2 and the
-              median at t = 4, a row each: bitwise equal to the plain
+              median at t = C/2 - 1, a row each: bitwise equal to the plain
               version, two calls bitwise equal, one device op a call, the
               median beside torch.quantile(midpoint), the same function
               at even C, within 1e-6 of the middle values),
@@ -143,12 +144,44 @@ without its final line:
               vmap engine's plain and kernel routes beside the flat
               engine's R = 1 host loop, a round each in turns, with the
               card's name and power limit.
+  4d. async, fleet, resume  the async presets zipf_async and
+              byzantine_async at phase 4's configuration, 4 rounds each,
+              fused (2 a call) and --flat host loop: 2*K*rounds Delta-SGD
+              launches, fused == host loop bitwise (params, server state,
+              the FedBuff buffer, metrics), round 0 = the CPU within
+              1e-4, the fraction of rounds flushed, the mean staleness and
+              the wall per local step; fleet_zipf at its own scale
+              (100,000 registered, participation 0.0005, C = 50), 8
+              rounds, 4 a call, --eta-carry --telemetry: 2*K*rounds
+              Delta-SGD launches and one histogram and one quantiles
+              launch a round, 50 distinct ids a round, every arena row
+              outside the drawn cohorts keeps its bits, rounds_seen sums
+              to 50 x 8; the host ms of a block's cohort draws over
+              100,000 candidates beside the wall per local step; the
+              fleet with int8 + EF21 (4 rounds): the (100,000, 71,808) f32
+              EF slab on the card (its bytes and the peak allocation
+              printed), one quantize and one dequantize launch a round,
+              the slab's untouched rows all zero; resume: 4 rounds with
+              --ckpt-every 2 against 2 rounds then --resume for 2, fused,
+              for the plain run, zipf_async's buffer and fleet_uniform's
+              arena at 1,000 registered, bitwise; serving from a
+              checkpoint: TinyLlama at full width cut to one layer, its
+              random params saved and read back through restore_params,
+              decodes the in-memory params' tokens (4 flash attention
+              launches), and the serve CLI with --ckpt-dir of another
+              seed's params than its own init decodes the saved params'
+              tokens, not its run's without the checkpoint. Phases 3 and
+              3b also hold batched_norms, batched_apply, quantize_int8,
+              dequantize_int8, topk_mask and the trimmed mean at (50,
+              71,808) (the fleet's cohort) and the telemetry kernels at
+              C = 50.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
-              launches by path, the vmap runs of 4c among them) and,
+              launches by path, the vmap runs of 4c and the runs of 4d
+              among them) and,
               last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
@@ -229,8 +262,9 @@ SCENARIO_PATHS = {
          "batched_trimmed_mean": 1}),
 }
 # the trimmed-mean trim count on the dirichlet_dropouts path (C = 10,
-# trim_frac 0.2) and the median's; top-k slots per chunk at k_frac 0.25
-TRIM_T, MEDIAN_T, TOPK_K = 2, 4, 32
+# trim_frac 0.2); top-k slots per chunk at k_frac 0.25. The median of an
+# even C trims C/2 - 1 a side (4 on the median path's C = 10)
+TRIM_T, TOPK_K = 2, 32
 # compare-exchanges of the trimmed mean's odd-even merge network on P2
 # values (csrc/robust_agg.cu; tests/test_torch_select.py counts them)
 MERGE_NETWORK_SIZE = {2: 1, 4: 5, 8: 19, 16: 63, 32: 191, 64: 543}
@@ -258,11 +292,12 @@ SSD_PACKINGS = (1, 16, 32, 64)
 # warp (7), a ragged last warp after whole ones (4k + 3), a part-filled
 # last block (32k + 5)
 QUANT_RAGGED = ((1, 1), (1, 7), (1, 4 * 1000 + 3), (3, 7), (1, 32 * 41 + 5))
-# telemetry lane counts (the CNN path's cohort, a larger cohort, the
+# telemetry lane counts (the CNN path's cohort, the fleet's, a larger
+# cohort, the
 # old one-block quantile limit and one past it, 10^5 lanes: the reference
 # takes any C, though no path of either sends more than 2,048 a round);
 # single-tensor sizes (the CNN's packed N, 2^24)
-TELE_LANES = (10, 1000, 16384, 16385, 100000)
+TELE_LANES = (10, 50, 1000, 16384, 16385, 100000)
 # lane_histogram's exactness cases: bins from one to its most (the lanes
 # follow its crossover, check_histogram_cases)
 HIST_CHECK_BINS = (1, 16, 33, 4096)
@@ -285,6 +320,20 @@ VMAP_BASELINES = {
     "delta_sgd_fedprox": ["--fedprox-mu", "0.01"],
 }
 VMAP_TIMED_ROUNDS = 12
+# phase 4d: the async presets (phase 4's configuration); the fleet at the
+# fleet presets' own scale (100,000 registered x 0.0005 = 50 a round:
+# phase 4's flags without its --participation); rounds and rounds a call
+# of each run; the fleet resume run's registered clients and cohort
+ASYNC_PRESETS = ("zipf_async", "byzantine_async")
+_PART = TRAIN_ARGS.index("--participation")
+FLEET_ARGS = TRAIN_ARGS[:_PART] + TRAIN_ARGS[_PART + 2:]
+FLEET_REGISTERED, FLEET_C = 100_000, 50
+FLEET_ROUNDS, FLEET_R = 8, 4
+FLEET_EF_ROUNDS = 4
+RESUME_REGISTERED, RESUME_PARTICIPATION = 1000, "0.05"
+ASYNC_TIMED_BLOCKS = 6
+# the CNN's packed width (MAIN_SHAPE's N) at the fleet's cohort
+FLEET_SHAPE = (FLEET_C, 71808)
 # serve paths: arch -> layers kept (None: all), the runs' request counts
 SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
@@ -427,7 +476,7 @@ def check_kernels(torch, tk, tref, bw, f32):
     """Phase 3. Returns {(name, shape): row}."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for C, N in (MAIN_SHAPE, LARGE_SHAPE):
+    for C, N in (MAIN_SHAPE, FLEET_SHAPE, LARGE_SHAPE):
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         g, gp, p = rand(C, N), rand(C, N), rand(C, N)
@@ -579,15 +628,17 @@ def check_sm_count_moves_no_quantize_bit(torch, tcomp, x, q, s):
 
 
 def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
-    """Phase 3, the compression and robust-aggregation kernels. Returns
-    {(name, shape): row}."""
+    """Phase 3, the compression and robust-aggregation kernels at the
+    CNN path's shape, the fleet's cohort (whose int8 + EF21 run
+    quantizes and dequantizes all 50 clients in one launch) and a large
+    one. Returns {(name, shape): row}."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
-    for C, N in (MAIN_SHAPE, LARGE_SHAPE):
+    for C, N in (MAIN_SHAPE, FLEET_SHAPE, LARGE_SHAPE):
         M = N // 128
         # round-delta-like: a different scale per 128-chunk, a zero chunk
         scale = torch.exp(3 * torch.randn((C, M, 1), generator=gen,
@@ -672,11 +723,12 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
             bound_ms=8 * cn / bw * 1e3, bound_by="bytes")
 
         # trimmed mean (t = 2, the dirichlet_dropouts path) and the
-        # median (t = 4): bitwise equal to the plain version, two calls
-        # bitwise equal, one device op a call; one row each
+        # median (t = C/2 - 1): bitwise equal to the plain version, two
+        # calls bitwise equal, one device op a call; one row each
         sort_ops = 2 * MERGE_NETWORK_SIZE[1 << (C - 1).bit_length()]
+        median_t = C // 2 - 1
         for t, name in ((TRIM_T, "batched_trimmed_mean"),
-                        (MEDIAN_T, "batched_trimmed_mean[median]")):
+                        (median_t, "batched_trimmed_mean[median]")):
             got = tra.batched_trimmed_mean(x, t)
             again = tra.batched_trimmed_mean(x, t)
             want = traref.batched_trimmed_mean_ref(x, t)
@@ -700,7 +752,7 @@ def check_round_tail_kernels(torch, tcomp, tcref, tra, traref, bw, f32):
                 bound_ms=max((4 * cn + 4 * N) / bw,
                              (sort_ops + C) * N / f32) * 1e3,
                 bound_by="bytes")
-            if t == MEDIAN_T:
+            if t == median_t:
                 # the median of an even cohort is torch.quantile's
                 # midpoint: the same function, one library call
                 try:
@@ -1038,12 +1090,11 @@ def _fused_setup(train, torch, telemetry):
         TRAIN_ARGS + ["--rounds-per-call", "2", "--device", "cuda"]
         + (["--telemetry"] if telemetry else []))
     pt = train.setup_paper_task(args)
-    loop, arena = train.make_fused_loop(pt, args)
-    state = {"fs": flatten_fl_state(train.init_state(pt), loop.layout)}
+    run = train.BlockRunner(pt, args)
+    state = {"fs": flatten_fl_state(train.init_state(pt), run.layout)}
 
     def block():
-        idx = train.block_indices(pt, args, state["fs"].round, 2)
-        state["fs"], mets = loop(state["fs"], idx, arena=arena)
+        state["fs"], mets = run(state["fs"], run.stage(state["fs"].round, 2))
         return mets
 
     block()
@@ -1351,6 +1402,391 @@ def run_vmap_path(torch, mods, train, flat_round0, smi):
         "median_vmap_kernel_route": statistics.median(walls["vmap_kernel"]),
         "median_flat_host": statistics.median(walls["flat"])}), flush=True)
     return paths
+
+
+def _state_equal(torch, a, b, what):
+    """Params, server state and, where there is one, the async buffer of
+    two FLStates, bitwise."""
+    from repro_torch.utils.tree import tree_leaves
+    for tree in ("params", "server_state"):
+        for x, y in zip(tree_leaves(getattr(a, tree)),
+                        tree_leaves(getattr(b, tree))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {tree} differ")
+    if (a.buffer is None) != (b.buffer is None):
+        raise AssertionError(f"{what}: one state has no buffer")
+    if a.buffer is not None:
+        xs = tree_leaves(a.buffer.delta) + list(a.buffer[1:])
+        ys = tree_leaves(b.buffer.delta) + list(b.buffer[1:])
+        if not all(torch.equal(x, y) for x, y in zip(xs, ys)):
+            raise AssertionError(f"{what}: async buffers differ")
+    if a.round != b.round:
+        raise AssertionError(f"{what}: round {a.round} != {b.round}")
+
+
+def _arena_equal(torch, a, b, what):
+    for name, x, y in zip(a._fields, a, b):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: arena {name} differs")
+
+
+def _block_runner(train, torch, flags, rounds):
+    """The fused loop of a run with ``flags`` on the card -> (stage and
+    run one block of ``rounds``, run one block already staged, the
+    BlockRunner)."""
+    from repro_torch.core import flatten_fl_state
+    args = train.build_parser().parse_args(
+        flags + ["--rounds-per-call", str(rounds), "--device", "cuda"])
+    pt = train.setup_paper_task(args)
+    run = train.BlockRunner(pt, args)
+    state = {"fs": flatten_fl_state(train.init_state(pt), run.layout)}
+
+    def staged_block():
+        staged = run.stage(state["fs"].round, rounds)
+        torch.cuda.synchronize()
+        return lambda: run(state["fs"], staged)
+
+    def block():
+        state["fs"], mets = run(state["fs"], run.stage(state["fs"].round,
+                                                       rounds))
+        return mets
+    return block, staged_block, run
+
+
+def _wall_per_step(torch, block, rounds, n):
+    """Host-clock wall per local step of ``n`` blocks after a warm-up
+    block, each ended by a device synchronise."""
+    block()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / (rounds * K) * 1e3)
+    return walls
+
+
+def run_async_path(torch, mods, train, name, smi):
+    """Phase 4d, one async preset at phase 4's configuration. Returns
+    its launch counts."""
+    args = TRAIN_ARGS + ["--scenario", name]
+    _reset(mods)
+    fused = train.main(args + ["--rounds-per-call", "2", "--device",
+                               "cuda"])
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * ROUNDS,
+            ("batched_apply", "cuda"): K * ROUNDS}
+    if launches != want:
+        raise AssertionError(f"async {name} launched {launches}, expected "
+                             f"{want}")
+    for t, row in enumerate(fused.history):
+        if not _finite(row):
+            raise AssertionError(f"async {name} round {t}: non-finite {row}")
+        print(f"async {name} round {t}", json.dumps(
+            {k: float(v) for k, v in row.items() if k != "cohort_ids"}),
+            flush=True)
+    host = train.main(args + ["--flat", "--device", "cuda"])
+    _fused_equals_host(torch, fused, host)
+    _state_equal(torch, fused.state, host.state, f"async {name} fused/host")
+    cpu = train.main(args + ["--rounds", "1", "--device", "cpu"])
+    for k in ("loss", "eta_mean"):
+        a, b = float(fused.history[0][k]), float(cpu.history[0][k])
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"async {name} round 0 {k}: cuda {a} vs "
+                                 f"cpu {b}")
+    block, staged_block, _ = _block_runner(train, torch, args, 2)
+    walls = _wall_per_step(torch, block, 2, ASYNC_TIMED_BLOCKS)
+    # host syncs of one fused block's loop call, its draws staged before:
+    # none in the plain async tail (zipf_async); byzantine_async's guarded
+    # tail reads its quorum's survivor count once a round
+    _block_syncs(torch, staged_block())   # reports made once a process
+    syncs = _block_syncs(torch, staged_block())
+    if name == "zipf_async" and syncs[0]:
+        raise AssertionError(f"the plain async tail synced the host: "
+                             f"{syncs}")
+    print(f"async {name}", json.dumps({
+        "card": smi, "rounds": ROUNDS,
+        "flushed_fraction": statistics.mean(float(r["flushed"])
+                                            for r in fused.history),
+        "stale_mean": statistics.mean(float(r["stale_mean"])
+                                      for r in fused.history),
+        "buffer_fill": [float(r["buffer_fill"]) for r in fused.history],
+        "host_syncs_per_block": syncs[0], "host_sync_reports": syncs[1],
+        "wall_ms_per_step": walls,
+        "median_wall_ms_per_step": statistics.median(walls)}), flush=True)
+    print(f"async {name}: 2*K*rounds launches, fused == host loop bitwise "
+          "(params, server state, buffer, metrics), round 0 = CPU within "
+          "1e-4", flush=True)
+    return launches
+
+
+def _untouched_rows(torch, arena, ids, eta0):
+    """Every row outside the drawn cohorts keeps arena_init's bits (the
+    EF slab's rows all zero: a row-wise max and min, reductions that
+    allocate no copy of the slab)."""
+    import numpy as np
+    seen = torch.zeros(arena.eta.shape[0], dtype=torch.bool, device="cuda")
+    seen[torch.from_numpy(np.concatenate(ids).astype(np.int64)).cuda()] = True
+    rest = ~seen
+    ok = (bool((arena.eta[rest] == torch.tensor(eta0, device="cuda")).all())
+          and bool((arena.rounds_seen[rest] == 0).all())
+          and bool((arena.last_round[rest] == -1).all()))
+    if arena.ef is not None:
+        zero = (arena.ef.amax(dim=1) == 0) & (arena.ef.amin(dim=1) == 0)
+        ok = ok and bool(zero[rest].all()) and not bool(zero[seen].any())
+    if not ok:
+        raise AssertionError("a row outside the drawn cohorts changed")
+    return int(seen.sum())
+
+
+def run_fleet_path(torch, mods, train, smi):
+    """Phase 4d, the fleet at fleet_zipf's scale: 100,000 registered,
+    C = 50, with the η carry and telemetry; then with int8 + EF21 and
+    the (100,000, N) EF slab on the card. Returns launch counts by run."""
+    paths = {}
+    args = FLEET_ARGS + ["--scenario", "fleet_zipf", "--eta-carry"]
+    flags = ["--rounds", str(FLEET_ROUNDS), "--rounds-per-call",
+             str(FLEET_R), "--telemetry", "--device", "cuda"]
+    _reset(mods)
+    run = train.main(args + flags)
+    torch.cuda.synchronize()
+    paths["fleet_zipf"] = launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * FLEET_ROUNDS,
+            ("batched_apply", "cuda"): K * FLEET_ROUNDS,
+            ("lane_histogram", "cuda"): FLEET_ROUNDS,
+            ("lane_quantiles", "cuda"): FLEET_ROUNDS}
+    if launches != want:
+        raise AssertionError(f"fleet launched {launches}, expected {want}")
+    ids = [r["cohort_ids"] for r in run.history]
+    if any(i.shape != (FLEET_C,) or len(set(i.tolist())) != FLEET_C
+           or i.max() >= FLEET_REGISTERED for i in ids):
+        raise AssertionError("fleet cohorts are not 50 distinct ids")
+    seen = _untouched_rows(torch, run.arena, ids, 0.2)
+    total = int(run.arena.rounds_seen.sum())
+    if total != FLEET_C * FLEET_ROUNDS or not all(
+            _finite({k: v for k, v in r.items() if k != "cohort_ids"})
+            for r in run.history):
+        raise AssertionError(f"fleet rounds_seen sums to {total}, not "
+                             f"{FLEET_C * FLEET_ROUNDS}, or a metric is "
+                             "not finite")
+    for t, r in enumerate(run.history):
+        print(f"fleet round {t}", json.dumps({
+            k: float(r[k]) for k in ("loss", "eta_mean", "revisit_frac",
+                                     "realized_stale_mean",
+                                     "eta_carry_mean")}
+            | {"eta_hist_sum": float(r["eta_hist"].sum())}), flush=True)
+
+    # host time of a block's cohort draw over 100,000 candidates (the
+    # data pipeline's, the one draw the fleet loop trains on) and of its
+    # whole staging (the draw, the example draws, the copies), beside
+    # the wall per local step of a block
+    block, staged_block, bl = _block_runner(
+        train, torch, args + ["--telemetry"], FLEET_R)
+    fed, scn = bl.pt.fed, bl.pt.scenario
+    draw_ms, pipe_ms = [], []
+    for r0 in range(0, 5 * FLEET_R, FLEET_R):
+        t0 = time.perf_counter()
+        for r in range(r0, r0 + FLEET_R):
+            scn.draw_cohort(r, fed.registered_clients, FLEET_C,
+                            sizes=fed.registered_sizes())
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        bl.stage(r0, FLEET_R)
+        pipe_ms.append((time.perf_counter() - t0) * 1e3)
+    walls = _wall_per_step(torch, block, FLEET_R, ASYNC_TIMED_BLOCKS)
+    _block_syncs(torch, staged_block())   # reports made once a process
+    syncs = _block_syncs(torch, staged_block())
+    print("fleet time", json.dumps({
+        "card": smi, "registered": FLEET_REGISTERED, "cohort": FLEET_C,
+        "rounds_per_block": FLEET_R, "clients_seen": seen,
+        "cohort_draw_host_ms_per_block": draw_ms,
+        "median_cohort_draw_host_ms_per_block": statistics.median(draw_ms),
+        "pipeline_stage_host_ms_per_block": pipe_ms,
+        "median_pipeline_stage_host_ms_per_block": statistics.median(
+            pipe_ms),
+        "host_syncs_per_block": syncs[0], "host_sync_reports": syncs[1],
+        "wall_ms_per_step": walls,
+        "median_wall_ms_per_step": statistics.median(walls)}), flush=True)
+    print("fleet: 2*K*rounds launches and one histogram and one quantiles "
+          "launch a round, 50 distinct ids a round, rows outside the drawn "
+          "cohorts keep their bits, rounds_seen sums to 50 x 8", flush=True)
+    del run, block, staged_block, bl
+    torch.cuda.empty_cache()
+
+    # int8 + EF21: the (100,000, N) f32 EF slab lives in the arena
+    torch.cuda.reset_peak_memory_stats()
+    _reset(mods)
+    ef = train.main(args + ["--compression", "int8", "--error-feedback",
+                            "--rounds", str(FLEET_EF_ROUNDS),
+                            "--rounds-per-call", str(FLEET_EF_ROUNDS),
+                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    paths["fleet_int8_ef21"] = launches = _counts(mods)
+    want = {("batched_norms", "cuda"): K * FLEET_EF_ROUNDS,
+            ("batched_apply", "cuda"): K * FLEET_EF_ROUNDS,
+            ("quantize_int8", "cuda"): FLEET_EF_ROUNDS,
+            ("dequantize_int8", "cuda"): FLEET_EF_ROUNDS}
+    if launches != want:
+        raise AssertionError(f"fleet int8 + EF21 launched {launches}, "
+                             f"expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    slab = ef.arena.ef
+    ef_bytes = slab.numel() * slab.element_size()
+    if slab.shape != (FLEET_REGISTERED, MAIN_SHAPE[1]) or \
+            slab.device.type != "cuda":
+        raise AssertionError(f"EF slab {tuple(slab.shape)} on "
+                             f"{slab.device}")
+    _untouched_rows(torch, ef.arena, [r["cohort_ids"] for r in ef.history],
+                    0.2)
+    print("fleet int8 + EF21", json.dumps({
+        "card": smi, "ef_slab_shape": list(slab.shape),
+        "ef_slab_bytes": ef_bytes, "peak_allocated_bytes": peak,
+        "loss": [float(r["loss"]) for r in ef.history],
+        "wire_bytes": [float(r["wire_bytes"]) for r in ef.history],
+        "launches": {f"{k}/{d}": n for (k, d), n in launches.items()}}),
+        flush=True)
+    if not all(math.isfinite(float(r["loss"])) for r in ef.history):
+        raise AssertionError("fleet int8 + EF21: non-finite loss")
+    del ef, slab
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_resume_paths(torch, mods, train):
+    """Phase 4d: 4 rounds straight with checkpoints every 2, against 2
+    rounds then --resume for 2 more, fused, for the plain run, the
+    zipf_async buffer and fleet_uniform's arena at 1,000 registered.
+    Returns launch counts by run."""
+    import tempfile
+    paths = {}
+    runs = {"plain": TRAIN_ARGS,
+            "zipf_async": TRAIN_ARGS + ["--scenario", "zipf_async"],
+            "fleet_uniform": FLEET_ARGS + [
+                "--scenario", "fleet_uniform", "--num-registered",
+                str(RESUME_REGISTERED), "--participation",
+                RESUME_PARTICIPATION, "--eta-carry"]}
+    for name, args in runs.items():
+        total = paths[f"resume_{name}"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            def go(ckpt, rounds, *extra):
+                _reset(mods)
+                out = train.main(args + [
+                    "--rounds", str(rounds), "--rounds-per-call", "2",
+                    "--ckpt-dir", ckpt, "--ckpt-every", "2", "--device",
+                    "cuda", *extra])
+                torch.cuda.synchronize()
+                got = _counts(mods)
+                want = {("batched_norms", "cuda"): K * rounds,
+                        ("batched_apply", "cuda"): K * rounds}
+                if got != want:
+                    raise AssertionError(f"resume {name}: launched {got}, "
+                                         f"expected {want}")
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+                return out
+            straight = go(f"{tmp}/straight", 4)
+            go(f"{tmp}/cut", 2)
+            resumed = go(f"{tmp}/cut", 2, "--resume")
+            _state_equal(torch, straight.state, resumed.state,
+                         f"resume {name}")
+            if name == "fleet_uniform":
+                _arena_equal(torch, straight.arena, resumed.arena,
+                             "resume fleet_uniform")
+            steps = sorted(p.name for p in Path(f"{tmp}/cut").iterdir())
+            print(f"resume {name}", json.dumps({
+                "rounds": straight.state.round, "checkpoints": steps,
+                "final_loss": [float(straight.history[-1]["loss"]),
+                               float(resumed.history[-1]["loss"])]}),
+                flush=True)
+    print("resume: 2 rounds + --resume 2 == 4 rounds straight, bitwise "
+          "(params, server state, async buffer, fleet arena)", flush=True)
+    return paths
+
+
+def run_serve_checkpoint(torch, mods, smi):
+    """Phase 4d: serving from a checkpoint. TinyLlama at full width cut
+    to one layer: its random params saved and restored through
+    restore_params decode the in-memory params' tokens; then the serve
+    CLI with --ckpt-dir (reduced TinyLlama, a training-style checkpoint
+    of another seed's params than the CLI's own init) decodes the saved
+    params' tokens, not those of its run without the checkpoint.
+    Returns launch counts."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import restore_params, save
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=1)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT))
+
+    def decode(p):
+        engine = DecodeEngine(model, p, slots=SERVE_SLOTS,
+                              cache_len=SERVE_PROMPT + SERVE_GEN,
+                              flush_tokens=SERVE_FLUSH)
+        rids = [engine.submit(q, SERVE_GEN) for q in prompts]
+        done = {c.request_id: c.tokens for c in engine.run_until_idle()}
+        return np.stack([done[r] for r in rids])
+    with tempfile.TemporaryDirectory() as tmp:
+        save(tmp, {"params": params, "round": 7}, step=7)
+        like = model.init(torch.Generator(device="cuda").manual_seed(1))
+        loaded, step = restore_params(tmp, like)
+        if step != 7 or not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(params), tree_leaves(loaded))):
+            raise AssertionError("restore_params did not give the saved "
+                                 "params back")
+        _reset(mods)
+        got = decode(loaded)
+        torch.cuda.synchronize()
+        launches = _counts(mods)
+        want = decode(params)
+        if not np.array_equal(got, want):
+            raise AssertionError("the checkpoint's params decode other "
+                                 "tokens than the in-memory params")
+        if launches != {("flash_attention", "cuda"): SERVE_SLOTS}:
+            raise AssertionError(f"serve from checkpoint launched "
+                                 f"{launches}")
+
+        # the CLI's own init is seed 0's: the checkpoint holds seed 1's
+        flags = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "2",
+                 "--prompt-len", "16", "--gen", "8", "--device", "cuda"]
+        cli = serve.build_parser().parse_args(flags)
+        small = build_model(get_config("tinyllama-1.1b").reduced())
+        p1 = small.init(torch.Generator(device="cuda").manual_seed(1))
+        save(f"{tmp}/cli", {"params": p1, "round": 3}, step=3)
+        mem = serve.run(cli)
+        _reset(mods)
+        ck = serve.run(serve.build_parser().parse_args(
+            flags + ["--ckpt-dir", f"{tmp}/cli"]))
+        torch.cuda.synchronize()
+        for k, v in _counts(mods).items():
+            launches[k] = launches.get(k, 0) + v
+        saved_tokens, _, _ = serve.decode(small, p1, cli)
+        if (ck["ckpt_step"] != 3
+                or not np.array_equal(ck["tokens"], saved_tokens)
+                or np.array_equal(ck["tokens"], mem["tokens"])):
+            raise AssertionError("serve --ckpt-dir does not decode the "
+                                 "saved params' tokens, or decodes the "
+                                 "CLI's own init's")
+    print("serve from checkpoint", json.dumps({
+        "card": smi, "arch": f"tinyllama-1.1b[{cfg.num_layers}L]",
+        "requests": SERVE_SLOTS, "tokens_equal": True,
+        "cli_tokens_equal_the_saved_params": True,
+        "cli_tokens_differ_from_its_own_init": True,
+        "launches": {f"{k}/{d}": n for (k, d), n in launches.items()}}),
+        flush=True)
+    del model, params, loaded, like
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_matrix(torch, mods):
@@ -1892,6 +2328,12 @@ def main() -> int:
     paths["telemetry"] = run_telemetry_path(torch, mods, train)
     # 4c. the vmap engine
     paths.update(run_vmap_path(torch, mods, train, flat_round0, smi))
+    # 4d. async, fleet, resume, serving from a checkpoint
+    for pname in ASYNC_PRESETS:
+        paths[pname] = run_async_path(torch, mods, train, pname, smi)
+    paths.update(run_fleet_path(torch, mods, train, smi))
+    paths.update(run_resume_paths(torch, mods, train))
+    paths["serve_checkpoint"] = run_serve_checkpoint(torch, mods, smi)
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))

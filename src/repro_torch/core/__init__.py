@@ -9,7 +9,7 @@ from repro_torch.core.delta_sgd import (DeltaSGDState, FlatDeltaSGDState,
                                         flat_delta_sgd_step)
 from repro_torch.core.fed_loop import (FlatFLState, arena_gather,
                                        flatten_fl_state, make_fl_loop,
-                                       unflatten_fl_state)
+                                       make_fleet_loop, unflatten_fl_state)
 from repro_torch.core.fed_round import (FLState, RoundAux, init_fl_state,
                                         make_fl_round)
 from repro_torch.core.losses import make_loss
@@ -20,5 +20,5 @@ __all__ = ["CLIENT_OPTS", "ClientOpt", "get_client_opt", "DeltaSGDState",
            "delta_sgd_update", "flat_delta_sgd_init", "flat_delta_sgd_step",
            "FLState", "RoundAux", "init_fl_state", "make_fl_round",
            "make_loss", "FlatFLState", "arena_gather", "flatten_fl_state",
-           "make_fl_loop", "unflatten_fl_state", "SERVER_OPTS", "ServerOpt",
-           "get_server_opt", "flat"]
+           "make_fl_loop", "make_fleet_loop", "unflatten_fl_state",
+           "SERVER_OPTS", "ServerOpt", "get_server_opt", "flat"]

@@ -199,15 +199,17 @@ def _mask_inactive(active, eta, theta, grad_norm, state):
 
 def flat_delta_sgd_step(P: torch.Tensor, G: torch.Tensor,
                         state: FlatDeltaSGDState, *, gamma: float,
-                        delta: float, eta0: float,
+                        delta: float,
+                        eta0: Union[float, torch.Tensor],
                         mask: Optional[torch.Tensor] = None,
                         active: Optional[torch.Tensor] = None):
     """One Δ-SGD local step for ALL clients on packed (C, N) buffers.
 
     Exactly two kernel launches. ``P`` is updated IN PLACE by the apply
-    kernel and returned; ``G`` is not modified. ``active`` is an optional
-    (C,) bool lane mask (inactive clients apply η=0 and keep their state).
-    Returns (P, new_state)."""
+    kernel and returned; ``G`` is not modified. ``eta0`` is the scalar
+    η₀ or a (C,) f32 tensor of per-client ones (the fleet loop's warm
+    start). ``active`` is an optional (C,) bool lane mask (inactive
+    clients apply η=0 and keep their state). Returns (P, new_state)."""
     dg2, gg2 = kernels.batched_norms(G, state.prev_grads)
     dg_norm = torch.sqrt(dg2)
     grad_norm = torch.sqrt(gg2)
@@ -218,7 +220,10 @@ def flat_delta_sgd_step(P: torch.Tensor, G: torch.Tensor,
     # the reference's vmapped call has it) and picks with torch.where.
     first = state.k == 0
     if first is True:
-        eta, theta = torch.full_like(state.eta, eta0), state.theta
+        eta = (eta0.to(state.eta.dtype).expand_as(state.eta)
+               if isinstance(eta0, torch.Tensor)
+               else torch.full_like(state.eta, eta0))
+        theta = state.theta
     else:
         eta, theta = _eta_rule(state.eta, state.theta,
                                state.eta * state.prev_grad_norm, dg_norm,

@@ -14,9 +14,24 @@ Metrics come back stacked over the R rounds.
 Scenarios, compression and telemetry compose with the loop as with the
 single round, because the loop runs the round's own body; the EF21 slab
 rides in the carried state, and the telemetry distributions stack like
-the scalars (``eta_hist`` (R, B), ``loss_deciles`` (R, Q)). Capturing a block as a CUDA graph is later
-performance work; the fleet loop (ROADMAP A14) and the block-sharded
-loop (A17) are not ported.
+the scalars (``eta_hist`` (R, B), ``loss_deciles`` (R, Q)); the async
+FedBuff buffer rides in the carried state. Capturing a block as a CUDA
+graph is later performance work (ROADMAP A8); the block-sharded loop is
+A17.
+
+Fleet loop (``make_fleet_loop``): C_registered clients, only the sampled
+cohort materialized per round. A ``repro_torch.federation.arena
+.ClientArena`` holds per-REGISTERED-client state (Δ-SGD η carry, EF21
+reconstruction, participation history) in (C_registered, ...) device
+storage. Each round gathers the cohort's rows (``arena_take``), runs the
+same ``flat_body`` on the cohort slab, and writes the rows back
+(``arena_update``); a never-sampled client's rows keep their bits. The
+reference draws the cohort inside the loop, on the device with
+``jax.random``, the same draw its host data pipeline makes. The port's
+schedulers draw on the host with numpy, so the pipeline's draw is the
+only one: the caller hands the loop the block's (R, C) ids, the ids the
+pipeline gathered the block's batches for
+(``FederatedDataset.sample_block``).
 """
 from __future__ import annotations
 
@@ -26,14 +41,15 @@ import torch
 
 from repro_torch.core import flat as flatlib
 from repro_torch.core.fed_round import FLState, _reject, make_fl_round
+from repro_torch.utils.numerics import xla_mean
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 class FlatFLState(NamedTuple):
     """FLState in persistent flat form: ``P`` is the packed (N,) f32
     global params; ``ef`` (EF21 compression) the packed (C, N) f32
-    reconstruction slab; ``server_state`` keeps its tree form and
-    ``buffer`` (the async FedBuff buffer, ROADMAP A10) is always None."""
+    reconstruction slab; ``server_state`` and the async ``buffer`` keep
+    their tree form."""
     P: torch.Tensor
     server_state: Any
     round: int
@@ -67,6 +83,11 @@ def arena_gather(arena, idx: torch.Tensor):
     """Device-side per-round batch gather: ``idx`` (C, K, b) rows index
     the staged arena (leaves (num_examples, ...)) -> (C, K, b, ...)."""
     return tree_map(lambda a: a[idx], arena)
+
+
+def _stack_rows(rows):
+    """Per-round metric dicts -> one dict of (R, ...) stacks."""
+    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
 def make_fl_loop(loss_fn, client_opt, server_opt, *, params_like,
@@ -117,8 +138,123 @@ def make_fl_loop(loss_fn, client_opt, server_opt, *, params_like,
             carry, metrics, _ = body(carry, batches, layout,
                                      client_weights=w_r)
             rows.append(metrics)
-        stacked = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
-        return carry, stacked
+        return carry, _stack_rows(rows)
 
     loop_fn.layout = layout
+    return loop_fn
+
+
+def make_fleet_loop(loss_fn, client_opt, server_opt, *, params_like,
+                    num_rounds: int, num_registered: int,
+                    rounds_per_call: int = 8, weighted: bool = False,
+                    flat=True, scenario=None, compression=None,
+                    gather=None, batch_index_fn=None,
+                    eta_carry: bool = False, telemetry=None):
+    """Fleet-scale fused loop: C_registered clients, only the sampled
+    cohort materialized per round.
+
+    Returns ``loop_fn(carry, round_data, client_weights=None,
+    arena=None, *, cohort_ids) -> (carry, metrics)``, ``carry`` the pair
+    ``(FlatFLState, ClientArena)`` and ``cohort_ids`` the block's
+    (R, C) int32 registered ids (< ``num_registered``) on the device:
+    the data pipeline's draw, so data and state stay aligned. Per round
+    the loop
+
+      1. gathers the cohort's arena rows (``arena_take``): the EF21 slab
+         and the η carry enter the round body as ``FlatFLState.ef`` and
+         ``eta0_c``;
+      2. runs the flat round body (the one ``make_fl_loop`` chains);
+      3. writes the rows back in place (``arena_update``): round-end η
+         (only through lanes whose NaN guard held), ``rounds_seen + 1``,
+         ``last_round = round`` and the new EF21 rows. Every other row
+         keeps its bits.
+
+    ``round_data`` leaves carry a leading R axis: stacked batches
+    (R, C, K, b, ...), or with ``gather`` (R, C, K, b) indices into
+    ``arena``; with ``batch_index_fn(ids, round) -> (C, K, b)`` the
+    indices come from the ids on the device and ``round_data`` is
+    ignored. ``eta_carry=True`` warm-starts a returning client's η₀
+    from its arena row; the default keeps Algorithm 1's per-round reset,
+    and then, with ``num_registered`` equal to the data's client count,
+    the loop equals ``make_fl_loop`` bitwise. Each round adds
+    ``cohort_ids``, ``revisit_frac``, ``realized_stale_mean`` and
+    ``eta_carry_mean`` to its metrics. A block launches 2·K·R Δ-SGD
+    kernels."""
+    if not flat:
+        raise ValueError("the fleet loop requires the flat engine "
+                         "(flat=True)")
+    if num_registered < 1:
+        raise ValueError(f"num_registered must be >= 1, got "
+                         f"{num_registered}")
+    from repro_torch.federation.arena import (ClientArena, arena_take,
+                                              arena_update)
+    round_fn = make_fl_round(loss_fn, client_opt, server_opt,
+                             num_rounds=num_rounds, weighted=weighted,
+                             flat=flat, scenario=scenario,
+                             compression=compression, telemetry=telemetry)
+    body = round_fn.flat_body
+    layout = flatlib.layout_of(params_like)
+    if compression is not None or (
+            scenario is not None and scenario.bandwidth_heterogeneous):
+        from repro_torch.compression import get_compression
+        compression = get_compression(compression)
+    use_ef = (compression is not None and compression.error_feedback
+              and compression.active(scenario))
+    eta0 = (client_opt.hyper or {}).get("eta0", 0.0)
+
+    def loop_fn(carry, round_data, client_weights=None, arena=None, *,
+                cohort_ids):
+        fstate, car = carry
+        if not isinstance(car, ClientArena):
+            raise ValueError("fleet carry is (FlatFLState, ClientArena): "
+                             "build the arena with arena_init()")
+        if use_ef and car.ef is None:
+            raise ValueError("error-feedback compression needs the "
+                             "arena's EF slab: arena_init(..., "
+                             "ef_width=layout.padded_size)")
+        if (gather is not None or batch_index_fn is not None) \
+                and arena is None:
+            raise ValueError("this loop gathers batches from a staged "
+                             "arena: pass arena=")
+        fstate = fstate._replace(ef=None)
+        out = []
+        for r in range(cohort_ids.shape[0]):
+            rnd, ids = fstate.round, cohort_ids[r]
+            rows = arena_take(car, ids)
+            if batch_index_fn is not None:
+                batches = (gather or arena_gather)(
+                    arena, batch_index_fn(ids, rnd))
+            else:
+                data = tree_map(lambda x: x[r], round_data)
+                batches = gather(arena, data) if gather is not None \
+                    else data
+            w_r = client_weights[r] if client_weights is not None else None
+            new_fstate, metrics, aux = body(
+                fstate._replace(ef=rows.ef if use_ef else None), batches,
+                layout, client_weights=w_r,
+                eta0_c=rows.eta if eta_carry else None)
+            # fleet telemetry from the rows as they were before the round
+            seen = (rows.last_round >= 0).to(torch.float32)
+            gap = torch.where(rows.last_round >= 0, rnd - rows.last_round,
+                              0).to(torch.float32)
+            metrics.update(
+                cohort_ids=ids, revisit_frac=xla_mean(seen),
+                realized_stale_mean=(gap.sum()
+                                     / torch.clamp(seen.sum(), min=1.0)),
+                eta_carry_mean=xla_mean(rows.eta))
+            # η survives only through valid lanes (a latched NaN guard
+            # keeps the previous carry); the bookkeeping always advances
+            arena_update(car, ids, ClientArena(
+                torch.where(aux.valid, aux.etas, rows.eta),
+                rows.rounds_seen + 1,
+                torch.full_like(rows.last_round, rnd),
+                new_fstate.ef if use_ef else None))
+            # per-client EF state lives in the arena between rounds
+            fstate = new_fstate._replace(ef=None)
+            out.append(metrics)
+        return (fstate, car), _stack_rows(out)
+
+    loop_fn.layout = layout
+    loop_fn.rounds_per_call = rounds_per_call
+    loop_fn.eta0 = eta0
     return loop_fn

@@ -41,6 +41,19 @@ synchronous round:
   * cohort reporting (``cohort_ids``) and effective-K metrics.
 The draws are the scenario's (``Scenario.draw_*``), keyed on the round.
 
+Async scenarios (``zipf_async``, ``byzantine_async``; flat engine only,
+as in the reference) route the aggregate through the FedBuff buffer
+(``repro_torch.federation.buffer``) in ``FLState.buffer``: one
+staleness-weighted product over the packed (C, N) deltas gives the
+cohort's delta sum, the buffer merges it, and the server steps only once
+it holds M updates. The flush-or-hold choice is made on the device
+(``buffer_step``), so the plain async tail reads nothing on the host.
+The guarded async tail rejects over-stale updates, runs the RobustAgg
+ladder with the staleness weights, scales byzantine deltas and merges
+the robust mean times the survivors' weight sum; below quorum the round
+freezes buffer, params and server state, through the same single host
+read of the survivor count the synchronous guarded tail makes.
+
 Compression (``compression=``, ``repro_torch.compression``) compresses
 each client's round delta Δ_c = x_c^K − x_t before any aggregation:
 int8 per chunk or top-k per chunk, optionally behind EF21 error feedback
@@ -68,9 +81,12 @@ Cohort means and fractions (``k_eff_mean``, ``nan_guard_rate``,
 ``drop_frac``, ...) are the sum times f32(1/C), as XLA takes the
 reference's ``jnp.mean`` (``repro_torch.utils.numerics``).
 
-Not ported yet, and rejected with the ROADMAP item that brings them:
-async scenarios (the FedBuff buffer, A10), mesh sharding (A17) and the
-per-client η₀ warm start of the fleet loop (A14).
+``flat_body(..., eta0_c=)`` takes a (C,) per-client η₀ in place of the
+scalar one: the fleet loop's warm start (``core.fed_loop
+.make_fleet_loop``, ``eta_carry``).
+
+Not ported yet, and rejected with the ROADMAP item that brings it: mesh
+sharding (A17).
 """
 from __future__ import annotations
 
@@ -89,15 +105,12 @@ from repro_torch.telemetry.spec import resolve_telemetry, round_telemetry
 from repro_torch.utils.numerics import reciprocal, round_frac, xla_mean
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-_ASYNC = ("async aggregation (scenario {name!r}) needs the FedBuff delta "
-          "buffer, which is not ported yet: it comes with ROADMAP A10")
-
 
 class FLState(NamedTuple):
-    """The synchronous round's state. ``buffer`` is the async FedBuff
-    buffer (ROADMAP A10; always None here). ``ef`` is the EF21 state
-    under error-feedback compression: a tree like ``params`` with a
-    leading cohort axis, f32."""
+    """The round's state. ``buffer`` is the async FedBuff buffer (an
+    ``AsyncBufferState`` under async scenarios, else None). ``ef`` is
+    the EF21 state under error-feedback compression: a tree like
+    ``params`` with a leading cohort axis, f32."""
     params: Any
     server_state: Any
     round: int
@@ -116,12 +129,14 @@ class RoundAux(NamedTuple):
 
 def init_fl_state(params, server_opt: ServerOpt, scenario=None,
                   compression=None, cohort: Optional[int] = None) -> FLState:
-    """``compression`` with ``error_feedback=True`` allocates the
+    """Async scenarios allocate the server-side delta buffer.
+    ``compression`` with ``error_feedback=True`` allocates the
     per-cohort-slot EF21 reconstruction tree; ``cohort`` (C, clients per
-    round) sizes its leading axis. Async scenarios are refused (their
-    buffer is ROADMAP A10)."""
+    round) sizes its leading axis."""
+    buf = None
     if scenario is not None and scenario.is_async:
-        raise NotImplementedError(_ASYNC.format(name=scenario.name))
+        from repro_torch.federation.buffer import buffer_init
+        buf = buffer_init(params)
     ef = None
     if compression is not None and compression.error_feedback:
         if cohort is None:
@@ -130,14 +145,13 @@ def init_fl_state(params, server_opt: ServerOpt, scenario=None,
         ef = tree_map(lambda p: torch.zeros((cohort,) + tuple(p.shape),
                                             dtype=torch.float32,
                                             device=p.device), params)
-    return FLState(params, server_opt.init(params), 0, None, ef)
+    return FLState(params, server_opt.init(params), 0, buf, ef)
 
 
 def _reject(**kw) -> None:
     """Raise for an argument whose feature is not ported yet."""
     items = {"mesh": "mesh sharding, ROADMAP A17",
              "federation": "mesh sharding, ROADMAP A17",
-             "eta0_c": "the fleet loop's per-client η₀, ROADMAP A14",
              "block_sharded": "the block-sharded loop, ROADMAP A17"}
     for name, value in kw.items():
         if value is not None and value is not False:
@@ -174,7 +188,7 @@ def _scenario_extras(scenario, round_idx: int, C: int, num_clients,
     if num_clients is not None:
         ids = scenario.draw_cohort(round_idx, num_clients, C,
                                    sizes=client_sizes)
-        extra["cohort_ids"] = torch.tensor(ids, device=device)
+        extra["cohort_ids"] = _queued_copy(ids, device)
     if step_counts is not None:
         sc = step_counts.to(torch.float32)
         extra.update(k_eff_mean=xla_mean(sc), k_eff_min=sc.min(),
@@ -208,8 +222,11 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     optimizers."""
     _reject(mesh=mesh, federation=federation)
     tele = resolve_telemetry(telemetry)
-    if scenario is not None and scenario.is_async:
-        raise NotImplementedError(_ASYNC.format(name=scenario.name))
+    if scenario is not None and scenario.is_async and not flat:
+        raise ValueError(
+            "async buffered aggregation requires the flat engine "
+            "(flat=...): the staleness-weighted delta merge is one "
+            "reduction over the packed (C, N) buffer")
     if scenario is not None and not flat and (
             scenario.faulty or scenario.robust or scenario.quorum > 0):
         raise ValueError(
@@ -375,6 +392,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      *, weighted: bool, scenario=None, num_clients=None,
                      client_sizes=None, compression=None, tele=None):
     from repro_torch.compression import compress_flat
+    from repro_torch.federation.buffer import (buffer_merge, buffer_step,
+                                               staleness_weights)
     from repro_torch.federation.faults import FaultLanes, robust_aggregate
     hyper = client_opt.hyper
     if (client_opt.name != "delta_sgd" or hyper is None
@@ -388,6 +407,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     # build-time flags: with all of them off every branch below is the
     # slice-1 code path
     hetero = scenario is not None and scenario.heterogeneous
+    is_async = scenario is not None and scenario.is_async
     bw_hetero = scenario is not None and scenario.bandwidth_heterogeneous
     comp = compression if (compression is not None
                            and compression.active(scenario)) else None
@@ -401,6 +421,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     drops_on = faults_on and fm.drop_rate > 0.0
     nan_on = faults_on and fm.nan_rate > 0.0
     byz_on = faults_on and fm.byzantine_rate > 0.0
+    overstale_on = faults_on and fm.overstale_rate > 0.0
     # the telemetry bin edges, built once per device (not once per round)
     edges = {}
 
@@ -409,9 +430,10 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         """One round on flat-form state (core.fed_loop.FlatFLState) ->
         (new_fstate, metrics, RoundAux). ``gp`` optionally passes the
         global params tree when the caller has it; otherwise the body
-        takes views of the carried flat buffer."""
+        takes views of the carried flat buffer. ``eta0_c`` optionally
+        replaces the scalar round-start η₀ with a (C,) per-client
+        tensor (the fleet loop's ``eta_carry`` warm start)."""
         from repro_torch.core.fed_loop import FlatFLState
-        _reject(eta0_c=eta0_c)
         if gp is None:
             gp = flatlib.unpack(fstate.P, layout)
         device = fstate.P.device
@@ -419,7 +441,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         C, K = tree_leaves(client_batches)[0].shape[:2]
 
         def on_device(a):
-            return torch.tensor(a, device=device)
+            # the round's host draws, queued with no host sync
+            return _queued_copy(a, device)
 
         step_counts = (on_device(scenario.draw_step_counts(
             fstate.round, C, K)) if hetero else None)
@@ -441,7 +464,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         # updates it in place, step after step
         P = fstate.P[None].expand(C, layout.padded_size).clone()
         P_start = (fstate.P[None].expand(C, layout.padded_size)
-                   if (comp is not None or guard_tail) else None)
+                   if (is_async or comp is not None or guard_tail)
+                   else None)
         S = flat_delta_sgd_init(C, layout, eta0=eta0, theta0=theta0,
                                 device=device)
         losses = []
@@ -457,8 +481,10 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                 G = torch.where((k >= lanes.nan_step)[:, None],
                                 float("nan"), G)
             active = (k < budget) if budget is not None else None
-            P, S = flat_delta_sgd_step(P, G, S, gamma=gamma, delta=delta_,
-                                       eta0=eta0, mask=mask, active=active)
+            P, S = flat_delta_sgd_step(
+                P, G, S, gamma=gamma, delta=delta_,
+                eta0=eta0 if eta0_c is None else eta0_c, mask=mask,
+                active=active)
             losses.append(loss)
         losses = torch.stack(losses, dim=1)       # (C, K)
 
@@ -526,7 +552,9 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             delta_hat = None
             P_agg = P
 
-        if not guard_tail:
+        buf = fstate.buffer
+        skipped = False
+        if not is_async and not guard_tail:
             # aggregate: single (weighted) mean over the packed client
             # axis
             if weighted and client_weights is not None:
@@ -539,7 +567,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                 gp, flatlib.unpack(agg_flat, layout), fstate.server_state)
             newP = flatlib.pack(new_params, layout)
             metrics = _round_metrics(losses, S.eta, step_counts)
-        else:
+        elif not is_async:
             # guarded tail: the RobustAgg ladder aggregates the survivors'
             # deltas and the result re-anchors on the round-start params
             delta_eff = delta_hat if comp is not None else (P - P_start)
@@ -563,6 +591,57 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                     gp, agg, fstate.server_state)
                 newP = flatlib.pack(new_params, layout)
             metrics = _round_metrics(losses, S.eta, mcounts)
+        else:
+            # FedBuff: the cohort's staleness-weighted delta sum goes into
+            # the buffer, and the server steps once it holds M updates
+            stale = on_device(scenario.draw_staleness(fstate.round, C))
+            if overstale_on:
+                stale = torch.where(lanes.overstale, fm.overstale,
+                                    stale).to(torch.int32)
+            w = staleness_weights(stale, scenario.staleness_exp)
+            if weighted and client_weights is not None:
+                w = w * client_weights.to(torch.float32)
+            d = delta_hat if comp is not None else (P - P_start)
+            if not guard_tail:
+                # one weighted product over the packed client axis
+                delta_flat = torch.tensordot(w, d, dims=([0], [0]))
+                wsum, n_updates = w.sum(), C
+                metrics = _round_metrics(losses, S.eta, step_counts)
+            else:
+                # guarded async tail: over-stale updates are rejected, the
+                # ladder aggregates the survivors' weighted deltas, and
+                # the buffer takes the robust mean scaled back to Σ wΔ
+                # form, so the flush's Σ wΔ / Σ w recovers it
+                valid = valid & (stale <= scenario.staleness_max)
+                if byz is not None and comp is None:
+                    d = d * byz[:, None]
+                rob, rinfo = robust_aggregate(d, ragg, valid, weights=w)
+                vf = valid.to(torch.float32)
+                wsum, n_valid = (w * vf).sum(), vf.sum()
+                delta_flat = rob * wsum
+                n_updates = n_valid.to(torch.int32)
+                # below quorum the round freezes buffer, params, server
+                # state and EF21 state (the tail's one host read)
+                skipped = quorum > 0 and float(n_valid) < quorum
+                metrics = _round_metrics(losses, S.eta, mcounts)
+            if skipped:
+                newP, sstate = fstate.P, fstate.server_state
+                flushed = wsum.new_zeros(())
+                if new_ef is not None:
+                    new_ef = E
+            else:
+                buf = buffer_merge(
+                    buf, flatlib.unpack(delta_flat, layout, cast=False),
+                    wsum, n_updates, stale)
+                new_params, sstate, buf, flushed = buffer_step(
+                    gp, fstate.server_state, buf, server_opt,
+                    scenario.buffer_size)
+                newP = flatlib.pack(new_params, layout)
+            sf = stale.to(torch.float32)
+            extra.update(stale_mean=xla_mean(sf), stale_max=sf.max(),
+                         buffer_fill=buf.count.to(torch.float32),
+                         flushed=flushed)
+        if guard_tail:
             extra.update(rinfo)
             extra.update(valid_count=n_valid,
                          round_skipped=n_valid.new_full(
@@ -573,9 +652,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             if byz is not None:
                 extra["byz_frac"] = xla_mean(
                     lanes.byzantine.to(torch.float32))
+            if is_async and overstale_on:
+                extra["overstale_frac"] = xla_mean(
+                    lanes.overstale.to(torch.float32))
         metrics.update(extra)
-        new_fstate = FlatFLState(newP, sstate, fstate.round + 1,
-                                 fstate.buffer,
+        new_fstate = FlatFLState(newP, sstate, fstate.round + 1, buf,
                                  fstate.ef if new_ef is None else new_ef)
         return new_fstate, metrics, RoundAux(P, S.eta, S.valid)
 

@@ -115,11 +115,14 @@ def pack(tree, layout: Optional[FlatLayout] = None) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def unpack(buf: torch.Tensor, layout: FlatLayout):
+def unpack(buf: torch.Tensor, layout: FlatLayout, *, cast: bool = True):
     """(N,) buffer -> tree with the original shapes and dtypes. f32
-    leaves are views of ``buf``."""
-    leaves = [buf[s.offset:s.offset + s.size].view(s.shape).to(s.dtype)
+    leaves (every leaf, with ``cast=False``: the async buffer's delta
+    sum keeps its sub-bf16 bits) are views of ``buf``."""
+    leaves = [buf[s.offset:s.offset + s.size].view(s.shape)
               for s in layout.leaves]
+    if cast:
+        leaves = [l.to(s.dtype) for l, s in zip(leaves, layout.leaves)]
     return treelib.tree_unflatten(layout.treedef, leaves)
 
 

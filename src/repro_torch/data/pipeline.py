@@ -11,7 +11,13 @@ the hook a test uses to replay the reference's ids) wins; otherwise a
 (``Scenario.draw_cohort``, the same draw the round reports); otherwise
 it is the uniform scheduler over all clients on the dataset seed.
 
-The fleet regime (``num_registered``) comes with ROADMAP A14.
+Fleet regime (``num_registered``): the cohort is drawn over
+C_registered >> C virtual clients while the dataset keeps only
+``num_clients`` physical partitions; registered client i trains on
+partition ``i % num_clients``. Cohort draws and weights key on the
+REGISTERED id (what the fleet loop's ``ClientArena`` is indexed by);
+only the example gather maps down to the partition, so a 10^5-client
+fleet costs no extra dataset memory.
 """
 from __future__ import annotations
 
@@ -35,25 +41,48 @@ class FederatedDataset:
     # None leaves the draw to the scenario, or to the uniform scheduler
     scheduler: object = None
     scenario: object = None            # repro_torch.federation.Scenario
+    # fleet regime: registered (virtual) clients >= physical partitions;
+    # registered id i maps to partition i % num_clients. None: registered
+    # == num_clients
+    num_registered: Optional[int] = None
 
     @classmethod
     def build(cls, task: TaskData, *, num_clients: int, alpha: float,
               samples_per_client: int = 500, seed: int = 0,
-              variable_sizes=None, scheduler=None,
-              scenario=None) -> "FederatedDataset":
+              variable_sizes=None, scheduler=None, scenario=None,
+              num_registered: Optional[int] = None) -> "FederatedDataset":
         clients = dirichlet_partition(task.y, num_clients, alpha,
                                       samples_per_client, seed=seed,
                                       variable_sizes=variable_sizes)
         return cls(task, clients, seed=seed,
                    eval_rng=np.random.default_rng(seed + 23),
-                   scheduler=scheduler, scenario=scenario)
+                   scheduler=scheduler, scenario=scenario,
+                   num_registered=num_registered)
 
     @property
     def num_clients(self) -> int:
         return len(self.clients)
 
+    @property
+    def registered_clients(self) -> int:
+        """C_registered, what the cohort is drawn over (>= num_clients)."""
+        m = self.num_registered
+        if m is not None and m < len(self.clients):
+            raise ValueError(f"num_registered={m} < {len(self.clients)} "
+                             "physical partitions")
+        return len(self.clients) if m is None else m
+
     def client_sizes(self) -> np.ndarray:
         return np.array([len(c) for c in self.clients], np.float32)
+
+    def registered_sizes(self) -> np.ndarray:
+        """(C_registered,) sizes per REGISTERED client: the partition
+        sizes cycled over the virtual ids (one numpy array)."""
+        sizes = self.client_sizes()
+        m = self.registered_clients
+        if m == len(self.clients):
+            return sizes
+        return sizes[np.arange(m) % len(self.clients)]
 
     def _cohort_ids(self, C: int, t: int) -> np.ndarray:
         sch = self.scheduler
@@ -63,27 +92,30 @@ class FederatedDataset:
                                  f"the round needs {C}")
             return np.asarray(sch.sample(self.seed, t))
         if self.scenario is not None:
-            return self.scenario.draw_cohort(t, self.num_clients, C,
-                                             sizes=self.client_sizes())
-        return UniformScheduler(self.num_clients, C).sample(self.seed, t)
+            return self.scenario.draw_cohort(t, self.registered_clients, C,
+                                             sizes=self.registered_sizes())
+        return UniformScheduler(self.registered_clients, C).sample(
+            self.seed, t)
 
     def sample_round_indices(self, participation: float, local_steps: int,
                              batch_size: int, round_idx: int):
         """Cohort draw + within-client example draw WITHOUT gathering:
         (take (C, K, b) int32 indices into the task arrays, client
         weights (C,), client ids (C,)). Both draws are keyed on
-        (seed, round), never on call history."""
-        C = cohort_size(participation, self.num_clients)
+        (seed, round), never on call history. The ids are REGISTERED
+        ids; the example gather maps them to partitions."""
+        m = self.num_clients
+        C = cohort_size(participation, self.registered_clients)
         t = int(round_idx)
         ids = self._cohort_ids(C, t)
         ex_rng = np.random.default_rng([self.seed + 17, t])
         takes = []
         for i in ids:
-            idx = self.clients[i]
+            idx = self.clients[i % m]
             take = ex_rng.choice(idx, size=local_steps * batch_size,
                                  replace=len(idx) < local_steps * batch_size)
             takes.append(take.reshape(local_steps, batch_size))
-        weights = self.client_sizes()[ids]
+        weights = self.client_sizes()[ids % m]
         return (np.stack(takes).astype(np.int32),
                 weights.astype(np.float32), ids)
 

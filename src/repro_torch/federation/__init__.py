@@ -1,4 +1,4 @@
-"""Federation scenario engine (synchronous rounds).
+"""Federation scenario engine.
 
   schedulers    — who participates (uniform / size-weighted / zipf /
                   cyclic), numpy draws keyed on (seed, round).
@@ -7,11 +7,21 @@
   faults        — fault lanes (drops, NaN grads, byzantine deltas,
                   over-staleness) + the RobustAgg ladder
                   (mean/clip/trimmed/median).
+  buffer        — the FedBuff server-side delta buffer with staleness-
+                  weighted merges into any ServerOpt.
   scenarios     — the named presets bundling all axes.
+  arena         — fleet-scale per-REGISTERED-client state (EF21, Δ-SGD η
+                  carry, participation history) in (C_registered, ...)
+                  device storage; rounds gather only the cohort's rows
+                  and write them back.
 
-The FedBuff async buffer (ROADMAP A10), the fleet arena (A14) and the
-mesh-sharded robust ladder (A17) are not ported yet.
+The mesh-sharded robust ladder and arena placement are ROADMAP A17.
 """
+from repro_torch.federation.arena import (ClientArena, arena_init,
+                                          arena_take, arena_update)
+from repro_torch.federation.buffer import (AsyncBufferState, buffer_init,
+                                           buffer_merge, buffer_step,
+                                           staleness_weights)
 from repro_torch.federation.faults import (ROBUST_AGG_KINDS, FaultLanes,
                                            FaultModel, RobustAgg,
                                            robust_aggregate)
@@ -27,10 +37,13 @@ from repro_torch.federation.schedulers import (SCHEDULERS, CyclicScheduler,
                                                make_scheduler)
 
 __all__ = [
-    "SPEED_MODELS", "SpeedModel", "active_mask", "step_active",
+    "AsyncBufferState", "buffer_init", "buffer_merge", "buffer_step",
+    "staleness_weights", "SPEED_MODELS", "SpeedModel", "active_mask",
+    "step_active",
     "SCHEDULERS", "Scheduler", "UniformScheduler", "SizeWeightedScheduler",
     "ZipfScheduler", "CyclicScheduler", "cohort_size", "make_scheduler",
     "SCENARIOS", "Scenario", "ScenarioDraws", "get_scenario",
     "ROBUST_AGG_KINDS", "FaultLanes", "FaultModel", "RobustAgg",
-    "robust_aggregate",
+    "robust_aggregate", "ClientArena", "arena_init", "arena_take",
+    "arena_update",
 ]

@@ -13,8 +13,8 @@ Port of the unsharded parts of ``repro/federation/faults.py``:
         lanes are NaN; the in-step guard latches its ``valid`` off;
       - byzantine deltas: the reported delta is scaled by
         ``byzantine_scale``;
-      - async over-staleness (drawn here; its tail is the async round,
-        ROADMAP A10).
+      - async over-staleness: the update arrives ``overstale`` rounds
+        late and the async round rejects it.
     The reference draws from ``jax.random``; the port draws the same
     distributions, not the same bits.
 

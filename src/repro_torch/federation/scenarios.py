@@ -6,23 +6,23 @@ validation and eleven ``SCENARIOS`` presets. A scenario is a frozen,
 hashable config that the round closes over.
 
 Draws. The reference keys every draw on ``fold_in(key(seed), round)``
-and an axis: 1 for step counts, 3 for bandwidth levels, 4 for faults
-(one sub-stream per fault mode). ``jax.random`` bits cannot be
+and an axis: 1 for step counts, 2 for async staleness, 3 for bandwidth
+levels, 4 for faults (one sub-stream per fault mode). ``jax.random`` bits cannot be
 reproduced here, so the port's draws are pure functions of
 ``(seed, round, axis)`` on numpy generators (``ScenarioDraws``), with
 the reference's distributions. They are injectable: a scenario's
 ``draws`` field takes any object with ``cohort_ids(t, num_clients,
-cohort, sizes)``, ``step_counts(t, C, K)``, ``compression_levels(t, C)``
-and ``faults(t, C, K)`` (numpy results), and the data pipeline and the
+cohort, sizes)``, ``step_counts(t, C, K)``, ``staleness(t, C)``,
+``compression_levels(t, C)`` and ``faults(t, C, K)`` (numpy results), and the data pipeline and the
 round then use it instead. Parity tests pass one that replays the
 reference's own draws (``repro_torch.interop.draws_from_numpy``).
 
-The async presets (``zipf_async``, ``byzantine_async``) are accepted
-here; the round refuses them until the FedBuff buffer lands (ROADMAP
-A10). The fleet presets carry ``registered_hint`` and
-``participation_hint`` for the fleet loop (ROADMAP A14). ``sync_iid`` is
-the seed configuration: the round with it is the round without a
-scenario.
+The async presets (``zipf_async``, ``byzantine_async``) route the round
+through the FedBuff buffer (``repro_torch.federation.buffer``). The
+fleet presets carry ``registered_hint`` and ``participation_hint``, which
+the train CLI turns into the fleet loop (``core.fed_loop
+.make_fleet_loop``). ``sync_iid`` is the seed configuration: the round
+with it is the round without a scenario.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ from repro_torch.federation.schedulers import keyed_rng, make_scheduler
 _NUM_LEVELS = len(LEVELS)
 
 # the reference's fold_in axes of the round key
-_AXIS_STEPS, _AXIS_LEVELS, _AXIS_FAULTS = 1, 3, 4
+_AXIS_STEPS, _AXIS_STALENESS, _AXIS_LEVELS, _AXIS_FAULTS = 1, 2, 3, 4
 
 
 @dataclass(frozen=True)
@@ -166,6 +166,13 @@ class Scenario:
         return np.asarray(self.draw_source.step_counts(
             int(round_idx), num_clients, k_max), np.int32)
 
+    def draw_staleness(self, round_idx: int,
+                       num_clients: int) -> np.ndarray:
+        """(C,) int32 in [0, staleness_max]: the rounds each update has
+        been in flight when it reaches the server buffer (async)."""
+        return np.asarray(self.draw_source.staleness(
+            int(round_idx), num_clients), np.int32)
+
     def draw_compression_levels(self, round_idx: int,
                                 num_clients: int) -> np.ndarray:
         """(C,) int32 bandwidth levels over the LEVELS ladder."""
@@ -195,6 +202,13 @@ class ScenarioDraws:
     def step_counts(self, t: int, num_clients: int, k_max: int):
         rng = keyed_rng(self.scn.seed, t, _AXIS_STEPS)
         return self.scn.speed_model.draw(rng, num_clients, k_max)
+
+    def staleness(self, t: int, num_clients: int):
+        if self.scn.staleness_max <= 0:
+            return np.zeros((num_clients,), np.int32)
+        rng = keyed_rng(self.scn.seed, t, _AXIS_STALENESS)
+        return rng.integers(0, self.scn.staleness_max + 1,
+                            size=num_clients)
 
     def compression_levels(self, t: int, num_clients: int):
         rng = keyed_rng(self.scn.seed, t, _AXIS_LEVELS)

@@ -9,8 +9,9 @@ LM zoo's trees cross as they are: runs of n > 1 blocks with every leaf
 stacked on a leading layer axis, the shared block once at the top, and
 decode caches (their 0-d ``t`` included). An ``FLState`` crosses in both
 directions with its server state (fedavgm's ``m``, fedadam's and
-fedyogi's f32 ``m``, ``v`` and ``t``), and so does a per-leaf Δ-SGD
-``DeltaSGDState``; the port keeps its round counter a Python int.
+fedyogi's f32 ``m``, ``v`` and ``t``), its async FedBuff buffer and its
+EF21 tree, and so do a per-leaf Δ-SGD ``DeltaSGDState`` and the fleet's
+``ClientArena``; the port keeps its round counter a Python int.
 ``draws_from_numpy`` turns the reference's per-round scenario draws into
 a draw source that the port's scenarios replay. This module imports
 neither ``jax`` nor ``repro``.
@@ -24,6 +25,8 @@ import torch
 
 from repro_torch.core.delta_sgd import DeltaSGDState
 from repro_torch.core.fed_round import FLState
+from repro_torch.federation.arena import ClientArena
+from repro_torch.federation.buffer import AsyncBufferState
 from repro_torch.utils.tree import tree_map
 
 
@@ -54,31 +57,53 @@ def params_to_numpy(params):
     return tree_map(_to_numpy, params)
 
 
+def _fields_from_numpy(cls, tup, device):
+    """A NamedTuple of numpy trees -> the port's ``cls`` of tensor trees
+    (None fields stay None)."""
+    return cls(*(None if f is None else params_from_numpy(f, device)
+                 for f in tup))
+
+
+def _fields_to_numpy(cls, tup):
+    return cls(*(None if f is None else params_to_numpy(f) for f in tup))
+
+
 def fl_state_from_numpy(state, device="cpu") -> FLState:
     """A reference ``FLState`` whose leaves are numpy arrays -> the port's
-    FLState, EF21 state (``ef``) included. An async buffer is refused:
-    the FedBuff round is ROADMAP A10."""
-    if getattr(state, "buffer", None) is not None:
-        raise NotImplementedError("async buffers are not ported yet: they "
-                                  "come with ROADMAP A10")
+    FLState, with its async buffer (an ``AsyncBufferState``) and EF21
+    state (``ef``)."""
+    buf = getattr(state, "buffer", None)
     ef = getattr(state, "ef", None)
     return FLState(params_from_numpy(state.params, device),
                    params_from_numpy(state.server_state, device),
-                   int(np.asarray(state.round)), None,
+                   int(np.asarray(state.round)),
+                   None if buf is None else _fields_from_numpy(
+                       AsyncBufferState, buf, device),
                    None if ef is None else params_from_numpy(ef, device))
 
 
 def fl_state_to_numpy(state: FLState) -> FLState:
     """The port's FLState -> the same fields as numpy arrays (the round
     an int32 0-d array, as the reference carries it), ready for the
-    reference's ``FLState(*...)``."""
-    if state.buffer is not None:
-        raise NotImplementedError("async buffers are not ported yet: they "
-                                  "come with ROADMAP A10")
+    reference's ``FLState(*...)``; the buffer's fields are ready for its
+    ``AsyncBufferState(*...)``."""
     return FLState(params_to_numpy(state.params),
                    params_to_numpy(state.server_state),
-                   np.asarray(state.round, np.int32), None,
+                   np.asarray(state.round, np.int32),
+                   None if state.buffer is None else _fields_to_numpy(
+                       AsyncBufferState, state.buffer),
                    None if state.ef is None else params_to_numpy(state.ef))
+
+
+def arena_from_numpy(arena, device="cpu") -> ClientArena:
+    """A reference ``ClientArena`` of numpy arrays -> the port's."""
+    return _fields_from_numpy(ClientArena, arena, device)
+
+
+def arena_to_numpy(arena: ClientArena) -> ClientArena:
+    """The port's ``ClientArena`` -> numpy fields, ready for the
+    reference's ``ClientArena(*...)``."""
+    return _fields_to_numpy(ClientArena, arena)
 
 
 def delta_sgd_state_from_numpy(state, device="cpu") -> DeltaSGDState:
@@ -117,6 +142,9 @@ class ReplayDraws:
     def step_counts(self, t, num_clients, k_max):
         return self._get(t, "step_counts", (num_clients,))
 
+    def staleness(self, t, num_clients):
+        return self._get(t, "staleness", (num_clients,))
+
     def compression_levels(self, t, num_clients):
         return self._get(t, "levels", (num_clients,))
 
@@ -127,7 +155,7 @@ class ReplayDraws:
 def draws_from_numpy(rounds: Dict[int, Dict[str, Any]]) -> ReplayDraws:
     """The reference's per-round scenario draws -> the port's replay
     source. ``rounds[t]`` maps any of ``"cohort_ids"``, ``"step_counts"``,
-    ``"levels"`` (numpy arrays) and ``"faults"`` (the four lanes of a
+    ``"staleness"``, ``"levels"`` (numpy arrays) and ``"faults"`` (the four lanes of a
     reference ``FaultLanes``, as numpy arrays) to round t's draw, for
     example ``np.asarray(scn.draw_step_counts(t, C, K))`` taken from the
     reference scenario."""

@@ -5,7 +5,9 @@
         --robust-agg trimmed --compression int8 --error-feedback]
 
 Builds the paper-task run of ``repro_torch.launch.train`` with the same
-flags (scenario, compression and EF21 state included), runs one
+flags (scenario, compression and EF21 state included; the async presets'
+buffer, and a fleet preset's or ``--num-registered`` client arena beside
+the state), runs one
 round-fused block to warm up, then
 
   * times ``--repeat`` further blocks on the host clock (each ends in a
@@ -62,12 +64,11 @@ def main(argv=None):
         ap.error("pass --task and --rounds-per-call R >= 2")
     pt = train.setup_paper_task(args)
     R, K = args.rounds_per_call, pt.local_steps
-    loop, arena = train.make_fused_loop(pt, args)
-    fstate = flatten_fl_state(train.init_state(pt), loop.layout)
+    run = train.BlockRunner(pt, args)
+    fstate = flatten_fl_state(train.init_state(pt), run.layout)
 
     def block(fs):
-        idx = train.block_indices(pt, args, fs.round, R)
-        fs, _ = loop(fs, idx, arena=arena)
+        fs, _ = run(fs, run.stage(fs.round, R))
         if pt.device.type == "cuda":
             torch.cuda.synchronize(pt.device)
         return fs
@@ -109,7 +110,7 @@ def main(argv=None):
         "scenario": pt.scenario.name if pt.scenario else None,
         "compression": pt.compression.kind,
         "error_feedback": pt.compression.error_feedback,
-        "clients": int(round(pt.participation * args.num_clients)),
+        "clients": pt.cohort,
         "batch": args.batch,
         "wall_ms_per_step": [w / steps * 1e3 for w in walls],
         "wall_ms_per_step_median": sorted(walls)[len(walls) // 2]

@@ -15,12 +15,17 @@ copy per flush (see ``repro_torch/serving/engine.py``).
 window and rolls as a ring buffer (tokens beyond the window are
 evicted); truncating the cache silently would corrupt decode state.
 
-Checkpoints (``--ckpt-dir``, ``--ckpt-step``), the load generator and
-personalization (``--loadgen``, ``--arrival``, ``--rate``,
-``--personalize``) and serving telemetry (``--events``) are not ported
-yet and exit naming their ROADMAP items. ``run(args)`` is the driver
-body; it returns the generated tokens plus timing so tests can call it
-in-process.
+``--ckpt-dir`` loads the params at start-up from a checkpoint
+(``repro_torch.checkpoint.restore_params``: bare params or a training
+run's full FLState, written by either package), the newest one or
+``--ckpt-step``. The reference also watches an unpinned directory for
+newer rounds and swaps them in mid-run; that watch is the model
+registry's (ROADMAP A16), so here the step loaded at start-up serves the
+whole run. The load generator and personalization (``--loadgen``,
+``--arrival``, ``--rate``, ``--personalize``) and serving telemetry
+(``--events``) are not ported yet and exit naming their ROADMAP items.
+``run(args)`` is the CLI's body; it returns the generated tokens plus
+timing so tests can call it in-process.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_params
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
@@ -38,8 +44,6 @@ from repro_torch.serving import DecodeEngine
 # flag -> (its default, the ROADMAP item that ports it): any other value
 # exits with an error naming the item
 _NOT_PORTED = {
-    "ckpt_dir": (None, "A9 (checkpointing)"),
-    "ckpt_step": (None, "A9 (checkpointing)"),
     "loadgen": (0, "A16 (serving: load generator)"),
     "arrival": ("poisson", "A16 (serving: load generator)"),
     "rate": (100.0, "A16 (serving: load generator)"),
@@ -65,8 +69,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV-pool slots (default: --batch)")
     ap.add_argument("--flush-tokens", type=int, default=8,
                     help="decode tokens per host flush")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-step", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="load params from this checkpoint dir (a training "
+                         "FLState checkpoint works: its 'params/' keys "
+                         "are matched)")
+    ap.add_argument("--ckpt-step", type=int, default=None,
+                    help="checkpoint step to load (default: the newest)")
     ap.add_argument("--loadgen", type=int, default=0)
     ap.add_argument("--arrival", choices=("poisson", "closed"),
                     default="poisson")
@@ -108,8 +116,8 @@ def cache_len_for_request(full_len: int, window, roll_cache: bool) -> int:
 
 def run(args) -> dict:
     """Serve one batch; returns {"tokens": (B, gen) int32 array,
-    "tok_per_s": float, "metrics": engine counters, "history": the
-    engine's per-flush records}."""
+    "tok_per_s": float, "ckpt_step": int or None, "metrics": engine
+    counters, "history": the engine's per-flush records}."""
     check_ported(args)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -117,25 +125,39 @@ def run(args) -> dict:
         cfg = cfg.reduced()
     model = build_model(cfg, torch.float32)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    ckpt_step = None
+    if args.ckpt_dir:
+        params, ckpt_step = restore_params(args.ckpt_dir, params,
+                                           step=args.ckpt_step)
+        print(f"loaded params from {args.ckpt_dir} step {ckpt_step}")
 
+    toks, dt, engine = decode(model, params, args)
+    B, gen = args.batch, args.gen
+    print(f"decoded {gen} tokens x {B} on {dev.type} in {dt:.2f}s "
+          f"({gen * B / max(dt, 1e-9):.1f} tok/s, "
+          f"{engine.stats['flushes']} flushes)")
+    print("sample:", toks[0][:16].tolist())
+    return {"tokens": toks, "tok_per_s": gen * B / max(dt, 1e-9),
+            "ckpt_step": ckpt_step, "metrics": engine.metrics(),
+            "history": engine.history}
+
+
+def decode(model, params, args):
+    """The CLI's batch of ``args.batch`` prompts (drawn from
+    ``args.seed``) decoded with ``params`` -> ((B, gen) int32 tokens,
+    seconds, the engine)."""
     B, S, gen = args.batch, args.prompt_len, args.gen
     cache_len = cache_len_for_request(S + gen, args.window, args.roll_cache)
     engine = DecodeEngine(model, params, slots=args.slots or B,
                           cache_len=cache_len,
                           flush_tokens=args.flush_tokens, window=args.window)
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    prompts = rng.integers(0, model.cfg.vocab_size, (B, S)).astype(np.int32)
     rids = [engine.submit(prompts[i], gen) for i in range(B)]
     t0 = time.perf_counter()
     done = {c.request_id: c.tokens for c in engine.run_until_idle()}
     dt = time.perf_counter() - t0
-    toks = np.stack([done[r] for r in rids])
-    print(f"decoded {gen} tokens x {B} on {dev.type} in {dt:.2f}s "
-          f"({gen * B / max(dt, 1e-9):.1f} tok/s, "
-          f"{engine.stats['flushes']} flushes)")
-    print("sample:", toks[0][:16].tolist())
-    return {"tokens": toks, "tok_per_s": gen * B / max(dt, 1e-9),
-            "metrics": engine.metrics(), "history": engine.history}
+    return np.stack([done[r] for r in rids]), dt, engine
 
 
 def main(argv=None) -> dict:

@@ -54,9 +54,35 @@ copy per fused block, or per ``--log-every`` rounds in the host loop.
       --task easy --rounds 4 --rounds-per-call 2 --telemetry \\
       --events /tmp/e.jsonl --profile 1
 
-Flags of features not ported yet exit with an error naming their
-ROADMAP item, and so do the async presets (the FedBuff buffer, A10) and
-the fleet presets (the fleet loop, A14).
+Async presets (``zipf_async``, ``byzantine_async``) aggregate through
+the FedBuff buffer and take the flat engine by themselves.
+
+``--num-registered M`` switches on the FLEET regime
+(``core.fed_loop.make_fleet_loop`` and ``federation.arena``): M
+registered clients, cohorts of ``--participation``·M drawn over all of
+them each round, per-client state (round-end η, participation counters,
+the EF21 slab under ``--error-feedback``) in a ``ClientArena`` on the
+device, indexed by registered id. Registered client i trains on data
+partition ``i % num_clients``. The ``fleet_uniform`` and ``fleet_zipf``
+presets carry M = 100,000 and p = 0.0005 (C = 50), which apply when the
+flags are not given; ``--eta-carry`` warm-starts a returning client's
+η₀ from its arena row. The fleet always runs the fused loop.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --task image \\
+      --model cnn --rounds 8 --rounds-per-call 4 --scenario fleet_zipf \\
+      --eta-carry --telemetry
+
+``--ckpt-dir DIR`` saves the FLState (``repro_torch.checkpoint``, the
+reference's on-disk format) every ``--ckpt-every`` rounds and always
+after the last one, keyed on the round counter; a fused run saves at the
+first block boundary at or after each hit, and a fleet run saves its
+arena beside it in ``DIR/arena``. ``--resume`` restores the newest
+checkpoint (and the arena saved at the same round) and runs
+``--rounds`` more rounds; the data draws are keyed on the round, so the
+resumed run equals an uninterrupted one bitwise.
+
+Flags of features not ported yet (the LM path, ROADMAP A15) exit with
+an error naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -64,21 +90,25 @@ import argparse
 import json
 import os
 import time
+import warnings
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.compression import CompressionSpec
 from repro_torch.configs import CNN_PAPER, MLP_SMALL, MLP_WIDE, FLConfig
 from repro_torch.core import (CLIENT_OPTS, SERVER_OPTS, arena_gather,
                               flatten_fl_state, get_client_opt,
                               get_server_opt, init_fl_state, make_fl_loop,
-                              make_fl_round, make_loss, unflatten_fl_state)
+                              make_fl_round, make_fleet_loop, make_loss,
+                              unflatten_fl_state)
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.data.synthetic import get_task
 from repro_torch.device import resolve_device
-from repro_torch.federation import cohort_size, get_scenario
+from repro_torch.federation import (ClientArena, arena_init, cohort_size,
+                                    get_scenario)
 from repro_torch.launch.report import scenario_summary
 from repro_torch.models.small import accuracy, make_small_model, softmax_ce
 from repro_torch.telemetry import (EventLog, SpanTimer,
@@ -99,11 +129,6 @@ _NOT_PORTED = {
     "clients_per_round": (4, "A15 (LM zoo)"),
     "local_steps": (4, "A15 (LM zoo)"),
     "seq": (256, "A15 (LM zoo)"),
-    "num_registered": (None, "A14 (fleet)"),
-    "eta_carry": (False, "A14 (fleet)"),
-    "ckpt_dir": (None, "A9 (checkpointing)"),
-    "ckpt_every": (20, "A9 (checkpointing)"),
-    "resume": (False, "A9 (checkpointing)"),
 }
 
 
@@ -111,6 +136,7 @@ class TrainResult(NamedTuple):
     state: object              # final FLState
     history: List[dict]        # per-round metric rows, numpy f32 scalars
     test_acc: float
+    arena: object = None       # the fleet's final ClientArena, else None
 
 
 def check_ported(args) -> None:
@@ -124,8 +150,7 @@ def check_ported(args) -> None:
 
 def resolve_scenario(args):
     """The preset with the run's --seed threaded in; --robust-agg and
-    --quorum fold onto it (and promote a bare run to sync_iid). Async and
-    fleet presets exit naming their ROADMAP item."""
+    --quorum fold onto it (and promote a bare run to sync_iid)."""
     overrides = {}
     if args.robust_agg != "mean":
         overrides["robust_agg"] = args.robust_agg
@@ -133,17 +158,23 @@ def resolve_scenario(args):
         overrides["quorum"] = args.quorum
     if not args.scenario and not overrides:
         return None
-    scn = get_scenario(args.scenario or "sync_iid", seed=args.seed,
-                       **overrides)
-    if scn.is_async:
-        raise SystemExit(f"--scenario {scn.name} aggregates asynchronously: "
-                         "the FedBuff buffer is not ported to repro_torch "
-                         "yet, it comes with ROADMAP A10")
-    if scn.registered_hint is not None or scn.participation_hint is not None:
-        raise SystemExit(f"--scenario {scn.name} runs the fleet loop, which "
-                         "is not ported to repro_torch yet: it comes with "
-                         "ROADMAP A14")
-    return scn
+    return get_scenario(args.scenario or "sync_iid", seed=args.seed,
+                        **overrides)
+
+
+def resolve_fleet(args, scn):
+    """(num_registered, participation) of the run. --num-registered and
+    --participation win; otherwise a fleet preset's ``registered_hint``
+    and ``participation_hint`` apply (so ``--scenario fleet_uniform``
+    alone turns the fleet regime on); otherwise no fleet (None) and
+    participation 0.1."""
+    m = args.num_registered
+    if m is None and scn is not None:
+        m = scn.registered_hint
+    p = args.participation
+    if p is None and scn is not None and scn.participation_hint:
+        p = scn.participation_hint
+    return m, (0.1 if p is None else p)
 
 
 def resolve_compression(args) -> CompressionSpec:
@@ -291,18 +322,19 @@ class PaperTask(NamedTuple):
     scenario: object           # resolved Scenario, or None
     compression: CompressionSpec
     cohort: int                # C, clients per round
+    num_registered: Optional[int]  # the fleet's C_registered, or None
 
 
 def setup_paper_task(args) -> PaperTask:
     check_ported(args)
     scn = resolve_scenario(args)
     device = resolve_device(args.device)
+    num_reg, participation = resolve_fleet(args, scn)
     task = get_task(args.task, seed=args.seed)
     fed = FederatedDataset.build(task, num_clients=args.num_clients,
                                  alpha=args.alpha, seed=args.seed,
-                                 scenario=scn)
+                                 scenario=scn, num_registered=num_reg)
     init_fn, logits_fn = make_small_model(MODELS[args.model])
-    participation = 0.1 if args.participation is None else args.participation
     fl = FLConfig(client_opt=args.client_opt, server_opt=args.server_opt,
                   lr=args.lr, fedprox_mu=args.fedprox_mu,
                   num_clients=args.num_clients, participation=participation)
@@ -315,13 +347,18 @@ def setup_paper_task(args) -> PaperTask:
                      tree_map(lambda t: t.to(device), init_fn(args.seed)),
                      fed.epoch_steps(args.batch), participation, scn,
                      resolve_compression(args),
-                     cohort_size(participation, args.num_clients))
+                     cohort_size(participation, fed.registered_clients),
+                     num_reg)
 
 
 def init_state(pt: PaperTask):
-    """The run's initial FLState, with the EF21 slab when it needs one."""
+    """The run's initial FLState: with the async buffer under an async
+    scenario, and with the cohort's EF21 tree under error feedback, but
+    not in the fleet regime, whose EF21 rows live in the arena."""
+    fleet = pt.num_registered is not None
     return init_fl_state(pt.params, pt.server_opt, pt.scenario,
-                         compression=pt.compression, cohort=pt.cohort)
+                         compression=None if fleet else pt.compression,
+                         cohort=pt.cohort)
 
 
 def _round_kw(pt: PaperTask, args) -> dict:
@@ -332,52 +369,146 @@ def _round_kw(pt: PaperTask, args) -> dict:
                 compression=pt.compression, telemetry=args.telemetry)
 
 
-def make_fused_loop(pt: PaperTask, args):
-    """The round-fused loop of a run and its device-resident arena: each
-    R-round block ships only (R, C, K, b) gather indices."""
-    loop = make_fl_loop(pt.loss_fn, pt.client_opt, pt.server_opt,
-                        params_like=pt.params, num_rounds=args.rounds,
-                        rounds_per_call=args.rounds_per_call,
-                        gather=arena_gather, **_round_kw(pt, args))
-    arena = {k: torch.from_numpy(v).to(pt.device)
-             for k, v in pt.fed.arena().items()}
-    return loop, arena
+class BlockRunner:
+    """The round-fused loop of a run (the fleet loop in the fleet
+    regime) with what it carries beside the FLState: the example arena,
+    staged on the device once, and in the fleet regime the
+    ``ClientArena`` (``clients``: per registered client the η carry,
+    the participation counters and, under active error feedback, the
+    (C_registered, N) EF21 slab), restored with --resume from the
+    checkpoint of round ``round0``. ``stage(round0, R)`` makes a block's
+    draws on the host (the data pipeline's cohort and example draws)
+    and copies its (R, C, K, b) gather indices, and in the fleet its
+    (R, C) cohort ids, to the device; ``runner(fstate, staged)`` runs
+    the block -> (fstate, metrics stacked over its R rounds)."""
+
+    def __init__(self, pt: PaperTask, args, round0: int = 0):
+        self.pt, self.batch = pt, args.batch
+        self.clients = None
+        if pt.num_registered is not None:
+            self.loop = make_fleet_loop(
+                pt.loss_fn, pt.client_opt, pt.server_opt,
+                params_like=pt.params, num_rounds=args.rounds,
+                num_registered=pt.fed.registered_clients,
+                rounds_per_call=max(1, args.rounds_per_call),
+                scenario=pt.scenario, compression=pt.compression,
+                gather=arena_gather, eta_carry=args.eta_carry,
+                telemetry=args.telemetry)
+            use_ef = (pt.compression.error_feedback
+                      and pt.compression.active(pt.scenario))
+            self.clients = _maybe_resume_arena(args, arena_init(
+                pt.fed.registered_clients, eta0=self.loop.eta0,
+                ef_width=self.loop.layout.padded_size if use_ef else None,
+                device=pt.device), round0)
+        else:
+            self.loop = make_fl_loop(
+                pt.loss_fn, pt.client_opt, pt.server_opt,
+                params_like=pt.params, num_rounds=args.rounds,
+                rounds_per_call=args.rounds_per_call, gather=arena_gather,
+                **_round_kw(pt, args))
+        self.layout = self.loop.layout
+        self.examples = {k: torch.from_numpy(v).to(pt.device)
+                         for k, v in pt.fed.arena().items()}
+
+    def stage(self, round0: int, rounds: int):
+        pt = self.pt
+        idx, _, ids = pt.fed.sample_block(pt.participation, pt.local_steps,
+                                          self.batch, round0=round0,
+                                          rounds=rounds)
+        idx = torch.from_numpy(idx).to(pt.device)
+        if self.clients is None:
+            return idx, None
+        return idx, torch.from_numpy(ids.astype(np.int32)).to(pt.device)
+
+    def __call__(self, fstate, staged):
+        idx, ids = staged
+        if self.clients is None:
+            return self.loop(fstate, idx, arena=self.examples)
+        (fstate, self.clients), mets = self.loop(
+            (fstate, self.clients), idx, arena=self.examples,
+            cohort_ids=ids)
+        return fstate, mets
 
 
-def block_indices(pt: PaperTask, args, round0: int, rounds: int):
-    idx, _, _ = pt.fed.sample_block(pt.participation, pt.local_steps,
-                                    args.batch, round0=round0, rounds=rounds)
-    return torch.from_numpy(idx).to(pt.device)
+def _arena_dir(ckpt_dir: str) -> str:
+    """Fleet-arena checkpoints live in a subdirectory of the FLState
+    checkpoint dir: ``latest_step`` and the keep-newest GC see only
+    ``step_*`` entries, so the two streams never see each other."""
+    return os.path.join(ckpt_dir, "arena")
+
+
+def _save(args, state, spans, arena=None) -> None:
+    """Checkpoint ``state`` (and the fleet ``arena``) at step
+    ``state.round``: saves are keyed on completed rounds, not on the
+    loop index, so after a --resume the new saves sort above the old."""
+    with spans.span("ckpt"):
+        save(args.ckpt_dir, state, step=state.round)
+        if arena is not None:
+            save(_arena_dir(args.ckpt_dir), arena, step=state.round)
+
+
+def _maybe_resume(args, state):
+    """With --resume and a checkpoint under --ckpt-dir: the newest one,
+    restored into ``state``'s structure (buffer and EF21 tree included)."""
+    if args.ckpt_dir and args.resume and latest_step(args.ckpt_dir) \
+            is not None:
+        state, step = restore(args.ckpt_dir, like=state)
+        print(f"resumed from checkpoint step {step} (round {state.round})",
+              flush=True)
+    return state
+
+
+def _maybe_resume_arena(args, arena: ClientArena, round_: int):
+    """The fleet arena saved beside the FLState checkpoint at round
+    ``round_``. A cold arena, with a warning, when that checkpoint has
+    none (saved before a fleet run); a different shape (another
+    --num-registered or --error-feedback) raises."""
+    if not (args.ckpt_dir and args.resume):
+        return arena
+    adir = _arena_dir(args.ckpt_dir)
+    newest = latest_step(adir)
+    if newest is None:
+        return arena
+    if not os.path.isdir(os.path.join(adir, f"step_{round_:08d}")):
+        warnings.warn(f"no arena checkpoint at round {round_} under {adir} "
+                      f"(latest is {newest}): resuming with a cold arena, "
+                      "η warm starts and participation counters reset")
+        return arena
+    arena, step = restore(adir, like=arena, step=round_)
+    print(f"resumed fleet arena from step {step}", flush=True)
+    return arena
 
 
 def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
-    """R-round blocks of the fused loop. The block boundary is the host
-    sync point: one device-to-host copy for the block's metric rows,
-    and the event log flushes there. ``--profile r`` runs the block that
-    holds (1-based) round r under ``torch.profiler`` and emits its
-    kernel launches as a ``static`` event. Returns the final FLState."""
-    loop, arena = make_fused_loop(pt, args)
+    """R-round blocks of the fused loop (``BlockRunner``). The block
+    boundary is the host sync point: one device-to-host copy for the
+    block's metric rows, and the event log flushes there. It is also the
+    checkpoint cadence: a save lands on the first boundary at or after
+    each --ckpt-every hit, and after the last block. ``--profile r``
+    runs the block that holds (1-based) round r under ``torch.profiler``
+    and emits its kernel launches as a ``static`` event. Returns the
+    final FLState and the fleet's ClientArena (None outside the
+    fleet)."""
+    run = BlockRunner(pt, args, state.round)
     with spans.span("pack"):
-        fstate = flatten_fl_state(state, loop.layout)
+        fstate = flatten_fl_state(state, run.layout)
+    R = max(1, args.rounds_per_call)
     base, t, profiled = state.round, 0, False
     while t < args.rounds:
-        n = min(args.rounds_per_call, args.rounds - t)
+        n = min(R, args.rounds - t)
         with spans.span("stage"):
-            idx = block_indices(pt, args, fstate.round, n)
+            staged = run.stage(fstate.round, n)
         do_profile = (args.profile > 0 and not profiled
                       and t <= args.profile - 1 < t + n)
-
-        def call(fs=fstate, ix=idx):
-            return loop(fs, ix, arena=arena)
-
         with spans.span("block_execute"):
             if do_profile:
                 before = kernel_launch_snapshot(pt.device.type)
-                fstate, mets = trace_block(call, args.profile_dir)
+                fstate, mets = trace_block(
+                    lambda fs=fstate: run(fs, staged), args.profile_dir)
                 after = kernel_launch_snapshot(pt.device.type)
                 profiled = True
             else:
-                fstate, mets = call()
+                fstate, mets = run(fstate, staged)
         if do_profile:
             static = static_telemetry(rounds=n, launches={
                 k: v - before.get(k, 0) for k, v in after.items()
@@ -394,20 +525,26 @@ def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
         if events is not None:
             events.flush()
         t += n
+        hit = any(t0 % args.ckpt_every == 0 for t0 in range(t - n, t))
+        if args.ckpt_dir and (hit or t >= args.rounds):
+            _save(args, unflatten_fl_state(fstate, run.layout), spans,
+                  run.clients)
     if args.profile > 0 and not profiled:
         print(f"--profile {args.profile}: no block contained that round "
               f"(run is {args.rounds} rounds); no trace captured",
               flush=True)
     with spans.span("unpack"):
-        return unflatten_fl_state(fstate, loop.layout)
+        return unflatten_fl_state(fstate, run.layout), run.clients
 
 
 def _run_host(pt: PaperTask, args, state, on_round, events, spans):
-    """Rounds one at a time: on the flat engine with ``--flat`` or active
-    compression, else on the vmap engine (the reference's rule). Metric
-    rows buffer on the device and reach the host once per
-    ``--log-every`` rounds."""
-    flat = args.flat or pt.compression.active(pt.scenario)
+    """Rounds one at a time: on the flat engine with ``--flat``, active
+    compression or an async scenario, else on the vmap engine (the
+    reference's rule). Metric rows buffer on the device and reach the
+    host once per ``--log-every`` rounds. With --ckpt-dir every
+    --ckpt-every-th round and the last one are saved."""
+    flat = (args.flat or pt.compression.active(pt.scenario)
+            or (pt.scenario is not None and pt.scenario.is_async))
     round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
                              num_rounds=args.rounds, flat=flat,
                              **_round_kw(pt, args))
@@ -422,16 +559,19 @@ def _run_host(pt: PaperTask, args, state, on_round, events, spans):
         with spans.span("block_execute"):
             state, mets, _ = round_fn(state, batches)
         rlog.push(t, state.round - 1, mets, ids)
+        if args.ckpt_dir and (t % args.ckpt_every == 0
+                              or t == args.rounds - 1):
+            _save(args, state, spans)
     rlog.flush()
     return state
 
 
 def train_paper_task(args) -> TrainResult:
     pt = setup_paper_task(args)
-    state = init_state(pt)
+    state = _maybe_resume(args, init_state(pt))
     history: List[dict] = []
-    stats = (_ScenarioStats(pt.scenario, args.num_clients)
-             if (pt.scenario is not None
+    stats = (_ScenarioStats(pt.scenario, pt.fed.registered_clients)
+             if (pt.scenario is not None or pt.num_registered is not None
                  or pt.compression.active(pt.scenario) or args.telemetry)
              else None)
     events = (EventLog(args.events, config=vars(args), device=pt.device)
@@ -444,13 +584,17 @@ def train_paper_task(args) -> TrainResult:
         if stats is not None:
             stats.update(ids, row)
         if t % max(1, args.rounds // 10) == 0 or t == args.rounds - 1:
+            fleet = (f" revisit {float(row['revisit_frac']):.2f}"
+                     if "revisit_frac" in row else "")
             print(f"round {t:4d} loss {float(row['loss']):.4f} "
-                  f"eta {float(row['eta_mean']):.4f}{_health_str(row)} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+                  f"eta {float(row['eta_mean']):.4f}{fleet}"
+                  f"{_health_str(row)} ({time.time() - t0:.1f}s)",
+                  flush=True)
 
-    if args.rounds_per_call > 1:
-        state = _run_fused(pt, args, state, log_round, events, spans)
+    if args.rounds_per_call > 1 or pt.num_registered is not None:
+        state, car = _run_fused(pt, args, state, log_round, events, spans)
     else:
+        car = None
         state = _run_host(pt, args, state, log_round, events, spans)
 
     with spans.span("eval"):
@@ -465,7 +609,7 @@ def train_paper_task(args) -> TrainResult:
     print(f"final test-acc {acc:.4f}", flush=True)
     _finish_run(events, spans, bool(args.telemetry or args.events
                                     or args.profile))
-    return TrainResult(state, history, acc)
+    return TrainResult(state, history, acc, car)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -479,16 +623,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", default="mlp", choices=sorted(MODELS))
     ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--num-clients", type=int, default=100)
-    ap.add_argument("--num-registered", type=int, default=None)
+    ap.add_argument("--num-registered", type=int, default=None,
+                    help="fleet regime: C_registered clients the cohort "
+                         "is drawn over; registered client i trains on "
+                         "data partition i %% num_clients. Defaults to a "
+                         "fleet preset's 100,000, else no fleet")
     ap.add_argument("--participation", type=float, default=None,
-                    help="participation rate p (|S_t| = p*m), default 0.1")
+                    help="participation rate p (|S_t| = p*m); defaults to "
+                         "a fleet preset's 0.0005, else 0.1")
     ap.add_argument("--alpha", type=float, default=0.1)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--client-opt", default="delta_sgd",
                     choices=CLIENT_OPTS)
     ap.add_argument("--server-opt", default="fedavg", choices=SERVER_OPTS)
     ap.add_argument("--scenario", default=None,
-                    help="synchronous federation preset "
+                    help="federation preset "
                          "(repro_torch.federation.scenarios)")
     ap.add_argument("--out", default=None,
                     help="write the scenario report JSON here")
@@ -512,9 +661,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host loop on the flat Δ-SGD engine (the engine "
                          "--rounds-per-call fuses, for bitwise parity "
                          "runs) instead of the vmap engine")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint the FLState here (the fleet arena in "
+                         "its arena/ subdirectory)")
     ap.add_argument("--ckpt-every", type=int, default=20)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint under "
+                         "--ckpt-dir for --rounds more rounds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--telemetry", action="store_true",
                     help="the round's telemetry block (repro_torch."
@@ -535,7 +688,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch.profiler trace output directory")
     ap.add_argument("--k-frac", type=float, default=0.25)
     ap.add_argument("--error-feedback", action="store_true")
-    ap.add_argument("--eta-carry", action="store_true")
+    ap.add_argument("--eta-carry", action="store_true",
+                    help="fleet: warm-start a returning client's eta0 from "
+                         "its arena row (off: Algorithm 1's reset)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--d-model", type=int, default=512)

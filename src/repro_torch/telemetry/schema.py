@@ -2,10 +2,13 @@
 metric name the round engines emit.
 
 Port of ``repro/telemetry/schema.py``, with the reference's 39
-registrations copied as data, those whose producers the port does not
-have yet included (their producer strings name the reference's modules,
-so ``markdown_table`` renders the reference's table). Consumers stop
-hardcoding key lists:
+registrations copied as data (their producer strings name the
+reference's modules, so ``markdown_table`` renders the reference's
+table); the async tail's keys (``stale_mean``, ``stale_max``,
+``buffer_fill``, ``flushed``, ``overstale_frac``) and the fleet loop's
+(``revisit_frac``, ``realized_stale_mean``, ``eta_carry_mean``) among
+them, so the scenario report has the reference's columns. Consumers
+stop hardcoding key lists:
 
   * ``launch/train._ScenarioStats`` collects every registered metric
     and warns ONCE per unregistered producer name instead of dropping

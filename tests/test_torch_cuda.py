@@ -21,8 +21,10 @@ from repro_torch.kernels.telemetry import telemetry as tt
 pytestmark = pytest.mark.cuda
 
 # a ragged last norms block, a single 128-lane row, the paper's CNN
-# width, many clients on a short row, a long row
-SHAPES = [(3, 128 * 67), (1, 128), (10, 71808), (200, 1024), (10, 2 ** 20)]
+# width, the CNN at the fleet's cohort of 50, many clients on a short
+# row, a long row
+SHAPES = [(3, 128 * 67), (1, 128), (10, 71808), (50, 71808), (200, 1024),
+          (10, 2 ** 20)]
 
 
 @pytest.fixture
@@ -702,7 +704,7 @@ def _telemetry_lanes(C, seed, dev, nan=True):
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize("C", [1, 10, 1000, 2048, 2049, 16384, 16385,
+@pytest.mark.parametrize("C", [1, 10, 50, 1000, 2048, 2049, 16384, 16385,
                                100000])
 def test_telemetry_kernels_equal_their_plain_versions(C, dev):
     from repro_torch.kernels.telemetry import ref as ttref
@@ -887,12 +889,12 @@ def test_telemetry_path_is_bitwise_neutral_and_sync_free(dev, tmp_path):
             common + ["--rounds-per-call", "2"] +
             (["--telemetry"] if telemetry else []))
         pt = train.setup_paper_task(args)
-        loop, arena = train.make_fused_loop(pt, args)
-        fs = flatten_fl_state(train.init_state(pt), loop.layout)
-        fs, _ = loop(fs, train.block_indices(pt, args, 0, 2), arena=arena)
-        idx = train.block_indices(pt, args, 2, 2)
+        run = train.BlockRunner(pt, args)
+        fs = flatten_fl_state(train.init_state(pt), run.layout)
+        fs, _ = run(fs, run.stage(0, 2))
+        staged = run.stage(2, 2)
         torch.cuda.synchronize()
-        return lambda: loop(fs, idx, arena=arena)
+        return lambda: run(fs, staged)
 
     def syncs(block):
         with warnings.catch_warnings(record=True) as caught:
@@ -1025,3 +1027,126 @@ def test_vmap_round_makes_no_host_sync(dev, client_opt, kw, scenario):
     assert [str(w.message) for w in caught
             if "synchroniz" in str(w.message)] == []
     assert np.isfinite(metrics["loss"].item())
+
+
+# ------------------------------------------- async, fleet and resume
+def _train(*flags, device="cuda"):
+    from repro_torch.launch import train
+    return train.main(["--device", device, "--task", "easy", "--model",
+                       "mlp", "--num-clients", "20", "--batch", "128",
+                       "--seed", "0", *flags])
+
+
+def _same_state(a, b):
+    from repro_torch.utils.tree import tree_leaves
+    leaves = [tree_leaves(s.params) + tree_leaves(s.server_state)
+              + ([] if s.buffer is None else tree_leaves(s.buffer.delta)
+                 + list(s.buffer[1:])) for s in (a, b)]
+    return a.round == b.round and all(
+        torch.equal(x, y) for x, y in zip(*leaves))
+
+
+@pytest.mark.parametrize("name", ["zipf_async", "byzantine_async"])
+def test_async_presets_on_the_card(name, dev):
+    """C = 5 against M = 8, so rounds hold and flush: 2·K·R Δ-SGD
+    launches; fused == host loop bitwise (params, server state, buffer,
+    metrics); round 0 = the CPU within 1e-4."""
+    K, R = 500 // 128, 4
+    flags = ["--scenario", name, "--participation", "0.25", "--rounds",
+             str(R)]
+    tk.reset_launch_count()
+    fused = _train(*flags, "--rounds-per-call", "2")
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {("batched_norms", "cuda"): K * R,
+                           ("batched_apply", "cuda"): K * R}
+    host = _train(*flags, "--flat")
+    assert _same_state(fused.state, host.state)
+    for a, b in zip(fused.history, host.history):
+        assert a.keys() == b.keys()
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+    assert 0 < sum(float(r["flushed"]) for r in fused.history) < R
+    cpu = _train(*flags[:-1], "1", device="cpu")
+    for k in ("loss", "eta_mean"):
+        assert float(fused.history[0][k]) == pytest.approx(
+            float(cpu.history[0][k]), rel=1e-4), k
+
+
+def test_plain_async_tail_fused_block_makes_no_host_sync(dev):
+    """zipf_async's fused block, its draws staged beforehand, syncs the
+    host nowhere: the staleness draw is queued to the card and the
+    buffer's flush or hold is selected there."""
+    import warnings
+    from repro_torch.core import flatten_fl_state
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(
+        ["--device", "cuda", "--task", "easy", "--model", "mlp",
+         "--num-clients", "20", "--batch", "128", "--scenario",
+         "zipf_async", "--participation", "0.25", "--rounds-per-call",
+         "2"])
+    pt = train.setup_paper_task(args)
+    run = train.BlockRunner(pt, args)
+    fs = flatten_fl_state(train.init_state(pt), run.layout)
+    fs, _ = run(fs, run.stage(0, 2))
+    staged = run.stage(2, 2)
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(2):      # the first pass takes once-a-process reports
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(fs, staged)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchronizing" in str(w.message)
+                          for w in caught))
+    assert counts[1] == 0
+
+
+def test_fleet_preset_on_the_card_touches_only_the_drawn_rows(dev):
+    """fleet_zipf at its scale (100,000 registered, C = 50) with the η
+    carry and telemetry: 2·K·R Δ-SGD launches and one histogram and one
+    quantiles launch a round; every row outside the drawn cohorts keeps
+    arena_init's bits; rounds_seen sums to C·R."""
+    from repro_torch.kernels.telemetry import telemetry as tt
+    K, R = 500 // 128, 4
+    tk.reset_launch_count()
+    tt.reset_launch_count()
+    out = _train("--scenario", "fleet_zipf", "--rounds", str(R),
+                 "--rounds-per-call", "2", "--eta-carry", "--telemetry")
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {("batched_norms", "cuda"): K * R,
+                           ("batched_apply", "cuda"): K * R}
+    assert tt.LAUNCHES == {("lane_histogram", "cuda"): R,
+                           ("lane_quantiles", "cuda"): R}
+    ids = np.concatenate([r["cohort_ids"] for r in out.history])
+    assert ids.shape == (50 * R,)
+    seen = np.zeros(100_000, bool)
+    seen[ids] = True
+    ar = out.arena
+    assert ar.eta.device.type == "cuda"
+    assert int(ar.rounds_seen.sum()) == 50 * R
+    np.testing.assert_array_equal(ar.eta.cpu().numpy()[~seen],
+                                  np.float32(0.2))
+    np.testing.assert_array_equal(ar.rounds_seen.cpu().numpy()[~seen], 0)
+    np.testing.assert_array_equal(ar.last_round.cpu().numpy()[~seen], -1)
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--scenario", "zipf_async", "--participation", "0.5"],
+    ["--scenario", "fleet_uniform", "--num-registered", "1000",
+     "--participation", "0.05", "--eta-carry"]],
+    ids=["plain", "zipf_async", "fleet_uniform"])
+def test_resume_on_the_card_is_bitwise(flags, dev, tmp_path):
+    def run(ckpt, rounds, *extra):
+        return _train(*flags, "--rounds", str(rounds), "--rounds-per-call",
+                      "2", "--ckpt-dir", str(ckpt), "--ckpt-every", "2",
+                      *extra)
+    straight = run(tmp_path / "a", 4)
+    run(tmp_path / "b", 2)
+    resumed = run(tmp_path / "b", 2, "--resume")
+    assert _same_state(straight.state, resumed.state)
+    assert (straight.arena is None) == (resumed.arena is None)
+    if straight.arena is not None:
+        for x, y in zip(straight.arena, resumed.arena):
+            assert (x is None and y is None) or torch.equal(x, y)

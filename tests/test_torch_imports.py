@@ -65,7 +65,9 @@ def test_port_package_is_complete():
                 "telemetry/schema.py", "telemetry/events.py",
                 "telemetry/spans.py", "telemetry/profiling.py",
                 "launch/report.py", "conformance/__init__.py",
-                "conformance/kernels.py"):
+                "conformance/kernels.py", "checkpoint/__init__.py",
+                "checkpoint/checkpoint.py", "federation/buffer.py",
+                "federation/arena.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     for ns in ("delta_sgd", "compress", "robust_agg", "flash_attention",

@@ -221,13 +221,42 @@ def test_cli_window_needs_roll_cache_like_the_reference():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "x"], "A9"), (["--ckpt-step", "3"], "A9"),
+    (["--ckpt-dir", "x", "--loadgen", "4"], "A16"),
+    (["--ckpt-step", "3", "--personalize", "2"], "A16"),
     (["--loadgen", "4"], "A16"), (["--arrival", "closed"], "A16"),
     (["--rate", "5"], "A16"), (["--personalize", "2"], "A16"),
     (["--events", "e.jsonl"], "A16")])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         serve.run(_args(*flags))
+
+
+def test_cli_serves_params_from_a_checkpoint(tmp_path):
+    """--ckpt-dir loads the params of a training-style checkpoint
+    (``params/...`` keys beside a round counter): the saved init decodes
+    the in-memory run's tokens, a pinned --ckpt-step of changed params
+    decodes others, and another model's checkpoint is refused."""
+    from repro_torch.checkpoint import save
+    from repro_torch.utils.tree import tree_map
+    model = build_model(get_config("tinyllama-1.1b").reduced(),
+                        torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    d = str(tmp_path)
+    save(d, {"params": params, "round": 3}, step=3)
+    save(d, {"params": tree_map(lambda p: p * 1.5, params), "round": 5},
+         step=5)
+    mem = serve.run(_args())
+    got = serve.run(_args("--ckpt-dir", d, "--ckpt-step", "3"))
+    assert got["ckpt_step"] == 3 and mem["ckpt_step"] is None
+    np.testing.assert_array_equal(got["tokens"], mem["tokens"])
+    newest = serve.run(_args("--ckpt-dir", d))
+    assert newest["ckpt_step"] == 5
+    assert not np.array_equal(newest["tokens"], mem["tokens"])
+    with pytest.raises(KeyError, match="not in checkpoint step 5"):
+        serve.run(serve.build_parser().parse_args(
+            ["--device", "cpu", "--arch", "zamba2-7b", "--reduced",
+             "--batch", "2", "--prompt-len", "16", "--gen", "8",
+             "--ckpt-dir", d]))
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-1.3b",

@@ -158,24 +158,29 @@ def test_fused_loop_equals_host_loop_bitwise():
 
 
 def test_unported_arguments_name_their_roadmap_item():
+    """Mesh sharding (A17) and the LM path's flags (A15) are refused;
+    the fleet, async and checkpoint arguments are ported and pass the
+    CLI's check (their runs: test_torch_fleet.py, test_torch_async.py,
+    test_torch_checkpoint.py)."""
     loss = make_loss(lambda q, bt: (q["x"].sum(), {}))
     copt, sopt = get_client_opt("delta_sgd"), get_server_opt("fedavg")
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_fl_round(loss, copt, sopt, num_rounds=1,
-                      scenario=get_scenario("zipf_async"))
     with pytest.raises(NotImplementedError, match="A17"):
         make_fl_round(loss, copt, sopt, num_rounds=1, mesh=object())
-    with pytest.raises(SystemExit, match="A14"):
-        ttrain.main(["--task", "easy", "--num-registered", "1000",
-                     "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A9"):
-        ttrain.main(["--task", "easy", "--resume", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A9"):
-        ttrain.main(["--task", "easy", "--ckpt-dir", "x", "--device",
-                     "cpu"])
+    # async aggregation needs the flat engine, as in the reference
+    with pytest.raises(ValueError, match="flat engine"):
+        make_fl_round(loss, copt, sopt, num_rounds=1,
+                      scenario=get_scenario("zipf_async"))
+    for flags in (["--num-registered", "1000", "--eta-carry"],
+                  ["--resume", "--ckpt-dir", "x", "--ckpt-every", "3"],
+                  ["--scenario", "zipf_async"]):
+        ttrain.check_ported(ttrain.build_parser().parse_args(
+            ["--task", "easy", "--device", "cpu"] + flags))
     # flags the reference reads only on paths that are not ported
     with pytest.raises(SystemExit, match="A15"):
         ttrain.main(["--task", "easy", "--layers", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="A15"):
+        ttrain.main(["--task", "easy", "--seq", "16", "--device", "cpu",
+                     "--ckpt-dir", "x"])
 
 
 def test_cli_runs_on_cpu_and_fused_equals_flat():

@@ -290,23 +290,42 @@ def test_inert_settings_take_the_slice1_path(variant):
 
 @pytest.mark.parametrize("name", ["zipf_async", "byzantine_async"])
 def test_async_presets_name_the_fedbuff_item(name):
+    """The async presets run through the FedBuff buffer: the vmap engine
+    refuses them as the reference's does, the state carries the buffer,
+    and the CLI takes the flat engine by itself and reports the
+    buffer's metrics."""
     loss = make_loss(lambda q, bt: (q["x"].sum(), {}))
     copt, sopt = get_client_opt("delta_sgd"), get_server_opt("fedavg")
     scn = get_scenario(name)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="flat engine"):
         make_fl_round(loss, copt, sopt, num_rounds=1, scenario=scn)
-    with pytest.raises(NotImplementedError, match="A10"):
-        init_fl_state({"x": torch.zeros(2)}, sopt, scn)
-    with pytest.raises(SystemExit, match="A10"):
-        ttrain.main(["--task", "easy", "--scenario", name, "--device",
-                     "cpu"])
+    buf = init_fl_state({"x": torch.zeros(2)}, sopt, scn).buffer
+    assert buf.delta["x"].tolist() == [0.0, 0.0] and int(buf.count) == 0
+    out = ttrain.main(["--task", "easy", "--scenario", name, "--device",
+                       "cpu", "--rounds", "2", "--num-clients", "20",
+                       "--participation", "0.2", "--batch", "128"])
+    # C = 4 updates against M = 8: round 0 holds what it buffered
+    assert out.state.round == 2
+    assert float(out.history[0]["buffer_fill"]) > 0
+    assert float(out.history[0]["flushed"]) == 0.0
+    for row in out.history:
+        assert {"stale_mean", "stale_max", "buffer_fill",
+                "flushed"} <= set(row)
 
 
 @pytest.mark.parametrize("name", ["fleet_uniform", "fleet_zipf"])
 def test_cli_exits_on_fleet_presets(name):
-    with pytest.raises(SystemExit, match="A14"):
-        ttrain.main(["--task", "easy", "--scenario", name, "--device",
-                     "cpu"])
+    """The fleet presets run the fleet loop at their own scale: 100,000
+    registered clients, participation 0.0005, so C = 50."""
+    out = ttrain.main(["--task", "easy", "--scenario", name, "--device",
+                       "cpu", "--rounds", "2", "--num-clients", "20",
+                       "--batch", "256"])
+    assert out.state.round == 2
+    for row in out.history:
+        assert row["cohort_ids"].shape == (50,)
+        assert row["cohort_ids"].max() < 100_000
+        assert {"revisit_frac", "realized_stale_mean",
+                "eta_carry_mean"} <= set(row)
 
 
 def test_ef_state_crosses_over_from_the_reference():
@@ -317,8 +336,15 @@ def test_ef_state_crosses_over_from_the_reference():
                     tree_leaves(state.ef)):
         assert b.shape[0] == C and b.dtype == torch.float32
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-    with pytest.raises(NotImplementedError, match="A10"):
-        interop.fl_state_from_numpy(state0_np._replace(buffer=object()))
+    # the async buffer crosses too (test_torch_async.py fills one)
+    from repro.federation import buffer_init as r_buffer_init
+    with_buf = state0_np._replace(buffer=jax.device_get(r_buffer_init(
+        jax.tree.map(jnp.asarray, state0_np.params))))
+    back = interop.fl_state_to_numpy(interop.fl_state_from_numpy(with_buf))
+    assert int(back.buffer.count) == 0 and back.buffer.count.dtype == np.int32
+    for a, b in zip(jax.tree_util.tree_leaves(with_buf.buffer),
+                    jax.tree_util.tree_leaves(tuple(back.buffer))):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
 
 
 def test_cli_runs_scenario_compression_on_cpu():
@@ -346,14 +372,14 @@ def test_scenario_round_reports_cohort_and_wire_fields():
          "2", "--rounds-per-call", "2", "--num-clients", "20", "--scenario",
          "bandwidth_tiered", "--quorum", "1"])
     pt = ttrain.setup_paper_task(args)
-    loop, arena = ttrain.make_fused_loop(pt, args)
-    fstate = flatten_fl_state(ttrain.init_state(pt), loop.layout)
-    _, mets = loop(fstate, ttrain.block_indices(pt, args, 0, 2), arena=arena)
+    run = ttrain.BlockRunner(pt, args)
+    fstate = flatten_fl_state(ttrain.init_state(pt), run.layout)
+    _, mets = run(fstate, run.stage(0, 2))
     _, _, ids = pt.fed.sample_block(pt.participation, pt.local_steps,
                                     args.batch, round0=0, rounds=2)
     np.testing.assert_array_equal(mets["cohort_ids"].numpy(), ids)
     levels = [pt.scenario.draw_compression_levels(t, pt.cohort)
               for t in range(2)]
-    table = pt.compression.level_wire_bytes(loop.layout.size)
+    table = pt.compression.level_wire_bytes(run.layout.size)
     np.testing.assert_array_equal(mets["wire_bytes"].numpy(),
                                   [table[lv].sum() for lv in levels])

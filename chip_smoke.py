@@ -175,13 +175,41 @@ without its final line:
               dequantize_int8, topk_mask and the trimmed mean at (50,
               71,808) (the fleet's cohort) and the telemetry kernels at
               C = 50.
+  4e. LM training  the train CLI's LM path (``train.train_lm``, its
+              model cut in depth through ``setup_lm(args, cfg)``), Δ-SGD
+              + FedAvg, seed 0, random weights: TinyLlama-1.1B at full
+              width cut to 2 layers (N = 219,283,456 packed), C = 4, K =
+              2, b = 8, S = 256, 2 rounds: (a) the vmap engine (R = 1):
+              finite, no kernel launched (training takes the models'
+              plain route); (b) fused, 2 rounds a call: exactly K·rounds
+              batched_norms and batched_apply launches at (4, N), the
+              --flat host loop bitwise equal, round 0's loss within 1e-4
+              of (a)'s; the wall of a staged one-round block (3 blocks),
+              its device busy and idle share (profiler), training
+              tokens/s (C·K·b·S over the round's wall); batched_norms
+              and batched_apply on the run's own last-step slabs (norms
+              rtol 1e-5, apply bitwise), timed beside the plain version,
+              torch.addcmul and the bound; (c) --telemetry: one
+              histogram and one quantiles launch a round; (d) 2 rounds
+              then --resume for 2 == 4 rounds straight, bitwise.
+              TinyLlama whole (22 layers, C = 2, b = 1: a (2,
+              1,100,087,296) slab, past 2**31 elements), one fused round
+              with --ckpt-dir: its launches, the last client row's two
+              sums against f64 sums taken in slices (rtol 1e-5), the
+              pair timed on its slabs as above, the peak allocation;
+              (e) the serve CLI with --ckpt-dir on that checkpoint
+              decodes the trained params' tokens (44 flash-attention
+              launches for 2 requests), not those of its own init.
+              Zamba2-7B at full width cut to 7 layers (6 Mamba2 and the
+              shared block), C = 2, b = 2, one fused round: finite, its
+              launches, the peak allocation.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
-              launches by path, the vmap runs of 4c and the runs of 4d
-              among them) and,
+              launches by path, the vmap runs of 4c, the runs of 4d and
+              the LM runs of 4e among them) and,
               last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
@@ -334,6 +362,21 @@ RESUME_REGISTERED, RESUME_PARTICIPATION = 1000, "0.05"
 ASYNC_TIMED_BLOCKS = 6
 # the CNN's packed width (MAIN_SHAPE's N) at the fleet's cohort
 FLEET_SHAPE = (FLEET_C, 71808)
+# phase 4e, LM training (Δ-SGD + FedAvg, seed 0): TinyLlama at full
+# width cut to 2 layers, C = 4 clients of K = 2 steps on b = 8 sequences
+# of S = 256 tokens, 2 rounds a run; TinyLlama whole (22 layers, C·N past
+# 2**31) and Zamba2-7B at full width cut to 7 layers (6 Mamba2 and the
+# shared block), one fused round each; the rounds timed for 4e's wall
+LM_ARCH = "tinyllama-1.1b"
+LM_CUT = dict(layers=2, C=4, K=2, b=8, S=256)
+LM_DEEP = dict(layers=22, C=2, K=2, b=1, S=256)
+LM_ZAMBA = dict(layers=7, C=2, K=2, b=2, S=256)
+LM_ROUNDS = 2
+LM_TIMED_BLOCKS = 3
+# the f64 check of the 22-layer run's sums reads the row in slices of
+# LM_F64_SLICE elements; the run's slab must pass LM_PAST elements
+LM_F64_SLICE = 2 ** 26
+LM_PAST = 2 ** 31
 # serve paths: arch -> layers kept (None: all), the runs' request counts
 SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
@@ -1789,6 +1832,305 @@ def run_serve_checkpoint(torch, mods, smi):
     return launches
 
 
+def _lm_args(train, shape, rounds, *extra):
+    """The train CLI's parsed flags of an LM run of ``shape`` on cuda."""
+    return train.build_parser().parse_args([
+        "--arch", LM_ARCH, "--clients-per-round", str(shape["C"]),
+        "--local-steps", str(shape["K"]), "--batch", str(shape["b"]),
+        "--seq", str(shape["S"]), "--rounds", str(rounds), "--seed", "0",
+        "--device", "cuda", *extra])
+
+
+def _lm_cfg(arch, layers):
+    """``arch``'s full-width config with ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _lm_train(torch, mods, train, cfg, args):
+    """train_lm on ``cfg`` (the CLI's body, its model cut in depth) with
+    every count at 0 before -> (TrainResult, launches, peak GB)."""
+    _reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    out = train.train_lm(args, train.setup_lm(args, cfg))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for t, row in enumerate(out.history):
+        if not _finite(row):
+            raise AssertionError(f"LM round {t}: non-finite metrics {row}")
+    return out, _counts(mods), peak
+
+
+class _LastCall:
+    """Stands in for a kernel wrapper of ``mod`` and keeps the arguments
+    and result of its last call (the slabs of the main path's last local
+    step, for the checks and timings that follow the run)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.args = self.out = None
+
+    def __enter__(self):
+        def call(*args, **kw):
+            self.args, self.out = (args, kw), self.fn(*args, **kw)
+            return self.out
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+
+def _lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta, smi, what):
+    """batched_norms and batched_apply on the LM run's own (C, N) slabs:
+    held against their plain versions (norms rtol 1e-5, apply bitwise),
+    timed beside the plain version, torch.addcmul (the apply) and the
+    bound of the bytes they move. -> {(name, (C, N)): row}."""
+    C, N = g.shape
+    rows = {}
+    got = torch.stack(tk.batched_norms(g, gp))
+    want = torch.stack(tref.batched_norms_ref(g, gp))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    rows[("batched_norms", (C, N))] = dict(
+        name="batched_norms", shape=[C, N], path=what, card=smi,
+        max_abs_err=float((got - want).abs().max()),
+        ms=device_ms(lambda: tk.batched_norms(g, gp), torch),
+        plain_ms=device_ms(lambda: tref.batched_norms_ref(g, gp), torch),
+        library_ms=None, bytes=(2 * C * N + 2 * C) * 4,
+        bound_ms=max((2 * C * N + 2 * C) * 4 / bw, 5 * C * N / f32) * 1e3,
+        bound_by="bytes")
+    del want
+    work = p.clone()
+    got = tk.batched_apply(work, g, eta)
+    want = tref.batched_apply_ref(p, g, eta, None)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: batched_apply is not bitwise equal "
+                             "to the plain version")
+    err = float((got - want).abs().max())
+    del want
+    moved = 3 * C * N * 4 + C * 4
+    rows[("batched_apply", (C, N))] = dict(
+        name="batched_apply", shape=[C, N], path=what, card=smi,
+        max_abs_err=err,
+        ms=device_ms(lambda: tk.batched_apply(work, g, eta), torch),
+        plain_ms=device_ms(lambda: tref.batched_apply_ref(work, g, eta,
+                                                          None), torch),
+        library_ms=device_ms(
+            lambda: torch.addcmul(work, eta[:, None], g, value=-1), torch),
+        bytes=moved, bound_ms=max(moved / bw, 2 * C * N / f32) * 1e3,
+        bound_by="bytes")
+    del work
+    for row in rows.values():
+        row["gbps_achieved"] = (row["bound_ms"] / row["ms"]) * bw / 1e9
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def run_lm_train_path(torch, mods, train, tk, tref, bw, f32, smi):
+    """Phase 4e, LM training. Returns (launch counts by run, kernel rows
+    at the LM shapes)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core import flatten_fl_state
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    paths, rows = {}, {}
+    sh, R = LM_CUT, LM_ROUNDS
+    cfg = _lm_cfg(LM_ARCH, sh["layers"])
+    dsgd = lambda n: {("batched_norms", "cuda"): n,      # noqa: E731
+                      ("batched_apply", "cuda"): n}
+
+    # (a) the vmap engine, R = 1: the plain route, no kernel at all
+    vm, launches, peak = _lm_train(torch, mods, train, cfg,
+                                   _lm_args(train, sh, R))
+    if launches:
+        raise AssertionError(f"LM vmap engine launched {launches}")
+    paths["lm_train_vmap"] = launches
+
+    # (b) the fused flat engine, R = 2, against the --flat host loop
+    with _LastCall(tk, "batched_norms") as nrm, \
+            _LastCall(tk, "batched_apply") as app:
+        fused, launches, fpeak = _lm_train(
+            torch, mods, train, cfg,
+            _lm_args(train, sh, R, "--rounds-per-call", "2"))
+    if launches != dsgd(sh["K"] * R):
+        raise AssertionError(f"LM fused launched {launches}")
+    paths["lm_train_fused"] = launches
+    g, gp = nrm.args[0]
+    p, gapp, eta = app.args[0][0], app.args[0][1], app.args[0][2]
+    C, N = g.shape
+    if C != sh["C"]:
+        raise AssertionError(f"LM slab {tuple(g.shape)}")
+    host, _, _ = _lm_train(torch, mods, train, cfg,
+                           _lm_args(train, sh, R, "--flat"))
+    _state_equal(torch, fused.state, host.state, "LM fused vs host loop")
+    for t, (a, b) in enumerate(zip(fused.history, host.history)):
+        for k in a:
+            if a[k].tobytes() != b[k].tobytes():
+                raise AssertionError(f"LM round {t} {k}: fused != host")
+    l0v, l0f = float(vm.history[0]["loss"]), float(fused.history[0]["loss"])
+    if not math.isclose(l0v, l0f, rel_tol=1e-4):
+        raise AssertionError(f"LM round 0 loss: vmap {l0v} fused {l0f}")
+    print("lm train", json.dumps({
+        "card": smi, "arch": f"{LM_ARCH}[{sh['layers']}L]", "N": N,
+        "clients": C, "local_steps": sh["K"], "batch": sh["b"],
+        "seq": sh["S"], "rounds": R,
+        "loss_vmap": [float(r["loss"]) for r in vm.history],
+        "loss_fused": [float(r["loss"]) for r in fused.history],
+        "eta_fused": [float(r["eta_mean"]) for r in fused.history],
+        "fused_equals_host_bitwise": True,
+        "peak_gb_vmap": peak, "peak_gb_fused": fpeak}), flush=True)
+    del vm, host
+
+    # where the time goes at (4, N): blocks of one round, staged first
+    args = _lm_args(train, sh, R, "--rounds-per-call", "2")
+    lt = train.setup_lm(args, cfg)
+    run = train.LMBlockRunner(lt, args)
+    box = {"fs": flatten_fl_state(train.init_lm_state(lt), run.layout)}
+    staged = run.stage(0, 1)
+
+    def block():
+        box["fs"], _ = run(box["fs"], staged)
+    block()
+    torch.cuda.synchronize()
+    walls = [_host_ms(torch, block, 1) for _ in range(LM_TIMED_BLOCKS)]
+    wall, busy, split = _profile_ms(torch, block)
+    tokens = C * sh["K"] * sh["b"] * sh["S"]
+    print("lm train time", json.dumps({
+        "card": smi, "round_ms": walls,
+        "ms_per_local_step": statistics.median(walls) / sh["K"],
+        "tokens_per_round": tokens,
+        "train_tokens_per_s": tokens / (statistics.median(walls) / 1e3),
+        "profiled_round_ms": wall, "device_busy_ms": busy,
+        "idle_share": 1 - busy / wall}), flush=True)
+    print("lm train profile", json.dumps(split), flush=True)
+    del run, box, staged, lt
+    rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
+                                smi, "lm_train_fused"))
+    del g, gp, p, gapp, eta, nrm, app
+
+    # (c) telemetry: one histogram and one quantiles launch a round
+    _, launches, _ = _lm_train(
+        torch, mods, train, cfg,
+        _lm_args(train, sh, R, "--rounds-per-call", "2", "--telemetry"))
+    want = dsgd(sh["K"] * R)
+    want.update({("lane_histogram", "cuda"): R,
+                 ("lane_quantiles", "cuda"): R})
+    if launches != want:
+        raise AssertionError(f"LM telemetry launched {launches}")
+    paths["lm_train_telemetry"] = launches
+
+    # (d) resume: 2 rounds then --resume for 2 == 4 rounds straight
+    total = paths["lm_train_resume"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def go(ckpt, rounds, *extra):
+            out, got, _ = _lm_train(torch, mods, train, cfg, _lm_args(
+                train, sh, rounds, "--rounds-per-call", "2", "--ckpt-dir",
+                ckpt, "--ckpt-every", "2", *extra))
+            if got != dsgd(sh["K"] * rounds):
+                raise AssertionError(f"LM resume launched {got}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            return out
+        straight = go(f"{tmp}/straight", 2 * R)
+        go(f"{tmp}/cut", R)
+        resumed = go(f"{tmp}/cut", R, "--resume")
+        _state_equal(torch, straight.state, resumed.state, "LM resume")
+    print("lm train resume: 2 rounds + --resume 2 == 4 rounds straight, "
+          "bitwise", flush=True)
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+    # 2. TinyLlama whole: one fused round, C·N past 2**31; the last row's
+    # sums against f64; then (e) its checkpoint served by the serve CLI
+    sh = LM_DEEP
+    cfg = _lm_cfg(LM_ARCH, sh["layers"])
+    with tempfile.TemporaryDirectory() as tmp:
+        with _LastCall(tk, "batched_norms") as nrm, \
+                _LastCall(tk, "batched_apply") as app:
+            deep, launches, peak = _lm_train(torch, mods, train, cfg, _lm_args(
+                train, sh, 1, "--rounds-per-call", "2", "--ckpt-dir", tmp))
+        if launches != dsgd(sh["K"]):
+            raise AssertionError(f"LM 22 layers launched {launches}")
+        paths["lm_train_22L"] = launches
+        g, gp = nrm.args[0]
+        C, N = g.shape
+        if C * N <= LM_PAST:
+            raise AssertionError(f"22-layer slab {C} x {N} is not past "
+                                 f"{LM_PAST} elements")
+        dg, gg = (float(v[C - 1]) for v in nrm.out)
+        want_dg = want_gg = 0.0
+        for off in range(0, N, LM_F64_SLICE):
+            a = g[C - 1, off:off + LM_F64_SLICE].double()
+            b = gp[C - 1, off:off + LM_F64_SLICE].double()
+            want_dg += float(((a - b) ** 2).sum())
+            want_gg += float((a * a).sum())
+            del a, b
+        for got_v, want_v, what in ((dg, want_dg, "dg"), (gg, want_gg, "gg")):
+            if not math.isclose(got_v, want_v, rel_tol=1e-5):
+                raise AssertionError(f"22-layer last row {what}: kernel "
+                                     f"{got_v} vs f64 {want_v}")
+        print("lm train 22 layers", json.dumps({
+            "card": smi, "arch": LM_ARCH, "N": N, "clients": C,
+            "elements": C * N, "past_2_31": True,
+            "last_row_dg": [dg, want_dg], "last_row_gg": [gg, want_gg],
+            "loss": float(deep.history[0]["loss"]),
+            "eta_mean": float(deep.history[0]["eta_mean"]),
+            "peak_gb": peak}), flush=True)
+        trained = deep.state.params
+        del deep
+        torch.cuda.empty_cache()
+        p, eta = app.args[0][0], app.args[0][2]
+        rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
+                                    smi, "lm_train_22L"))
+        del g, gp, p, eta, nrm, app
+        torch.cuda.empty_cache()
+
+        # (e) the serve CLI with --ckpt-dir on the trained checkpoint; its
+        # own init is seed 1's
+        flags = ["--arch", LM_ARCH, "--batch", "2", "--prompt-len", "16",
+                 "--gen", "8", "--device", "cuda", "--seed", "1"]
+        _reset(mods)
+        ck = serve.main(flags + ["--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        launches = _counts(mods)
+        if launches != {("flash_attention", "cuda"): 2 * sh["layers"]}:
+            raise AssertionError(f"serve of the trained LM launched "
+                                 f"{launches}")
+        paths["lm_train_serve"] = launches
+        own = serve.main(flags)
+        want, _, _ = serve.decode(build_model(cfg), trained,
+                                  serve.build_parser().parse_args(flags))
+        if (ck["ckpt_step"] != 1 or not np.array_equal(ck["tokens"], want)
+                or np.array_equal(ck["tokens"], own["tokens"])):
+            raise AssertionError("the serve CLI does not decode the trained "
+                                 "checkpoint's tokens")
+        del trained
+    print("lm train serve: the serve CLI decodes the trained 22-layer "
+          "checkpoint's tokens", flush=True)
+    torch.cuda.empty_cache()
+
+    # 3. Zamba2-7B at full width, 7 layers: one fused round
+    sh = LM_ZAMBA
+    args = _lm_args(train, sh, 1, "--rounds-per-call", "2")
+    args.arch = "zamba2-7b"
+    zb, launches, peak = _lm_train(torch, mods, train,
+                                   _lm_cfg("zamba2-7b", sh["layers"]), args)
+    if launches != dsgd(sh["K"]):
+        raise AssertionError(f"LM Zamba2 launched {launches}")
+    paths["lm_train_zamba2"] = launches
+    print("lm train zamba2", json.dumps({
+        "card": smi, "arch": f"zamba2-7b[{sh['layers']}L]",
+        "loss": float(zb.history[0]["loss"]),
+        "eta_mean": float(zb.history[0]["eta_mean"]), "peak_gb": peak}),
+        flush=True)
+    del zb
+    torch.cuda.empty_cache()
+    return paths, rows
+
+
 def run_matrix(torch, mods):
     """Phase 7. Returns the launch counts of the 32 cells on cuda."""
     from collections import Counter
@@ -2334,6 +2676,12 @@ def main() -> int:
     paths.update(run_fleet_path(torch, mods, train, smi))
     paths.update(run_resume_paths(torch, mods, train))
     paths["serve_checkpoint"] = run_serve_checkpoint(torch, mods, smi)
+    # 4e. LM training
+    torch.cuda.empty_cache()
+    lm_paths, lm_rows = run_lm_train_path(torch, mods, train, tk, tref, bw,
+                                          f32, smi)
+    paths.update(lm_paths)
+    rows.update(lm_rows)
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))

@@ -136,6 +136,7 @@ class ModelConfig:
 class FLConfig:
     num_clients: int = 100           # m
     participation: float = 0.1       # p  -> |S_t| = p*m
+    local_steps: int = 2             # K of the LM trainers' rounds
     client_opt: str = "delta_sgd"
     server_opt: str = "fedavg"
     fedprox_mu: float = 0.0

@@ -474,6 +474,10 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             params_c = flatlib.unpack_batched(P, layout)
             g, (loss, _) = vgrad(params_c, batch_k, gp, prev_local_params)
             G = flatlib.pack_batched(g, layout)
+            # the gradient tree (a (C, N) slab in all) and, after the
+            # step, its packed copy are freed here, not when the next
+            # step reassigns them: an LM's slab is gigabytes
+            del g
             if nan_on:
                 # NaN gradients from the drawn step on, injected on the
                 # wire side of the guard: the in-step guard must catch
@@ -485,6 +489,7 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                 P, G, S, gamma=gamma, delta=delta_,
                 eta0=eta0 if eta0_c is None else eta0_c, mask=mask,
                 active=active)
+            del G
             losses.append(loss)
         losses = torch.stack(losses, dim=1)       # (C, K)
 

@@ -1,6 +1,7 @@
 """Federated batching: the cohort draw and (C, K, b, ...) round batches.
 
-Port of ``FederatedDataset`` from ``repro/data/pipeline.py``. Everything
+Port of ``FederatedDataset`` and ``lm_round_batches`` (the LM trainer's
+synthetic token batches) from ``repro/data/pipeline.py``. Everything
 here is numpy on the host, as in the reference. The within-client
 example draw (``default_rng([seed + 17, t])``) and the eval stream
 (``default_rng(seed + 23)``) are the reference's, so given the same
@@ -153,3 +154,14 @@ class FederatedDataset:
             return self.task.x_test, self.task.y_test
         idx = self.eval_rng.choice(len(self.task.y_test), n, replace=False)
         return self.task.x_test[idx], self.task.y_test[idx]
+
+
+def lm_round_batches(rng: np.random.Generator, *, clients: int,
+                     local_steps: int, batch: int, seq: int, vocab: int):
+    """Synthetic LM round batch: (C, K, b, S) int32 tokens and their
+    next-token labels, from ``rng`` (the reference's draw, bit for bit).
+    The reference's ``extras`` (stub inputs of encoder and image-token
+    configs) come with those configs (ROADMAP A15)."""
+    toks = rng.integers(0, vocab, (clients, local_steps, batch, seq + 1),
+                        dtype=np.int32)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}

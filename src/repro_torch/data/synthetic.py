@@ -1,8 +1,7 @@
 """Synthetic federated tasks (the offline stand-ins for MNIST/FMNIST/CIFAR).
 
 A numpy copy of ``repro/data/synthetic.py``: the same generators with the
-same seeds give bit-identical arrays. The LM token task comes with the LM
-zoo (ROADMAP A15).
+same seeds give bit-identical arrays.
 
 Three task families with *controllable difficulty*, so the paper's
 grid-search-on-one-task → transfer-to-others protocol is reproducible:
@@ -14,6 +13,7 @@ grid-search-on-one-task → transfer-to-others protocol is reproducible:
     optimum has genuinely non-uniform local smoothness.
   * ``image_blobs`` — (H,W,1) images: class-dependent frequency patterns +
     noise, for the CNN model.
+  * ``lm_tokens`` — Markov-chain token sequences, the text-domain analog.
 """
 from __future__ import annotations
 
@@ -97,6 +97,35 @@ def image_blobs(name: str, *, size=16, num_classes=10, n_train=50_000,
     return TaskData(name, x, y, xt, yt, num_classes)
 
 
+def lm_tokens(name: str, *, vocab=256, n_train=4_000, n_test=400, seq=64,
+              seed=0) -> TaskData:
+    """Markov-chain token sequences; "x" = tokens (N, seq), "y" the
+    sample's class (labels are next tokens). A sample's class picks its
+    transition matrix, so the Dirichlet partitioner still applies."""
+    rng = np.random.default_rng(seed)
+    num_classes = 10
+    # block-structured transition matrices, one per class
+    mats = []
+    for c in range(num_classes):
+        m = rng.dirichlet(np.full(vocab, 0.05), size=vocab)
+        mats.append(m.astype(np.float32))
+
+    def sample(n):
+        y = rng.integers(0, num_classes, n).astype(np.int32)
+        x = np.zeros((n, seq), np.int32)
+        for i in range(n):
+            m = mats[y[i]]
+            t = rng.integers(0, vocab)
+            for j in range(seq):
+                x[i, j] = t
+                t = rng.choice(vocab, p=m[t])
+        return x, y
+
+    x, y = sample(n_train)
+    xt, yt = sample(n_test)
+    return TaskData(name, x, y, xt, yt, num_classes)
+
+
 # Named task registry used by benchmarks (difficulty ordering mirrors the
 # paper's MNIST < FMNIST < CIFAR-10 < CIFAR-100 ladder).
 def get_task(task_id: str, seed: int = 0) -> TaskData:
@@ -110,6 +139,5 @@ def get_task(task_id: str, seed: int = 0) -> TaskData:
     if task_id == "image":       # CNN task
         return image_blobs("image", noise=0.8, seed=seed + 3)
     if task_id == "lm":          # text-domain analog
-        raise NotImplementedError("the LM task comes with the LM zoo "
-                                  "port, ROADMAP A15")
+        return lm_tokens("lm", seed=seed + 4)
     raise KeyError(task_id)

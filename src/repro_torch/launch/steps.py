@@ -1,8 +1,10 @@
 """Step builders for the serving path: the prefill of one batch and one
 greedy decode step. Port of ``make_prefill_step`` and
-``make_serve_step`` from ``repro/launch/steps.py``; the training and
-dry-run builders there belong to other ROADMAP items. PyTorch runs
-eagerly, so a step is a plain function (the reference jits them)."""
+``make_serve_step`` from ``repro/launch/steps.py``. The training
+builders there have no caller but the dry run, and come with it (ROADMAP
+A17): ``launch.train.train_lm`` builds its rounds itself, as the
+reference's does. PyTorch runs eagerly, so a step is a plain function
+(the reference jits them)."""
 from __future__ import annotations
 
 from typing import Optional

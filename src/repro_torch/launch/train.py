@@ -1,11 +1,29 @@
-"""Federated training driver for the paper tasks (MLP / shallow CNN).
+"""Federated training driver: a decoder LM (``--arch``) on synthetic
+tokens, or a paper-task model (MLP / shallow CNN, ``--task``) on the
+synthetic classification suite.
 
-Port of ``train_paper_task`` of ``repro/launch/train.py`` with the
-reference's flags, plus ``--device`` (default ``cuda``; ``--device cpu``
-runs the plain versions of the kernels on the CPU).
+Port of ``repro/launch/train.py`` (``train_lm`` and ``train_paper_task``)
+with the reference's flags, plus ``--device`` (default ``cuda``;
+``--device cpu`` runs the plain versions of the kernels on the CPU).
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+      --reduced --rounds 50 --client-opt delta_sgd
   PYTHONPATH=src python -m repro_torch.launch.train --task image \\
       --model cnn --rounds 4 --rounds-per-call 2
+
+``--arch`` trains TinyLlama or Zamba2 (full width; ``--reduced`` with
+``--layers`` and ``--d-model`` for a small one) with
+``--clients-per-round`` clients of ``--local-steps`` steps on ``--batch``
+sequences of ``--seq`` tokens a step, drawn each round from
+``(seed, round)`` (``data.pipeline.lm_round_batches``), so a
+``--resume`` replays the batches of an uninterrupted run. The model
+trains on its plain route (``attention._sdpa``, ``ssm._ssd_chunked``),
+as the reference's does; ``--use-pallas`` reaches only the client
+optimizer (the vmap engine's Δ-SGD kernel route). The engines, the
+scenarios, compression, telemetry, ``--events``, ``--profile`` and the
+checkpoint flags behave as on the paper task below, but for the fleet
+(``--num-registered``), which needs per-client data partitions and
+exits. A run on the card prints its peak device memory.
 
 The engine is chosen as the reference chooses it. ``--rounds-per-call
 R`` (R > 1) runs the round-fused loop on the flat Δ-SGD engine
@@ -81,8 +99,8 @@ checkpoint (and the arena saved at the same round) and runs
 ``--rounds`` more rounds; the data draws are keyed on the round, so the
 resumed run equals an uninterrupted one bitwise.
 
-Flags of features not ported yet (the LM path, ROADMAP A15) exit with
-an error naming their ROADMAP item.
+Flags of features not ported yet would exit with an error naming their
+ROADMAP item; every flag of the reference is ported now.
 """
 from __future__ import annotations
 
@@ -98,18 +116,20 @@ import torch
 
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.compression import CompressionSpec
-from repro_torch.configs import CNN_PAPER, MLP_SMALL, MLP_WIDE, FLConfig
+from repro_torch.configs import (ARCH_IDS, CNN_PAPER, MLP_SMALL, MLP_WIDE,
+                                 FLConfig, get_config)
 from repro_torch.core import (CLIENT_OPTS, SERVER_OPTS, arena_gather,
                               flatten_fl_state, get_client_opt,
                               get_server_opt, init_fl_state, make_fl_loop,
                               make_fl_round, make_fleet_loop, make_loss,
                               unflatten_fl_state)
-from repro_torch.data.pipeline import FederatedDataset
+from repro_torch.data.pipeline import FederatedDataset, lm_round_batches
 from repro_torch.data.synthetic import get_task
 from repro_torch.device import resolve_device
 from repro_torch.federation import (ClientArena, arena_init, cohort_size,
                                     get_scenario)
 from repro_torch.launch.report import scenario_summary
+from repro_torch.models.model import Model, build_model
 from repro_torch.models.small import accuracy, make_small_model, softmax_ce
 from repro_torch.telemetry import (EventLog, SpanTimer,
                                    kernel_launch_snapshot, schema,
@@ -119,33 +139,11 @@ from repro_torch.utils.tree import tree_map
 
 MODELS = {"mlp": MLP_SMALL, "mlp-wide": MLP_WIDE, "cnn": CNN_PAPER}
 
-# flag -> (its default, the ROADMAP item that ports it): any other value
-# exits with an error naming the item
-_NOT_PORTED = {
-    "arch": (None, "A15 (LM zoo)"),
-    "reduced": (False, "A15 (LM zoo)"),
-    "layers": (4, "A15 (LM zoo)"),
-    "d_model": (512, "A15 (LM zoo)"),
-    "clients_per_round": (4, "A15 (LM zoo)"),
-    "local_steps": (4, "A15 (LM zoo)"),
-    "seq": (256, "A15 (LM zoo)"),
-}
-
-
 class TrainResult(NamedTuple):
     state: object              # final FLState
     history: List[dict]        # per-round metric rows, numpy f32 scalars
-    test_acc: float
+    test_acc: Optional[float]  # None for an LM, which has no eval
     arena: object = None       # the fleet's final ClientArena, else None
-
-
-def check_ported(args) -> None:
-    """Raise SystemExit for a flag whose feature is not ported yet."""
-    for name, (off, item) in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to repro_torch yet: it "
-                             f"comes with ROADMAP {item}")
 
 
 def resolve_scenario(args):
@@ -326,7 +324,6 @@ class PaperTask(NamedTuple):
 
 
 def setup_paper_task(args) -> PaperTask:
-    check_ported(args)
     scn = resolve_scenario(args)
     device = resolve_device(args.device)
     num_reg, participation = resolve_fleet(args, scn)
@@ -479,17 +476,17 @@ def _maybe_resume_arena(args, arena: ClientArena, round_: int):
     return arena
 
 
-def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
-    """R-round blocks of the fused loop (``BlockRunner``). The block
-    boundary is the host sync point: one device-to-host copy for the
-    block's metric rows, and the event log flushes there. It is also the
-    checkpoint cadence: a save lands on the first boundary at or after
-    each --ckpt-every hit, and after the last block. ``--profile r``
-    runs the block that holds (1-based) round r under ``torch.profiler``
-    and emits its kernel launches as a ``static`` event. Returns the
-    final FLState and the fleet's ClientArena (None outside the
-    fleet)."""
-    run = BlockRunner(pt, args, state.round)
+def _run_fused(run, device: torch.device, args, state, on_round, events,
+               spans):
+    """R-round blocks of the fused loop ``run`` (a ``BlockRunner`` or an
+    ``LMBlockRunner``). The block boundary is the host sync point: one
+    device-to-host copy for the block's metric rows, and the event log
+    flushes there. It is also the checkpoint cadence: a save lands on
+    the first boundary at or after each --ckpt-every hit, and after the
+    last block. ``--profile r`` runs the block that holds (1-based)
+    round r under ``torch.profiler`` and emits its kernel launches as a
+    ``static`` event. Returns the final FLState and the fleet's
+    ClientArena (None outside the fleet)."""
     with spans.span("pack"):
         fstate = flatten_fl_state(state, run.layout)
     R = max(1, args.rounds_per_call)
@@ -502,10 +499,10 @@ def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
                       and t <= args.profile - 1 < t + n)
         with spans.span("block_execute"):
             if do_profile:
-                before = kernel_launch_snapshot(pt.device.type)
+                before = kernel_launch_snapshot(device.type)
                 fstate, mets = trace_block(
                     lambda fs=fstate: run(fs, staged), args.profile_dir)
-                after = kernel_launch_snapshot(pt.device.type)
+                after = kernel_launch_snapshot(device.type)
                 profiled = True
             else:
                 fstate, mets = run(fstate, staged)
@@ -537,25 +534,23 @@ def _run_fused(pt: PaperTask, args, state, on_round, events, spans):
         return unflatten_fl_state(fstate, run.layout), run.clients
 
 
-def _run_host(pt: PaperTask, args, state, on_round, events, spans):
-    """Rounds one at a time: on the flat engine with ``--flat``, active
-    compression or an async scenario, else on the vmap engine (the
-    reference's rule). Metric rows buffer on the device and reach the
-    host once per ``--log-every`` rounds. With --ckpt-dir every
-    --ckpt-every-th round and the last one are saved."""
-    flat = (args.flat or pt.compression.active(pt.scenario)
-            or (pt.scenario is not None and pt.scenario.is_async))
-    round_fn = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
-                             num_rounds=args.rounds, flat=flat,
-                             **_round_kw(pt, args))
+def _host_flat(args, scenario, compression) -> bool:
+    """The host loop's engine, by the reference's rule: flat with
+    ``--flat``, active compression or an async scenario, else vmap."""
+    return bool(args.flat or compression.active(scenario)
+                or (scenario is not None and scenario.is_async))
+
+
+def _run_host(round_fn, stage_round, args, state, on_round, events, spans):
+    """Rounds one at a time through ``round_fn``; ``stage_round(r)``
+    gives round r's batches on the device and its cohort ids (or None).
+    Metric rows buffer on the device and reach the host once per
+    ``--log-every`` rounds. With --ckpt-dir every --ckpt-every-th round
+    and the last one are saved."""
     rlog = _RoundLog(_log_every(args), on_round, events, spans)
     for t in range(args.rounds):
         with spans.span("stage"):
-            batches, _, ids = pt.fed.sample_round(
-                pt.participation, pt.local_steps, args.batch,
-                round_idx=state.round)
-            batches = {k: torch.from_numpy(v).to(pt.device)
-                       for k, v in batches.items()}
+            batches, ids = stage_round(state.round)
         with spans.span("block_execute"):
             state, mets, _ = round_fn(state, batches)
         rlog.push(t, state.round - 1, mets, ids)
@@ -566,17 +561,9 @@ def _run_host(pt: PaperTask, args, state, on_round, events, spans):
     return state
 
 
-def train_paper_task(args) -> TrainResult:
-    pt = setup_paper_task(args)
-    state = _maybe_resume(args, init_state(pt))
-    history: List[dict] = []
-    stats = (_ScenarioStats(pt.scenario, pt.fed.registered_clients)
-             if (pt.scenario is not None or pt.num_registered is not None
-                 or pt.compression.active(pt.scenario) or args.telemetry)
-             else None)
-    events = (EventLog(args.events, config=vars(args), device=pt.device)
-              if args.events else None)
-    spans = SpanTimer()
+def _round_logger(args, history: List[dict], stats):
+    """The per-round consumer: keeps the row, feeds the scenario report
+    and prints about ten rounds a run."""
     t0 = time.time()
 
     def log_round(t, row, ids=None):
@@ -590,12 +577,41 @@ def train_paper_task(args) -> TrainResult:
                   f"eta {float(row['eta_mean']):.4f}{fleet}"
                   f"{_health_str(row)} ({time.time() - t0:.1f}s)",
                   flush=True)
+    return log_round
+
+
+def train_paper_task(args) -> TrainResult:
+    pt = setup_paper_task(args)
+    state = _maybe_resume(args, init_state(pt))
+    history: List[dict] = []
+    stats = (_ScenarioStats(pt.scenario, pt.fed.registered_clients)
+             if (pt.scenario is not None or pt.num_registered is not None
+                 or pt.compression.active(pt.scenario) or args.telemetry)
+             else None)
+    events = (EventLog(args.events, config=vars(args), device=pt.device)
+              if args.events else None)
+    spans = SpanTimer()
+    log_round = _round_logger(args, history, stats)
 
     if args.rounds_per_call > 1 or pt.num_registered is not None:
-        state, car = _run_fused(pt, args, state, log_round, events, spans)
+        state, car = _run_fused(BlockRunner(pt, args, state.round),
+                                pt.device, args, state, log_round, events,
+                                spans)
     else:
         car = None
-        state = _run_host(pt, args, state, log_round, events, spans)
+        round_fn = make_fl_round(
+            pt.loss_fn, pt.client_opt, pt.server_opt,
+            num_rounds=args.rounds,
+            flat=_host_flat(args, pt.scenario, pt.compression),
+            **_round_kw(pt, args))
+
+        def stage_round(r):
+            batches, _, ids = pt.fed.sample_round(
+                pt.participation, pt.local_steps, args.batch, round_idx=r)
+            return {k: torch.from_numpy(v).to(pt.device)
+                    for k, v in batches.items()}, ids
+        state = _run_host(round_fn, stage_round, args, state, log_round,
+                          events, spans)
 
     with spans.span("eval"):
         xt, yt = pt.fed.test_batch(2000)
@@ -612,12 +628,153 @@ def train_paper_task(args) -> TrainResult:
     return TrainResult(state, history, acc, car)
 
 
+class LMTask(NamedTuple):
+    """Everything an LM run is built from (``setup_lm``)."""
+    device: torch.device
+    model: Model
+    loss_fn: object
+    client_opt: object
+    server_opt: object
+    params: dict               # initial params, on ``device``
+    local_steps: int           # K
+    scenario: object           # resolved Scenario, or None
+    compression: CompressionSpec
+    cohort: int                # C, --clients-per-round
+
+
+def setup_lm(args, cfg=None) -> LMTask:
+    """The LM run's model (``--arch``, ``--reduced`` to ``--layers`` x
+    ``--d-model``; or ``cfg``, such as a full-width config cut in
+    depth), its random params from ``--seed`` on the device, its client
+    loss on the plain route, optimizers, scenario and compression."""
+    if args.num_registered:
+        raise SystemExit("--num-registered (the fleet regime) is a "
+                         "paper-task feature: synthetic LM batches have "
+                         "no per-client partitions to map registered "
+                         "ids onto — use --task, not --arch")
+    device = resolve_device(args.device)
+    try:
+        if cfg is None:
+            cfg = get_config(args.arch)
+            if args.reduced:
+                cfg = cfg.reduced(num_layers=args.layers,
+                                  d_model=args.d_model)
+        model = build_model(cfg, torch.float32)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    scn = resolve_scenario(args)
+    fl = FLConfig(local_steps=args.local_steps, client_opt=args.client_opt,
+                  server_opt=args.server_opt, lr=args.lr,
+                  fedprox_mu=args.fedprox_mu, num_clients=args.num_clients)
+    # the plain route, as the reference's trainer takes it: --use-pallas
+    # reaches the client optimizer only
+    loss_fn = make_loss(lambda p, b: model.loss(p, b, use_pallas=False),
+                        fedprox_mu=fl.fedprox_mu)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    return LMTask(device, model, loss_fn,
+                  get_client_opt(fl.client_opt, fl,
+                                 use_pallas=args.use_pallas),
+                  get_server_opt(fl.server_opt), params, fl.local_steps,
+                  scn, resolve_compression(args), args.clients_per_round)
+
+
+def init_lm_state(lt: LMTask):
+    """The LM run's initial FLState (with the async buffer and the
+    cohort's EF21 tree where the run needs them)."""
+    return init_fl_state(lt.params, lt.server_opt, lt.scenario,
+                         compression=lt.compression, cohort=lt.cohort)
+
+
+def lm_batches(lt: LMTask, args, round_idx: int) -> dict:
+    """Round ``round_idx``'s (C, K, b, S) tokens and labels, numpy, from
+    the per-round stream ``default_rng((seed, round))``: a --resume at
+    any round replays an uninterrupted run's batches."""
+    return lm_round_batches(np.random.default_rng((args.seed,
+                                                   int(round_idx))),
+                            clients=lt.cohort, local_steps=lt.local_steps,
+                            batch=args.batch, seq=args.seq,
+                            vocab=lt.model.cfg.vocab_size)
+
+
+class LMBlockRunner:
+    """The LM run's round-fused loop: ``stage(round0, R)`` draws R
+    rounds of batches on the host and copies them, stacked (R, C, K, b,
+    S), to the device; ``runner(fstate, staged)`` runs the block ->
+    (fstate, metrics stacked over its R rounds)."""
+    clients = None             # no fleet arena
+
+    def __init__(self, lt: LMTask, args):
+        self.lt, self.args = lt, args
+        self.loop = make_fl_loop(
+            lt.loss_fn, lt.client_opt, lt.server_opt, params_like=lt.params,
+            num_rounds=args.rounds, rounds_per_call=args.rounds_per_call,
+            scenario=lt.scenario, num_clients=args.num_clients,
+            compression=lt.compression, telemetry=args.telemetry)
+        self.layout = self.loop.layout
+
+    def stage(self, round0: int, rounds: int) -> dict:
+        blocks = [lm_batches(self.lt, self.args, round0 + i)
+                  for i in range(rounds)]
+        return {k: torch.from_numpy(np.stack([b[k] for b in blocks])
+                                    ).to(self.lt.device)
+                for k in blocks[0]}
+
+    def __call__(self, fstate, staged):
+        return self.loop(fstate, staged)
+
+
+def train_lm(args, lt: Optional[LMTask] = None) -> TrainResult:
+    """Federated training of a decoder LM on synthetic tokens: the
+    fused loop with ``--rounds-per-call`` > 1, else the host loop (flat
+    or vmap engine by the reference's rule). ``lt`` is the run's
+    ``setup_lm(args)``, made here when not given (a test passes one with
+    the reference's params carried in)."""
+    lt = setup_lm(args) if lt is None else lt
+    if lt.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(lt.device)
+    state = _maybe_resume(args, init_lm_state(lt))
+    history: List[dict] = []
+    stats = (_ScenarioStats(lt.scenario, args.num_clients)
+             if (lt.scenario is not None
+                 or lt.compression.active(lt.scenario) or args.telemetry)
+             else None)
+    events = (EventLog(args.events, config=vars(args), device=lt.device)
+              if args.events else None)
+    spans = SpanTimer()
+    log_round = _round_logger(args, history, stats)
+    if args.rounds_per_call > 1:
+        state, _ = _run_fused(LMBlockRunner(lt, args), lt.device, args,
+                              state, log_round, events, spans)
+    else:
+        round_fn = make_fl_round(
+            lt.loss_fn, lt.client_opt, lt.server_opt,
+            num_rounds=args.rounds,
+            flat=_host_flat(args, lt.scenario, lt.compression),
+            scenario=lt.scenario, num_clients=args.num_clients,
+            compression=lt.compression, telemetry=args.telemetry)
+
+        def stage_round(r):
+            return {k: torch.from_numpy(v).to(lt.device)
+                    for k, v in lm_batches(lt, args, r).items()}, None
+        state = _run_host(round_fn, stage_round, args, state, log_round,
+                          events, spans)
+    if stats is not None:
+        stats.report(args.out)
+    if lt.device.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(lt.device) / 1e9:.2f} GB "
+              f"({torch.cuda.get_device_name(lt.device)})", flush=True)
+    _finish_run(events, spans, bool(args.telemetry or args.events
+                                    or args.profile))
+    return TrainResult(state, history, None)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no GPU without "
                          "--device cpu is an error")
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None, choices=ARCH_IDS)
     ap.add_argument("--task", default=None,
                     choices=["easy", "medium", "hard", "image", "lm"])
     ap.add_argument("--model", default="mlp", choices=sorted(MODELS))
@@ -651,9 +808,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "variants), adam and adagrad clients")
     ap.add_argument("--fedprox-mu", type=float, default=0.0)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="accepted for parity with the reference, whose "
-                         "paper task ignores it too: the flat engines "
-                         "always run the kernels, the vmap engine never")
+                    help="--arch: the vmap engine's Δ-SGD step on its "
+                         "kernel route (the model trains on its plain "
+                         "route). --task ignores it, as the reference's "
+                         "paper task does. The flat engines always run "
+                         "the kernels")
     ap.add_argument("--rounds-per-call", type=int, default=1,
                     help="R > 1 fuses R rounds per call on persistent flat "
                          "state (repro_torch.core.fed_loop)")
@@ -703,12 +862,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> TrainResult:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.task:
-        ap.error("pass --task")
     if args.profile and args.rounds_per_call <= 1:
         ap.error("--profile needs the round-fused engine: pass "
                  "--rounds-per-call > 1")
-    return train_paper_task(args)
+    if args.arch:
+        return train_lm(args)
+    if args.task:
+        return train_paper_task(args)
+    ap.error("pass --arch or --task")
 
 
 if __name__ == "__main__":

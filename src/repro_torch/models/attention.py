@@ -2,9 +2,17 @@
 ``repro/models/attention.py``.
 
 Two modes:
-  * full : whole-sequence causal attention (prefill, the full forward),
-           through the flash-attention kernel wrapper: on the card the
-           CUDA kernel, on the CPU its plain version. There is no flag.
+  * full : whole-sequence causal attention (prefill, the full forward).
+           Two routes, chosen by the caller with ``use_pallas`` (the
+           reference's keyword): True, the default, takes the
+           flash-attention kernel wrapper (on the card the CUDA kernel,
+           on the CPU its plain version), as serving always has; False
+           takes ``_sdpa``, the reference's query-chunked attention in
+           plain torch, which autograd and ``torch.func`` differentiate.
+           Training takes it, as the reference's trains through its
+           ``_sdpa``: the kernel wrapper refuses tensors that require
+           grad, and the reference cannot differentiate its kernel
+           either.
   * step : one new token per row against the cache (decode), in plain
            torch, as the reference does it in jnp.
 
@@ -53,6 +61,52 @@ def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+# queries are processed in _NQ_TARGET chunks when S is a multiple of it
+# and at least 2048 (the reference's rule), so the (S, T) scores are
+# never whole
+_NQ_TARGET = 8
+
+
+def _sdpa_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                rows: torch.Tensor, *,
+                window: Optional[int]) -> torch.Tensor:
+    """Causal. qc: (B,L,H,hd), k/v: (B,T,H,hd), rows: (L,) absolute
+    positions."""
+    scale = 1.0 / math.sqrt(qc.shape[-1])
+    T = k.shape[1]
+    scores = torch.einsum("bshd,bthd->bhst", qc.float(), k.float()) * scale
+    cols = torch.arange(T, device=qc.device)[None, :]
+    mask = cols <= rows[:, None]
+    if window is not None:
+        mask = mask & ((rows[:, None] - cols) < window)
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", w, v.float())
+    return out.to(v.dtype)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention, q: (B,S,KV,G,hd), k/v: (B,S,KV,hd) ->
+    (B,S,KV,G,hd). K and V are repeated to the H = KV·G heads; the
+    queries run in chunks of S/_NQ_TARGET rows at S ≥ 2048 (a Python
+    loop where the reference scans). The reference's non-causal and
+    query-offset cases have no caller here, and its bf16-softmax switch
+    (off by default) is not ported."""
+    B, S, KV, G, hd = q.shape
+    H = KV * G
+    qq = q.reshape(B, S, H, hd)
+    kk = k.repeat_interleave(G, dim=2) if G > 1 else k
+    vv = v.repeat_interleave(G, dim=2) if G > 1 else v
+    nq = _NQ_TARGET if (S % _NQ_TARGET == 0 and S >= 2048) else 1
+    L = S // nq
+    outs = [_sdpa_block(qq[:, c * L:(c + 1) * L], kk, vv,
+                        c * L + torch.arange(L, device=q.device),
+                        window=window) for c in range(nq)]
+    out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
+    return out.reshape(B, S, KV, G, v.shape[-1])
+
+
 def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """Single-block SDPA with an explicit mask (decode: S = 1).
@@ -68,11 +122,17 @@ def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_full(params: dict, x: torch.Tensor, cfg, *,
              positions: torch.Tensor, window: Optional[int] = None,
-             build_cache: bool = False):
-    """x: (B,S,D). Returns (out (B,S,D), {"k", "v"} (B,S,KV,hd) | None)."""
+             build_cache: bool = False, use_pallas: bool = True):
+    """x: (B,S,D). Returns (out (B,S,D), {"k", "v"} (B,S,KV,hd) | None).
+    ``use_pallas``: the flash-attention kernel (True) or ``_sdpa``."""
     q, k, v = _qkv(params, x, cfg, positions)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, window=window)
+    if use_pallas:
+        out = flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True, window=window)
+    else:
+        B, S, H, hd = q.shape
+        out = _sdpa(q.reshape(B, S, cfg.num_kv_heads, H // cfg.num_kv_heads,
+                              hd), k, v, window=window).reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, ({"k": k, "v": v} if build_cache else None)
 

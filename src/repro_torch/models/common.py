@@ -6,9 +6,9 @@ Every block exposes ``init_*(gen, cfg, dtype) -> params`` and a pure
 does over pytrees. Weights are drawn from a ``torch.Generator`` on the
 generator's device: same distributions as the reference's ``jax.random``
 draws, other bits, so parity tests carry the reference's params across
-(``repro_torch.interop``). The reference's logical sharding annotations,
-remat and scan-unroll switches have no meaning on one card and are left
-out.
+(``repro_torch.interop``). The reference's logical sharding annotations
+and scan-unroll switch have no meaning on one card and are left out;
+its remat switch comes with the dry run that turns it on (ROADMAP A17).
 """
 from __future__ import annotations
 

@@ -11,6 +11,16 @@
 
 Batch dict keys: tokens (B,S) integer, labels (B,S) integer. Logits at
 or beyond ``vocab_size`` (the padded tail of the vocab table) are −1e30.
+
+``apply``, ``loss`` and ``prefill`` take the reference's ``use_pallas``
+route keyword. True (the port's default, the route its serving has
+always taken) runs attention and the SSD through their kernel wrappers;
+False runs the reference's plain model code (``attention._sdpa``,
+``ssm._ssd_chunked``), which autograd and ``torch.func`` differentiate.
+The training builders (``repro_torch.launch.steps``) pass False, as the
+reference's default gives its trainers; the kernel wrappers refuse
+tensors that require grad, as the reference cannot differentiate its
+kernels. Nothing picks a route by itself.
 Encoders, image tokens, MLA, MoE, xLSTM and multi-token prediction are
 not ported yet (ROADMAP A15): ``build_model`` refuses such configs.
 """
@@ -20,6 +30,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -54,7 +65,9 @@ class Model:
 
     # ------------------------------------------------------------ embedding
     def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
-        return params["embed"][batch["tokens"].long()]
+        # F.embedding: its backward on the card sums a token's rows in a
+        # fixed order, so a trained step's bits do not vary run to run
+        return F.embedding(batch["tokens"].long(), params["embed"])
 
     def _project_vocab(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Vocab projection over the padded table; padding logits −1e30."""
@@ -74,16 +87,17 @@ class Model:
                                               self.cfg))
 
     # ---------------------------------------------------------- full forward
-    def apply(self, params: Dict, batch: Dict):
+    def apply(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
         """Full causal forward. Returns (logits (B,S,V), aux)."""
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
         x, _, aux = tfm.stack_full(params["stack"], x, self.cfg,
-                                   positions=positions)
+                                   positions=positions,
+                                   use_pallas=use_pallas)
         return self._head(params, x), aux
 
-    def loss(self, params: Dict, batch: Dict):
-        logits, aux = self.apply(params, batch)
+    def loss(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
+        logits, aux = self.apply(params, batch, use_pallas=use_pallas)
         ce = _ce(logits, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -93,7 +107,7 @@ class Model:
 
     def prefill(self, params: Dict, batch: Dict, *,
                 cache_len: Optional[int] = None,
-                window: Optional[int] = None):
+                window: Optional[int] = None, use_pallas: bool = True):
         """Forward + decode cache. Returns (last-position logits
         (B,1,V), cache)."""
         x = self._embed(params, batch)
@@ -101,7 +115,8 @@ class Model:
         positions = torch.arange(S, device=x.device)[None]
         x, caches, _ = tfm.stack_full(params["stack"], x, self.cfg,
                                       positions=positions, window=window,
-                                      build_cache=True)
+                                      build_cache=True,
+                                      use_pallas=use_pallas)
         logits = self._head(params, x[:, -1:])
         cache_len = cache_len or self.cache_len_for(S, window)
         return logits, self._assemble_cache(caches, S, cache_len)

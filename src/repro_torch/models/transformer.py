@@ -10,6 +10,9 @@ of params at the top that every occurrence applies, each site with its
 own cache. Caches of every run carry the leading layer axis. The
 reference scans a run with ``lax.scan``; here a Python loop applies its
 layers in order.
+
+``stack_full``'s ``use_pallas`` picks the attention and SSD route of
+every block (``attention.gqa_full``, ``ssm.mamba2_full``).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (apply_norm, dense_init, init_norm,
                                        swiglu, zeros_init)
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 ATTN_TYPES = ("attn", "shared_attn")
 # block types of the reference that wait for their ROADMAP item
@@ -92,18 +95,19 @@ def init_block(gen: torch.Generator, cfg, btype: str,
 
 def block_full(params: dict, x: torch.Tensor, cfg, btype: str, *,
                positions: torch.Tensor, window=None,
-               build_cache: bool = False):
+               build_cache: bool = False, use_pallas: bool = True):
     """Returns (x, cache | None)."""
     if btype in ATTN_TYPES:
         h = apply_norm(params["ln1"], x, cfg)
         a, cache = attn.gqa_full(params["attn"], h, cfg, positions=positions,
-                                 window=window, build_cache=build_cache)
+                                 window=window, build_cache=build_cache,
+                                 use_pallas=use_pallas)
         x = x + a
         h = apply_norm(params["ln2"], x, cfg)
         return x + apply_mlp(params["mlp"], h, cfg), cache
     h = apply_norm(params["ln"], x, cfg)
     m, cache = ssm.mamba2_full(params["mixer"], h, cfg,
-                               build_cache=build_cache)
+                               build_cache=build_cache, use_pallas=use_pallas)
     return x + m, cache
 
 
@@ -135,11 +139,17 @@ def _layer(tree, j: int):
 
 
 def _run_params(params: dict, i: int, btype: str, n: int):
-    """The params of each layer of run i, in order."""
+    """The params of each layer of run i, in order: views of the stacked
+    leaves, taken with one ``unbind`` a leaf (whose backward stacks the
+    layers' gradients once)."""
     if btype == "shared_attn":
         return [params["shared_attn"]] * n
     p = params[f"run{i}"]
-    return [p] if n == 1 else [_layer(p, j) for j in range(n)]
+    if n == 1:
+        return [p]
+    leaves, treedef = tree_flatten(p)
+    layers = list(zip(*(a.unbind(0) for a in leaves)))
+    return [tree_unflatten(treedef, list(ls)) for ls in layers]
 
 
 def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
@@ -156,7 +166,7 @@ def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 
 def stack_full(params: dict, x: torch.Tensor, cfg, *,
                positions: torch.Tensor, window=None,
-               build_cache: bool = False):
+               build_cache: bool = False, use_pallas: bool = True):
     """Returns (x, {run: cache stacked on the layer axis} | None, aux);
     ``aux`` is the auxiliary loss, 0 without MoE blocks."""
     caches = {}
@@ -164,7 +174,8 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *,
         cs = []
         for p in _run_params(params, i, btype, n):
             x, c = block_full(p, x, cfg, btype, positions=positions,
-                              window=window, build_cache=build_cache)
+                              window=window, build_cache=build_cache,
+                              use_pallas=use_pallas)
             cs.append(c)
         if build_cache:
             caches[f"run{i}"] = _stack(cs)

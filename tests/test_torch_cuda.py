@@ -1150,3 +1150,65 @@ def test_resume_on_the_card_is_bitwise(flags, dev, tmp_path):
     if straight.arena is not None:
         for x, y in zip(straight.arena, resumed.arena):
             assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_flat_engine_past_two_to_the_31_elements(dev):
+    """The Δ-SGD pair on a (2, 2**30 + 1024) slab, 2**31 + 2048 elements
+    (the 22-layer TinyLlama's 2.2e9 is of this kind): each row's sums
+    against f64 sums taken in slices (rtol 1e-5), the apply bitwise
+    equal to its plain version."""
+    C, N = 2, 2 ** 30 + 1024
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.randn((C, N), generator=gen, device=dev)
+    gp = torch.randn((C, N), generator=gen, device=dev)
+    dg, gg = tk.batched_norms(g, gp)
+    for c in range(C):
+        want_dg = want_gg = 0.0
+        for off in range(0, N, 2 ** 26):
+            a = g[c, off:off + 2 ** 26].double()
+            b = gp[c, off:off + 2 ** 26].double()
+            want_dg += float(((a - b) ** 2).sum())
+            want_gg += float((a * a).sum())
+        assert float(dg[c]) == pytest.approx(want_dg, rel=1e-5)
+        assert float(gg[c]) == pytest.approx(want_gg, rel=1e-5)
+    eta = torch.tensor([0.25, 0.5], device=dev)
+    want = tref.batched_apply_ref(gp, g, eta, None)
+    got = tk.batched_apply(gp, g, eta)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b"])
+def test_lm_fused_round_on_the_card_matches_the_cpu(arch, dev):
+    """One fused round of a reduced LM on the card: 2·K Δ-SGD launches,
+    no attention or SSD kernel (training takes the plain route), and
+    round 0's loss, η and params within 1e-4 of the same round on the
+    CPU from the same initial params (a generator on the card draws
+    other bits than one on the CPU)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.launch import train as ttrain
+    from repro_torch.utils.tree import tree_map
+    argv = ["--arch", arch, "--reduced", "--layers", "2", "--d-model", "64",
+            "--clients-per-round", "2", "--local-steps", "2", "--batch",
+            "2", "--seq", "32", "--rounds", "1", "--rounds-per-call", "2"]
+    cpu_args = ttrain.build_parser().parse_args(argv + ["--device", "cpu"])
+    lt_cpu = ttrain.setup_lm(cpu_args)
+    args = ttrain.build_parser().parse_args(argv + ["--device", "cuda"])
+    lt = ttrain.setup_lm(args)._replace(
+        params=tree_map(lambda t: t.to(dev), lt_cpu.params))
+    for mod in (tk, fa, m2):
+        mod.reset_launch_count()
+    card = ttrain.train_lm(args, lt)
+    torch.cuda.synchronize()
+    assert tk.launch_count("cuda") == 2 * 2
+    assert fa.launch_count() == m2.launch_count() == 0
+    cpu = ttrain.train_lm(cpu_args, lt_cpu)
+    for k in ("loss", "eta_mean"):
+        assert float(card.history[0][k]) == pytest.approx(
+            float(cpu.history[0][k]), rel=1e-4)
+    from repro_torch.utils.tree import tree_leaves
+    for a, b in zip(tree_leaves(card.state.params),
+                    tree_leaves(cpu.state.params)):
+        a = a.cpu()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

@@ -157,11 +157,12 @@ def test_fused_loop_equals_host_loop_bitwise():
     assert fstate.round == hstate.round == 3
 
 
-def test_unported_arguments_name_their_roadmap_item():
-    """Mesh sharding (A17) and the LM path's flags (A15) are refused;
-    the fleet, async and checkpoint arguments are ported and pass the
-    CLI's check (their runs: test_torch_fleet.py, test_torch_async.py,
-    test_torch_checkpoint.py)."""
+def test_unported_arguments_name_their_roadmap_item(tmp_path):
+    """Mesh sharding (A17) is refused. The LM's flags run on --task,
+    which ignores them as the reference's paper task does: the run
+    equals one without them. (The fleet, async, checkpoint and LM runs:
+    test_torch_fleet.py, test_torch_async.py, test_torch_checkpoint.py,
+    test_torch_lm_cli.py.)"""
     loss = make_loss(lambda q, bt: (q["x"].sum(), {}))
     copt, sopt = get_client_opt("delta_sgd"), get_server_opt("fedavg")
     with pytest.raises(NotImplementedError, match="A17"):
@@ -170,17 +171,15 @@ def test_unported_arguments_name_their_roadmap_item():
     with pytest.raises(ValueError, match="flat engine"):
         make_fl_round(loss, copt, sopt, num_rounds=1,
                       scenario=get_scenario("zipf_async"))
-    for flags in (["--num-registered", "1000", "--eta-carry"],
-                  ["--resume", "--ckpt-dir", "x", "--ckpt-every", "3"],
-                  ["--scenario", "zipf_async"]):
-        ttrain.check_ported(ttrain.build_parser().parse_args(
-            ["--task", "easy", "--device", "cpu"] + flags))
-    # flags the reference reads only on paths that are not ported
-    with pytest.raises(SystemExit, match="A15"):
-        ttrain.main(["--task", "easy", "--layers", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A15"):
-        ttrain.main(["--task", "easy", "--seq", "16", "--device", "cpu",
-                     "--ckpt-dir", "x"])
+    base = ["--task", "easy", "--rounds", "1", "--num-clients", "10",
+            "--batch", "8", "--device", "cpu"]
+    plain = ttrain.main(base)
+    lm = ttrain.main(base + ["--layers", "2", "--seq", "16", "--ckpt-dir",
+                             str(tmp_path)])
+    assert plain.state.round == lm.state.round == 1
+    assert lm.test_acc == plain.test_acc
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(plain.state.params), tree_leaves(lm.state.params)))
 
 
 def test_cli_runs_on_cpu_and_fused_equals_flat():

@@ -66,8 +66,11 @@ without its final line:
               (cuDNN/cuBLAS and kernel sum order differ).
   5. lm kernels  flash attention at TinyLlama's prefill shape (1, 64,
               32, 4, 64), at S = 2048, at Zamba2's shared block (1, 64,
-              32, 32, 112), with a window of 256 at S = 1024, and in bf16
-              at both prefill shapes and S = 2048 (f32 within 2e-5, bf16
+              32, 32, 112), with a window of 256 at S = 1024, in bf16
+              at both prefill shapes and S = 2048, and at the hd-128
+              prefill shapes of OLMoE (1, 64, 16, 16, 128), CodeQwen1.5
+              (1, 64, 32, 32, 128), Qwen2.5 (1, 64, 40, 8, 128) and
+              Granite (1, 64, 48, 1, 128: MQA) (f32 within 2e-5, bf16
               within atol 4e-3 + rtol 8e-3, about one bf16 ulp of the
               output; two calls bitwise equal); the SSD chunk kernel
               at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48) and
@@ -84,19 +87,29 @@ without its final line:
               blocks of one and of two warp groups, and at L = 1 each
               packing of chunks per block (1, 16, 32, 64), are timed
               alone, all with the same bits.
-  6. serving  TinyLlama-1.1B whole (22 layers) and Zamba2-7B at full
-              width cut to 14 layers, random weights from seed 0, through
-              DecodeEngine: 4 prompts of 64 tokens, 32 new tokens, 4 slots,
-              flush 8; then 6 prompts on 4 slots (continuous admission).
-              Each run starts with every count at 0 and must launch flash
-              attention once per attention site per request (22 and 2)
-              and the SSD kernel once per Mamba2 layer per request (12),
-              nothing else. Then: the decode logits of every generated
-              position equal the teacher-forced full forward's within
-              2e-3; the card's prefill logits equal the CPU's within 2e-3
-              at full width and 2 layers (7 for Zamba2, so the shared block
-              is there); prefill and one decode block are timed and
-              profiled (device busy, idle share).
+  6. serving  TinyLlama-1.1B whole (22 layers), Zamba2-7B at full
+              width cut to 14 layers, OLMoE-1B-7B whole (16 layers),
+              CodeQwen1.5-7B, Qwen2.5-14B and Granite-20B at full width
+              cut to 2 layers, all f32, and DeepSeek-V3 at full width cut
+              to one layer (with its MTP block) in bf16, random weights
+              from seed 0, through DecodeEngine: 4 prompts of 64 tokens,
+              32 new tokens, 4 slots, flush 8; then 6 prompts on 4 slots
+              (continuous admission). Each run starts with every count at
+              0 and must launch flash attention once per GQA attention
+              site per request (22, 2, 16 and 2; none for DeepSeek-V3's
+              MLA) and the SSD kernel once per Mamba2 layer per request
+              (12), nothing else. Then, for the f32 paths: the decode
+              logits of every generated position equal the
+              teacher-forced full forward's within 2e-3 (MoE capacity
+              factor 8.0 for this gate, 1.25 put back after); the card's
+              prefill logits equal the CPU's within 2e-3 at full width
+              and 2 layers (7 for Zamba2, so the shared block is there).
+              For DeepSeek-V3: finite logits, the engine's tokens equal
+              to a lockstep loop's (each prompt prefilled alone, the rows
+              decoded together), and the f32 decode gate at its reduced
+              config. Prefill and one decode block are timed and
+              profiled (device busy, idle share); init time and peak
+              allocation printed.
   3b. slice-4 kernels  lane_histogram exact at C = 1, 10, its
               crossover HIST_WARP_LANES (one warp up to it, a grid of
               blocks past it) and one either side, 16,384 and 100,000
@@ -202,15 +215,25 @@ without its final line:
               launches for 2 requests), not those of its own init.
               Zamba2-7B at full width cut to 7 layers (6 Mamba2 and the
               shared block), C = 2, b = 2, one fused round: finite, its
-              launches, the peak allocation.
+              launches, the peak allocation. OLMoE-1B-7B at full width
+              cut to 2 layers (a (2, 1.05e9) slab), C = 2, K = 2, b = 1,
+              S = 256: the --flat host loop, then one fused round,
+              bitwise equal, K launches of each Δ-SGD kernel each, the
+              pair held and timed on the fused run's last slabs as
+              above, the round's wall, busy and tokens/s as in (b), peak
+              allocations. DeepSeek-V3 at its reduced config, one fused
+              round (MTP and the MoE aux in its loss): finite, its
+              launches; its trained params' loss on a batch carries both
+              (aux with labels above aux without, above 0) and equals the
+              CPU's within 1e-4.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
               launches by path, the vmap runs of 4c, the runs of 4d and
-              the LM runs of 4e among them) and,
-              last, the device line.
+              the LM runs of 4e among them; DeepSeek-V3's serve path
+              launches none) and, last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
 """
@@ -306,7 +329,13 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
             (1, 1024, 32, 4, 64, 256, "float32"),
             (1, 64, 32, 4, 64, None, "bfloat16"),
             (1, 64, 32, 32, 112, None, "bfloat16"),
-            (1, 2048, 32, 4, 64, None, "bfloat16"))
+            (1, 2048, 32, 4, 64, None, "bfloat16"),
+            # the hd-128 prefill shapes: OLMoE (16/16), CodeQwen1.5
+            # (32/32), Qwen2.5 (40/8) and Granite (48/1, MQA)
+            (1, 64, 16, 16, 128, None, "float32"),
+            (1, 64, 32, 32, 128, None, "float32"),
+            (1, 64, 40, 8, 128, None, "float32"),
+            (1, 64, 48, 1, 128, None, "float32"))
 # SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
@@ -371,18 +400,40 @@ LM_ARCH = "tinyllama-1.1b"
 LM_CUT = dict(layers=2, C=4, K=2, b=8, S=256)
 LM_DEEP = dict(layers=22, C=2, K=2, b=1, S=256)
 LM_ZAMBA = dict(layers=7, C=2, K=2, b=2, S=256)
+# OLMoE at full width cut to 2 layers (N = 1,045,178,368: C·N just under
+# 2**31 at C = 2, about 60 GB); DeepSeek-V3 at its reduced config (one
+# layer at full width is 46 GB of f32 params before any client copy)
+MOE_ARCH, MLA_ARCH = "olmoe-1b-7b", "deepseek-v3-671b"
+LM_MOE = dict(layers=2, C=2, K=2, b=1, S=256)
+LM_MLA = dict(layers=2, C=2, K=2, b=4, S=128)
 LM_ROUNDS = 2
 LM_TIMED_BLOCKS = 3
 # the f64 check of the 22-layer run's sums reads the row in slices of
 # LM_F64_SLICE elements; the run's slab must pass LM_PAST elements
 LM_F64_SLICE = 2 ** 26
 LM_PAST = 2 ** 31
-# serve paths: arch -> layers kept (None: all), the runs' request counts
-SERVE_PATHS = {"tinyllama-1.1b": None, "zamba2-7b": 14}
+# serve paths: arch -> (layers kept (None: all), dtype); the runs'
+# request counts. DeepSeek-V3 serves in bf16: one layer and its MTP
+# block at full width are 24.97e9 params, 99.9 GB in f32
+SERVE_PATHS = {"tinyllama-1.1b": (None, "float32"),
+               "zamba2-7b": (14, "float32"),
+               "olmoe-1b-7b": (None, "float32"),
+               "codeqwen1.5-7b": (2, "float32"),
+               "qwen2.5-14b": (2, "float32"),
+               "granite-20b": (2, "float32"),
+               "deepseek-v3-671b": (1, "bfloat16")}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
 SERVE_RUNS = (4, 6)
-# depth of the card-vs-CPU prefill check (Zamba2: with its shared block)
-CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7}
+# depth of the card-vs-CPU prefill check (Zamba2: with its shared block);
+# DeepSeek-V3's bf16 path has none: its decode gate runs at its reduced
+# config in f32
+CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7, "olmoe-1b-7b": 2,
+                    "codeqwen1.5-7b": 2, "qwen2.5-14b": 2,
+                    "granite-20b": 2}
+# MoE capacity factor of the decode == full forward gates: prefill of
+# B·S tokens and decode of B drop different choices at the served 1.25
+# (the reference's tests patch the same 8.0)
+GATE_CAPACITY_FACTOR = 8.0
 
 
 def fail(msg: str) -> int:
@@ -1832,10 +1883,10 @@ def run_serve_checkpoint(torch, mods, smi):
     return launches
 
 
-def _lm_args(train, shape, rounds, *extra):
+def _lm_args(train, shape, rounds, *extra, arch=LM_ARCH):
     """The train CLI's parsed flags of an LM run of ``shape`` on cuda."""
     return train.build_parser().parse_args([
-        "--arch", LM_ARCH, "--clients-per-round", str(shape["C"]),
+        "--arch", arch, "--clients-per-round", str(shape["C"]),
         "--local-steps", str(shape["K"]), "--batch", str(shape["b"]),
         "--seq", str(shape["S"]), "--rounds", str(rounds), "--seed", "0",
         "--device", "cuda", *extra])
@@ -1928,12 +1979,44 @@ def _lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta, smi, what):
     return rows
 
 
+def _lm_round_time(torch, train, cfg, sh, smi, label, arch=LM_ARCH):
+    """The wall of a staged one-round fused block of ``cfg`` at ``sh``
+    (LM_TIMED_BLOCKS blocks after a warm one), its device busy and idle
+    share (profiler), ms per local step and training tokens/s (C·K·b·S
+    over the round's wall), printed as ``{label} time`` and ``{label}
+    profile``."""
+    from repro_torch.core import flatten_fl_state
+    args = _lm_args(train, sh, 2, "--rounds-per-call", "2", arch=arch)
+    lt = train.setup_lm(args, cfg)
+    run = train.LMBlockRunner(lt, args)
+    box = {"fs": flatten_fl_state(train.init_lm_state(lt), run.layout)}
+    del lt
+    staged = run.stage(0, 1)
+
+    def block():
+        box["fs"], _ = run(box["fs"], staged)
+    block()
+    torch.cuda.synchronize()
+    walls = [_host_ms(torch, block, 1) for _ in range(LM_TIMED_BLOCKS)]
+    wall, busy, split = _profile_ms(torch, block)
+    tokens = sh["C"] * sh["K"] * sh["b"] * sh["S"]
+    print(f"{label} time", json.dumps({
+        "card": smi, "round_ms": walls,
+        "ms_per_local_step": statistics.median(walls) / sh["K"],
+        "tokens_per_round": tokens,
+        "train_tokens_per_s": tokens / (statistics.median(walls) / 1e3),
+        "profiled_round_ms": wall, "device_busy_ms": busy,
+        "idle_share": 1 - busy / wall}), flush=True)
+    print(f"{label} profile", json.dumps(split), flush=True)
+    del run, box, staged
+    torch.cuda.empty_cache()
+
+
 def run_lm_train_path(torch, mods, train, tk, tref, bw, f32, smi):
     """Phase 4e, LM training. Returns (launch counts by run, kernel rows
     at the LM shapes)."""
     import tempfile
     import numpy as np
-    from repro_torch.core import flatten_fl_state
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
     paths, rows = {}, {}
@@ -1985,28 +2068,7 @@ def run_lm_train_path(torch, mods, train, tk, tref, bw, f32, smi):
     del vm, host
 
     # where the time goes at (4, N): blocks of one round, staged first
-    args = _lm_args(train, sh, R, "--rounds-per-call", "2")
-    lt = train.setup_lm(args, cfg)
-    run = train.LMBlockRunner(lt, args)
-    box = {"fs": flatten_fl_state(train.init_lm_state(lt), run.layout)}
-    staged = run.stage(0, 1)
-
-    def block():
-        box["fs"], _ = run(box["fs"], staged)
-    block()
-    torch.cuda.synchronize()
-    walls = [_host_ms(torch, block, 1) for _ in range(LM_TIMED_BLOCKS)]
-    wall, busy, split = _profile_ms(torch, block)
-    tokens = C * sh["K"] * sh["b"] * sh["S"]
-    print("lm train time", json.dumps({
-        "card": smi, "round_ms": walls,
-        "ms_per_local_step": statistics.median(walls) / sh["K"],
-        "tokens_per_round": tokens,
-        "train_tokens_per_s": tokens / (statistics.median(walls) / 1e3),
-        "profiled_round_ms": wall, "device_busy_ms": busy,
-        "idle_share": 1 - busy / wall}), flush=True)
-    print("lm train profile", json.dumps(split), flush=True)
-    del run, box, staged, lt
+    _lm_round_time(torch, train, cfg, sh, smi, "lm train")
     rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
                                 smi, "lm_train_fused"))
     del g, gp, p, gapp, eta, nrm, app
@@ -2128,7 +2190,109 @@ def run_lm_train_path(torch, mods, train, tk, tref, bw, f32, smi):
         flush=True)
     del zb
     torch.cuda.empty_cache()
+
+    # 4. OLMoE at full width, 2 layers: one fused round == its --flat host
+    # loop bitwise; the Δ-SGD pair on its slabs; the round's wall
+    paths.update(_lm_moe_path(torch, mods, train, tk, tref, bw, f32, smi,
+                              rows))
+    # 5. DeepSeek-V3 reduced: a round with the MoE aux and the MTP loss
+    paths["lm_train_deepseek"] = _lm_mla_path(torch, mods, train, smi)
     return paths, rows
+
+
+def _lm_moe_path(torch, mods, train, tk, tref, bw, f32, smi, rows):
+    """Phase 4e, OLMoE at full width cut to LM_MOE's layers: the host
+    loop first (its result is 4 GB), then the fused round with the
+    kernels' last slabs kept for the kernel rows. Returns the launch
+    counts by run; adds the kernel rows to ``rows``."""
+    sh, paths = LM_MOE, {}
+    cfg = _lm_cfg(MOE_ARCH, sh["layers"])
+    dsgd = {("batched_norms", "cuda"): sh["K"],
+            ("batched_apply", "cuda"): sh["K"]}
+    host, launches, hpeak = _lm_train(torch, mods, train, cfg, _lm_args(
+        train, sh, 1, "--flat", arch=MOE_ARCH))
+    if launches != dsgd:
+        raise AssertionError(f"OLMoE host loop launched {launches}")
+    paths["lm_train_olmoe_host"] = launches
+    with _LastCall(tk, "batched_norms") as nrm, \
+            _LastCall(tk, "batched_apply") as app:
+        fused, launches, fpeak = _lm_train(torch, mods, train, cfg, _lm_args(
+            train, sh, 1, "--rounds-per-call", "2", arch=MOE_ARCH))
+    if launches != dsgd:
+        raise AssertionError(f"OLMoE fused launched {launches}")
+    paths["lm_train_olmoe_fused"] = launches
+    _state_equal(torch, fused.state, host.state, "OLMoE fused vs host loop")
+    for k in fused.history[0]:
+        if fused.history[0][k].tobytes() != host.history[0][k].tobytes():
+            raise AssertionError(f"OLMoE round 0 {k}: fused != host")
+    g, gp = nrm.args[0]
+    C, N = g.shape
+    print("lm train olmoe", json.dumps({
+        "card": smi, "arch": f"{MOE_ARCH}[{sh['layers']}L]", "N": N,
+        "clients": C, "local_steps": sh["K"], "batch": sh["b"],
+        "seq": sh["S"], "loss": float(fused.history[0]["loss"]),
+        "eta_mean": float(fused.history[0]["eta_mean"]),
+        "fused_equals_host_bitwise": True, "peak_gb_host": hpeak,
+        "peak_gb_fused": fpeak}), flush=True)
+    del fused, host
+    torch.cuda.empty_cache()
+    p, eta = app.args[0][0], app.args[0][2]
+    rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
+                                smi, "lm_train_olmoe"))
+    del g, gp, p, eta, nrm, app
+    torch.cuda.empty_cache()
+    _lm_round_time(torch, train, cfg, sh, smi, "lm train olmoe",
+                   arch=MOE_ARCH)
+    return paths
+
+
+def _lm_mla_path(torch, mods, train, smi):
+    """Phase 4e, DeepSeek-V3 at its reduced config: one fused round
+    (finite, K Δ-SGD launches of each kind); its trained params' loss on
+    a batch carries the MoE aux and the MTP loss (aux with labels above
+    aux without, both above 0) and equals the CPU's within 1e-4.
+    Returns the round's launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_map
+    sh = LM_MLA
+    cfg = get_config(MLA_ARCH).reduced()
+    out, launches, peak = _lm_train(torch, mods, train, cfg, _lm_args(
+        train, sh, 1, "--rounds-per-call", "2", arch=MLA_ARCH))
+    if launches != {("batched_norms", "cuda"): sh["K"],
+                    ("batched_apply", "cuda"): sh["K"]}:
+        raise AssertionError(f"DeepSeek-V3 reduced launched {launches}")
+    model = build_model(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (2, sh["S"] + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+             "labels": torch.from_numpy(toks[:, 1:]).cuda()}
+    params = out.state.params
+    with torch.no_grad():
+        loss, m = model.loss(params, batch, use_pallas=False)
+        _, aux_stack = model.apply(params, {"tokens": batch["tokens"]},
+                                   use_pallas=False)
+        cpu_loss, cpu_m = model.loss(tree_map(lambda a: a.cpu(), params),
+                                     tree_map(lambda a: a.cpu(), batch),
+                                     use_pallas=False)
+    if not 0 < float(aux_stack) < float(m["aux"]):
+        raise AssertionError(f"DeepSeek-V3 aux {float(aux_stack)} without "
+                             f"labels, {float(m['aux'])} with")
+    for a, b in ((loss, cpu_loss), (m["aux"], cpu_m["aux"])):
+        if not math.isclose(float(a), float(b), rel_tol=1e-4):
+            raise AssertionError(f"DeepSeek-V3 loss on the card {float(a)} "
+                                 f"vs the CPU {float(b)}")
+    print("lm train deepseek", json.dumps({
+        "card": smi, "arch": f"{MLA_ARCH}[reduced]",
+        "round_loss": float(out.history[0]["loss"]),
+        "eta_mean": float(out.history[0]["eta_mean"]),
+        "loss": float(loss), "ce": float(m["ce"]),
+        "aux_with_mtp": float(m["aux"]), "aux_stack": float(aux_stack),
+        "cpu_loss": float(cpu_loss), "peak_gb": peak}), flush=True)
+    del out, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_matrix(torch, mods):
@@ -2456,24 +2620,98 @@ def _host_ms(torch, fn, n):
     return statistics.median(out)
 
 
-def run_serve_path(torch, mods, arch, layers):
+def _decode_matches_full(torch, model, params, seq, prompt, name):
+    """Every generated position's decode logits (a lockstep prefill of
+    ``prompt`` tokens, then decode_step) against the teacher-forced full
+    forward of ``seq``, within 2e-3, with the MoE capacity factor at
+    GATE_CAPACITY_FACTOR and put back after."""
+    from repro_torch.models import moe
+    V = model.cfg.vocab_size
+    gen = seq.shape[1] - prompt
+    factor = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = GATE_CAPACITY_FACTOR
+    try:
+        full, _ = model.apply(params, {"tokens": seq[:, :-1]})
+        logits, cache = model.prefill(params, {"tokens": seq[:, :prompt]},
+                                      cache_len=seq.shape[1])
+        dec = [logits[:, 0]]
+        for j in range(gen - 1):
+            lg, cache = model.decode_step(
+                params, cache, seq[:, prompt + j:prompt + j + 1])
+            dec.append(lg[:, 0])
+    finally:
+        moe.CAPACITY_FACTOR = factor
+    dec = torch.stack(dec, 1)[..., :V]
+    ref_ = full[:, prompt - 1:, :V]
+    err = float((dec - ref_).abs().max())
+    torch.testing.assert_close(dec, ref_, rtol=2e-3, atol=2e-3)
+    moe_note = (f", MoE capacity factor {GATE_CAPACITY_FACTOR}"
+                if model.cfg.num_experts else "")
+    print(f"serve {name}: decode logits == full forward at all {gen} "
+          f"generated positions, max abs diff {err:.3g} (tolerance "
+          f"2e-3{moe_note})", flush=True)
+
+
+def _engine_matches_lockstep(torch, model, params, prompts, gen, name):
+    """Each prompt prefilled alone (B = 1, as the engine admits), the
+    rows decoded together in lockstep: -> (B, gen) greedy tokens; every
+    logit finite."""
+    import numpy as np
+    from repro_torch.utils.tree import tree_map
+    cache_len = prompts.shape[1] + gen
+    caches, first = [], []
+    for p in prompts:
+        lg, c = model.prefill(params, {"tokens": torch.from_numpy(
+            p[None]).cuda()}, cache_len=cache_len)
+        caches.append(c)
+        first.append(lg)
+    cache = {"runs": tree_map(lambda *xs: torch.cat(xs, 1),
+                              *[c["runs"] for c in caches]),
+             "t": caches[0]["t"], "positions": caches[0]["positions"]}
+    logits = torch.cat(first)
+    toks, finite = [], []
+    for j in range(gen):
+        if j:
+            logits, cache = model.decode_step(params, cache, toks[-1])
+        finite.append(torch.isfinite(logits[..., :model.cfg.vocab_size]
+                                     ).all())
+        toks.append(torch.argmax(logits, dim=-1))
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"serve {name}: non-finite logits")
+    print(f"serve {name}: engine tokens == lockstep prefill + decode_step "
+          f"loop for all {len(prompts)} requests, logits finite",
+          flush=True)
+    return np.asarray(torch.cat(toks, 1).cpu())
+
+
+def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     """Phase 6, one serve path. Returns its launch counts over its runs."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
     from repro_torch.models.model import build_model
     from repro_torch.serving import DecodeEngine
     from repro_torch.serving.engine import _decode_block
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    dtype = getattr(torch, dtype_name)
     name = f"{arch}[{cfg.num_layers}L]"
-    attn_sites = sum(t in ("attn", "shared_attn") for t in cfg.layer_types)
+    # MLA runs no flash attention: its qk head dim passes the kernel's
+    attn_sites = 0 if cfg.use_mla else sum(t in tfm.ATTN_TYPES
+                                           for t in cfg.layer_types)
     ssd_sites = sum(t == "mamba2" for t in cfg.layer_types)
-    model = build_model(cfg)
+    model = build_model(cfg, dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(a.numel() for a in tree_leaves(params))
     rng = np.random.default_rng(0)
     cache_len = SERVE_PROMPT + SERVE_GEN
     total = {}
@@ -2488,7 +2726,9 @@ def run_serve_path(torch, mods, arch, layers):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts(mods)
-        want = {("flash_attention", "cuda"): n_req * attn_sites}
+        want = {}
+        if attn_sites:
+            want[("flash_attention", "cuda")] = n_req * attn_sites
         if ssd_sites:
             want[("ssd_chunks", "cuda")] = n_req * ssd_sites
         if launches != want:
@@ -2501,35 +2741,31 @@ def run_serve_path(torch, mods, arch, layers):
                 gen.max() >= cfg.vocab_size:
             raise AssertionError(f"serve {name}: bad tokens {gen.shape}")
         print(f"serve {name}", json.dumps({
+            "card": smi, "dtype": dtype_name, "params": n_params,
+            "init_s": init_s, "init_peak_gb": init_peak,
             "requests": n_req, "slots": SERVE_SLOTS,
             "flush_tokens": SERVE_FLUSH, "flushes": engine.stats["flushes"],
             "wall_s": wall, "tok_per_s": n_req * SERVE_GEN / wall,
             "occupancy_mean": engine.metrics()["serve_occupancy_mean"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": {f"{k}/{d}": v for (k, d), v in launches.items()}}),
             flush=True)
         if n_req == SERVE_RUNS[0]:
             first = (prompts, gen, engine)
 
-    # prefill and decode agree: every generated position's decode logits
-    # against the teacher-forced full forward
     prompts, gen, engine = first
-    V = cfg.vocab_size
     seq = torch.from_numpy(np.concatenate([prompts, gen], 1)).cuda()
-    full, _ = model.apply(params, {"tokens": seq[:, :-1]})
-    logits, cache = model.prefill(params, {"tokens": seq[:, :SERVE_PROMPT]},
-                                  cache_len=cache_len)
-    dec = [logits[:, 0]]
-    for j in range(SERVE_GEN - 1):
-        lg, cache = model.decode_step(
-            params, cache, seq[:, SERVE_PROMPT + j:SERVE_PROMPT + j + 1])
-        dec.append(lg[:, 0])
-    dec = torch.stack(dec, 1)[..., :V]
-    ref_ = full[:, SERVE_PROMPT - 1:, :V]
-    err = float((dec - ref_).abs().max())
-    torch.testing.assert_close(dec, ref_, rtol=2e-3, atol=2e-3)
-    print(f"serve {name}: decode logits == full forward at all "
-          f"{SERVE_GEN} generated positions, max abs diff {err:.3g} "
-          f"(tolerance 2e-3)", flush=True)
+    if dtype == torch.float32:
+        # prefill and decode agree: every generated position's decode
+        # logits against the teacher-forced full forward
+        _decode_matches_full(torch, model, params, seq, SERVE_PROMPT, name)
+    else:
+        # bf16: the engine's tokens are a lockstep loop's, bit for bit
+        lock = _engine_matches_lockstep(torch, model, params, prompts,
+                                        SERVE_GEN, name)
+        if not np.array_equal(lock, gen):
+            raise AssertionError(f"serve {name}: engine tokens differ from "
+                                 "the lockstep loop's")
 
     # where the time goes: one prefill (B = 1) and one decode block of
     # SERVE_FLUSH steps over the full pool
@@ -2549,7 +2785,7 @@ def run_serve_path(torch, mods, arch, layers):
     pre_wall, pre_busy, pre_split = _profile_ms(torch, prefill)
     blk_wall, blk_busy, blk_split = _profile_ms(torch, block)
     print(f"serve {name} time", json.dumps({
-        "prefill_ms": pre_ms, "prefill_tokens": SERVE_PROMPT,
+        "card": smi, "prefill_ms": pre_ms, "prefill_tokens": SERVE_PROMPT,
         "prefill_device_busy_ms": pre_busy,
         "prefill_idle_share": 1 - pre_busy / pre_wall,
         "decode_block_ms": blk_ms, "decode_ms_per_step": blk_ms / SERVE_FLUSH,
@@ -2559,10 +2795,24 @@ def run_serve_path(torch, mods, arch, layers):
     print(f"serve {name} prefill profile", json.dumps(pre_split))
     print(f"serve {name} decode block profile", json.dumps(blk_split),
           flush=True)
-    del params, engine, first, cache
+    del params, engine, first
     torch.cuda.empty_cache()
 
+    if arch not in CPU_CHECK_LAYERS:
+        # DeepSeek-V3: the f32 decode gate at its reduced config
+        small = get_config(arch).reduced()
+        model = build_model(small)
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        seq = torch.from_numpy(rng.integers(
+            0, small.vocab_size, (SERVE_SLOTS, SERVE_PROMPT + SERVE_GEN))
+        ).cuda()
+        _decode_matches_full(torch, model, params, seq, SERVE_PROMPT,
+                             f"{arch}[reduced]")
+        del params
+        return total
+
     # the card agrees with the CPU: prefill at full width, fewer layers
+    V = cfg.vocab_size
     small = dataclasses.replace(cfg, num_layers=CPU_CHECK_LAYERS[arch])
     model = build_model(small)
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
@@ -2687,8 +2937,9 @@ def main() -> int:
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))
 
     # 6. serving
-    for arch, layers in SERVE_PATHS.items():
-        paths[arch] = run_serve_path(torch, mods, arch, layers)
+    for arch, (layers, dtype_name) in SERVE_PATHS.items():
+        paths[arch] = run_serve_path(torch, mods, arch, layers, dtype_name,
+                                     smi)
 
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)

@@ -10,14 +10,14 @@ from repro_torch.configs.paper_tasks import (CNN_PAPER, MLP_SMALL, MLP_WIDE,
 _ARCH_MODULES = {
     "zamba2-7b": "zamba2_7b",
     "tinyllama-1.1b": "tinyllama_1_1b",
-    "codeqwen1.5-7b": None,
-    "olmoe-1b-7b": None,
-    "deepseek-v3-671b": None,
-    "qwen2.5-14b": None,
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "qwen2.5-14b": "qwen2_5_14b",
     "whisper-tiny": None,
     "xlstm-1.3b": None,
     "internvl2-1b": None,
-    "granite-20b": None,
+    "granite-20b": "granite_20b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -95,6 +95,10 @@ class ModelConfig:
         logits at or beyond ``vocab_size`` are masked to −1e30."""
         return -(-self.vocab_size // 128) * 128
 
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ModelConfig":
         """A tiny same-family variant for CPU smoke tests (the

@@ -5,8 +5,10 @@
       --arch tinyllama-1.1b --reduced --batch 2 --prompt-len 16 --gen 8
 
 It runs on ``cuda`` unless ``--device cpu`` is given; on the card every
-prefill goes through the flash-attention kernel (and, for Zamba2, the
-SSD chunk kernel). The weights are a random init from ``--seed``.
+prefill of a GQA attention site goes through the flash-attention kernel
+(and, for Zamba2, every Mamba2 layer through the SSD chunk kernel);
+DeepSeek-V3's MLA attention runs in plain torch, as the reference's
+does. The weights are a random init from ``--seed``.
 Decode runs in ``--flush-tokens``-step blocks with one device-to-host
 copy per flush (see ``repro_torch/serving/engine.py``).
 

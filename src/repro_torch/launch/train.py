@@ -11,8 +11,9 @@ with the reference's flags, plus ``--device`` (default ``cuda``;
   PYTHONPATH=src python -m repro_torch.launch.train --task image \\
       --model cnn --rounds 4 --rounds-per-call 2
 
-``--arch`` trains TinyLlama or Zamba2 (full width; ``--reduced`` with
-``--layers`` and ``--d-model`` for a small one) with
+``--arch`` trains a ported arch of the LM zoo (TinyLlama, Zamba2,
+OLMoE, DeepSeek-V3, CodeQwen1.5, Qwen2.5, Granite; full width,
+``--reduced`` with ``--layers`` and ``--d-model`` for a small one) with
 ``--clients-per-round`` clients of ``--local-steps`` steps on ``--batch``
 sequences of ``--seq`` tokens a step, drawn each round from
 ``(seed, round)`` (``data.pipeline.lm_round_batches``), so a

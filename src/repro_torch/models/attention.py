@@ -1,5 +1,5 @@
-"""GQA attention and its ring-buffer KV cache. Port of the GQA part of
-``repro/models/attention.py``.
+"""GQA and MLA attention and their ring-buffer caches. Port of
+``repro/models/attention.py`` but its cross-attention.
 
 Two modes:
   * full : whole-sequence causal attention (prefill, the full forward).
@@ -16,9 +16,16 @@ Two modes:
   * step : one new token per row against the cache (decode), in plain
            torch, as the reference does it in jnp.
 
-MLA, cross-attention and the int8 KV cache are not ported yet (ROADMAP
-A15). The cache is written out of place, as JAX does: the serving
-engine keeps the old state of rows that did not decode.
+MLA (DeepSeek-V3) caches only its latent (``c_kv``) and the shared rope
+key; its full form expands per-head K and V and runs ``_sdpa`` whatever
+``use_pallas`` says, as the reference's does: its qk head dim (nope +
+rope, 192 at full width) passes the flash kernel's largest. Its decode
+step absorbs the key up-projection into the query and attends against
+the latent cache directly.
+
+Cross-attention and the int8 KV cache are not ported yet (ROADMAP A15).
+The cache is written out of place, as JAX does: the serving engine
+keeps the old state of rows that did not decode.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention)
-from repro_torch.models.common import apply_rope, dense_init, zeros_init
+from repro_torch.models.common import (apply_rope, dense_init, ones_init,
+                                       rmsnorm, zeros_init)
 
 NEG_INF = -1e30
 
@@ -47,6 +55,22 @@ def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
         p["bk"] = zeros_init(gen, (KV, hd), dtype)
         p["bv"] = zeros_init(gen, (KV, hd), dtype)
     return p
+
+
+def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (D, qr), dtype, fan_in=D),
+        "q_norm": ones_init(gen, (qr,), dtype),
+        "wq_b": dense_init(gen, (qr, H, dn + dr), dtype, fan_in=qr),
+        "wkv_a": dense_init(gen, (D, kvr + dr), dtype, fan_in=D),
+        "kv_norm": ones_init(gen, (kvr,), dtype),
+        "wk_b": dense_init(gen, (kvr, H, dn), dtype, fan_in=kvr),
+        "wv_b": dense_init(gen, (kvr, H, dv), dtype, fan_in=kvr),
+        "wo": dense_init(gen, (H, dv, D), dtype, fan_in=H * dv),
+    }
 
 
 def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -176,3 +200,78 @@ def init_gqa_cache(cfg, B: int, cache_len: int, dtype: torch.dtype,
                              device=device),
             "v": torch.zeros((B, cache_len, KV, hd), dtype=dtype,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): compressed KV latent cache
+# ---------------------------------------------------------------------------
+def _mla_proj(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """-> (q_nope (B,S,H,dn), q_rope (B,S,H,dr), latent c_kv (B,S,kvr),
+    k_rope (B,S,1,dr)), rope applied at ``positions``."""
+    dn, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    cq = rmsnorm(torch.einsum("bsd,dr->bsr", x, params["wq_a"]),
+                 params["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])   # (B,S,H,dn+dr)
+    kv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])     # (B,S,kvr+dr)
+    c_kv = rmsnorm(kv[..., :kvr], params["kv_norm"])
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)
+    return q[..., :dn], q_rope, c_kv, k_rope
+
+
+def mla_full(params: dict, x: torch.Tensor, cfg, *,
+             positions: torch.Tensor, window: Optional[int] = None,
+             build_cache: bool = False, use_pallas: bool = True):
+    """Expanded form (prefill, the full forward); the cache holds the
+    latent only. ``use_pallas`` is taken and ignored, as the
+    reference's is. Returns (out (B,S,D), {"c_kv", "k_rope"} | None)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_proj(params, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"])
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    out = _sdpa(qf.reshape(B, S, H, 1, dn + dr), kf, v,
+                window=window).reshape(B, S, H, dv)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, ({"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+               if build_cache else None)
+
+
+def mla_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
+             t: torch.Tensor, slot: torch.Tensor,
+             positions_buf: torch.Tensor, window: Optional[int] = None):
+    """Absorbed decode form: the query absorbs W_uk and attends against
+    the latent cache (c_kv (B,W,kvr), k_rope (B,W,dr)) without expanding
+    per-head K/V over the history. t, slot, positions_buf as in
+    :func:`gqa_step`."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope, c_new, kr_new = _mla_proj(params, x, cfg, t[:, None])
+    c_kv = _cache_write(cache["c_kv"], c_new, slot)
+    k_rope = _cache_write(cache["k_rope"], kr_new[:, :, 0, :], slot)
+    q_abs = torch.einsum("bshk,rhk->bhr", q_nope, params["wk_b"])
+    scores = (torch.einsum("bhr,btr->bht", q_abs.float(), c_kv.float())
+              + torch.einsum("bshk,btk->bht", q_rope.float(),
+                             k_rope.float()))
+    scores = scores * (1.0 / math.sqrt(dn + dr))
+    tt = t[:, None]
+    valid = (positions_buf >= 0) & (positions_buf <= tt)
+    if window is not None:
+        valid &= (tt - positions_buf) < window
+    w = torch.softmax(torch.where(valid[:, None, :], scores, NEG_INF),
+                      dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", w, c_kv.float())
+    out = torch.einsum("bhr,rhk->bhk", ctx.to(x.dtype), params["wv_b"])
+    y = torch.einsum("bhk,hkd->bd", out, params["wo"])[:, None, :]
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def init_mla_cache(cfg, B: int, cache_len: int, dtype: torch.dtype,
+                   device) -> dict:
+    return {"c_kv": torch.zeros((B, cache_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((B, cache_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

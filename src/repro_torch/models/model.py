@@ -1,6 +1,8 @@
 """Model facade: build a ported architecture from its ModelConfig. Port of
-``repro/models/model.py`` for decoder-only stacks of ``attn``,
-``mamba2`` and ``shared_attn`` blocks (TinyLlama, Zamba2).
+``repro/models/model.py`` for decoder-only stacks of ``attn``, ``moe``,
+``mamba2`` and ``shared_attn`` blocks, with GQA or MLA attention and
+DeepSeek-V3's multi-token prediction (TinyLlama, Zamba2, OLMoE,
+DeepSeek-V3, CodeQwen1.5, Qwen2.5, Granite).
 
     model = build_model(cfg, dtype)
     params = model.init(gen)                                  # on gen's device
@@ -11,6 +13,9 @@
 
 Batch dict keys: tokens (B,S) integer, labels (B,S) integer. Logits at
 or beyond ``vocab_size`` (the padded tail of the vocab table) are −1e30.
+``apply``'s aux is the MoE layers' auxiliary loss, plus, for a config
+with ``mtp_depth`` and a batch with labels, the multi-token prediction
+loss (``_mtp_loss``).
 
 ``apply``, ``loss`` and ``prefill`` take the reference's ``use_pallas``
 route keyword. True (the port's default, the route its serving has
@@ -21,8 +26,8 @@ The training builders (``repro_torch.launch.steps``) pass False, as the
 reference's default gives its trainers; the kernel wrappers refuse
 tensors that require grad, as the reference cannot differentiate its
 kernels. Nothing picks a route by itself.
-Encoders, image tokens, MLA, MoE, xLSTM and multi-token prediction are
-not ported yet (ROADMAP A15): ``build_model`` refuses such configs.
+Encoders, cross-attention, image tokens, sinusoidal positions and xLSTM
+are not ported yet (ROADMAP A15): ``build_model`` refuses such configs.
 """
 from __future__ import annotations
 
@@ -61,6 +66,14 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model,
                                                  cfg.padded_vocab), dtype)
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                   dtype),
+                "block": tfm.init_block(gen, cfg, cfg.layer_types[-1],
+                                        dtype),
+                "norm": init_norm(gen, cfg, dtype),
+            }
         return params
 
     # ------------------------------------------------------------ embedding
@@ -94,7 +107,28 @@ class Model:
         x, _, aux = tfm.stack_full(params["stack"], x, self.cfg,
                                    positions=positions,
                                    use_pallas=use_pallas)
-        return self._head(params, x), aux
+        logits = self._head(params, x)
+        if self.cfg.mtp_depth and "labels" in batch:
+            aux = aux + self._mtp_loss(params, x, batch)
+        return logits, aux
+
+    def _mtp_loss(self, params: Dict, h: torch.Tensor, batch: Dict,
+                  weight: float = 0.3) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: token t+2 (the labels
+        shifted by one) from [h_t ; emb(token_{t+1})] through one extra
+        block of the last layer's type, on the plain route as the
+        reference runs it. Returns weight·CE + the block's aux."""
+        cfg = self.cfg
+        nxt = F.embedding(batch["tokens"][:, 1:].long(), params["embed"])
+        x = torch.einsum("bsd,dk->bsk", torch.cat([h[:, :-1], nxt], dim=-1),
+                         params["mtp"]["proj"])
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, _, aux = tfm.block_full(params["mtp"]["block"], x, cfg,
+                                   cfg.layer_types[-1], positions=positions,
+                                   use_pallas=False)
+        x = apply_norm(params["mtp"]["norm"], x, cfg)
+        ll = _ce(self._project_vocab(params, x), batch["labels"][:, 1:])
+        return weight * ll + (aux if aux is not None else 0.0)
 
     def loss(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
         logits, aux = self.apply(params, batch, use_pallas=use_pallas)
@@ -159,7 +193,9 @@ class Model:
         runs = {}
         for i, (btype, n) in enumerate(tfm.segment_runs(cfg.layer_types)):
             if btype in tfm.ATTN_TYPES:
-                one = attn.init_gqa_cache(cfg, B, cache_len, dtype, device)
+                one = (attn.init_mla_cache if cfg.use_mla
+                       else attn.init_gqa_cache)(cfg, B, cache_len, dtype,
+                                                 device)
             else:
                 one = ssm.init_mamba2_cache(cfg, B, dtype, device)
             runs[f"run{i}"] = tree_map(
@@ -200,11 +236,9 @@ class Model:
                         else positions_buf[0]}
 
 
-_NOT_PORTED = (("use_mla", "MLA"), ("num_experts", "MoE"),
-               ("encoder_layers", "the encoder"),
+_NOT_PORTED = (("encoder_layers", "the encoder"),
                ("cross_attention", "cross-attention"),
-               ("num_image_tokens", "image tokens"),
-               ("mtp_depth", "multi-token prediction"))
+               ("num_image_tokens", "image tokens"))
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32

@@ -1,6 +1,9 @@
 """Layer-stack machinery: block dispatch, segment runs, the shared block.
 Port of ``repro/models/transformer.py`` for the block types of the
-ported archs: ``attn``, ``mamba2`` and ``shared_attn``.
+ported archs: ``attn``, ``moe``, ``mamba2`` and ``shared_attn``.
+The attention of ``attn``, ``moe`` and ``shared_attn`` blocks is GQA, or
+MLA where the config says so (``cfg.use_mla``); a ``moe`` block has the
+MoE layer (``models.moe``) in place of the dense MLP.
 
 Layers are grouped into runs of consecutive identical block types
 (``cfg.layer_types``), and the parameter tree is the reference's: a run
@@ -22,15 +25,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.common import (apply_norm, dense_init, init_norm,
                                        swiglu, zeros_init)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
-ATTN_TYPES = ("attn", "shared_attn")
+# block types with attention (and its KV cache)
+ATTN_TYPES = ("attn", "shared_attn", "moe")
 # block types of the reference that wait for their ROADMAP item
-_NOT_PORTED = {"moe": "A15 (LM zoo: MoE)", "mlstm": "A15 (LM zoo: xLSTM)",
-               "slstm": "A15 (LM zoo: xLSTM)"}
+_NOT_PORTED = {"mlstm": "A15 (LM zoo: xLSTM)", "slstm": "A15 (LM zoo: xLSTM)"}
 
 
 def check_ported(btype: str) -> None:
@@ -85,30 +89,45 @@ def init_block(gen: torch.Generator, cfg, btype: str,
                dtype: torch.dtype) -> dict:
     check_ported(btype)
     if btype in ATTN_TYPES:
-        return {"ln1": init_norm(gen, cfg, dtype),
-                "attn": attn.init_attention(gen, cfg, dtype),
-                "ln2": init_norm(gen, cfg, dtype),
-                "mlp": init_mlp(gen, cfg, dtype)}
+        attn_init = attn.init_mla if cfg.use_mla else attn.init_attention
+        p = {"ln1": init_norm(gen, cfg, dtype),
+             "attn": attn_init(gen, cfg, dtype),
+             "ln2": init_norm(gen, cfg, dtype)}
+        if btype == "moe":
+            p["moe"] = moe.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, dtype)
+        return p
     return {"ln": init_norm(gen, cfg, dtype),
             "mixer": ssm.init_mamba2(gen, cfg, dtype)}
+
+
+def _ffn(params: dict, h: torch.Tensor, cfg, btype: str):
+    """The block's MLP or MoE layer -> (out, aux)."""
+    if btype == "moe":
+        return moe.apply_moe(params["moe"], h, cfg)
+    return apply_mlp(params["mlp"], h, cfg), None
 
 
 def block_full(params: dict, x: torch.Tensor, cfg, btype: str, *,
                positions: torch.Tensor, window=None,
                build_cache: bool = False, use_pallas: bool = True):
-    """Returns (x, cache | None)."""
+    """Returns (x, cache | None, aux): aux is the MoE layer's auxiliary
+    loss, None for a block without one. MLA ignores ``use_pallas``, as
+    the reference's does: its qk head dim passes the kernel's."""
     if btype in ATTN_TYPES:
         h = apply_norm(params["ln1"], x, cfg)
-        a, cache = attn.gqa_full(params["attn"], h, cfg, positions=positions,
-                                 window=window, build_cache=build_cache,
-                                 use_pallas=use_pallas)
+        full = attn.mla_full if cfg.use_mla else attn.gqa_full
+        a, cache = full(params["attn"], h, cfg, positions=positions,
+                        window=window, build_cache=build_cache,
+                        use_pallas=use_pallas)
         x = x + a
-        h = apply_norm(params["ln2"], x, cfg)
-        return x + apply_mlp(params["mlp"], h, cfg), cache
+        m, aux = _ffn(params, apply_norm(params["ln2"], x, cfg), cfg, btype)
+        return x + m, cache, aux
     h = apply_norm(params["ln"], x, cfg)
     m, cache = ssm.mamba2_full(params["mixer"], h, cfg,
                                build_cache=build_cache, use_pallas=use_pallas)
-    return x + m, cache
+    return x + m, cache, None
 
 
 def block_step(params: dict, x: torch.Tensor, cfg, btype: str, cache: dict,
@@ -116,12 +135,12 @@ def block_step(params: dict, x: torch.Tensor, cfg, btype: str, cache: dict,
     """One decode step of one block. Returns (x, cache)."""
     if btype in ATTN_TYPES:
         h = apply_norm(params["ln1"], x, cfg)
-        a, cache = attn.gqa_step(params["attn"], h, cfg, cache, t=t,
-                                 slot=slot, positions_buf=positions_buf,
-                                 window=window)
+        step = attn.mla_step if cfg.use_mla else attn.gqa_step
+        a, cache = step(params["attn"], h, cfg, cache, t=t, slot=slot,
+                        positions_buf=positions_buf, window=window)
         x = x + a
-        h = apply_norm(params["ln2"], x, cfg)
-        return x + apply_mlp(params["mlp"], h, cfg), cache
+        m, _ = _ffn(params, apply_norm(params["ln2"], x, cfg), cfg, btype)
+        return x + m, cache
     h = apply_norm(params["ln"], x, cfg)
     m, cache = ssm.mamba2_step(params["mixer"], h, cfg, cache)
     return x + m, cache
@@ -168,18 +187,21 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *,
                positions: torch.Tensor, window=None,
                build_cache: bool = False, use_pallas: bool = True):
     """Returns (x, {run: cache stacked on the layer axis} | None, aux);
-    ``aux`` is the auxiliary loss, 0 without MoE blocks."""
+    ``aux`` is the MoE blocks' auxiliary losses summed in f32 in layer
+    order, 0 without MoE blocks."""
     caches = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (btype, n) in enumerate(segment_runs(cfg.layer_types)):
         cs = []
         for p in _run_params(params, i, btype, n):
-            x, c = block_full(p, x, cfg, btype, positions=positions,
-                              window=window, build_cache=build_cache,
-                              use_pallas=use_pallas)
+            x, c, a = block_full(p, x, cfg, btype, positions=positions,
+                                 window=window, build_cache=build_cache,
+                                 use_pallas=use_pallas)
             cs.append(c)
+            if a is not None:
+                aux = aux + a
         if build_cache:
             caches[f"run{i}"] = _stack(cs)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, (caches if build_cache else None), aux
 
 

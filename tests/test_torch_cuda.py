@@ -472,11 +472,15 @@ def _qkv(B, S, H, KV, hd, dtype, dev, seed):
 
 # (B, S, H, KV, hd, window): a single row, a ragged tile, exactly one
 # tile, several ragged tiles, the GQA ratios 1/2/4/8 and the three head
-# dims of the zoo (64 TinyLlama, 112 Zamba2's shared block, 128)
+# dims of the zoo (64 TinyLlama, 112 Zamba2's shared block, 128); then
+# the hd-128 prefill shapes of OLMoE (16/16), Qwen2.5 (40/8) and
+# Granite (48/1, MQA)
 FA_CASES = [(1, 1, 4, 4, 64, None), (2, 50, 8, 4, 64, None),
             (1, 64, 32, 4, 64, None), (2, 130, 8, 1, 112, None),
             (1, 130, 8, 8, 128, None), (1, 300, 4, 2, 112, 100),
-            (1, 257, 16, 2, 64, 64), (1, 64, 32, 32, 112, None)]
+            (1, 257, 16, 2, 64, 64), (1, 64, 32, 32, 112, None),
+            (1, 64, 16, 16, 128, None), (1, 64, 40, 8, 128, None),
+            (1, 64, 48, 1, 128, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -659,7 +663,10 @@ def test_ssd_chunks_every_grid_gives_the_same_bits(case, dev, monkeypatch):
 
 
 @pytest.mark.parametrize("arch,layers", [("tinyllama-1.1b", 2),
-                                         ("zamba2-7b", 7)])
+                                         ("zamba2-7b", 7),
+                                         ("olmoe-1b-7b", 2),
+                                         ("deepseek-v3-671b", 2),
+                                         ("granite-20b", 2)])
 def test_serving_runs_the_kernels_once_per_site_and_matches_cpu(arch, layers,
                                                                 dev):
     from repro_torch.configs import get_config
@@ -678,9 +685,11 @@ def test_serving_runs_the_kernels_once_per_site_and_matches_cpu(arch, layers,
     m2.reset_launch_count()
     rids = [engine.submit(p, 12) for p in prompts]
     done = {c.request_id: c.tokens for c in engine.run_until_idle()}
-    attn_sites = sum(t in ("attn", "shared_attn") for t in cfg.layer_types)
+    # MLA runs no flash attention
+    attn_sites = 0 if cfg.use_mla else sum(
+        t in ("attn", "shared_attn", "moe") for t in cfg.layer_types)
     ssd_sites = sum(t == "mamba2" for t in cfg.layer_types)
-    assert fa.LAUNCHES == {("flash_attention", "cuda"): 5 * attn_sites}
+    assert fa.launch_count() == fa.launch_count("cuda") == 5 * attn_sites
     assert m2.launch_count() == m2.launch_count("cuda") == 5 * ssd_sites
     # the card's prefill logits are the CPU's
     toks = torch.from_numpy(np.stack([np.concatenate([prompts[i], done[r]])
@@ -1178,7 +1187,8 @@ def test_flat_engine_past_two_to_the_31_elements(dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b",
+                                  "olmoe-1b-7b", "deepseek-v3-671b"])
 def test_lm_fused_round_on_the_card_matches_the_cpu(arch, dev):
     """One fused round of a reduced LM on the card: 2·K Δ-SGD launches,
     no attention or SSD kernel (training takes the plain route), and
@@ -1212,3 +1222,38 @@ def test_lm_fused_round_on_the_card_matches_the_cpu(arch, dev):
                     tree_leaves(cpu.state.params)):
         a = a.cpu()
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_layer_repeats_its_bits_on_the_card(arch, dev):
+    """The MoE layer's forward and vmap(grad) over a client axis give
+    the same bits twice on the card: dispatch and combine are reads and
+    a fixed-order sum, never an atomic scatter-add. T = 1,024 tokens, 4
+    experts at capacity 1.25: choices are dropped."""
+    from torch.func import grad, vmap
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = moe.init_moe(gen, cfg, torch.float32)
+    pc = {k: v for k, v in params.items() if k != "shared"}
+    pc = {k: torch.stack([v, v * 1.01, v * 0.99]) for k, v in pc.items()}
+    if "shared" in params:
+        pc["shared"] = {k: torch.stack([v] * 3)
+                        for k, v in params["shared"].items()}
+    x = torch.randn((3, 4, 256, cfg.d_model), generator=gen, device=dev)
+
+    def loss(q, xx):
+        out, aux = moe.apply_moe(q, xx, cfg)
+        return torch.sum(out ** 2) + aux
+
+    outs = [moe.apply_moe(params, x[0], cfg) for _ in range(2)]
+    grads = [vmap(grad(loss))(pc, x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert moe._capacity(4 * 256, 4, 2) < 4 * 256
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    from repro_torch.utils.tree import tree_leaves
+    for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
+        assert torch.equal(a, b)
+    assert float(grads[0]["router"].abs().sum()) > 0

@@ -69,7 +69,10 @@ def _close_trees(got, want):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b",
+                                  "olmoe-1b-7b", "deepseek-v3-671b",
+                                  "codeqwen1.5-7b", "qwen2.5-14b",
+                                  "granite-20b"])
 def test_configs_are_the_references(arch):
     for layers in (None, 2, 7):
         cfg, jcfg = get_config(arch), jget_config(arch)
@@ -97,7 +100,7 @@ def test_full_width_shapes_of_the_two_served_archs():
 def test_unported_arch_ids_raise_naming_the_roadmap_item():
     assert ARCH_IDS == JAX_ARCH_IDS
     for arch in ARCH_IDS:
-        if arch in ("tinyllama-1.1b", "zamba2-7b"):
+        if arch not in ("whisper-tiny", "xlstm-1.3b", "internvl2-1b"):
             continue
         with pytest.raises(NotImplementedError, match="A15"):
             get_config(arch)
@@ -106,7 +109,8 @@ def test_unported_arch_ids_raise_naming_the_roadmap_item():
 
 
 @pytest.mark.parametrize("arch,what,change", [
-    ("olmoe-1b-7b", "MoE", {}), ("deepseek-v3-671b", "MLA", {}),
+    ("whisper-tiny", "cross-attention", {"encoder_layers": 0}),
+    ("xlstm-1.3b", "xLSTM", {"block_pattern": ("slstm",)}),
     ("whisper-tiny", "encoder", {}), ("internvl2-1b", "image tokens", {}),
     ("xlstm-1.3b", "xLSTM", {}),
     ("tinyllama-1.1b", "sinusoidal", {"rope_theta": 0.0})])

@@ -152,7 +152,7 @@ def test_lm_refusals():
                      "--num-registered", "1000", "--device", "cpu"])
     # architectures that are not ported name their ROADMAP item
     with pytest.raises(SystemExit, match="A15"):
-        ttrain.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
+        ttrain.main(["--arch", "xlstm-1.3b", "--reduced", "--device",
                      "cpu"])
     # the fused loop needs Δ-SGD, as the reference's does
     with pytest.raises(ValueError, match="delta_sgd"):

@@ -259,7 +259,7 @@ def test_cli_serves_params_from_a_checkpoint(tmp_path):
              "--ckpt-dir", d]))
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-1.3b",
+@pytest.mark.parametrize("arch", ["internvl2-1b", "xlstm-1.3b",
                                   "whisper-tiny"])
 def test_cli_unported_archs_exit_naming_a15(arch):
     args = serve.build_parser().parse_args(["--device", "cpu", "--arch",

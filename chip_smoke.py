@@ -70,7 +70,9 @@ without its final line:
               at both prefill shapes and S = 2048, and at the hd-128
               prefill shapes of OLMoE (1, 64, 16, 16, 128), CodeQwen1.5
               (1, 64, 32, 32, 128), Qwen2.5 (1, 64, 40, 8, 128) and
-              Granite (1, 64, 48, 1, 128: MQA) (f32 within 2e-5, bf16
+              Granite (1, 64, 48, 1, 128: MQA), Whisper-tiny's decoder
+              (1, 64, 6, 6, 64) and InternVL2-1B over its image and text
+              positions (1, 320, 14, 2, 64) (f32 within 2e-5, bf16
               within atol 4e-3 + rtol 8e-3, about one bf16 ulp of the
               output; two calls bitwise equal); the SSD chunk kernel
               at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48) and
@@ -90,25 +92,33 @@ without its final line:
   6. serving  TinyLlama-1.1B whole (22 layers), Zamba2-7B at full
               width cut to 14 layers, OLMoE-1B-7B whole (16 layers),
               CodeQwen1.5-7B, Qwen2.5-14B and Granite-20B at full width
-              cut to 2 layers, all f32, and DeepSeek-V3 at full width cut
-              to one layer (with its MTP block) in bf16, random weights
-              from seed 0, through DecodeEngine: 4 prompts of 64 tokens,
-              32 new tokens, 4 slots, flush 8; then 6 prompts on 4 slots
-              (continuous admission). Each run starts with every count at
-              0 and must launch flash attention once per GQA attention
-              site per request (22, 2, 16 and 2; none for DeepSeek-V3's
-              MLA) and the SSD kernel once per Mamba2 layer per request
-              (12), nothing else. Then, for the f32 paths: the decode
-              logits of every generated position equal the
-              teacher-forced full forward's within 2e-3 (MoE capacity
-              factor 8.0 for this gate, 1.25 put back after); the card's
-              prefill logits equal the CPU's within 2e-3 at full width
-              and 2 layers (7 for Zamba2, so the shared block is there).
-              For DeepSeek-V3: finite logits, the engine's tokens equal
-              to a lockstep loop's (each prompt prefilled alone, the rows
-              decoded together), and the f32 decode gate at its reduced
-              config. Prefill and one decode block are timed and
-              profiled (device busy, idle share); init time and peak
+              cut to 2 layers, xLSTM-1.3B whole (48 layers), Whisper-tiny
+              whole (4 + 4 layers, 1,500 stub frames a request) and
+              InternVL2-1B whole (24 layers, 256 stub image embeddings a
+              request, counted in the cache), all f32, and DeepSeek-V3 at
+              full width cut to one layer (with its MTP block) in bf16,
+              random weights from seed 0, through DecodeEngine: 4 prompts
+              of 64 tokens, 32 new tokens, 4 slots, flush 8; then 6
+              prompts on 4 slots (continuous admission). Each run starts
+              with every count at 0 and must launch flash attention once
+              per causal GQA attention site per request (22, 2, 16, 2, 4
+              and 24; none for DeepSeek-V3's MLA and xLSTM; Whisper's
+              encoder and cross-attention run plain) and the SSD kernel
+              once per Mamba2 layer per request (12), nothing else. Then,
+              for the f32 paths: the decode logits of every generated
+              position equal the teacher-forced full forward's within
+              2e-3 (MoE capacity factor 8.0 for this gate, 1.25 put back
+              after; for xLSTM, Whisper and InternVL2 at the depth of the
+              CPU check, with the requests' extras); the card's prefill
+              logits equal the CPU's within 2e-3 at full width and 2
+              layers (7 for Zamba2, so the shared block is there; 4 for
+              xLSTM, so its sLSTM is; Whisper whole). For DeepSeek-V3,
+              xLSTM, Whisper and InternVL2: finite logits and the
+              engine's tokens equal to a lockstep loop's bit for bit
+              (each prompt prefilled alone with its extras, the rows
+              decoded together); for DeepSeek-V3 the f32 decode gate at
+              its reduced config. Prefill and one decode block are timed
+              and profiled (device busy, idle share); init time and peak
               allocation printed.
   3b. slice-4 kernels  lane_histogram exact at C = 1, 10, its
               crossover HIST_WARP_LANES (one warp up to it, a grid of
@@ -225,7 +235,14 @@ without its final line:
               round (MTP and the MoE aux in its loss): finite, its
               launches; its trained params' loss on a batch carries both
               (aux with labels above aux without, above 0) and equals the
-              CPU's within 1e-4.
+              CPU's within 1e-4. xLSTM-1.3B at full width cut to 4 layers
+              (one [m, m, m, s] period), C = 2, b = 1; Whisper-tiny whole,
+              C = 4, b = 8 with (C, K, b, 1500, 384) frames; InternVL2-1B
+              whole, C = 2, b = 1, 256 image tokens before the S = 256
+              text tokens; K = 2 each: the --flat host loop and one fused
+              round, bitwise equal, K launches of each Δ-SGD kernel each,
+              the round's wall, busy, tokens/s and peak allocations as
+              for OLMoE; the pair held and timed on InternVL2's slabs.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
@@ -335,7 +352,11 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
             (1, 64, 16, 16, 128, None, "float32"),
             (1, 64, 32, 32, 128, None, "float32"),
             (1, 64, 40, 8, 128, None, "float32"),
-            (1, 64, 48, 1, 128, None, "float32"))
+            (1, 64, 48, 1, 128, None, "float32"),
+            # Whisper-tiny's decoder (6/6) and InternVL2-1B over its 256
+            # image and 64 text positions (14/2)
+            (1, 64, 6, 6, 64, None, "float32"),
+            (1, 320, 14, 2, 64, None, "float32"))
 # SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
@@ -406,6 +427,14 @@ LM_ZAMBA = dict(layers=7, C=2, K=2, b=2, S=256)
 MOE_ARCH, MLA_ARCH = "olmoe-1b-7b", "deepseek-v3-671b"
 LM_MOE = dict(layers=2, C=2, K=2, b=1, S=256)
 LM_MLA = dict(layers=2, C=2, K=2, b=4, S=128)
+# the LM zoo's last three archs, each a --flat host loop and a fused
+# round: xLSTM-1.3B at full width cut to one [m, m, m, s] period (about
+# 0.41e9 params), Whisper-tiny whole with its (C, K, b, 1500, 384)
+# frames, InternVL2-1B whole (256 image tokens before the S text tokens;
+# the Δ-SGD pair held and timed on its (2, ~6.3e8) slabs)
+LM_NEW = {"xlstm-1.3b": dict(layers=4, C=2, K=2, b=1, S=256),
+          "whisper-tiny": dict(layers=4, C=4, K=2, b=8, S=256),
+          "internvl2-1b": dict(layers=24, C=2, K=2, b=1, S=256)}
 LM_ROUNDS = 2
 LM_TIMED_BLOCKS = 3
 # the f64 check of the 22-layer run's sums reads the row in slices of
@@ -421,7 +450,10 @@ SERVE_PATHS = {"tinyllama-1.1b": (None, "float32"),
                "codeqwen1.5-7b": (2, "float32"),
                "qwen2.5-14b": (2, "float32"),
                "granite-20b": (2, "float32"),
-               "deepseek-v3-671b": (1, "bfloat16")}
+               "deepseek-v3-671b": (1, "bfloat16"),
+               "xlstm-1.3b": (None, "float32"),
+               "whisper-tiny": (None, "float32"),
+               "internvl2-1b": (None, "float32")}
 SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS, SERVE_FLUSH = 64, 32, 4, 8
 SERVE_RUNS = (4, 6)
 # depth of the card-vs-CPU prefill check (Zamba2: with its shared block);
@@ -429,7 +461,12 @@ SERVE_RUNS = (4, 6)
 # config in f32
 CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7, "olmoe-1b-7b": 2,
                     "codeqwen1.5-7b": 2, "qwen2.5-14b": 2,
-                    "granite-20b": 2}
+                    "granite-20b": 2, "xlstm-1.3b": 4, "whisper-tiny": 4,
+                    "internvl2-1b": 2}
+# serve paths whose decode == full forward gate runs at the
+# CPU_CHECK_LAYERS depth (xLSTM's four reach its sLSTM), and whose engine
+# tokens are also held bitwise against a lockstep decode of each request
+CHECK_DEPTH_GATES = ("xlstm-1.3b", "whisper-tiny", "internvl2-1b")
 # MoE capacity factor of the decode == full forward gates: prefill of
 # B·S tokens and decode of B drop different choices at the served 1.25
 # (the reference's tests patch the same 8.0)
@@ -2004,6 +2041,7 @@ def _lm_round_time(torch, train, cfg, sh, smi, label, arch=LM_ARCH):
         "card": smi, "round_ms": walls,
         "ms_per_local_step": statistics.median(walls) / sh["K"],
         "tokens_per_round": tokens,
+        "image_tokens_per_round": tokens // sh["S"] * cfg.num_image_tokens,
         "train_tokens_per_s": tokens / (statistics.median(walls) / 1e3),
         "profiled_round_ms": wall, "device_busy_ms": busy,
         "idle_share": 1 - busy / wall}), flush=True)
@@ -2193,56 +2231,72 @@ def run_lm_train_path(torch, mods, train, tk, tref, bw, f32, smi):
 
     # 4. OLMoE at full width, 2 layers: one fused round == its --flat host
     # loop bitwise; the Δ-SGD pair on its slabs; the round's wall
-    paths.update(_lm_moe_path(torch, mods, train, tk, tref, bw, f32, smi,
-                              rows))
+    paths.update(_lm_host_fused_path(
+        torch, mods, train, tk, tref, bw, f32, smi, rows, MOE_ARCH, LM_MOE,
+        "lm_train_olmoe", "lm train olmoe", kernel_rows=True))
     # 5. DeepSeek-V3 reduced: a round with the MoE aux and the MTP loss
     paths["lm_train_deepseek"] = _lm_mla_path(torch, mods, train, smi)
+    # 6. xLSTM (one period), Whisper-tiny and InternVL2-1B (whole): each
+    # fused round == its --flat host loop bitwise; InternVL2's slabs give
+    # the Δ-SGD pair's rows
+    for arch, sh in LM_NEW.items():
+        short = arch.split("-")[0]
+        paths.update(_lm_host_fused_path(
+            torch, mods, train, tk, tref, bw, f32, smi, rows, arch, sh,
+            f"lm_train_{short}", f"lm train {short}",
+            kernel_rows=arch == "internvl2-1b"))
     return paths, rows
 
 
-def _lm_moe_path(torch, mods, train, tk, tref, bw, f32, smi, rows):
-    """Phase 4e, OLMoE at full width cut to LM_MOE's layers: the host
-    loop first (its result is 4 GB), then the fused round with the
-    kernels' last slabs kept for the kernel rows. Returns the launch
-    counts by run; adds the kernel rows to ``rows``."""
-    sh, paths = LM_MOE, {}
-    cfg = _lm_cfg(MOE_ARCH, sh["layers"])
+def _lm_host_fused_path(torch, mods, train, tk, tref, bw, f32, smi, rows,
+                        arch, sh, key, label, kernel_rows):
+    """Phase 4e, ``arch`` at full width cut to ``sh``'s layers: the
+    --flat host loop first, then one fused round, bitwise equal, K
+    launches of each Δ-SGD kernel each; with ``kernel_rows`` the pair
+    held and timed on the fused run's last slabs (added to ``rows``);
+    the round's wall, busy and tokens/s. Returns the launch counts by
+    run, keyed ``{key}_host`` and ``{key}_fused``."""
+    paths = {}
+    cfg = _lm_cfg(arch, sh["layers"])
     dsgd = {("batched_norms", "cuda"): sh["K"],
             ("batched_apply", "cuda"): sh["K"]}
     host, launches, hpeak = _lm_train(torch, mods, train, cfg, _lm_args(
-        train, sh, 1, "--flat", arch=MOE_ARCH))
+        train, sh, 1, "--flat", arch=arch))
     if launches != dsgd:
-        raise AssertionError(f"OLMoE host loop launched {launches}")
-    paths["lm_train_olmoe_host"] = launches
+        raise AssertionError(f"{arch} host loop launched {launches}")
+    paths[f"{key}_host"] = launches
     with _LastCall(tk, "batched_norms") as nrm, \
             _LastCall(tk, "batched_apply") as app:
         fused, launches, fpeak = _lm_train(torch, mods, train, cfg, _lm_args(
-            train, sh, 1, "--rounds-per-call", "2", arch=MOE_ARCH))
+            train, sh, 1, "--rounds-per-call", "2", arch=arch))
     if launches != dsgd:
-        raise AssertionError(f"OLMoE fused launched {launches}")
-    paths["lm_train_olmoe_fused"] = launches
-    _state_equal(torch, fused.state, host.state, "OLMoE fused vs host loop")
+        raise AssertionError(f"{arch} fused launched {launches}")
+    paths[f"{key}_fused"] = launches
+    _state_equal(torch, fused.state, host.state, f"{arch} fused vs host loop")
     for k in fused.history[0]:
         if fused.history[0][k].tobytes() != host.history[0][k].tobytes():
-            raise AssertionError(f"OLMoE round 0 {k}: fused != host")
+            raise AssertionError(f"{arch} round 0 {k}: fused != host")
     g, gp = nrm.args[0]
     C, N = g.shape
-    print("lm train olmoe", json.dumps({
-        "card": smi, "arch": f"{MOE_ARCH}[{sh['layers']}L]", "N": N,
+    print(label, json.dumps({
+        "card": smi, "arch": f"{arch}[{sh['layers']}L]", "N": N,
         "clients": C, "local_steps": sh["K"], "batch": sh["b"],
-        "seq": sh["S"], "loss": float(fused.history[0]["loss"]),
+        "seq": sh["S"], "image_tokens": cfg.num_image_tokens,
+        "encoder_frames": cfg.encoder_seq if cfg.encoder_layers else 0,
+        "loss": float(fused.history[0]["loss"]),
         "eta_mean": float(fused.history[0]["eta_mean"]),
         "fused_equals_host_bitwise": True, "peak_gb_host": hpeak,
         "peak_gb_fused": fpeak}), flush=True)
     del fused, host
     torch.cuda.empty_cache()
-    p, eta = app.args[0][0], app.args[0][2]
-    rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
-                                smi, "lm_train_olmoe"))
-    del g, gp, p, eta, nrm, app
+    if kernel_rows:
+        p, eta = app.args[0][0], app.args[0][2]
+        rows.update(_lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta,
+                                    smi, f"{key}_fused"))
+        del p, eta
+    del g, gp, nrm, app
     torch.cuda.empty_cache()
-    _lm_round_time(torch, train, cfg, sh, smi, "lm train olmoe",
-                   arch=MOE_ARCH)
+    _lm_round_time(torch, train, cfg, sh, smi, label, arch=arch)
     return paths
 
 
@@ -2620,20 +2674,33 @@ def _host_ms(torch, fn, n):
     return statistics.median(out)
 
 
-def _decode_matches_full(torch, model, params, seq, prompt, name):
+def _extras_batch(torch, extras, rows):
+    """The requests' extras (a list of {name: array} or None) of ``rows``
+    stacked into batch tensors on the card; {} without extras."""
+    import numpy as np
+    if not extras or extras[0] is None:
+        return {}
+    return {k: torch.from_numpy(np.stack([extras[i][k] for i in rows])
+                                ).cuda() for k in extras[0]}
+
+
+def _decode_matches_full(torch, model, params, seq, prompt, name,
+                         extras=None):
     """Every generated position's decode logits (a lockstep prefill of
-    ``prompt`` tokens, then decode_step) against the teacher-forced full
-    forward of ``seq``, within 2e-3, with the MoE capacity factor at
-    GATE_CAPACITY_FACTOR and put back after."""
+    ``prompt`` tokens, with the rows' extras, then decode_step) against
+    the teacher-forced full forward of ``seq``, within 2e-3, with the
+    MoE capacity factor at GATE_CAPACITY_FACTOR and put back after."""
     from repro_torch.models import moe
     V = model.cfg.vocab_size
     gen = seq.shape[1] - prompt
+    ex = extras or {}
     factor = moe.CAPACITY_FACTOR
     moe.CAPACITY_FACTOR = GATE_CAPACITY_FACTOR
     try:
-        full, _ = model.apply(params, {"tokens": seq[:, :-1]})
-        logits, cache = model.prefill(params, {"tokens": seq[:, :prompt]},
-                                      cache_len=seq.shape[1])
+        full, _ = model.apply(params, {"tokens": seq[:, :-1], **ex})
+        logits, cache = model.prefill(
+            params, {"tokens": seq[:, :prompt], **ex},
+            cache_len=seq.shape[1] + model.cfg.num_image_tokens)
         dec = [logits[:, 0]]
         for j in range(gen - 1):
             lg, cache = model.decode_step(
@@ -2652,22 +2719,28 @@ def _decode_matches_full(torch, model, params, seq, prompt, name):
           f"2e-3{moe_note})", flush=True)
 
 
-def _engine_matches_lockstep(torch, model, params, prompts, gen, name):
-    """Each prompt prefilled alone (B = 1, as the engine admits), the
-    rows decoded together in lockstep: -> (B, gen) greedy tokens; every
-    logit finite."""
+def _engine_matches_lockstep(torch, model, params, prompts, gen, name,
+                             extras=None):
+    """Each prompt prefilled alone (B = 1, as the engine admits, with
+    its extras), the rows decoded together in lockstep: -> (B, gen)
+    greedy tokens; every logit finite."""
     import numpy as np
     from repro_torch.utils.tree import tree_map
-    cache_len = prompts.shape[1] + gen
+    cache_len = prompts.shape[1] + gen + model.cfg.num_image_tokens
     caches, first = [], []
-    for p in prompts:
-        lg, c = model.prefill(params, {"tokens": torch.from_numpy(
-            p[None]).cuda()}, cache_len=cache_len)
+    for i, p in enumerate(prompts):
+        lg, c = model.prefill(params, {
+            "tokens": torch.from_numpy(p[None]).cuda(),
+            **_extras_batch(torch, extras, [i])}, cache_len=cache_len)
         caches.append(c)
         first.append(lg)
     cache = {"runs": tree_map(lambda *xs: torch.cat(xs, 1),
                               *[c["runs"] for c in caches]),
              "t": caches[0]["t"], "positions": caches[0]["positions"]}
+    if "enc_kv" in caches[0]:
+        cache["enc_kv"] = tree_map(lambda *xs: torch.cat(xs, 1),
+                                   *[c["enc_kv"] for c in caches])
+    del caches
     logits = torch.cat(first)
     toks, finite = [], []
     for j in range(gen):
@@ -2689,6 +2762,7 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _row_extras
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import build_model
     from repro_torch.serving import DecodeEngine
@@ -2700,7 +2774,8 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
         cfg = dataclasses.replace(cfg, num_layers=layers)
     dtype = getattr(torch, dtype_name)
     name = f"{arch}[{cfg.num_layers}L]"
-    # MLA runs no flash attention: its qk head dim passes the kernel's
+    # MLA runs no flash attention: its qk head dim passes the kernel's;
+    # the Whisper encoder's attention is non-causal and runs plain
     attn_sites = 0 if cfg.use_mla else sum(t in tfm.ATTN_TYPES
                                            for t in cfg.layer_types)
     ssd_sites = sum(t == "mamba2" for t in cfg.layer_types)
@@ -2713,15 +2788,18 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     init_peak = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(a.numel() for a in tree_leaves(params))
     rng = np.random.default_rng(0)
-    cache_len = SERVE_PROMPT + SERVE_GEN
+    cache_len = cfg.num_image_tokens + SERVE_PROMPT + SERVE_GEN
     total = {}
     for n_req in SERVE_RUNS:
         prompts = rng.integers(0, cfg.vocab_size, (n_req, SERVE_PROMPT))
+        # each request's frames or image embeddings, after the prompts
+        extras = [_row_extras(cfg, rng) for _ in prompts]
         engine = DecodeEngine(model, params, slots=SERVE_SLOTS,
                               cache_len=cache_len, flush_tokens=SERVE_FLUSH)
         _reset(mods)
         t0 = time.perf_counter()
-        rids = [engine.submit(p, SERVE_GEN) for p in prompts]
+        rids = [engine.submit(p, SERVE_GEN, extras=ex)
+                for p, ex in zip(prompts, extras)]
         done = {c.request_id: c.tokens for c in engine.run_until_idle()}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2744,6 +2822,8 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
             "card": smi, "dtype": dtype_name, "params": n_params,
             "init_s": init_s, "init_peak_gb": init_peak,
             "requests": n_req, "slots": SERVE_SLOTS,
+            "image_tokens": cfg.num_image_tokens,
+            "encoder_frames": cfg.encoder_seq if cfg.encoder_layers else 0,
             "flush_tokens": SERVE_FLUSH, "flushes": engine.stats["flushes"],
             "wall_s": wall, "tok_per_s": n_req * SERVE_GEN / wall,
             "occupancy_mean": engine.metrics()["serve_occupancy_mean"],
@@ -2751,25 +2831,27 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
             "launches": {f"{k}/{d}": v for (k, d), v in launches.items()}}),
             flush=True)
         if n_req == SERVE_RUNS[0]:
-            first = (prompts, gen, engine)
+            first = (prompts, gen, engine, extras)
 
-    prompts, gen, engine = first
+    prompts, gen, engine, extras = first
     seq = torch.from_numpy(np.concatenate([prompts, gen], 1)).cuda()
-    if dtype == torch.float32:
-        # prefill and decode agree: every generated position's decode
-        # logits against the teacher-forced full forward
-        _decode_matches_full(torch, model, params, seq, SERVE_PROMPT, name)
-    else:
-        # bf16: the engine's tokens are a lockstep loop's, bit for bit
+    ex_all = _extras_batch(torch, extras, range(len(prompts)))
+    if dtype != torch.float32 or arch in CHECK_DEPTH_GATES:
+        # the engine's tokens are a lockstep loop's, bit for bit
         lock = _engine_matches_lockstep(torch, model, params, prompts,
-                                        SERVE_GEN, name)
+                                        SERVE_GEN, name, extras)
         if not np.array_equal(lock, gen):
             raise AssertionError(f"serve {name}: engine tokens differ from "
                                  "the lockstep loop's")
+    if dtype == torch.float32 and arch not in CHECK_DEPTH_GATES:
+        # prefill and decode agree: every generated position's decode
+        # logits against the teacher-forced full forward
+        _decode_matches_full(torch, model, params, seq, SERVE_PROMPT, name)
 
     # where the time goes: one prefill (B = 1) and one decode block of
     # SERVE_FLUSH steps over the full pool
-    one = {"tokens": seq[:1, :SERVE_PROMPT]}
+    one = {"tokens": seq[:1, :SERVE_PROMPT], **_extras_batch(torch, extras,
+                                                              [0])}
     act = torch.ones((SERVE_SLOTS,), dtype=torch.bool, device="cuda")
 
     def prefill():
@@ -2786,6 +2868,7 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     blk_wall, blk_busy, blk_split = _profile_ms(torch, block)
     print(f"serve {name} time", json.dumps({
         "card": smi, "prefill_ms": pre_ms, "prefill_tokens": SERVE_PROMPT,
+        "prefill_positions": SERVE_PROMPT + cfg.num_image_tokens,
         "prefill_device_busy_ms": pre_busy,
         "prefill_idle_share": 1 - pre_busy / pre_wall,
         "decode_block_ms": blk_ms, "decode_ms_per_step": blk_ms / SERVE_FLUSH,
@@ -2816,11 +2899,15 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     small = dataclasses.replace(cfg, num_layers=CPU_CHECK_LAYERS[arch])
     model = build_model(small)
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    batch = {"tokens": seq[:2, :SERVE_PROMPT]}
+    if arch in CHECK_DEPTH_GATES:
+        _decode_matches_full(torch, model, params, seq, SERVE_PROMPT,
+                             f"{arch}[{small.num_layers}L]", ex_all)
+    batch = {"tokens": seq[:2, :SERVE_PROMPT],
+             **{k: v[:2] for k, v in ex_all.items()}}
     card, _ = model.prefill(params, batch)
     card_full, _ = model.apply(params, batch)
     params = tree_map(lambda a: a.cpu(), params)
-    batch = {"tokens": batch["tokens"].cpu()}
+    batch = {k: v.cpu() for k, v in batch.items()}
     host, _ = model.prefill(params, batch)
     host_full, _ = model.apply(params, batch)
     for a, b in ((card, host), (card_full, host_full)):

@@ -6,7 +6,7 @@ from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.configs.paper_tasks import (CNN_PAPER, MLP_SMALL, MLP_WIDE,
                                              CNNConfig, MLPConfig)
 
-# every arch id of the reference; None marks one that is not ported yet
+# every arch id of the reference
 _ARCH_MODULES = {
     "zamba2-7b": "zamba2_7b",
     "tinyllama-1.1b": "tinyllama_1_1b",
@@ -14,9 +14,9 @@ _ARCH_MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "qwen2.5-14b": "qwen2_5_14b",
-    "whisper-tiny": None,
-    "xlstm-1.3b": None,
-    "internvl2-1b": None,
+    "whisper-tiny": "whisper_tiny",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "internvl2-1b": "internvl2_1b",
     "granite-20b": "granite_20b",
 }
 
@@ -29,10 +29,6 @@ def get_config(arch_id: str) -> ModelConfig:
     except KeyError:
         raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_ARCH_MODULES)}") from None
-    if modname is None:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet: it comes "
-            "with ROADMAP A15 (LM zoo)")
     return importlib.import_module(f"repro_torch.configs.{modname}").CONFIG
 
 

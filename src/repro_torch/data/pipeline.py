@@ -23,7 +23,7 @@ fleet costs no extra dataset memory.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -157,11 +157,18 @@ class FederatedDataset:
 
 
 def lm_round_batches(rng: np.random.Generator, *, clients: int,
-                     local_steps: int, batch: int, seq: int, vocab: int):
+                     local_steps: int, batch: int, seq: int, vocab: int,
+                     extras: Optional[Dict] = None):
     """Synthetic LM round batch: (C, K, b, S) int32 tokens and their
     next-token labels, from ``rng`` (the reference's draw, bit for bit).
-    The reference's ``extras`` (stub inputs of encoder and image-token
-    configs) come with those configs (ROADMAP A15)."""
+    ``extras`` ({name: per-sequence shape}) adds stub-frontend inputs
+    (``frames``, ``image_embeds``) of (C, K, b, ...) f32 standard
+    normals, drawn after the tokens in ``extras``' order, as the
+    reference draws them."""
     toks = rng.integers(0, vocab, (clients, local_steps, batch, seq + 1),
                         dtype=np.int32)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    for k, shape in (extras or {}).items():
+        out[k] = rng.normal(size=(clients, local_steps, batch) + tuple(shape)
+                            ).astype(np.float32)
+    return out

@@ -6,8 +6,10 @@ with bf16 leaves in the ``ml_dtypes`` bfloat16 dtype. These helpers map
 such a tree to the port's dict of tensors and back, with the same names,
 shapes and dtypes, so both packages can start from the same params. The
 LM zoo's trees cross as they are: runs of n > 1 blocks with every leaf
-stacked on a leading layer axis, the shared block once at the top, and
-decode caches (their 0-d ``t`` included). An ``FLState`` crosses in both
+stacked on a leading layer axis, the shared block once at the top,
+Whisper's encoder subtree and cross-attention leaves, xLSTM's mixers,
+and decode caches (their 0-d ``t`` and Whisper's per-layer cross K/V
+``enc_kv`` included). An ``FLState`` crosses in both
 directions with its server state (fedavgm's ``m``, fedadam's and
 fedyogi's f32 ``m``, ``v`` and ``t``), its async FedBuff buffer and its
 EF21 tree, and so do a per-leaf Δ-SGD ``DeltaSGDState`` and the fleet's

@@ -5,14 +5,20 @@
       --arch tinyllama-1.1b --reduced --batch 2 --prompt-len 16 --gen 8
 
 It runs on ``cuda`` unless ``--device cpu`` is given; on the card every
-prefill of a GQA attention site goes through the flash-attention kernel
-(and, for Zamba2, every Mamba2 layer through the SSD chunk kernel);
-DeepSeek-V3's MLA attention runs in plain torch, as the reference's
-does. The weights are a random init from ``--seed``.
+prefill of a causal GQA attention site goes through the flash-attention
+kernel (and, for Zamba2, every Mamba2 layer through the SSD chunk
+kernel); DeepSeek-V3's MLA attention, the Whisper encoder and its
+cross-attention, and xLSTM's mixers run in plain torch, as the
+reference's do. The weights are a random init from ``--seed``. Each
+request of an encoder-decoder (Whisper) or image-token (InternVL2)
+config carries stub-frontend inputs drawn from ``--seed`` after the
+prompts, as the reference draws them (``_row_extras``): (1500, 384)
+frames, or 256 image embeddings that count in the cache length.
 Decode runs in ``--flush-tokens``-step blocks with one device-to-host
 copy per flush (see ``repro_torch/serving/engine.py``).
 
-``--window`` must cover the full request (prompt + gen) unless
+``--window`` must cover the full request (image tokens + prompt + gen)
+unless
 ``--roll-cache`` is passed, in which case the KV cache is sized to the
 window and rolls as a ring buffer (tokens beyond the window are
 evicted); truncating the cache silently would corrupt decode state.
@@ -40,7 +46,7 @@ import torch
 from repro_torch.checkpoint import restore_params
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.models.model import build_model
+from repro_torch.models.model import batch_extras, build_model
 from repro_torch.serving import DecodeEngine
 
 # flag -> (its default, the ROADMAP item that ports it): any other value
@@ -90,16 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise SystemExit for a flag or arch that is not ported yet."""
+    """Raise SystemExit for a flag that is not ported yet."""
     for name, (off, item) in _NOT_PORTED.items():
         if getattr(args, name) != off:
             flag = "--" + name.replace("_", "-")
             raise SystemExit(f"{flag} is not ported to repro_torch yet: it "
                              f"comes with ROADMAP {item}")
-    try:
-        get_config(args.arch)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
 
 
 def cache_len_for_request(full_len: int, window, roll_cache: bool) -> int:
@@ -108,7 +110,8 @@ def cache_len_for_request(full_len: int, window, roll_cache: bool) -> int:
         if not roll_cache:
             raise SystemExit(
                 f"--window {window} is smaller than the full request "
-                f"({full_len} = prompt + gen): the KV cache would be "
+                f"({full_len} = image tokens + prompt + gen): the KV cache "
+                f"would be "
                 f"silently truncated and decode state corrupted. Pass "
                 f"--roll-cache to serve with a rolling ring-buffer cache, "
                 f"or raise --window.")
@@ -144,18 +147,29 @@ def run(args) -> dict:
             "history": engine.history}
 
 
+def _row_extras(cfg, rng: np.random.Generator):
+    """One request's stub-frontend inputs (``batch_extras``), f32
+    standard normals drawn from ``rng`` in order (the reference's
+    draw), or None."""
+    return {k: rng.normal(size=shape).astype(np.float32)
+            for k, shape in batch_extras(cfg).items()} or None
+
+
 def decode(model, params, args):
-    """The CLI's batch of ``args.batch`` prompts (drawn from
-    ``args.seed``) decoded with ``params`` -> ((B, gen) int32 tokens,
-    seconds, the engine)."""
+    """The CLI's batch of ``args.batch`` prompts and their extras (drawn
+    from ``args.seed``) decoded with ``params`` -> ((B, gen) int32
+    tokens, seconds, the engine)."""
+    cfg = model.cfg
     B, S, gen = args.batch, args.prompt_len, args.gen
-    cache_len = cache_len_for_request(S + gen, args.window, args.roll_cache)
+    cache_len = cache_len_for_request((cfg.num_image_tokens or 0) + S + gen,
+                                      args.window, args.roll_cache)
     engine = DecodeEngine(model, params, slots=args.slots or B,
                           cache_len=cache_len,
                           flush_tokens=args.flush_tokens, window=args.window)
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, model.cfg.vocab_size, (B, S)).astype(np.int32)
-    rids = [engine.submit(prompts[i], gen) for i in range(B)]
+    prompts = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    rids = [engine.submit(prompts[i], gen, extras=_row_extras(cfg, rng))
+            for i in range(B)]
     t0 = time.perf_counter()
     done = {c.request_id: c.tokens for c in engine.run_until_idle()}
     dt = time.perf_counter() - t0

@@ -11,12 +11,13 @@ with the reference's flags, plus ``--device`` (default ``cuda``;
   PYTHONPATH=src python -m repro_torch.launch.train --task image \\
       --model cnn --rounds 4 --rounds-per-call 2
 
-``--arch`` trains a ported arch of the LM zoo (TinyLlama, Zamba2,
-OLMoE, DeepSeek-V3, CodeQwen1.5, Qwen2.5, Granite; full width,
-``--reduced`` with ``--layers`` and ``--d-model`` for a small one) with
-``--clients-per-round`` clients of ``--local-steps`` steps on ``--batch``
-sequences of ``--seq`` tokens a step, drawn each round from
-``(seed, round)`` (``data.pipeline.lm_round_batches``), so a
+``--arch`` trains an arch of the LM zoo (any of the reference's 10;
+full width, ``--reduced`` with ``--layers`` and ``--d-model`` for a
+small one) with ``--clients-per-round`` clients of ``--local-steps``
+steps on ``--batch`` sequences of ``--seq`` tokens a step, drawn each
+round from ``(seed, round)`` (``data.pipeline.lm_round_batches``; with
+Whisper's stub frames or InternVL2's stub image embeddings beside
+each sequence, ``models.model.batch_extras``), so a
 ``--resume`` replays the batches of an uninterrupted run. The model
 trains on its plain route (``attention._sdpa``, ``ssm._ssd_chunked``),
 as the reference's does; ``--use-pallas`` reaches only the client
@@ -130,7 +131,7 @@ from repro_torch.device import resolve_device
 from repro_torch.federation import (ClientArena, arena_init, cohort_size,
                                     get_scenario)
 from repro_torch.launch.report import scenario_summary
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import Model, batch_extras, build_model
 from repro_torch.models.small import accuracy, make_small_model, softmax_ce
 from repro_torch.telemetry import (EventLog, SpanTimer,
                                    kernel_launch_snapshot, schema,
@@ -654,15 +655,11 @@ def setup_lm(args, cfg=None) -> LMTask:
                          "no per-client partitions to map registered "
                          "ids onto — use --task, not --arch")
     device = resolve_device(args.device)
-    try:
-        if cfg is None:
-            cfg = get_config(args.arch)
-            if args.reduced:
-                cfg = cfg.reduced(num_layers=args.layers,
-                                  d_model=args.d_model)
-        model = build_model(cfg, torch.float32)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced(num_layers=args.layers, d_model=args.d_model)
+    model = build_model(cfg, torch.float32)
     scn = resolve_scenario(args)
     fl = FLConfig(local_steps=args.local_steps, client_opt=args.client_opt,
                   server_opt=args.server_opt, lr=args.lr,
@@ -687,21 +684,24 @@ def init_lm_state(lt: LMTask):
 
 
 def lm_batches(lt: LMTask, args, round_idx: int) -> dict:
-    """Round ``round_idx``'s (C, K, b, S) tokens and labels, numpy, from
-    the per-round stream ``default_rng((seed, round))``: a --resume at
-    any round replays an uninterrupted run's batches."""
+    """Round ``round_idx``'s (C, K, b, S) tokens and labels, with the
+    config's (C, K, b, ...) frames or image embeddings, numpy, from the
+    per-round stream ``default_rng((seed, round))``: a --resume at any
+    round replays an uninterrupted run's batches."""
+    cfg = lt.model.cfg
     return lm_round_batches(np.random.default_rng((args.seed,
                                                    int(round_idx))),
                             clients=lt.cohort, local_steps=lt.local_steps,
                             batch=args.batch, seq=args.seq,
-                            vocab=lt.model.cfg.vocab_size)
+                            vocab=cfg.vocab_size, extras=batch_extras(cfg))
 
 
 class LMBlockRunner:
     """The LM run's round-fused loop: ``stage(round0, R)`` draws R
     rounds of batches on the host and copies them, stacked (R, C, K, b,
-    S), to the device; ``runner(fstate, staged)`` runs the block ->
-    (fstate, metrics stacked over its R rounds)."""
+    ...) with the extras beside the tokens, to the device;
+    ``runner(fstate, staged)`` runs the block -> (fstate, metrics
+    stacked over its R rounds)."""
     clients = None             # no fleet arena
 
     def __init__(self, lt: LMTask, args):

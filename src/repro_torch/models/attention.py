@@ -1,5 +1,5 @@
-"""GQA and MLA attention and their ring-buffer caches. Port of
-``repro/models/attention.py`` but its cross-attention.
+"""GQA, MLA and cross-attention, and the ring-buffer caches. Port of
+``repro/models/attention.py``.
 
 Two modes:
   * full : whole-sequence causal attention (prefill, the full forward).
@@ -23,7 +23,11 @@ rope, 192 at full width) passes the flash kernel's largest. Its decode
 step absorbs the key up-projection into the query and attends against
 the latent cache directly.
 
-Cross-attention and the int8 KV cache are not ported yet (ROADMAP A15).
+Cross-attention (the Whisper decoder) reads K and V that ``cross_kv``
+computes once from the encoder output; ``cross_attend`` runs the plain
+``_sdpa`` without a causal mask, as the reference does (the flash
+kernel keeps its refusal of non-causal attention). The int8 KV cache is
+a serving option of ROADMAP A16 and is not ported yet.
 The cache is written out of place, as JAX does: the serving engine
 keeps the old state of rows that did not decode.
 """
@@ -92,31 +96,35 @@ _NQ_TARGET = 8
 
 
 def _sdpa_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                rows: torch.Tensor, *,
+                rows: torch.Tensor, *, causal: bool,
                 window: Optional[int]) -> torch.Tensor:
-    """Causal. qc: (B,L,H,hd), k/v: (B,T,H,hd), rows: (L,) absolute
-    positions."""
+    """qc: (B,L,H,hd), k/v: (B,T,H,hd), rows: (L,) absolute positions.
+    The window applies to causal attention; without a causal mask every
+    key counts (the reference's all-true mask changes no score)."""
     scale = 1.0 / math.sqrt(qc.shape[-1])
     T = k.shape[1]
     scores = torch.einsum("bshd,bthd->bhst", qc.float(), k.float()) * scale
-    cols = torch.arange(T, device=qc.device)[None, :]
-    mask = cols <= rows[:, None]
-    if window is not None:
-        mask = mask & ((rows[:, None] - cols) < window)
-    scores = torch.where(mask[None, None], scores, NEG_INF)
+    if causal:
+        cols = torch.arange(T, device=qc.device)[None, :]
+        mask = cols <= rows[:, None]
+        if window is not None:
+            mask = mask & ((rows[:, None] - cols) < window)
+        scores = torch.where(mask[None, None], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w, v.float())
     return out.to(v.dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = True,
           window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention, q: (B,S,KV,G,hd), k/v: (B,S,KV,hd) ->
-    (B,S,KV,G,hd). K and V are repeated to the H = KV·G heads; the
-    queries run in chunks of S/_NQ_TARGET rows at S ≥ 2048 (a Python
-    loop where the reference scans). The reference's non-causal and
-    query-offset cases have no caller here, and its bf16-softmax switch
-    (off by default) is not ported."""
+    """q: (B,S,KV,G,hd), k/v: (B,T,KV,hd) -> (B,S,KV,G,hd); causal
+    attention (query row i at position i), or with ``causal=False``
+    every query against all T keys (the Whisper encoder, cross-attention).
+    K and V are repeated to the H = KV·G heads; the queries run in
+    chunks of S/_NQ_TARGET rows at S ≥ 2048 (a Python loop where the
+    reference scans). The reference's query offset has no caller here,
+    and its bf16-softmax switch (off by default) is not ported."""
     B, S, KV, G, hd = q.shape
     H = KV * G
     qq = q.reshape(B, S, H, hd)
@@ -126,7 +134,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     L = S // nq
     outs = [_sdpa_block(qq[:, c * L:(c + 1) * L], kk, vv,
                         c * L + torch.arange(L, device=q.device),
-                        window=window) for c in range(nq)]
+                        causal=causal, window=window) for c in range(nq)]
     out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, S, KV, G, v.shape[-1])
 
@@ -275,3 +283,34 @@ def init_mla_cache(cfg, B: int, cache_len: int, dtype: torch.dtype,
                                 dtype=dtype, device=device),
             "k_rope": torch.zeros((B, cache_len, cfg.qk_rope_head_dim),
                                   dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (Whisper decoder): K/V come from the encoder output and
+# are computed once at prefill; no rope
+# ---------------------------------------------------------------------------
+def init_cross_attention(gen: torch.Generator, cfg,
+                         dtype: torch.dtype) -> dict:
+    return init_attention(gen, cfg, dtype)
+
+
+def cross_kv(params: dict, enc_out: torch.Tensor, cfg) -> dict:
+    """enc_out: (B,T,D) -> {"xk", "xv"}: (B,T,KV,hd) each."""
+    k = torch.einsum("btd,dhk->bthk", enc_out, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc_out, params["wv"])
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return {"xk": k, "xv": v}
+
+
+def cross_attend(params: dict, x: torch.Tensor, cfg,
+                 kv: dict) -> torch.Tensor:
+    """x: (B,S,D) queries against the encoder's K/V -> (B,S,D)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    out = _sdpa(q.reshape(B, S, KV, H // KV, hd), kv["xk"], kv["xv"],
+                causal=False).reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])

@@ -1,5 +1,5 @@
-"""Shared model building blocks: inits, norms, activations, rope. Port of
-``repro/models/common.py``.
+"""Shared model building blocks: inits, norms, activations, rope and
+sinusoidal positions. Port of ``repro/models/common.py``.
 
 Every block exposes ``init_*(gen, cfg, dtype) -> params`` and a pure
 ``apply``-style function over a nested dict of tensors, as the reference
@@ -117,6 +117,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Absolute sinusoidal positions (Whisper). Two routes, as in the reference:
+# the full-sequence table in numpy f64 rounded to f32 once, and one
+# position a row computed in f32 on the device for decode. They differ in
+# their last bits.
+# ---------------------------------------------------------------------------
+def sinusoidal_position_at(t: torch.Tensor, d: int) -> torch.Tensor:
+    """t: (...) positions -> (..., d) f32 embeddings: sin at even
+    channels, cos at odd, computed in f32."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=t.device)
+    angle = t.float()[..., None] / torch.pow(10000.0, 2 * i / d)
+    return torch.stack([torch.sin(angle), torch.cos(angle)],
+                       dim=-1).reshape(*t.shape, d)
+
+
+def sinusoidal_positions(num_pos: int, d: int) -> np.ndarray:
+    """(num_pos, d) f32 table, computed in f64."""
+    pos = np.arange(num_pos)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((num_pos, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Model facade: build a ported architecture from its ModelConfig. Port of
-``repro/models/model.py`` for decoder-only stacks of ``attn``, ``moe``,
-``mamba2`` and ``shared_attn`` blocks, with GQA or MLA attention and
-DeepSeek-V3's multi-token prediction (TinyLlama, Zamba2, OLMoE,
-DeepSeek-V3, CodeQwen1.5, Qwen2.5, Granite).
+"""Model facade: build any architecture of the LM zoo from its
+ModelConfig. Port of ``repro/models/model.py``: decoder stacks of
+``attn``, ``moe``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm``
+blocks, with GQA or MLA attention and DeepSeek-V3's multi-token
+prediction, Whisper's encoder-decoder with cross-attention and
+sinusoidal positions, and InternVL2's image tokens (all 10 archs).
 
     model = build_model(cfg, dtype)
     params = model.init(gen)                                  # on gen's device
@@ -11,26 +12,36 @@ DeepSeek-V3, CodeQwen1.5, Qwen2.5, Granite).
     logits, cache = model.prefill(params, batch, cache_len=)  # inference
     logits, cache = model.decode_step(params, cache, tokens)  # one token
 
-Batch dict keys: tokens (B,S) integer, labels (B,S) integer. Logits at
-or beyond ``vocab_size`` (the padded tail of the vocab table) are −1e30.
+Batch dict keys: tokens (B,S) integer, labels (B,S) integer, and for
+the stub frontends ``frames`` (B, encoder_seq, D) (Whisper's encoder
+input) or ``image_embeds`` (B, num_image_tokens, D) (InternVL2's patch
+embeddings, prepended to the text): precomputed embeddings. Logits at
+or beyond ``vocab_size`` (the padded tail of the vocab table) are
+−1e30; with image tokens, logits are for the text positions only.
 ``apply``'s aux is the MoE layers' auxiliary loss, plus, for a config
 with ``mtp_depth`` and a batch with labels, the multi-token prediction
 loss (``_mtp_loss``).
 
 ``apply``, ``loss`` and ``prefill`` take the reference's ``use_pallas``
 route keyword. True (the port's default, the route its serving has
-always taken) runs attention and the SSD through their kernel wrappers;
-False runs the reference's plain model code (``attention._sdpa``,
-``ssm._ssd_chunked``), which autograd and ``torch.func`` differentiate.
-The training builders (``repro_torch.launch.steps``) pass False, as the
-reference's default gives its trainers; the kernel wrappers refuse
-tensors that require grad, as the reference cannot differentiate its
-kernels. Nothing picks a route by itself.
-Encoders, cross-attention, image tokens, sinusoidal positions and xLSTM
-are not ported yet (ROADMAP A15): ``build_model`` refuses such configs.
+always taken) runs causal attention and the SSD through their kernel
+wrappers; False runs the reference's plain model code
+(``attention._sdpa``, ``ssm._ssd_chunked``), which autograd and
+``torch.func`` differentiate. The training builders
+(``repro_torch.launch.steps``) pass False, as the reference's default
+gives its trainers; the kernel wrappers refuse tensors that require
+grad, as the reference cannot differentiate its kernels. Nothing picks
+a route by itself. The encoder's bidirectional attention, the
+cross-attention and the xLSTM mixers run in plain torch on either
+route, as in the reference.
+
+Sinusoidal positions take the reference's two routes: the full-sequence
+table in numpy f64 rounded to f32 (``_embed``, ``_encode``), and each
+row's own position in f32 on the device in ``decode_step``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -39,10 +50,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       init_norm)
+                                       init_norm, sinusoidal_position_at,
+                                       sinusoidal_positions)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
@@ -61,11 +72,18 @@ class Model:
         params = {
             "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
             "final_norm": init_norm(gen, cfg, dtype),
-            "stack": tfm.init_stack(gen, cfg, dtype),
+            "stack": tfm.init_stack(gen, cfg, dtype,
+                                    decoder=cfg.cross_attention),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model,
                                                  cfg.padded_vocab), dtype)
+        if cfg.encoder_layers:
+            params["encoder"] = {
+                "stack": tfm.init_stack(gen, cfg, dtype,
+                                        layer_types=self._enc_types),
+                "norm": init_norm(gen, cfg, dtype),
+            }
         if cfg.mtp_depth:
             params["mtp"] = {
                 "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model),
@@ -77,10 +95,60 @@ class Model:
         return params
 
     # ------------------------------------------------------------ embedding
-    def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
+    @property
+    def _enc_types(self):
+        return ("attn",) * self.cfg.encoder_layers
+
+    def _tok_embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its backward on the card sums a token's rows in a
         # fixed order, so a trained step's bits do not vary run to run
-        return F.embedding(batch["tokens"].long(), params["embed"])
+        return F.embedding(tokens.long(), params["embed"])
+
+    def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Token embeddings, after the image embeddings where the config
+        and the batch have them, plus the sinusoidal table where the
+        config has no rope."""
+        cfg = self.cfg
+        x = self._tok_embed(params, batch["tokens"])
+        if cfg.num_image_tokens and "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+        if not cfg.rope_theta:
+            x = x + _sinusoid_table(x.shape[1], cfg.d_model, x.device
+                                    ).to(x.dtype)[None]
+        return x
+
+    def _encode(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The Whisper encoder over the stub frame embeddings: the
+        sinusoidal table, non-causal attention blocks, a final norm."""
+        cfg = self.cfg
+        frames = batch["frames"].to(self.dtype)
+        S = frames.shape[1]
+        x = frames + _sinusoid_table(S, cfg.d_model, frames.device
+                                     ).to(frames.dtype)[None]
+        positions = torch.arange(S, device=x.device)[None]
+        x, _, _ = tfm.stack_full(params["encoder"]["stack"], x, cfg,
+                                 layer_types=self._enc_types,
+                                 positions=positions, causal=False)
+        return apply_norm(params["encoder"]["norm"], x, cfg)
+
+    def _cross_kv(self, params: Dict, enc_out: torch.Tensor) -> Dict:
+        """Each decoder layer's cross K/V, stacked (num_layers, B, T, KV,
+        hd). The decoder stack is one run of blocks."""
+        runs = tfm.segment_runs(self.cfg.layer_types)
+        if len(runs) != 1:
+            raise ValueError("an encoder-decoder config needs a uniform "
+                             f"decoder stack, got runs {runs}")
+        btype, n = runs[0]
+        kvs = [attn.cross_kv(p["xattn"], enc_out, self.cfg)
+               for p in tfm._run_params(params["stack"], 0, btype, n)]
+        return tfm._stack(kvs)
+
+    def _enc_kv(self, params: Dict, batch: Dict):
+        """The decoder's cross K/V for ``batch``, None without an
+        encoder."""
+        if not self.cfg.encoder_layers:
+            return None
+        return self._cross_kv(params, self._encode(params, batch))
 
     def _project_vocab(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Vocab projection over the padded table; padding logits −1e30."""
@@ -101,12 +169,17 @@ class Model:
 
     # ---------------------------------------------------------- full forward
     def apply(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
-        """Full causal forward. Returns (logits (B,S,V), aux)."""
+        """Full causal forward. Returns (logits (B,S,V) over the text
+        positions, aux)."""
+        cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _, aux = tfm.stack_full(params["stack"], x, self.cfg,
+        x, _, aux = tfm.stack_full(params["stack"], x, cfg,
                                    positions=positions,
+                                   enc_kv=self._enc_kv(params, batch),
                                    use_pallas=use_pallas)
+        if cfg.num_image_tokens and "image_embeds" in batch:
+            x = x[:, cfg.num_image_tokens:]   # text positions only
         logits = self._head(params, x)
         if self.cfg.mtp_depth and "labels" in batch:
             aux = aux + self._mtp_loss(params, x, batch)
@@ -119,7 +192,7 @@ class Model:
         block of the last layer's type, on the plain route as the
         reference runs it. Returns weight·CE + the block's aux."""
         cfg = self.cfg
-        nxt = F.embedding(batch["tokens"][:, 1:].long(), params["embed"])
+        nxt = self._tok_embed(params, batch["tokens"][:, 1:])
         x = torch.einsum("bsd,dk->bsk", torch.cat([h[:, :-1], nxt], dim=-1),
                          params["mtp"]["proj"])
         positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -143,17 +216,23 @@ class Model:
                 cache_len: Optional[int] = None,
                 window: Optional[int] = None, use_pallas: bool = True):
         """Forward + decode cache. Returns (last-position logits
-        (B,1,V), cache)."""
+        (B,1,V), cache). S, the cache's ``t`` after prefill, counts the
+        image tokens; an encoder-decoder cache carries ``enc_kv``, the
+        decoder's cross K/V."""
         x = self._embed(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None]
+        enc_kv = self._enc_kv(params, batch)
         x, caches, _ = tfm.stack_full(params["stack"], x, self.cfg,
                                       positions=positions, window=window,
-                                      build_cache=True,
+                                      build_cache=True, enc_kv=enc_kv,
                                       use_pallas=use_pallas)
         logits = self._head(params, x[:, -1:])
         cache_len = cache_len or self.cache_len_for(S, window)
-        return logits, self._assemble_cache(caches, S, cache_len)
+        cache = self._assemble_cache(caches, S, cache_len)
+        if enc_kv is not None:
+            cache["enc_kv"] = enc_kv
+        return logits, cache
 
     def _assemble_cache(self, built: Dict, S: int, cache_len: int) -> Dict:
         """Pad or crop the per-layer prefill caches to the decode cache
@@ -197,7 +276,7 @@ class Model:
                        else attn.init_gqa_cache)(cfg, B, cache_len, dtype,
                                                  device)
             else:
-                one = ssm.init_mamba2_cache(cfg, B, dtype, device)
+                one = tfm.RECURRENT[btype][3](cfg, B, dtype, device)
             runs[f"run{i}"] = tree_map(
                 lambda x: x[None].repeat((n,) + (1,) * x.dim()), one)
         return {"runs": runs,
@@ -216,6 +295,8 @@ class Model:
           * (B,) ``t`` + (B, W) ``positions``: the per-slot pool of the
             serving engine, each row at its own position and ring slot.
         The lockstep form runs as the per-slot form with every row equal.
+        Without rope, each row adds the sinusoidal embedding of its own
+        position; an ``enc_kv`` in the cache passes through unchanged.
         """
         t = cache["t"]
         vec = t.dim() > 0
@@ -226,34 +307,45 @@ class Model:
         slot = tv % W
         rows = torch.arange(B, device=tv.device)
         positions_buf = pos.index_put((rows, slot.long()), tv)
-        x = self._embed(params, {"tokens": tokens})
+        x = self._tok_embed(params, tokens)
+        if not self.cfg.rope_theta:
+            x = x + sinusoidal_position_at(tv, self.cfg.d_model
+                                           )[:, None, :].to(x.dtype)
+        enc_kv = cache.get("enc_kv")
         x, runs = tfm.stack_step(params["stack"], x, self.cfg, cache["runs"],
                                  t=tv, slot=slot,
-                                 positions_buf=positions_buf, window=window)
+                                 positions_buf=positions_buf, window=window,
+                                 enc_kv=enc_kv)
         logits = self._head(params, x)
-        return logits, {"runs": runs, "t": t + 1,
-                        "positions": positions_buf if vec
-                        else positions_buf[0]}
+        new_cache = {"runs": runs, "t": t + 1,
+                     "positions": positions_buf if vec
+                     else positions_buf[0]}
+        if enc_kv is not None:
+            new_cache["enc_kv"] = enc_kv
+        return logits, new_cache
 
 
-_NOT_PORTED = (("encoder_layers", "the encoder"),
-               ("cross_attention", "cross-attention"),
-               ("num_image_tokens", "image tokens"))
+def batch_extras(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The stub-frontend inputs a batch of ``cfg`` carries beside its
+    tokens, {name: shape of one sequence's}, in the reference's order:
+    Whisper's ``frames``, InternVL2's ``image_embeds``."""
+    extras = {}
+    if cfg.encoder_layers:
+        extras["frames"] = (cfg.encoder_seq, cfg.d_model)
+    if cfg.num_image_tokens:
+        extras["image_embeds"] = (cfg.num_image_tokens, cfg.d_model)
+    return extras
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(S: int, d: int, device: torch.device) -> torch.Tensor:
+    """``sinusoidal_positions(S, d)`` on ``device``, copied there once
+    (a forward pass then makes no host-to-device copy)."""
+    return torch.from_numpy(sinusoidal_positions(S, d)).to(device)
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32
                 ) -> Model:
-    for field, what in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported to repro_torch yet: it "
-                "comes with ROADMAP A15 (LM zoo)")
-    for btype in cfg.layer_types:
-        tfm.check_ported(btype)
-    if not cfg.rope_theta:
-        raise NotImplementedError(
-            f"{cfg.name}: sinusoidal positions are not ported to repro_torch "
-            "yet: they come with ROADMAP A15 (LM zoo)")
     return Model(cfg, dtype)
 
 

@@ -1,9 +1,8 @@
-"""The Mamba2 (SSD) mixer. Port of the Mamba2 part of
-``repro/models/ssm.py``; mLSTM and sLSTM are not ported yet (ROADMAP
-A15).
+"""The recurrent mixers: Mamba2 (SSD) and xLSTM's mLSTM and sLSTM. Port
+of ``repro/models/ssm.py``.
 
-  mamba2_full(params, x, cfg, build_cache=...) -> (y, cache|None)  prefill
-  mamba2_step(params, x, cfg, cache)           -> (y, cache)       decode
+  <mixer>_full(params, x, cfg, build_cache=...) -> (y, cache|None)  prefill
+  <mixer>_step(params, x, cfg, cache)           -> (y, cache)       decode
 
 The full mode runs the SSD chunked algorithm on one of two routes,
 chosen by the caller with ``use_pallas`` (the reference's keyword).
@@ -15,6 +14,15 @@ chunked scan, which autograd and ``torch.func`` differentiate; training
 takes it, as the reference's does (the kernel wrapper refuses tensors
 that require grad). The step mode is the O(1) recurrence in plain
 torch, as the reference's jnp.
+
+The mLSTM (matrix memory) runs its full mode chunkwise with the
+reference's stabilisers (``_mlstm_chunked``), the sLSTM (scalar memory)
+is sequential by construction: its input projection is hoisted out of
+a Python loop over the sequence (the reference's ``lax.scan``), which
+stacks the per-step outputs rather than writing into a buffer, so
+``torch.func.vmap`` and autograd trace it. Neither has a kernel on the
+TPU either; both run in plain torch, and their recurrent states stay
+f32 whatever the model's dtype.
 """
 from __future__ import annotations
 
@@ -207,3 +215,241 @@ def init_mamba2_cache(cfg, B: int, dtype: torch.dtype, device) -> dict:
                                device=device),
             "conv": torch.zeros((B, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
                                 device=device)}
+
+
+# ===========================================================================
+# xLSTM — mLSTM (matrix memory)
+# ===========================================================================
+def mlstm_dims(cfg):
+    """-> (d_in, H, d_qk, hd_v, hd_k): up-projection factor 2, qk dim
+    factor 0.5."""
+    d_in = 2 * cfg.d_model
+    H = cfg.num_heads
+    d_qk = d_in // 2
+    return d_in, H, d_qk, d_in // H, d_qk // H
+
+
+def init_mlstm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    D = cfg.d_model
+    d_in, H, d_qk, hd_v, hd_k = mlstm_dims(cfg)
+    dev = gen.device
+    return {
+        "w_up": dense_init(gen, (D, 2 * d_in), dtype, fan_in=D),
+        "wq": dense_init(gen, (d_in, d_qk), dtype, fan_in=d_in),
+        "wk": dense_init(gen, (d_in, d_qk), dtype, fan_in=d_in),
+        "wv": dense_init(gen, (d_in, d_in), dtype, fan_in=d_in),
+        "w_if": dense_init(gen, (d_in, 2 * H), dtype, fan_in=d_in),
+        "b_if": torch.cat([torch.zeros((H,), device=dev),
+                           torch.linspace(3.0, 6.0, H, device=dev)]
+                          ).to(dtype),
+        "norm": ones_init(gen, (d_in,), dtype),
+        "w_out": dense_init(gen, (d_in, D), dtype, fan_in=d_in),
+    }
+
+
+def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i_pre: torch.Tensor, f_pre: torch.Tensor,
+                   chunk: int = 256):
+    """Chunkwise stabilised mLSTM: the recurrent semantics of
+    ``mlstm_step``, L tokens at a time. q,k: (B,S,H,hk), v: (B,S,H,hv),
+    i_pre/f_pre: (B,S,H) gate pre-activations.
+
+    The intra-chunk work and the inter-chunk readout run over all
+    chunks at once; a loop over the chunks carries only the elementwise
+    (C, n, m) state combine. The intra-chunk decay is masked with −inf
+    before its exp, and the readout divides by max(|q·n|, exp(−M)), as
+    in the reference. Returns (y (B,S,H,hv) f32, the final (C, n, m))
+    for decode to continue from."""
+    B, S, H, hk = q.shape
+    hv = v.shape[-1]
+    L = _chunk_len(S, chunk)
+    nc = S // L
+    q = q.float()
+    k = k.float() / math.sqrt(hk)
+    v = v.float()
+    lf = F.logsigmoid(f_pre.float())
+    li = i_pre.float()
+
+    def rs(t):  # (B,S,...) -> (nc,B,L,...)
+        return t.reshape(B, nc, L, *t.shape[2:]).movedim(1, 0)
+
+    qc, kc, vc, lfc, lic = map(rs, (q, k, v, lf, li))
+    g = torch.cumsum(lfc, dim=2)                       # (nc,B,L,H) inclusive
+    G = g[:, :, -1, :]                                 # (nc,B,H) chunk decay
+
+    # chunk-local state summaries, with a local stabiliser mloc
+    w = G[:, :, None, :] - g + lic                     # (nc,B,L,H)
+    mloc = torch.amax(w, dim=2)                        # (nc,B,H)
+    wexp = torch.exp(w - mloc[:, :, None, :])
+    C_c = torch.einsum("cblh,cblhk,cblhv->cbhkv", wexp, kc, vc)
+    n_c = torch.einsum("cblh,cblhk->cbhk", wexp, kc)
+
+    # the running state over the chunks; each chunk reads the state
+    # before it
+    C = torch.zeros((B, H, hk, hv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, H, hk), dtype=torch.float32, device=q.device)
+    m = torch.zeros((B, H), dtype=torch.float32, device=q.device)
+    pre = []
+    for c in range(nc):
+        pre.append((C, n, m))
+        m_new = torch.maximum(G[c] + m, mloc[c])
+        a = torch.exp(G[c] + m - m_new)
+        b = torch.exp(mloc[c] - m_new)
+        C = a[..., None, None] * C + b[..., None, None] * C_c[c]
+        n = a[..., None] * n + b[..., None] * n_c[c]
+        m = m_new
+    Cp, np_, mp = (torch.stack(xs) for xs in zip(*pre))
+
+    # intra-chunk decay matrix and the combined row stabiliser
+    D = (g[:, :, :, None, :] - g[:, :, None, :, :]
+         + lic[:, :, None, :, :])                      # (nc,B,q,t,H)
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    D = torch.where(tril[None, None, :, :, None], D, float("-inf"))
+    m_inter = g + mp[:, :, None, :]                    # (nc,B,L,H)
+    M = torch.maximum(torch.amax(D, dim=3), m_inter)   # (nc,B,L,H)
+    Dexp = torch.exp(D - M[:, :, :, None, :])
+    scores = torch.einsum("cbqhe,cbthe->cbqth", qc, kc)
+    Sm = scores * Dexp
+    iw = torch.exp(m_inter - M)                        # (nc,B,L,H)
+    num = (torch.einsum("cbqth,cbthv->cbqhv", Sm, vc)
+           + iw[..., None] * torch.einsum("cbqhk,cbhkv->cbqhv", qc, Cp))
+    qn = torch.einsum("cbqhk,cbhk->cbqh", qc, np_)
+    den = torch.maximum(torch.abs(Sm.sum(dim=3) + iw * qn), torch.exp(-M))
+    y = num / den[..., None]
+    return y.movedim(0, 1).reshape(B, S, H, hv), (C, n, m)
+
+
+def _mlstm_proj(params: dict, x: torch.Tensor, cfg):
+    """x: (..., D) -> (z, q, k, v, i_pre, f_pre), heads split."""
+    d_in, H, d_qk, hd_v, hd_k = mlstm_dims(cfg)
+    up = x @ params["w_up"]
+    xi, z = up[..., :d_in], up[..., d_in:]
+    lead = x.shape[:-1]
+    q = (xi @ params["wq"]).reshape(*lead, H, hd_k)
+    k = (xi @ params["wk"]).reshape(*lead, H, hd_k)
+    v = (xi @ params["wv"]).reshape(*lead, H, hd_v)
+    gif = xi @ params["w_if"] + params["b_if"]
+    return z, q, k, v, gif[..., :H], gif[..., H:]
+
+
+def _mlstm_out(params: dict, y: torch.Tensor, z: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    y = rmsnorm(y.to(x.dtype).reshape(z.shape) * F.silu(z), params["norm"])
+    return y @ params["w_out"]
+
+
+def mlstm_full(params: dict, x: torch.Tensor, cfg, *,
+               build_cache: bool = False):
+    """x: (B,S,D). Returns (out (B,S,D), {"C", "n", "m"} | None)."""
+    z, q, k, v, i_pre, f_pre = _mlstm_proj(params, x, cfg)
+    y, (C, n, m) = _mlstm_chunked(q, k, v, i_pre, f_pre)
+    out = _mlstm_out(params, y, z, x)
+    return out, ({"C": C, "n": n, "m": m} if build_cache else None)
+
+
+def mlstm_step(params: dict, x: torch.Tensor, cfg, cache: dict):
+    """x: (B,1,D); cache C (B,H,hk,hv), n (B,H,hk), m (B,H), f32."""
+    z, q, k, v, logi, f_pre = _mlstm_proj(params, x[:, 0], cfg)
+    q, v = q.float(), v.float()
+    k = k.float() / math.sqrt(k.shape[-1])
+    logi, logf = logi.float(), F.logsigmoid(f_pre.float())
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(logf + m, logi)                       # (B,H)
+    fp = torch.exp(logf + m - m_new)
+    ip = torch.exp(logi - m_new)
+    C = fp[..., None, None] * C + ip[..., None, None] * (
+        k[..., :, None] * v[..., None, :])                      # (B,H,hk,hv)
+    n = fp[..., None] * n + ip[..., None] * k
+    num = torch.einsum("bhkd,bhk->bhd", C, q)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q)),
+                        torch.exp(-m_new))
+    out = _mlstm_out(params, num / den[..., None], z, x[:, 0])
+    return out[:, None, :], {"C": C, "n": n, "m": m_new}
+
+
+def init_mlstm_cache(cfg, B: int, dtype: torch.dtype, device) -> dict:
+    """The state is f32 whatever ``dtype`` is."""
+    d_in, H, d_qk, hd_v, hd_k = mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((B, H, hd_k, hd_v), **f32),
+            "n": torch.zeros((B, H, hd_k), **f32),
+            "m": torch.zeros((B, H), **f32)}
+
+
+# ===========================================================================
+# xLSTM — sLSTM (scalar memory, sequential by construction)
+# ===========================================================================
+def init_slstm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    hd = D // H
+    d_ff = int(D * 4 / 3)
+    dev = gen.device
+    return {
+        "w_x": dense_init(gen, (D, 4 * D), dtype, fan_in=D),
+        "r": dense_init(gen, (H, hd, 4 * hd), dtype, fan_in=hd),
+        "b": torch.cat([torch.zeros((D,), device=dev),
+                        torch.linspace(3.0, 6.0, D, device=dev),
+                        torch.zeros((2 * D,), device=dev)]).to(dtype),
+        "ff_gate": dense_init(gen, (D, d_ff), dtype, fan_in=D),
+        "ff_out": dense_init(gen, (d_ff, D), dtype, fan_in=d_ff),
+        "ff_norm": ones_init(gen, (D,), dtype),
+    }
+
+
+def _slstm_cell(params: dict, pre_x: torch.Tensor, state: dict,
+                cfg) -> dict:
+    """pre_x: (B,4D) = x_t @ W_x, computed outside the time loop (the
+    input projection is the heavy part). state: h, c, n, m, each (B,D)
+    f32."""
+    D, H = cfg.d_model, cfg.num_heads
+    hd = D // H
+    B = pre_x.shape[0]
+    rec = torch.einsum("bhk,hkg->bhg",
+                       state["h"].reshape(B, H, hd).to(params["r"].dtype),
+                       params["r"]).reshape(B, 4 * D)
+    pre = (pre_x + rec + params["b"]).float()
+    i_pre, f_pre, z_pre, o_pre = torch.chunk(pre, 4, dim=-1)
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    fp = torch.exp(logf + state["m"] - m_new)
+    ip = torch.exp(i_pre - m_new)
+    c = fp * state["c"] + ip * torch.tanh(z_pre)
+    n = fp * state["n"] + ip
+    hy = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
+    return {"h": hy, "c": c, "n": n, "m": m_new}
+
+
+def _slstm_ff(params: dict, y: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward on the cell output, in its dtype."""
+    y = rmsnorm(y, params["ff_norm"])
+    # jax.nn.gelu's default is the tanh approximation
+    ff = F.gelu((y @ params["ff_gate"]).float(), approximate="tanh")
+    return ff.to(y.dtype) @ params["ff_out"]
+
+
+def slstm_full(params: dict, x: torch.Tensor, cfg, *,
+               build_cache: bool = False):
+    """x: (B,S,D). Returns (out (B,S,D), final {"h","c","n","m"} | None).
+    The time loop stacks each step's h."""
+    B, S, _ = x.shape
+    state = init_slstm_cache(cfg, B, x.dtype, x.device)
+    pre_x = torch.einsum("bsd,dg->bsg", x, params["w_x"])   # hoisted
+    hs = []
+    for t in range(S):
+        state = _slstm_cell(params, pre_x[:, t], state, cfg)
+        hs.append(state["h"])
+    out = _slstm_ff(params, torch.stack(hs, dim=1).to(x.dtype))
+    return out, (state if build_cache else None)
+
+
+def slstm_step(params: dict, x: torch.Tensor, cfg, cache: dict):
+    """x: (B,1,D); cache h, c, n, m (B,D) f32."""
+    state = _slstm_cell(params, x[:, 0] @ params["w_x"], cache, cfg)
+    out = _slstm_ff(params, state["h"].to(x.dtype))
+    return out[:, None, :], state
+
+
+def init_slstm_cache(cfg, B: int, dtype: torch.dtype, device) -> dict:
+    """The state is f32 whatever ``dtype`` is."""
+    z = torch.zeros((B, cfg.d_model), dtype=torch.float32, device=device)
+    return {"h": z, "c": z, "n": z, "m": z}

@@ -1,18 +1,24 @@
 """Layer-stack machinery: block dispatch, segment runs, the shared block.
-Port of ``repro/models/transformer.py`` for the block types of the
-ported archs: ``attn``, ``moe``, ``mamba2`` and ``shared_attn``.
-The attention of ``attn``, ``moe`` and ``shared_attn`` blocks is GQA, or
-MLA where the config says so (``cfg.use_mla``); a ``moe`` block has the
-MoE layer (``models.moe``) in place of the dense MLP.
+Port of ``repro/models/transformer.py``: block types ``attn``, ``moe``,
+``shared_attn``, ``mamba2``, ``mlstm`` and ``slstm``. The attention of
+``attn``, ``moe`` and ``shared_attn`` blocks is GQA, or MLA where the
+config says so (``cfg.use_mla``); a ``moe`` block has the MoE layer
+(``models.moe``) in place of the dense MLP. A decoder block of an
+encoder-decoder config (``decoder=True`` with ``cfg.cross_attention``,
+Whisper) adds cross-attention (``ln_x``, ``xattn``) after its
+self-attention, reading the encoder's per-layer K/V (``enc_kv``); the
+encoder's blocks attend without a causal mask (``causal=False``,
+``_bidir_attn``).
 
 Layers are grouped into runs of consecutive identical block types
-(``cfg.layer_types``), and the parameter tree is the reference's: a run
-of n > 1 blocks has every leaf stacked on a leading layer axis, a run of
+(``cfg.layer_types``, or the ``layer_types`` a caller passes, as the
+encoder does), and the parameter tree is the reference's: a run of
+n > 1 blocks has every leaf stacked on a leading layer axis, a run of
 one has no such axis, and ``shared_attn`` (Zamba2) holds one global set
 of params at the top that every occurrence applies, each site with its
-own cache. Caches of every run carry the leading layer axis. The
-reference scans a run with ``lax.scan``; here a Python loop applies its
-layers in order.
+own cache. Caches of every run, and ``enc_kv``, carry the leading layer
+axis. The reference scans a run with ``lax.scan``; here a Python loop
+applies its layers in order.
 
 ``stack_full``'s ``use_pallas`` picks the attention and SSD route of
 every block (``attention.gqa_full``, ``ssm.mamba2_full``).
@@ -33,18 +39,15 @@ from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 # block types with attention (and its KV cache)
 ATTN_TYPES = ("attn", "shared_attn", "moe")
-# block types of the reference that wait for their ROADMAP item
-_NOT_PORTED = {"mlstm": "A15 (LM zoo: xLSTM)", "slstm": "A15 (LM zoo: xLSTM)"}
-
-
-def check_ported(btype: str) -> None:
-    """Raise for a block type this package cannot build or apply."""
-    if btype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported to repro_torch yet: it "
-            f"comes with ROADMAP {_NOT_PORTED[btype]}")
-    if btype not in ATTN_TYPES + ("mamba2",):
-        raise ValueError(f"unknown block type {btype!r}")
+# recurrent block types: (init, full, step, init_cache) of their mixer
+RECURRENT = {
+    "mamba2": (ssm.init_mamba2, ssm.mamba2_full, ssm.mamba2_step,
+               ssm.init_mamba2_cache),
+    "mlstm": (ssm.init_mlstm, ssm.mlstm_full, ssm.mlstm_step,
+              ssm.init_mlstm_cache),
+    "slstm": (ssm.init_slstm, ssm.slstm_full, ssm.slstm_step,
+              ssm.init_slstm_cache),
+}
 
 
 def segment_runs(layer_types: Tuple[str, ...]) -> List[Tuple[str, int]]:
@@ -85,9 +88,8 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def init_block(gen: torch.Generator, cfg, btype: str,
-               dtype: torch.dtype) -> dict:
-    check_ported(btype)
+def init_block(gen: torch.Generator, cfg, btype: str, dtype: torch.dtype,
+               *, decoder: bool = False) -> dict:
     if btype in ATTN_TYPES:
         attn_init = attn.init_mla if cfg.use_mla else attn.init_attention
         p = {"ln1": init_norm(gen, cfg, dtype),
@@ -97,9 +99,14 @@ def init_block(gen: torch.Generator, cfg, btype: str,
             p["moe"] = moe.init_moe(gen, cfg, dtype)
         else:
             p["mlp"] = init_mlp(gen, cfg, dtype)
+        if decoder and cfg.cross_attention:
+            p["ln_x"] = init_norm(gen, cfg, dtype)
+            p["xattn"] = attn.init_cross_attention(gen, cfg, dtype)
         return p
+    if btype not in RECURRENT:
+        raise ValueError(f"unknown block type {btype!r}")
     return {"ln": init_norm(gen, cfg, dtype),
-            "mixer": ssm.init_mamba2(gen, cfg, dtype)}
+            "mixer": RECURRENT[btype][0](gen, cfg, dtype)}
 
 
 def _ffn(params: dict, h: torch.Tensor, cfg, btype: str):
@@ -109,40 +116,68 @@ def _ffn(params: dict, h: torch.Tensor, cfg, btype: str):
     return apply_mlp(params["mlp"], h, cfg), None
 
 
+def _cross(params: dict, x: torch.Tensor, cfg, enc_kv) -> torch.Tensor:
+    """The residual stream after cross-attention to ``enc_kv``, if any."""
+    if enc_kv is None:
+        return x
+    h = apply_norm(params["ln_x"], x, cfg)
+    return x + attn.cross_attend(params["xattn"], h, cfg, enc_kv)
+
+
 def block_full(params: dict, x: torch.Tensor, cfg, btype: str, *,
                positions: torch.Tensor, window=None,
-               build_cache: bool = False, use_pallas: bool = True):
+               build_cache: bool = False, enc_kv=None, causal: bool = True,
+               use_pallas: bool = True):
     """Returns (x, cache | None, aux): aux is the MoE layer's auxiliary
     loss, None for a block without one. MLA ignores ``use_pallas``, as
-    the reference's does: its qk head dim passes the kernel's."""
+    the reference's does: its qk head dim passes the kernel's. With
+    ``causal=False`` (the Whisper encoder) GQA attention is
+    ``_bidir_attn`` on the plain route and builds no cache."""
     if btype in ATTN_TYPES:
         h = apply_norm(params["ln1"], x, cfg)
-        full = attn.mla_full if cfg.use_mla else attn.gqa_full
-        a, cache = full(params["attn"], h, cfg, positions=positions,
-                        window=window, build_cache=build_cache,
-                        use_pallas=use_pallas)
-        x = x + a
+        if causal:
+            full = attn.mla_full if cfg.use_mla else attn.gqa_full
+            a, cache = full(params["attn"], h, cfg, positions=positions,
+                            window=window, build_cache=build_cache,
+                            use_pallas=use_pallas)
+        else:
+            a, cache = _bidir_attn(params["attn"], h, cfg, positions)
+        x = _cross(params, x + a, cfg, enc_kv)
         m, aux = _ffn(params, apply_norm(params["ln2"], x, cfg), cfg, btype)
         return x + m, cache, aux
     h = apply_norm(params["ln"], x, cfg)
-    m, cache = ssm.mamba2_full(params["mixer"], h, cfg,
-                               build_cache=build_cache, use_pallas=use_pallas)
+    full = RECURRENT[btype][1]
+    kw = {"use_pallas": use_pallas} if btype == "mamba2" else {}
+    m, cache = full(params["mixer"], h, cfg, build_cache=build_cache, **kw)
     return x + m, cache, None
 
 
+def _bidir_attn(params: dict, x: torch.Tensor, cfg,
+                positions: torch.Tensor):
+    """Non-causal attention (the Whisper encoder), on the plain
+    ``_sdpa``: the flash kernel keeps its refusal of non-causal
+    attention. Returns (out, None)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = attn._qkv(params, x, cfg, positions)
+    out = attn._sdpa(q.reshape(B, S, KV, H // KV, hd), k, v,
+                     causal=False).reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+
+
 def block_step(params: dict, x: torch.Tensor, cfg, btype: str, cache: dict,
-               *, t, slot, positions_buf, window=None):
+               *, t, slot, positions_buf, window=None, enc_kv=None):
     """One decode step of one block. Returns (x, cache)."""
     if btype in ATTN_TYPES:
         h = apply_norm(params["ln1"], x, cfg)
         step = attn.mla_step if cfg.use_mla else attn.gqa_step
         a, cache = step(params["attn"], h, cfg, cache, t=t, slot=slot,
                         positions_buf=positions_buf, window=window)
-        x = x + a
+        x = _cross(params, x + a, cfg, enc_kv)
         m, _ = _ffn(params, apply_norm(params["ln2"], x, cfg), cfg, btype)
         return x + m, cache
     h = apply_norm(params["ln"], x, cfg)
-    m, cache = ssm.mamba2_step(params["mixer"], h, cfg, cache)
+    m, cache = RECURRENT[btype][2](params["mixer"], h, cfg, cache)
     return x + m, cache
 
 
@@ -171,32 +206,47 @@ def _run_params(params: dict, i: int, btype: str, n: int):
     return [tree_unflatten(treedef, list(ls)) for ls in layers]
 
 
-def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def _slice_enc(enc_kv, j: int):
+    """Layer j's cross K/V of ``enc_kv`` (stacked (layers, ...)), or
+    None."""
+    return None if enc_kv is None else _layer(enc_kv, j)
+
+
+def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype, *,
+               layer_types=None, decoder: bool = False) -> dict:
     params = {}
-    for i, (btype, n) in enumerate(segment_runs(cfg.layer_types)):
+    for i, (btype, n) in enumerate(segment_runs(layer_types
+                                                or cfg.layer_types)):
         if btype == "shared_attn":
             if "shared_attn" not in params:
-                params["shared_attn"] = init_block(gen, cfg, btype, dtype)
+                params["shared_attn"] = init_block(gen, cfg, btype, dtype,
+                                                   decoder=decoder)
             continue
-        blocks = [init_block(gen, cfg, btype, dtype) for _ in range(n)]
+        blocks = [init_block(gen, cfg, btype, dtype, decoder=decoder)
+                  for _ in range(n)]
         params[f"run{i}"] = blocks[0] if n == 1 else _stack(blocks)
     return params
 
 
-def stack_full(params: dict, x: torch.Tensor, cfg, *,
+def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
                positions: torch.Tensor, window=None,
-               build_cache: bool = False, use_pallas: bool = True):
+               build_cache: bool = False, enc_kv=None, causal: bool = True,
+               use_pallas: bool = True):
     """Returns (x, {run: cache stacked on the layer axis} | None, aux);
     ``aux`` is the MoE blocks' auxiliary losses summed in f32 in layer
-    order, 0 without MoE blocks."""
+    order, 0 without MoE blocks. ``enc_kv`` (cross K/V stacked on the
+    layer axis) goes to a uniform decoder stack's layers in order, as
+    the reference's scan hands it out."""
     caches = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (btype, n) in enumerate(segment_runs(cfg.layer_types)):
+    for i, (btype, n) in enumerate(segment_runs(layer_types
+                                                or cfg.layer_types)):
         cs = []
-        for p in _run_params(params, i, btype, n):
-            x, c, a = block_full(p, x, cfg, btype, positions=positions,
-                                 window=window, build_cache=build_cache,
-                                 use_pallas=use_pallas)
+        for j, p in enumerate(_run_params(params, i, btype, n)):
+            x, c, a = block_full(
+                p, x, cfg, btype, positions=positions, window=window,
+                build_cache=build_cache, enc_kv=_slice_enc(enc_kv, j),
+                causal=causal, use_pallas=use_pallas)
             cs.append(c)
             if a is not None:
                 aux = aux + a
@@ -206,16 +256,17 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *,
 
 
 def stack_step(params: dict, x: torch.Tensor, cfg, caches: dict, *, t, slot,
-               positions_buf, window=None):
+               positions_buf, window=None, enc_kv=None):
     """One decode step through every layer. Returns (x, new caches)."""
     new_caches = {}
     for i, (btype, n) in enumerate(segment_runs(cfg.layer_types)):
         key = f"run{i}"
         cs = []
         for j, p in enumerate(_run_params(params, i, btype, n)):
-            x, c = block_step(p, x, cfg, btype, _layer(caches[key], j), t=t,
-                              slot=slot, positions_buf=positions_buf,
-                              window=window)
+            x, c = block_step(
+                p, x, cfg, btype, _layer(caches[key], j), t=t, slot=slot,
+                positions_buf=positions_buf, window=window,
+                enc_kv=_slice_enc(enc_kv, j))
             cs.append(c)
         new_caches[key] = _stack(cs)
     return x, new_caches

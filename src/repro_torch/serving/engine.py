@@ -21,9 +21,15 @@ personalization and events (ROADMAP A16).
     one ``device_get`` per flush).
   * ADMIT / EVICT — at flush boundaries only. Admission prefills the
     request alone (B = 1; on the card that runs the flash-attention and
-    SSD kernels) and copies the resulting cache rows into its pool row;
-    eviction frees the host-side slot record (the pool row is garbage
-    until the next admission overwrites it).
+    SSD kernels), with its stub-frontend inputs (``extras``: Whisper's
+    frames, InternVL2's image embeddings), and copies the resulting
+    cache rows into its pool row; eviction frees the host-side slot
+    record (the pool row is garbage until the next admission overwrites
+    it). The recurrent states (Mamba2, mLSTM, sLSTM) pool as KV caches
+    do, batch on axis 1 of each run's leaves. An encoder-decoder's
+    cross K/V (``enc_kv``, (layers, slots, T, KV, hd)) is made at the
+    first admission that has one, written only at admission and passed
+    through every decode step unchanged.
 """
 from __future__ import annotations
 
@@ -65,13 +71,17 @@ def _bcast(mask: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
 def _merge_cache(active: torch.Tensor, new: Dict, old: Dict) -> Dict:
     """Keep ``new`` state only on active rows; inactive rows stay
     bit-identical to ``old`` (runs leaves carry the batch on axis 1,
-    t and positions on axis 0)."""
-    return {"runs": tree_map(
+    t and positions on axis 0; ``enc_kv`` is static per slot and passes
+    through)."""
+    out = {"runs": tree_map(
         lambda n_, o: torch.where(_bcast(active, n_.dim(), 1), n_, o),
         new["runs"], old["runs"]),
         "t": torch.where(active, new["t"], old["t"]),
         "positions": torch.where(active[:, None], new["positions"],
                                  old["positions"])}
+    if "enc_kv" in new:
+        out["enc_kv"] = new["enc_kv"]
+    return out
 
 
 def _decode_block(model, params, cache, tok, active, n, window):
@@ -95,6 +105,7 @@ class Request:
     prompt: np.ndarray                 # (S,) int32 token ids
     max_new_tokens: int
     request_id: int = 0
+    extras: Optional[Dict[str, np.ndarray]] = None  # frames/image_embeds
     submit_time: float = field(default_factory=time.time)
 
 
@@ -147,18 +158,24 @@ class DecodeEngine:
 
     def _insert(self, c1: Dict, tok0: torch.Tensor, s: int) -> None:
         """Copy a B = 1 prefill cache into pool row s, in place."""
-        tree_map(lambda pl, cl: pl[:, s].copy_(cl[:, 0]), self.pool["runs"],
-                 c1["runs"])
+        for key in ("runs", "enc_kv"):
+            if key in c1:
+                tree_map(lambda pl, cl: pl[:, s].copy_(cl[:, 0]),
+                         self.pool[key], c1[key])
         self.pool["t"][s] = c1["t"]
         self.pool["positions"][s] = c1["positions"]
         self._tok[s] = tok0[0]
 
     # ------------------------------------------------------------ submit
-    def submit(self, prompt, max_new_tokens: int) -> int:
+    def submit(self, prompt, max_new_tokens: int, *,
+               extras: Optional[Dict[str, np.ndarray]] = None) -> int:
+        """Queue a request; ``extras`` holds its stub-frontend inputs
+        without a batch axis. Its image tokens count in the cache."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be (S,), got {prompt.shape}")
-        need = prompt.shape[0] + max_new_tokens
+        need = (prompt.shape[0] + max_new_tokens
+                + (self.model.cfg.num_image_tokens or 0))
         if self.window is None and need > self.cache_len:
             raise ValueError(
                 f"request needs {need} cache entries > pool cache_len "
@@ -166,7 +183,7 @@ class DecodeEngine:
         rid = next(self._ids)
         self.queue.append(Request(prompt=prompt,
                                   max_new_tokens=int(max_new_tokens),
-                                  request_id=rid))
+                                  request_id=rid, extras=extras))
         return rid
 
     # ------------------------------------------------------------- admit
@@ -181,9 +198,16 @@ class DecodeEngine:
             if self._slots[s] is not None:
                 continue
             req = self.queue.pop(0)
-            tokens = torch.from_numpy(req.prompt[None]).to(self.device)
-            logits, c1 = self._prefill(self.params, {"tokens": tokens})
+            batch = {k: torch.from_numpy(np.asarray(v)[None]).to(self.device)
+                     for k, v in {"tokens": req.prompt,
+                                  **(req.extras or {})}.items()}
+            logits, c1 = self._prefill(self.params, batch)
             tok0 = torch.argmax(logits[:, -1:], dim=-1)
+            if "enc_kv" in c1 and "enc_kv" not in self.pool:
+                self.pool["enc_kv"] = tree_map(
+                    lambda e: torch.zeros((e.shape[0], self.slots)
+                                          + e.shape[2:], dtype=e.dtype,
+                                          device=e.device), c1["enc_kv"])
             self._insert(c1, tok0, s)
             slot = _Slot(req=req, remaining=req.max_new_tokens - 1, out=[])
             self.stats["admitted"] += 1

@@ -69,10 +69,7 @@ def _close_trees(got, want):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b",
-                                  "olmoe-1b-7b", "deepseek-v3-671b",
-                                  "codeqwen1.5-7b", "qwen2.5-14b",
-                                  "granite-20b"])
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_configs_are_the_references(arch):
     for layers in (None, 2, 7):
         cfg, jcfg = get_config(arch), jget_config(arch)
@@ -97,30 +94,29 @@ def test_full_width_shapes_of_the_two_served_archs():
         ("mamba2", 6), ("shared_attn", 1), ("mamba2", 6), ("shared_attn", 1)]
 
 
-def test_unported_arch_ids_raise_naming_the_roadmap_item():
+def test_every_arch_id_resolves():
     assert ARCH_IDS == JAX_ARCH_IDS
     for arch in ARCH_IDS:
-        if arch not in ("whisper-tiny", "xlstm-1.3b", "internvl2-1b"):
-            continue
-        with pytest.raises(NotImplementedError, match="A15"):
-            get_config(arch)
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch,what,change", [
-    ("whisper-tiny", "cross-attention", {"encoder_layers": 0}),
-    ("xlstm-1.3b", "xLSTM", {"block_pattern": ("slstm",)}),
-    ("whisper-tiny", "encoder", {}), ("internvl2-1b", "image tokens", {}),
-    ("xlstm-1.3b", "xLSTM", {}),
-    ("tinyllama-1.1b", "sinusoidal", {"rope_theta": 0.0})])
-def test_build_model_refuses_unported_families(arch, what, change):
-    from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(**{**dataclasses.asdict(jget_config(arch).reduced()),
-                         **change})
-    with pytest.raises(NotImplementedError, match="A15") as err:
-        build_model(cfg)
-    assert what in str(err.value)
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_build_model_builds_every_arch_with_the_references_tree(arch):
+    """Each arch's reduced config (xLSTM at 4 layers, so its sLSTM is
+    there) builds, and its params have the reference's names and
+    shapes, the encoder and cross-attention of Whisper included."""
+    layers = 4 if arch == "xlstm-1.3b" else 2
+    jmodel = jbuild_model(jget_config(arch).reduced(num_layers=layers))
+    want = jax.eval_shape(jmodel.init, jax.random.key(0))
+    model = build_model(get_config(arch).reduced(num_layers=layers))
+    got = model.init(torch.Generator().manual_seed(0))
+    g, gdef = tree_flatten(tree_map(lambda a: tuple(a.shape), got))
+    w, wdef = tree_flatten(jax.tree.map(lambda a: tuple(a.shape), want))
+    assert gdef == wdef and g == w
+    assert ("encoder" in got) == (arch == "whisper-tiny")
+    assert ("xattn" in got["stack"]["run0"]) == (arch == "whisper-tiny")
 
 
 # ------------------------------------------------------------ common blocks

@@ -5,11 +5,14 @@ reference's step builders (``repro.launch.steps.make_train_step`` and
 bitwise equal to the ``--flat`` host loop, 2·K·R Δ-SGD launches), with
 the reference's params carried in (``setup_lm`` then ``train_lm(args,
 lt)``, ``repro_torch.interop``) and the same per-round numpy batches,
-drawn from ``(seed, round)``. Models: TinyLlama (2 layers) and Zamba2
-(7: six Mamba2 layers and the shared block) at the configs' reduced
-widths, d_model 64, vocab 500. A round's loss and η agree within 1e-5
-relative; the params after R rounds within R·1e-5·max|p| a leaf, since
-each round adds its own reduction-order difference.
+drawn from ``(seed, round)`` (with Whisper's frames or InternVL2's
+image embeddings, drawn after the tokens). Models: TinyLlama (2 layers),
+Zamba2 (7: six Mamba2 layers and the shared block), xLSTM (4: three
+mLSTM layers and an sLSTM), Whisper (2 + 2) and InternVL2 (2) at the
+configs' reduced widths, d_model 64, vocab 500. A round's loss and η
+agree within 1e-5 relative; the params after R rounds within
+R·1e-5·max|p| a leaf, since each round adds its own reduction-order
+difference. xLSTM is held looser, for the reason at ``XLSTM_RTOL``.
 """
 import functools
 
@@ -35,8 +38,26 @@ from repro_torch.launch import train as ttrain
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 
 VOCAB, D, SEED = 500, 64, 5
-MODELS = [("tinyllama-1.1b", 2), ("zamba2-7b", 7)]
+MODELS = [("tinyllama-1.1b", 2), ("zamba2-7b", 7), ("xlstm-1.3b", 4),
+          ("whisper-tiny", 2), ("internvl2-1b", 2)]
 C, K, B, S = 2, 2, 2, 16
+# xLSTM's local steps are ill-conditioned in f32 at this config: its
+# first Δ-SGD step moves embedding rows by up to 1.8 (they start near
+# 0.02), and the second step's gradient at the moved point, and η, which
+# divides by a difference of two close gradients, carry the rounding of
+# the first. Both packages' f32 results after two local steps lie up to
+# 1.5e-3·max|p| (a leaf) and their η up to 1.3e-4 from an f64 evaluation
+# of the same steps, on either side of it
+# (test_torch_lm_zoo_enc.py::test_xlstm_local_steps_are_f32_conditioned_in_both_packages);
+# the two agree to 5.6e-4·max|p| and 4e-5 in η; the loss within 1e-5 as
+# for every arch. A later round amplifies that gap (round 1's η differs
+# by 8 %), so each later round is held against the reference's round from
+# the port's own params before it, where the two agree as round 0 does.
+XLSTM_RTOL = {"eta": 1e-4, "params": 1e-3}
+
+
+def _rtol(arch, what):
+    return XLSTM_RTOL[what] if arch == "xlstm-1.3b" else 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,9 +90,17 @@ def _reference_fl():
     return RFL(num_clients=10, local_steps=K, lr=0.05)
 
 
-def _round_batches(rounds):
+def _round_batches(rounds, jmodel):
+    # the extras the reference's train_lm builds from the config
+    cfg = jmodel.cfg
+    extras = {}
+    if cfg.encoder_layers:
+        extras["frames"] = (cfg.encoder_seq, cfg.d_model)
+    if cfg.num_image_tokens:
+        extras["image_embeds"] = (cfg.num_image_tokens, cfg.d_model)
     bs = [r_lm_batches(np.random.default_rng((SEED, r)), clients=C,
-                       local_steps=K, batch=B, seq=S, vocab=VOCAB)
+                       local_steps=K, batch=B, seq=S, vocab=VOCAB,
+                       extras=extras)
           for r in range(rounds)]
     return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
 
@@ -87,10 +116,11 @@ def _close_trees(got, want, rtol=1e-5):
             err_msg=str(path))
 
 
-def _close_metrics(row, want):
+def _close_metrics(row, want, arch):
     for k in ("loss", "eta_mean", "eta_min", "eta_max"):
+        rtol = _rtol(arch, "eta") if k.startswith("eta") else 1e-5
         np.testing.assert_allclose(np.asarray(row[k], np.float32),
-                                   np.asarray(want[k]), rtol=1e-5,
+                                   np.asarray(want[k]), rtol=rtol,
                                    err_msg=k)
 
 
@@ -101,24 +131,27 @@ def test_train_step_matches_the_references(arch, layers, engine):
     rstep, rsopt, _, _ = rsteps.make_train_step(
         jmodel, _reference_fl(), num_rounds=1, flat=engine == "flat")
     rstate, rmets = jax.jit(rstep)(
-        r_init(jp, rsopt), {k: v[0] for k, v in _round_batches(1).items()})
+        r_init(jp, rsopt), {k: v[0] for k, v in _round_batches(1, jmodel).items()})
     got, launches = _train_lm(arch, layers, 1,
                               *(["--flat"] if engine == "flat" else []))
     assert launches == (2 * K if engine == "flat" else 0)
     assert got.state.round == 1 and len(got.history) == 1
-    _close_metrics(got.history[0], jax.device_get(rmets))
-    _close_trees(got.state.params, jax.device_get(rstate.params))
+    _close_metrics(got.history[0], jax.device_get(rmets), arch)
+    _close_trees(got.state.params, jax.device_get(rstate.params),
+                 rtol=_rtol(arch, "params"))
 
 
 @pytest.mark.parametrize("arch,layers", MODELS)
 def test_train_loop_fused_equals_host_and_the_reference(arch, layers):
     jmodel, jp = _reference(arch, layers)
     R = 2
-    rloop, rsopt, _, _ = rsteps.make_train_loop(
-        jmodel, _reference_fl(), num_rounds=R, rounds_per_call=R)
-    rfs, rmets = jax.jit(rloop)(r_flatten(r_init(jp, rsopt), rloop.layout),
-                                _round_batches(R))
-    rstate = r_unflatten(rfs, rloop.layout)
+    if arch != "xlstm-1.3b":
+        rloop, rsopt, _, _ = rsteps.make_train_loop(
+            jmodel, _reference_fl(), num_rounds=R, rounds_per_call=R)
+        rfs, rmets = jax.jit(rloop)(
+            r_flatten(r_init(jp, rsopt), rloop.layout),
+            _round_batches(R, jmodel))
+        rstate = r_unflatten(rfs, rloop.layout)
 
     fused, launches = _train_lm(arch, layers, R, "--rounds-per-call",
                                 str(R))
@@ -131,11 +164,27 @@ def test_train_loop_fused_equals_host_and_the_reference(arch, layers):
         assert h.keys() == f.keys()
         for k in h:
             assert h[k].tobytes() == f[k].tobytes(), k
+    if arch == "xlstm-1.3b":
+        # each round against the reference's round from the port's params
+        # before it (XLSTM_RTOL says why)
+        first, _ = _train_lm(arch, layers, 1, "--flat")
+        rstep, rsopt, _, _ = rsteps.make_train_step(
+            jmodel, _reference_fl(), num_rounds=R, flat=True)
+        rstep = jax.jit(rstep)
+        batches = _round_batches(R, jmodel)
+        rmets = []
+        for r, params in enumerate((jp, interop.params_to_numpy(
+                first.state.params))):
+            rstate, m = rstep(r_init(params, rsopt),
+                              {k: v[r] for k, v in batches.items()})
+            rmets.append(jax.device_get(m))
+        rmets = {k: np.stack([m[k] for m in rmets]) for k in rmets[0]}
     rm = jax.device_get(rmets)
     for r in range(R):
-        _close_metrics(fused.history[r], {k: v[r] for k, v in rm.items()})
+        _close_metrics(fused.history[r], {k: v[r] for k, v in rm.items()},
+                       arch)
     _close_trees(fused.state.params, jax.device_get(rstate.params),
-                 rtol=R * 1e-5)
+                 rtol=R * _rtol(arch, "params"))
 
 
 def test_use_pallas_reaches_the_client_optimizer_only():
@@ -148,6 +197,6 @@ def test_use_pallas_reaches_the_client_optimizer_only():
     kern, launches = _train_lm("tinyllama-1.1b", 2, 1, "--use-pallas")
     assert launches == 2 * K
     assert fa.launch_count() == m2.launch_count() == 0
-    _close_metrics(kern.history[0], plain.history[0])
+    _close_metrics(kern.history[0], plain.history[0], "tinyllama-1.1b")
     _close_trees(kern.state.params, interop.params_to_numpy(
         plain.state.params))

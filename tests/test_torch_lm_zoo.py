@@ -1,8 +1,13 @@
-"""The LM zoo's MoE, MLA and dense archs through the port's layer stack
-and Model facade against the reference on the CPU: OLMoE (MoE),
-DeepSeek-V3 (MLA, MoE with a shared expert, multi-token prediction),
-CodeQwen1.5 and Qwen2.5 (QKV bias) and Granite (MQA, the GELU MLP) at
-their configs' reduced widths, 2 layers, d_model 64 and a vocab of 500.
+"""The LM zoo's MoE, MLA, dense, xLSTM, encoder-decoder and image-token
+archs through the port's layer stack and Model facade against the
+reference on the CPU: OLMoE (MoE), DeepSeek-V3 (MLA, MoE with a shared
+expert, multi-token prediction), CodeQwen1.5 and Qwen2.5 (QKV bias),
+Granite (MQA, the GELU MLP), xLSTM (mLSTM and sLSTM blocks), Whisper
+(the encoder over stub frames, cross-attention, sinusoidal positions,
+layer norms) and InternVL2 (stub image embeddings before the text) at
+their configs' reduced widths, 2 layers (xLSTM 4, so that its sLSTM is
+there), d_model 64 and a vocab of 500; Whisper and InternVL2 batches
+carry their extras, drawn from numpy.
 The reference's params are carried across (``repro_torch.interop``);
 the param trees, ``stack_full`` (its aux summed over the MoE layers),
 ``apply`` and ``loss`` (with the MTP loss when labels are given),
@@ -31,27 +36,64 @@ from repro_torch.utils.tree import tree_flatten, tree_map
 TOL = dict(rtol=2e-5, atol=2e-5)
 VOCAB, D = 500, 64
 ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b", "codeqwen1.5-7b", "qwen2.5-14b",
-         "granite-20b"]
+         "granite-20b", "xlstm-1.3b", "whisper-tiny", "internvl2-1b"]
+# layers a reduced config keeps: xLSTM's period is [m, m, m, s]
+LAYERS = {"xlstm-1.3b": 4}
+
+
+def _cfg(get, arch):
+    return get(arch).reduced(num_layers=LAYERS.get(arch, 2), d_model=D,
+                             vocab=VOCAB)
 
 
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     """(reference model, its params as numpy, port model, port params)."""
-    jmodel = jbuild_model(jget_config(arch).reduced(d_model=D, vocab=VOCAB))
+    jmodel = jbuild_model(_cfg(jget_config, arch))
     jparams = jax.device_get(jax.jit(jmodel.init)(jax.random.key(3)))
     # the reference inits biases to zero: make them count
     r = np.random.default_rng(3)
     jparams = jax.tree_util.tree_map_with_path(
         lambda path, a: (r.normal(size=a.shape).astype(a.dtype) * 0.1
                          if path[-1].key in ("bq", "bk", "bv", "b_in",
-                                             "b_out") else a), jparams)
-    model = build_model(get_config(arch).reduced(d_model=D, vocab=VOCAB))
+                                             "b_out", "bias") else a),
+        jparams)
+    model = build_model(_cfg(get_config, arch))
     return jmodel, jparams, model, interop.params_from_numpy(jparams)
 
 
 def _tokens(B, S, seed=0):
     return np.random.default_rng(seed).integers(0, VOCAB, (B, S)).astype(
         np.int32)
+
+
+def _batch(cfg, toks, seed=0):
+    """{"tokens"} plus the config's stub frames or image embeddings."""
+    B = toks.shape[0]
+    r = np.random.default_rng(seed + 100)
+    out = {"tokens": toks}
+    if cfg.encoder_layers:
+        out["frames"] = r.normal(size=(B, cfg.encoder_seq, cfg.d_model)
+                                 ).astype(np.float32)
+    if cfg.num_image_tokens:
+        out["image_embeds"] = r.normal(
+            size=(B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _t(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _flash_sites(cfg):
+    """Causal GQA attention sites of the decoder: flash launches a
+    prefill (MLA, the encoder and xLSTM launch none)."""
+    return 0 if cfg.use_mla else sum(t in tfm.ATTN_TYPES
+                                     for t in cfg.layer_types)
 
 
 def _close(got, want):
@@ -77,7 +119,11 @@ def test_param_tree_is_the_references(arch):
     blk = mine["stack"]["run0"]
     assert ("moe" in blk) == (arch in ARCHS[:2])
     assert ("mtp" in mine) == (arch == "deepseek-v3-671b")
-    assert ("wkv_a" in blk["attn"]) == (arch == "deepseek-v3-671b")
+    assert ("wkv_a" in blk.get("attn", {})) == (arch == "deepseek-v3-671b")
+    assert ("xattn" in blk) == ("encoder" in mine) == (arch == "whisper-tiny")
+    if arch == "xlstm-1.3b":
+        assert set(mine["stack"]) == {"run0", "run1"}
+        assert "r" in mine["stack"]["run1"]["mixer"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -106,16 +152,16 @@ def test_apply_and_loss_match_the_reference(arch):
     plus that block's MoE aux) and ``loss`` is CE + aux."""
     jmodel, jp, model, p = _pair(arch)
     toks = _tokens(2, 25, seed=1)
-    labels = np.roll(toks, -1, axis=1)
-    logits, aux = model.apply(p, {"tokens": torch.from_numpy(toks)})
+    batch = _batch(model.cfg, toks, seed=1)
+    logits, aux = model.apply(p, _t(batch))
+    assert logits.shape[:2] == (2, 25)        # text positions only
     for up in (False, True):
-        jl, jaux = jmodel.apply(jp, {"tokens": jnp.asarray(toks)},
-                                use_pallas=up)
+        jl, jaux = jmodel.apply(jp, _j(batch), use_pallas=up)
         _close(logits, jl)
         _close(aux, jaux)
-    bt = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
-    jloss, jm = jmodel.loss(jp, {"tokens": jnp.asarray(toks),
-                                 "labels": jnp.asarray(labels)})
+    batch["labels"] = np.roll(toks, -1, axis=1)
+    bt = _t(batch)
+    jloss, jm = jmodel.loss(jp, _j(batch))
     for up in (False, True):
         loss, m = model.loss(p, bt, use_pallas=up)
         _close(loss, jloss)
@@ -135,13 +181,14 @@ def test_prefill_and_decode_match_the_reference(arch, window, cache_len):
     jmodel, jp, model, p = _pair(arch)
     toks = _tokens(2, 27, seed=7)
     S = 24
+    batch = _batch(model.cfg, toks[:, :S], seed=7)
     fa.reset_launch_count()
-    logits, cache = model.prefill(p, {"tokens": torch.from_numpy(toks[:, :S])},
-                                  cache_len=cache_len, window=window)
-    assert fa.launch_count() == (0 if model.cfg.use_mla else 2)
-    jl, jc = jmodel.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])},
-                            cache_len=cache_len, window=window,
-                            use_pallas=True)
+    logits, cache = model.prefill(p, _t(batch), cache_len=cache_len,
+                                  window=window)
+    assert fa.launch_count() == _flash_sites(model.cfg)
+    assert int(cache["t"]) == S + model.cfg.num_image_tokens
+    jl, jc = jmodel.prefill(jp, _j(batch), cache_len=cache_len,
+                            window=window, use_pallas=True)
     _close(logits, jl)
     _close_trees(cache, jc)
     for j in range(S, 27):
@@ -156,7 +203,9 @@ def test_prefill_and_decode_match_the_reference(arch, window, cache_len):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_slot_decode_and_init_cache_match_the_reference(arch):
     """The serving pool's cache form, each row at its own position, from
-    the reference's ``init_cache`` filled with random history."""
+    the reference's ``init_cache`` filled with random history (and, for
+    Whisper, random cross K/V a slot; its sinusoidal positions are each
+    row's own)."""
     jmodel, jp, model, p = _pair(arch)
     B, W = 3, 24
     _close_trees(model.init_cache(B, W, device="cpu"),
@@ -168,9 +217,15 @@ def test_per_slot_decode_and_init_cache_match_the_reference(arch):
         pos[b, :t] = np.arange(t)
     jpool["positions"] = jnp.asarray(pos)
     r = np.random.default_rng(8)
+    # recurrent states: m, n and the sLSTM's n are stabilisers, kept >= 0
     jpool["runs"] = jax.tree.map(
-        lambda a: jnp.asarray(r.normal(size=a.shape).astype(np.float32)),
-        jpool["runs"])
+        lambda a: jnp.asarray(np.abs(r.normal(size=a.shape)).astype(
+            np.float32)), jpool["runs"])
+    cfg = model.cfg
+    if cfg.encoder_layers:
+        shape = (cfg.num_layers, B, 7, cfg.num_kv_heads, cfg.head_dim)
+        jpool["enc_kv"] = {k: jnp.asarray(r.normal(size=shape).astype(
+            np.float32)) for k in ("xk", "xv")}
     pool = interop.params_from_numpy(jax.tree.map(np.asarray, jpool))
     toks = _tokens(B, 1, seed=9)
     for _ in range(2):

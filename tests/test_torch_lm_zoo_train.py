@@ -1,13 +1,17 @@
-"""Training and the CLIs for the LM zoo's MoE, MLA and dense archs on the
-CPU, against the reference: ``Model.loss`` and its gradient against
-``jax.value_and_grad`` (the MoE aux and DeepSeek-V3's MTP loss in it),
-``vmap(grad)`` of the loss over a client axis (each client routes its
-own tokens) against each client's own gradient, one ``train_lm`` round
-of OLMoE on each engine against the reference's step builders, the
-fused loop bitwise equal to the ``--flat`` host loop, and the serve and
-train CLIs with ``--reduced --device cpu`` for each new arch. Models are
-the configs' reduced widths at 2 layers, d_model 64, vocab 500; the
-reference's params are carried across (``repro_torch.interop``).
+"""Training and the CLIs for the LM zoo's MoE, MLA, dense, xLSTM,
+encoder-decoder and image-token archs on the CPU, against the
+reference: ``Model.loss`` and its gradient against
+``jax.value_and_grad`` (the MoE aux and DeepSeek-V3's MTP loss in it;
+Whisper's encoder and cross-attention, InternVL2's image positions and
+xLSTM's recurrences in the gradient), ``vmap(grad)`` of the loss over a
+client axis (each client routes its own tokens, reads its own frames or
+image embeddings) against each client's own gradient, one ``train_lm``
+round of OLMoE on each engine against the reference's step builders,
+the fused loop bitwise equal to the ``--flat`` host loop, and the serve
+and train CLIs with ``--reduced --device cpu`` for each arch added
+since the dense ones. Models are the configs' reduced widths at 2
+layers (xLSTM 4), d_model 64, vocab 500; the reference's params are
+carried across (``repro_torch.interop``).
 Tolerances as in ``test_torch_lm_train.py``: losses and gradients 1e-5
 relative with an absolute floor of 1e-5·max|g|.
 """
@@ -36,22 +40,39 @@ from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 VOCAB, D, SEED = 500, 64, 5
 C, K, B, S = 2, 2, 2, 16
 ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b", "codeqwen1.5-7b", "qwen2.5-14b",
-         "granite-20b"]
+         "granite-20b", "xlstm-1.3b", "whisper-tiny", "internvl2-1b"]
+NEW = ARCHS[-3:]
+# layers a reduced config keeps: xLSTM's period is [m, m, m, s]
+LAYERS = {"xlstm-1.3b": 4}
+
+
+def _cfg(get, arch):
+    return get(arch).reduced(num_layers=LAYERS.get(arch, 2), d_model=D,
+                             vocab=VOCAB)
 
 
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     """(reference model, its params as numpy, port model, port params)."""
-    jmodel = jbuild_model(jget_config(arch).reduced(d_model=D, vocab=VOCAB))
+    jmodel = jbuild_model(_cfg(jget_config, arch))
     jparams = jax.device_get(jax.jit(jmodel.init)(jax.random.key(2)))
-    model = build_model(get_config(arch).reduced(d_model=D, vocab=VOCAB))
+    model = build_model(_cfg(get_config, arch))
     return jmodel, jparams, model, interop.params_from_numpy(jparams)
 
 
-def _batch(seed, lead=(B,)):
-    toks = np.random.default_rng(seed).integers(
-        0, VOCAB, lead + (S + 1,)).astype(np.int32)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+def _batch(seed, lead=(B,), cfg=None):
+    """Tokens and labels, plus the stub frames or image embeddings of
+    ``cfg`` where it has them."""
+    r = np.random.default_rng(seed)
+    toks = r.integers(0, VOCAB, lead + (S + 1,)).astype(np.int32)
+    out = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg is not None and cfg.encoder_layers:
+        out["frames"] = r.normal(size=lead + (cfg.encoder_seq, D)
+                                 ).astype(np.float32)
+    if cfg is not None and cfg.num_image_tokens:
+        out["image_embeds"] = r.normal(
+            size=lead + (cfg.num_image_tokens, D)).astype(np.float32)
+    return out
 
 
 def _t(tree):
@@ -71,10 +92,10 @@ def _close_trees(got, want, rtol=1e-5):
 
 # --------------------------------------------------------- loss and grads
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b",
-                                  "granite-20b"])
+                                  "granite-20b"] + NEW)
 def test_model_loss_and_gradient_match_jax_grad(arch):
     jmodel, jp, model, p = _pair(arch)
-    bt = _batch(1)
+    bt = _batch(1, cfg=model.cfg)
     (jl, jaux), jg = jax.jit(jax.value_and_grad(
         lambda q: jmodel.loss(q, bt), has_aux=True))(jp)
     tg, (tl, taux) = grad_and_value(
@@ -85,24 +106,32 @@ def test_model_loss_and_gradient_match_jax_grad(arch):
         np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
                                    rtol=1e-5)
     _close_trees(tg, jg)
-    if arch != "granite-20b":
+    if arch in ARCHS[:2]:
         # the router and the MTP block learn
         assert float(tg["stack"]["run0"]["moe"]["router"].abs().sum()) > 0
     if arch == "deepseek-v3-671b":
         assert float(tg["mtp"]["proj"].abs().sum()) > 0
+    if arch == "whisper-tiny":
+        # the encoder learns through the cross-attention
+        assert float(tg["encoder"]["stack"]["run0"]["attn"]["wq"]
+                     .abs().sum()) > 0
+    if arch == "xlstm-1.3b":
+        # the sLSTM's recurrent weights learn through its time loop
+        assert float(tg["stack"]["run1"]["mixer"]["r"].abs().sum()) > 0
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"] + NEW)
 def test_vmap_grad_matches_each_clients_grad(arch):
     """The vmap engine's trace of the loss over C clients, each with its
-    own params and tokens and so its own routing, capacity drops and
-    MTP loss, gives each client's own loss and gradient."""
+    own params and tokens (and frames or image embeddings) and so its
+    own routing, capacity drops and MTP loss, gives each client's own
+    loss and gradient."""
     _, _, model, p = _pair(arch)
     r = np.random.default_rng(11)
     pc = tree_map(lambda x: torch.stack(
         [x + 1e-2 * torch.from_numpy(r.normal(size=x.shape).astype(
             np.float32)) for _ in range(C)]), p)
-    bt = _t(_batch(7, lead=(C, B)))
+    bt = _t(_batch(7, lead=(C, B), cfg=model.cfg))
 
     def f(q, b):
         return model.loss(q, b, use_pallas=False)[0]
@@ -195,5 +224,6 @@ def test_train_and_serve_clis_run_each_new_arch(arch, capsys):
     cfg = get_config(arch).reduced()
     assert out["tokens"].shape == (2, 6)
     assert 0 <= out["tokens"].min() and out["tokens"].max() < cfg.vocab_size
-    assert fa.launch_count() == (0 if cfg.use_mla else 2 * cfg.num_layers)
+    sites = sum(t in ("attn", "moe", "shared_attn") for t in cfg.layer_types)
+    assert fa.launch_count() == (0 if cfg.use_mla else 2 * sites)
     assert "decoded 6 tokens x 2 on cpu" in capsys.readouterr().out

@@ -1,7 +1,9 @@
 """The port's serving path on the CPU: ``DecodeEngine`` against the
 reference's with the same parameters (``repro_torch.interop``) and the
-same prompts — the same greedy tokens and the same ``history`` of slot
-groups and occupancy — with fewer slots than requests, ``flush_tokens``
+same prompts (and, for Whisper, the same stub frames a request) — the
+same greedy tokens and the same
+``history`` of slot groups and occupancy — with fewer slots than
+requests, ``flush_tokens``
 that does not divide the generation length, and a sliding window with a
 rolling cache. Where the reference's top-2 logit margin at a generated
 position is under 1e-4, the tie could go either way on another backend:
@@ -48,11 +50,13 @@ def _pair(arch, layers):
     return jmodel, jparams, model, interop.params_from_numpy(jparams)
 
 
-def _margins(jmodel, jparams, prompt, gen, cache_len, window):
+def _margins(jmodel, jparams, prompt, gen, cache_len, window, extras):
     """The reference's top-2 logit margin at each generated position,
     replaying the sequence through its prefill and decode steps."""
-    logits, cache = jmodel.prefill(jparams, {"tokens": jnp.asarray(
-        prompt[None])}, cache_len=cache_len, window=window)
+    batch = {k: jnp.asarray(v[None])
+             for k, v in {"tokens": prompt, **(extras or {})}.items()}
+    logits, cache = jmodel.prefill(jparams, batch, cache_len=cache_len,
+                                   window=window)
     rows = [logits[0, -1]]
     for tok in gen[:-1]:
         logits, cache = jmodel.decode_step(
@@ -65,15 +69,18 @@ def _margins(jmodel, jparams, prompt, gen, cache_len, window):
 def _serve_both(arch, layers, *, n_req, prompt_len, gen, slots, flush,
                 window=None, cache_len=None):
     jmodel, jparams, model, params = _pair(arch, layers)
-    cache_len = cache_len or prompt_len + gen
-    prompts = np.random.default_rng(n_req).integers(
-        0, VOCAB, (n_req, prompt_len)).astype(np.int32)
+    cache_len = cache_len or (prompt_len + gen
+                              + model.cfg.num_image_tokens)
+    rng = np.random.default_rng(n_req)
+    prompts = rng.integers(0, VOCAB, (n_req, prompt_len)).astype(np.int32)
+    extras = [serve._row_extras(model.cfg, rng) for _ in prompts]
     out = []
     for Engine, m, p in ((JDecodeEngine, jmodel, jparams),
                          (DecodeEngine, model, params)):
         eng = Engine(m, p, slots=slots, cache_len=cache_len,
                      flush_tokens=flush, window=window)
-        rids = [eng.submit(pr, gen) for pr in prompts]
+        rids = [eng.submit(pr, gen, extras=ex)
+                for pr, ex in zip(prompts, extras)]
         done = {c.request_id: np.asarray(c.tokens)
                 for c in eng.run_until_idle()}
         out.append((eng, [done[r] for r in rids]))
@@ -81,7 +88,8 @@ def _serve_both(arch, layers, *, n_req, prompt_len, gen, slots, flush,
     for i, (a, b) in enumerate(zip(jtoks, toks)):
         assert a.shape == b.shape == (gen,)
         near = np.flatnonzero(_margins(jmodel, jparams, prompts[i], a,
-                                       cache_len, window) < MARGIN)
+                                       cache_len, window, extras[i])
+                              < MARGIN)
         upto = int(near[0]) if near.size else gen
         if upto < gen:
             warnings.warn(f"request {i}: top-2 margin < {MARGIN} at "
@@ -98,6 +106,7 @@ def _history(h):
 @pytest.mark.parametrize("arch,layers,n_req,slots,flush,gen", [
     ("tinyllama-1.1b", 2, 5, 2, 3, 8),      # slots < requests, 3 ∤ 8
     ("zamba2-7b", 7, 4, 3, 4, 6),           # Zamba2 with its shared block
+    ("whisper-tiny", 2, 3, 2, 3, 6),        # frames, the enc_kv pool
 ])
 def test_engine_matches_the_reference(arch, layers, n_req, slots, flush,
                                       gen):
@@ -257,15 +266,6 @@ def test_cli_serves_params_from_a_checkpoint(tmp_path):
             ["--device", "cpu", "--arch", "zamba2-7b", "--reduced",
              "--batch", "2", "--prompt-len", "16", "--gen", "8",
              "--ckpt-dir", d]))
-
-
-@pytest.mark.parametrize("arch", ["internvl2-1b", "xlstm-1.3b",
-                                  "whisper-tiny"])
-def test_cli_unported_archs_exit_naming_a15(arch):
-    args = serve.build_parser().parse_args(["--device", "cpu", "--arch",
-                                            arch, "--reduced"])
-    with pytest.raises(SystemExit, match="A15"):
-        serve.run(args)
 
 
 def test_cli_runs_as_a_module():

@@ -243,14 +243,52 @@ without its final line:
               round, bitwise equal, K launches of each Δ-SGD kernel each,
               the round's wall, busy, tokens/s and peak allocations as
               for OLMoE; the pair held and timed on InternVL2's slabs.
+  6b. serving plane  TinyLlama-1.1B whole (22 layers, f32, random
+              weights from seed 0), every count at 0 before each part
+              and read after. (1) Hot swap: seed 0's params saved as
+              step 1 in a temporary dir, an engine with a ModelRegistry
+              on it (version 1 after its start-up poll), 2 requests of
+              64 + 17 tokens on 4 slots, flush 8, one step(), seed 1's
+              params saved as step 2, run until idle: one swap,
+              kv_reuse_swaps 1, history versions [1, 2, ...], each
+              completion's versions (1, 2), the staged params on the card
+              equal to the saved ones, tokens equal to a replay at the
+              pool's width (each prompt prefilled alone, the first flush
+              under step 1, the rest under step 2 on the same cache), 22
+              flash launches a request; the swap stall printed. (2)
+              Personalized decode: a store with client 7's delta (a
+              card normal draw at scale 5e-2, set_delta) and 3 requests
+              of one prompt (client 7, global, unknown client 9): two
+              groups in each flush's history, one device-to-host copy a
+              flush and no other host read, client 7's tokens equal a
+              pool-width decode under unpack(pack(params) + scale ·
+              delta) and differ from the global ones, client 9's equal
+              the global ones, 22 flash launches a request; the peak
+              allocation printed. (3) The serve CLI with the watched
+              --ckpt-dir of (1) (it serves step 2), --batch 4
+              --prompt-len 64 --gen 32 --loadgen 16 --personalize 2
+              --events F, closed, then Poisson at 2 requests/s: 16
+              requests, p99 >= p50 > 0, occupancy in (0, 1], one
+              serve_flush row a flush and one serve_load row, 22 flash
+              launches for each of the 20 requests; tok/s, p50 and p99
+              printed. (4) The int8 KV cache: 4 prompts of 64 tokens fed
+              through decode_step from init_cache(4, 96, quant_kv=True),
+              then 32 greedy steps, and the same from the f32 cache:
+              finite logits, int8 and f16 leaves, the logits within
+              QUANT_KV_TOL of the largest f32 logit over the steps whose
+              inputs agree, no kernel launched; at 2 layers the card's
+              int8 decode within the same of the CPU's; both caches'
+              bytes and decode ms a step printed. The phase's seconds and
+              the script's total are printed.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
-              launches by path, the vmap runs of 4c, the runs of 4d and
-              the LM runs of 4e among them; DeepSeek-V3's serve path
-              launches none) and, last, the device line.
+              launches by path, the vmap runs of 4c, the runs of 4d, the
+              LM runs of 4e and the serving plane's of 6b among them;
+              DeepSeek-V3's serve path and the int8 cache's launch none)
+              and, last, the device line.
 
 It imports nothing of ``jax`` or of the reference package ``repro``.
 """
@@ -467,6 +505,24 @@ CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7, "olmoe-1b-7b": 2,
 # CPU_CHECK_LAYERS depth (xLSTM's four reach its sLSTM), and whose engine
 # tokens are also held bitwise against a lockstep decode of each request
 CHECK_DEPTH_GATES = ("xlstm-1.3b", "whisper-tiny", "internvl2-1b")
+# phase 6b, the serving plane: TinyLlama whole; requests of 64 + 17
+# tokens on 4 slots, flush 8 (so a request spans the swap of part 1);
+# the personalized overlay's scale; the CLI's load run (16 requests, the
+# Poisson rate in requests/s, under the 4 slots' throughput); the int8
+# cache's run (4 prompts of 64 teacher-forced steps, 32 greedy ones)
+PLANE_ARCH = "tinyllama-1.1b"
+PLANE_PROMPT, PLANE_GEN = 64, 17
+PLANE_SCALE = 5e-2
+PLANE_LOADGEN, PLANE_RATE = 16, 2.0
+PLANE_BATCH = 4
+PLANE_CLI = ["--arch", PLANE_ARCH, "--batch", str(PLANE_BATCH),
+             "--prompt-len", "64", "--gen", "32", "--personalize", "2",
+             "--device", "cuda"]
+QUANT_ROWS, QUANT_PROMPT, QUANT_GEN = 4, 64, 32
+# the int8 cache's decode logits against the f32 cache's (and the card's
+# against the CPU's), as a share of the largest f32 logit: the bound
+# tests/test_torch_serving_plane.py fixes (QUANT_KV_TOL there)
+QUANT_KV_TOL = 0.05
 # MoE capacity factor of the decode == full forward gates: prefill of
 # B·S tokens and decode of B drop different choices at the served 1.25
 # (the reference's tests patch the same 8.0)
@@ -2922,7 +2978,369 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     return total
 
 
+def _pool_replay(torch, model, params_at, prompts, gen, cache_len):
+    """Each prompt prefilled alone (B = 1, as the engine admits) into its
+    row of a SERVE_SLOTS-row pool, then every row decoded together with
+    token j's step under ``params_at(j)`` (j = 0: the prefill): -> the
+    prompts' (n, gen) greedy tokens. The pool's other rows decode beside
+    them, as the engine's masked rows do: at the pool's width, the bits
+    of a row depend on no other row."""
+    import numpy as np
+    from repro_torch.utils.tree import tree_map
+    S = SERVE_SLOTS
+    cache = model.init_cache(S, cache_len, device="cuda")
+    cache["t"] = torch.zeros((S,), dtype=torch.int32, device="cuda")
+    cache["positions"] = torch.full((S, cache_len), -1, dtype=torch.int32,
+                                    device="cuda")
+    tok = torch.zeros((S, 1), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts):
+        lg, c1 = model.prefill(params_at(0), {
+            "tokens": torch.from_numpy(np.asarray(p)[None]).cuda()},
+            cache_len=cache_len)
+        tree_map(lambda pl, cl: pl[:, i].copy_(cl[:, 0]), cache["runs"],
+                 c1["runs"])
+        cache["t"][i] = c1["t"]
+        cache["positions"][i] = c1["positions"]
+        tok[i] = torch.argmax(lg[:, -1:], dim=-1)[0]
+    out = [tok]
+    for j in range(1, gen):
+        lg, cache = model.decode_step(params_at(j), cache, tok)
+        tok = torch.argmax(lg, dim=-1)
+        out.append(tok)
+    return torch.cat(out, 1)[:len(prompts)].cpu().numpy()
+
+
+class _OneCopyPerFlush:
+    """Counts ``Tensor.cpu`` calls and refuses any other host read of a
+    tensor while active (the engine's one device-to-host copy a flush)."""
+    REFUSED = ("item", "tolist", "__int__", "__float__", "__bool__",
+               "__index__")
+
+    def __init__(self, torch):
+        self.torch, self.copies = torch, 0
+
+    def __enter__(self):
+        T = self.torch.Tensor
+        self.saved = {n: getattr(T, n) for n in ("cpu",) + self.REFUSED}
+        cpu = self.saved["cpu"]
+
+        def count(t, *a, **k):
+            self.copies += 1
+            return cpu(t, *a, **k)
+
+        def refuse(t, *a, **k):
+            raise AssertionError("the engine read a tensor on the host")
+        T.cpu = count
+        for n in self.REFUSED:
+            setattr(T, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.torch.Tensor, n, f)
+
+
+def _plane_swap(torch, mods, smi, model, params, p2, tmp):
+    """6b part 1: the hot swap through a ModelRegistry on ``tmp``."""
+    import numpy as np
+    from repro_torch.checkpoint import save
+    from repro_torch.serving import DecodeEngine, ModelRegistry
+    from repro_torch.utils.tree import tree_leaves
+    cache_len = PLANE_PROMPT + PLANE_GEN
+    t0 = time.perf_counter()
+    save(tmp, {"params": params, "round": 1}, step=1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = DecodeEngine(model, params, slots=SERVE_SLOTS,
+                          cache_len=cache_len, flush_tokens=SERVE_FLUSH,
+                          registry=ModelRegistry(tmp, params))
+    start_s = time.perf_counter() - t0
+    if engine.version != 1:
+        raise AssertionError(f"serving plane: version {engine.version} "
+                             "after the start-up poll, not 1")
+    prompts = np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (2, PLANE_PROMPT))
+    _reset(mods)
+    rids = [engine.submit(p, PLANE_GEN) for p in prompts]
+    engine.step()
+    save(tmp, {"params": p2, "round": 2}, step=2)
+    done = {c.request_id: c for c in engine.run_until_idle()}
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    m = engine.metrics()
+    versions = [h["version"] for h in engine.history]
+    if (m["serve_swaps_total"] != 1 or m["kv_reuse_swaps"] != 1
+            or versions[:2] != [1, 2] or set(versions[1:]) != {2}
+            or any(done[r].versions != (1, 2) for r in rids)):
+        raise AssertionError(f"serving plane swap: metrics {m}, versions "
+                             f"{versions}, completions "
+                             f"{[done[r].versions for r in rids]}")
+    if not all(t.is_cuda and torch.equal(t, w) for t, w in zip(
+            tree_leaves(engine._params), tree_leaves(p2))):
+        raise AssertionError("serving plane swap: the staged step 2 is "
+                             "not the saved params on the card")
+    want = {("flash_attention", "cuda"): len(rids) * model.cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"serving plane swap launched {launches}, "
+                             f"expected {want}")
+    # token j >= 1 comes from flush (j - 1) // SERVE_FLUSH: the first
+    # flush under step 1, the rest under step 2, on the same cache
+    replay = _pool_replay(
+        torch, model, lambda j: params if j <= SERVE_FLUSH else p2,
+        prompts, PLANE_GEN, cache_len)
+    if not np.array_equal(replay, np.stack([done[r].tokens for r in rids])):
+        raise AssertionError("serving plane swap: the engine's tokens "
+                             "differ from the pool-width replay's")
+    print("serving plane swap", json.dumps({
+        "card": smi, "arch": f"{PLANE_ARCH}[{model.cfg.num_layers}L]",
+        "requests": len(rids), "flushes": engine.stats["flushes"],
+        "versions": versions, "swap_stall_s": m["serve_swap_stall_max"],
+        "stall_holds": "restore_params of the step to the card and the "
+                       "wait to the flush boundary",
+        "checkpoint_gb": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params)) / 1e9,
+        "checkpoint_save_s": save_s, "start_with_restore_s": start_s,
+        "kv_reuse_swaps": m["kv_reuse_swaps"],
+        "tokens_equal_replay": True,
+        "launches": {f"{k}/{d}": n for (k, d), n in launches.items()}}),
+        flush=True)
+    return launches
+
+
+def _plane_personalized(torch, mods, smi, model, params):
+    """6b part 2: one client's overlay beside the global params."""
+    import numpy as np
+    from repro_torch.core.flat import pack, unpack
+    from repro_torch.serving import DecodeEngine, PersonalizationStore
+    cache_len = PLANE_PROMPT + PLANE_GEN
+    torch.cuda.reset_peak_memory_stats()
+    store = PersonalizationStore(params, scale=PLANE_SCALE)
+    N = store.layout.padded_size
+    delta = torch.randn((N,), generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda")
+    store.set_delta(7, delta)
+    engine = DecodeEngine(model, params, slots=SERVE_SLOTS,
+                          cache_len=cache_len, flush_tokens=SERVE_FLUSH,
+                          personalization=store)
+    prompt = np.random.default_rng(2).integers(0, model.cfg.vocab_size,
+                                               PLANE_PROMPT)
+    rids = [engine.submit(prompt, PLANE_GEN, client_id=c)
+            for c in (7, None, 9)]
+    _reset(mods)
+    copies = []
+    t0 = time.perf_counter()
+    with _OneCopyPerFlush(torch) as one:
+        while engine.has_work():
+            before = one.copies
+            engine.step()
+            copies.append(one.copies - before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(mods)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    done = {c.request_id: c.tokens for c in engine.completed}
+    groups = [h["groups"] for h in engine.history]
+    if any(g != {7: [0], None: [1, 2]} for g in groups) or \
+            set(copies) != {1}:
+        raise AssertionError(f"serving plane personalized: groups {groups}"
+                             f", copies a flush {copies}")
+    want = {("flash_attention", "cuda"): len(rids) * model.cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"serving plane personalized launched "
+                             f"{launches}, expected {want}")
+    over = unpack(pack(params, store.layout) + PLANE_SCALE * delta,
+                  store.layout)
+    mine = _pool_replay(torch, model, lambda j: over, [prompt],
+                        PLANE_GEN, cache_len)[0]
+    glob = _pool_replay(torch, model, lambda j: params, [prompt],
+                        PLANE_GEN, cache_len)[0]
+    t7, tg, t9 = (done[r] for r in rids)
+    if not (np.array_equal(t7, mine) and np.array_equal(tg, glob)
+            and np.array_equal(t9, glob) and not np.array_equal(t7, tg)):
+        raise AssertionError("serving plane personalized: the tokens are "
+                             "not the overlay's and the global params' "
+                             "pool-width replays, or they do not differ")
+    print("serving plane personalized", json.dumps({
+        "card": smi, "arch": f"{PLANE_ARCH}[{model.cfg.num_layers}L]",
+        "padded_size": N, "scale": PLANE_SCALE,
+        "flushes": engine.stats["flushes"], "groups_per_flush": 2,
+        "copies_per_flush": 1, "wall_s": wall, "peak_gb": peak,
+        "tokens_equal_replays": True, "personalized_differs": True,
+        "launches": {f"{k}/{d}": n for (k, d), n in launches.items()}}),
+        flush=True)
+    del store, delta, over, engine
+    return launches
+
+
+def _plane_cli(torch, mods, smi, tmp, arrival):
+    """6b part 3: the serve CLI with a watched --ckpt-dir, the load
+    generator, --personalize 2 and --events."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.telemetry import load_events
+    events = f"{tmp}/events_{arrival}.jsonl"
+    flags = PLANE_CLI + ["--ckpt-dir", tmp, "--loadgen", str(PLANE_LOADGEN),
+                         "--arrival", arrival, "--events", events]
+    if arrival == "poisson":
+        flags += ["--rate", str(PLANE_RATE)]
+    _reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.run(serve.build_parser().parse_args(flags))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(mods)
+    rep = out["report"]
+    _, rows = load_events(events)
+    kinds = [r["kind"] for r in rows]
+    flushes = len(out["history"])
+    if (rep["requests"] != PLANE_LOADGEN
+            or not rep["p99_s"] >= rep["p50_s"] > 0
+            or not 0 < rep["occupancy"] <= 1
+            or kinds.count("serve_flush") != flushes
+            or kinds.count("serve_load") != 1 or out["ckpt_step"] != 2):
+        raise AssertionError(f"serving plane CLI ({arrival}): report {rep}, "
+                             f"{kinds.count('serve_flush')} flush rows for "
+                             f"{flushes} flushes, "
+                             f"{kinds.count('serve_load')} load rows")
+    want = {("flash_attention", "cuda"): (PLANE_LOADGEN + PLANE_BATCH)
+            * get_config(PLANE_ARCH).num_layers}
+    if launches != want:
+        raise AssertionError(f"serving plane CLI ({arrival}) launched "
+                             f"{launches}, expected {want}")
+    print(f"serving plane CLI {arrival}", json.dumps({
+        "card": smi, "flags": " ".join("F" if f == events else f
+                                       for f in flags),
+        "requests": rep["requests"], "tok_per_s": rep["tok_per_s"],
+        "p50_s": rep["p50_s"], "p99_s": rep["p99_s"],
+        "occupancy": rep["occupancy"], "load_wall_s": rep["wall_s"],
+        "demo_tok_per_s": out["tok_per_s"], "flushes": flushes,
+        "cli_wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated()
+        / 1e9, "launches": {f"{k}/{d}": n for (k, d), n in
+                            launches.items()}}), flush=True)
+    return launches
+
+
+def _quant_decode(torch, model, params, prompts, quant, device):
+    """QUANT_PROMPT teacher-forced decode steps of ``prompts`` from an
+    empty cache, then QUANT_GEN greedy ones -> (logits (steps, B, V),
+    greedy tokens (B, QUANT_GEN), the cache)."""
+    V = model.cfg.vocab_size
+    cache = model.init_cache(QUANT_ROWS, QUANT_PROMPT + QUANT_GEN,
+                             device=device, quant_kv=quant)
+    toks = torch.from_numpy(prompts).to(device)
+    logits, gen = [], []
+    for j in range(QUANT_PROMPT + QUANT_GEN):
+        tok = toks[:, j:j + 1] if j < QUANT_PROMPT else gen[-1]
+        lg, cache = model.decode_step(params, cache, tok)
+        logits.append(lg[:, 0, :V])
+        if j >= QUANT_PROMPT - 1 and len(gen) < QUANT_GEN:
+            gen.append(torch.argmax(lg[:, :, :V], dim=-1))
+    return torch.stack(logits), torch.cat(gen, 1), cache
+
+
+def _plane_int8(torch, mods, smi, model, params):
+    """6b part 4: the int8 KV cache against the f32 one, and the card's
+    int8 decode against the CPU's at 2 layers."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, model.cfg.vocab_size,
+                           (QUANT_ROWS, QUANT_PROMPT))
+    _reset(mods)
+    lq, gq, cq = _quant_decode(torch, model, params, prompts, True, "cuda")
+    lf, gf, cf = _quant_decode(torch, model, params, prompts, False, "cuda")
+    torch.cuda.synchronize()
+    launches = _counts(mods)
+    if launches:
+        raise AssertionError(f"the int8 decode launched {launches}")
+    leaves = cq["runs"]["run0"]
+    if (leaves["k"].dtype != torch.int8 or leaves["v"].dtype != torch.int8
+            or leaves["k_scale"].dtype != torch.float16
+            or leaves["v_scale"].dtype != torch.float16):
+        raise AssertionError("the int8 cache's leaves are "
+                             f"{ {k: v.dtype for k, v in leaves.items()} }")
+    if not (bool(torch.isfinite(lq).all()) and bool(torch.isfinite(lf).all())):
+        raise AssertionError("the int8 or f32 decode logits are not finite")
+    # the inputs agree through the prompt and while both greedy runs do
+    same = int((gq == gf).all(0).int().cumprod(0).sum())
+    n = QUANT_PROMPT + same
+    gap = float((lq[:n] - lf[:n]).abs().max())
+    top = float(lf[:n].abs().max())
+    if not 0 < gap <= QUANT_KV_TOL * top:
+        raise AssertionError(f"int8 vs f32 decode logits: gap {gap}, "
+                             f"largest f32 logit {top}")
+
+    def nbytes(c):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(c["runs"]))
+    tok = gf[:, -1:]
+    q_ms = _host_ms(torch, lambda: model.decode_step(params, cq, tok), 10)
+    f_ms = _host_ms(torch, lambda: model.decode_step(params, cf, tok), 10)
+    q_bytes, f_bytes = nbytes(cq), nbytes(cf)
+    del lq, lf, cq, cf
+
+    # the card's int8 decode is the CPU's at 2 layers, full width
+    small = dataclasses.replace(model.cfg, num_layers=2)
+    m2_ = build_model(small)
+    p_card = m2_.init(torch.Generator(device="cuda").manual_seed(1))
+    p_cpu = tree_map(lambda a: a.cpu(), p_card)
+    card, g_card, _ = _quant_decode(torch, m2_, p_card, prompts, True,
+                                    "cuda")
+    host, g_host, _ = _quant_decode(torch, m2_, p_cpu, prompts, True, "cpu")
+    same2 = int((g_card.cpu() == g_host).all(0).int().cumprod(0).sum())
+    n2 = QUANT_PROMPT + same2
+    gap2 = float((card.cpu()[:n2] - host[:n2]).abs().max())
+    top2 = float(host[:n2].abs().max())
+    if not gap2 <= QUANT_KV_TOL * top2:
+        raise AssertionError(f"int8 decode card vs CPU at 2 layers: gap "
+                             f"{gap2}, largest CPU logit {top2}")
+    print("serving plane int8 kv", json.dumps({
+        "card": smi, "arch": f"{PLANE_ARCH}[{model.cfg.num_layers}L]",
+        "rows": QUANT_ROWS, "cache_len": QUANT_PROMPT + QUANT_GEN,
+        "int8_cache_bytes": q_bytes, "f32_cache_bytes": f_bytes,
+        "int8_decode_ms_per_step": q_ms, "f32_decode_ms_per_step": f_ms,
+        "steps_compared": n, "greedy_steps_agreeing": same,
+        "max_abs_gap_int8_vs_f32": gap, "largest_f32_logit": top,
+        "tolerance": f"{QUANT_KV_TOL} x largest f32 logit",
+        "card_vs_cpu_2L_gap": gap2, "card_vs_cpu_2L_largest": top2,
+        "card_vs_cpu_2L_steps_compared": n2}), flush=True)
+    return launches
+
+
+def run_serving_plane(torch, mods, smi):
+    """Phase 6b. Returns {path: launch counts}."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    model = build_model(get_config(PLANE_ARCH))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    p2 = model.init(torch.Generator(device="cuda").manual_seed(1))
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["serve_plane_swap"] = _plane_swap(torch, mods, smi, model,
+                                                params, p2, tmp)
+        del p2
+        torch.cuda.empty_cache()
+        paths["serve_plane_personalized"] = _plane_personalized(
+            torch, mods, smi, model, params)
+        torch.cuda.empty_cache()
+        for arrival in ("closed", "poisson"):
+            paths[f"serve_plane_cli_{arrival}"] = _plane_cli(
+                torch, mods, smi, tmp, arrival)
+            torch.cuda.empty_cache()
+    paths["serve_plane_int8"] = _plane_int8(torch, mods, smi, model, params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serving plane: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels").is_dir():
         return fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
                     "of the repository")
@@ -3028,6 +3446,9 @@ def main() -> int:
         paths[arch] = run_serve_path(torch, mods, arch, layers, dtype_name,
                                      smi)
 
+    # 6b. the serving plane
+    paths.update(run_serving_plane(torch, mods, smi))
+
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)
 
@@ -3051,6 +3472,7 @@ def main() -> int:
             bound_route=row.get("bound_route")))
         if kernels[-1]["launches"] == 0:
             raise AssertionError(f"{kname} was not launched on any path")
+    print(f"script total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,14 @@ the latent cache directly.
 Cross-attention (the Whisper decoder) reads K and V that ``cross_kv``
 computes once from the encoder output; ``cross_attend`` runs the plain
 ``_sdpa`` without a causal mask, as the reference does (the flash
-kernel keeps its refusal of non-causal attention). The int8 KV cache is
-a serving option of ROADMAP A16 and is not ported yet.
+kernel keeps its refusal of non-causal attention).
+
+The GQA cache has an int8 form (``init_gqa_cache(quant=True)``, reached
+through ``Model.init_cache(quant_kv=True)``): int8 K and V entries with
+one f16 scale per entry and KV head (``_quantize``: absmax / 127,
+rounded half to even), dequantized with the f16 scale at every decode
+step, as the reference's is. ``gqa_step`` takes that branch when the
+cache holds ``k_scale``. Prefill builds the float cache in both.
 The cache is written out of place, as JAX does: the serving engine
 keeps the old state of rows that did not decode.
 """
@@ -189,8 +195,20 @@ def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(params, x, cfg, t[:, None])
-    kd = _cache_write(cache["k"], k, slot)
-    vd = _cache_write(cache["v"], v, slot)
+    if "k_scale" in cache:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        ck = _cache_write(cache["k"], kq, slot)
+        cv = _cache_write(cache["v"], vq, slot)
+        cks = _cache_write(cache["k_scale"], ks, slot)
+        cvs = _cache_write(cache["v_scale"], vs, slot)
+        kd = (ck.float() * cks.float()[..., None]).to(k.dtype)
+        vd = (cv.float() * cvs.float()[..., None]).to(v.dtype)
+        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
+    else:
+        kd = _cache_write(cache["k"], k, slot)
+        vd = _cache_write(cache["v"], v, slot)
+        new_cache = {"k": kd, "v": vd}
     tt = t[:, None]
     valid = (positions_buf >= 0) & (positions_buf <= tt)
     if window is not None:
@@ -198,16 +216,36 @@ def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     qg = q.reshape(B, 1, KV, H // KV, hd)
     out = _sdpa_masked(qg, kd, vd, valid[:, None, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, hd), params["wo"])
-    return y, {"k": kd, "v": vd}
+    return y, new_cache
 
 
 def init_gqa_cache(cfg, B: int, cache_len: int, dtype: torch.dtype,
-                   device) -> dict:
+                   device, *, quant: bool = False) -> dict:
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+    if quant:
+        # int8 KV entries and an f16 scale per entry and head: about half
+        # the bytes a decode step reads from an f16 cache, a quarter of f32
+        i8 = dict(dtype=torch.int8, device=device)
+        f16 = dict(dtype=torch.float16, device=device)
+        return {"k": torch.zeros((B, cache_len, KV, hd), **i8),
+                "v": torch.zeros((B, cache_len, KV, hd), **i8),
+                "k_scale": torch.zeros((B, cache_len, KV), **f16),
+                "v_scale": torch.zeros((B, cache_len, KV), **f16)}
     return {"k": torch.zeros((B, cache_len, KV, hd), dtype=dtype,
                              device=device),
             "v": torch.zeros((B, cache_len, KV, hd), dtype=dtype,
                              device=device)}
+
+
+def _quantize(x: torch.Tensor):
+    """x: (B,1,KV,hd) -> (int8 values, f16 scales (B,1,KV)): the f32
+    absmax / 127 per entry and head (at least 1e-8 as a divisor), codes
+    rounded half to even."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-8)[..., None]
+                    ).to(torch.int8)
+    return q, scale.to(torch.float16)
 
 
 # ---------------------------------------------------------------------------

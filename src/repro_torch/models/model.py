@@ -266,15 +266,19 @@ class Model:
                 "t": torch.tensor(S, dtype=torch.int32, device=dev),
                 "positions": pos}
 
-    def init_cache(self, B: int, cache_len: int, *, device) -> Dict:
-        """Empty decode cache (serving from scratch)."""
+    def init_cache(self, B: int, cache_len: int, *, device,
+                   quant_kv: bool = False) -> Dict:
+        """Empty decode cache (serving from scratch). ``quant_kv`` stores
+        the GQA caches' K and V in int8 with f16 scales; MLA and the
+        recurrent states ignore it, as in the reference."""
         cfg, dtype = self.cfg, self.dtype
         runs = {}
         for i, (btype, n) in enumerate(tfm.segment_runs(cfg.layer_types)):
             if btype in tfm.ATTN_TYPES:
-                one = (attn.init_mla_cache if cfg.use_mla
-                       else attn.init_gqa_cache)(cfg, B, cache_len, dtype,
-                                                 device)
+                one = (attn.init_mla_cache(cfg, B, cache_len, dtype, device)
+                       if cfg.use_mla else
+                       attn.init_gqa_cache(cfg, B, cache_len, dtype, device,
+                                           quant=quant_kv))
             else:
                 one = tfm.RECURRENT[btype][3](cfg, B, dtype, device)
             runs[f"run{i}"] = tree_map(

@@ -1,7 +1,7 @@
 """Continuous-batching decode engine: a fixed-slot KV-cache pool with
-per-slot sequence state and flush-interval decode blocks. Port of
-``repro/serving/engine.py`` without the registry and hot swap,
-personalization and events (ROADMAP A16).
+per-slot sequence state, flush-interval decode blocks, block-boundary
+checkpoint hot swap and personalized overlays. Port of
+``repro/serving/engine.py``.
 
   * POOL — one vectorized decode cache for S slots built from
     ``model.init_cache``: every ``runs`` leaf keeps its batch axis
@@ -16,9 +16,9 @@ personalization and events (ROADMAP A16).
     bit as they were while the active rows advance. Nothing in the block
     reads the device from the host.
   * ONE COPY PER FLUSH — the host reads the flush's (S, flush_tokens)
-    token matrix, together with the first token of every request
-    admitted in this flush, in one device-to-host copy (the reference's
-    one ``device_get`` per flush).
+    token matrix of each overlay group, together with the first token of
+    every request admitted in this flush, in one device-to-host copy (the
+    reference's one ``device_get`` per flush).
   * ADMIT / EVICT — at flush boundaries only. Admission prefills the
     request alone (B = 1; on the card that runs the flash-attention and
     SSD kernels), with its stub-frontend inputs (``extras``: Whisper's
@@ -30,17 +30,36 @@ personalization and events (ROADMAP A16).
     cross K/V (``enc_kv``, (layers, slots, T, KV, hd)) is made at the
     first admission that has one, written only at admission and passed
     through every decode step unchanged.
+  * HOT SWAP — ``step()`` polls the
+    :class:`~repro_torch.serving.registry.ModelRegistry` once per flush
+    and applies a staged version before the flush's decode blocks: every
+    token of a flush comes from one params version. The KV pool is kept
+    across the swap (the cache holds activations keyed only by the model
+    config), and the swap is gated on every leaf's shape and dtype:
+    params that do not match the serving template are refused (build a
+    new engine for a new architecture).
+  * PERSONALIZATION — a request whose client id the
+    :class:`~repro_torch.serving.personalize.PersonalizationStore` knows
+    is prefilled and decoded under ``unpack(pack(params) + scale ·
+    delta_c)``, kept until the next swap. Each flush groups the active
+    slots by overlay, in the order the slots first show each; every
+    group runs one masked decode block over the whole pool, and the one
+    copy of the flush holds every group's token matrix.
+  * EVENTS — with an ``EventLog``, each flush writes a ``serve_flush``
+    row of host numbers (tokens, occupancy, version, swap and its stall),
+    so the log adds no device read to the flush.
 """
 from __future__ import annotations
 
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.flat import pack
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -104,6 +123,7 @@ def _decode_block(model, params, cache, tok, active, n, window):
 class Request:
     prompt: np.ndarray                 # (S,) int32 token ids
     max_new_tokens: int
+    client_id: Optional[int] = None
     request_id: int = 0
     extras: Optional[Dict[str, np.ndarray]] = None  # frames/image_embeds
     submit_time: float = field(default_factory=time.time)
@@ -112,13 +132,22 @@ class Request:
 class Completion(NamedTuple):
     request_id: int
     tokens: np.ndarray                 # (max_new_tokens,) int32
+    client_id: Optional[int]
     latency_s: float
+    versions: tuple                    # params version per flush touched
 
 
 class _Slot(NamedTuple):
     req: Request
     remaining: int
     out: List[int]
+    overlay: Optional[int]             # personalization key (client id)
+    versions: List[int]
+
+
+def _leaf_specs(params) -> List[tuple]:
+    """(shape, dtype) of every leaf: what a hot swap must keep."""
+    return [(tuple(a.shape), str(a.dtype)) for a in tree_leaves(params)]
 
 
 class DecodeEngine:
@@ -126,11 +155,20 @@ class DecodeEngine:
 
     def __init__(self, model, params, *, slots: int = 4,
                  cache_len: int = 64, flush_tokens: int = 8,
-                 window: Optional[int] = None):
-        self.model, self.params = model, params
+                 window: Optional[int] = None, version: int = 0,
+                 registry=None, personalization=None, events=None):
+        self.model = model
         self.slots = int(slots)
         self.cache_len, self.flush_tokens = int(cache_len), int(flush_tokens)
         self.window = window
+        self.registry = registry
+        self.store = personalization
+        self.events = events
+        self._params = params
+        self._shapes = _leaf_specs(params)
+        self._params_flat = None       # packed lazily (personalization)
+        self._overlays: Dict[int, Any] = {}
+        self.version = int(version)
         self.device = tree_leaves(params)[0].device
         self._ids = itertools.count()
         self.queue: List[Request] = []
@@ -143,7 +181,14 @@ class DecodeEngine:
         self.history: List[dict] = []
         self.completed: List[Completion] = []
         self.stats = {"tokens": 0, "flushes": 0, "occupancy_sum": 0.0,
+                      "swaps": 0, "swap_stalls": [], "kv_reuse_swaps": 0,
                       "admitted": 0, "completed": 0}
+        if self.registry is not None:
+            staged = self.registry.poll()   # initial version, if any
+            if staged is not None:
+                self._params = staged.params
+                self._params_flat = None
+                self.version = staged.step
 
     # --------------------------------------------------------------- pool
     def _init_pool(self) -> Dict:
@@ -166,11 +211,47 @@ class DecodeEngine:
         self.pool["positions"][s] = c1["positions"]
         self._tok[s] = tok0[0]
 
+    # ------------------------------------------------------------ params
+    def _client_params(self, overlay_key):
+        if overlay_key is None:
+            return self._params
+        if overlay_key not in self._overlays:
+            if self._params_flat is None:
+                self._params_flat = pack(self._params, self.store.layout)
+            self._overlays[overlay_key] = self.store.overlay(
+                self._params_flat, overlay_key)
+        return self._overlays[overlay_key]
+
+    def swap(self, params, step: int, *, seen_at: Optional[float] = None
+             ) -> float:
+        """Hot-swap the serving params at this block boundary; returns the
+        stall (seconds from ``seen_at``). Gated on the template: the new
+        tree must match it leaf for leaf (shape and dtype), the condition
+        under which the in-flight KV pool stays valid and is kept."""
+        if _leaf_specs(params) != self._shapes:
+            raise ValueError(
+                "hot-swap refused: new params do not match the serving "
+                "template's shapes/dtypes — the KV pool cannot be "
+                "reused across an architecture change; build a new "
+                "DecodeEngine")
+        self._params = params
+        self._params_flat = None
+        self._overlays.clear()
+        self.version = int(step)
+        self.stats["swaps"] += 1
+        if any(s is not None for s in self._slots):
+            self.stats["kv_reuse_swaps"] += 1
+        stall = (time.time() - seen_at) if seen_at is not None else 0.0
+        self.stats["swap_stalls"].append(stall)
+        return stall
+
     # ------------------------------------------------------------ submit
-    def submit(self, prompt, max_new_tokens: int, *,
+    def submit(self, prompt, max_new_tokens: int, *, client_id=None,
                extras: Optional[Dict[str, np.ndarray]] = None) -> int:
-        """Queue a request; ``extras`` holds its stub-frontend inputs
-        without a batch axis. Its image tokens count in the cache."""
+        """Queue a request; ``client_id`` picks a personalized overlay
+        (an id the store does not know decodes under the global params);
+        ``extras`` holds its stub-frontend inputs without a batch axis.
+        Its image tokens count in the cache."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be (S,), got {prompt.shape}")
@@ -183,14 +264,16 @@ class DecodeEngine:
         rid = next(self._ids)
         self.queue.append(Request(prompt=prompt,
                                   max_new_tokens=int(max_new_tokens),
-                                  request_id=rid, extras=extras))
+                                  client_id=client_id, request_id=rid,
+                                  extras=extras))
         return rid
 
     # ------------------------------------------------------------- admit
     def _admit(self) -> List[tuple]:
-        """Prefill queued requests into free slots. Returns (slot index or
-        None, slot record, first token on the device) per admission; a
-        request of one token completes here (slot index None)."""
+        """Prefill queued requests into free slots, each under its own
+        overlay's params. Returns (slot index or None, slot record, first
+        token on the device) per admission; a request of one token
+        completes here (slot index None)."""
         admitted = []
         for s in range(self.slots):
             if not self.queue:
@@ -198,10 +281,13 @@ class DecodeEngine:
             if self._slots[s] is not None:
                 continue
             req = self.queue.pop(0)
+            overlay = (req.client_id
+                       if (self.store is not None
+                           and self.store.has(req.client_id)) else None)
             batch = {k: torch.from_numpy(np.asarray(v)[None]).to(self.device)
                      for k, v in {"tokens": req.prompt,
                                   **(req.extras or {})}.items()}
-            logits, c1 = self._prefill(self.params, batch)
+            logits, c1 = self._prefill(self._client_params(overlay), batch)
             tok0 = torch.argmax(logits[:, -1:], dim=-1)
             if "enc_kv" in c1 and "enc_kv" not in self.pool:
                 self.pool["enc_kv"] = tree_map(
@@ -209,7 +295,8 @@ class DecodeEngine:
                                           + e.shape[2:], dtype=e.dtype,
                                           device=e.device), c1["enc_kv"])
             self._insert(c1, tok0, s)
-            slot = _Slot(req=req, remaining=req.max_new_tokens - 1, out=[])
+            slot = _Slot(req=req, remaining=req.max_new_tokens - 1, out=[],
+                         overlay=overlay, versions=[self.version])
             self.stats["admitted"] += 1
             if slot.remaining == 0:
                 admitted.append((None, slot, tok0))
@@ -222,7 +309,9 @@ class DecodeEngine:
         self.stats["completed"] += 1
         c = Completion(request_id=slot.req.request_id,
                        tokens=np.asarray(slot.out, np.int32),
-                       latency_s=time.time() - slot.req.submit_time)
+                       client_id=slot.req.client_id,
+                       latency_s=time.time() - slot.req.submit_time,
+                       versions=tuple(dict.fromkeys(slot.versions)))
         self.completed.append(c)
         return c
 
@@ -231,18 +320,28 @@ class DecodeEngine:
         return bool(self.queue) or any(s is not None for s in self._slots)
 
     def step(self) -> List[Completion]:
-        """One flush interval: admit -> one decode block over the active
-        slots -> ONE device-to-host copy -> harvest. Returns the requests
-        completed this flush."""
+        """One flush interval: swap (if staged) -> admit -> one masked
+        decode block per overlay group -> ONE device-to-host copy ->
+        harvest. Returns the requests completed this flush."""
         completions: List[Completion] = []
+        swapped, stall = 0, 0.0
+        if self.registry is not None:
+            staged = self.registry.poll()
+            if staged is not None:
+                stall = self.swap(staged.params, staged.step,
+                                  seen_at=staged.seen_at)
+                swapped = 1
         admitted = self._admit()
-        active = [s for s, sl in enumerate(self._slots) if sl is not None]
+        groups: Dict[Optional[int], List[int]] = {}
+        for s, sl in enumerate(self._slots):
+            if sl is not None:
+                groups.setdefault(sl.overlay, []).append(s)
         parts = [tok0.reshape(1) for _, _, tok0 in admitted]
-        if active:
+        for key, idxs in groups.items():
             act = torch.zeros((self.slots,), dtype=torch.bool)
-            act[active] = True
+            act[idxs] = True
             self.pool, self._tok, toks = _decode_block(
-                self.model, self.params, self.pool, self._tok,
+                self.model, self._client_params(key), self.pool, self._tok,
                 act.to(self.device), self.flush_tokens, self.window)
             parts.append(toks.reshape(-1))
         host = (torch.cat(parts).cpu().numpy() if parts     # the ONE copy
@@ -251,25 +350,39 @@ class DecodeEngine:
             slot.out.append(int(host[k]))
             if s is None:
                 completions.append(self._finish_slot(slot))
-        mat = host[len(admitted):].reshape(self.slots, -1)
+        mats = host[len(admitted):].reshape(len(groups), self.slots,
+                                           self.flush_tokens)
         emitted = 0
-        for s in active:
-            sl = self._slots[s]
-            take = min(sl.remaining, self.flush_tokens)
-            sl.out.extend(int(x) for x in mat[s, :take])
-            emitted += take
-            sl = sl._replace(remaining=sl.remaining - take)
-            self._slots[s] = sl
-            if sl.remaining == 0:
-                self._slots[s] = None
-                completions.append(self._finish_slot(sl))
-        occ = len(active) / self.slots
+        for idxs, mat in zip(groups.values(), mats):
+            for s in idxs:
+                sl = self._slots[s]
+                take = min(sl.remaining, self.flush_tokens)
+                sl.out.extend(int(x) for x in mat[s, :take])
+                sl.versions.append(self.version)
+                emitted += take
+                sl = sl._replace(remaining=sl.remaining - take)
+                self._slots[s] = sl
+                if sl.remaining == 0:
+                    self._slots[s] = None
+                    completions.append(self._finish_slot(sl))
+        occ = sum(len(v) for v in groups.values()) / self.slots
         self.stats["tokens"] += emitted
         self.stats["flushes"] += 1
         self.stats["occupancy_sum"] += occ
         self.history.append({"flush": self.stats["flushes"] - 1,
-                             "groups": {None: active} if active else {},
+                             "version": self.version,
+                             "groups": {k: list(v)
+                                        for k, v in groups.items()},
+                             "swapped": swapped, "swap_stall_s": stall,
                              "tokens": emitted, "occupancy": occ})
+        if self.events is not None:
+            self.events.emit("serve_flush",
+                             t=self.stats["flushes"] - 1,
+                             serve_tokens=emitted, serve_occupancy=occ,
+                             serve_version=self.version,
+                             serve_swapped=swapped,
+                             serve_swap_stall_s=stall)
+            self.events.flush()
         return completions
 
     def run_until_idle(self, max_flushes: int = 100_000
@@ -285,6 +398,13 @@ class DecodeEngine:
     # ------------------------------------------------------------ report
     def metrics(self) -> dict:
         f = max(1, self.stats["flushes"])
+        stalls = self.stats["swap_stalls"]
         return {"serve_tokens_total": self.stats["tokens"],
                 "serve_occupancy_mean": self.stats["occupancy_sum"] / f,
+                "serve_swaps_total": self.stats["swaps"],
+                "serve_swap_stall_mean": (float(np.mean(stalls))
+                                          if stalls else 0.0),
+                "serve_swap_stall_max": (float(np.max(stalls))
+                                         if stalls else 0.0),
+                "kv_reuse_swaps": self.stats["kv_reuse_swaps"],
                 "requests_completed": self.stats["completed"]}

@@ -729,6 +729,123 @@ def test_serving_runs_the_kernels_once_per_site_and_matches_cpu(arch, layers,
                                       done[r])
 
 
+# ------------------------------------------ serving plane (A16) on the card
+def _serving_plane_pair(dev):
+    """TinyLlama cut to 2 layers and a vocab of 500: (model, CPU params of
+    seeds 0 and 1, their copies on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_map
+    model = build_model(get_config("tinyllama-1.1b").reduced(num_layers=2,
+                                                             vocab=500))
+    cpu = [model.init(torch.Generator().manual_seed(s)) for s in (0, 1)]
+    return model, cpu, [tree_map(lambda a: a.to(dev), p) for p in cpu]
+
+
+def _replay_margins(model, params_at, prompt, toks, cache_len):
+    """Top-2 logit margins of a CPU replay of one request: prefill under
+    ``params_at(0)``, token j's decode step under ``params_at(j)``."""
+    logits, cache = model.prefill(
+        params_at(0), {"tokens": torch.from_numpy(prompt[None])},
+        cache_len=cache_len)
+    rows = [logits[0, -1]]
+    for j in range(1, len(toks)):
+        logits, cache = model.decode_step(
+            params_at(j), cache, torch.tensor([[int(toks[j - 1])]]))
+        rows.append(logits[0, -1])
+    top2 = torch.stack(rows).topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).numpy()
+
+
+def _same_upto_near_tie(card, cpu, margins):
+    """Card tokens equal the CPU's up to the first position whose CPU
+    margin is within the card-vs-CPU logit tolerance (2e-3) of a tie."""
+    near = np.flatnonzero(margins < 4e-3)
+    upto = int(near[0]) if near.size else len(cpu)
+    np.testing.assert_array_equal(card[:upto], cpu[:upto])
+
+
+def test_hot_swap_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Both engines watch one dir: step 1 at start-up, step 2 saved after
+    the first flush swaps in at the next boundary, restored onto each
+    engine's device, on the kept pool. The card's tokens are the CPU's
+    (near-tie rule), 2 flash launches a request."""
+    from repro_torch.checkpoint import save
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.serving import DecodeEngine, ModelRegistry
+    from repro_torch.utils.tree import tree_leaves
+    model, cpu, card = _serving_plane_pair(dev)
+    save(str(tmp_path), {"params": cpu[0], "round": 1}, step=1)
+    prompts = np.random.default_rng(0).integers(0, 500, (3, 12))
+    engines = [DecodeEngine(model, p[0], slots=3, cache_len=24,
+                            flush_tokens=4,
+                            registry=ModelRegistry(str(tmp_path), p[0]))
+               for p in (cpu, card)]
+    fa.reset_launch_count()
+    for e in engines:
+        assert e.version == 1
+        for pr in prompts:
+            e.submit(pr, 12)
+        e.step()
+    save(str(tmp_path), {"params": cpu[1], "round": 2}, step=2)
+    done = [{c.request_id: c for c in e.run_until_idle()} for e in engines]
+    assert fa.LAUNCHES == {("flash_attention", "cpu"): 3 * 2,
+                           ("flash_attention", "cuda"): 3 * 2}
+    ecpu, ecard = engines
+    assert all(t.is_cuda for t in tree_leaves(ecard._params))
+    assert [h["version"] for h in ecard.history] == \
+        [h["version"] for h in ecpu.history] == [1, 2, 2]
+    assert ecard.metrics()["kv_reuse_swaps"] == 1
+    assert ecard.metrics()["serve_swap_stall_max"] > 0
+    for r, pr in enumerate(prompts):
+        assert done[1][r].versions == done[0][r].versions == (1, 2)
+        m = _replay_margins(model, lambda j: cpu[0 if j <= 4 else 1], pr,
+                            done[0][r].tokens, 24)
+        _same_upto_near_tie(done[1][r].tokens, done[0][r].tokens, m)
+
+
+def test_personalized_decode_on_the_card_matches_the_cpu(dev):
+    """One prompt for client 7 (a delta at scale 5e-2), the global params
+    and client 9 (unknown): two groups a flush, one copy a flush, the
+    card's tokens the CPU's, 2 flash launches a request on both."""
+    from repro_torch.core.flat import pack, unpack
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.serving import DecodeEngine, PersonalizationStore
+    model, cpu, card = _serving_plane_pair(dev)
+    n = PersonalizationStore(cpu[0]).layout.padded_size
+    delta = np.random.default_rng(7).normal(size=(n,)).astype(np.float32)
+    prompt = np.random.default_rng(1).integers(0, 500, 12)
+    out = []
+    for p in (cpu[0], card[0]):
+        store = PersonalizationStore(p, scale=5e-2)
+        store.set_delta(7, delta)
+        eng = DecodeEngine(model, p, slots=3, cache_len=24, flush_tokens=4,
+                           personalization=store)
+        rids = [eng.submit(prompt, 12, client_id=c) for c in (7, None, 9)]
+        fa.reset_launch_count()
+        copies, cpu_copy = [], torch.Tensor.cpu
+        torch.Tensor.cpu = lambda self, *a, **k: copies.append(1) or \
+            cpu_copy(self, *a, **k)
+        try:
+            done = {c.request_id: c.tokens for c in eng.run_until_idle()}
+        finally:
+            torch.Tensor.cpu = cpu_copy
+        assert len(copies) == eng.stats["flushes"] == 3
+        assert fa.launch_count() == 3 * 2
+        assert [h["groups"] for h in eng.history] == \
+            [{7: [0], None: [1, 2]}] * 3
+        out.append([done[r] for r in rids])
+    (c7, cg, c9), (g7, gg, g9) = out
+    layout = PersonalizationStore(cpu[0]).layout
+    over = unpack(pack(cpu[0], layout) + 5e-2 * torch.from_numpy(delta),
+                  layout)
+    for card_t, cpu_t, params in ((g7, c7, over), (gg, cg, cpu[0])):
+        m = _replay_margins(model, lambda j: params, prompt, cpu_t, 24)
+        _same_upto_near_tie(card_t, cpu_t, m)
+    assert not np.array_equal(g7, gg)
+    np.testing.assert_array_equal(g9, gg)
+
+
 # ----------------------------------------- telemetry, single-tensor pair
 def _telemetry_lanes(C, seed, dev, nan=True):
     """Lanes with NaN of both signs, ±0, ±inf and ties."""

@@ -67,7 +67,8 @@ def test_port_package_is_complete():
                 "launch/report.py", "conformance/__init__.py",
                 "conformance/kernels.py", "checkpoint/__init__.py",
                 "checkpoint/checkpoint.py", "federation/buffer.py",
-                "federation/arena.py"):
+                "federation/arena.py", "serving/registry.py",
+                "serving/personalize.py", "serving/loadgen.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     for ns in ("delta_sgd", "compress", "robust_agg", "flash_attention",

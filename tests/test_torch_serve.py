@@ -9,7 +9,9 @@ rolling cache. Where the reference's top-2 logit margin at a generated
 position is under 1e-4, the tie could go either way on another backend:
 the test says so and compares that sequence only up to there. Also: one
 device-to-host copy per flush, the kernels' launch counts per request,
-and the CLI's refusals naming their ROADMAP items."""
+and the CLI with every serving flag (a watched or pinned checkpoint
+dir, the load generator, personalization, events). The reference's
+margins come from one jitted replay per (arch, shape)."""
 import functools
 import subprocess
 import sys
@@ -40,6 +42,17 @@ VOCAB = 500
 MARGIN = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: its ops are small,
+    and eight threads a worker contend with the other test workers and
+    with XLA's pool in the same process. Put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch, layers):
     jcfg = jget_config(arch).reduced(num_layers=layers, vocab=VOCAB)
@@ -50,19 +63,38 @@ def _pair(arch, layers):
     return jmodel, jparams, model, interop.params_from_numpy(jparams)
 
 
-def _margins(jmodel, jparams, prompt, gen, cache_len, window, extras):
+@functools.lru_cache(maxsize=None)
+def _replay(arch, layers, cache_len, window):
+    """The reference's prefill and teacher-forced decode steps as one
+    jitted call, compiled once per (arch, shape): (params, batch, the
+    generated tokens but the last (n,)) -> logits at each generated
+    position (n + 1, V)."""
+    jmodel = _pair(arch, layers)[0]
+
+    def replay(jparams, batch, toks):
+        logits, cache = jmodel.prefill(jparams, batch, cache_len=cache_len,
+                                       window=window)
+
+        def body(cache, tok):
+            lg, cache = jmodel.decode_step(jparams, cache,
+                                           tok.reshape(1, 1), window=window)
+            return cache, lg[0, -1]
+
+        _, rows = jax.lax.scan(body, cache, toks)
+        return jnp.concatenate([logits[0, -1:], rows])
+
+    return jax.jit(replay)
+
+
+def _margins(arch, layers, prompt, gen, cache_len, window, extras):
     """The reference's top-2 logit margin at each generated position,
     replaying the sequence through its prefill and decode steps."""
+    jparams = _pair(arch, layers)[1]
     batch = {k: jnp.asarray(v[None])
              for k, v in {"tokens": prompt, **(extras or {})}.items()}
-    logits, cache = jmodel.prefill(jparams, batch, cache_len=cache_len,
-                                   window=window)
-    rows = [logits[0, -1]]
-    for tok in gen[:-1]:
-        logits, cache = jmodel.decode_step(
-            jparams, cache, jnp.asarray([[tok]], jnp.int32), window=window)
-        rows.append(logits[0, -1])
-    top2 = np.sort(np.asarray(jnp.stack(rows)), axis=-1)[:, -2:]
+    rows = _replay(arch, layers, cache_len, window)(
+        jparams, batch, jnp.asarray(gen[:-1], jnp.int32))
+    top2 = np.sort(np.asarray(rows), axis=-1)[:, -2:]
     return top2[:, 1] - top2[:, 0]
 
 
@@ -87,7 +119,7 @@ def _serve_both(arch, layers, *, n_req, prompt_len, gen, slots, flush,
     (jeng, jtoks), (eng, toks) = out
     for i, (a, b) in enumerate(zip(jtoks, toks)):
         assert a.shape == b.shape == (gen,)
-        near = np.flatnonzero(_margins(jmodel, jparams, prompts[i], a,
+        near = np.flatnonzero(_margins(arch, layers, prompts[i], a,
                                        cache_len, window, extras[i])
                               < MARGIN)
         upto = int(near[0]) if near.size else gen
@@ -229,15 +261,95 @@ def test_cli_window_needs_roll_cache_like_the_reference():
     assert [h["occupancy"] for h in out["history"]] == [1.0] * 2
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "x", "--loadgen", "4"], "A16"),
-    (["--ckpt-step", "3", "--personalize", "2"], "A16"),
-    (["--loadgen", "4"], "A16"), (["--arrival", "closed"], "A16"),
-    (["--rate", "5"], "A16"), (["--personalize", "2"], "A16"),
-    (["--events", "e.jsonl"], "A16")])
-def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.run(_args(*flags))
+def _ckpt(d):
+    """A training-style checkpoint of the CLI's reduced TinyLlama (its
+    own init at seed 0, scaled) at steps 3 and 5 in ``d``."""
+    from repro_torch.checkpoint import save
+    from repro_torch.utils.tree import tree_map
+    model = build_model(get_config("tinyllama-1.1b").reduced(),
+                        torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    for step in (3, 5):
+        save(d, {"params": tree_map(lambda p: p * (step / 4), params),
+                 "round": step}, step=step)
+    return model
+
+
+def _demo_after_deltas(model, d, flags, k):
+    """The demo tokens the CLI must decode after drawing ``k`` deltas
+    from the demo's stream (the reference's draw order)."""
+    from repro_torch.checkpoint import restore_params
+    args = _args(*flags)
+    params = model.init(torch.Generator().manual_seed(0))
+    if args.ckpt_dir:
+        params, _ = restore_params(args.ckpt_dir, params,
+                                   step=args.ckpt_step)
+    rng = np.random.default_rng(args.seed)
+    n = serve.PersonalizationStore(params).layout.padded_size
+    for _ in range(k):
+        rng.normal(scale=1e-3, size=(n,))
+    return serve.demo(serve.make_engine(model, params, args), args, rng)[0]
+
+
+# each flag combination the port once refused, now served: the flags,
+# whether the checkpoint dir is watched, the load-gen requests, deltas
+@pytest.mark.parametrize("flags,watched,loadgen,deltas", [
+    (["--ckpt-dir", "D", "--loadgen", "4"], True, 4, 0),
+    (["--ckpt-dir", "D", "--ckpt-step", "3", "--personalize", "2"],
+     False, 0, 2),
+    (["--loadgen", "4"], False, 4, 0),
+    (["--arrival", "closed"], False, 0, 0),
+    (["--rate", "5"], False, 0, 0),
+    (["--personalize", "2"], False, 0, 2),
+    (["--events", "E"], False, 0, 0),
+    (["--loadgen", "4", "--arrival", "closed", "--personalize", "2"],
+     False, 4, 2),
+    (["--loadgen", "3", "--rate", "5", "--events", "E"], False, 3, 0)],
+    ids=["ckpt-loadgen", "pinned-personalize", "loadgen", "closed", "rate",
+         "personalize", "events", "closed-loadgen-personalize",
+         "rate-loadgen-events"])
+def test_cli_serving_flags_run(flags, watched, loadgen, deltas, tmp_path,
+                               monkeypatch):
+    """A watched --ckpt-dir polls its dir once at start-up and once a
+    flush (a pinned --ckpt-step never); --loadgen N completes N requests
+    first, on the same engine; --personalize K draws K deltas from the
+    demo's stream before its prompts; --events writes a header, one
+    serve_flush row a flush and one serve_load row a load run; the demo
+    decodes the tokens of a plain engine on the same params."""
+    from repro_torch.serving import ModelRegistry
+    from repro_torch.telemetry import load_events
+    d, ev = str(tmp_path / "ck"), str(tmp_path / "e.jsonl")
+    flags = [{"D": d, "E": ev}.get(f, f) for f in flags]
+    model = _ckpt(d)
+    polls = []
+    poll = ModelRegistry.poll
+    monkeypatch.setattr(ModelRegistry, "poll",
+                        lambda self: polls.append(1) or poll(self))
+    out = serve.run(_args(*flags))
+    assert out["ckpt_step"] == (None if "--ckpt-dir" not in flags else
+                                3 if "--ckpt-step" in flags else 5)
+    flushes = len(out["history"])
+    assert len(polls) == ((flushes + 1) if watched else 0)
+    assert {h["version"] for h in out["history"]} == {out["ckpt_step"] or 0}
+    assert out["metrics"]["serve_swaps_total"] == 0
+    np.testing.assert_array_equal(
+        out["tokens"], _demo_after_deltas(model, d, flags, deltas))
+    if loadgen:
+        rep = out["report"]
+        assert rep["requests"] == loadgen
+        assert rep["p99_s"] >= rep["p50_s"] > 0
+        assert 0 < rep["occupancy"] <= 1 and rep["tok_per_s"] > 0
+        assert out["metrics"]["requests_completed"] == loadgen + 2
+    else:
+        assert out["report"] is None
+    if "--events" in flags:
+        header, rows = load_events(ev)
+        assert header["config"] == {"arch": "tinyllama-1.1b",
+                                    "mode": "serve", "slots": 2,
+                                    "flush_tokens": 8}
+        kinds = [r["kind"] for r in rows]
+        assert kinds.count("serve_flush") == flushes
+        assert kinds.count("serve_load") == (1 if loadgen else 0)
 
 
 def test_cli_serves_params_from_a_checkpoint(tmp_path):

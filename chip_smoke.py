@@ -223,6 +223,39 @@ without its final line:
               (e) the serve CLI with --ckpt-dir on that checkpoint
               decodes the trained params' tokens (44 flash-attention
               launches for 2 requests), not those of its own init.
+  4f. sharded  multi-device Δ-SGD (repro_torch.sharding, the flat
+              round on a mesh): 4 ranks over a (data 2, model 2) mesh,
+              spawned by sharding.dist.spawn (gloo with every rank on
+              cuda:0 when the card count is below 4, NCCL otherwise; the
+              choice, each rank's device and the card are printed). On
+              each rank: flat_delta_sgd_step_sharded against the card's
+              unsharded step, 3 steps at (10, 71,936) (the CNN's N padded
+              for 2 shards), f32 and masked slabs (f32 elements within
+              1e-5·max|p|, a bf16 element at most one bf16 ulp a step
+              apart, η rtol 1e-5; 2 launches and one (2, 5) all_reduce
+              over model a step; peak allocation below the 3 global
+              slabs and within 5 local slabs: P, G, the previous
+              gradients and the step's sanitised G, plus one of slack);
+              the cross_device and cross_silo rounds at phase 4's
+              configuration, 2 rounds, against the unsharded round on the
+              card (loss rel 1e-4, params within 1e-5·max|p|; 2·K
+              launches a round; the recorder's count from
+              core.sharded.round_collectives exactly; no (C, N) payload
+              and no (C_loc, N_loc) payload across the client axes); the
+              block path (clients over data, N whole) twice, bitwise
+              equal to itself, 2 collectives and 2·K launches a round;
+              int8 + EF21, top-k, trimmed (dirichlet_dropouts) and clip
+              (byzantine 0.3) rounds, held against a second spawn of 4
+              gloo CPU ranks on the same inputs (loss and eta_mean rel
+              1e-5, counts exact, the round-end params within
+              1e-5·max|p| and the EF21 slab within 1e-5·max|p|);
+              the sharded step on the (4, 219,414,528) LM slab (phase
+              4e's TinyLlama slab padded for 2 shards): η and Σ|p| after
+              2 steps against the unsharded step on the card (rel 1e-5),
+              each rank's step ms and norms all_reduce ms, the unsharded
+              step's ms, peaks below the global slabs and within 6 local
+              slabs (the 5 of the step, the caller holding 2 gradients,
+              plus one of slack).
               Zamba2-7B at full width cut to 7 layers (6 Mamba2 and the
               shared block), C = 2, b = 2, one fused round: finite, its
               launches, the peak allocation. OLMoE-1B-7B at full width
@@ -286,7 +319,8 @@ without its final line:
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
               launches by path, the vmap runs of 4c, the runs of 4d, the
-              LM runs of 4e and the serving plane's of 6b among them;
+              LM runs of 4e, the ranks' of 4f and the serving plane's of
+              6b among them;
               DeepSeek-V3's serve path and the int8 cache's launch none)
               and, last, the device line.
 
@@ -441,6 +475,12 @@ VMAP_TIMED_ROUNDS = 12
 # phase 4's flags without its --participation); rounds and rounds a call
 # of each run; the fleet resume run's registered clients and cohort
 ASYNC_PRESETS = ("zipf_async", "byzantine_async")
+# phase 4f: world-4 ranks over (data 2, model 2), rounds a case, and the
+# LM slab of phase 4e (TinyLlama at 2 layers: C = 4, N packed at shards=1)
+SHARD_WORLD = 4
+SHARD_MESH = ((2, 2), ("data", "model"))
+SHARD_ROUNDS = 2
+LM_SLAB = (4, 219_283_456)
 _PART = TRAIN_ARGS.index("--participation")
 FLEET_ARGS = TRAIN_ARGS[:_PART] + TRAIN_ARGS[_PART + 2:]
 FLEET_REGISTERED, FLEET_C = 100_000, 50
@@ -3339,6 +3379,610 @@ def run_serving_plane(torch, mods, smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 4f, multi-device Δ-SGD: world-4 ranks over (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+def _shard_task(train, device):
+    """Phase 4's CNN federation on ``device`` and its pipeline's first
+    SHARD_ROUNDS rounds: (task, [(batches (C, K, b, ...) numpy, weights)])."""
+    args = train.build_parser().parse_args(TRAIN_ARGS + ["--device", device])
+    pt = train.setup_paper_task(args)
+    data = [pt.fed.sample_round(pt.participation, pt.local_steps, args.batch,
+                                round_idx=t)[:2]
+            for t in range(SHARD_ROUNDS)]
+    return pt, data
+
+
+def _to_dev(torch, tree, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+
+
+def _shard_round_case(torch, pt, data, mesh, fed, device, scenario=None,
+                      compression=None, sharded=True):
+    """SHARD_ROUNDS rounds of the flat engine from pt.params; sharded on
+    the rank's block, else whole -> (state, metric rows, per-round
+    (launches on the card, collectives), the EF21 slab after each round
+    (numpy; none without EF21))."""
+    from repro_torch.core import init_fl_state, make_fl_round
+    from repro_torch.core.flat import local_clients
+    from repro_torch.sharding import hlo
+    kw = dict(mesh=mesh, federation=fed) if sharded else {}
+    rnd = make_fl_round(pt.loss_fn, pt.client_opt, pt.server_opt,
+                        num_rounds=ROUNDS, flat=True, scenario=scenario,
+                        compression=compression, **kw)
+    C = data[0][0]["y"].shape[0]
+    state = init_fl_state(pt.params, pt.server_opt, scenario,
+                          compression=compression, cohort=C, **kw)
+    rows, counts, efs = [], [], []
+    for batches, _ in data:
+        b = _to_dev(torch, batches, device)
+        if sharded:
+            b = {k: local_clients(v, mesh, fed) for k, v in b.items()}
+        _reset(_shard_mods())
+        hlo.reset()
+        state, m, _ = rnd(state, b)
+        rows.append({k: v.detach().cpu().numpy() for k, v in m.items()})
+        launches = _counts(_shard_mods())
+        counts.append((launches.get(("batched_norms", "cuda"), 0)
+                       + launches.get(("batched_apply", "cuda"), 0),
+                       hlo.snapshot(), launches))
+        if state.ef is not None:
+            efs.append(state.ef.detach().cpu().numpy())
+    return state, rows, counts, efs
+
+
+def _shard_mods():
+    """The kernel namespaces a sharded round reaches."""
+    from repro_torch.kernels.compress import compress as tcomp
+    from repro_torch.kernels.delta_sgd import delta_sgd as tk
+    from repro_torch.kernels.robust_agg import robust_agg as tra
+    return (tk, tcomp, tra)
+
+
+def _add_counts(total, launches):
+    for key, n in launches.items():
+        if key[1] == "cuda" and n:
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def _shard_flat_max(torch, a, b):
+    """max |a - b| and max |b| over two param trees."""
+    d = max(float((a[k][j].float() - b[k][j].float()).abs().max())
+            for k in a for j in a[k])
+    m = max(float(b[k][j].float().abs().max()) for k in b for j in b[k])
+    return d, m
+
+
+def _shard_step_gate(torch, mesh, fed, dev, masked, lines, total):
+    """The sharded step against the card's unsharded step, 3 steps at
+    (10, N) with N the CNN's packed size at shards=2."""
+    import numpy as np
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
+                                            flat_delta_sgd_step,
+                                            flat_delta_sgd_step_sharded)
+    from repro_torch.kernels.delta_sgd import delta_sgd as tk
+    from repro_torch.sharding import hlo
+    C = MAIN_SHAPE[0]
+    N = flatlib._padded(MAIN_SHAPE[1], fed.flat_shards(mesh))
+    rng = np.random.default_rng(7)
+    P0 = torch.from_numpy(rng.normal(size=(C, N)).astype(np.float32))
+    Gs = [torch.from_numpy(rng.normal(size=(C, N)).astype(np.float32))
+          for _ in range(3)]
+    mask = None
+    if masked:
+        mask = torch.zeros(N)
+        mask[:N // 3] = 1.0
+    layout = flatlib.FlatLayout(None, (), N, N, fed.flat_shards(mesh))
+    kw = dict(gamma=2.0, delta=0.1, eta0=0.2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    P = flatlib.local_slab(P0, mesh, fed).to(dev)
+    mloc = None if mask is None else flatlib.local_slab(mask, mesh,
+                                                        fed).to(dev)
+    S = flat_delta_sgd_init(C, layout, eta0=0.2, theta0=1.0, device=dev,
+                            mesh=mesh, federation=fed)
+    tk.reset_launch_count()
+    hlo.reset()
+    for G in Gs:
+        P, S = flat_delta_sgd_step_sharded(
+            P, flatlib.local_slab(G, mesh, fed).to(dev), S, mesh=mesh,
+            pspec=fed.flat_spec(mesh), mask=mloc, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(tk.LAUNCHES)
+    ops = hlo.snapshot()
+    Pu, Su = P0.to(dev), flat_delta_sgd_init(
+        C, flatlib.FlatLayout(None, (), N, N, 1), eta0=0.2, theta0=1.0,
+        device=dev)
+    for G in Gs:
+        Pu, Su = flat_delta_sgd_step(Pu, G.to(dev), Su, mask=None if mask
+                                     is None else mask.to(dev), **kw)
+    want = flatlib.local_slab(Pu, mesh, fed)
+    gap = (P - want).abs()
+    scale = float(want.abs().max())
+    bf16_flips = 0
+    if mloc is not None:
+        # a bf16-rounded element may round to the next bf16 value (one
+        # ulp, <= 2^-7 of the larger) a step when η differs in its last
+        # f32 bit (the sums' order differs)
+        on = mloc.bool()[None].expand_as(gap)
+        bf16_flips = int((gap[on] > 0).sum())
+        top = torch.maximum(want.abs(), P.abs())[on]
+        if bool((gap[on] > len(Gs) * 2.0 ** -7 * top).any()):
+            raise AssertionError("sharded step (masked): a bf16 element "
+                                 "moved more than one bf16 ulp a step")
+        gap = gap.masked_fill(on, 0.0)
+    err = float(gap.max())
+    eta_want = flatlib.local_clients(Su.eta, mesh, fed)
+    eta_err = float(((S.eta - eta_want).abs() / eta_want.abs()).max())
+    what = "masked" if masked else "f32"
+    if err > 1e-5 * scale or eta_err > 1e-5:
+        raise AssertionError(f"sharded step ({what}): params err {err} "
+                             f"(max |p| {scale}), eta rel err {eta_err}")
+    if launches != {("batched_norms", "cuda"): 3,
+                    ("batched_apply", "cuda"): 3}:
+        raise AssertionError(f"sharded step ({what}) launched {launches}")
+    C_loc = P.shape[0]
+    if [(o.kind, o.shape, o.axes) for o in ops] != [
+            ("all-reduce", (2, C_loc), ("model",))] * 3:
+        raise AssertionError(f"sharded step ({what}) collectives {ops}")
+    from repro_torch.sharding.hlo import (assert_peak_below_global,
+                                          assert_peak_within_local)
+    mem = assert_peak_below_global(peak, C, N)
+    loc = assert_peak_within_local(peak, *P.shape, slabs=5)
+    lines.append(json.dumps({
+        "sharded step": what, "local_slab": list(P.shape), "N": N,
+        "max_abs_err_f32_elements": err, "max_abs_p": scale,
+        "bf16_elements_one_ulp_apart": bf16_flips, "eta_max_rel_err": eta_err,
+        "launches": 6, "collectives": len(ops), "peak_bytes": peak,
+        "peak_local_slabs": loc["local_slabs"],
+        "global_slab_bytes": mem["global_bytes"]}))
+    _add_counts(total, launches)
+
+
+def _shard_case_specs():
+    from repro_torch.federation import get_scenario
+    return {"int8_ef21": (None, dict(kind="int8", error_feedback=True)),
+            "topk": (None, dict(kind="topk")),
+            "trimmed": (get_scenario("dirichlet_dropouts",
+                                     robust_agg="trimmed"), None),
+            "clip": (get_scenario("sync_iid", byzantine_rate=0.3,
+                                  robust_agg="clip"), None)}
+
+
+def _check_round_counts(rows, counts, C_loc, shards, fed, mesh, C, N,
+                        robust, what):
+    from repro_torch.core.sharded import round_collectives
+    from repro_torch.sharding import hlo
+    ca, _ = fed.flat_axes(mesh)
+    for t, (launches, ops, _) in enumerate(counts):
+        if launches != 2 * K:
+            raise AssertionError(f"{what} round {t}: {launches} Δ-SGD "
+                                 f"launches on the card, expected {2 * K}")
+        skipped = bool(rows[t].get("round_skipped", 0.0))
+        want = round_collectives(C_loc, K, shards, client_axes=bool(ca),
+                                 robust=robust, skipped=skipped)
+        if len(ops) != want:
+            raise AssertionError(f"{what} round {t}: {len(ops)} "
+                                 f"collectives, expected {want}: {ops}")
+        hlo.assert_flat_buffer_sharded(ops, C, N)
+        if ca and C_loc >= 2:
+            hlo.assert_no_fullprec_delta_collective(ops, C, N, mesh=mesh,
+                                                    federation=fed)
+    total = {}
+    for c in counts:
+        _add_counts(total, c[2])
+    return total
+
+
+def _shard_cases(torch, train, mesh, device):
+    """The compressed and robust rounds (cross_device) -> ({case: metric
+    rows}, {"<case>.P": the round-end packed params, "<case>.ef<t>": the
+    rank's EF21 slab after round t} numpy, {(kernel, "cuda"):
+    launches})."""
+    from repro_torch.compression import CompressionSpec
+    from repro_torch.core import flat as flatlib
+    from repro_torch.sharding.spec import get_federation_spec
+    pt, data = _shard_task(train, device)
+    fed = get_federation_spec("cross_device", mesh)
+    shards = fed.flat_shards(mesh)
+    C = data[0][0]["y"].shape[0]
+    N = flatlib.layout_of(pt.params, shards=shards).padded_size
+    C_loc = C // fed.clients_on(mesh)
+    out, states, n = {}, {}, {}
+    for name, (scn, comp) in _shard_case_specs().items():
+        comp = CompressionSpec(**comp) if comp else None
+        st, rows, counts, efs = _shard_round_case(torch, pt, data, mesh,
+                                                  fed, device, scn, comp)
+        robust = None
+        if scn is not None and (scn.faulty or scn.robust or scn.quorum > 0):
+            robust = scn.robust_model.kind
+        if device == "cuda":
+            _add_counts(n, _check_round_counts(rows, counts, C_loc, shards,
+                                               fed, mesh, C, N, robust,
+                                               name))
+        out[name] = rows
+        states[f"{name}.P"] = flatlib.pack(st.params, flatlib.layout_of(
+            st.params, shards=shards)).detach().cpu().numpy()
+        states.update({f"{name}.ef{t}": ef for t, ef in enumerate(efs)})
+    return out, states, n
+
+
+def _shard_large(torch, mesh, fed, dev, lines):
+    """The sharded step on the LM slab over the mesh: per rank the step's
+    ms and the norms all_reduce's ms (all ranks on one card at once),
+    η after 2 steps and the slab's sum, and the peak allocation."""
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
+                                            flat_delta_sgd_step_sharded)
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.hlo import (assert_peak_below_global,
+                                          assert_peak_within_local)
+    from repro_torch.sharding.spec import block_index
+    C, n = LM_SLAB
+    N = flatlib._padded(n, fed.flat_shards(mesh))
+    C_loc, N_loc = fed.local_shape(mesh, C, N)
+    ca, na = fed.flat_axes(mesh)
+    here = dist.coords(mesh)
+    blk = (block_index(mesh, ca, here), block_index(mesh, na, here))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    P = _large_block(torch, "P", blk, C_loc, N_loc, dev)
+    Gs = [_large_block(torch, f"G{i}", blk, C_loc, N_loc, dev)
+          for i in range(2)]
+    layout = flatlib.FlatLayout(None, (), N, N, fed.flat_shards(mesh))
+    S = flat_delta_sgd_init(C, layout, eta0=0.2, theta0=1.0, device=dev,
+                            mesh=mesh, federation=fed)
+    kw = dict(gamma=2.0, delta=0.1, eta0=0.2, mesh=mesh,
+              pspec=fed.flat_spec(mesh))
+    for G in Gs:
+        P, S = flat_delta_sgd_step_sharded(P, G, S, **kw)
+    torch.cuda.synchronize()
+    # the steps' peak; the f64 checksum below takes 4 slabs of its own
+    peak = torch.cuda.max_memory_allocated() - base
+    eta = S.eta.cpu().numpy().tolist()
+    total = float(P.double().abs().sum())
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(6):
+        dist.all_reduce(torch.zeros(1, device=dev), mesh, ("data", "model"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P, S = flat_delta_sgd_step_sharded(P, Gs[i % 2], S, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cms = []
+    for _ in range(6):
+        x = torch.ones((2, C_loc), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, mesh, na)
+        torch.cuda.synchronize()
+        cms.append((time.perf_counter() - t0) * 1e3)
+    peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    mem = assert_peak_below_global(peak, C, N)
+    loc = assert_peak_within_local(peak, C_loc, N_loc, slabs=6)
+    del P, Gs, S
+    torch.cuda.empty_cache()
+    return {"block": blk, "eta": eta, "sum": total,
+            "step_ms": statistics.median(ms[1:]),
+            "collective_ms": statistics.median(cms[1:]),
+            "peak_bytes": peak, "peak_local_slabs": loc["local_slabs"],
+            "global_slab_bytes": mem["global_bytes"],
+            "local_slab": [C_loc, N_loc], "N": N}
+
+
+def _large_block(torch, what, blk, rows, cols, dev):
+    """One (rows, cols) block of the large slab's ``what`` (P, G0, G1),
+    drawn on the card from a seed keyed on the block."""
+    seed = {"P": 0, "G0": 1, "G1": 2}[what] * 1000 + 10 * blk[0] + blk[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((rows, cols), generator=gen, device=dev)
+
+
+def _sharded_rank(rank, world, out_dir, device):
+    """One rank of phase 4f (see run_sharded_path). Writes its lines,
+    counts and results to ``out_dir/rank<rank>.json``."""
+    import torch
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core import make_fl_loop
+    from repro_torch.core.fed_loop import FlatFLState
+    from repro_torch.core.flat import local_clients
+    from repro_torch.launch import train
+    from repro_torch.sharding import dist, hlo
+    from repro_torch.sharding.spec import (FederationSpec,
+                                           get_federation_spec)
+    mesh = dist.make_mesh(*SHARD_MESH)
+    dev = dist.runtime().device
+    lines, res = [], {"device": str(dev)}
+    cases, states, launches = _shard_cases(torch, train, mesh, device)
+    res["cases"] = {k: [{m: v.tolist() for m, v in r.items()} for r in rows]
+                    for k, rows in cases.items()}
+    import numpy as np
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **states)
+    if device == "cuda":
+        cd = get_federation_spec("cross_device", mesh)
+        for masked in (False, True):
+            _shard_step_gate(torch, mesh, cd, dev, masked, lines, launches)
+        pt, data = _shard_task(train, device)
+        C = data[0][0]["y"].shape[0]
+        for kind in ("cross_device", "cross_silo"):
+            fed = get_federation_spec(kind, mesh)
+            shards = fed.flat_shards(mesh)
+            st, rows, counts, _ = _shard_round_case(torch, pt, data, mesh,
+                                                    fed, device)
+            ust, urows, _, _ = _shard_round_case(torch, pt, data, mesh, fed,
+                                                 device, sharded=False)
+            N = flatlib.layout_of(pt.params, shards=shards).padded_size
+            C_loc = C // fed.clients_on(mesh)
+            _add_counts(launches, _check_round_counts(
+                rows, counts, C_loc, shards, fed, mesh, C, N, None, kind))
+            d, m = _shard_flat_max(torch, st.params, ust.params)
+            for t, (a, b) in enumerate(zip(rows, urows)):
+                if not math.isclose(float(a["loss"]), float(b["loss"]),
+                                    rel_tol=1e-4):
+                    raise AssertionError(f"{kind} round {t} loss {a['loss']}"
+                                         f" vs unsharded {b['loss']}")
+            if d > 1e-5 * m:
+                raise AssertionError(f"{kind}: params differ by {d} "
+                                     f"(max |p| {m})")
+            lines.append(json.dumps({
+                "sharded round": kind, "C_loc": C_loc, "shards": shards,
+                "loss": [float(r["loss"]) for r in rows],
+                "unsharded_loss": [float(r["loss"]) for r in urows],
+                "params_max_abs_err": d, "max_abs_p": m,
+                "collectives_per_round": [len(c[1]) for c in counts],
+                "staged_per_round": [sum(o.staged for o in c[1])
+                                     for c in counts],
+                "launches_per_round": [c[0] for c in counts]}))
+        # the block path, twice
+        fed = FederationSpec(client_axes=("data",), fsdp_axes=(),
+                             tp_axes=())
+        loop = make_fl_loop(pt.loss_fn, pt.client_opt, pt.server_opt,
+                            params_like=pt.params, num_rounds=ROUNDS,
+                            rounds_per_call=SHARD_ROUNDS, flat=True,
+                            mesh=mesh, federation=fed, block_sharded=True)
+        block = {k: torch.stack([local_clients(
+            torch.from_numpy(b[k]).to(dev), mesh, fed) for b, _ in data])
+            for k in data[0][0]}
+        f0 = FlatFLState(flatlib.pack(pt.params, loop.layout),
+                         pt.server_opt.init(pt.params), 0)
+        outs = []
+        for _ in range(2):
+            _reset(_shard_mods())
+            hlo.reset()
+            f, mets = loop(f0, block)
+            outs.append((f, mets, _counts(_shard_mods()), hlo.snapshot()))
+        _add_counts(launches, outs[0][2])
+        for f, mets, n, ops in outs:
+            if not torch.equal(f.P, outs[0][0].P):
+                raise AssertionError("block path: two runs differ")
+            for k, v in mets.items():
+                if not torch.equal(v, outs[0][1][k]):
+                    raise AssertionError(f"block path: two runs differ "
+                                         f"in {k}")
+            if n != {("batched_norms", "cuda"): K * SHARD_ROUNDS,
+                     ("batched_apply", "cuda"): K * SHARD_ROUNDS}:
+                raise AssertionError(f"block path: {n} launches")
+            Nb = loop.layout.padded_size
+            if [(o.kind, o.shape, o.op) for o in ops] != [
+                    ("all-reduce", (Nb + 5,), "sum"),
+                    ("all-reduce", (2,), "min")] * SHARD_ROUNDS:
+                raise AssertionError(f"block path collectives {ops}")
+        lines.append(json.dumps({
+            "block path": "repeats its bits",
+            "rounds": SHARD_ROUNDS, "collectives_per_round": 2,
+            "launches_per_round": 2 * K}))
+        res["large"] = _shard_large(torch, mesh, cd, dev, lines)
+    res["lines"] = lines
+    res["launches"] = [[k[0], n] for k, n in launches.items()]
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _large_unsharded(torch, N, n_blocks):
+    """The unsharded step on the large slab (the same blocks put
+    together) -> (η after 2 steps, the slab's sum, step ms)."""
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
+                                            flat_delta_sgd_step)
+    C = LM_SLAB[0]
+    cb, nb = n_blocks
+    rows, cols = C // cb, N // nb
+
+    def whole(what):
+        out = torch.empty((C, N), device="cuda")
+        for i in range(cb):
+            for j in range(nb):
+                out[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols] = \
+                    _large_block(torch, what, (i, j), rows, cols, "cuda")
+        return out
+    P, Gs = whole("P"), [whole("G0"), whole("G1")]
+    S = flat_delta_sgd_init(C, flatlib.FlatLayout(None, (), N, N, 1),
+                            eta0=0.2, theta0=1.0, device="cuda")
+    kw = dict(gamma=2.0, delta=0.1, eta0=0.2)
+    for G in Gs:
+        P, S = flat_delta_sgd_step(P, G, S, **kw)
+    torch.cuda.synchronize()
+    eta = S.eta.cpu().numpy().tolist()
+    total = float(P.double().abs().sum())
+    ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P, S = flat_delta_sgd_step(P, Gs[i % 2], S, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del P, Gs, S
+    torch.cuda.empty_cache()
+    return eta, total, statistics.median(ms[1:])
+
+
+def _read_ranks(tmp, world):
+    import numpy as np
+    out = []
+    for r in range(world):
+        with open(Path(tmp) / f"rank{r}.json") as f:
+            out.append(json.load(f))
+        with np.load(Path(tmp) / f"rank{r}.npz") as z:
+            out[-1]["states"] = {k: z[k] for k in z.files}
+    return out
+
+
+def _compare_states(gpu, cpu):
+    """The compressed and robust rounds' round-end params and EF21 slabs,
+    card against CPU ranks -> {array: [max |diff| / max|p|, elements
+    beyond 1e-5·max|p|]} over the ranks.
+
+    Every element is within 1e-5·max|p|, the round-end params' scale,
+    except where an int8 code flipped: η differs in its last bit between
+    the card's and the CPU's norms (their sums' order), and a delta
+    element then sitting at a rounding boundary takes the next code. A
+    flipped EF21 element moves by one code step of its chunk, max|chunk
+    of what round t quantized| / 127, which is max|chunk of ef_t −
+    ef_{t−1}| / 127 (the chunk's largest element dequantizes to itself);
+    EF21 absorbs a round-1 flip in round 2, and the params move by the
+    flips of the C clients' last two rounds over C, at most 2 steps / C.
+    Flips stay on at most 0.1 % of an array's elements: a wrong lane,
+    column or aggregate moves most of them."""
+    import numpy as np
+    worst = {}
+    C = MAIN_SHAPE[0]
+    for name in {k.split(".")[0] for k in cpu[0]["states"]}:
+        scale = float(np.abs(cpu[0]["states"][f"{name}.P"]).max())
+        keys = sorted(k for k in cpu[0]["states"] if k.startswith(name))
+        steps = {}        # key -> its per-element code step (EF21 slabs)
+        top = 0.0
+        for key in keys:
+            if ".ef" not in key:
+                continue
+            prev = f"{name}.ef{int(key.rsplit('.ef', 1)[1]) - 1}"
+            for r, c in enumerate(cpu):
+                sent = c["states"][key] - c["states"].get(prev, 0.0)
+                rows, cols = sent.shape
+                step = np.abs(sent).reshape(rows, cols // 128, 128).max(
+                    axis=-1) / 127.0
+                steps[(r, key)] = np.repeat(step, 128, axis=1)
+                top = max(top, float(step.max()))
+        for key in keys:
+            for r, (g, c) in enumerate(zip(gpu, cpu)):
+                a, b = g["states"][key], c["states"][key]
+                d = np.abs(a - b)
+                flip = (2.0 * top / C if key.endswith(".P") and steps
+                        else steps.get((r, key), 0.0))
+                beyond = int((d > 1e-5 * scale).sum())
+                w = worst.setdefault(key, [0.0, 0])
+                w[0] = max(w[0], float(d.max()) / scale)
+                w[1] = max(w[1], beyond)
+                if (d > 1e-5 * scale + flip).any() or beyond > 1e-3 * d.size:
+                    raise AssertionError(
+                        f"sharded rank {r} {key}: cuda vs cpu max |diff| "
+                        f"{float(d.max())} (1e-5·max|p| {1e-5 * scale}), "
+                        f"{beyond} of {d.size} elements beyond it")
+    return worst
+
+
+def run_sharded_path(torch, tk, tref, bw, f32, smi):
+    """Phase 4f. Returns its launch counts (the ranks' launches on the
+    card, summed)."""
+    import tempfile
+    from repro_torch.sharding import dist
+    t0 = time.perf_counter()
+    backend, _, why = dist.choose_backend(SHARD_WORLD, "cuda")
+    print(f"sharded: world {SHARD_WORLD}, mesh {SHARD_MESH}, backend "
+          f"{backend} ({why}); card {smi}", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as gpu_dir, \
+            tempfile.TemporaryDirectory() as cpu_dir:
+        dist.spawn(_sharded_rank, SHARD_WORLD, (gpu_dir, "cuda"),
+                   device="cuda")
+        gpu = _read_ranks(gpu_dir, SHARD_WORLD)
+        t_gpu = time.perf_counter() - t0
+        dist.spawn(_sharded_rank, SHARD_WORLD, (cpu_dir, "cpu"),
+                   device="cpu", threads=2)
+        cpu = _read_ranks(cpu_dir, SHARD_WORLD)
+    for r, res in enumerate(gpu):
+        print(f"sharded rank {r}: device {res['device']}", flush=True)
+        for line in res["lines"]:
+            print(f"sharded rank {r}", line, flush=True)
+    # the compressed and robust rounds: card == the CPU gloo run
+    for r, (g, c) in enumerate(zip(gpu, cpu)):
+        for name, rows in g["cases"].items():
+            for t, (a, b) in enumerate(zip(rows, c["cases"][name])):
+                for k in ("valid_count", "round_skipped", "wire_bytes",
+                          "comp_ratio", "nan_guard_rate"):
+                    if k in a and a[k] != b[k]:
+                        raise AssertionError(f"sharded {name} round {t} {k}:"
+                                             f" cuda {a[k]} cpu {b[k]}")
+                for k in ("loss", "eta_mean"):
+                    if not math.isclose(a[k], b[k], rel_tol=1e-5):
+                        raise AssertionError(f"sharded {name} round {t} {k}:"
+                                             f" cuda {a[k]} cpu {b[k]}")
+            if r == 0:
+                print("sharded", name, "cuda vs cpu gloo", json.dumps(
+                    {k: [[row[k] for row in rows],
+                         [row[k] for row in c["cases"][name]]]
+                     for k in ("loss", "eta_mean")}), flush=True)
+    worst = _compare_states(gpu, cpu)
+    print("sharded: int8 + EF21, top-k, trimmed and clip rounds, card == "
+          "CPU gloo run (loss, eta_mean within 1e-5; counts exact; params "
+          "and EF21 slabs within 1e-5·max|p| but for int8 code flips, one "
+          "code step each, on at most 0.1 % of elements):", json.dumps(worst),
+          flush=True)
+    # the large slab: the ranks' η and sums against the unsharded step
+    large = [res["large"] for res in gpu]
+    N = large[0]["N"]
+    eta, total, ms = _large_unsharded(torch, N, (2, 2))
+    blocks = {tuple(x["block"]): x for x in large}
+    got_sum = sum(x["sum"] for x in blocks.values())
+    got_eta = [e for i in range(2) for e in blocks[(i, 0)]["eta"]]
+    if not all(math.isclose(a, b, rel_tol=1e-5)
+               for a, b in zip(got_eta, eta)) or not math.isclose(
+                   got_sum, total, rel_tol=1e-5):
+        raise AssertionError(f"large slab: sharded eta {got_eta} sum "
+                             f"{got_sum} vs unsharded {eta} {total}")
+    print("sharded large slab", json.dumps({
+        "card": smi, "backend": backend, "world": SHARD_WORLD,
+        "slab": [LM_SLAB[0], N], "local_slab": large[0]["local_slab"],
+        "step_ms_by_rank": [x["step_ms"] for x in large],
+        "collective_ms_by_rank": [x["collective_ms"] for x in large],
+        "unsharded_step_ms": ms,
+        "peak_bytes_by_rank": [x["peak_bytes"] for x in large],
+        "global_slab_bytes": large[0]["global_slab_bytes"],
+        "eta": got_eta, "unsharded_eta": eta,
+        "note": "all ranks on one card at once; gloo stages through the "
+                "host, so the collective's ms says nothing of NCCL"}),
+        flush=True)
+    # the kernel pair alone at the ranks' local-slab shapes
+    from repro_torch.core.flat import _padded
+    shapes = ((MAIN_SHAPE[0] // 2, _padded(MAIN_SHAPE[1], 2) // 2),
+              tuple(large[0]["local_slab"]))
+    for C_loc, N_loc in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        g, gp, p = (torch.randn((C_loc, N_loc), generator=gen,
+                                device="cuda") for _ in range(3))
+        eta = torch.rand(C_loc, generator=gen, device="cuda")
+        _lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta, smi,
+                        "sharded local slab (data 2, model 2)")
+        del g, gp, p
+        torch.cuda.empty_cache()
+    launches = {}
+    for res in gpu:
+        for kname, n in res["launches"]:
+            launches[(kname, "cuda")] = launches.get((kname, "cuda"), 0) + n
+    print("sharded launches on the card, all ranks", json.dumps(
+        {k[0]: n for k, n in launches.items()}))
+    print(f"sharded: {time.perf_counter() - t0:.1f} s (card ranks "
+          f"{t_gpu:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels").is_dir():
@@ -3437,6 +4081,9 @@ def main() -> int:
                                           f32, smi)
     paths.update(lm_paths)
     rows.update(lm_rows)
+    # 4f. multi-device Δ-SGD
+    torch.cuda.empty_cache()
+    paths["sharded"] = run_sharded_path(torch, tk, tref, bw, f32, smi)
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))

@@ -9,8 +9,13 @@ wire cost is counted analytically (``CompressionSpec.wire_bytes``).
 Per-client bandwidth levels: with a (C,) level vector (0 = none,
 1 = int8, 2 = topk) every representation the ladder needs is computed
 once for the whole slab and then picked per client lane, as the
-reference does: 3 launches per round whatever the mix. The mesh-sharded
-variant (``compress_flat_sharded``) comes with ROADMAP A17.
+reference does: 3 launches per round whatever the mix.
+
+``compress_flat_sharded`` is the same on a rank's (C_loc, N_loc) slab of
+a mesh-sharded buffer. It makes no collective call: the compressors are
+chunk-local and N_loc is a multiple of the 128-lane chunk, so no chunk
+straddles a shard, and compression finishes strictly before the
+client-mean all_reduce.
 """
 from __future__ import annotations
 
@@ -41,3 +46,18 @@ def compress_flat(delta: torch.Tensor, spec: CompressionSpec, *,
     out = torch.where((levels == 1)[:, None], _qdq(delta), delta)
     return torch.where((levels == 2)[:, None],
                        kernels.topk_mask(delta, spec.k), out)
+
+
+def compress_flat_sharded(delta: torch.Tensor, spec: CompressionSpec, *,
+                          mesh, pspec,
+                          levels: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``compress_flat`` on this rank's (C_loc, N_loc) slab of a
+    mesh-sharded (C, N) buffer (``pspec`` is
+    ``FederationSpec.flat_spec(mesh)``); ``levels`` are the rank's
+    (C_loc,) lanes. No collective."""
+    from repro_torch.core.flat import LANES
+    if delta.shape[-1] % LANES:
+        raise ValueError(f"N_loc={delta.shape[-1]} is not a multiple of "
+                         f"the {LANES}-lane chunk")
+    return compress_flat(delta, spec, levels=levels)

@@ -19,7 +19,10 @@ Flat engine: ``FlatDeltaSGDState`` + ``flat_delta_sgd_step`` run the
 rule for all C participating clients at once on packed ``(C, N)``
 buffers (``repro_torch.core.flat``), with exactly two kernel launches
 per local step (``batched_norms`` + ``batched_apply``) whatever the leaf
-and client counts. The sharded step is ROADMAP A17.
+and client counts. ``flat_delta_sgd_step_sharded`` is the same step on a
+rank's (C_loc, N_loc) slab of a mesh-sharded buffer: the kernel pair runs
+on the local slab and the per-client sums finish with one ``all_reduce``
+of a stacked (2, C_loc) tensor over the N-shard axes.
 """
 from __future__ import annotations
 
@@ -151,9 +154,14 @@ class FlatDeltaSGDState(NamedTuple):
 
 
 def flat_delta_sgd_init(num_clients: int, layout: flatlib.FlatLayout, *,
-                        eta0: float, theta0: float,
-                        device=None) -> FlatDeltaSGDState:
+                        eta0: float, theta0: float, device=None,
+                        mesh=None, federation=None) -> FlatDeltaSGDState:
+    """Round-start flat state of ``num_clients`` clients. With ``mesh``
+    and ``federation`` it is this rank's block: (C_loc, N_loc) slabs and
+    (C_loc,) lanes."""
     C, N = num_clients, layout.padded_size
+    if mesh is not None:
+        C, N = federation.local_shape(mesh, C, N)
     f32 = dict(dtype=torch.float32, device=device)
     return FlatDeltaSGDState(
         torch.zeros((C, N), **f32),
@@ -211,6 +219,42 @@ def flat_delta_sgd_step(P: torch.Tensor, G: torch.Tensor,
     start). ``active`` is an optional (C,) bool lane mask (inactive
     clients apply η=0 and keep their state). Returns (P, new_state)."""
     dg2, gg2 = kernels.batched_norms(G, state.prev_grads)
+    return _finish_step(P, G, state, dg2, gg2, gamma=gamma, delta=delta,
+                        eta0=eta0, mask=mask, active=active)
+
+
+def flat_delta_sgd_step_sharded(P: torch.Tensor, G: torch.Tensor,
+                                state: FlatDeltaSGDState, *, gamma: float,
+                                delta: float,
+                                eta0: Union[float, torch.Tensor], mesh,
+                                pspec, mask: Optional[torch.Tensor] = None,
+                                active: Optional[torch.Tensor] = None):
+    """One Δ-SGD local step on this rank's block of a mesh-sharded
+    packed (C, N) buffer.
+
+    ``pspec`` is ``FederationSpec.flat_spec(mesh)``: clients over
+    ``pspec[0]``, N over ``pspec[1]`` (the layout built with
+    ``shards=FederationSpec.flat_shards(mesh)``). ``P``, ``G`` and
+    ``state.prev_grads`` are the rank's (C_loc, N_loc) slabs, the
+    state's vectors and ``active`` its (C_loc,) lanes, ``mask`` its
+    (N_loc,) columns. The kernel pair runs on the local slab; the
+    per-client (dg², gg²) sums finish with ONE all_reduce of a stacked
+    (2, C_loc) tensor over the N-shard axes, so η is exact while N is
+    never gathered. Every rank of an N-shard group then takes the same
+    η. ``P`` is updated in place. Returns (P, new_state)."""
+    from repro_torch.sharding import dist
+    dg2, gg2 = kernels.batched_norms(G, state.prev_grads)
+    if pspec[1]:
+        sums = dist.all_reduce(torch.stack([dg2, gg2]), mesh, pspec[1])
+        dg2, gg2 = sums[0], sums[1]
+    return _finish_step(P, G, state, dg2, gg2, gamma=gamma, delta=delta,
+                        eta0=eta0, mask=mask, active=active)
+
+
+def _finish_step(P, G, state: FlatDeltaSGDState, dg2, gg2, *, gamma, delta,
+                 eta0, mask, active):
+    """η by Eq. (4) from the per-client sums, the guards, the lane mask,
+    and the apply kernel."""
     dg_norm = torch.sqrt(dg2)
     grad_norm = torch.sqrt(gg2)
     # a client's first local step takes η₀ (Alg. 1 line 6), θ unchanged.

@@ -16,8 +16,21 @@ single round, because the loop runs the round's own body; the EF21 slab
 rides in the carried state, and the telemetry distributions stack like
 the scalars (``eta_hist`` (R, B), ``loss_deciles`` (R, Q)); the async
 FedBuff buffer rides in the carried state. Capturing a block as a CUDA
-graph is later performance work (ROADMAP A8); the block-sharded loop is
-A17.
+graph is later performance work (ROADMAP A8).
+
+Under a mesh (``mesh=``, ``federation=``) the loop runs the round's body
+on this rank's block (``repro_torch.core.fed_round``) and carries the
+rank's ``FlatFLState``: the (N,) params whole, the EF21 slab as the
+rank's (C_loc, N_loc) block; ``round_data`` holds the rank's clients'
+batches (R, C_loc, K, ...) and ``client_weights`` the whole (R, C)
+block. The reference's block path (``block_sharded=True``) folds the R
+rounds into one ``shard_map`` to enter the mesh once a block; a rank here
+runs the same body either way, so ``block_sharded`` keeps the reference's
+API, its refusals (clients only, ``flat_shards(mesh) == 1``; no fault,
+robust or quorum tail) and what its block path reports: no
+``loss_deciles``, which keeps the round at two collectives, one packed
+sum of (N + 5,) elements ((N + 5 + B,) with telemetry's B η-histogram
+bins) and one (2,) min.
 
 Fleet loop (``make_fleet_loop``): C_registered clients, only the sampled
 cohort materialized per round. A ``repro_torch.federation.arena
@@ -40,7 +53,8 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core import flat as flatlib
-from repro_torch.core.fed_round import FLState, _reject, make_fl_round
+from repro_torch.core.fed_round import FLState, make_fl_round
+from repro_torch.telemetry.spec import resolve_telemetry
 from repro_torch.utils.numerics import xla_mean
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -107,14 +121,38 @@ def make_fl_loop(loss_fn, client_opt, server_opt, *, params_like,
     ``params_like`` (a params tree, or anything with shapes and dtypes)
     fixes the flat layout. ``rounds_per_call`` is advisory: the R of a
     call is the leading axis of ``round_data``. ``telemetry`` is passed
-    to the round (``make_fl_round``)."""
-    _reject(block_sharded=block_sharded)
+    to the round (``make_fl_round``). ``mesh``/``federation`` and
+    ``block_sharded`` are described in the module docstring."""
     if not flat:
         raise ValueError("the round-fused loop requires the flat engine "
                          "(flat=True): the carry is the packed flat buffer")
     if rounds_per_call < 1:
         raise ValueError(f"rounds_per_call must be >= 1, got "
                          f"{rounds_per_call}")
+    if block_sharded:
+        if mesh is None or federation is None:
+            raise ValueError("block_sharded=True requires mesh= and "
+                             "federation=")
+        if federation.flat_shards(mesh) != 1:
+            raise ValueError(
+                "the block-level shard_map shards CLIENTS only — each "
+                "device carries full-N rows for its C_loc clients, so "
+                "the flat dim must be replicated: use a FederationSpec "
+                "whose fsdp/tp axes are absent from the mesh "
+                f"(flat_shards == 1, got "
+                f"{federation.flat_shards(mesh)})")
+        if scenario is not None and (scenario.faulty or scenario.robust
+                                     or scenario.quorum > 0):
+            raise ValueError(
+                "fault injection / robust aggregation / quorum are not "
+                "supported on the block-sharded path — their "
+                "order-statistic tails need cross-client data movement; "
+                "use the per-round sharded engine "
+                "(make_fl_loop(mesh=..., block_sharded=False))")
+        # a cross-client sort has no shard-local form: the reference's
+        # block path reports no loss_deciles
+        telemetry = resolve_telemetry(telemetry)._replace(
+            loss_deciles=False)
     round_fn = make_fl_round(loss_fn, client_opt, server_opt,
                              num_rounds=num_rounds, weighted=weighted,
                              flat=flat, mesh=mesh, federation=federation,
@@ -122,7 +160,8 @@ def make_fl_loop(loss_fn, client_opt, server_opt, *, params_like,
                              client_sizes=client_sizes,
                              compression=compression, telemetry=telemetry)
     body = round_fn.flat_body
-    layout = flatlib.layout_of(params_like)
+    shards = federation.flat_shards(mesh) if mesh is not None else 1
+    layout = flatlib.layout_of(params_like, shards=shards)
 
     def loop_fn(carry: FlatFLState, round_data, client_weights=None,
                 arena=None):

@@ -85,8 +85,35 @@ reference's ``jnp.mean`` (``repro_torch.utils.numerics``).
 scalar one: the fleet loop's warm start (``core.fed_loop
 .make_fleet_loop``, ``eta_carry``).
 
-Not ported yet, and rejected with the ROADMAP item that brings it: mesh
-sharding (A17).
+Mesh sharding (``mesh=``, ``federation=``, flat engine only): every rank
+of a ``torch.distributed`` mesh runs the same ``flat_body`` on its
+(C_loc, N_loc) block of the client buffers: C over the client axes, N
+over the N-shard axes (``FederationSpec.flat_spec``), the layout built
+with ``shards=FederationSpec.flat_shards(mesh)``; the global (C, N) slab
+never exists on one rank. Each ``psum``/``pmin`` of the reference's
+``shard_map`` is an ``all_reduce`` (``repro_torch.sharding.dist``):
+  * a local step evaluates the rank's clients' model whole, a chunk of
+    clients at a time, each chunk's params gathered to full N over the
+    N-shard axes, and runs ``flat_delta_sgd_step_sharded`` (the kernel
+    pair on the local slab, one (2, C_loc) sum over the N-shard axes);
+  * the scenario's host draws stay whole (C,) vectors on every rank,
+    which slices its own lanes (the reference's replicated pins);
+  * every client-axis sum of the round's tail rides ONE packed
+    all_reduce of (N_loc + k,) f32: the aggregate's N_loc columns, then
+    the metric sums (and telemetry's η-histogram counts); both η extrema
+    share ONE (2,) min; the (N_loc,) aggregate is then gathered to (N,)
+    over the N-shard axes for the server step. The robust ladder
+    (``robust_aggregate_sharded``) reduces its own aggregate, and the
+    quorum test reads the all-reduced survivor count, so every rank
+    takes the same branch; ``loss_deciles`` gathers the (C_loc,)
+    per-client mean losses over the client axes.
+Under a mesh ``client_batches`` are the rank's clients' (C_loc, K, ...)
+batches, ``client_weights`` the whole (C,) vector, ``FLState.ef`` the
+rank's (C_loc, N_loc) EF21 slab (``init_fl_state(..., mesh=,
+federation=)``), and the third value ``round_fn`` returns is the rank's
+(C_loc, N_loc) slab of round-end local params (``core.flat.gather_slab``
+puts the ranks' slabs together). ``repro_torch.core.sharded`` counts the
+collectives a round makes.
 """
 from __future__ import annotations
 
@@ -99,7 +126,8 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core import flat as flatlib
 from repro_torch.core.client_opt import ClientOpt
 from repro_torch.core.delta_sgd import (DeltaSGDState, flat_delta_sgd_init,
-                                        flat_delta_sgd_step)
+                                        flat_delta_sgd_step,
+                                        flat_delta_sgd_step_sharded)
 from repro_torch.core.server_opt import ServerOpt
 from repro_torch.telemetry.spec import resolve_telemetry, round_telemetry
 from repro_torch.utils.numerics import reciprocal, round_frac, xla_mean
@@ -128,11 +156,14 @@ class RoundAux(NamedTuple):
 
 
 def init_fl_state(params, server_opt: ServerOpt, scenario=None,
-                  compression=None, cohort: Optional[int] = None) -> FLState:
+                  compression=None, cohort: Optional[int] = None, *,
+                  mesh=None, federation=None) -> FLState:
     """Async scenarios allocate the server-side delta buffer.
     ``compression`` with ``error_feedback=True`` allocates the
     per-cohort-slot EF21 reconstruction tree; ``cohort`` (C, clients per
-    round) sizes its leading axis."""
+    round) sizes its leading axis. With ``mesh`` and ``federation`` the
+    EF21 state is this rank's (C_loc, N_loc) f32 slab of the packed
+    buffer (the layout built with ``shards=flat_shards(mesh)``)."""
     buf = None
     if scenario is not None and scenario.is_async:
         from repro_torch.federation.buffer import buffer_init
@@ -142,21 +173,17 @@ def init_fl_state(params, server_opt: ServerOpt, scenario=None,
         if cohort is None:
             raise ValueError("error-feedback compression needs cohort= "
                              "(clients per round) to size FLState.ef")
-        ef = tree_map(lambda p: torch.zeros((cohort,) + tuple(p.shape),
-                                            dtype=torch.float32,
-                                            device=p.device), params)
+        if mesh is not None:
+            layout = flatlib.layout_of(
+                params, shards=federation.flat_shards(mesh))
+            shape = federation.local_shape(mesh, cohort, layout.padded_size)
+            ef = torch.zeros(shape, dtype=torch.float32,
+                             device=tree_leaves(params)[0].device)
+        else:
+            ef = tree_map(lambda p: torch.zeros(
+                (cohort,) + tuple(p.shape), dtype=torch.float32,
+                device=p.device), params)
     return FLState(params, server_opt.init(params), 0, buf, ef)
-
-
-def _reject(**kw) -> None:
-    """Raise for an argument whose feature is not ported yet."""
-    items = {"mesh": "mesh sharding, ROADMAP A17",
-             "federation": "mesh sharding, ROADMAP A17",
-             "block_sharded": "the block-sharded loop, ROADMAP A17"}
-    for name, value in kw.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: it comes with {items[name]}")
 
 
 def _round_metrics(losses: torch.Tensor, etas: torch.Tensor,
@@ -219,9 +246,16 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
     ``telemetry`` (None, a bool or a ``TelemetrySpec``) adds the round's
     telemetry block to the metrics, read-only over round-end values.
     ``num_rounds`` (T) sets round_frac = t/T of the (↓) client
-    optimizers."""
-    _reject(mesh=mesh, federation=federation)
+    optimizers. ``mesh`` (a DeviceMesh from
+    ``repro_torch.sharding.dist.make_mesh``) and ``federation`` (a
+    ``FederationSpec``), both or neither, run the flat engine on this
+    rank's block of the mesh (module docstring)."""
     tele = resolve_telemetry(telemetry)
+    if (mesh is None) != (federation is None):
+        raise ValueError("mesh and federation must be given together")
+    if mesh is not None and not flat:
+        raise ValueError("mesh/federation sharding requires the flat "
+                         "engine (flat=...)")
     if scenario is not None and scenario.is_async and not flat:
         raise ValueError(
             "async buffered aggregation requires the flat engine "
@@ -254,7 +288,8 @@ def make_fl_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt, *,
                             weighted=weighted, scenario=scenario,
                             num_clients=num_clients,
                             client_sizes=client_sizes,
-                            compression=compression, tele=tele)
+                            compression=compression, tele=tele, mesh=mesh,
+                            federation=federation)
 
 
 def _client_grads(loss_fn):
@@ -390,7 +425,8 @@ def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
 
 def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      *, weighted: bool, scenario=None, num_clients=None,
-                     client_sizes=None, compression=None, tele=None):
+                     client_sizes=None, compression=None, tele=None,
+                     mesh=None, federation=None):
     from repro_torch.compression import compress_flat
     from repro_torch.federation.buffer import (buffer_merge, buffer_step,
                                                staleness_weights)
@@ -422,8 +458,92 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     nan_on = faults_on and fm.nan_rate > 0.0
     byz_on = faults_on and fm.byzantine_rate > 0.0
     overstale_on = faults_on and fm.overstale_rate > 0.0
+    tele_on = tele is not None and tele.enabled
     # the telemetry bin edges, built once per device (not once per round)
     edges = {}
+
+    # the mesh: this rank's block of the (C, N) buffers is row block
+    # c_blk over the client axes ``ca`` and column block n_blk over the
+    # N-shard axes ``na``; off-mesh the block is the whole buffer
+    sharded = mesh is not None
+    shards, n_cshards, c_blk, n_blk = 1, 1, 0, 0
+    if sharded:
+        from repro_torch.compression import compress_flat_sharded
+        from repro_torch.core.sharded import grad_chunk
+        from repro_torch.federation.faults import robust_aggregate_sharded
+        from repro_torch.federation.heterogeneity import active_mask
+        from repro_torch.kernels.telemetry import telemetry as tk
+        from repro_torch.sharding import dist
+        from repro_torch.sharding.spec import axes_size, block_index
+        pspec = ca, na = federation.flat_spec(mesh)
+        shards = federation.flat_shards(mesh)
+        n_cshards = axes_size(mesh, ca)
+        here = dist.coords(mesh)
+        c_blk, n_blk = block_index(mesh, ca, here), block_index(mesh, na,
+                                                                 here)
+
+    def step(P, G, S, mask, active, eta0_c):
+        if sharded:
+            return flat_delta_sgd_step_sharded(
+                P, G, S, gamma=gamma, delta=delta_, eta0=eta0, mesh=mesh,
+                pspec=pspec, mask=mask, active=active)
+        return flat_delta_sgd_step(
+            P, G, S, gamma=gamma, delta=delta_,
+            eta0=eta0 if eta0_c is None else eta0_c, mask=mask,
+            active=active)
+
+    def compress(x, levels):
+        if sharded:
+            return compress_flat_sharded(x, comp, mesh=mesh, pspec=pspec,
+                                         levels=levels)
+        return compress_flat(x, comp, levels=levels)
+
+    def robust(d, valid, weights):
+        if sharded:
+            return robust_aggregate_sharded(d, ragg, valid, mesh=mesh,
+                                            pspec=pspec, weights=weights)
+        return robust_aggregate(d, ragg, valid, weights=weights)
+
+    def whole(x):
+        """The rank's (N_loc,) columns -> (N,) over the N-shard axes."""
+        if shards == 1:
+            return x
+        return dist.all_gather(x.contiguous(), mesh, na, dim=0)
+
+    def local_grads(P, layout, batch_k, gp, prev):
+        """Packed gradients and losses of the block's clients. With N
+        sharded a rank evaluates its clients' model whole (tensor-
+        parallel model compute comes with the placement rules, ROADMAP
+        A17, second half), ceil(C_loc / S) clients at a time: a chunk's
+        params are gathered to full N over the N-shard axes (within one
+        client coordinate), its gradients packed with the sharded
+        layout, and the rank keeps its own N_loc columns. A chunk's
+        full-N rows are the local slab's size, so no rank holds more."""
+        if shards == 1:
+            g, (loss, _) = vgrad(flatlib.unpack_batched(P, layout), batch_k,
+                                 gp, prev)
+            # the gradient tree (a (C, N) slab in all) is freed on
+            # return, not when the next step reassigns it: an LM's slab
+            # is gigabytes
+            return flatlib.pack_batched(g, layout), loss
+        C_loc, n_loc = P.shape
+        ch = grad_chunk(C_loc, shards)
+        G = torch.empty_like(P)
+        losses = []
+        for a in range(0, C_loc, ch):
+            b = min(a + ch, C_loc)
+            full = dist.all_gather(P[a:b], mesh, na, dim=1)
+            g, (loss, _) = vgrad(
+                flatlib.unpack_batched(full, layout),
+                tree_map(lambda x: x[a:b], batch_k), gp,
+                None if prev is None else tree_map(lambda x: x[a:b], prev))
+            del full
+            Gc = flatlib.pack_batched(g, layout)
+            del g
+            G[a:b] = Gc[:, n_blk * n_loc:(n_blk + 1) * n_loc]
+            del Gc
+            losses.append(loss)
+        return G, torch.cat(losses)
 
     def flat_body(fstate, client_batches, layout, client_weights=None,
                   prev_local_params=None, gp=None, eta0_c=None):
@@ -432,17 +552,37 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         global params tree when the caller has it; otherwise the body
         takes views of the carried flat buffer. ``eta0_c`` optionally
         replaces the scalar round-start η₀ with a (C,) per-client
-        tensor (the fleet loop's ``eta_carry`` warm start)."""
+        tensor (the fleet loop's ``eta_carry`` warm start). Under a mesh
+        the body runs on this rank's block (module docstring)."""
         from repro_torch.core.fed_loop import FlatFLState
+        if sharded:
+            if eta0_c is not None:
+                raise ValueError("per-client eta0 warm start (eta0_c) is "
+                                 "not supported on the per-round sharded "
+                                 "engine — the fleet loop runs un-meshed")
+            if layout.shards != shards:
+                raise ValueError(f"layout has shards={layout.shards}, the "
+                                 f"mesh needs shards={shards}")
         if gp is None:
             gp = flatlib.unpack(fstate.P, layout)
         device = fstate.P.device
+        C_loc, K = tree_leaves(client_batches)[0].shape[:2]
+        C = C_loc * n_cshards
+        n_loc = layout.padded_size // shards
+        cols = slice(n_blk * n_loc, (n_blk + 1) * n_loc)
+        lanes_of = slice(c_blk * C_loc, (c_blk + 1) * C_loc)
         mask = flatlib.round_mask(layout, device)
-        C, K = tree_leaves(client_batches)[0].shape[:2]
+        if sharded and mask is not None:
+            mask = mask[cols].contiguous()
 
         def on_device(a):
             # the round's host draws, queued with no host sync
             return _queued_copy(a, device)
+
+        def mine(x):
+            """The block's lanes of a whole (C,) vector: every rank
+            draws the whole vectors (the reference's replicated pins)."""
+            return x[lanes_of] if sharded and x is not None else x
 
         step_counts = (on_device(scenario.draw_step_counts(
             fstate.round, C, K)) if hetero else None)
@@ -459,55 +599,51 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             mcounts = torch.clamp(budget, min=1)
         else:
             budget = mcounts = step_counts
+        counts = mcounts if guard_tail else step_counts
+        budget = mine(budget)
 
         # the client slab is owned by this round: the apply kernel
         # updates it in place, step after step
-        P = fstate.P[None].expand(C, layout.padded_size).clone()
-        P_start = (fstate.P[None].expand(C, layout.padded_size)
+        P0 = fstate.P[cols] if sharded else fstate.P
+        P = P0[None].expand(C_loc, n_loc).clone()
+        P_start = (P0[None].expand(C_loc, n_loc)
                    if (is_async or comp is not None or guard_tail)
                    else None)
         S = flat_delta_sgd_init(C, layout, eta0=eta0, theta0=theta0,
-                                device=device)
+                                device=device, mesh=mesh,
+                                federation=federation)
         losses = []
         for k in range(K):
             batch_k = tree_map(lambda x: x[:, k], client_batches)
-            params_c = flatlib.unpack_batched(P, layout)
-            g, (loss, _) = vgrad(params_c, batch_k, gp, prev_local_params)
-            G = flatlib.pack_batched(g, layout)
-            # the gradient tree (a (C, N) slab in all) and, after the
-            # step, its packed copy are freed here, not when the next
-            # step reassigns them: an LM's slab is gigabytes
-            del g
+            G, loss = local_grads(P, layout, batch_k, gp, prev_local_params)
             if nan_on:
                 # NaN gradients from the drawn step on, injected on the
                 # wire side of the guard: the in-step guard must catch
                 # them (valid latches off, η=0, lane sanitised)
-                G = torch.where((k >= lanes.nan_step)[:, None],
+                G = torch.where((k >= mine(lanes.nan_step))[:, None],
                                 float("nan"), G)
             active = (k < budget) if budget is not None else None
-            P, S = flat_delta_sgd_step(
-                P, G, S, gamma=gamma, delta=delta_,
-                eta0=eta0 if eta0_c is None else eta0_c, mask=mask,
-                active=active)
+            P, S = step(P, G, S, mask, active, eta0_c)
             del G
             losses.append(loss)
-        losses = torch.stack(losses, dim=1)       # (C, K)
+        losses = torch.stack(losses, dim=1)       # (C_loc, K)
 
         extra = _scenario_extras(scenario, fstate.round, C, num_clients,
                                  client_sizes, step_counts, device)
-        # numerical-guard telemetry: how often η hit the ETA_CLAMP
-        # ceiling, and the share of lanes the NaN guard dropped
-        extra.update(
-            eta_clip_rate=(S.clips.to(torch.float32).sum()
-                           * reciprocal(C * K)),
-            nan_guard_rate=xla_mean((~S.valid).to(torch.float32)))
-        if tele is not None and tele.enabled:
-            # the distribution block: read-only over round-end values,
-            # so the trajectory is unperturbed
-            if device not in edges:
-                edges[device] = tele.edges_on(device)
-            extra.update(round_telemetry(tele, S.eta, losses, S.clips,
-                                         S.valid, edges=edges[device]))
+        if device not in edges and tele_on:
+            edges[device] = tele.edges_on(device)
+        if not sharded:
+            # numerical-guard telemetry: how often η hit the ETA_CLAMP
+            # ceiling, and the share of lanes the NaN guard dropped
+            extra.update(
+                eta_clip_rate=(S.clips.to(torch.float32).sum()
+                               * reciprocal(C * K)),
+                nan_guard_rate=xla_mean((~S.valid).to(torch.float32)))
+            if tele_on:
+                # the distribution block: read-only over round-end
+                # values, so the trajectory is unperturbed
+                extra.update(round_telemetry(tele, S.eta, losses, S.clips,
+                                             S.valid, edges=edges[device]))
 
         # survivor mask + byzantine factor of the guarded tail: a client
         # is excluded when its NaN guard latched or it dropped mid-round
@@ -515,9 +651,10 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         if guard_tail:
             valid = S.valid
             if drops_on:
-                valid = valid & (lanes.drop_step >= K)
+                valid = valid & (mine(lanes.drop_step) >= K)
             if byz_on:
-                byz = torch.where(lanes.byzantine, fm.byzantine_scale, 1.0)
+                byz = torch.where(mine(lanes.byzantine),
+                                  fm.byzantine_scale, 1.0)
 
         # delta compression: each client's round delta is compressed
         # before any aggregation; EF21 ships C(Δ_c − g_c) and rolls
@@ -538,11 +675,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                         "allocate it with init_fl_state(..., compression="
                         "spec, cohort=C)")
                 E = fstate.ef
-                chat = compress_flat(delta - E, comp, levels=levels)
-                delta_hat = new_ef = E + chat
+                delta_hat = new_ef = E + compress(delta - E, mine(levels))
             else:
-                delta_hat = compress_flat(delta, comp, levels=levels)
-            # wire accounting over the VALID elements (layout.size)
+                delta_hat = compress(delta, mine(levels))
+            # wire accounting over the VALID elements (layout.size), of
+            # the whole cohort on every rank
             wire = comp.wire_bytes(layout.size, levels=levels,
                                    num_clients=C, device=device)
             total = wire.sum()
@@ -557,91 +694,157 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             delta_hat = None
             P_agg = P
 
-        buf = fstate.buffer
-        skipped = False
-        if not is_async and not guard_tail:
-            # aggregate: single (weighted) mean over the packed client
-            # axis
-            if weighted and client_weights is not None:
-                w = client_weights.to(torch.float32)
-                agg_flat = torch.tensordot(w / w.sum(), P_agg,
-                                           dims=([0], [0]))
-            else:
-                agg_flat = P_agg.mean(dim=0)
-            new_params, sstate = server_opt.update(
-                gp, flatlib.unpack(agg_flat, layout), fstate.server_state)
-            newP = flatlib.pack(new_params, layout)
-            metrics = _round_metrics(losses, S.eta, step_counts)
-        elif not is_async:
-            # guarded tail: the RobustAgg ladder aggregates the survivors'
-            # deltas and the result re-anchors on the round-start params
-            delta_eff = delta_hat if comp is not None else (P - P_start)
-            if byz is not None and comp is None:
-                delta_eff = delta_eff * byz[:, None]
-            w_raw = (client_weights.to(torch.float32)
-                     if weighted and client_weights is not None else None)
-            agg_delta, rinfo = robust_aggregate(delta_eff, ragg, valid,
-                                                weights=w_raw)
-            n_valid = valid.to(torch.float32).sum()
-            # quorum degradation: with < Q valid clients the round keeps
-            # the previous params, server state and EF21 state
-            skipped = quorum > 0 and float(n_valid) < quorum
-            if skipped:
-                newP, sstate = fstate.P, fstate.server_state
-                if new_ef is not None:
-                    new_ef = E
-            else:
-                agg = flatlib.unpack(fstate.P + agg_delta, layout)
-                new_params, sstate = server_opt.update(
-                    gp, agg, fstate.server_state)
-                newP = flatlib.pack(new_params, layout)
-            metrics = _round_metrics(losses, S.eta, mcounts)
-        else:
-            # FedBuff: the cohort's staleness-weighted delta sum goes into
-            # the buffer, and the server steps once it holds M updates
+        # the tail's inputs: the survivors' deltas for the RobustAgg
+        # ladder (guarded tail), the FedBuff staleness weights (async)
+        w_raw = (client_weights.to(torch.float32)
+                 if weighted and client_weights is not None else None)
+        stale = w = None
+        if is_async:
             stale = on_device(scenario.draw_staleness(fstate.round, C))
             if overstale_on:
                 stale = torch.where(lanes.overstale, fm.overstale,
                                     stale).to(torch.int32)
             w = staleness_weights(stale, scenario.staleness_exp)
-            if weighted and client_weights is not None:
-                w = w * client_weights.to(torch.float32)
-            d = delta_hat if comp is not None else (P - P_start)
-            if not guard_tail:
+            if w_raw is not None:
+                w = w * w_raw
+        d = delta_hat if comp is not None else (
+            (P - P_start) if P_start is not None else None)
+        rinfo = {}
+        if guard_tail:
+            if is_async:
+                # over-stale updates are rejected
+                valid = valid & (mine(stale) <= scenario.staleness_max)
+            if byz is not None and comp is None:
+                d = d * byz[:, None]
+            rob, rinfo = robust(d, valid, mine(w if is_async else w_raw))
+
+        # the client-axis reductions -> ``agg``: the (weighted) mean of
+        # the round-end params (sync), the staleness-weighted delta sum
+        # Σ wΔ (async) or the ladder's delta (guarded), in the block's
+        # columns; ``n_valid`` and ``wsum`` are the survivors' count and
+        # weight sum
+        n_valid = wsum = None
+        if guard_tail:
+            vf = valid.to(torch.float32)
+            agg = rob
+        if not sharded:
+            metrics = _round_metrics(losses, S.eta, counts)
+            if guard_tail:
+                n_valid = vf.sum()
+                if is_async:
+                    wsum = (w * vf).sum()
+            elif is_async:
                 # one weighted product over the packed client axis
-                delta_flat = torch.tensordot(w, d, dims=([0], [0]))
-                wsum, n_updates = w.sum(), C
-                metrics = _round_metrics(losses, S.eta, step_counts)
+                agg, wsum = torch.tensordot(w, d, dims=([0], [0])), w.sum()
+            elif w_raw is not None:
+                agg = torch.tensordot(w_raw / w_raw.sum(), P_agg,
+                                      dims=([0], [0]))
             else:
-                # guarded async tail: over-stale updates are rejected, the
-                # ladder aggregates the survivors' weighted deltas, and
-                # the buffer takes the robust mean scaled back to Σ wΔ
-                # form, so the flush's Σ wΔ / Σ w recovers it
-                valid = valid & (stale <= scenario.staleness_max)
-                if byz is not None and comp is None:
-                    d = d * byz[:, None]
-                rob, rinfo = robust_aggregate(d, ragg, valid, weights=w)
-                vf = valid.to(torch.float32)
-                wsum, n_valid = (w * vf).sum(), vf.sum()
-                delta_flat = rob * wsum
-                n_updates = n_valid.to(torch.int32)
-                # below quorum the round freezes buffer, params, server
-                # state and EF21 state (the tail's one host read)
-                skipped = quorum > 0 and float(n_valid) < quorum
-                metrics = _round_metrics(losses, S.eta, mcounts)
-            if skipped:
-                newP, sstate = fstate.P, fstate.server_state
-                flushed = wsum.new_zeros(())
-                if new_ef is not None:
-                    new_ef = E
+                agg = P_agg.mean(dim=0)
+        else:
+            # every client-axis sum rides ONE packed all_reduce: the
+            # aggregate's columns (off the guarded tail, whose ladder
+            # reduced its own), then loss, last-step loss, Σ η, clamp
+            # hits, guard trips and, as needed, the survivor count, their
+            # staleness weight and telemetry's B η-histogram counts; both
+            # η extrema share ONE (2,) min
+            if counts is not None:
+                am = active_mask(mine(counts), K)
+                loss_num = (losses * am).sum()
+                loss_den = active_mask(counts, K).sum()
+                last_num = losses.gather(
+                    1, (mine(counts) - 1).long()[:, None]).sum()
             else:
-                buf = buffer_merge(
-                    buf, flatlib.unpack(delta_flat, layout, cast=False),
-                    wsum, n_updates, stale)
-                new_params, sstate, buf, flushed = buffer_step(
-                    gp, fstate.server_state, buf, server_opt,
-                    scenario.buffer_size)
-                newP = flatlib.pack(new_params, layout)
+                loss_num = losses.sum()
+                loss_den = losses.new_full((), float(C * K))
+                last_num = losses[:, -1].sum()
+            scal = [loss_num, last_num, S.eta.sum(),
+                    S.clips.to(torch.float32).sum(),
+                    (~S.valid).to(torch.float32).sum()]
+            parts = []
+            if guard_tail:
+                scal.append(vf.sum())
+                if is_async:
+                    scal.append((mine(w) * vf).sum())
+            elif is_async:
+                parts.append(torch.tensordot(mine(w), d, dims=([0], [0])))
+            elif w_raw is not None:
+                parts.append(torch.tensordot(mine(w_raw / w_raw.sum()),
+                                             P_agg, dims=([0], [0])))
+            else:
+                parts.append(P_agg.sum(dim=0))
+            parts.append(torch.stack(scal))
+            if tele_on:
+                parts.append(tk.lane_histogram(S.eta, edges[device]).to(
+                    torch.float32))
+            packed = dist.all_reduce(torch.cat(parts), mesh, ca)
+            ext = dist.all_reduce(torch.stack([S.eta.min(), -S.eta.max()]),
+                                  mesh, ca, op="min")
+            off = 0 if guard_tail else n_loc
+            sg = packed[off:]
+            metrics = {"loss": sg[0] / loss_den,
+                       "loss_last_step": sg[1] / C,
+                       "eta_mean": sg[2] / C,
+                       "eta_min": ext[0], "eta_max": -ext[1]}
+            extra.update(eta_clip_rate=sg[3] * reciprocal(C * K),
+                         nan_guard_rate=sg[4] * reciprocal(C))
+            if tele_on:
+                extra.update(eta_hist=sg[-tele.eta_bins:],
+                             eta_clip_count=sg[3], nan_guard_count=sg[4])
+                if tele.loss_deciles:
+                    # the clients' (C_loc,) mean losses, gathered over
+                    # the client axes for the ranked values
+                    client_loss = dist.all_gather(
+                        xla_mean(losses.to(torch.float32), dim=1), mesh, ca)
+                    extra["loss_deciles"] = tk.lane_quantiles(
+                        client_loss, tele.quantiles)
+            if guard_tail:
+                n_valid = sg[5]
+                if is_async:
+                    wsum = sg[6]
+            else:
+                agg = packed[:off]
+                if is_async:
+                    wsum = w.sum()
+                elif w_raw is None:
+                    agg = agg / C
+
+        buf = fstate.buffer
+        # quorum degradation: with < Q valid clients the round keeps the
+        # previous params, server state, buffer and EF21 state (the
+        # tail's one host read; under a mesh the count is whole on
+        # every rank, so every rank takes the same branch)
+        skipped = guard_tail and quorum > 0 and float(n_valid) < quorum
+        if skipped:
+            newP, sstate = fstate.P, fstate.server_state
+            flushed = n_valid.new_zeros(())
+            if new_ef is not None:
+                new_ef = E
+        elif not is_async:
+            # the guarded tail's delta re-anchors on the round-start
+            # params
+            agg = whole(agg)
+            if guard_tail:
+                agg = fstate.P + agg
+            new_params, sstate = server_opt.update(
+                gp, flatlib.unpack(agg, layout), fstate.server_state)
+            newP = flatlib.pack(new_params, layout)
+        else:
+            # FedBuff: the cohort's staleness-weighted delta sum goes into
+            # the buffer, and the server steps once it holds M updates;
+            # the guarded tail merges the robust mean scaled back to Σ wΔ
+            # form, so the flush's Σ wΔ / Σ w recovers it
+            delta_flat = whole(agg)
+            if guard_tail:
+                delta_flat = delta_flat * wsum
+            buf = buffer_merge(
+                buf, flatlib.unpack(delta_flat, layout, cast=False), wsum,
+                n_valid.to(torch.int32) if guard_tail else C, stale)
+            new_params, sstate, buf, flushed = buffer_step(
+                gp, fstate.server_state, buf, server_opt,
+                scenario.buffer_size)
+            newP = flatlib.pack(new_params, layout)
+        if is_async:
             sf = stale.to(torch.float32)
             extra.update(stale_mean=xla_mean(sf), stale_max=sf.max(),
                          buffer_fill=buf.count.to(torch.float32),
@@ -667,17 +870,29 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
 
     def round_fn(state: FLState, client_batches, client_weights=None,
                  prev_local_params=None):
-        """-> (new_state, metrics, new_local_params (C, ...))."""
+        """-> (new_state, metrics, new_local_params (C, ...)); under a
+        mesh the third value is the rank's (C_loc, N_loc) slab of
+        round-end local params."""
         from repro_torch.core.fed_loop import (flatten_fl_state,
                                                unflatten_fl_state)
-        layout = flatlib.layout_of(state.params)
-        fstate = flatten_fl_state(state, layout)
+        layout = flatlib.layout_of(state.params, shards=shards)
+        # under a mesh FLState.ef is the rank's slab already
+        fstate = flatten_fl_state(state._replace(ef=None) if sharded
+                                  else state, layout)
+        if sharded:
+            fstate = fstate._replace(ef=state.ef)
         new_fstate, metrics, aux = flat_body(
             fstate, client_batches, layout, client_weights=client_weights,
             prev_local_params=prev_local_params, gp=state.params)
+        if sharded:
+            new_state = unflatten_fl_state(new_fstate._replace(ef=None),
+                                           layout)
+            return (new_state._replace(ef=new_fstate.ef), metrics,
+                    aux.P_locals)
         new_state = unflatten_fl_state(new_fstate, layout)
         return new_state, metrics, flatlib.unpack_batched(aux.P_locals,
                                                           layout)
 
     round_fn.flat_body = flat_body
     return round_fn
+

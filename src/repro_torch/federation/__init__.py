@@ -13,18 +13,22 @@
   arena         — fleet-scale per-REGISTERED-client state (EF21, Δ-SGD η
                   carry, participation history) in (C_registered, ...)
                   device storage; rounds gather only the cohort's rows
-                  and write them back.
+                  and write them back; ``arena_shardings`` places its
+                  rows over a mesh's client axes.
 
-The mesh-sharded robust ladder and arena placement are ROADMAP A17.
+``robust_aggregate_sharded`` runs the ladder on a rank's block of a
+mesh-sharded buffer.
 """
 from repro_torch.federation.arena import (ClientArena, arena_init,
+                                          arena_local, arena_shardings,
                                           arena_take, arena_update)
 from repro_torch.federation.buffer import (AsyncBufferState, buffer_init,
                                            buffer_merge, buffer_step,
                                            staleness_weights)
 from repro_torch.federation.faults import (ROBUST_AGG_KINDS, FaultLanes,
                                            FaultModel, RobustAgg,
-                                           robust_aggregate)
+                                           robust_aggregate,
+                                           robust_aggregate_sharded)
 from repro_torch.federation.heterogeneity import (SPEED_MODELS, SpeedModel,
                                                   active_mask, step_active)
 from repro_torch.federation.scenarios import (SCENARIOS, Scenario,
@@ -44,6 +48,7 @@ __all__ = [
     "ZipfScheduler", "CyclicScheduler", "cohort_size", "make_scheduler",
     "SCENARIOS", "Scenario", "ScenarioDraws", "get_scenario",
     "ROBUST_AGG_KINDS", "FaultLanes", "FaultModel", "RobustAgg",
-    "robust_aggregate", "ClientArena", "arena_init", "arena_take",
-    "arena_update",
+    "robust_aggregate", "robust_aggregate_sharded", "ClientArena",
+    "arena_init", "arena_take", "arena_update", "arena_shardings",
+    "arena_local",
 ]

@@ -28,8 +28,10 @@ Fields:
   ef          (C_reg, N) f32 EF21 reconstruction per registered client
                              (only under error-feedback compression).
 
-The reference's ``arena_shardings`` (rows over a mesh's client axes)
-comes with the mesh work, ROADMAP A17.
+``arena_shardings`` gives each field's placement on a mesh: rows over the
+client axes, N kept whole for the EF slab (the reference's NamedShardings
+as plain axis tuples); ``arena_local`` cuts a rank's rows. The fleet loop
+itself runs un-meshed, as the reference's does.
 """
 from __future__ import annotations
 
@@ -79,3 +81,26 @@ def arena_update(arena: ClientArena, ids: torch.Tensor,
         if a is not None:
             a.index_copy_(0, ids.long(), r.to(a.dtype))
     return arena
+
+
+def arena_shardings(arena: ClientArena, mesh, federation) -> ClientArena:
+    """Each field's placement on ``mesh``, as one entry per dim (None or
+    a tuple of mesh axes): vectors over the client axes, the EF slab's
+    rows over the client axes with N kept whole. None fields stay
+    None."""
+    ca, _ = federation.flat_axes(mesh)
+    entry = ca if ca else None
+    return ClientArena(*(None if a is None else
+                         ((entry,) if a.dim() == 1 else (entry, None))
+                         for a in arena))
+
+
+def arena_local(arena: ClientArena, mesh, federation,
+                coord=None) -> ClientArena:
+    """This rank's rows of every field (``arena_shardings``' placement):
+    C_registered split over the client axes, blocked row-major in their
+    order. ``coord`` ({axis: index}) defaults to the rank's coordinate."""
+    from repro_torch.core.flat import local_clients
+    return ClientArena(*(None if a is None else
+                         local_clients(a, mesh, federation, coord)
+                         for a in arena))

@@ -24,7 +24,16 @@ Port of the unsharded parts of ``repro/federation/faults.py``:
     ``median``. Invalid clients carry zero weight under mean/clip and
     contribute a zero delta to trimmed/median. trimmed/median reach the
     ``batched_trimmed_mean`` kernel on CUDA tensors and its plain version
-    on CPU tensors. The mesh-sharded ladder comes with ROADMAP A17.
+    on CPU tensors.
+
+  * ``robust_aggregate_sharded`` — the ladder on a rank's (C_loc, N_loc)
+    slab of a mesh-sharded buffer. clip's per-client norms finish with
+    one (C_loc,) all_reduce over the N-shard axes; trimmed/median run
+    shard-locally over the rank's C_loc clients and the (N_loc,) shard
+    results are averaged across client shards (bucketed robust
+    aggregation, as the reference does); the mean's numerator and
+    denominator sum over the client axes in one packed all_reduce. Only
+    (N_loc,)-sized payloads cross the client axes.
 """
 from __future__ import annotations
 
@@ -178,3 +187,45 @@ def robust_aggregate(delta: torch.Tensor, spec: RobustAgg,
                                  / torch.clamp(v.sum(), min=1.0))
         zeroed = zeroed * factors[:, None]
     return _masked_mean(zeroed, vw), info
+
+
+def robust_aggregate_sharded(delta: torch.Tensor, spec: RobustAgg,
+                             valid: torch.Tensor, *, mesh, pspec,
+                             weights: Optional[torch.Tensor] = None):
+    """The ladder on this rank's block of a mesh-sharded (C, N) delta
+    buffer -> (the rank's (N_loc,) aggregate, info dict).
+
+    ``pspec`` is ``FederationSpec.flat_spec(mesh)``; ``delta`` is the
+    rank's (C_loc, N_loc) slab, ``valid`` and ``weights`` its (C_loc,)
+    lanes. trimmed/median: ``batched_trimmed_mean`` over the rank's C_loc
+    clients, then the mean of the shard results over the client axes
+    (with one client a shard this is the mean). mean/clip: one packed
+    all_reduce over the client axes of (Σ vw·Δ, Σ vw, and for clip
+    Σ v and the clip count); clip first sums its squared norms over the
+    N-shard axes."""
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.spec import axes_size
+    ca, na = pspec
+    vf = valid.to(torch.float32)
+    zeroed = delta * vf[:, None]
+    info = {}
+    if spec.kind in ("trimmed", "median"):
+        shard_agg = _sorted_window_mean(zeroed, spec.trim_count(
+            zeroed.shape[0]))
+        dist.all_reduce(shard_agg, mesh, ca)
+        return shard_agg / float(axes_size(mesh, ca)), info
+    vw = vf if weights is None else vf * weights.to(torch.float32)
+    tail = [vw.sum()]
+    if spec.kind == "clip":
+        n2 = (zeroed * zeroed).sum(dim=1)
+        dist.all_reduce(n2, mesh, na)
+        factors = _clip_factors(torch.sqrt(n2), spec.clip_norm)
+        tail += [vf.sum(), ((factors < 1.0) * vf).sum()]
+        zeroed = zeroed * factors[:, None]
+    part = torch.tensordot(vw, zeroed, dims=([0], [0]))
+    packed = dist.all_reduce(torch.cat([part, torch.stack(tail)]), mesh, ca)
+    n = part.shape[0]
+    if spec.kind == "clip":
+        info["agg_clip_rate"] = (packed[n + 2]
+                                 / torch.clamp(packed[n + 1], min=1.0))
+    return packed[:n] / torch.clamp(packed[n], min=1e-12), info

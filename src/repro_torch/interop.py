@@ -15,8 +15,12 @@ fedyogi's f32 ``m``, ``v`` and ``t``), its async FedBuff buffer and its
 EF21 tree, and so do a per-leaf Δ-SGD ``DeltaSGDState`` and the fleet's
 ``ClientArena``; the port keeps its round counter a Python int.
 ``draws_from_numpy`` turns the reference's per-round scenario draws into
-a draw source that the port's scenarios replay. This module imports
-neither ``jax`` nor ``repro``.
+a draw source that the port's scenarios replay. Under a mesh,
+``fl_state_local_from_numpy`` and ``clients_local_from_numpy`` give one
+rank its block of the reference's global state, batches and per-client
+vectors (``repro_torch.core.flat.local_slab``), so the reference and
+every rank start from the same bits. This module imports neither ``jax``
+nor ``repro``.
 """
 from __future__ import annotations
 
@@ -95,6 +99,40 @@ def fl_state_to_numpy(state: FLState) -> FLState:
                    None if state.buffer is None else _fields_to_numpy(
                        AsyncBufferState, state.buffer),
                    None if state.ef is None else params_to_numpy(state.ef))
+
+
+def fl_state_local_from_numpy(state, mesh, federation, device="cpu",
+                              coord=None) -> FLState:
+    """A reference ``FLState`` of numpy leaves -> this rank's FLState
+    under ``mesh``/``federation``: params, server state and buffer
+    whole, the EF21 tree (C, ...) packed with the sharded layout and cut
+    to the rank's (C_loc, N_loc) slab. ``coord`` ({axis: index})
+    defaults to the rank's coordinate on ``mesh``."""
+    from repro_torch.core import flat as flatlib
+    whole = fl_state_from_numpy(state._replace(ef=None), device)
+    ef = state.ef
+    if ef is None:
+        return whole
+    layout = flatlib.layout_of(whole.params,
+                               shards=federation.flat_shards(mesh))
+    packed = flatlib.pack_batched(params_from_numpy(ef, device), layout)
+    return whole._replace(ef=flatlib.local_slab(packed, mesh, federation,
+                                                coord))
+
+
+def clients_local_from_numpy(tree, mesh, federation, device="cpu",
+                             coord=None, axis: int = 0):
+    """This rank's clients of every leaf of a numpy tree whose ``axis``
+    is the cohort (batches (C, K, ...), cohort ids and weights (C,),
+    blocks (R, C, ...) with ``axis=1``): the rows of the rank's client
+    block, as tensors."""
+    from repro_torch.core.flat import local_clients
+
+    def one(a):
+        t = _to_tensor(a, device)
+        return local_clients(t.movedim(axis, 0), mesh, federation,
+                             coord).movedim(0, axis).contiguous()
+    return tree_map(one, tree)
 
 
 def arena_from_numpy(arena, device="cpu") -> ClientArena:

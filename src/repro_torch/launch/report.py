@@ -4,7 +4,8 @@ registered round metric folded per its schema summaries.
 Port of the scenario half of ``repro/launch/report.py``
 (``cohort_histogram``, ``scenario_summary``, ``eta_hist_render``);
 ``launch/train.py`` prints the summary as its ``scenario report:``. The
-dry-run and roofline tables come with the mesh tooling (ROADMAP A17).
+dry-run and roofline tables come with the mesh tooling (ROADMAP A17,
+second half).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 greedy decode step. Port of ``make_prefill_step`` and
 ``make_serve_step`` from ``repro/launch/steps.py``. The training
 builders there have no caller but the dry run, and come with it (ROADMAP
-A17): ``launch.train.train_lm`` builds its rounds itself, as the
+A17, second half): ``launch.train.train_lm`` builds its rounds itself, as the
 reference's does. PyTorch runs eagerly, so a step is a plain function
 (the reference jits them)."""
 from __future__ import annotations

@@ -8,7 +8,8 @@ generator's device: same distributions as the reference's ``jax.random``
 draws, other bits, so parity tests carry the reference's params across
 (``repro_torch.interop``). The reference's logical sharding annotations
 and scan-unroll switch have no meaning on one card and are left out;
-its remat switch comes with the dry run that turns it on (ROADMAP A17).
+its remat switch comes with the dry run that turns it on (ROADMAP
+A17, second half).
 """
 from __future__ import annotations
 

@@ -1,0 +1,258 @@
+"""The port's process-group runtime: one process per rank.
+
+The counterpart of the reference's ``shard_map`` on a device mesh is
+PyTorch's SPMD idiom: every rank runs the same Python on its own local
+tensors, and each ``jax.lax.psum``/``pmin`` of the reference becomes an
+``all_reduce`` over the process group of the mesh dimensions it names.
+
+  * ``init(rank, world, rendezvous, device)`` joins the process group.
+    Backend: NCCL when every rank has its own card; when the ranks
+    outnumber the cards, gloo with every rank on ``cuda:0`` (NCCL
+    refuses two ranks on one GPU); gloo on the CPU. The choice is made
+    from ``torch.cuda.device_count()`` and printed, never by catching a
+    failure.
+  * ``make_mesh(shape, axes)`` builds the ``DeviceMesh`` through
+    ``init_device_mesh`` (the reference's ``launch/mesh.py``
+    ``make_debug_mesh``), plus one process group for every set of its
+    dimensions, so a collective over the tuple ("data", "model") is one
+    call.
+  * ``all_reduce(x, mesh, axes, op)`` (sum or min) and
+    ``all_gather(x, mesh, axes, dim)`` are the collectives. Each records
+    a ``CollectiveOp`` in ``repro_torch.sharding.hlo``. Over no axes, or
+    axes of size 1, they are the identity and record nothing. gloo has
+    no all-gather of CUDA tensors: under gloo that op is staged through
+    pinned host memory and recorded as staged. NCCL never stages.
+  * ``spawn(fn, world, args, device)`` runs ``fn(rank, world, *args)``
+    in ``world`` fresh processes on a ``file://`` rendezvous, so
+    parallel test workers never share a port.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import shutil
+import tempfile
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import hlo
+from repro_torch.sharding.spec import mesh_shape
+
+
+class Runtime(NamedTuple):
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+
+
+_RUNTIME: Dict[str, Runtime] = {}
+# id(mesh) -> (mesh, {axes: (group, group ranks)})
+_GROUPS: Dict[int, tuple] = {}
+
+
+def choose_backend(world: int, device) -> Tuple[str, torch.device, str]:
+    """(backend, this rank's device, why) for ``world`` ranks asking for
+    ``device`` ("cuda" or "cpu"). A rank's device index is filled in by
+    ``init``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "gloo", torch.device("cpu"), "CPU ranks"
+    cards = torch.cuda.device_count()
+    if cards >= world:
+        return "nccl", device, f"{cards} cards for {world} ranks"
+    return ("gloo", torch.device("cuda", 0),
+            f"{world} ranks on {cards} card(s): every rank on cuda:0")
+
+
+def init(rank: int, world: int, rendezvous: str, device="cuda", *,
+         verbose: bool = True) -> Runtime:
+    """Join the process group as ``rank`` of ``world``; ``rendezvous``
+    is an ``init_method`` URL (``file://...`` or ``tcp://host:port``)."""
+    backend, dev, why = choose_backend(world, device)
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=rendezvous, rank=rank,
+                            world_size=world)
+    rt = Runtime(rank, world, backend, dev)
+    _RUNTIME["current"] = rt
+    if verbose:
+        print(f"rank {rank}/{world}: backend {backend} ({why}), device "
+              f"{dev}", flush=True)
+    return rt
+
+
+def runtime() -> Runtime:
+    try:
+        return _RUNTIME["current"]
+    except KeyError:
+        raise RuntimeError("no process group: call "
+                           "repro_torch.sharding.dist.init first") from None
+
+
+def shutdown() -> None:
+    _GROUPS.clear()
+    _RUNTIME.pop("current", None)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _rank_coords(sizes: Sequence[int], rank: int) -> Tuple[int, ...]:
+    """The mesh coordinate of ``rank`` (ranks laid out row-major)."""
+    out = []
+    for s in reversed(sizes):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device_type: str = None):
+    """A ``DeviceMesh`` of ``shape`` with dimensions named ``axes`` over
+    the current process group, ranks row-major. ``device_type`` defaults
+    to the backend's ("cuda" under NCCL, "cpu" under gloo, whose groups
+    carry staged ops on the host)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    rt = runtime()
+    if device_type is None:
+        device_type = "cuda" if rt.backend == "nccl" else "cpu"
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         "length")
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    mine = _rank_coords(shape, rt.rank)
+    groups = {}
+    # one group per set of dimensions, every rank creating every group
+    # in the same order (new_group is collective)
+    for n in range(1, len(axes) + 1):
+        for sub in itertools.combinations(range(len(axes)), n):
+            members = {}
+            for r in range(rt.world):
+                c = _rank_coords(shape, r)
+                key = tuple(c[i] for i in range(len(axes)) if i not in sub)
+                members.setdefault(key, []).append(r)
+            own = tuple(mine[i] for i in range(len(axes)) if i not in sub)
+            for key, ranks in members.items():
+                if len(ranks) == rt.world:
+                    g = dist.group.WORLD
+                elif len(ranks) > 1:
+                    g = dist.new_group(ranks)
+                else:
+                    g = None
+                if key == own:
+                    groups[tuple(axes[i] for i in sub)] = (g, ranks)
+    _GROUPS[id(mesh)] = (mesh, groups)
+    return mesh
+
+
+def coords(mesh) -> Dict[str, int]:
+    """This rank's ``{axis: index}`` on ``mesh``."""
+    c = mesh.get_coordinate()
+    return dict(zip(mesh.mesh_dim_names, c))
+
+
+def _group(mesh, axes: Sequence[str]):
+    """(group, ranks) of ``axes`` (in the mesh's dimension order)."""
+    try:
+        _, groups = _GROUPS[id(mesh)]
+    except KeyError:
+        raise ValueError("this mesh was not built by "
+                         "repro_torch.sharding.dist.make_mesh") from None
+    names = mesh.mesh_dim_names
+    key = tuple(a for a in names if a in axes)
+    return groups[key]
+
+
+def _live(mesh, axes) -> Tuple[str, ...]:
+    """The axes of size > 1 (a collective over the others is a no-op)."""
+    shape = mesh_shape(mesh)
+    return tuple(a for a in axes if shape[a] > 1)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
+               op: str = "sum") -> torch.Tensor:
+    """Sum or min of ``x`` over the ranks spanned by ``axes``, in place;
+    returns ``x``."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    group, ranks = _group(mesh, axes)
+    rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+    dist.all_reduce(x, op=rop, group=group)
+    hlo.record(hlo.CollectiveOp(
+        "all-reduce", x.numel() * x.element_size(), len(ranks), axes,
+        str(x.dtype).replace("torch.", ""), tuple(x.shape), op, False))
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
+               dim: int = 0) -> torch.Tensor:
+    """The blocks ``x`` of every rank spanned by ``axes``, concatenated
+    along ``dim`` in the blocked row-major order of ``axes`` (the order
+    ``repro_torch.core.flat.local_slab`` cuts them in)."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    group, ranks = _group(mesh, axes)
+    rt = runtime()
+    staged = rt.backend == "gloo" and x.device.type == "cuda"
+    src = x.contiguous()
+    if staged:
+        src = torch.empty(src.shape, dtype=src.dtype,
+                          pin_memory=True).copy_(src)
+    parts = [torch.empty_like(src) for _ in ranks]
+    dist.all_gather(parts, src, group=group)
+    # group ranks -> blocks in the order of ``axes``
+    shape = mesh_shape(mesh)
+    names = list(mesh.mesh_dim_names)
+    sizes = [shape[a] for a in names]
+
+    def block(r):
+        c = _rank_coords(sizes, r)
+        b = 0
+        for a in axes:
+            b = b * shape[a] + c[names.index(a)]
+        return b
+
+    order = sorted(range(len(ranks)), key=lambda i: block(ranks[i]))
+    out = torch.cat([parts[i] for i in order], dim=dim)
+    if staged:
+        out = out.to(x.device, non_blocking=True)
+    hlo.record(hlo.CollectiveOp(
+        "all-gather", out.numel() * out.element_size(), len(ranks), axes,
+        str(x.dtype).replace("torch.", ""), tuple(out.shape), "", staged))
+    return out
+
+
+def _entry(rank, fn, world, rendezvous, device, threads, args):
+    if threads:
+        torch.set_num_threads(threads)
+    init(rank, world, rendezvous, device)
+    try:
+        fn(rank, world, *args)
+    finally:
+        shutdown()
+
+
+def spawn(fn, world: int, args: tuple = (), device="cuda", *,
+          threads: int = 0) -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` new processes (start
+    method "spawn"), each joined to one process group through a fresh
+    ``file://`` rendezvous; ``threads`` > 0 sets each rank's torch
+    threads. Waits for every rank; if one raises, the others are
+    stopped and the error is raised here. ``fn`` must be importable by
+    module path (a module-level function)."""
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="repro_torch_rdv_")
+    try:
+        rendezvous = "file://" + os.path.join(tmp, "store")
+        mp.start_processes(_entry, args=(fn, world, rendezvous, str(device),
+                                         threads, tuple(args)),
+                           nprocs=world, join=True, start_method="spawn")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -1,0 +1,180 @@
+"""The collective recorder and the sharding checks that read it.
+
+Port of ``repro/sharding/hlo.py``. The reference inspects the compiled
+HLO of a sharded round; the port has no HLO, so every collective wrapper
+of ``repro_torch.sharding.dist`` appends one ``CollectiveOp`` to this
+module's log, and the checks read the log:
+
+  * ``assert_flat_buffer_sharded``: no collective moves a payload of
+    the global (C, N) f32 slab's size — the slab never exists on one
+    rank (the reference's ``flat_buffer_report``);
+  * ``assert_no_fullprec_delta_collective``: no collective over a
+    client axis moves an f32 payload of a (C_loc, N_loc) per-client
+    slab or more — compression and the robust ladder finish before any
+    client-crossing sum (``fullprec_collective_report``). Collectives
+    over the N-shard axes alone stay within one client coordinate (the
+    pack/unpack seam) and are exempt, as in the reference;
+  * ``assert_peak_below_global``: on the card, a rank's peak allocation
+    stays below the bytes of the global slabs the unsharded step holds;
+    ``assert_peak_within_local`` bounds it by the rank's own slabs.
+
+``CollectiveOp.wire_bytes`` is ``repro/roofline.py``'s ring rule. The
+fleet's cohort-materialization report waits for a meshed fleet loop
+(ROADMAP A17, second half).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+@dataclass(frozen=True)
+class CollectiveOp:
+    kind: str                      # "all-reduce" | "all-gather"
+    bytes: int                     # the result's bytes
+    group_size: int
+    axes: Tuple[str, ...] = ()     # mesh axes the group spans
+    dtype: str = "float32"
+    shape: Tuple[int, ...] = ()    # the result's shape
+    op: str = "sum"                # reduce op of an all-reduce
+    staged: bool = False           # went through pinned host memory
+
+    @property
+    def elems(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def wire_bytes(self) -> float:
+        """Per-rank bytes on the wire, ring algorithm."""
+        n = max(self.group_size, 2)
+        if self.kind == "all-reduce":
+            return 2 * (n - 1) / n * self.bytes
+        if self.kind in ("all-gather", "reduce-scatter"):
+            return (n - 1) / n * self.bytes
+        if self.kind == "all-to-all":
+            return (n - 1) / n * self.bytes
+        return self.bytes  # collective-permute: one hop
+
+
+LOG: List[CollectiveOp] = []
+
+
+def record(op: CollectiveOp) -> None:
+    LOG.append(op)
+
+
+def reset() -> None:
+    LOG.clear()
+
+
+def snapshot() -> List[CollectiveOp]:
+    return list(LOG)
+
+
+def summary(ops: Sequence[CollectiveOp], rounds: int = 1) -> Dict:
+    """The ``static`` event's collective fields (the reference's
+    ``profiling.static_telemetry``), per block and per round."""
+    rounds = max(rounds, 1)
+    nbytes = sum(c.bytes for c in ops)
+    return {"collective_count": len(ops),
+            "collectives_per_round": len(ops) / rounds,
+            "collective_bytes": int(nbytes),
+            "collective_bytes_per_round": nbytes / rounds,
+            "collective_wire_bytes": float(sum(c.wire_bytes for c in ops)),
+            "collective_kinds": sorted({c.kind for c in ops}),
+            "collective_staged": sum(c.staged for c in ops)}
+
+
+def flat_buffer_report(ops: Sequence[CollectiveOp], C: int, N: int) -> Dict:
+    """Collectives whose f32 payload is the global (C, N) slab or more:
+    {"full_shape": count, "sample": the first few}."""
+    bad = [c for c in ops if c.dtype == "float32" and c.elems >= C * N]
+    return {"full_shape": len(bad), "sample": bad[:4]}
+
+
+def assert_flat_buffer_sharded(ops: Sequence[CollectiveOp], C: int,
+                               N: int) -> Dict:
+    rep = flat_buffer_report(ops, C, N)
+    if rep["full_shape"]:
+        raise AssertionError(
+            f"a collective moved the global ({C}, {N}) flat slab: {rep}")
+    return rep
+
+
+def fullprec_collective_report(ops: Sequence[CollectiveOp], *,
+                               max_elems: int,
+                               client_axes: Sequence[str]) -> Dict:
+    """Collectives that move >= ``max_elems`` f32 elements across
+    client shards (over any of ``client_axes``): {"collectives": count
+    of all, "fullprec": violations, "sample": the first few}."""
+    ca = set(client_axes)
+    bad = [c for c in ops if c.dtype == "float32"
+           and c.elems >= max_elems and ca.intersection(c.axes)]
+    return {"collectives": len(ops), "fullprec": len(bad),
+            "sample": bad[:4]}
+
+
+def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
+                                        C: int, N: int, *, mesh,
+                                        federation,
+                                        max_payload_elems: Optional[int]
+                                        = None) -> Dict:
+    """No full-precision (C_loc, N_loc) client delta crossed the client
+    shard boundary. Needs C_loc >= 2 to tell a delta slab from the
+    aggregated (N_loc,) mean; ``max_payload_elems`` tightens the bound
+    (a robust round's largest legitimate client-crossing payload)."""
+    from repro_torch.sharding.spec import axes_size
+    client_axes, _ = federation.flat_axes(mesh)
+    c_shards = axes_size(mesh, client_axes)
+    n_shards = federation.flat_shards(mesh)
+    c_loc, n_loc = C // max(1, c_shards), N // max(1, n_shards)
+    if c_loc < 2:
+        raise ValueError(
+            "assert_no_fullprec_delta_collective needs >= 2 clients per "
+            f"client shard to separate a delta slab from the aggregated "
+            f"mean (C={C}, client shards={c_shards})")
+    max_elems = c_loc * n_loc
+    if max_payload_elems is not None:
+        if max_payload_elems < 1:
+            raise ValueError(
+                f"max_payload_elems must be >= 1, got {max_payload_elems}")
+        max_elems = min(max_elems, int(max_payload_elems) + 1)
+    rep = fullprec_collective_report(ops, max_elems=max_elems,
+                                     client_axes=client_axes)
+    if rep["fullprec"]:
+        raise AssertionError(
+            f"full-precision client delta (>= ({c_loc}, {n_loc}) f32) "
+            f"crossed the client shard boundary: {rep}")
+    return rep
+
+
+def global_slab_bytes(C: int, N: int, slabs: int = 3) -> int:
+    """Bytes of the ``slabs`` (C, N) f32 slabs the unsharded flat step
+    holds (params, gradients, previous gradients)."""
+    return slabs * C * N * 4
+
+
+def assert_peak_below_global(peak_bytes: int, C: int, N: int,
+                             slabs: int = 3) -> Dict:
+    bound = global_slab_bytes(C, N, slabs)
+    if peak_bytes >= bound:
+        raise AssertionError(
+            f"rank peak allocation {peak_bytes} B is not below the "
+            f"{slabs} global ({C}, {N}) slabs' {bound} B")
+    return {"peak_bytes": int(peak_bytes), "global_bytes": bound}
+
+
+def assert_peak_within_local(peak_bytes: int, C_loc: int, N_loc: int,
+                             slabs: int) -> Dict:
+    """A rank's peak allocation is at most ``slabs`` of its own
+    (C_loc, N_loc) f32 slabs: the caller counts the slabs its step
+    holds live, plus its slack. A rank that kept a full-width (C_loc,
+    N) row block, or any other slab beyond its count, fails."""
+    bound = slabs * C_loc * N_loc * 4
+    if peak_bytes > bound:
+        raise AssertionError(
+            f"rank peak allocation {peak_bytes} B exceeds {slabs} local "
+            f"({C_loc}, {N_loc}) slabs' {bound} B")
+    return {"peak_bytes": int(peak_bytes), "local_bound_bytes": bound,
+            "local_slabs": peak_bytes / (C_loc * N_loc * 4)}

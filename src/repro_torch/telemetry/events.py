@@ -80,11 +80,9 @@ def run_metadata(config: Optional[dict] = None, mesh: Any = None,
                  device=None) -> Dict[str, Any]:
     """The header payload: enough to tie an event stream back to the
     exact code + config + runtime that produced it. ``device`` is the
-    run's device (default: the card when there is one). There is no
-    mesh: sharding is ROADMAP A17, and ``mesh`` must stay None."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet: it comes with "
-                                  "mesh sharding, ROADMAP A17")
+    run's device (default: the card when there is one); ``mesh`` (a
+    DeviceMesh, or anything ``sharding.spec.mesh_shape`` reads) is
+    recorded as ``{axis: size}``."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
@@ -100,6 +98,9 @@ def run_metadata(config: Optional[dict] = None, mesh: Any = None,
         "device_count": torch.cuda.device_count(),
         "mesh": None,
     }
+    if mesh is not None:
+        from repro_torch.sharding.spec import mesh_shape
+        meta["mesh"] = mesh_shape(mesh)
     if config:
         meta["config"] = config
     return meta

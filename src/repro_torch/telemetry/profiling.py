@@ -7,8 +7,10 @@ merges the ``LAUNCHES`` books of the port's six kernel namespaces;
 (launches in all and per round), so a change in the launch schedule
 shows up in the JSONL artifact even when the run is too short to time.
 The reference also reads collective counts and payload bytes from the
-compiled HLO there; without a mesh the port has no collectives, and
-those fields come with mesh sharding (ROADMAP A17).
+compiled HLO there; under a mesh the port reads them from the collective
+recorder (``repro_torch.sharding.hlo``): pass the block's
+``hlo.snapshot()`` as ``collectives=``. Without a mesh the row stays as
+it was.
 
 ``trace_block`` runs one block under ``torch.profiler`` and writes a
 Chrome trace.
@@ -55,16 +57,24 @@ def reset_kernel_launches() -> None:
 
 
 def static_telemetry(*, rounds: int = 1,
-                     launches: Optional[Dict[str, int]] = None) -> Dict:
+                     launches: Optional[Dict[str, int]] = None,
+                     collectives=None) -> Dict:
     """The ``"static"`` telemetry row of a block of ``rounds`` rounds:
     its kernel launches per namespace and function, in all and per
-    round."""
+    round; with ``collectives`` (the recorder's ``CollectiveOp`` list of
+    a meshed block) also ``collective_count``,
+    ``collectives_per_round``, ``collective_bytes(_per_round)``,
+    ``collective_wire_bytes`` and ``collective_kinds``."""
     rounds = max(rounds, 1)
     launches = dict(launches or {})
-    return {"rounds": rounds,
-            "kernel_launches": launches,
-            "kernel_launches_per_round": {k: v / rounds
-                                          for k, v in launches.items()}}
+    row = {"rounds": rounds,
+           "kernel_launches": launches,
+           "kernel_launches_per_round": {k: v / rounds
+                                         for k, v in launches.items()}}
+    if collectives is not None:
+        from repro_torch.sharding.hlo import summary
+        row.update(summary(collectives, rounds))
+    return row
 
 
 def trace_block(fn: Callable, logdir: str):

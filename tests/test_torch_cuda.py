@@ -1412,3 +1412,46 @@ def test_moe_layer_repeats_its_bits_on_the_card(arch, dev):
     for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
         assert torch.equal(a, b)
     assert float(grads[0]["router"].abs().sum()) > 0
+
+
+def test_sharded_step_repeats_its_bits_on_the_card(dev, tmp_path):
+    """The sharded Δ-SGD step at world 2 on the card (NCCL with two
+    cards, gloo with one): two runs from the same inputs give the same
+    bits on each rank, the kernel pair runs on the card (2 launches a
+    step), each step makes one (2, C) all_reduce over ``model``, and the
+    ranks' slabs put together match the unsharded step on the card."""
+    import pickle
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
+                                            flat_delta_sgd_step)
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.sharding import dist
+    sys.path.insert(0, str(Path(__file__).parent))
+    from _torch_dist_worker import run_card_step
+    dist.spawn(run_card_step, 2, (str(tmp_path),), device="cuda")
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for res in ranks:
+        (p1, e1), (p2, e2) = res["runs"]
+        assert np.array_equal(p1, p2) and np.array_equal(e1, e2)
+        assert res["launches"] == 2 * 3 * 2
+        assert [(o[0], o[2], o[5]) for o in res["ops"]] == [
+            ("all-reduce", ("model",), (2, 4))] * 6
+    P0, Gs = ranks[0]["P0"], ranks[0]["Gs"]
+    C, N = P0.shape
+    P = torch.from_numpy(P0).to(dev)
+    S = flat_delta_sgd_init(C, FlatLayout(None, (), N, N, 1), eta0=0.2,
+                            theta0=1.0, device=dev)
+    for G in Gs:
+        P, S = flat_delta_sgd_step(P, torch.from_numpy(G).to(dev), S,
+                                   gamma=2.0, delta=0.1, eta0=0.2)
+    got = np.concatenate([r["runs"][0][0] for r in ranks], axis=1)
+    want = P.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+    np.testing.assert_allclose(ranks[0]["runs"][0][1], S.eta.cpu().numpy(),
+                               rtol=1e-5)

@@ -113,5 +113,12 @@ def test_interop_roundtrip_keeps_dtypes(rng):
 
 
 def test_sharded_layout_not_ported():
-    with pytest.raises(NotImplementedError, match="A17"):
-        tflat.layout_of({"x": torch.zeros(4)}, shards=2)
+    """Sharded layouts were refused until the multi-device slice ported
+    them: ``shards=2`` now pads as the reference's layout does, and a
+    shard count below one is refused as the reference refuses it."""
+    tree = {"x": torch.zeros(4)}
+    lay = tflat.layout_of(tree, shards=2)
+    ref = rflat.layout_of({"x": jnp.zeros(4)}, shards=2)
+    assert (lay.shards, lay.padded_size) == (2, ref.padded_size)
+    with pytest.raises(ValueError, match="shards must be >= 1"):
+        tflat.layout_of(tree, shards=0)

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``."""
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` (its
+``sharding`` package included), not ``chip_smoke.py`` and not the sharded
+tests' rank worker ``tests/_torch_dist_worker.py`` imports ``jax`` or the
+reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
 
 
 def _banned(name: str) -> bool:
@@ -68,9 +70,14 @@ def test_port_package_is_complete():
                 "conformance/kernels.py", "checkpoint/__init__.py",
                 "checkpoint/checkpoint.py", "federation/buffer.py",
                 "federation/arena.py", "serving/registry.py",
-                "serving/personalize.py", "serving/loadgen.py"):
+                "serving/personalize.py", "serving/loadgen.py",
+                "sharding/spec.py", "sharding/hlo.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    # the port's own process-group runtime and rank-local round
+    for rel in ("sharding/__init__.py", "sharding/dist.py", "core/sharded.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    assert any(p.parent.name == "sharding" for p in PORT_FILES)
     for ns in ("delta_sgd", "compress", "robust_agg", "flash_attention",
                "mamba2_scan", "telemetry"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / ns / "csrc"

@@ -158,14 +158,17 @@ def test_fused_loop_equals_host_loop_bitwise():
 
 
 def test_unported_arguments_name_their_roadmap_item(tmp_path):
-    """Mesh sharding (A17) is refused. The LM's flags run on --task,
+    """A mesh without a FederationSpec is refused, as the reference
+    refuses it (mesh sharding itself is ported: tests/
+    test_torch_sharded_round.py). The LM's flags run on --task,
     which ignores them as the reference's paper task does: the run
     equals one without them. (The fleet, async, checkpoint and LM runs:
     test_torch_fleet.py, test_torch_async.py, test_torch_checkpoint.py,
     test_torch_lm_cli.py.)"""
     loss = make_loss(lambda q, bt: (q["x"].sum(), {}))
     copt, sopt = get_client_opt("delta_sgd"), get_server_opt("fedavg")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="mesh and federation must be "
+                                         "given together"):
         make_fl_round(loss, copt, sopt, num_rounds=1, mesh=object())
     # async aggregation needs the flat engine, as in the reference
     with pytest.raises(ValueError, match="flat engine"):

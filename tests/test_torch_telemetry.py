@@ -308,8 +308,13 @@ def test_event_log_header_and_one_conversion_per_flush(tmp_path):
                          "eta_hist": [0.0, 1.0, 2.0], "ids": [3, 1],
                          "ok": True, "half": 0.5}
     assert events[1]["loss"] == 0.5 and ev.events_written == 2
-    with pytest.raises(NotImplementedError, match="A17"):
-        EventLog(str(tmp_path / "m.jsonl"), mesh=object())
+    # a mesh (ported since the multi-device slice) is recorded as
+    # {axis: size}, as the reference records it
+    class Mesh:
+        shape = {"data": 2, "model": 2}
+    with EventLog(str(tmp_path / "m.jsonl"), mesh=Mesh(), device="cpu"):
+        header, _ = load_events(str(tmp_path / "m.jsonl"))
+    assert header["mesh"] == {"data": 2, "model": 2}
 
 
 def test_event_log_rejects_headerless(tmp_path):

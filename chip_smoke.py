@@ -71,13 +71,15 @@ without its final line:
               prefill shapes of OLMoE (1, 64, 16, 16, 128), CodeQwen1.5
               (1, 64, 32, 32, 128), Qwen2.5 (1, 64, 40, 8, 128) and
               Granite (1, 64, 48, 1, 128: MQA), Whisper-tiny's decoder
-              (1, 64, 6, 6, 64) and InternVL2-1B over its image and text
-              positions (1, 320, 14, 2, 64) (f32 within 2e-5, bf16
-              within atol 4e-3 + rtol 8e-3, about one bf16 ulp of the
-              output; two calls bitwise equal); the SSD chunk kernel
-              at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48) and
-              S = 67 (L = 1), rtol 1e-3 / atol 1e-4, two calls bitwise
-              equal. Timed and bounded like phase 3; the SSD's bound is
+              (1, 64, 6, 6, 64), InternVL2-1B over its image and text
+              positions (1, 320, 14, 2, 64), and the heads one rank of
+              phase 6c holds: TinyLlama (2, 64, 16, 2, 64), Qwen2.5 (2,
+              64, 20, 4, 128), Granite (2, 64, 24, 1, 128) (f32 within
+              2e-5, bf16 within atol 4e-3 + rtol 8e-3, about one bf16
+              ulp of the output; two calls bitwise equal); the SSD chunk
+              kernel at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48)
+              and S = 67 (L = 1), rtol 1e-3 / atol 1e-4, two calls
+              bitwise equal. Timed and bounded like phase 3; the SSD's bound is
               the lesser of its f32-FMA route's and its tensor-core
               route's (three TF32 products per f32 product at 494.7
               TFLOP/s), bound_route names it; SDPA (enable_gqa) is
@@ -313,14 +315,38 @@ without its final line:
               int8 decode within the same of the CPU's; both caches'
               bytes and decode ms a step printed. The phase's seconds and
               the script's total are printed.
+  6c. tensor-parallel serving  4 ranks over (data 2, model 2), gloo
+              with every rank on the card (dist.spawn). Before the run,
+              each path's collectives a step on a rank, derived from the
+              placement (launch.steps.serve_collectives), are printed.
+              An unsharded run on the card first (prefill of 4 prompts
+              of 64 tokens, then greedy decode; random f32 weights from
+              seed 0): TinyLlama-1.1B whole (cross_device, KV heads split
+              over model), 32 new tokens; Qwen2.5-14B and Granite-20B at
+              full width and 2 layers (cross_silo: params FSDP over
+              data; Granite's MQA head on every rank), 8 new tokens.
+              Each rank builds the same weights, keeps its block
+              (launch.steps.place_for_rank), holds flash at its local
+              heads against the plain version, then prefills through
+              make_prefill_step(rules=) and decodes the unsharded run's
+              tokens (TinyLlama also greedy through make_serve_step):
+              prefill's and every step's logits within 1e-4·max|logits|
+              of the unsharded (the worst printed), tokens equal where
+              the top-two margin passes that tolerance, each step's
+              collectives by role exactly the derived ones,
+              assert_no_param_gather on TinyLlama, flash launched once a
+              layer a prefill at the rank's head shape, each rank's peak
+              below the unsharded model's. Then the dry run of
+              TinyLlama's prefill_32k and decode_32k on the (32, 8) H100
+              mesh, its analytic memory beside the measured peaks.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
               launches by path, the vmap runs of 4c, the runs of 4d, the
-              LM runs of 4e, the ranks' of 4f and the serving plane's of
-              6b among them;
+              LM runs of 4e, the ranks' of 4f, the serving plane's of
+              6b and the ranks' of 6c among them;
               DeepSeek-V3's serve path and the int8 cache's launch none)
               and, last, the device line.
 
@@ -428,7 +454,13 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
             # Whisper-tiny's decoder (6/6) and InternVL2-1B over its 256
             # image and 64 text positions (14/2)
             (1, 64, 6, 6, 64, None, "float32"),
-            (1, 320, 14, 2, 64, None, "float32"))
+            (1, 320, 14, 2, 64, None, "float32"),
+            # a rank's heads at phase 6c's (data 2, model 2): 2 prompts
+            # of 4 a data rank; TinyLlama 16/2 (KV sharded), Qwen2.5
+            # 20/4, Granite 24/1 (the MQA head on every rank)
+            (2, 64, 16, 2, 64, None, "float32"),
+            (2, 64, 20, 4, 128, None, "float32"),
+            (2, 64, 24, 1, 128, None, "float32"))
 # SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
@@ -563,6 +595,15 @@ QUANT_ROWS, QUANT_PROMPT, QUANT_GEN = 4, 64, 32
 # against the CPU's), as a share of the largest f32 logit: the bound
 # tests/test_torch_serving_plane.py fixes (QUANT_KV_TOL there)
 QUANT_KV_TOL = 0.05
+# phase 6c, tensor-parallel serving on 4 ranks over (data 2, model 2)
+# (SHARD_MESH): arch -> (layers kept (None: all), federation, new
+# tokens); TP_ROWS prompts of TP_PROMPT tokens, f32, random weights from
+# TP_SEED; logits held to the unsharded port's within TP_REL·max|logits|
+TP_PATHS = {"tinyllama-1.1b": (None, "cross_device", 32),
+            "qwen2.5-14b": (2, "cross_silo", 8),
+            "granite-20b": (2, "cross_silo", 8)}
+TP_ROWS, TP_PROMPT, TP_SEED = 4, 64, 0
+TP_REL = 1e-4
 # MoE capacity factor of the decode == full forward gates: prefill of
 # B·S tokens and decode of B drop different choices at the served 1.25
 # (the reference's tests patch the same 8.0)
@@ -3983,6 +4024,339 @@ def run_sharded_path(torch, tk, tref, bw, f32, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6c, tensor-parallel serving: world-4 ranks over (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+def _tp_cfg(arch):
+    from repro_torch.configs import get_config
+    layers = TP_PATHS[arch][0]
+    return _lm_cfg(arch, layers) if layers else get_config(arch)
+
+
+def _tp_prompts(cfg):
+    import numpy as np
+    return np.random.default_rng(TP_SEED).integers(
+        0, cfg.vocab_size, (TP_ROWS, TP_PROMPT))
+
+
+def _tp_unsharded(torch, arch, out_dir):
+    """Phase 6c's unsharded run of ``arch`` on the card: prefill and
+    greedy decode; its logits (prefill's last position, then each step)
+    and tokens go to ``out_dir/<arch>.npz``. Returns its numbers."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+    cfg = _tp_cfg(arch)
+    gen = TP_PATHS[arch][2]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
+    prompts = torch.from_numpy(_tp_prompts(cfg)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  cache_len=TP_PROMPT + gen)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    steps, toks = [logits[:, 0]], []
+    tok = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+        steps.append(logits[:, 0])
+        tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / gen
+    peak = torch.cuda.max_memory_allocated()
+    np.savez(Path(out_dir) / f"{arch}.npz",
+             logits=torch.stack(steps).cpu().numpy(),
+             tokens=torch.cat(toks, 1).cpu().numpy())
+    n = sum(a.numel() for a in tree_leaves(params))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return {"params": n, "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+            "peak_bytes": peak}
+
+
+def _tp_roles(ops):
+    out = {}
+    for o in ops:
+        out[o.role] = out.get(o.role, 0) + 1
+    return out
+
+
+def _tp_rank(rank, world, out_dir):
+    """One rank of phase 6c (see run_tp_serve_path). Writes its logits
+    and tokens to ``out_dir/rank<rank>.npz`` and its numbers to
+    ``out_dir/rank<rank>.json``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          place_for_rank, serve_collectives,
+                                          serve_rules)
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import logical_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import dist, hlo
+    from repro_torch.sharding.spec import get_federation_spec, local_block
+    from repro_torch.utils.tree import tree_leaves
+    mesh = dist.make_mesh(*SHARD_MESH)
+    dev = dist.runtime().device
+    coord = dist.coords(mesh)
+    res, arrays = {"device": str(dev), "coord": coord, "cases": {}}, {}
+    rows = (("data",), None)
+    for arch, (_, fed, gen) in TP_PATHS.items():
+        cfg = _tp_cfg(arch)
+        model = build_model(cfg)
+        whole = model.init(torch.Generator(device=dev).manual_seed(TP_SEED))
+        rules = serve_rules(model, mesh, whole,
+                            spec=get_federation_spec(fed, mesh))
+        prompts = torch.from_numpy(_tp_prompts(cfg)).to(dev)
+        placed = place_for_rank(rules, params=whole,
+                                batch={"tokens": prompts}, device=dev)
+        del whole
+        params, batch = placed["params"], placed["batch"]
+        with np.load(Path(out_dir) / f"{arch}.npz") as z:
+            forced = local_block(torch.from_numpy(z["tokens"]), rows, mesh,
+                                 coord).to(dev)
+        Bl = batch["tokens"].shape[0]
+        want = [serve_collectives(model, rules, Bl, TP_PROMPT)] + \
+            [serve_collectives(model, rules, Bl, 1)] * gen
+        # the kernel at the rank's local-head shape against its plain
+        # version (outside the counted run)
+        with logical_rules(rules):
+            hd = attn.heads_of(params["stack"]["run0"]["attn"], cfg)
+        shape = (Bl, TP_PROMPT, hd.h, hd.a, cfg.head_dim)
+        gen_ = torch.Generator(device=dev).manual_seed(rank)
+        q = torch.randn((Bl, TP_PROMPT, hd.h, cfg.head_dim), generator=gen_,
+                        device=dev)
+        k, v = (torch.randn((Bl, TP_PROMPT, hd.a, cfg.head_dim),
+                            generator=gen_, device=dev) for _ in range(2))
+        fa_err = float((fa.flash_attention(q, k, v, causal=True)
+                        - faref.attention_ref(q, k, v, causal=True)
+                        ).abs().max())
+        if fa_err > 2e-5 * max(1.0, float(v.abs().max())):
+            raise AssertionError(f"tp {arch}: flash at {shape} differs from "
+                                 f"its plain version by {fa_err}")
+        del q, k, v
+        torch.cuda.empty_cache()
+        # the counted run: prefill, then the unsharded run's tokens fed
+        # back (every step's logits comparable)
+        seen = []
+        real_fa = attn.flash_attention
+
+        def recording(q, k, v, **kw):
+            seen.append((tuple(q.shape), tuple(k.shape)))
+            return real_fa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        hlo.reset()
+        attn.flash_attention = recording
+        try:
+            t0 = time.perf_counter()
+            logits, cache = make_prefill_step(
+                model, cache_len=TP_PROMPT + gen, rules=rules)(params, batch)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            attn.flash_attention = real_fa
+        launches = dict(fa.LAUNCHES)
+        ops = [hlo.snapshot()]
+        steps, c = [logits[:, 0]], cache
+        t0 = time.perf_counter()
+        for t in range(gen):
+            hlo.reset()
+            with logical_rules(rules):
+                logits, c = model.decode_step(params, c, forced[:, t:t + 1])
+            ops.append(hlo.snapshot())
+            steps.append(logits[:, 0])
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / gen
+        peak = torch.cuda.max_memory_allocated()
+        greedy = []
+        if arch == LM_ARCH:
+            # greedy decode through the serve step from the prefill
+            step = make_serve_step(model, rules=rules)
+            tok, c = torch.argmax(steps[0], -1)[:, None], cache
+            for _ in range(gen):
+                greedy.append(tok)
+                tok, c = step(params, c, tok)
+            arrays[f"{arch}.greedy"] = torch.cat(greedy, 1).cpu().numpy()
+        for i, (o, w) in enumerate(zip(ops, want)):
+            got = _tp_roles(o)
+            if got != {r: n for r, n in w.items() if n}:
+                raise AssertionError(f"tp {arch} step {i}: collectives {got}"
+                                     f", derived {w}")
+        if fed == "cross_device":
+            for o in ops:
+                hlo.assert_no_param_gather(o, rules.spec)
+        n_layers = cfg.num_layers
+        if launches != {("flash_attention", dev.type): n_layers} or \
+                any(sq != shape[:3] + (cfg.head_dim,) or
+                    sk != (shape[0], shape[1], shape[3], shape[4])
+                    for sq, sk in seen):
+            raise AssertionError(f"tp {arch}: prefill launched {launches} "
+                                 f"at {seen[:2]}, expected {n_layers} at "
+                                 f"{shape}")
+        arrays[f"{arch}.logits"] = torch.stack(steps).cpu().numpy()
+        res["cases"][arch] = {
+            "collectives_prefill": {r: n for r, n in want[0].items() if n},
+            "collectives_decode_step": {r: n for r, n in want[-1].items()
+                                        if n},
+            "collective_bytes_per_step": [sum(x.bytes for x in o)
+                                          for o in ops[:2]],
+            "staged_per_step": [sum(x.staged for x in o) for o in ops[:2]],
+            "flash_launches_prefill": n_layers, "flash_shape": list(shape),
+            "flash_max_abs_err_vs_plain": fa_err,
+            "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+            "peak_bytes": peak,
+            "local_params": sum(a.numel() for a in tree_leaves(params))}
+        del params, cache, c, logits, steps, placed, batch
+        torch.cuda.empty_cache()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _tp_margin_sure(logits, tol):
+    """Rows whose top-two margin exceeds ``tol``."""
+    import numpy as np
+    srt = np.sort(logits, -1)
+    return (srt[:, -1] - srt[:, -2]) > tol
+
+
+def run_tp_serve_path(torch, smi):
+    """Phase 6c. Returns its launch counts (the ranks' flash launches on
+    the card, summed)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import params_struct
+    from repro_torch.launch.steps import serve_collectives, serve_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.spec import get_federation_spec
+    t0 = time.perf_counter()
+    backend, _, why = dist.choose_backend(SHARD_WORLD, "cuda")
+    mesh = dist.AbstractMesh(dict(zip(SHARD_MESH[1], SHARD_MESH[0])))
+    # the collectives a step of each path makes on a rank, derived from
+    # the placement before the run
+    rows = TP_ROWS // mesh.shape["data"]
+    for arch, (_, fed, gen) in TP_PATHS.items():
+        model = build_model(_tp_cfg(arch))
+        rules = serve_rules(model, mesh, params_struct(model),
+                            spec=get_federation_spec(fed, mesh))
+        print(f"tp {arch}: expected collectives on each rank", json.dumps({
+            what: {k: n for k, n in serve_collectives(
+                model, rules, rows, seq).items() if n}
+            for what, seq in (("prefill", TP_PROMPT), ("decode step", 1))}),
+            flush=True)
+    print(f"tp: world {SHARD_WORLD}, mesh {SHARD_MESH}, backend {backend} "
+          f"({why}); card {smi}", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = {arch: _tp_unsharded(torch, arch, tmp) for arch in TP_PATHS}
+        t_ref = time.perf_counter() - t0
+        dist.spawn(_tp_rank, SHARD_WORLD, (tmp,), device="cuda")
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+            with np.load(Path(tmp) / f"rank{r}.npz") as z:
+                ranks[-1]["arrays"] = {k: z[k] for k in z.files}
+        want = {}
+        for arch in TP_PATHS:
+            with np.load(Path(tmp) / f"{arch}.npz") as z:
+                want[arch] = (z["logits"], z["tokens"])
+    t_ranks = time.perf_counter() - t0 - t_ref
+    for arch, (_, fed, gen) in TP_PATHS.items():
+        logits, tokens = want[arch]
+        V = _tp_cfg(arch).vocab_size
+        tol = TP_REL * float(np.abs(logits[..., :V]).max())
+        worst, sure_steps, greedy_equal = 0.0, 0, 0
+        for res in ranks:
+            d = res["coord"]["data"]
+            sl = slice(d * TP_ROWS // 2, (d + 1) * TP_ROWS // 2)
+            got = res["arrays"][f"{arch}.logits"]
+            err = float(np.abs(got[..., :V] - logits[:, sl, :V]).max())
+            worst = max(worst, err)
+            if err > tol:
+                raise AssertionError(f"tp {arch} rank {res['coord']}: logits "
+                                     f"differ by {err} (tolerance {tol})")
+            # the sharded argmax after each fed token against the
+            # unsharded greedy token, where the margin is clear
+            for t in range(1, gen):
+                sure = _tp_margin_sure(logits[t, sl, :V], tol)
+                mine = np.argmax(got[t, :, :V], -1)
+                if not np.array_equal(mine[sure], tokens[sl, t][sure]):
+                    raise AssertionError(f"tp {arch} step {t}: tokens "
+                                         f"{mine} vs {tokens[sl, t]}")
+                sure_steps += int(sure.sum())
+            if arch == LM_ARCH:
+                # the serve step's greedy tokens, up to the first step
+                # whose margin is within the tolerance on some row
+                g = res["arrays"][f"{arch}.greedy"]
+                for t in range(gen):
+                    if not _tp_margin_sure(logits[t, sl, :V], tol).all():
+                        break
+                    if not np.array_equal(g[:, t], tokens[sl, t]):
+                        raise AssertionError(f"tp {arch} greedy step {t}: "
+                                             f"{g[:, t]} vs {tokens[sl, t]}")
+                    greedy_equal = t + 1
+        peaks_ = [res["cases"][arch]["peak_bytes"] for res in ranks]
+        if max(peaks_) >= ref[arch]["peak_bytes"]:
+            raise AssertionError(f"tp {arch}: a rank's peak {max(peaks_)} B "
+                                 "is not below the unsharded model's "
+                                 f"{ref[arch]['peak_bytes']} B")
+        cs = [res["cases"][arch] for res in ranks]
+        print(f"tp {arch}", json.dumps({
+            "card": smi, "federation": fed, "layers": _tp_cfg(arch).num_layers,
+            "rows": TP_ROWS, "prompt": TP_PROMPT, "new_tokens": gen,
+            "logits_max_abs_err": worst, "tolerance": tol,
+            "tokens_checked": sure_steps,
+            "greedy_steps_equal": greedy_equal,
+            "collectives_prefill": cs[0]["collectives_prefill"],
+            "collectives_decode_step": cs[0]["collectives_decode_step"],
+            "collective_bytes_per_step": cs[0]["collective_bytes_per_step"],
+            "staged_per_step": cs[0]["staged_per_step"],
+            "flash_launches_prefill_each_rank":
+                cs[0]["flash_launches_prefill"],
+            "flash_shape": cs[0]["flash_shape"],
+            "flash_max_abs_err_vs_plain": max(
+                c["flash_max_abs_err_vs_plain"] for c in cs),
+            "prefill_ms_by_rank": [c["prefill_ms"] for c in cs],
+            "decode_ms_per_step_by_rank": [c["decode_ms_per_step"]
+                                           for c in cs],
+            "peak_bytes_by_rank": peaks_,
+            "local_params_by_rank": [c["local_params"] for c in cs],
+            "unsharded": ref[arch],
+            "note": "all ranks on one card at once over gloo: a collective "
+                    "is a host round trip, so the step times say nothing "
+                    "of NCCL"}), flush=True)
+    # the dry run of the production mesh beside the measured peaks
+    for shape in ("prefill_32k", "decode_32k"):
+        res = dryrun.lower_one(LM_ARCH, shape, False, verbose=False)
+        print(f"tp dry run {LM_ARCH} {shape} 32x8", json.dumps({
+            "analytic_memory": res["analytic_memory"],
+            "memory": res["memory"], "collectives": res["collectives"],
+            "roofline": res["roofline"], "lower_s": res["lower_s"],
+            "measured_peak_bytes_by_rank_4_ranks": [
+                r["cases"][LM_ARCH]["peak_bytes"] for r in ranks],
+            "note": "other shapes (4 x 64 tokens on 2 x 2 here): no gate"}),
+            flush=True)
+    launches = {("flash_attention", "cuda"): sum(
+        r["cases"][a]["flash_launches_prefill"] for r in ranks
+        for a in r["cases"])}
+    print(f"tp: {time.perf_counter() - t0:.1f} s (unsharded runs "
+          f"{t_ref:.1f} s, ranks {t_ranks:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels").is_dir():
@@ -4095,6 +4469,10 @@ def main() -> int:
 
     # 6b. the serving plane
     paths.update(run_serving_plane(torch, mods, smi))
+
+    # 6c. tensor-parallel serving
+    torch.cuda.empty_cache()
+    paths["tp_serve"] = run_tp_serve_path(torch, smi)
 
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)

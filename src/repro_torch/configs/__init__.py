@@ -2,7 +2,8 @@
 (``get_config(arch_id)`` / ``--arch <id>``)."""
 import importlib
 
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import (INPUT_SHAPES, FLConfig, ModelConfig,
+                                     ShapeConfig)
 from repro_torch.configs.paper_tasks import (CNN_PAPER, MLP_SMALL, MLP_WIDE,
                                              CNNConfig, MLPConfig)
 
@@ -32,5 +33,6 @@ def get_config(arch_id: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{modname}").CONFIG
 
 
-__all__ = ["ARCH_IDS", "FLConfig", "ModelConfig", "get_config", "CNN_PAPER",
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "FLConfig", "ModelConfig",
+           "ShapeConfig", "get_config", "CNN_PAPER",
            "MLP_SMALL", "MLP_WIDE", "CNNConfig", "MLPConfig"]

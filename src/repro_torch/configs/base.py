@@ -2,8 +2,11 @@
 
 ``ModelConfig`` describes one architecture of the LM zoo; the model
 builder (``repro_torch.models.model.build_model``) reads only it. The
-reference's analytic ``param_count`` is left out (it needs the
-reference's abstract init).
+reference's analytic ``param_count`` is
+``repro_torch.launch.specs.param_count`` (an init on fake tensors).
+
+``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's input shapes
+(the dry run's programs, ``repro_torch.launch.dryrun``).
 
 ``FLConfig`` holds the fields of the reference's ``FLConfig`` that the
 ported training slices read (paper §4 defaults). Scenario, compression,
@@ -134,6 +137,23 @@ class ModelConfig:
         if self.sliding_window:
             upd.update(sliding_window=64)
         return dataclasses.replace(self, **upd)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# the reference's input shapes (the dry run's programs)
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclass(frozen=True)

@@ -19,8 +19,9 @@ a draw source that the port's scenarios replay. Under a mesh,
 ``fl_state_local_from_numpy`` and ``clients_local_from_numpy`` give one
 rank its block of the reference's global state, batches and per-client
 vectors (``repro_torch.core.flat.local_slab``), so the reference and
-every rank start from the same bits. This module imports neither ``jax``
-nor ``repro``.
+every rank start from the same bits; ``params_local_from_numpy`` gives a
+rank its blocks of the reference's params by the tensor-parallel
+placement. This module imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
@@ -133,6 +134,21 @@ def clients_local_from_numpy(tree, mesh, federation, device="cpu",
         return local_clients(t.movedim(axis, 0), mesh, federation,
                              coord).movedim(0, axis).contiguous()
     return tree_map(one, tree)
+
+
+def params_local_from_numpy(tree, placements, mesh, device="cpu",
+                            coord=None):
+    """Reference params (nested dict of numpy arrays) -> this rank's
+    blocks of them under ``placements`` (``sharding.spec.
+    param_placements``, or the serve rules' ``param_axes``) on ``mesh``,
+    as tensors on ``device``. ``coord`` ({axis: index}) defaults to the
+    rank's coordinate on ``mesh``."""
+    from repro_torch.sharding.dist import coords
+    from repro_torch.sharding.spec import local_block
+    coord = coords(mesh) if coord is None else coord
+    return tree_map(lambda a, ax: local_block(
+        _to_tensor(a, "cpu"), ax, mesh, coord).contiguous().to(device),
+        tree, placements)
 
 
 def arena_from_numpy(arena, device="cpu") -> ClientArena:

@@ -36,20 +36,74 @@ step, as the reference's is. ``gqa_step`` takes that branch when the
 cache holds ``k_scale``. Prefill builds the float cache in both.
 The cache is written out of place, as JAX does: the serving engine
 keeps the old state of rows that did not decode.
+
+Tensor parallel (GQA under installed logical rules, ``models.common``):
+a rank holds its block of ``wq``'s heads and ``wo``'s rows, and of
+``wk``/``wv``'s KV heads where the rule shards them (KV divides the
+tensor axis); where it leaves them whole, every rank projects all KV
+heads and attends with those its query heads read (global head h reads
+KV head h // G). The replicated biases are cut to the rank's heads.
+``wo``'s rows are the heads, so the output is a partial sum: one
+``tp_reduce`` a call. The cache holds every KV head of the rank's batch
+rows (the reference's ``cache_shardings`` leaves the KV-head dim
+whole): sharded k and v are gathered over the tensor axis, in one
+``kv_gather`` a call, before they are cached.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention)
-from repro_torch.models.common import (apply_rope, dense_init, ones_init,
-                                       rmsnorm, zeros_init)
+from repro_torch.models.common import (apply_rope, dense_init,
+                                       get_logical_rules, ones_init,
+                                       rmsnorm, shard_logical, tp_gather,
+                                       tp_index, tp_reduce, zeros_init)
 
 NEG_INF = -1e30
+
+
+class Heads(NamedTuple):
+    """A rank's heads of a config's ``H``: query heads [h0, h0 + h), the
+    KV heads it projects [p0, p0 + p), the KV heads its queries read
+    [a0, a0 + a); ``kv_sharded``: its KV projection is its block of the
+    tensor axis's. Without rules, every head."""
+    h0: int
+    h: int
+    p0: int
+    p: int
+    a0: int
+    a: int
+    kv_sharded: bool
+    H: int
+
+    @property
+    def partial(self) -> bool:
+        """The rank holds a block of the heads, so its output
+        projection is a partial sum."""
+        return self.h < self.H
+
+
+def heads_of(params: dict, cfg) -> Heads:
+    """This rank's heads, read from its local ``wq``/``wk`` shapes."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    h, p = params["wq"].shape[-2], params["wk"].shape[-2]
+    if get_logical_rules() is None or (h == H and p == KV):
+        return Heads(0, H, 0, KV, 0, KV, False, H)
+    t = tp_index()
+    h0, G = t * h, H // KV
+    if p < KV:
+        return Heads(h0, h, t * p, p, t * p, p, True, H)
+    # KV whole: the tensor axis does not divide KV, so it splits the
+    # groups, and the rank's h heads must lie within one group
+    if G % h:
+        raise ValueError(f"{h} local query heads of {H} (G = {G}) straddle "
+                         "two KV heads: no tensor axis of this size serves "
+                         f"{cfg.name}")
+    return Heads(h0, h, 0, KV, h0 // G, 1, False, H)
 
 
 def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
@@ -83,12 +137,20 @@ def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
-def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+         heads: Optional[Heads] = None):
+    """q (B,S,h,hd) and k, v (B,S,p,hd) of ``heads`` (all of them by
+    default)."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        bq, bk, bv = params["bq"], params["bk"], params["bv"]
+        if heads is not None and heads.partial:
+            bq = bq.narrow(0, heads.h0, heads.h)
+            bk = bk.narrow(0, heads.p0, heads.p)
+            bv = bv.narrow(0, heads.p0, heads.p)
+        q, k, v = q + bq, k + bk, v + bv
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -158,21 +220,53 @@ def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(v.dtype)
 
 
+def _attended(k: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """The KV heads the rank's queries read, of its projected ``k``."""
+    if heads.a0 == heads.p0 and heads.a == heads.p:
+        return k
+    return k.narrow(2, heads.a0 - heads.p0, heads.a)
+
+
+def _whole_kv(k: torch.Tensor, v: torch.Tensor, heads: Heads):
+    """Every KV head of the rank's rows: a sharded projection is
+    gathered over the tensor axis (one ``kv_gather``)."""
+    if not heads.kv_sharded:
+        return k, v
+    kv = tp_gather(torch.stack([k, v]), 3, "kv_gather")
+    return kv[0], kv[1]
+
+
+def _out_proj(out: torch.Tensor, params: dict,
+              heads: Heads) -> torch.Tensor:
+    """(B,S,h,hd) -> (B,S,D) through ``wo``'s rows of the rank's heads,
+    summed over the tensor axis where they are a block of the heads."""
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return tp_reduce(y) if heads.partial else y
+
+
 def gqa_full(params: dict, x: torch.Tensor, cfg, *,
              positions: torch.Tensor, window: Optional[int] = None,
              build_cache: bool = False, use_pallas: bool = True):
     """x: (B,S,D). Returns (out (B,S,D), {"k", "v"} (B,S,KV,hd) | None).
-    ``use_pallas``: the flash-attention kernel (True) or ``_sdpa``."""
-    q, k, v = _qkv(params, x, cfg, positions)
+    ``use_pallas``: the flash-attention kernel (True) or ``_sdpa``.
+    Under rules, the rank's heads (``heads_of``) on its rows."""
+    heads = heads_of(params, cfg)
+    q, k, v = _qkv(params, x, cfg, positions, heads)
+    B, S, H, dh = q.shape
+    shard_logical(q, ("batch", "seq", "heads", None),
+                  (None, S, cfg.num_heads, dh))
+    ka, va = _attended(k, heads), _attended(v, heads)
     if use_pallas:
-        out = flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=True, window=window)
+        out = flash_attention(q.contiguous(), ka.contiguous(),
+                              va.contiguous(), causal=True, window=window)
     else:
-        B, S, H, hd = q.shape
-        out = _sdpa(q.reshape(B, S, cfg.num_kv_heads, H // cfg.num_kv_heads,
-                              hd), k, v, window=window).reshape(B, S, H, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, ({"k": k, "v": v} if build_cache else None)
+        out = _sdpa(q.reshape(B, S, heads.a, H // heads.a, dh), ka, va,
+                    window=window).reshape(B, S, H, dh)
+    y = _out_proj(out, params, heads)
+    if not build_cache:
+        return y, None
+    k, v = _whole_kv(k, v, heads)
+    return y, {"k": k, "v": v}
 
 
 def _cache_write(buf: torch.Tensor, val: torch.Tensor,
@@ -191,10 +285,13 @@ def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     t, slot: (B,) absolute position of each row's new token and its
     write index; positions_buf: (B,W) absolute position held by each
     slot (−1 = empty), already updated for this step. Every row decodes
-    at its own position and masks against its own positions."""
+    at its own position and masks against its own positions. Under
+    rules, the rank's query heads against the KV heads they read; the
+    cache holds every KV head of the rank's rows."""
     B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _qkv(params, x, cfg, t[:, None])
+    heads = heads_of(params, cfg)
+    q, k, v = _qkv(params, x, cfg, t[:, None], heads)
+    k, v = _whole_kv(k, v, heads)
     if "k_scale" in cache:
         kq, ks = _quantize(k)
         vq, vs = _quantize(v)
@@ -213,10 +310,13 @@ def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     valid = (positions_buf >= 0) & (positions_buf <= tt)
     if window is not None:
         valid &= (tt - positions_buf) < window
-    qg = q.reshape(B, 1, KV, H // KV, hd)
+    H, dh = q.shape[2], q.shape[3]
+    if heads.a < kd.shape[2]:
+        kd = kd.narrow(2, heads.a0, heads.a)
+        vd = vd.narrow(2, heads.a0, heads.a)
+    qg = q.reshape(B, 1, heads.a, H // heads.a, dh)
     out = _sdpa_masked(qg, kd, vd, valid[:, None, None, None, :])
-    y = torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, hd), params["wo"])
-    return y, new_cache
+    return _out_proj(out.reshape(B, 1, H, dh), params, heads), new_cache
 
 
 def init_gqa_cache(cfg, B: int, cache_len: int, dtype: torch.dtype,

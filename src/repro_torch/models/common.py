@@ -6,19 +6,119 @@ Every block exposes ``init_*(gen, cfg, dtype) -> params`` and a pure
 does over pytrees. Weights are drawn from a ``torch.Generator`` on the
 generator's device: same distributions as the reference's ``jax.random``
 draws, other bits, so parity tests carry the reference's params across
-(``repro_torch.interop``). The reference's logical sharding annotations
-and scan-unroll switch have no meaning on one card and are left out;
-its remat switch comes with the dry run that turns it on (ROADMAP
-A17, second half).
+(``repro_torch.interop``). Under fake tensors (the dry run's
+``FakeTensorMode``) an init draws nothing and returns a tensor of the
+shape and dtype alone, as the reference's ``jax.eval_shape`` of its
+init does.
+
+Logical sharding rules (``set_logical_rules``, ``logical_rules``): a
+launcher installs a ``repro_torch.sharding.spec.LogicalRules`` and the
+model functions then run one rank's share of a tensor-parallel step on
+its local params (ROADMAP A17: the dense GQA decoders' serving). Where
+the reference's ``shard_logical`` is a constraint that GSPMD turns into
+collectives, the port's checks that a tensor's local shape is what the
+rules give and raises if not; the collectives sit where the math needs
+them (``tp_reduce``, ``tp_gather``, ``fsdp_gather``), each through
+``repro_torch.sharding.dist``'s recorded ops. With no rules installed
+every model function runs as it does on one card. The reference's
+scan-unroll switch has no meaning in eager mode (every layer runs and
+is counted), and its remat switch comes with tensor-parallel training
+(ROADMAP A17).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.sharding import dist
+from repro_torch.sharding.spec import entry_axes
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding rules
+# ---------------------------------------------------------------------------
+_tls = threading.local()
+
+
+def set_logical_rules(rules) -> None:
+    _tls.rules = rules
+
+
+def get_logical_rules():
+    return getattr(_tls, "rules", None)
+
+
+@contextlib.contextmanager
+def logical_rules(rules):
+    prev = get_logical_rules()
+    set_logical_rules(rules)
+    try:
+        yield
+    finally:
+        set_logical_rules(prev)
+
+
+def shard_logical(x: torch.Tensor, names: Tuple[Optional[str], ...],
+                  dims: Tuple[Optional[int], ...]) -> torch.Tensor:
+    """Check that ``x`` (local) has the shape the installed rules give a
+    tensor of global ``dims`` (None: not checked) with logical axes
+    ``names``; returns ``x``. A no-op without rules."""
+    rules = get_logical_rules()
+    if rules is None:
+        return x
+    want = rules.expected(names, dims)
+    got = tuple(x.shape)
+    if len(want) != len(got) or any(w is not None and w != g
+                                    for w, g in zip(want, got)):
+        raise ValueError(f"local shape {got} of a {names} tensor is not "
+                         f"the rules' {want} (global {tuple(dims)})")
+    return x
+
+
+def tp_reduce(x: torch.Tensor, role: str = "tp_reduce") -> torch.Tensor:
+    """Sum ``x``'s partial sums over the tensor axis of the installed
+    rules (in place)."""
+    rules = get_logical_rules()
+    return dist.all_reduce(x, rules.mesh, (rules.tp,), role=role)
+
+
+def tp_gather(x: torch.Tensor, dim: int, role: str) -> torch.Tensor:
+    """The tensor axis's blocks of ``x`` concatenated along ``dim``."""
+    rules = get_logical_rules()
+    return dist.all_gather(x, rules.mesh, (rules.tp,), dim, role=role)
+
+
+def tp_index() -> int:
+    """This rank's index on the tensor axis (0 without rules)."""
+    rules = get_logical_rules()
+    return rules.index(rules.tp) if rules is not None else 0
+
+
+def fsdp_gather(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``x`` with every dim its placement ``axes`` shards over a
+    non-tensor axis (an fsdp dim) gathered whole: the ZeRO-3 gather at
+    use. Returns ``x`` itself when no dim is so sharded."""
+    rules = get_logical_rules()
+    for dim, entry in enumerate(axes):
+        ax = tuple(a for a in entry_axes(entry) if a != rules.tp)
+        if ax:
+            x = dist.all_gather(x, rules.mesh, ax, dim, role="fsdp_gather")
+    return x
+
+
+def fsdp_gather_tree(tree, axes):
+    """``fsdp_gather`` over every leaf of a nested dict and its
+    placement tree (the same keys)."""
+    if isinstance(tree, dict):
+        return {k: fsdp_gather_tree(v, axes[k]) for k, v in tree.items()}
+    return fsdp_gather(tree, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -27,6 +127,8 @@ import torch.nn.functional as F
 def _trunc_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     """Standard normal truncated to [−2, 2], f32, on ``gen``'s device."""
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if is_fake(w):   # shapes only: the draw loops on its values
+        return w
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     return w

@@ -38,6 +38,24 @@ route, as in the reference.
 Sinusoidal positions take the reference's two routes: the full-sequence
 table in numpy f64 rounded to f32 (``_embed``, ``_encode``), and each
 row's own position in f32 on the device in ``decode_step``.
+
+Tensor-parallel serving (ROADMAP A17): under installed logical rules
+(``models.common.logical_rules``) ``prefill``, ``decode_step`` and
+``init_cache`` run one rank's share on its local params, batch rows and
+cache (``repro_torch.launch.steps.place_for_rank`` cuts them): the
+embedding is vocab-parallel (ids outside the rank's slice of the table
+masked, one ``vocab`` all-reduce), the vocab projection gives the
+rank's slice of the logits, masked by their global ids, and one
+``vocab`` all-gather makes them whole, so the greedy token is the
+unsharded argmax's. Where the rules also shard a table's model dim
+over an fsdp axis (``cross_silo``), the rank gathers the table at use,
+or, where that moves fewer bytes (``moves_rows``: a decode step of
+fewer rows than the rank's vocab ids), moves its fsdp group's rows
+instead (``fsdp_rows``: the ids and the looked-up columns; the head's
+input and its partial logits). Only the dense GQA decoders run
+so (TinyLlama, CodeQwen1.5, Qwen2.5, Granite); any other config under
+rules, and the full forward (training's), are refused naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,8 +70,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       fsdp_gather, get_logical_rules,
                                        init_norm, sinusoidal_position_at,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, tp_gather,
+                                       tp_index, tp_reduce)
+from repro_torch.sharding import dist
+from repro_torch.sharding.spec import entry_axes
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
@@ -99,10 +121,63 @@ class Model:
     def _enc_types(self):
         return ("attn",) * self.cfg.encoder_layers
 
+    def _table(self, params: Dict, key: str) -> torch.Tensor:
+        """``params[key]`` with its fsdp dims gathered under rules."""
+        rules = get_logical_rules()
+        if rules is None or not rules.fsdp_live:
+            return params[key]
+        return fsdp_gather(params[key], rules.param_axes[key])
+
+    def _vocab_block(self, table: torch.Tensor, dim: int):
+        """(first global id, ids) of the rank's block of the vocab dim
+        ``dim`` of ``table``."""
+        n = table.shape[dim]
+        return (tp_index() * n if n < self.cfg.padded_vocab else 0), n
+
+    def _fsdp_rows(self, key: str, vdim: int, tokens: int, head: bool):
+        """The live fsdp axes of the table ``key``'s model dim (the one
+        that is not its vocab dim ``vdim``) where the rules shard it
+        there and moving the fsdp group's ``tokens`` rows costs less
+        than gathering the table (``moves_rows``); else None."""
+        rules = get_logical_rules()
+        if rules is None or not rules.fsdp_live:
+            return None
+        ax = tuple(a for a in entry_axes(rules.param_axes[key][1 - vdim])
+                   if a != rules.tp and rules.size(a) > 1)
+        if not ax or not moves_rows(tokens * rules.size(ax), self.cfg.d_model,
+                                    local_vocab(self.cfg, rules), head):
+            return None
+        return ax
+
     def _tok_embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its backward on the card sums a token's rows in a
         # fixed order, so a trained step's bits do not vary run to run
-        return F.embedding(tokens.long(), params["embed"])
+        rules = get_logical_rules()
+        ax = self._fsdp_rows("embed", 0, tokens.numel(), head=False)
+        if ax is None:
+            table = self._table(params, "embed")
+        else:
+            # the fsdp group's ids, looked up in the rank's columns of
+            # the table, the columns gathered after: rows move, not the
+            # table
+            B, table = tokens.shape[0], params["embed"]
+            tokens = dist.all_gather(tokens, rules.mesh, ax, 0,
+                                     role="fsdp_rows")
+        v0, n = self._vocab_block(table, 0)
+        if n == self.cfg.padded_vocab:
+            x = F.embedding(tokens.long(), table)
+        else:
+            # vocab-parallel: a row of another rank's block is zeros
+            # here, and the sum over the tensor axis adds one row to zeros
+            ids = tokens.long() - v0
+            mine = (ids >= 0) & (ids < n)
+            x = F.embedding(torch.where(mine, ids, 0), table)
+            x = tp_reduce(x * mine[..., None].to(x.dtype), "vocab")
+        if ax is not None:
+            x = dist.all_gather(x, rules.mesh, ax, x.dim() - 1,
+                                role="fsdp_rows").narrow(
+                0, rules.index(ax) * B, B)
+        return x
 
     def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Token embeddings, after the image embeddings where the config
@@ -154,12 +229,31 @@ class Model:
         """Vocab projection over the padded table; padding logits −1e30."""
         cfg = self.cfg
         if cfg.tie_embeddings:
-            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+            table = self._table(params, "embed")
+            v0, n = self._vocab_block(table, 0)
+            logits = torch.einsum("bsd,vd->bsv", x, table)
         else:
-            logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+            rules = get_logical_rules()
+            ax = self._fsdp_rows("lm_head", 1, x.shape[0] * x.shape[1],
+                                 head=True)
+            if ax is None:
+                table = self._table(params, "lm_head")
+                logits = torch.einsum("bsd,dv->bsv", x, table)
+            else:
+                # the fsdp group's rows against the rank's rows of the
+                # table, the partial logits summed over the group
+                table, f, B = params["lm_head"], rules.index(ax), x.shape[0]
+                xg = dist.all_gather(x, rules.mesh, ax, 0, role="fsdp_rows")
+                part = torch.einsum("bsd,dv->bsv", xg.narrow(
+                    2, f * table.shape[0], table.shape[0]), table)
+                logits = dist.all_reduce(part, rules.mesh, ax,
+                                         role="fsdp_rows").narrow(0, f * B, B)
+            v0, n = self._vocab_block(table, 1)
         if cfg.padded_vocab != cfg.vocab_size:
-            vid = torch.arange(cfg.padded_vocab, device=x.device)
+            vid = v0 + torch.arange(n, device=x.device)
             logits = torch.where(vid < cfg.vocab_size, logits, NEG_INF)
+        if n < cfg.padded_vocab:
+            logits = tp_gather(logits, -1 % logits.dim(), "vocab")
         return logits
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -168,9 +262,30 @@ class Model:
                                               self.cfg))
 
     # ---------------------------------------------------------- full forward
+    def _check_rules(self, what: str) -> None:
+        """Refuse what tensor parallelism does not run yet (ROADMAP
+        A17): any config but a dense GQA decoder, the sequence-sharded
+        rules, and the full forward (training)."""
+        rules = get_logical_rules()
+        if rules is None:
+            return
+        cfg = self.cfg
+        if what == "apply":
+            raise ValueError("tensor-parallel training (the full forward "
+                             "under logical rules) is ROADMAP A17, the "
+                             "next slice")
+        if rules.seq_shard:
+            raise ValueError("sequence-sharded rules (seq_shard) are "
+                             "ROADMAP A17: the long-context decode")
+        if not tp_supported(cfg):
+            raise ValueError(f"{cfg.name}: tensor-parallel serving runs the "
+                             "dense GQA decoders only; MoE, MLA, Mamba2, "
+                             "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+
     def apply(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
         """Full causal forward. Returns (logits (B,S,V) over the text
         positions, aux)."""
+        self._check_rules("apply")
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -218,7 +333,9 @@ class Model:
         """Forward + decode cache. Returns (last-position logits
         (B,1,V), cache). S, the cache's ``t`` after prefill, counts the
         image tokens; an encoder-decoder cache carries ``enc_kv``, the
-        decoder's cross K/V."""
+        decoder's cross K/V. Under rules, the rank's rows: (B_loc,1,V)
+        logits and its block of the cache."""
+        self._check_rules("prefill")
         x = self._embed(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None]
@@ -270,7 +387,14 @@ class Model:
                    quant_kv: bool = False) -> Dict:
         """Empty decode cache (serving from scratch). ``quant_kv`` stores
         the GQA caches' K and V in int8 with f16 scales; MLA and the
-        recurrent states ignore it, as in the reference."""
+        recurrent states ignore it, as in the reference. Under rules,
+        ``B`` is the global batch and the cache the rank's block of it
+        (``sharding.spec.cache_shardings``: the rows over the data axes
+        where B divides them)."""
+        self._check_rules("init_cache")
+        rules = get_logical_rules()
+        if rules is not None:
+            B = rules.cache_rows(B)
         cfg, dtype = self.cfg, self.dtype
         runs = {}
         for i, (btype, n) in enumerate(tfm.segment_runs(cfg.layer_types)):
@@ -301,7 +425,9 @@ class Model:
         The lockstep form runs as the per-slot form with every row equal.
         Without rope, each row adds the sinusoidal embedding of its own
         position; an ``enc_kv`` in the cache passes through unchanged.
+        Under rules, the rank's rows and its block of the cache.
         """
+        self._check_rules("decode_step")
         t = cache["t"]
         vec = t.dim() > 0
         B = tokens.shape[0]
@@ -327,6 +453,32 @@ class Model:
         if enc_kv is not None:
             new_cache["enc_kv"] = enc_kv
         return logits, new_cache
+
+
+def moves_rows(tokens: int, d: int, v_loc: int, head: bool) -> bool:
+    """Under a vocab table whose model dim d is sharded over an fsdp
+    axis, whether a rank moves its fsdp group's ``tokens`` rows rather
+    than gather the table's (v_loc, d) block: the rows' cost is
+    tokens·d (the embedding's looked-up columns; its ids are smaller)
+    or tokens·(d + 2·v_loc) (the head: its input gathered, its partial
+    logits all-reduced), the table's v_loc·d. A decode step moves rows
+    where its group has fewer rows than v_loc; a long prefill's
+    embedding gathers the table."""
+    moved = tokens * (d + 2 * v_loc) if head else tokens * d
+    return moved < v_loc * d
+
+
+def local_vocab(cfg: ModelConfig, rules) -> int:
+    """A rank's ids of the padded vocab under ``rules``."""
+    return rules.local_extent("vocab", cfg.padded_vocab)
+
+
+def tp_supported(cfg: ModelConfig) -> bool:
+    """A config tensor-parallel serving runs: a decoder of dense GQA
+    attention blocks, with no encoder and no image tokens."""
+    return (set(cfg.layer_types) == {"attn"} and not cfg.use_mla
+            and not cfg.num_experts and not cfg.encoder_layers
+            and not cfg.num_image_tokens and not cfg.mtp_depth)
 
 
 def batch_extras(cfg: ModelConfig) -> Dict[str, tuple]:

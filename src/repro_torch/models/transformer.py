@@ -22,6 +22,13 @@ applies its layers in order.
 
 ``stack_full``'s ``use_pallas`` picks the attention and SSD route of
 every block (``attention.gqa_full``, ``ssm.mamba2_full``).
+
+Under installed logical rules (``models.common``) the dense MLP is
+Megatron's: ``w_gate``/``w_in`` (and ``b_in``) column-parallel,
+``w_out`` row-parallel, followed by one ``tp_reduce``; ``b_out`` is
+added once, after the sum. Where the rules' spec shards params over an
+fsdp axis, each layer's params are gathered whole over it at use
+(``fsdp_gather``) and dropped after the layer.
 """
 from __future__ import annotations
 
@@ -33,8 +40,10 @@ import torch.nn.functional as F
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
-from repro_torch.models.common import (apply_norm, dense_init, init_norm,
-                                       swiglu, zeros_init)
+from repro_torch.models.common import (apply_norm, dense_init,
+                                       fsdp_gather_tree, get_logical_rules,
+                                       init_norm, shard_logical, swiglu,
+                                       tp_reduce, zeros_init)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 # block types with attention (and its KV cache)
@@ -76,13 +85,21 @@ def init_mlp(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Under rules, the rank's block of the hidden units: the partial
+    sums of ``w_out`` are reduced over the tensor axis before
+    ``b_out``."""
     if "w_gate" in params:
         h = swiglu(x @ params["w_gate"], x @ params["w_in"])
-        return h @ params["w_out"]
-    # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
-               approximate="tanh").to(x.dtype)
-    return h @ params["w_out"] + params["b_out"]
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
+                   approximate="tanh").to(x.dtype)
+    F_ = params["w_out"].shape[0]
+    shard_logical(h, ("batch", "seq", "ffn"), (None, None, cfg.d_ff))
+    y = h @ params["w_out"]
+    if F_ < cfg.d_ff:
+        y = tp_reduce(y)
+    return y if "b_out" not in params else y + params["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +223,19 @@ def _run_params(params: dict, i: int, btype: str, n: int):
     return [tree_unflatten(treedef, list(ls)) for ls in layers]
 
 
+def _at_use(p: dict, i: int, n: int) -> dict:
+    """Layer params ``p`` of run i with their fsdp dims gathered whole
+    (the installed rules' ``param_axes``); ``p`` itself without rules or
+    without an fsdp axis."""
+    rules = get_logical_rules()
+    if rules is None or not rules.fsdp_live:
+        return p
+    axes = rules.param_axes["stack"][f"run{i}"]
+    if n > 1:   # the stacked layer axis was unbound away
+        axes = tree_map(lambda a: a[1:], axes)
+    return fsdp_gather_tree(p, axes)
+
+
 def _slice_enc(enc_kv, j: int):
     """Layer j's cross K/V of ``enc_kv`` (stacked (layers, ...)), or
     None."""
@@ -244,9 +274,10 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
         cs = []
         for j, p in enumerate(_run_params(params, i, btype, n)):
             x, c, a = block_full(
-                p, x, cfg, btype, positions=positions, window=window,
-                build_cache=build_cache, enc_kv=_slice_enc(enc_kv, j),
-                causal=causal, use_pallas=use_pallas)
+                _at_use(p, i, n), x, cfg, btype, positions=positions,
+                window=window, build_cache=build_cache,
+                enc_kv=_slice_enc(enc_kv, j), causal=causal,
+                use_pallas=use_pallas)
             cs.append(c)
             if a is not None:
                 aux = aux + a
@@ -264,8 +295,8 @@ def stack_step(params: dict, x: torch.Tensor, cfg, caches: dict, *, t, slot,
         cs = []
         for j, p in enumerate(_run_params(params, i, btype, n)):
             x, c = block_step(
-                p, x, cfg, btype, _layer(caches[key], j), t=t, slot=slot,
-                positions_buf=positions_buf, window=window,
+                _at_use(p, i, n), x, cfg, btype, _layer(caches[key], j),
+                t=t, slot=slot, positions_buf=positions_buf, window=window,
                 enc_kv=_slice_enc(enc_kv, j))
             cs.append(c)
         new_caches[key] = _stack(cs)

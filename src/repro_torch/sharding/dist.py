@@ -21,14 +21,28 @@ tensors, and each ``jax.lax.psum``/``pmin`` of the reference becomes an
     a ``CollectiveOp`` in ``repro_torch.sharding.hlo``. Over no axes, or
     axes of size 1, they are the identity and record nothing. gloo has
     no all-gather of CUDA tensors: under gloo that op is staged through
-    pinned host memory and recorded as staged. NCCL never stages.
+    one pinned host buffer (the blocks, then a single copy to the card,
+    ordered there) and recorded as staged. NCCL never stages.
   * ``spawn(fn, world, args, device)`` runs ``fn(rank, world, *args)``
     in ``world`` fresh processes on a ``file://`` rendezvous, so
     parallel test workers never share a port.
+  * ``AbstractMesh(shape, coords)`` is a mesh with no process group:
+    the ``{axis: size}`` shape and this rank's coordinates. Its
+    collectives record the op and return a tensor of the result's shape
+    (``x`` for a reduce, an empty tensor for a gather), so a program
+    written for ranks runs on fake tensors for one rank of a mesh no
+    machine here has (the dry run).
+
+Every collective takes a ``role``, kept in its record: the serving
+path's are ``tp_reduce`` (a row-parallel product's partial sums),
+``kv_gather`` (KV heads for the cache), ``vocab`` (the vocab-parallel
+embedding and the logits) and ``fsdp_gather`` (a layer's fsdp dims at
+use).
 """
 from __future__ import annotations
 
 import itertools
+import math
 import os
 import shutil
 import tempfile
@@ -38,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding import hlo
-from repro_torch.sharding.spec import mesh_shape
+from repro_torch.sharding.spec import axes_size, mesh_shape
 
 
 class Runtime(NamedTuple):
@@ -150,8 +164,32 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return mesh
 
 
+class AbstractMesh:
+    """A mesh of ``shape`` ({axis: size}, in dimension order) seen from
+    the rank at ``coords`` ({axis: index}, every axis at 0 by default),
+    with no process group behind it."""
+
+    def __init__(self, shape: Dict[str, int], coords: Dict[str, int] = None):
+        self.shape = {a: int(n) for a, n in shape.items()}
+        self.coords = {a: 0 for a in self.shape}
+        self.coords.update(coords or {})
+        for a, i in self.coords.items():
+            if not 0 <= i < self.shape[a]:
+                raise ValueError(f"coordinate {a}={i} is off the mesh "
+                                 f"{self.shape}")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape}, coords={self.coords})"
+
+
 def coords(mesh) -> Dict[str, int]:
     """This rank's ``{axis: index}`` on ``mesh``."""
+    if isinstance(mesh, AbstractMesh):
+        return dict(mesh.coords)
     c = mesh.get_coordinate()
     return dict(zip(mesh.mesh_dim_names, c))
 
@@ -174,39 +212,64 @@ def _live(mesh, axes) -> Tuple[str, ...]:
     return tuple(a for a in axes if shape[a] > 1)
 
 
+def _dtype(x: torch.Tensor) -> str:
+    return str(x.dtype).replace("torch.", "")
+
+
 def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", *, role: str = "") -> torch.Tensor:
     """Sum or min of ``x`` over the ranks spanned by ``axes``, in place;
     returns ``x``."""
     axes = _live(mesh, axes)
     if not axes:
         return x
-    group, ranks = _group(mesh, axes)
-    rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
-    dist.all_reduce(x, op=rop, group=group)
+    if isinstance(mesh, AbstractMesh):
+        n = axes_size(mesh, axes)
+    else:
+        group, ranks = _group(mesh, axes)
+        n = len(ranks)
+        rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+        dist.all_reduce(x, op=rop, group=group)
     hlo.record(hlo.CollectiveOp(
-        "all-reduce", x.numel() * x.element_size(), len(ranks), axes,
-        str(x.dtype).replace("torch.", ""), tuple(x.shape), op, False))
+        "all-reduce", x.numel() * x.element_size(), n, axes, _dtype(x),
+        tuple(x.shape), op, False, role))
     return x
 
 
 def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
-               dim: int = 0) -> torch.Tensor:
+               dim: int = 0, *, role: str = "") -> torch.Tensor:
     """The blocks ``x`` of every rank spanned by ``axes``, concatenated
     along ``dim`` in the blocked row-major order of ``axes`` (the order
     ``repro_torch.core.flat.local_slab`` cuts them in)."""
     axes = _live(mesh, axes)
     if not axes:
         return x
+    if isinstance(mesh, AbstractMesh):
+        n = axes_size(mesh, axes)
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_empty(shape)
+        hlo.record(hlo.CollectiveOp(
+            "all-gather", out.numel() * out.element_size(), n, axes,
+            _dtype(x), tuple(out.shape), "", False, role))
+        return out
     group, ranks = _group(mesh, axes)
     rt = runtime()
     staged = rt.backend == "gloo" and x.device.type == "cuda"
     src = x.contiguous()
     if staged:
+        # one pinned (ranks, *block) buffer: gloo writes each block into
+        # it, one host-to-device copy takes it to the card, and the
+        # blocks are put in order there
         src = torch.empty(src.shape, dtype=src.dtype,
                           pin_memory=True).copy_(src)
-    parts = [torch.empty_like(src) for _ in ranks]
-    dist.all_gather(parts, src, group=group)
+        buf = torch.empty((len(ranks),) + tuple(src.shape), dtype=src.dtype,
+                          pin_memory=True)
+        dist.all_gather(list(buf.unbind(0)), src, group=group)
+        parts = buf.to(x.device, non_blocking=True).unbind(0)
+    else:
+        parts = [torch.empty_like(src) for _ in ranks]
+        dist.all_gather(parts, src, group=group)
     # group ranks -> blocks in the order of ``axes``
     shape = mesh_shape(mesh)
     names = list(mesh.mesh_dim_names)
@@ -221,11 +284,9 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
 
     order = sorted(range(len(ranks)), key=lambda i: block(ranks[i]))
     out = torch.cat([parts[i] for i in order], dim=dim)
-    if staged:
-        out = out.to(x.device, non_blocking=True)
     hlo.record(hlo.CollectiveOp(
         "all-gather", out.numel() * out.element_size(), len(ranks), axes,
-        str(x.dtype).replace("torch.", ""), tuple(out.shape), "", staged))
+        _dtype(x), tuple(out.shape), "", staged, role))
     return out
 
 

@@ -18,6 +18,10 @@ module's log, and the checks read the log:
     stays below the bytes of the global slabs the unsharded step holds;
     ``assert_peak_within_local`` bounds it by the rank's own slabs.
 
+  * ``assert_no_param_gather``: a ``cross_device`` tensor-parallel
+    serve step moves no param and crosses no data axis: its ops are the
+    roles ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``.
+
 ``CollectiveOp.wire_bytes`` is ``repro/roofline.py``'s ring rule. The
 fleet's cohort-materialization report waits for a meshed fleet loop
 (ROADMAP A17, second half).
@@ -39,6 +43,7 @@ class CollectiveOp:
     shape: Tuple[int, ...] = ()    # the result's shape
     op: str = "sum"                # reduce op of an all-reduce
     staged: bool = False           # went through pinned host memory
+    role: str = ""                 # what the op is for (dist's roles)
 
     @property
     def elems(self) -> int:
@@ -147,6 +152,31 @@ def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
             f"full-precision client delta (>= ({c_loc}, {n_loc}) f32) "
             f"crossed the client shard boundary: {rep}")
     return rep
+
+
+# the roles a tensor-parallel serve step's collectives may have on a
+# cross_device mesh: none moves a param
+SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab")
+
+
+def assert_no_param_gather(ops: Sequence[CollectiveOp], spec) -> Dict:
+    """In a ``cross_device`` serve step no collective moves a param
+    (every op is a partial-sum reduce, a KV gather or a vocab op, none
+    an fsdp gather) and none crosses the data axes (the client axes of
+    ``spec``, a FederationSpec): a model replica lives within one
+    ``model`` group."""
+    if spec.fsdp_axes:
+        raise ValueError("assert_no_param_gather checks a cross_device "
+                         f"step; this spec shards params over "
+                         f"{spec.fsdp_axes}")
+    data = set(spec.client_axes) | {"pod", "data"}
+    bad = [c for c in ops if c.role not in SERVE_ROLES
+           or data.intersection(c.axes)]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(ops)} collectives move a "
+                             f"param or cross the data axes: {bad[:4]}")
+    return {"collectives": len(ops),
+            "roles": {r: sum(c.role == r for c in ops) for r in SERVE_ROLES}}
 
 
 def global_slab_bytes(C: int, N: int, slabs: int = 3) -> int:

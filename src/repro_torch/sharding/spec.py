@@ -23,9 +23,15 @@ PartitionSpec object.
 
 The parameter rules (``param_pspec``, ``_resolve_conditional``,
 ``_dedupe``) are pure functions that return one entry per tensor dim:
-None, an axis name, or a tuple of names. Applying them to tensors
-(``DTensor`` or FSDP/TP on the card), the batch and cache placements and
-the logical activation rules come with the second half of ROADMAP A17.
+None, an axis name, or a tuple of names. ``param_placements``,
+``batch_shardings``, ``serve_batch_shardings`` and ``cache_shardings``
+apply them to whole trees (the reference's ``make_param_shardings`` and
+its batch and cache rules, as trees of such tuples), ``local_block``
+cuts one rank's block out of a whole tensor and ``shard_bytes`` counts
+a rank's bytes of a tree. ``LogicalRules`` maps the models' logical
+activation names to mesh axes; the models read it through
+``repro_torch.models.common.logical_rules``, and it knows this rank's
+coordinates, so a model function can slice and reduce by it.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import math
 import re
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 Axes = Tuple[str, ...]
 
@@ -247,3 +255,215 @@ def param_axes(spec: FederationSpec, mesh, path: str, shape) -> tuple:
     tp_axis = spec.tp_axes[0] if spec.tp_axes else None
     ps = param_pspec(spec, path, len(tuple(shape)))
     return _dedupe(_resolve_conditional(ps, shape, mesh, tp_axis))
+
+
+def _entry(axes: Axes):
+    """One spec entry for ``axes``: None, the name, or the tuple (the
+    reference's normalisation of one-axis tuples)."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def entry_axes(entry) -> Axes:
+    """The axes of one spec entry, as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(int(d) for d in leaf.shape)
+
+
+def _map_with_path(fn, tree):
+    """``fn("a/b/c", leaf)`` over a nested dict, the reference's path
+    strings; the result has the tree's structure."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn("/".join(p), leaf)
+                                    for p, leaf in zip(treedef, leaves)])
+
+
+def param_placements(spec: FederationSpec, mesh, params) -> dict:
+    """The axes of every leaf of ``params`` (tensors, fake tensors or
+    anything with ``shape``): the reference's ``make_param_shardings``
+    as a tree of entry tuples."""
+    return _map_with_path(
+        lambda p, leaf: param_axes(spec, mesh, p, _shape(leaf)), params)
+
+
+def batch_shardings(spec: FederationSpec, mesh, batch) -> dict:
+    """FL round batches, leaves (C, K, b, ...): C over the client axes,
+    b over the fsdp axes."""
+    ca = _entry(spec.client_axes)
+    fa = spec.fsdp_axes[0] if spec.fsdp_axes else None
+
+    def one(leaf):
+        nd = len(_shape(leaf))
+        return tuple(([ca, None, fa] + [None] * nd)[:nd])
+
+    return _map_with_path(lambda p, leaf: one(leaf), batch)
+
+
+def serve_batch_shardings(mesh, batch, *, data_axes=("data",)) -> dict:
+    """Serving: the batch dim over every data-like axis of the mesh,
+    whatever the spec; a batch of one row stays whole."""
+    shape = mesh_shape(mesh)
+    axes = _entry(tuple(a for a in ("pod",) + tuple(data_axes)
+                        if a in shape))
+
+    def one(leaf):
+        s = _shape(leaf)
+        if not s:
+            return ()
+        return ((None if s[0] == 1 else axes),) + (None,) * (len(s) - 1)
+
+    return _map_with_path(lambda p, leaf: one(leaf), batch)
+
+
+def cache_shardings(spec: FederationSpec, mesh, cache, *, batch_size: int,
+                    seq_shard: bool = False) -> dict:
+    """Decode caches: the batch dim over the data axes when the batch
+    divides them; otherwise (B too small) the next (sequence or state)
+    dim over ``model``. ``seq_shard`` also shards the sequence dim of a
+    batch-sharded cache over ``model`` (from 1,024 entries). The
+    KV-head dim is never sharded."""
+    shape = mesh_shape(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in shape)
+    dsize = math.prod(shape[a] for a in data_axes) or 1
+    tp = spec.tp_axes[0] if spec.tp_axes else None
+    tsize = shape.get(tp, 1) if tp else 1
+
+    def one(p, leaf):
+        s = _shape(leaf)
+        dims = [None] * len(s)
+        if not s or p.endswith(("t", "positions")):
+            return tuple(dims)
+        # stacked layer axis first, batch second for run caches
+        bdim = 1 if p.startswith("runs/") or "enc_kv" in p else 0
+        if len(s) > bdim and s[bdim] == batch_size \
+                and batch_size % dsize == 0 and dsize > 1:
+            dims[bdim] = _entry(data_axes)
+            if seq_shard and len(s) > bdim + 1 and tp \
+                    and s[bdim + 1] % tsize == 0 and s[bdim + 1] >= 1024:
+                dims[bdim + 1] = tp
+        elif len(s) > bdim + 1 and tp and s[bdim + 1] % tsize == 0:
+            dims[bdim + 1] = tp
+        return tuple(dims)
+
+    return _map_with_path(one, cache)
+
+
+def local_shape(shape, axes: tuple, mesh) -> Tuple[int, ...]:
+    """A rank's block shape of a whole ``shape`` under ``axes`` (one
+    entry a dim); raises where a dim does not split evenly, as
+    ``NamedSharding.shard_shape`` does."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for d, entry in zip(shape, axes):
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if d % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {entry} ({n} ranks)")
+        out.append(d // n)
+    return tuple(out)
+
+
+def local_block(x, axes: tuple, mesh, coords: Dict[str, int]):
+    """This rank's block of the whole tensor ``x`` under ``axes`` (one
+    entry a dim), for the rank at ``coords`` ({axis: index}): each dim
+    cut into the product of its axes' sizes, blocked row-major in the
+    entry's order. A view where the slices allow."""
+    loc = local_shape(tuple(x.shape), axes, mesh)
+    for dim, (entry, n) in enumerate(zip(axes, loc)):
+        ax = entry_axes(entry)
+        if ax:
+            b = block_index(mesh, ax, coords)
+            x = x.narrow(dim, b * n, n)
+    return x
+
+
+def shard_bytes(tree, placements, mesh) -> int:
+    """A rank's bytes of ``tree`` under ``placements`` (the reference's
+    ``dryrun._shard_bytes``)."""
+    leaves, _ = tree_flatten(tree)
+    axes, _ = tree_flatten(placements)
+    total = 0
+    for leaf, ax in zip(leaves, axes):
+        n = math.prod(local_shape(_shape(leaf), ax, mesh))
+        total += n * leaf.dtype.itemsize
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Logical activation rules (installed by repro_torch.models.common.
+# logical_rules)
+# ---------------------------------------------------------------------------
+class LogicalRules:
+    """Maps logical activation axis names to mesh axes, for the rank at
+    ``coords`` of ``mesh``. serve=True puts the batch over every
+    data-like axis (a global serving batch); serve=False over the fsdp
+    axes. ``seq_shard`` keeps the residual stream sharded over the
+    tensor axis along the sequence (the reference's Megatron-SP
+    analog); the port's models refuse it (ROADMAP A17).
+
+    ``param_axes`` is the params tree's placement
+    (``param_placements``): the models read it to gather a layer's fsdp
+    dims at use. ``coords`` defaults to the mesh's (``dist.coords``)."""
+
+    def __init__(self, spec: FederationSpec, mesh, *, serve: bool = False,
+                 seq_shard: bool = False, coords=None, param_axes=None):
+        shape = mesh_shape(mesh)
+        fsdp = spec.fsdp_axes[0] if spec.fsdp_axes else None
+        tp = spec.tp_axes[0] if spec.tp_axes else None
+        if serve:
+            batch = _entry(tuple(a for a in ("pod", "data") if a in shape))
+        else:
+            batch = fsdp
+        ex = tp
+        if spec.expert_2d:
+            cand = tuple(a for a in (tp, "data") if a in shape)
+            ex = cand if len(cand) > 1 else ex
+        self.map = {"batch": batch, "seq": tp if seq_shard else None,
+                    "embed": None, "heads": tp, "kv_heads": None,
+                    "ffn": tp, "experts": ex, "vocab": tp}
+        if seq_shard:
+            self.map.update(heads=None, ffn=None, experts=tp, vocab=None)
+        self.spec, self.mesh, self.serve = spec, mesh, serve
+        self.seq_shard = seq_shard
+        self.tp = tp
+        self.param_axes = param_axes
+        if coords is None:
+            from repro_torch.sharding import dist
+            coords = dist.coords(mesh)
+        self.coords = dict(coords)
+
+    @property
+    def fsdp_live(self) -> bool:
+        """The spec shards params over an axis of size > 1."""
+        return self.size(self.spec.fsdp_axes) > 1
+
+    def size(self, axes) -> int:
+        shape = mesh_shape(self.mesh)
+        return math.prod(shape.get(a, 1) for a in entry_axes(axes))
+
+    def index(self, axes) -> int:
+        """This rank's block index over ``axes``."""
+        ax = entry_axes(axes)
+        return block_index(self.mesh, ax, self.coords) if ax else 0
+
+    def local_extent(self, name: Optional[str], n: int) -> int:
+        """The local extent of a dim of global extent ``n`` named
+        ``name`` (None: not sharded)."""
+        k = self.size(self.map.get(name)) if name else 1
+        return n // k if n % k == 0 else n
+
+    def cache_rows(self, B: int) -> int:
+        """The rank's rows of a decode cache of ``B`` rows
+        (``cache_shardings``: over the data axes where B divides
+        them)."""
+        shape = mesh_shape(self.mesh)
+        d = math.prod(shape[a] for a in ("pod", "data") if a in shape)
+        return B // d if d > 1 and B % d == 0 else B
+
+    def expected(self, names, dims) -> Tuple[Optional[int], ...]:
+        return tuple(None if d is None else self.local_extent(n, d)
+                     for n, d in zip(names, dims))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``src/repro_torch`` (its
-``sharding`` package included), not ``chip_smoke.py`` and not the sharded
-tests' rank worker ``tests/_torch_dist_worker.py`` imports ``jax`` or the
-reference package ``repro``."""
+``sharding`` package and the dry run's ``launch`` modules included), not
+``chip_smoke.py`` and not the sharded tests' rank workers
+``tests/_torch_dist_worker.py`` and ``tests/_torch_tp_worker.py`` imports
+``jax`` or the reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
+    ROOT / "tests" / "_torch_tp_worker.py"]
 
 
 def _banned(name: str) -> bool:
@@ -71,7 +73,8 @@ def test_port_package_is_complete():
                 "checkpoint/checkpoint.py", "federation/buffer.py",
                 "federation/arena.py", "serving/registry.py",
                 "serving/personalize.py", "serving/loadgen.py",
-                "sharding/spec.py", "sharding/hlo.py"):
+                "sharding/spec.py", "sharding/hlo.py", "launch/dryrun.py",
+                "launch/mesh.py", "launch/specs.py", "roofline.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     # the port's own process-group runtime and rank-local round

@@ -38,6 +38,17 @@ VOCAB = 500
 MODELS = [("tinyllama-1.1b", 2), ("zamba2-7b", 7), ("zamba2-7b", 14)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: its ops are small,
+    and eight threads a worker contend with the other test workers and
+    with XLA's pool in the same process. Put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch, layers):
     """(reference model, its params as numpy, port model, port params)."""

@@ -56,6 +56,17 @@ C, K, B, S = 2, 2, 2, 16
 XLSTM_RTOL = {"eta": 1e-4, "params": 1e-3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: its ops are small,
+    and eight threads a worker contend with the other test workers and
+    with XLA's pool in the same process. Put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rtol(arch, what):
     return XLSTM_RTOL[what] if arch == "xlstm-1.3b" else 1e-5
 

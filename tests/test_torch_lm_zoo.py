@@ -41,6 +41,17 @@ ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b", "codeqwen1.5-7b", "qwen2.5-14b",
 LAYERS = {"xlstm-1.3b": 4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: its ops are small,
+    and eight threads a worker contend with the other test workers and
+    with XLA's pool in the same process. Put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(get, arch):
     return get(arch).reduced(num_layers=LAYERS.get(arch, 2), d_model=D,
                              vocab=VOCAB)

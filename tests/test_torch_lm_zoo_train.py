@@ -46,6 +46,17 @@ NEW = ARCHS[-3:]
 LAYERS = {"xlstm-1.3b": 4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: its ops are small,
+    and eight threads a worker contend with the other test workers and
+    with XLA's pool in the same process. Put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(get, arch):
     return get(arch).reduced(num_layers=LAYERS.get(arch, 2), d_model=D,
                              vocab=VOCAB)

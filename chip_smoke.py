@@ -278,6 +278,38 @@ without its final line:
               round, bitwise equal, K launches of each Δ-SGD kernel each,
               the round's wall, busy, tokens/s and peak allocations as
               for OLMoE; the pair held and timed on InternVL2's slabs.
+  4g. tensor-parallel training  launch.steps.make_train_step's vmap
+              round (Δ-SGD + FedAvg, K = 2, f32 random weights from seed
+              0) on 4 ranks over (data 2, model 2), gloo with every rank
+              on the card (dist.spawn), under the training rules
+              (launch.steps.train_rules, place_train_for_rank). Before
+              the run, each run's collectives a round on a rank
+              (launch.steps.train_collectives) are printed. Unsharded
+              rounds on the card first, each finished and its memory
+              freed before the spawn, their round-end params kept on
+              the host's disk for the ranks: TinyLlama-1.1B whole
+              (cross_device, one client a data rank: C = 2, b = 2, S =
+              256, remat on), Qwen2.5-14B and Granite-20B at full width
+              and 2 layers (cross_silo: one client, FSDP over data, b =
+              4 split over data; remat off, which spares a second gather
+              of each layer's fsdp dims), TinyLlama at 2 layers (remat
+              off). The ranks run TinyLlama whole on the plain route and
+              on the Δ-SGD kernel route (2·K launches a rank), Qwen2.5
+              and Granite, and TinyLlama at 2 layers with remat off and
+              on. Gates: loss and η within 1e-4 relative of the
+              unsharded round; each rank's round-end blocks within
+              1e-5·max|p| of each leaf's unsharded block; every leaf
+              replicated over model bitwise equal on the model ranks;
+              the collectives by role exactly the derived ones;
+              assert_no_param_gather(train=True) on TinyLlama; remat on
+              within 1e-6·max|p| of remat off (bitwise or not printed,
+              both peaks); each rank's peak below the unsharded run's.
+              batched_norms and batched_apply are held against their
+              plain versions at a rank's local slab shapes and timed
+              (rank 0, after the runs). The dry run of TinyLlama's
+              train_4k on the (32, 8) H100 mesh runs meanwhile in a CPU
+              process of its own; its analytic memory and counts are
+              printed beside the measured peaks.
   6b. serving plane  TinyLlama-1.1B whole (22 layers, f32, random
               weights from seed 0), every count at 0 before each part
               and read after. (1) Hot swap: seed 0's params saved as
@@ -345,8 +377,8 @@ without its final line:
               and every cell's kernel launched on the card.
   8. the summary line {"kernels": [...]} (all twelve kernels, with their
               launches by path, the vmap runs of 4c, the runs of 4d, the
-              LM runs of 4e, the ranks' of 4f, the serving plane's of
-              6b and the ranks' of 6c among them;
+              LM runs of 4e, the ranks' of 4f and 4g, the serving
+              plane's of 6b and the ranks' of 6c among them;
               DeepSeek-V3's serve path and the int8 cache's launch none)
               and, last, the device line.
 
@@ -604,6 +636,26 @@ TP_PATHS = {"tinyllama-1.1b": (None, "cross_device", 32),
             "granite-20b": (2, "cross_silo", 8)}
 TP_ROWS, TP_PROMPT, TP_SEED = 4, 64, 0
 TP_REL = 1e-4
+# phase 4g, tensor-parallel training on 4 ranks over (data 2, model 2)
+# (SHARD_MESH): (run, arch, layers kept (None: all), federation, C, b,
+# remat, the Δ-SGD kernel route); TPT_K local steps of TPT_SEQ tokens,
+# f32, random weights from TPT_SEED; loss and η held to the unsharded
+# round's within TPT_REL relative, params within TPT_PARAM_REL·max|p|,
+# remat on to remat off within TPT_REMAT_REL·max|p|
+TPT_RUNS = (
+    ("tinyllama", "tinyllama-1.1b", None, "cross_device", 2, 2, True,
+     False),
+    ("tinyllama_kernel", "tinyllama-1.1b", None, "cross_device", 2, 2,
+     True, True),
+    ("qwen2.5-14b", "qwen2.5-14b", 2, "cross_silo", 1, 4, False, False),
+    ("granite-20b", "granite-20b", 2, "cross_silo", 1, 4, False, False),
+    ("tinyllama_l2_remat_off", "tinyllama-1.1b", 2, "cross_device", 2, 2,
+     False, False),
+    ("tinyllama_l2_remat_on", "tinyllama-1.1b", 2, "cross_device", 2, 2,
+     True, False),
+)
+TPT_K, TPT_SEQ, TPT_SEED = 2, 256, 0
+TPT_REL, TPT_PARAM_REL, TPT_REMAT_REL = 1e-4, 1e-5, 1e-6
 # MoE capacity factor of the decode == full forward gates: prefill of
 # B·S tokens and decode of B drop different choices at the served 1.25
 # (the reference's tests patch the same 8.0)
@@ -4025,6 +4077,413 @@ def run_sharded_path(torch, tk, tref, bw, f32, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g, tensor-parallel training: world-4 ranks over (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+def _tpt_key(run):
+    """The unsharded round a run is held against: (arch, layers,
+    federation, C, b)."""
+    return run[1:6]
+
+
+def _tpt_name(key):
+    arch, layers, fed, C, b = key
+    return f"{arch}_L{layers or 'all'}_{fed}_C{C}_b{b}"
+
+
+def _tpt_model(key):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    arch, layers = key[:2]
+    return build_model(_lm_cfg(arch, layers) if layers else get_config(arch))
+
+
+def _tpt_batch(torch, key, device):
+    """A round's (C, K, b, S) tokens and labels, from TPT_SEED."""
+    import numpy as np
+    model = _tpt_model(key)
+    C, b = key[3], key[4]
+    toks = np.random.default_rng(TPT_SEED).integers(
+        0, model.cfg.vocab_size, (C, TPT_K, b, TPT_SEQ + 1))
+    t = torch.from_numpy(toks).to(device)
+    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+
+
+def _tpt_metrics(m):
+    return {k: float(m[k]) for k in ("loss", "loss_last_step", "eta_mean",
+                                     "eta_min", "eta_max")}
+
+
+def _tpt_unsharded(torch, key, out_dir):
+    """The unsharded round of ``key`` on the card (remat as the first
+    run held against it): its metrics, each leaf's max|p|, ms and peak;
+    its round-end params saved to ``out_dir/<name>.pt`` on the host.
+    The card is emptied after."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import init_fl_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.utils.tree import tree_flatten
+    model = _tpt_model(key)
+    params = model.init(torch.Generator(device="cuda").manual_seed(TPT_SEED))
+    remat = next(r[6] for r in TPT_RUNS if _tpt_key(r) == key)
+    step, sopt, _, _ = make_train_step(model, FLConfig(local_steps=TPT_K),
+                                       remat=remat)
+    state = init_fl_state(params, sopt)
+    batch = _tpt_batch(torch, key, "cuda")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    leaves, treedef = tree_flatten(new.params)
+    maxp = {"/".join(p): float(x.abs().max()) for p, x in zip(treedef,
+                                                                leaves)}
+    torch.save({"/".join(p): x.cpu() for p, x in zip(treedef, leaves)},
+               Path(out_dir) / f"{_tpt_name(key)}.pt")
+    out = {"metrics": _tpt_metrics(m), "maxp": maxp, "round_ms": ms,
+           "peak_bytes": peak, "params": sum(x.numel() for x in leaves)}
+    del new, leaves, m, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Shapes:
+    """Records the shapes a kernel wrapper of ``mod`` is called at, and
+    no tensor."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.shapes = []
+
+    def __enter__(self):
+        def call(*args, **kw):
+            self.shapes.append(tuple(args[0].shape))
+            return self.fn(*args, **kw)
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+
+def _tpt_run(torch, run, mesh, dev, out_dir):
+    """One run of phase 4g on this rank -> (its record, its blocks of
+    the leaves replicated over model, its round-end params on the host
+    where the remat comparison needs them)."""
+    import numpy as np
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import fed_round, init_fl_state
+    from repro_torch.kernels.delta_sgd import delta_sgd as tk
+    from repro_torch.launch.steps import (make_train_step,
+                                          place_train_for_rank,
+                                          train_collectives, train_rules)
+    from repro_torch.models.common import logical_rules
+    from repro_torch.sharding import hlo
+    from repro_torch.sharding.spec import entry_axes, get_federation_spec
+    from repro_torch.sharding.spec import local_block
+    from repro_torch.utils.tree import tree_flatten
+    name, _, _, fed, _, _, remat, kernel = run
+    key = _tpt_key(run)
+    model = _tpt_model(key)
+    spec = get_federation_spec(fed, mesh)
+    whole = model.init(torch.Generator(device=dev).manual_seed(TPT_SEED))
+    rules = train_rules(model, mesh, whole, spec=spec)
+    placed = place_train_for_rank(rules, params=whole,
+                                  batch=_tpt_batch(torch, key, dev),
+                                  device=dev)
+    del whole
+    torch.cuda.empty_cache()
+    step, sopt, _, _ = make_train_step(model, FLConfig(local_steps=TPT_K),
+                                       remat=remat, use_pallas=kernel)
+    state = init_fl_state(placed["params"], sopt)
+    batch = placed["batch"]
+    del placed
+    fedavg_s = []
+    real_sum = fed_round._sum_over_clients
+
+    def timed_sum(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_sum(*a, **kw)
+        torch.cuda.synchronize()
+        fedavg_s.append(time.perf_counter() - t)
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_count()
+    hlo.reset()
+    fed_round._sum_over_clients = timed_sum
+    try:
+        with _Shapes(tk, "batched_norms") as nsh, \
+                _Shapes(tk, "batched_apply") as ash:
+            t0 = time.perf_counter()
+            with logical_rules(rules):
+                new, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        fed_round._sum_over_clients = real_sum
+    peak = torch.cuda.max_memory_allocated()
+    ops = hlo.snapshot()
+    launches = {k: n for k, n in tk.LAUNCHES.items() if k[1] == "cuda"}
+    want = train_collectives(model, rules, local_steps=TPT_K, remat=remat)
+    got = _tp_roles(ops)
+    if got != want:
+        raise AssertionError(f"tp train {name}: collectives {got}, derived "
+                             f"{want}")
+    if fed == "cross_device":
+        hlo.assert_no_param_gather(ops, spec, train=True)
+    if kernel:
+        if launches != {("batched_norms", "cuda"): TPT_K,
+                        ("batched_apply", "cuda"): TPT_K}:
+            raise AssertionError(f"tp train {name}: launches {launches}, "
+                                 f"expected {TPT_K} of each")
+    elif launches:
+        raise AssertionError(f"tp train {name}: the plain route launched "
+                             f"{launches}")
+    # each block against the unsharded round's, read from the host
+    ref = torch.load(Path(out_dir) / f"{_tpt_name(key)}.pt", mmap=True)
+    leaves, treedef = tree_flatten(new.params)
+    axes = tree_flatten(rules.param_axes)[0]
+    errs, replicated, host = {}, {}, {}
+    coord = rules.coords
+    for path, leaf, ax in zip(treedef, leaves, axes):
+        p = "/".join(path)
+        want_blk = local_block(ref[p], ax, mesh, coord).to(dev)
+        errs[p] = float((leaf - want_blk).abs().max())
+        if not any(rules.tp in entry_axes(e) for e in ax):
+            replicated[f"{name}.{p}"] = leaf.cpu().numpy()
+        if name.startswith("tinyllama_l2"):
+            host[p] = leaf.cpu()
+    del ref
+    rec = {"metrics": _tpt_metrics(m), "errs": errs, "wall_s": wall,
+           "fedavg_s": sum(fedavg_s),
+           "step_ms": (wall - sum(fedavg_s)) * 1e3 / TPT_K,
+           "peak_bytes": peak, "collectives": got,
+           "collective_bytes": sum(o.bytes for o in ops),
+           "staged": sum(o.staged for o in ops),
+           "backward_ops": sum(o.backward for o in ops),
+           "launches": {f"{k[0]}": n for k, n in launches.items()},
+           "norms_shapes": sorted(set(nsh.shapes)),
+           "apply_shapes": sorted(set(ash.shapes)),
+           "local_params": sum(x.numel() for x in leaves)}
+    del new, state, batch, leaves, m
+    torch.cuda.empty_cache()
+    return rec, replicated, host
+
+
+def _tpt_kernel_rows(torch, norms_shape, apply_shape, smi, bw, f32):
+    """batched_norms and batched_apply at a rank's local slab shapes of
+    the kernel route, on normal draws: held against their plain versions
+    and timed (``_lm_kernel_rows``' rows) -> {(name, shape): row}."""
+    from repro_torch.kernels.delta_sgd import delta_sgd as tk
+    from repro_torch.kernels.delta_sgd import ref as tref
+    gen = torch.Generator(device="cuda").manual_seed(TPT_SEED)
+    out = {}
+    for name, shape in (("batched_norms", norms_shape),
+                        ("batched_apply", apply_shape)):
+        g, gp, p = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(3))
+        eta = torch.rand((shape[0],), generator=gen, device="cuda") * 0.2
+        rows = _lm_kernel_rows(torch, tk, tref, bw, f32, g, gp, p, eta, smi,
+                               "4g tensor-parallel training, a rank's "
+                               "local slab")
+        out[(name, tuple(shape))] = rows[(name, tuple(shape))]
+        del g, gp, p, eta
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tpt_rank(rank, world, out_dir, runs, smi, bw, f32):
+    """One rank of phase 4g (see run_tp_train_path): each of ``runs``
+    (TPT_RUNS' rows). Writes its records to ``out_dir/rank<rank>.json``
+    and its replicated leaves to ``out_dir/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.sharding import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = dist.make_mesh(*SHARD_MESH)
+    dev = dist.runtime().device
+    res = {"device": str(dev), "coord": dist.coords(mesh), "runs": {}}
+    arrays, remat = {}, {}
+    for run in runs:
+        rec, rep, host = _tpt_run(torch, run, mesh, dev, out_dir)
+        res["runs"][run[0]] = rec
+        arrays.update(rep)
+        if host:
+            remat[run[0]] = host
+    off, on = remat["tinyllama_l2_remat_off"], remat["tinyllama_l2_remat_on"]
+    res["remat"] = {"bitwise": all(torch.equal(off[p], on[p]) for p in off),
+                    "rel": max(float((off[p] - on[p]).abs().max())
+                               / max(float(off[p].abs().max()), 1e-30)
+                               for p in off)}
+    tdist.barrier()
+    if rank == 0:
+        kr = res["runs"]["tinyllama_kernel"]
+        rows = _tpt_kernel_rows(torch, kr["norms_shapes"][0],
+                                kr["apply_shapes"][0], smi, bw, f32)
+        res["kernel_rows"] = [dict(r, key=[k[0], list(k[1])])
+                              for k, r in rows.items()]
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def run_tp_train_path(torch, smi, bw, f32):
+    """Phase 4g. Returns (its launch counts (the ranks' Δ-SGD launches on
+    the card, summed), the Δ-SGD rows at a rank's local slab)."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.launch.specs import params_struct
+    from repro_torch.launch.steps import train_collectives, train_rules
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.spec import get_federation_spec
+    t0 = time.perf_counter()
+    backend, _, why = dist.choose_backend(SHARD_WORLD, "cuda")
+    mesh = dist.AbstractMesh(dict(zip(SHARD_MESH[1], SHARD_MESH[0])))
+    for run in TPT_RUNS:
+        model = _tpt_model(_tpt_key(run))
+        rules = train_rules(model, mesh, params_struct(model),
+                            spec=get_federation_spec(run[3], mesh))
+        print(f"tp train {run[0]}: expected collectives a round on each "
+              "rank", json.dumps(train_collectives(
+                  model, rules, local_steps=TPT_K, remat=run[6])),
+              flush=True)
+    print(f"tp train: world {SHARD_WORLD}, mesh {SHARD_MESH}, backend "
+          f"{backend} ({why}); card {smi}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the dry run of the H100 mesh, on fake tensors in a CPU process
+        # of its own while the card works
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+             tmp], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            torch.cuda.empty_cache()
+            keys = sorted({_tpt_key(r) for r in TPT_RUNS}, key=str)
+            ref = {k: _tpt_unsharded(torch, k, tmp) for k in keys}
+            t_ref = time.perf_counter() - t0
+            dist.spawn(_tpt_rank, SHARD_WORLD,
+                       (tmp, TPT_RUNS, smi, bw, f32), device="cuda")
+            t_ranks = time.perf_counter() - t0 - t_ref
+            ranks = []
+            for r in range(SHARD_WORLD):
+                with open(Path(tmp) / f"rank{r}.json") as f:
+                    ranks.append(json.load(f))
+                with np.load(Path(tmp) / f"rank{r}.npz") as z:
+                    ranks[-1]["arrays"] = {k: z[k] for k in z.files}
+            dry_out, _ = dry.communicate(timeout=600)
+            if dry.returncode:
+                raise AssertionError(f"tp train dry run failed:\n{dry_out}")
+            with open(Path(tmp) / f"{LM_ARCH}_train_4k_single.json") as f:
+                dry_res = json.load(f)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+    for run in TPT_RUNS:
+        name, key = run[0], _tpt_key(run)
+        want = ref[key]
+        recs = [res["runs"][name] for res in ranks]
+        for rec in recs:
+            for k, w in want["metrics"].items():
+                g = rec["metrics"][k]
+                if abs(g - w) > TPT_REL * abs(w):
+                    raise AssertionError(f"tp train {name}: {k} {g} vs the "
+                                         f"unsharded {w}")
+        worst = {}
+        for p, mp in want["maxp"].items():
+            e = max(rec["errs"][p] for rec in recs)
+            worst[p] = e / mp
+            if e > TPT_PARAM_REL * mp:
+                raise AssertionError(f"tp train {name}: {p} differs by {e} "
+                                     f"(tolerance {TPT_PARAM_REL * mp})")
+        # the model replicas of every replicated leaf: the same bits
+        nrep = 0
+        for a in ranks:
+            for b in ranks:
+                if a["coord"]["data"] != b["coord"]["data"] or a is b:
+                    continue
+                for k, v in a["arrays"].items():
+                    if k.startswith(name + "."):
+                        nrep += 1
+                        if not np.array_equal(v, b["arrays"][k]):
+                            raise AssertionError(
+                                f"tp train {name}: replicated leaf {k} "
+                                f"differs between ranks {a['coord']} and "
+                                f"{b['coord']}")
+        peaks_ = [rec["peak_bytes"] for rec in recs]
+        if max(peaks_) >= want["peak_bytes"]:
+            raise AssertionError(f"tp train {name}: a rank's peak "
+                                 f"{max(peaks_)} B is not below the "
+                                 f"unsharded round's {want['peak_bytes']} B")
+        print(f"tp train {name}", json.dumps({
+            "card": smi, "arch": run[1], "layers": _tpt_model(
+                key).cfg.num_layers, "federation": run[3], "C": run[4],
+            "b": run[5], "K": TPT_K, "S": TPT_SEQ, "remat": run[6],
+            "route": "kernel" if run[7] else "plain",
+            "metrics_by_rank": [rec["metrics"] for rec in recs],
+            "unsharded_metrics": want["metrics"],
+            "worst_param_err_over_maxp": max(worst.values()),
+            "replicated_leaf_pairs_bitwise": nrep,
+            "collectives": recs[0]["collectives"],
+            "backward_ops": recs[0]["backward_ops"],
+            "collective_bytes": recs[0]["collective_bytes"],
+            "staged": recs[0]["staged"],
+            "launches_by_rank": [rec["launches"] for rec in recs],
+            "round_s_by_rank": [rec["wall_s"] for rec in recs],
+            "step_ms_by_rank": [rec["step_ms"] for rec in recs],
+            "fedavg_s_by_rank": [rec["fedavg_s"] for rec in recs],
+            "peak_bytes_by_rank": peaks_,
+            "local_params_by_rank": [rec["local_params"] for rec in recs],
+            "unsharded": {k: want[k] for k in ("round_ms", "peak_bytes",
+                                               "params")},
+            "note": "all ranks on one card at once over gloo: a collective "
+                    "is a host round trip, so the times say nothing of "
+                    "NCCL"}), flush=True)
+    rm = [res["remat"] for res in ranks]
+    if max(r["rel"] for r in rm) > TPT_REMAT_REL:
+        raise AssertionError(f"tp train: remat on vs off {rm}")
+    print("tp train remat", json.dumps({
+        "bitwise_by_rank": [r["bitwise"] for r in rm],
+        "max_err_over_maxp": max(r["rel"] for r in rm),
+        "peak_bytes_off_by_rank": [res["runs"]["tinyllama_l2_remat_off"][
+            "peak_bytes"] for res in ranks],
+        "peak_bytes_on_by_rank": [res["runs"]["tinyllama_l2_remat_on"][
+            "peak_bytes"] for res in ranks]}), flush=True)
+    rows = {}
+    for row in ranks[0]["kernel_rows"]:
+        k = row.pop("key")
+        rows[(k[0], tuple(k[1]))] = row
+    print(f"tp train dry run {LM_ARCH} train_4k 32x8", json.dumps({
+        "analytic_memory": dry_res["analytic_memory"],
+        "memory": dry_res["memory"], "collectives": dry_res["collectives"],
+        "roofline": dry_res["roofline"], "lower_s": dry_res["lower_s"],
+        "model_flops": dry_res["model_flops"],
+        "hlo_flops_total": dry_res["hlo_flops_total"],
+        "measured_peak_bytes_by_rank_tinyllama_4_ranks": [
+            r["runs"]["tinyllama"]["peak_bytes"] for r in ranks],
+        "note": "other shapes (C = 2, b = 2, S = 256 on 2 x 2 here): no "
+                "gate"}), flush=True)
+    launches = {}
+    for res in ranks:
+        for k, n in res["runs"]["tinyllama_kernel"]["launches"].items():
+            launches[(k, "cuda")] = launches.get((k, "cuda"), 0) + n
+    print(f"tp train: {time.perf_counter() - t0:.1f} s (unsharded runs "
+          f"{t_ref:.1f} s, ranks {t_ranks:.1f} s)", flush=True)
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 6c, tensor-parallel serving: world-4 ranks over (data 2, model 2)
 # ---------------------------------------------------------------------------
 
@@ -4458,6 +4917,10 @@ def main() -> int:
     # 4f. multi-device Δ-SGD
     torch.cuda.empty_cache()
     paths["sharded"] = run_sharded_path(torch, tk, tref, bw, f32, smi)
+    # 4g. tensor-parallel training
+    torch.cuda.empty_cache()
+    paths["tp_train"], tpt_rows = run_tp_train_path(torch, smi, bw, f32)
+    rows.update(tpt_rows)
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))

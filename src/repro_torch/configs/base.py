@@ -9,9 +9,9 @@ reference's analytic ``param_count`` is
 (the dry run's programs, ``repro_torch.launch.dryrun``).
 
 ``FLConfig`` holds the fields of the reference's ``FLConfig`` that the
-ported training slices read (paper §4 defaults). Scenario, compression,
-robust aggregation, fleet and telemetry fields arrive with their ROADMAP
-items.
+ported training slices and the step builders (``launch/steps.py``) read,
+with the reference's defaults (paper §4). MOON's two fields and
+``telemetry`` are not here: the train CLI takes them as flags.
 """
 from __future__ import annotations
 
@@ -172,3 +172,49 @@ class FLConfig:
     # generic client-opt hparams
     lr: float = 0.01
     momentum: float = 0.9
+    weighted_agg: bool = False
+    # the flat-parameter Δ-SGD engine (core/fed_round) by default
+    flat_engine: bool = False
+    # a federation scenario preset name (repro_torch.federation); None is
+    # the plain sync round
+    scenario: Optional[str] = None
+    # client-delta compression over the LEVELS ladder ("none"|"int8"|
+    # "topk"), top-k's keep fraction a chunk, EF21 error feedback;
+    # "none" without error feedback is inert
+    compression: str = "none"
+    compression_k_frac: float = 0.25
+    error_feedback: bool = False
+    # robust aggregation and quorum, applied onto the scenario; "mean"
+    # and 0 are inert
+    robust_agg: str = "mean"         # mean|clip|trimmed|median
+    quorum: int = 0
+    # the fleet regime: C_registered clients known to the server (None:
+    # registered == num_clients)
+    num_registered_clients: Optional[int] = None
+
+    @property
+    def compression_spec(self):
+        from repro_torch.compression import CompressionSpec
+        return CompressionSpec(kind=self.compression,
+                               k_frac=self.compression_k_frac,
+                               error_feedback=self.error_feedback)
+
+    @property
+    def registered_clients(self) -> int:
+        """C_registered: the fleet size the schedulers draw over
+        (``num_clients`` outside the fleet regime)."""
+        m = self.num_registered_clients
+        if m is not None and m < self.num_clients:
+            raise ValueError(f"num_registered_clients={m} must be >= "
+                             f"num_clients={self.num_clients}")
+        return self.num_clients if m is None else m
+
+    @property
+    def fleet(self) -> bool:
+        return self.num_registered_clients is not None
+
+    @property
+    def clients_per_round(self) -> int:
+        """|S_t| = round(p·C_registered), at least 1."""
+        from repro_torch.federation.schedulers import cohort_size
+        return cohort_size(self.participation, self.registered_clients)

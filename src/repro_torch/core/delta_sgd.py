@@ -14,6 +14,10 @@ and ``delta_sgd_init/reset/update`` for one client's param tree, with
 the beyond-paper ``groupwise`` variant (one step size per top-level
 param group). ``use_pallas=True`` hands the global rule to the kernel
 route, ``repro_torch.kernels.delta_sgd.ops.fused_delta_sgd_update``.
+Under installed training rules (the tensor-parallel vmap round) a
+client's tree is this rank's blocks, and the two global norms come from
+``sharded_sq_sums``: one (2,) sum over the norm axes a step, each
+element counted once.
 
 Flat engine: ``FlatDeltaSGDState`` + ``flat_delta_sgd_step`` run the
 rule for all C participating clients at once on packed ``(C, N)``
@@ -54,6 +58,41 @@ class DeltaSGDState(NamedTuple):
 def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum((l.to(torch.float32) ** 2).sum()
                           for l in tree_leaves(tree)))
+
+
+def training_rules():
+    """The installed training rules that shard the params of a client
+    (``LogicalRules(serve=False)`` with its placements), else None."""
+    from repro_torch.models.common import get_logical_rules
+    rules = get_logical_rules()
+    if rules is None or rules.serve or rules.param_axes is None:
+        return None
+    return rules
+
+
+def sharded_sq_sums(grads, prev_grads, rules) -> torch.Tensor:
+    """(Σ(g − g_prev)², Σg²) over a client's whole tree from this rank's
+    blocks: each leaf's partial sums, counted where
+    ``sharding.spec.counted_leaves`` says (a leaf replicated over a norm
+    axis only on its index 0), summed in one (2,) ``reduce_from`` over
+    the norm axes (``norms``), so every element counts once."""
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.spec import counted_leaves, norm_axes
+    count = tree_leaves(counted_leaves(rules.spec, rules.mesh,
+                                       rules.param_axes, rules.coords))
+    dg = gg = None
+    for c, g, q in zip(count, tree_leaves(grads), tree_leaves(prev_grads)):
+        if not c:
+            continue
+        g32 = g.to(torch.float32)
+        d = ((g32 - q.to(torch.float32)) ** 2).sum()
+        n = (g32 ** 2).sum()
+        dg, gg = (d, n) if dg is None else (dg + d, gg + n)
+    if dg is None:
+        like = tree_leaves(grads)[0]
+        dg = gg = like.new_zeros((), dtype=torch.float32)
+    return dist.reduce_from(torch.stack([dg, gg]), rules.mesh,
+                            norm_axes(rules.spec, rules.mesh), role="norms")
 
 
 def _group_norms(tree) -> dict:
@@ -132,12 +171,19 @@ def delta_sgd_update(params, grads, state: DeltaSGDState, *, gamma: float,
                                           delta=delta, eta0=eta0)
 
     dx_norm = state.eta * state.prev_grad_norm
-    eta, theta = _eta_rule(state.eta, state.theta, dx_norm,
-                           _diff_norm(grads, state.prev_grads), gamma, delta)
+    rules = training_rules()
+    if rules is None:
+        dg_norm, g_norm = (_diff_norm(grads, state.prev_grads),
+                           _global_norm(grads))
+    else:
+        sums = torch.sqrt(sharded_sq_sums(grads, state.prev_grads, rules))
+        dg_norm, g_norm = sums[0], sums[1]
+    eta, theta = _eta_rule(state.eta, state.theta, dx_norm, dg_norm, gamma,
+                           delta)
     eta = torch.clamp(torch.where(first, eta0, eta), max=ETA_CLAMP)
     theta = torch.where(first, state.theta, theta)
     return _sgd_apply(params, grads, eta), DeltaSGDState(
-        grads, eta, theta, _global_norm(grads), state.k + 1)
+        grads, eta, theta, g_norm, state.k + 1)
 
 
 class FlatDeltaSGDState(NamedTuple):
@@ -252,9 +298,10 @@ def flat_delta_sgd_step_sharded(P: torch.Tensor, G: torch.Tensor,
 
 
 def _finish_step(P, G, state: FlatDeltaSGDState, dg2, gg2, *, gamma, delta,
-                 eta0, mask, active):
+                 eta0, mask, active, g_inplace: bool = False):
     """η by Eq. (4) from the per-client sums, the guards, the lane mask,
-    and the apply kernel."""
+    and the apply kernel. ``g_inplace``: ``G`` is the caller's own copy,
+    and its invalid lanes are zeroed in place (no second slab)."""
     dg_norm = torch.sqrt(dg2)
     grad_norm = torch.sqrt(gg2)
     # a client's first local step takes η₀ (Alg. 1 line 6), θ unchanged.
@@ -283,7 +330,8 @@ def _finish_step(P, G, state: FlatDeltaSGDState, dg2, gg2, *, gamma, delta,
     # η=0 alone cannot stop a NaN gradient (0·NaN = NaN in the apply), so
     # invalid lanes are zeroed before both the apply and the prev_grads
     # roll; on healthy lanes this is G bitwise.
-    G_safe = torch.where(valid[:, None], G, 0.0)
+    G_safe = (G.masked_fill_(~valid[:, None], 0.0) if g_inplace
+              else torch.where(valid[:, None], G, 0.0))
     P = kernels.batched_apply(P, G_safe, eta_applied, mask=mask)
     return P, FlatDeltaSGDState(G_safe, eta, theta, grad_norm, state.k + 1,
                                 valid, clips)

@@ -113,7 +113,30 @@ rank's (C_loc, N_loc) EF21 slab (``init_fl_state(..., mesh=,
 federation=)``), and the third value ``round_fn`` returns is the rank's
 (C_loc, N_loc) slab of round-end local params (``core.flat.gather_slab``
 puts the ranks' slabs together). ``repro_torch.core.sharded`` counts the
-collectives a round makes.
+collectives a round makes. The flat engine evaluates each client's
+model whole: it runs its loss with no logical rules applied.
+
+Tensor-parallel vmap round: where a caller installs training rules
+(``LogicalRules(serve=False)`` with the params' placement, through
+``models.common.logical_rules``, as the reference runs its round under
+``with mesh, logical_rules(rules)``) the vmap engine runs on a rank's
+blocks (``launch.steps.place_train_for_rank``): ``state.params`` is the
+rank's block of every leaf, ``client_batches`` its C_loc clients' (C_loc,
+K, b_loc, ...) rows (C over the client axes, b over the fsdp axes),
+``client_weights`` the whole (C,) vector. The model's forward and
+backward run Megatron-style inside ``vmap(grad_and_value)`` (its
+collectives are ``sharding.dist``'s differentiable operators); each
+gradient is then summed over the fsdp axes that do not shard its leaf
+(``sharding.spec.grad_sync_axes``, one ``grad_sync`` a group of leaves),
+and Δ-SGD's two global norms count each element once
+(``core.delta_sgd.sharded_sq_sums``, one ``norms`` sum a step). The
+FedAvg mean is a local f32 sum over the rank's clients, ONE ``fedavg``
+sum over the client axes of every leaf packed, times f32(1/C); the
+weighted mean takes the rank's slice of the weights. The (C_loc, K)
+losses and (C_loc,) η are gathered in one ``metrics`` op for the
+round's metrics and telemetry. Heterogeneous K takes the rank's slice
+of the (C,) step counts. The third value is the rank's (C_loc, ...)
+blocks of the round-end local params.
 """
 from __future__ import annotations
 
@@ -129,9 +152,11 @@ from repro_torch.core.delta_sgd import (DeltaSGDState, flat_delta_sgd_init,
                                         flat_delta_sgd_step,
                                         flat_delta_sgd_step_sharded)
 from repro_torch.core.server_opt import ServerOpt
+from repro_torch.sharding.spec import axes_size
 from repro_torch.telemetry.spec import resolve_telemetry, round_telemetry
 from repro_torch.utils.numerics import reciprocal, round_frac, xla_mean
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
+                                    tree_unflatten)
 
 
 class FLState(NamedTuple):
@@ -338,6 +363,70 @@ def _freeze(active: torch.Tensor, new, old):
     return pytree.tree_map(pick, new, old)
 
 
+def _tp_round_setup(client_opt: ClientOpt):
+    """The installed training rules when the vmap round runs
+    tensor-parallel (``LogicalRules(serve=False)`` with placements),
+    else None; refuses what that round does not run."""
+    from repro_torch.core.delta_sgd import training_rules
+    rules = training_rules()
+    if rules is None:
+        return None
+    hyper = client_opt.hyper or {}
+    if client_opt.name == "sps" or hyper.get("groupwise"):
+        raise ValueError(
+            f"{client_opt.name}{' (groupwise)' if hyper.get('groupwise') else ''}"
+            " under tensor-parallel rules: its per-group or loss-scaled "
+            "norms are not ported to sharded params; the global-rule "
+            "Δ-SGD and the elementwise optimizers run")
+    return rules
+
+
+def _grad_sync(grads, sync: list):
+    """Sum each leaf's gradient over its ``grad_sync_axes`` (a list
+    aligned with the leaves): one ``grad_sync`` reduce a group of leaves
+    that share their axes."""
+    from repro_torch.models.common import get_logical_rules
+    from repro_torch.sharding import dist
+    leaves, treedef = tree_flatten(grads)
+    out = list(leaves)
+    for axes in sorted({a for a in sync if a}):
+        idx = [i for i, a in enumerate(sync) if a == axes]
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        flat = dist.reduce_from(flat, get_logical_rules().mesh, axes,
+                                role="grad_sync")
+        off = 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = flat[off:off + n].view(leaves[i].shape)
+            off += n
+    return tree_unflatten(treedef, out)
+
+
+def _sum_over_clients(p, w_loc, C: int, mesh, ca):
+    """The cohort mean (``w_loc`` None) or the weighted sum with this
+    rank's (C_loc,) slice of the normalised weights, of the rank's
+    (C_loc, ...) blocks: a local f32 sum, then ONE ``fedavg`` sum over
+    the client axes of every leaf packed, then × f32(1/C) for the mean.
+    Returns f32 leaves."""
+    from repro_torch.sharding import dist
+    leaves, treedef = tree_flatten(p)
+    if w_loc is None:
+        parts = [x.to(torch.float32).sum(dim=0) for x in leaves]
+    else:
+        parts = [torch.tensordot(w_loc.to(torch.float32),
+                                 x.to(torch.float32), dims=([0], [0]))
+                 for x in leaves]
+    flat = torch.cat([x.reshape(-1) for x in parts])
+    flat = dist.all_reduce(flat, mesh, ca, role="fedavg")
+    if w_loc is None:
+        flat = flat * reciprocal(C)
+    out, off = [], 0
+    for x in parts:
+        out.append(flat[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    return tree_unflatten(treedef, out)
+
+
 def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      *, num_rounds: int, weighted: bool, scenario=None,
                      num_clients=None, client_sizes=None, tele=None):
@@ -351,25 +440,44 @@ def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     vgrad = _client_grads(loss_fn)
     grad_fn = grad_and_value(loss_fn, has_aux=True)
     edges = {}
+    sync = []    # the leaves' grad_sync_axes under training rules
 
     def local_step(p, os, batch, gp, prev_c):
         g, (loss, _) = grad_fn(p, batch, gp, prev_c)
+        if any(sync):
+            g = _grad_sync(g, sync)
         p_new, os_new = client_opt.update(p, g, os, loss)
         return p_new, os_new, loss
 
     def round_fn(state: FLState, client_batches, client_weights=None,
                  prev_local_params=None):
-        """-> (new_state, metrics, new_local_params (C, ...))."""
+        """-> (new_state, metrics, new_local_params (C, ...)). Under
+        training rules, the rank's (C_loc, ...) blocks (the docstring of
+        ``make_fl_round``)."""
         gp = state.params
         device = tree_leaves(gp)[0].device
-        C, K = tree_leaves(client_batches)[0].shape[:2]
+        C_loc, K = tree_leaves(client_batches)[0].shape[:2]
+        rules = _tp_round_setup(client_opt)
+        C, c0, ca, mesh = C_loc, 0, (), None
+        sync.clear()
+        if rules is not None:
+            from repro_torch.sharding.spec import (block_index,
+                                                   client_axes_on,
+                                                   grad_sync_axes)
+            mesh = rules.mesh
+            ca = client_axes_on(rules.spec, mesh)
+            C = C_loc * axes_size(mesh, ca)
+            c0 = block_index(mesh, ca, rules.coords) * C_loc
+            sync.extend(tree_leaves(grad_sync_axes(rules.spec, mesh,
+                                                   rules.param_axes)))
         step_counts = (_queued_copy(scenario.draw_step_counts(
             state.round, C, K), device) if hetero else None)
+        counts_loc = (step_counts[c0:c0 + C_loc] if hetero else None)
         # round_frac stays a host scalar: only the (↓) optimizers read
         # it, at reset, on the host
         os = _stack_clients(client_opt.reset(
-            client_opt.init(gp), round_frac(state.round, num_rounds)), C)
-        p = _stack_clients(gp, C)
+            client_opt.init(gp), round_frac(state.round, num_rounds)), C_loc)
+        p = _stack_clients(gp, C_loc)
         prev_dim = None if prev_local_params is None else 0
         vstep = vmap(local_step, in_dims=(0, _batch_dims(os), 0, None,
                                           prev_dim),
@@ -379,6 +487,8 @@ def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             batch_k = tree_map(lambda x: x[:, k], client_batches)
             if kernel_route:
                 g, (loss, _) = vgrad(p, batch_k, gp, prev_local_params)
+                if any(sync):
+                    g = _grad_sync(g, sync)
                 p_new, os_new = client_opt.update(p, g, os, loss)
             else:
                 p_new, os_new, loss = vstep(p, os, batch_k, gp,
@@ -386,7 +496,7 @@ def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             if hetero:
                 # past its K_c a client's params and optimizer state
                 # (Adam's t, momenta, Δ-SGD's k) stay frozen
-                active = k < step_counts
+                active = k < counts_loc
                 p_new = _freeze(active, p_new, p)
                 os_new = _freeze(active, os_new, os)
             p, os = p_new, os_new
@@ -394,16 +504,29 @@ def _make_vmap_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         losses = torch.stack(losses, dim=1)       # (C, K)
         etas = (os.eta if isinstance(os, DeltaSGDState)
                 and not isinstance(os.eta, dict)
-                else torch.full((C,), float("nan"), device=device))
+                else torch.full((C_loc,), float("nan"), device=device))
 
+        w = None
         if weighted and client_weights is not None:
             w = client_weights / client_weights.sum()
-            agg = tree_map(lambda x: torch.tensordot(
-                w.to(torch.float32), x.to(torch.float32),
-                dims=([0], [0])).to(x.dtype), p)
+        if rules is None:
+            if w is not None:
+                agg = tree_map(lambda x: torch.tensordot(
+                    w.to(torch.float32), x.to(torch.float32),
+                    dims=([0], [0])).to(x.dtype), p)
+            else:
+                agg = tree_map(lambda x: xla_mean(x.to(torch.float32), dim=0
+                                                  ).to(x.dtype), p)
         else:
-            agg = tree_map(lambda x: xla_mean(x.to(torch.float32), dim=0
-                                              ).to(x.dtype), p)
+            from repro_torch.sharding import dist
+            agg = tree_map(lambda a, x: a.to(x.dtype), _sum_over_clients(
+                p, None if w is None else w[c0:c0 + C_loc], C, mesh, ca),
+                gp)
+            # the (C, K) losses and (C,) η of every client, in one
+            # gather over the client axes
+            both = dist.all_gather(torch.cat([losses, etas[:, None]], 1),
+                                   mesh, ca, 0, role="metrics")
+            losses, etas = both[:, :K], both[:, K]
 
         extra = _scenario_extras(scenario, state.round, C, num_clients,
                                  client_sizes, step_counts, device)
@@ -428,6 +551,15 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      client_sizes=None, compression=None, tele=None,
                      mesh=None, federation=None):
     from repro_torch.compression import compress_flat
+    from repro_torch.models.common import logical_rules
+    whole_loss = loss_fn
+
+    def loss_fn(*args):
+        # the flat engine evaluates each client's model whole: no
+        # logical rules apply to it, whatever a caller installed
+        with logical_rules(None):
+            return whole_loss(*args)
+
     from repro_torch.federation.buffer import (buffer_merge, buffer_step,
                                                staleness_weights)
     from repro_torch.federation.faults import FaultLanes, robust_aggregate

@@ -37,6 +37,12 @@ def make_loss(base_loss_fn, *, fedprox_mu: float = 0.0,
         raise ValueError("MOON needs a representation fn (repr_fn=)")
 
     def loss_fn(params, batch, global_params=None, prev_params=None):
+        if fedprox_mu or moon_mu:
+            from repro_torch.core.delta_sgd import training_rules
+            if training_rules() is not None:
+                raise ValueError("FedProx and MOON under tensor-parallel "
+                                 "rules: their distances over sharded "
+                                 "params are not ported")
         loss, metrics = base_loss_fn(params, batch)
         if fedprox_mu and global_params is not None:
             prox = 0.5 * fedprox_mu * _sq_dist(params, global_params)

@@ -21,7 +21,10 @@ rank its block of the reference's global state, batches and per-client
 vectors (``repro_torch.core.flat.local_slab``), so the reference and
 every rank start from the same bits; ``params_local_from_numpy`` gives a
 rank its blocks of the reference's params by the tensor-parallel
-placement. This module imports neither ``jax`` nor ``repro``.
+placement. ``train_local_from_numpy`` gives a rank its blocks of the
+reference's ``FLState`` and a round's (C, K, b, ...) batches under the
+training rules (``launch.steps.place_train_for_rank``). This module
+imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
@@ -221,3 +224,16 @@ def draws_from_numpy(rounds: Dict[int, Dict[str, Any]]) -> ReplayDraws:
         return np.asarray(value)
     return ReplayDraws({int(t): {k: convert(k, v) for k, v in d.items()}
                         for t, d in rounds.items()})
+
+
+def train_local_from_numpy(rules, *, state=None, batch=None, device="cpu"):
+    """One rank's blocks, under training ``rules``, of a reference
+    ``FLState`` and a round's batches given as numpy trees: the state's
+    params and param-shaped server slots by the params' placement, the
+    batches with C over the client axes and b over the fsdp axes.
+    Returns {"state", "batch"}: those given."""
+    from repro_torch.launch.steps import place_train_for_rank
+    return place_train_for_rank(
+        rules, device=device,
+        state=None if state is None else fl_state_from_numpy(state),
+        batch=None if batch is None else params_from_numpy(batch))

@@ -1,10 +1,27 @@
-"""Step builders for the serving path: the prefill of one batch and one
-greedy decode step. Port of ``make_prefill_step`` and
-``make_serve_step`` from ``repro/launch/steps.py``. PyTorch runs
-eagerly, so a step is a plain function (the reference jits them).
+"""Step-function builders shared by the dry run and the launchers. Port of
+``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a plain
+function (the reference jits them).
+
+Training: ``make_train_step`` (one federated round over (C, K, b, ...)
+batches, on the vmap engine or the flat one, as the reference resolves
+them from an ``FLConfig``), ``make_train_loop`` (R rounds fused,
+``core.fed_loop.make_fl_loop``), ``make_fleet_train_loop`` (the fleet
+loop) and ``abstract_fl_state`` (the ``FLState`` on fake tensors).
 ``launch.train.train_lm`` builds its rounds itself, as the reference's
-does; the reference's training builders (and ``abstract_fl_state``)
-come with tensor-parallel training (ROADMAP A17).
+does. Every builder's loss runs the model's plain route
+(``use_pallas=False``, which the kernel wrappers need to differentiate);
+``use_pallas`` reaches the client optimizer (the Δ-SGD kernel route)
+and the flat engine's mode, as in the port's train CLI.
+
+Tensor-parallel training: ``train_rules`` makes the training
+``LogicalRules`` of a model on a mesh (the reference's
+``LogicalRules(spec, mesh, serve=False)``, with the params' placement),
+``place_train_for_rank`` cuts a whole ``FLState`` and a round's batches
+to one rank's blocks (params by ``param_placements``, the state by
+``state_placements``, batches with C over the client axes and b over
+the fsdp axes), and the vmap engine's round, called with the rules
+installed (``models.common.logical_rules``), runs on them.
+``train_collectives`` is what one such round makes on a rank, by role.
 
 Tensor-parallel serving: ``serve_rules`` makes the serve
 ``LogicalRules`` of a model on a mesh (the reference's
@@ -21,12 +38,15 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.models.common import logical_rules
+from repro_torch.configs.base import FLConfig
+from repro_torch.models.common import logical_rules, remat_blocks
 from repro_torch.models.model import (Model, local_vocab, moves_rows,
                                       tp_supported)
 from repro_torch.sharding.spec import (FederationSpec, LogicalRules,
-                                       cache_shardings, entry_axes,
-                                       get_federation_spec, local_block,
+                                       batch_shardings, cache_shardings,
+                                       client_axes_on, entry_axes,
+                                       get_federation_spec, grad_sync_axes,
+                                       local_block, norm_axes,
                                        param_placements,
                                        serve_batch_shardings)
 from repro_torch.utils.tree import tree_flatten, tree_map
@@ -170,3 +190,323 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
         table("lm_head", 1, rows, True)
         n["vocab"] = on_tp(ax["embed"][0]) + on_tp(ax["lm_head"][1])
     return n
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+def _resolve_scenario(fl: FLConfig, scenario):
+    """``scenario`` (a Scenario, a preset name or None, defaulting to
+    ``fl.scenario``) with the FLConfig's robust-aggregation overrides
+    folded in. ``robust_agg="mean"`` and ``quorum=0`` are inert; other
+    values need a Scenario to live on, so they promote a bare config to
+    the ``sync_iid`` preset (the reference's rule)."""
+    if scenario is None and fl.scenario:
+        scenario = fl.scenario
+    overrides = {}
+    if fl.robust_agg != "mean":
+        overrides["robust_agg"] = fl.robust_agg
+    if fl.quorum:
+        overrides["quorum"] = fl.quorum
+    if scenario is None and not overrides:
+        return None
+    if scenario is not None and hasattr(scenario, "is_async") \
+            and not overrides:
+        return scenario
+    from repro_torch.federation import get_scenario
+    return get_scenario(scenario if scenario is not None else "sync_iid",
+                        **overrides)
+
+
+def _train_parts(model: Model, fl: FLConfig, use_pallas, remat, scenario,
+                 compression):
+    from repro_torch.compression import get_compression
+    from repro_torch.core import get_client_opt, get_server_opt, make_loss
+    copt = get_client_opt(fl.client_opt, fl, use_pallas=use_pallas)
+    sopt = get_server_opt(fl.server_opt)
+    scenario = _resolve_scenario(fl, scenario)
+    compression = get_compression(compression if compression is not None
+                                  else fl.compression_spec)
+
+    def base_loss(params, batch):
+        with remat_blocks(remat):
+            return model.loss(params, batch, use_pallas=False)
+
+    loss_fn = make_loss(base_loss, fedprox_mu=fl.fedprox_mu)
+    return copt, sopt, scenario, compression, loss_fn
+
+
+def _needs_delta_sgd(fl: FLConfig, what: str):
+    if fl.client_opt != "delta_sgd":
+        raise ValueError(f"{what} requires client_opt='delta_sgd', got "
+                         f"{fl.client_opt!r}")
+
+
+def make_train_step(model: Model, fl: FLConfig, *, num_rounds: int = 1000,
+                    use_pallas: bool = False, remat: bool = False,
+                    flat: Optional[bool] = None, mesh=None,
+                    federation=None, scenario=None, compression=None):
+    """One federated round over the (C, K, b, ...) batch layout:
+    ``train_step(state, client_batches) -> (state, metrics)``.
+
+    ``flat`` defaults to ``fl.flat_engine``; async, fault, robust and
+    quorum scenarios and an active compression switch the flat engine
+    on, as in the reference. ``mesh`` + ``federation`` (flat engine
+    only) run the round on a rank's block of the sharded (C, N) buffer,
+    with no logical rules applied to the model. The vmap engine runs
+    tensor-parallel where the caller installs training rules
+    (``train_rules``) around the call. ``remat`` turns on per-block
+    rematerialisation inside the loss. Returns (train_step, sopt,
+    scenario, compression): the resolved scenario and compression, so
+    the caller can allocate a matching ``init_fl_state``."""
+    from repro_torch.core import make_fl_round
+    copt, sopt, scenario, compression, loss_fn = _train_parts(
+        model, fl, use_pallas, remat, scenario, compression)
+    if flat is None:
+        flat = fl.flat_engine
+    if scenario is not None and (scenario.is_async or scenario.faulty
+                                 or scenario.robust or scenario.quorum > 0):
+        flat = True
+    if compression.active(scenario):
+        flat = True
+    flat_mode = False
+    if flat:
+        _needs_delta_sgd(fl, "the flat engine")
+        flat_mode = "pallas" if use_pallas else "xla"
+    round_fn = make_fl_round(loss_fn, copt, sopt, num_rounds=num_rounds,
+                             weighted=fl.weighted_agg, flat=flat_mode,
+                             mesh=mesh, federation=federation,
+                             scenario=scenario, num_clients=fl.num_clients,
+                             compression=compression)
+
+    def train_step(state, client_batches):
+        new_state, metrics, _ = round_fn(state, client_batches)
+        return new_state, metrics
+
+    return train_step, sopt, scenario, compression
+
+
+def make_train_loop(model: Model, fl: FLConfig, *, num_rounds: int = 1000,
+                    rounds_per_call: int = 8, use_pallas: bool = False,
+                    remat: bool = False, mesh=None, federation=None,
+                    scenario=None, compression=None):
+    """R rounds fused into one call (``core.fed_loop.make_fl_loop``) on
+    the flat state; the flat engine is required, so ``fl.client_opt``
+    must be ``delta_sgd``. Under ``mesh`` + ``federation`` it runs the
+    sharded round's body on a rank's blocks. Returns (train_loop, sopt,
+    scenario, compression); the loop exposes ``.layout``."""
+    from repro_torch.core import make_fl_loop
+    from repro_torch.launch.specs import params_struct
+    _needs_delta_sgd(fl, "the round-fused loop")
+    copt, sopt, scenario, compression, loss_fn = _train_parts(
+        model, fl, use_pallas, remat, scenario, compression)
+    loop = make_fl_loop(loss_fn, copt, sopt,
+                        params_like=params_struct(model),
+                        num_rounds=num_rounds,
+                        rounds_per_call=rounds_per_call,
+                        weighted=fl.weighted_agg,
+                        flat="pallas" if use_pallas else "xla", mesh=mesh,
+                        federation=federation, scenario=scenario,
+                        num_clients=fl.num_clients,
+                        compression=compression)
+    return loop, sopt, scenario, compression
+
+
+def make_fleet_train_loop(model: Model, fl: FLConfig, *,
+                          num_rounds: int = 1000, rounds_per_call: int = 8,
+                          use_pallas: bool = False, remat: bool = False,
+                          scenario=None, compression=None,
+                          client_sizes=None, gather=None,
+                          batch_index_fn=None, eta_carry: bool = False,
+                          seed: Optional[int] = None):
+    """The fleet variant of ``make_train_loop``
+    (``core.fed_loop.make_fleet_loop``): the carry is (FlatFLState,
+    ClientArena) over ``fl.registered_clients``. The port's fleet loop
+    trains on the data pipeline's host draw of a block's cohorts, which
+    the caller passes as ``cohort_ids`` (ROADMAP C): the reference's
+    ``seed`` and ``client_sizes``, which feed its on-device redraw, are
+    refused. Returns (train_loop, sopt, scenario, compression)."""
+    from repro_torch.core import make_fleet_loop
+    from repro_torch.launch.specs import params_struct
+    if not fl.fleet:
+        raise ValueError("make_fleet_train_loop needs the fleet regime: "
+                         "set FLConfig.num_registered_clients")
+    _needs_delta_sgd(fl, "the fleet loop")
+    if seed is not None or client_sizes is not None:
+        raise ValueError(
+            "seed and client_sizes feed the reference's on-device cohort "
+            "redraw; the port's fleet loop takes the pipeline's draw "
+            "(loop(..., cohort_ids=...)), so they have no effect here")
+    copt, sopt, scenario, compression, loss_fn = _train_parts(
+        model, fl, use_pallas, remat, scenario, compression)
+    loop = make_fleet_loop(loss_fn, copt, sopt,
+                           params_like=params_struct(model),
+                           num_rounds=num_rounds,
+                           num_registered=fl.registered_clients,
+                           rounds_per_call=rounds_per_call,
+                           weighted=fl.weighted_agg,
+                           flat="pallas" if use_pallas else "xla",
+                           scenario=scenario, compression=compression,
+                           gather=gather, batch_index_fn=batch_index_fn,
+                           eta_carry=eta_carry)
+    return loop, sopt, scenario, compression
+
+
+def abstract_fl_state(model: Model, sopt, scenario=None, compression=None,
+                      cohort=None, mode=None):
+    """The ``FLState`` as fake tensors, allocating nothing: its async
+    buffer where ``scenario`` is async, its EF21 tree where
+    ``compression`` has error feedback (``cohort`` sizes its leading
+    axis). Made in ``mode`` (a FakeTensorMode) or a fresh one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import init_fl_state
+    from repro_torch.launch.specs import params_struct
+    mode = mode if mode is not None else FakeTensorMode()
+    pstruct = params_struct(model, mode)
+    with mode:
+        return init_fl_state(pstruct, sopt, scenario, compression, cohort)
+
+
+def train_rules(model: Model, mesh, params, *,
+                spec: Optional[FederationSpec] = None,
+                coords=None) -> LogicalRules:
+    """The training rules of ``model`` on ``mesh`` for the rank at
+    ``coords`` (the mesh's own by default): the reference's
+    ``LogicalRules(spec, mesh, serve=False)`` (batch rows over the fsdp
+    axis) with the params' placement. ``params`` is the whole tree or
+    its fake-tensor struct. ``spec`` defaults to the config's
+    federation. Refuses a config that tensor-parallel training does not
+    run."""
+    from repro_torch.launch.specs import federation_kind
+    if not tp_supported(model.cfg):
+        raise ValueError(f"{model.cfg.name}: tensor-parallel training runs "
+                         "the dense GQA decoders only; MoE, MLA, Mamba2, "
+                         "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+    spec = spec or get_federation_spec(federation_kind(model.cfg), mesh)
+    return LogicalRules(spec, mesh, serve=False, coords=coords,
+                        param_axes=param_placements(spec, mesh, params))
+
+
+def state_placements(spec: FederationSpec, mesh, state, placements):
+    """The entries of every leaf of an ``FLState`` (the reference's
+    ``dryrun._state_shardings``): params by ``placements``; a server
+    state slot shaped like the params (FedAvgM's ``m``, FedAdam's ``m``
+    and ``v``) by the same; its scalars, the round and the async
+    buffer's counters replicated; the buffer's delta like the params;
+    the EF21 tree's leading cohort axis over the client axes."""
+    from repro_torch.core.fed_round import FLState
+    pdef = tree_flatten(state.params)[1]
+
+    def rep(tree):
+        return tree_map(lambda x: (None,) * len(tuple(x.shape)), tree)
+
+    def slot(sub):
+        return placements if tree_flatten(sub)[1] == pdef else rep(sub)
+
+    ss = state.server_state
+    srv = ({k: slot(v) for k, v in ss.items()} if isinstance(ss, dict)
+           else rep(ss))
+    buf = None
+    if state.buffer is not None:
+        from repro_torch.federation.buffer import AsyncBufferState
+        b = state.buffer
+        buf = AsyncBufferState(placements, *(rep(x) for x in b[1:]))
+    ef = None
+    if state.ef is not None:
+        ca = client_axes_on(spec, mesh)
+        lead = ca if len(ca) > 1 else (ca[0] if ca else None)
+        ef = tree_map(lambda x: (lead,) + (None,) * (len(tuple(x.shape))
+                                                     - 1), state.ef)
+    return FLState(placements, srv, (), buf, ef)
+
+
+def place_train_for_rank(rules: LogicalRules, *, state=None, params=None,
+                         batch=None, device=None) -> Dict:
+    """One rank's blocks of a whole ``FLState`` (``state_placements``),
+    params and a round's (C, K, b, ...) batches (``batch_shardings``: C
+    over the client axes, b over the fsdp axes), each copied to
+    ``device`` (its own by default). Returns {"state", "params",
+    "batch"}: those given."""
+    from repro_torch.core.fed_round import FLState
+    out = {}
+    if params is not None:
+        out["params"] = _cut(params, rules.param_axes, rules, device)
+    if state is not None:
+        sp = state_placements(rules.spec, rules.mesh, state,
+                              rules.param_axes)
+        fields = []
+        for name, x, ax in zip(FLState._fields, state, sp):
+            if name == "round" or x is None:
+                fields.append(x)
+            elif name == "buffer":
+                fields.append(type(x)(*(_cut(a, b, rules, device)
+                                        for a, b in zip(x, ax))))
+            else:
+                fields.append(_cut(x, ax, rules, device))
+        out["state"] = FLState(*fields)
+    if batch is not None:
+        out["batch"] = _cut(batch, batch_shardings(rules.spec, rules.mesh,
+                                                   batch), rules, device)
+    return out
+
+
+def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
+                      remat: bool = False,
+                      weighted: bool = False) -> Dict[str, int]:
+    """The collectives one tensor-parallel vmap round of ``local_steps``
+    Δ-SGD steps makes on a rank, by role (each op runs once on the
+    rank's stacked clients). A local step's forward makes, per layer,
+    a ``tp_reduce`` after attention and after the MLP where their heads
+    or hidden units are split, and an ``fsdp_gather`` for each fsdp
+    dim of its params; its backward a ``tp_grad`` where a block's input
+    entered through ``tp_enter`` (attention and MLP) and for each
+    replicated leaf read in part (the QKV biases under split heads;
+    ``wk``/``wv`` where the KV heads are whole), and an ``fsdp_scatter``
+    for each gather. Remat runs each layer's forward collectives again
+    in the backward. The embedding and head: a ``vocab`` reduce of the
+    vocab-parallel lookup, the cross-entropy's max and its one stacked
+    ``vocab`` sum, a ``tp_grad`` at the head's input, an fsdp gather
+    and scatter for each vocab table's fsdp dim, and a ``loss`` sum
+    where the rows split over an fsdp axis. Then one ``grad_sync``
+    where a leaf's gradient is partial over the fsdp axes, and one
+    ``norms`` sum of Δ-SGD's two sums. A round adds one ``fedavg`` sum
+    and one ``metrics`` gather over the client axes. Axes of size 1
+    make none."""
+    cfg, ax = model.cfg, rules.param_axes
+    tp = rules.tp if rules.size(rules.tp) > 1 else None
+    on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
+    at = (lambda e: e[1:]) if cfg.num_layers > 1 else (lambda e: e)
+    layer = tree_map(at, ax["stack"]["run0"])
+
+    def fsdp(entries):
+        return sum(bool(tuple(a for a in _live(rules, e) if a != rules.tp))
+                   for e in entries)
+
+    L, K = cfg.num_layers, local_steps
+    attn_split = on_tp(layer["attn"]["wq"][1])
+    mlp_split = on_tp(layer["mlp"]["w_out"][0])
+    kv_whole = attn_split and not on_tp(layer["attn"]["wk"][1])
+    per_layer_gather = sum(fsdp(e) for e in tree_flatten(layer)[0])
+    tables = ("embed",) if cfg.tie_embeddings else ("embed", "lm_head")
+    table_gather = sum(fsdp(ax[t]) for t in tables)
+    vocab_split = on_tp(ax["embed"][0]) if cfg.tie_embeddings \
+        else on_tp(ax["lm_head"][1])
+    step = {
+        "tp_reduce": L * (attn_split + mlp_split) * (2 if remat else 1),
+        "tp_grad": (L * (attn_split + mlp_split
+                         + (3 * attn_split if cfg.qkv_bias else 0)
+                         + 2 * kv_whole) + vocab_split),
+        "fsdp_gather": (L * per_layer_gather * (2 if remat else 1)
+                        + table_gather),
+        "fsdp_scatter": L * per_layer_gather + table_gather,
+        "vocab": on_tp(ax["embed"][0]) + 2 * vocab_split,
+        "loss": int(rules.size(rules.map["batch"]) > 1),
+        "grad_sync": len({a for a in tree_flatten(grad_sync_axes(
+            rules.spec, rules.mesh, ax))[0] if a}),
+        "norms": int(bool(norm_axes(rules.spec, rules.mesh))),
+    }
+    out = {r: K * n for r, n in step.items()}
+    clients = int(bool(client_axes_on(rules.spec, rules.mesh)))
+    out.update(fedavg=clients, metrics=clients)
+    return {r: n for r, n in out.items() if n}

@@ -47,7 +47,11 @@ KV head h // G). The replicated biases are cut to the rank's heads.
 ``tp_reduce`` a call. The cache holds every KV head of the rank's batch
 rows (the reference's ``cache_shardings`` leaves the KV-head dim
 whole): sharded k and v are gathered over the tensor axis, in one
-``kv_gather`` a call, before they are cached.
+``kv_gather`` a call, before they are cached. Under training rules the
+same code differentiates: the block's input enters the rank's heads
+through ``tp_enter``, and a replicated leaf the rank reads only in part
+(the QKV biases; ``wk``/``wv`` where the KV heads are whole) through
+``tp_enter`` too, so its gradient is summed over the tensor axis.
 """
 from __future__ import annotations
 
@@ -60,8 +64,9 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention)
 from repro_torch.models.common import (apply_rope, dense_init,
                                        get_logical_rules, ones_init,
-                                       rmsnorm, shard_logical, tp_gather,
-                                       tp_index, tp_reduce, zeros_init)
+                                       rmsnorm, shard_logical, tp_enter,
+                                       tp_gather, tp_index, tp_reduce,
+                                       zeros_init)
 
 NEG_INF = -1e30
 
@@ -140,16 +145,25 @@ def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
          heads: Optional[Heads] = None):
     """q (B,S,h,hd) and k, v (B,S,p,hd) of ``heads`` (all of them by
-    default)."""
+    default). Under training rules a replicated leaf that the rank reads
+    only in part (the QKV biases narrowed to its heads; ``wk``/``wv``
+    where the KV heads are whole and its queries are a block of H) has
+    a partial gradient on each rank: it enters through ``tp_enter``,
+    whose backward sums it over the tensor axis, so every replica takes
+    the same update."""
+    partial = heads is not None and heads.partial
+    wk, wv = params["wk"], params["wv"]
+    if partial and not heads.kv_sharded:
+        wk, wv = tp_enter(wk), tp_enter(wv)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if cfg.qkv_bias:
         bq, bk, bv = params["bq"], params["bk"], params["bv"]
-        if heads is not None and heads.partial:
-            bq = bq.narrow(0, heads.h0, heads.h)
-            bk = bk.narrow(0, heads.p0, heads.p)
-            bv = bv.narrow(0, heads.p0, heads.p)
+        if partial:
+            bq = tp_enter(bq).narrow(0, heads.h0, heads.h)
+            bk = tp_enter(bk).narrow(0, heads.p0, heads.p)
+            bv = tp_enter(bv).narrow(0, heads.p0, heads.p)
         q, k, v = q + bq, k + bk, v + bv
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -249,8 +263,11 @@ def gqa_full(params: dict, x: torch.Tensor, cfg, *,
              build_cache: bool = False, use_pallas: bool = True):
     """x: (B,S,D). Returns (out (B,S,D), {"k", "v"} (B,S,KV,hd) | None).
     ``use_pallas``: the flash-attention kernel (True) or ``_sdpa``.
-    Under rules, the rank's heads (``heads_of``) on its rows."""
+    Under rules, the rank's heads (``heads_of``) on its rows; under
+    training rules ``x`` enters the rank's heads through ``tp_enter``."""
     heads = heads_of(params, cfg)
+    if heads.partial:
+        x = tp_enter(x)
     q, k, v = _qkv(params, x, cfg, positions, heads)
     B, S, H, dh = q.shape
     shard_logical(q, ("batch", "seq", "heads", None),

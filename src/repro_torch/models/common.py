@@ -20,10 +20,14 @@ collectives, the port's checks that a tensor's local shape is what the
 rules give and raises if not; the collectives sit where the math needs
 them (``tp_reduce``, ``tp_gather``, ``fsdp_gather``), each through
 ``repro_torch.sharding.dist``'s recorded ops. With no rules installed
-every model function runs as it does on one card. The reference's
-scan-unroll switch has no meaning in eager mode (every layer runs and
-is counted), and its remat switch comes with tensor-parallel training
-(ROADMAP A17).
+every model function runs as it does on one card. Under training rules
+(``serve=False``) the same code differentiates: the collectives are
+``repro_torch.sharding.dist``'s differentiable operators, and a
+replicated tensor enters a rank's block of a layer through ``tp_enter``
+(Megatron's f). The reference's scan-unroll switch has no meaning in
+eager mode (every layer runs and is counted). Its remat switch
+(``set_remat``/``remat_on``/``remat_blocks``) is ported: with it on,
+``transformer.stack_full`` runs each block through ``remat_call``.
 """
 from __future__ import annotations
 
@@ -82,17 +86,36 @@ def shard_logical(x: torch.Tensor, names: Tuple[Optional[str], ...],
     return x
 
 
+def _tp_live(rules) -> bool:
+    return rules is not None and rules.size(rules.tp) > 1
+
+
 def tp_reduce(x: torch.Tensor, role: str = "tp_reduce") -> torch.Tensor:
-    """Sum ``x``'s partial sums over the tensor axis of the installed
-    rules (in place)."""
+    """The sum of ``x``'s partial sums over the tensor axis of the
+    installed rules (Megatron's g: identity backward)."""
     rules = get_logical_rules()
-    return dist.all_reduce(x, rules.mesh, (rules.tp,), role=role)
+    return dist.reduce_from(x, rules.mesh, (rules.tp,), role=role)
 
 
 def tp_gather(x: torch.Tensor, dim: int, role: str) -> torch.Tensor:
     """The tensor axis's blocks of ``x`` concatenated along ``dim``."""
     rules = get_logical_rules()
-    return dist.all_gather(x, rules.mesh, (rules.tp,), dim, role=role)
+    return dist.gather_from(x, rules.mesh, (rules.tp,), dim, role=role,
+                            bwd_role=role)
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over the tensor axis, as it enters the rank's
+    block of a tensor-parallel layer, or a replicated param as it enters
+    a read of only its rank's part (Megatron's f: the gradient, a
+    partial sum on each rank, is summed over the axis, ``tp_grad``).
+    The caller applies it only where the rank's work is a block of the
+    layer's. ``x`` itself without training rules (serving computes no
+    gradient) or with a tensor axis of size 1."""
+    rules = get_logical_rules()
+    if not _tp_live(rules) or rules.serve:
+        return x
+    return dist.copy_to(x, rules.mesh, (rules.tp,), role="tp_grad")
 
 
 def tp_index() -> int:
@@ -104,12 +127,14 @@ def tp_index() -> int:
 def fsdp_gather(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     """``x`` with every dim its placement ``axes`` shards over a
     non-tensor axis (an fsdp dim) gathered whole: the ZeRO-3 gather at
-    use. Returns ``x`` itself when no dim is so sharded."""
+    use, whose backward reduce-scatters the gradient
+    (``fsdp_scatter``). Returns ``x`` itself when no dim is so
+    sharded."""
     rules = get_logical_rules()
     for dim, entry in enumerate(axes):
         ax = tuple(a for a in entry_axes(entry) if a != rules.tp)
         if ax:
-            x = dist.all_gather(x, rules.mesh, ax, dim, role="fsdp_gather")
+            x = dist.gather_from(x, rules.mesh, ax, dim)
     return x
 
 
@@ -119,6 +144,64 @@ def fsdp_gather_tree(tree, axes):
     if isinstance(tree, dict):
         return {k: fsdp_gather_tree(v, axes[k]) for k, v in tree.items()}
     return fsdp_gather(tree, axes)
+
+
+# ---------------------------------------------------------------------------
+# Per-block rematerialisation (the reference's remat switch)
+# ---------------------------------------------------------------------------
+def set_remat(flag: bool) -> None:
+    _tls.remat = bool(flag)
+
+
+def remat_on() -> bool:
+    return getattr(_tls, "remat", False)
+
+
+@contextlib.contextmanager
+def remat_blocks(flag: bool = True):
+    """Per-block activation checkpointing while the context is open:
+    ``transformer.stack_full`` keeps only each block's inputs and
+    recomputes its internals in the backward pass."""
+    prev = remat_on()
+    set_remat(flag)
+    try:
+        yield
+    finally:
+        set_remat(prev)
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*leaves)`` whose backward recomputes it through
+    ``torch.func.vjp``: only the inputs are saved. ``generate_vmap_rule``
+    lets ``torch.func.vmap`` batch both passes (``torch.utils.checkpoint``
+    fails under ``torch.func``). The backward runs under the rules that
+    were installed at the forward (a CUDA backward runs on autograd's
+    own thread, which has none), and the recomputed block's collectives
+    run again there, recorded as backward."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, rules, *leaves):
+        return fn(*leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn, ctx.rules = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.sharding import hlo
+        with logical_rules(ctx.rules), hlo.backward_pass():
+            out, pull = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
+            return (None, None) + tuple(pull(gs if isinstance(out, tuple)
+                                             else gs[0]))
+
+
+def remat_call(fn, *leaves: torch.Tensor):
+    """``fn(*leaves)`` (a tensor or a tuple of tensors),
+    rematerialised in backward."""
+    return _Remat.apply(fn, get_logical_rules(), *leaves)
 
 
 # ---------------------------------------------------------------------------

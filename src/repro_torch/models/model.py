@@ -52,10 +52,18 @@ over an fsdp axis (``cross_silo``), the rank gathers the table at use,
 or, where that moves fewer bytes (``moves_rows``: a decode step of
 fewer rows than the rank's vocab ids), moves its fsdp group's rows
 instead (``fsdp_rows``: the ids and the looked-up columns; the head's
-input and its partial logits). Only the dense GQA decoders run
-so (TinyLlama, CodeQwen1.5, Qwen2.5, Granite); any other config under
-rules, and the full forward (training's), are refused naming their
-ROADMAP item.
+input and its partial logits).
+
+Tensor-parallel training (``LogicalRules(serve=False)``): ``apply`` and
+``loss`` run one rank's share of the full forward on its local params
+and rows, differentiably. The tables are gathered at use (the rows
+route stays serving's), the head's input enters through ``tp_enter``,
+and ``loss`` is a vocab-parallel cross-entropy on the rank's block of
+the logits (``_ce_parallel``), which are never gathered whole. Only the
+dense GQA decoders run under rules (TinyLlama, CodeQwen1.5, Qwen2.5,
+Granite); any other config is refused naming its ROADMAP item, as are
+prefill and decode under training rules and the full forward under
+serving rules.
 """
 from __future__ import annotations
 
@@ -72,8 +80,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        fsdp_gather, get_logical_rules,
                                        init_norm, sinusoidal_position_at,
-                                       sinusoidal_positions, tp_gather,
-                                       tp_index, tp_reduce)
+                                       sinusoidal_positions, tp_enter,
+                                       tp_gather, tp_index, tp_reduce)
+from repro_torch.utils.numerics import reciprocal
 from repro_torch.sharding import dist
 from repro_torch.sharding.spec import entry_axes
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -140,7 +149,7 @@ class Model:
         there and moving the fsdp group's ``tokens`` rows costs less
         than gathering the table (``moves_rows``); else None."""
         rules = get_logical_rules()
-        if rules is None or not rules.fsdp_live:
+        if rules is None or not rules.fsdp_live or not rules.serve:
             return None
         ax = tuple(a for a in entry_axes(rules.param_axes[key][1 - vdim])
                    if a != rules.tp and rules.size(a) > 1)
@@ -225,8 +234,11 @@ class Model:
             return None
         return self._cross_kv(params, self._encode(params, batch))
 
-    def _project_vocab(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        """Vocab projection over the padded table; padding logits −1e30."""
+    def _project_vocab(self, params: Dict, x: torch.Tensor, *,
+                       whole: bool = True):
+        """Vocab projection over the padded table; padding logits −1e30.
+        With ``whole=False``, (the rank's block of the logits, its first
+        global id): training's cross-entropy runs on the block."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             table = self._table(params, "embed")
@@ -252,39 +264,56 @@ class Model:
         if cfg.padded_vocab != cfg.vocab_size:
             vid = v0 + torch.arange(n, device=x.device)
             logits = torch.where(vid < cfg.vocab_size, logits, NEG_INF)
+        if not whole:
+            return logits, v0
         if n < cfg.padded_vocab:
             logits = tp_gather(logits, -1 % logits.dim(), "vocab")
         return logits
 
-    def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        return self._project_vocab(params,
-                                   apply_norm(params["final_norm"], x,
-                                              self.cfg))
+    def _head(self, params: Dict, x: torch.Tensor, *, whole: bool = True):
+        """The final norm and the vocab projection. Under training rules
+        the normed input enters the rank's vocab block through
+        ``tp_enter``."""
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        if self._vocab_split(params):
+            x = tp_enter(x)
+        return self._project_vocab(params, x, whole=whole)
+
+    def _vocab_split(self, params: Dict) -> bool:
+        """The installed rules split the head's vocab dim."""
+        if get_logical_rules() is None:
+            return False
+        if self.cfg.tie_embeddings:
+            return params["embed"].shape[0] < self.cfg.padded_vocab
+        return params["lm_head"].shape[-1] < self.cfg.padded_vocab
 
     # ---------------------------------------------------------- full forward
     def _check_rules(self, what: str) -> None:
         """Refuse what tensor parallelism does not run yet (ROADMAP
         A17): any config but a dense GQA decoder, the sequence-sharded
-        rules, and the full forward (training)."""
+        rules, the full forward (training's) under serving rules and
+        serving under training rules."""
         rules = get_logical_rules()
         if rules is None:
             return
         cfg = self.cfg
-        if what == "apply":
-            raise ValueError("tensor-parallel training (the full forward "
-                             "under logical rules) is ROADMAP A17, the "
-                             "next slice")
         if rules.seq_shard:
             raise ValueError("sequence-sharded rules (seq_shard) are "
                              "ROADMAP A17: the long-context decode")
         if not tp_supported(cfg):
-            raise ValueError(f"{cfg.name}: tensor-parallel serving runs the "
+            raise ValueError(f"{cfg.name}: tensor parallelism runs the "
                              "dense GQA decoders only; MoE, MLA, Mamba2, "
                              "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+        if (what == "apply") == rules.serve:
+            raise ValueError(
+                f"{what} under {'serving' if rules.serve else 'training'} "
+                "rules: the full forward runs under LogicalRules("
+                "serve=False), prefill and decode under serve=True")
 
-    def apply(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
-        """Full causal forward. Returns (logits (B,S,V) over the text
-        positions, aux)."""
+    def _forward(self, params: Dict, batch: Dict, use_pallas: bool,
+                 whole: bool):
+        """The full causal forward -> (logits, aux, first global vocab
+        id of the logits)."""
         self._check_rules("apply")
         cfg = self.cfg
         x = self._embed(params, batch)
@@ -295,9 +324,17 @@ class Model:
                                    use_pallas=use_pallas)
         if cfg.num_image_tokens and "image_embeds" in batch:
             x = x[:, cfg.num_image_tokens:]   # text positions only
-        logits = self._head(params, x)
+        out = self._head(params, x, whole=whole)
+        logits, v0 = out if not whole else (out, 0)
         if self.cfg.mtp_depth and "labels" in batch:
             aux = aux + self._mtp_loss(params, x, batch)
+        return logits, aux, v0
+
+    def apply(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
+        """Full causal forward. Returns (logits (B,S,V) over the text
+        positions, aux). Under training rules, on the rank's local
+        params and rows, with the logits gathered whole."""
+        logits, aux, _ = self._forward(params, batch, use_pallas, True)
         return logits, aux
 
     def _mtp_loss(self, params: Dict, h: torch.Tensor, batch: Dict,
@@ -319,8 +356,18 @@ class Model:
         return weight * ll + (aux if aux is not None else 0.0)
 
     def loss(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
-        logits, aux = self.apply(params, batch, use_pallas=use_pallas)
-        ce = _ce(logits, batch["labels"])
+        """Mean token cross-entropy (+ aux). Under training rules it is
+        vocab-parallel on the rank's block of the logits
+        (``_ce_parallel``), never gathered whole."""
+        rules = get_logical_rules()
+        if rules is None or rules.serve:
+            logits, aux = self.apply(params, batch, use_pallas=use_pallas)
+            ce = _ce(logits, batch["labels"])
+        else:
+            logits, aux, v0 = self._forward(params, batch, use_pallas,
+                                            False)
+            ce = _ce_parallel(logits, batch["labels"], v0, rules,
+                              self._vocab_split(params))
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------ inference
@@ -510,3 +557,35 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+def _ce_parallel(logits: torch.Tensor, labels: torch.Tensor, v0: int, rules,
+                 split: bool) -> torch.Tensor:
+    """``_ce`` of a rank's logits block (global ids [v0, v0 + n)) under
+    training rules: the shift is the max over the tensor axis
+    (``max_over``, no gradient); Σexp and the label's logit, masked to
+    the block, are summed over it in one ``reduce_from``. Where the
+    rules split the batch rows over an fsdp axis, the mean over every
+    row is the local sum reduced over that axis (``loss``) times
+    f32(1/count)."""
+    z = logits.float()
+    if split:
+        mesh, tp = rules.mesh, (rules.tp,)
+        m = dist.max_over(z.max(dim=-1).values, mesh, tp)
+        n = z.shape[-1]
+        lab = labels.long() - v0
+        mine = (lab >= 0) & (lab < n)
+        ll = torch.gather(z, -1, torch.where(mine, lab, 0)[..., None])[..., 0]
+        se = torch.exp(z - m[..., None]).sum(dim=-1)
+        both = dist.reduce_from(torch.stack([se, ll * mine.to(z.dtype)]),
+                                mesh, tp, role="vocab")
+        tok = torch.log(both[0]) + m - both[1]
+    else:
+        lse = torch.logsumexp(z, dim=-1)
+        tok = lse - torch.gather(z, -1, labels.long()[..., None])[..., 0]
+    rows = rules.map["batch"]
+    if rules.size(rows) > 1:
+        total = dist.reduce_from(tok.sum(), rules.mesh, entry_axes(rows),
+                                 role="loss")
+        return total * reciprocal(tok.numel() * rules.size(rows))
+    return torch.mean(tok)

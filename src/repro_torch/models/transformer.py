@@ -24,9 +24,10 @@ applies its layers in order.
 every block (``attention.gqa_full``, ``ssm.mamba2_full``).
 
 Under installed logical rules (``models.common``) the dense MLP is
-Megatron's: ``w_gate``/``w_in`` (and ``b_in``) column-parallel,
-``w_out`` row-parallel, followed by one ``tp_reduce``; ``b_out`` is
-added once, after the sum. Where the rules' spec shards params over an
+Megatron's: its input enters through ``tp_enter`` (under training
+rules), ``w_gate``/``w_in`` (and ``b_in``) column-parallel, ``w_out``
+row-parallel, followed by one ``tp_reduce``; ``b_out`` is added once,
+after the sum. Where the rules' spec shards params over an
 fsdp axis, each layer's params are gathered whole over it at use
 (``fsdp_gather``) and dropped after the layer.
 """
@@ -42,7 +43,8 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.common import (apply_norm, dense_init,
                                        fsdp_gather_tree, get_logical_rules,
-                                       init_norm, shard_logical, swiglu,
+                                       init_norm, remat_call, remat_on,
+                                       shard_logical, swiglu, tp_enter,
                                        tp_reduce, zeros_init)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -85,16 +87,18 @@ def init_mlp(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Under rules, the rank's block of the hidden units: the partial
-    sums of ``w_out`` are reduced over the tensor axis before
-    ``b_out``."""
+    """Under rules, the rank's block of the hidden units: ``x`` enters
+    through ``tp_enter`` and the partial sums of ``w_out`` are reduced
+    over the tensor axis before ``b_out``."""
+    F_ = params["w_out"].shape[0]
+    if F_ < cfg.d_ff:
+        x = tp_enter(x)
     if "w_gate" in params:
         h = swiglu(x @ params["w_gate"], x @ params["w_in"])
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
                    approximate="tanh").to(x.dtype)
-    F_ = params["w_out"].shape[0]
     shard_logical(h, ("batch", "seq", "ffn"), (None, None, cfg.d_ff))
     y = h @ params["w_out"]
     if F_ < cfg.d_ff:
@@ -258,6 +262,34 @@ def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype, *,
     return params
 
 
+def _remat_block(p: dict, x: torch.Tensor, i: int, n: int, cfg, btype,
+                 enc_kv=None, **kw):
+    """``block_full`` of layer params ``p`` (with their fsdp gather at
+    use) through ``common.remat_call``: the backward recomputes the
+    block, its gathers and collectives included. Every tensor the block
+    differentiates (params, ``enc_kv``, ``x``) is an input of the
+    rematerialised call. Returns (x, aux)."""
+    leaves, treedef = tree_flatten(p)
+    ekv, ekv_def = tree_flatten(enc_kv) if enc_kv is not None else ([], None)
+    k = len(leaves)
+    # a tensor the call closes over cannot cross functorch's generated
+    # vmap rule: the positions (the full forward's arange(S)) are made
+    # inside the call
+    S = kw.pop("positions").shape[-1]
+
+    def fn(*ts):
+        lp = _at_use(tree_unflatten(treedef, list(ts[:k])), i, n)
+        e = (tree_unflatten(ekv_def, list(ts[k:-1])) if ekv_def is not None
+             else None)
+        pos = torch.arange(S, device=ts[-1].device)[None]
+        y, _, a = block_full(lp, ts[-1], cfg, btype, enc_kv=e,
+                             positions=pos, **kw)
+        return y if a is None else (y, a)
+
+    out = remat_call(fn, *leaves, *ekv, x)
+    return out if isinstance(out, tuple) else (out, None)
+
+
 def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
                positions: torch.Tensor, window=None,
                build_cache: bool = False, enc_kv=None, causal: bool = True,
@@ -266,18 +298,26 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
     ``aux`` is the MoE blocks' auxiliary losses summed in f32 in layer
     order, 0 without MoE blocks. ``enc_kv`` (cross K/V stacked on the
     layer axis) goes to a uniform decoder stack's layers in order, as
-    the reference's scan hands it out."""
+    the reference's scan hands it out. With ``common.remat_on()`` (and
+    no cache to build) each block is rematerialised, as the reference's
+    ``jax.checkpoint`` of its block: only the residual stream between
+    blocks is kept for the backward pass."""
     caches = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat_on() and not build_cache
     for i, (btype, n) in enumerate(segment_runs(layer_types
                                                 or cfg.layer_types)):
         cs = []
         for j, p in enumerate(_run_params(params, i, btype, n)):
-            x, c, a = block_full(
-                _at_use(p, i, n), x, cfg, btype, positions=positions,
-                window=window, build_cache=build_cache,
-                enc_kv=_slice_enc(enc_kv, j), causal=causal,
-                use_pallas=use_pallas)
+            kw = dict(positions=positions, window=window,
+                      enc_kv=_slice_enc(enc_kv, j), causal=causal,
+                      use_pallas=use_pallas)
+            if remat:
+                x, a = _remat_block(p, x, i, n, cfg, btype, **kw)
+                c = None
+            else:
+                x, c, a = block_full(_at_use(p, i, n), x, cfg, btype,
+                                     build_cache=build_cache, **kw)
             cs.append(c)
             if a is not None:
                 aux = aux + a

@@ -37,7 +37,17 @@ Every collective takes a ``role``, kept in its record: the serving
 path's are ``tp_reduce`` (a row-parallel product's partial sums),
 ``kv_gather`` (KV heads for the cache), ``vocab`` (the vocab-parallel
 embedding and the logits) and ``fsdp_gather`` (a layer's fsdp dims at
-use).
+use); training's are listed in ``hlo.TRAIN_ROLES``.
+
+Training differentiates through collectives: ``copy_to`` (identity
+forward, sum backward: Megatron's f), ``reduce_from`` (sum forward,
+identity backward: g), ``gather_from`` (all-gather forward,
+reduce-scatter backward; gloo has no reduce-scatter, so
+``reduce_scatter`` is an all-reduce of a copy and a slice, recorded as
+one op) and ``max_over`` (no gradient). Each is a
+``torch.autograd.Function`` with an explicit ``vmap`` rule, so under
+``torch.func.vmap(grad)`` one collective serves the rank's stacked
+clients; none writes its input.
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding import hlo
-from repro_torch.sharding.spec import axes_size, mesh_shape
+from repro_torch.sharding.spec import axes_size, block_index, mesh_shape
 
 
 class Runtime(NamedTuple):
@@ -218,8 +228,8 @@ def _dtype(x: torch.Tensor) -> str:
 
 def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
                op: str = "sum", *, role: str = "") -> torch.Tensor:
-    """Sum or min of ``x`` over the ranks spanned by ``axes``, in place;
-    returns ``x``."""
+    """Sum, min or max of ``x`` over the ranks spanned by ``axes``, in
+    place; returns ``x``."""
     axes = _live(mesh, axes)
     if not axes:
         return x
@@ -228,12 +238,39 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
     else:
         group, ranks = _group(mesh, axes)
         n = len(ranks)
-        rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+        rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+               "max": dist.ReduceOp.MAX}[op]
         dist.all_reduce(x, op=rop, group=group)
     hlo.record(hlo.CollectiveOp(
         "all-reduce", x.numel() * x.element_size(), n, axes, _dtype(x),
         tuple(x.shape), op, False, role))
     return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
+                   dim: int = 0, *, role: str = "") -> torch.Tensor:
+    """The sum of ``x`` over the ranks spanned by ``axes``, of which this
+    rank keeps its block along ``dim`` (blocked row-major in the order
+    of ``axes``, as ``all_gather`` concatenates them). gloo has no
+    reduce-scatter: it is an all-reduce of a copy and a slice, recorded
+    as one ``reduce-scatter`` of ``x``'s bytes."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    n = axes_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axes} ({n} ranks)")
+    full = x.clone()
+    if not isinstance(mesh, AbstractMesh):
+        group, _ = _group(mesh, axes)
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+    hlo.record(hlo.CollectiveOp(
+        "reduce-scatter", x.numel() * x.element_size(), n, axes, _dtype(x),
+        tuple(x.shape), "sum", False, role))
+    m = x.shape[dim] // n
+    b = block_index(mesh, axes, coords(mesh))
+    return full.narrow(dim, b * m, m).contiguous()
 
 
 def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
@@ -288,6 +325,174 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
         "all-gather", out.numel() * out.element_size(), len(ranks), axes,
         _dtype(x), tuple(out.shape), "", staged, role))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives that differentiate and batch (Megatron's f and g)
+# ---------------------------------------------------------------------------
+# Each is a ``torch.autograd.Function`` with an explicit ``vmap`` rule:
+# under ``torch.func.vmap`` the rule runs ONE collective on the whole
+# stacked (C_loc, ...) tensor, which equals C_loc per-client
+# collectives (a process-group call cannot be traced by functorch).
+# A backward calls the dual operator's ``apply``, so gradients batch
+# too, and its ops are recorded as backward (``hlo.backward_pass``).
+# The forward never writes its input: a reduce works on a copy.
+
+
+def _front(x, d):
+    """``x`` with its vmap batch dim ``d`` moved to the front."""
+    return x if d is None or d == 0 else x.movedim(d, 0)
+
+
+def _shift(dim: int) -> int:
+    """A per-sample dim as a dim of the stacked tensor."""
+    return dim + 1 if dim >= 0 else dim
+
+
+class _Sum(torch.autograd.Function):
+    """Sum over ``axes`` forward, identity backward (Megatron's g)."""
+
+    @staticmethod
+    def forward(x, mesh, axes, role, bwd_role):
+        return all_reduce(x.clone(), mesh, axes, role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, role, bwd_role):
+        return _Sum.apply(_front(x, in_dims[0]), mesh, axes, role,
+                          bwd_role), 0
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, sum over ``axes`` backward (Megatron's f)."""
+
+    @staticmethod
+    def forward(x, mesh, axes, role):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, role = ctx.spec
+        with hlo.backward_pass():
+            return _Sum.apply(g, mesh, axes, role, role), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, role):
+        return _Copy.apply(_front(x, in_dims[0]), mesh, axes, role), 0
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward the reduce-scatter
+    (the sum over ``axes`` of the incoming gradient, this rank's
+    block kept)."""
+
+    @staticmethod
+    def forward(x, mesh, axes, dim, role, bwd_role):
+        return all_gather(x, mesh, axes, dim, role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, role, bwd_role = ctx.spec
+        with hlo.backward_pass():
+            return (_Scatter.apply(g, mesh, axes, dim, bwd_role, role),
+                    None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, dim, role, bwd_role):
+        d = in_dims[0]
+        return _Gather.apply(_front(x, d), mesh, axes,
+                             dim if d is None else _shift(dim), role,
+                             bwd_role), 0 if d is not None else None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward; all-gather backward."""
+
+    @staticmethod
+    def forward(x, mesh, axes, dim, role, bwd_role):
+        return reduce_scatter(x, mesh, axes, dim, role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, role, bwd_role = ctx.spec
+        with hlo.backward_pass():
+            return (_Gather.apply(g, mesh, axes, dim, bwd_role, role),
+                    None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, dim, role, bwd_role):
+        d = in_dims[0]
+        return _Scatter.apply(_front(x, d), mesh, axes,
+                              dim if d is None else _shift(dim), role,
+                              bwd_role), 0 if d is not None else None
+
+
+class _Max(torch.autograd.Function):
+    """Max over ``axes``; no gradient (a softmax's shift)."""
+
+    @staticmethod
+    def forward(x, mesh, axes, role):
+        return all_reduce(x.detach().clone(), mesh, axes, "max", role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, role):
+        return _Max.apply(_front(x, in_dims[0]), mesh, axes, role), 0
+
+
+def copy_to(x: torch.Tensor, mesh, axes: Sequence[str], *,
+            role: str = "tp_grad") -> torch.Tensor:
+    """Identity forward; backward sums the gradient over ``axes``
+    (recorded with ``role``): where a tensor replicated over ``axes``
+    enters per-rank work whose gradients are partial."""
+    return _Copy.apply(x, mesh, tuple(axes), role)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes: Sequence[str], *,
+                role: str = "tp_reduce") -> torch.Tensor:
+    """The sum of ``x``'s partial sums over ``axes`` (a new tensor);
+    identity backward."""
+    return _Sum.apply(x, mesh, tuple(axes), role, role)
+
+
+def gather_from(x: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
+                role: str = "fsdp_gather",
+                bwd_role: str = "fsdp_scatter") -> torch.Tensor:
+    """The blocks of ``x`` over ``axes`` concatenated along ``dim``;
+    backward reduce-scatters the gradient (``bwd_role``)."""
+    return _Gather.apply(x, mesh, tuple(axes), dim, role, bwd_role)
+
+
+def max_over(x: torch.Tensor, mesh, axes: Sequence[str], *,
+             role: str = "vocab") -> torch.Tensor:
+    """The max of ``x`` over ``axes``, detached."""
+    return _Max.apply(x, mesh, tuple(axes), role)
 
 
 def _entry(rank, fn, world, rendezvous, device, threads, args):

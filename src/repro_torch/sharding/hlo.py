@@ -20,7 +20,13 @@ module's log, and the checks read the log:
 
   * ``assert_no_param_gather``: a ``cross_device`` tensor-parallel
     serve step moves no param and crosses no data axis: its ops are the
-    roles ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``.
+    roles ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``; a
+    training round's forward and backward ops likewise stay on
+    ``model`` and move no param, and only ``fedavg`` and ``metrics``
+    cross the client axes (``TRAIN_ROLES`` names every role).
+
+Each record says whether its op ran in a backward pass (``backward``:
+a gradient's collective or a remat recompute, ``backward_pass``).
 
 ``CollectiveOp.wire_bytes`` is ``repro/roofline.py``'s ring rule. The
 fleet's cohort-materialization report waits for a meshed fleet loop
@@ -28,7 +34,10 @@ fleet's cohort-materialization report waits for a meshed fleet loop
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +53,8 @@ class CollectiveOp:
     op: str = "sum"                # reduce op of an all-reduce
     staged: bool = False           # went through pinned host memory
     role: str = ""                 # what the op is for (dist's roles)
+    backward: bool = False         # ran in a backward pass (a gradient's
+    #                                collective, or a remat recompute)
 
     @property
     def elems(self) -> int:
@@ -63,9 +74,23 @@ class CollectiveOp:
 
 
 LOG: List[CollectiveOp] = []
+_PASS = threading.local()
+
+
+@contextlib.contextmanager
+def backward_pass():
+    """Ops recorded inside (on this thread) ran in a backward pass."""
+    depth = getattr(_PASS, "depth", 0)
+    _PASS.depth = depth + 1
+    try:
+        yield
+    finally:
+        _PASS.depth = depth
 
 
 def record(op: CollectiveOp) -> None:
+    if getattr(_PASS, "depth", 0) and not op.backward:
+        op = dataclasses.replace(op, backward=True)
     LOG.append(op)
 
 
@@ -157,26 +182,52 @@ def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
 # the roles a tensor-parallel serve step's collectives may have on a
 # cross_device mesh: none moves a param
 SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab")
+# the roles of a tensor-parallel training round's collectives: forward
+# partial sums (``tp_reduce``; ``vocab`` for the vocab-parallel
+# embedding and cross-entropy; ``loss`` for its mean over rows split on
+# an fsdp axis), the backward's sums of partial gradients (``tp_grad``),
+# the fsdp gather at use and its reduce-scatter (``fsdp_gather``,
+# ``fsdp_scatter``), the gradient sums over the fsdp axes of leaves they
+# do not shard (``grad_sync``), Δ-SGD's norm sums (``norms``), and over
+# the client axes the FedAvg sum (``fedavg``) and the metrics' gather
+# (``metrics``)
+TRAIN_ROLES = ("tp_reduce", "tp_grad", "vocab", "loss", "fsdp_gather",
+               "fsdp_scatter", "grad_sync", "norms", "fedavg", "metrics")
+# the training roles that move no param and stay inside a model replica
+# on a cross_device mesh, and the two that cross the client axes
+TRAIN_REPLICA_ROLES = ("tp_reduce", "tp_grad", "vocab", "norms")
+CLIENT_ROLES = ("fedavg", "metrics")
 
 
-def assert_no_param_gather(ops: Sequence[CollectiveOp], spec) -> Dict:
-    """In a ``cross_device`` serve step no collective moves a param
-    (every op is a partial-sum reduce, a KV gather or a vocab op, none
-    an fsdp gather) and none crosses the data axes (the client axes of
-    ``spec``, a FederationSpec): a model replica lives within one
-    ``model`` group."""
+def assert_no_param_gather(ops: Sequence[CollectiveOp], spec, *,
+                           train: bool = False) -> Dict:
+    """In a ``cross_device`` step no collective moves a param and a
+    model replica lives within one ``model`` group. A serve step's ops
+    are partial-sum reduces, KV gathers and vocab ops (none an fsdp
+    gather), none over the data axes (the client axes of ``spec``, a
+    FederationSpec). A training round's (``train=True``) forward and
+    backward ops are partial sums of activations or gradients and
+    Δ-SGD's norm sums over ``model``; only ``fedavg`` and ``metrics``
+    cross the client axes."""
     if spec.fsdp_axes:
         raise ValueError("assert_no_param_gather checks a cross_device "
                          f"step; this spec shards params over "
                          f"{spec.fsdp_axes}")
     data = set(spec.client_axes) | {"pod", "data"}
-    bad = [c for c in ops if c.role not in SERVE_ROLES
-           or data.intersection(c.axes)]
+    if train:
+        bad = [c for c in ops
+               if (c.role in CLIENT_ROLES) != bool(data.intersection(c.axes))
+               or c.role not in TRAIN_REPLICA_ROLES + CLIENT_ROLES]
+        roles = TRAIN_REPLICA_ROLES + CLIENT_ROLES
+    else:
+        bad = [c for c in ops if c.role not in SERVE_ROLES
+               or data.intersection(c.axes)]
+        roles = SERVE_ROLES
     if bad:
         raise AssertionError(f"{len(bad)} of {len(ops)} collectives move a "
                              f"param or cross the data axes: {bad[:4]}")
     return {"collectives": len(ops),
-            "roles": {r: sum(c.role == r for c in ops) for r in SERVE_ROLES}}
+            "roles": {r: sum(c.role == r for c in ops) for r in roles}}
 
 
 def global_slab_bytes(C: int, N: int, slabs: int = 3) -> int:

@@ -393,6 +393,58 @@ def shard_bytes(tree, placements, mesh) -> int:
     return total
 
 
+def client_axes_on(spec: FederationSpec, mesh) -> Axes:
+    """The spec's client axes present in the mesh with size > 1."""
+    shape = mesh_shape(mesh)
+    return tuple(a for a in spec.client_axes if shape.get(a, 1) > 1)
+
+
+def norm_axes(spec: FederationSpec, mesh) -> Axes:
+    """The live axes that split a client's params (fsdp, then tp): the
+    axes a per-client global sum over a sharded tree is reduced over."""
+    shape = mesh_shape(mesh)
+    return tuple(a for a in spec.fsdp_axes + spec.tp_axes
+                 if shape.get(a, 1) > 1 and a not in spec.client_axes)
+
+
+def grad_sync_axes(spec: FederationSpec, mesh, placements) -> dict:
+    """For each leaf of ``placements`` (``param_placements``' tree), the
+    axes over which its gradient is a partial sum after a rank's
+    backward pass: the live fsdp axes that do not shard it. The rows of
+    a client's batch are split over them (``batch_shardings``), so a
+    leaf they do not split sees each rank's rows only. A leaf an fsdp
+    axis shards is gathered at use, and its gather's backward already
+    sums over that axis (a reduce-scatter). Empty without fsdp."""
+    shape = mesh_shape(mesh)
+    fsdp = tuple(a for a in spec.fsdp_axes if shape.get(a, 1) > 1)
+
+    def one(entries):
+        used = {a for e in entries for a in entry_axes(e)}
+        return tuple(a for a in fsdp if a not in used)
+
+    return tree_unflatten(*_swap(tree_flatten(placements), one))
+
+
+def counted_leaves(spec: FederationSpec, mesh, placements,
+                   coords: Dict[str, int]) -> dict:
+    """For each leaf, whether this rank (at ``coords``) counts its block
+    in a per-client sum over the whole tree: a leaf replicated over a
+    norm axis (``norm_axes``) is counted only on that axis's index 0,
+    so after one sum over the norm axes every element counts once."""
+    live = norm_axes(spec, mesh)
+
+    def one(entries):
+        used = {a for e in entries for a in entry_axes(e)}
+        return all(int(coords[a]) == 0 for a in live if a not in used)
+
+    return tree_unflatten(*_swap(tree_flatten(placements), one))
+
+
+def _swap(flat, fn):
+    leaves, treedef = flat
+    return treedef, [fn(x) for x in leaves]
+
+
 # ---------------------------------------------------------------------------
 # Logical activation rules (installed by repro_torch.models.common.
 # logical_rules)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``src/repro_torch`` (its
 ``sharding`` package and the dry run's ``launch`` modules included), not
 ``chip_smoke.py`` and not the sharded tests' rank workers
-``tests/_torch_dist_worker.py`` and ``tests/_torch_tp_worker.py`` imports
+(``tests/_torch_dist_worker.py``, ``_torch_tp_worker.py``,
+``_torch_tp_train_worker.py`` and ``_torch_tp_grad_worker.py``) imports
 ``jax`` or the reference package ``repro``."""
 import ast
 from pathlib import Path
@@ -11,7 +12,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
-    ROOT / "tests" / "_torch_tp_worker.py"]
+    ROOT / "tests" / "_torch_tp_worker.py",
+    ROOT / "tests" / "_torch_tp_train_worker.py",
+    ROOT / "tests" / "_torch_tp_grad_worker.py"]
 
 
 def _banned(name: str) -> bool:

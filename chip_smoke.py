@@ -309,7 +309,17 @@ without its final line:
               (rank 0, after the runs). The dry run of TinyLlama's
               train_4k on the (32, 8) H100 mesh runs meanwhile in a CPU
               process of its own; its analytic memory and counts are
-              printed beside the measured peaks.
+              printed beside the measured peaks. The MoE and MLA
+              decoders under the same gates: OLMoE-1B-7B at full width
+              and 2 layers (cross_device, C = 2, b = 2) on the plain
+              and the kernel route (the pair held and timed at a rank's
+              OLMoE slab), DeepSeek-V3 at its reduced config with MTP
+              (cross_silo, one client's 4 rows over data, so the MoE
+              counts and aux sums cross data; wq_a, wkv_a, q_norm,
+              kv_norm and the router among the replicas compared). The
+              dry runs of OLMoE's and DeepSeek-V3's train_4k and
+              decode_32k start here, in a CPU process of their own, and
+              are printed after 6c.
   6b. serving plane  TinyLlama-1.1B whole (22 layers, f32, random
               weights from seed 0), every count at 0 before each part
               and read after. (1) Hot swap: seed 0's params saved as
@@ -371,11 +381,46 @@ without its final line:
               below the unsharded model's. Then the dry run of
               TinyLlama's prefill_32k and decode_32k on the (32, 8) H100
               mesh, its analytic memory beside the measured peaks.
+              Then the MoE and MLA decoders (TPM_RUNS; experts and heads
+              over model, the capacity counts gathered over data): an
+              unsharded run on the card first (prefill of the 4 prompts
+              of 64 at the served capacity 1.25, greedy decode; for the
+              gate runs also the full forward and the prefill at
+              GATE_CAPACITY_FACTOR), then the ranks: OLMoE-1B-7B at 2
+              layers (cross_device, 32 new tokens; cross_silo, 4: each
+              layer's experts gathered over data through the host) and
+              DeepSeek-V3 reduced in f32 (cross_silo, 8; its router
+              leaning on one expert so that 1.25 drops choices, which
+              the unsharded prefill at 8.0 shows) in one spawn, each
+              rank drawing the weights; OLMoE whole (16 layers,
+              cross_silo, a decode step) and DeepSeek-V3 at one layer
+              with its MTP block at full width in bf16 on (data 1,
+              model 4), a spawn each, the ranks reading the parent's
+              params through CUDA IPC. Gates: prefill's and every
+              step's logits within 1e-4·max|logits| of the unsharded;
+              bf16: the router's input at every row and step within
+              TPM_BF16_REL·max of the unsharded run's, at least half
+              the rows and steps routed to the unsharded run's experts
+              and their logits within TPM_BF16_REL·max (the others
+              printed with the unsharded router's near-tie); tokens
+              equal where the margin passes (and, bf16, the routing
+              agrees), finite logits and tokens in the vocab, each
+              step's collectives by role exactly serve_collectives',
+              assert_no_param_gather on OLMoE 2 L cross_device, flash
+              once a layer a prefill at the rank's heads (none for
+              MLA), decode == full forward at GATE_CAPACITY_FACTOR
+              within 2e-3 on the three gate runs (OLMoE 2 L on both
+              federations, DeepSeek-V3 reduced), the MLA latent cache
+              bitwise equal on the
+              model ranks, a rank's peak below the unsharded run's
+              where the ranks drew their own weights. Then the MoE
+              dry runs' lines.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
               and every cell's kernel launched on the card.
-  8. the summary line {"kernels": [...]} (all twelve kernels, with their
+  8. summary  each phase's seconds and the script's total, then the
+              line {"kernels": [...]} (all twelve kernels, with their
               launches by path, the vmap runs of 4c, the runs of 4d, the
               LM runs of 4e, the ranks' of 4f and 4g, the serving
               plane's of 6b and the ranks' of 6c among them;
@@ -492,7 +537,10 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
             # 20/4, Granite 24/1 (the MQA head on every rank)
             (2, 64, 16, 2, 64, None, "float32"),
             (2, 64, 20, 4, 128, None, "float32"),
-            (2, 64, 24, 1, 128, None, "float32"))
+            (2, 64, 24, 1, 128, None, "float32"),
+            # OLMoE's 8 heads and 8 KV heads at a rank of (data 2,
+            # model 2)
+            (2, 64, 8, 8, 128, None, "float32"))
 # SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
              (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
@@ -653,9 +701,53 @@ TPT_RUNS = (
      False, False),
     ("tinyllama_l2_remat_on", "tinyllama-1.1b", 2, "cross_device", 2, 2,
      True, False),
+    # the MoE and MLA decoders: OLMoE at full width, 2 layers, one
+    # client a data rank, on both routes; DeepSeek-V3 at its reduced
+    # config (MLA, the shared expert, MTP) with one client's 4 rows
+    # over data, so the capacity counts and the aux loss cross data
+    ("olmoe_l2", "olmoe-1b-7b", 2, "cross_device", 2, 2, False, False),
+    ("olmoe_l2_kernel", "olmoe-1b-7b", 2, "cross_device", 2, 2, False,
+     True),
+    ("deepseek_reduced_silo", "deepseek-v3-671b", "reduced", "cross_silo",
+     1, 4, False, False),
 )
 TPT_K, TPT_SEQ, TPT_SEED = 2, 256, 0
 TPT_REL, TPT_PARAM_REL, TPT_REMAT_REL = 1e-4, 1e-5, 1e-6
+# phase 6c, the MoE and MLA decoders under tensor-parallel serving on 4
+# ranks: (run, arch, layers (None: all; "reduced": its reduced config),
+# dtype, federation, mesh (data, model), new tokens, whether the ranks
+# read the parent's unsharded params through CUDA IPC). OLMoE under
+# cross_silo gathers each layer's fsdp dims at use, through the host
+# under gloo (about 0.8 GB a layer a rank, 1.2 s): whole, it decodes one
+# step; its multi-step decode gate runs at 2 layers; DeepSeek-V3 at one
+# layer and its MTP block at full width is 49.9 GB in bf16: on one card
+# only (data 1, model 4) fits, and only with the ranks reading the
+# parent's tensors
+TPM_RUNS = (
+    ("olmoe_l2", "olmoe-1b-7b", 2, "float32", "cross_device", (2, 2), 32,
+     False),
+    ("olmoe_l2_silo", "olmoe-1b-7b", 2, "float32", "cross_silo", (2, 2), 4,
+     False),
+    ("deepseek_reduced", "deepseek-v3-671b", "reduced", "float32",
+     "cross_silo", (2, 2), 8, False),
+    ("olmoe_whole", "olmoe-1b-7b", None, "float32", "cross_silo", (2, 2), 1,
+     True),
+    ("deepseek_l1", "deepseek-v3-671b", 1, "bfloat16", "cross_silo", (1, 4),
+     8, True),
+)
+# the runs with the decode == full forward gate at GATE_CAPACITY_FACTOR
+TPM_GATE_RUNS = ("olmoe_l2", "olmoe_l2_silo", "deepseek_reduced")
+# a bf16 run against the unsharded bf16 run, as a share of the largest
+# value (PERF.md gives the ground): the router's input at each row's
+# last position, every step; the logits of each row and step whose
+# routing (the K experts of that position) is the unsharded run's. A
+# row and step routed otherwise is printed with its near-tie (the
+# unsharded router's K-th and (K+1)-th probabilities)
+TPM_BF16_REL = 2.0 ** -5
+# DeepSeek-V3 reduced: an embedding table shifted by TPM_SHIFT and every
+# MoE router's expert-0 column raised by TPM_LEAN, so that the served
+# capacity 1.25 drops choices
+TPM_SHIFT, TPM_LEAN = 0.02, 0.1
 # MoE capacity factor of the decode == full forward gates: prefill of
 # B·S tokens and decode of B drop different choices at the served 1.25
 # (the reference's tests patch the same 8.0)
@@ -2562,8 +2654,10 @@ def run_matrix(torch, mods):
     return launches
 
 
-def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
-    """Phase 5. Returns {(name, case): row}."""
+def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32,
+                     fa_cases=FA_CASES, ssd_cases=SSD_CASES):
+    """Phase 5 at ``fa_cases`` and ``ssd_cases``. Returns {(name, case):
+    row}."""
     import numpy as np
     from repro_torch.kernels.mamba2_scan.ops import chunk_len
     F = torch.nn.functional
@@ -2573,7 +2667,7 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dtype)
 
-    for case in FA_CASES:
+    for case in fa_cases:
         B, S, H, KV, hd, window, dname = case
         dtype = getattr(torch, dname)
         q = t(r.normal(size=(B, S, H, hd)), dtype)
@@ -2629,7 +2723,7 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
     # picked through the SM count the rule reads, timed alone; the output
     # the same bits at every height
     sm_count = fa.sm_count
-    for B, S, H, KV, hd, _, dname in FA_CASES:
+    for B, S, H, KV, hd, _, dname in fa_cases:
         if S != SERVE_PROMPT or dname != "float32":
             continue
         q = t(r.normal(size=(B, S, H, hd)))
@@ -2656,7 +2750,7 @@ def check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32):
             "shape": [B, S, H, KV, hd], "dtype": dname, "chosen": chosen,
             "us_by_rows": us_by_rows}), flush=True)
 
-    for B, S, H, P, G, N in SSD_CASES:
+    for B, S, H, P, G, N in ssd_cases:
         x = t(r.normal(size=(B, S, H, P)))
         dt = t(r.uniform(0.001, 0.1, (B, S, H)))
         A_log = t(np.log(r.uniform(1, 16, (H,))))
@@ -4091,11 +4185,18 @@ def _tpt_name(key):
     return f"{arch}_L{layers or 'all'}_{fed}_C{C}_b{b}"
 
 
-def _tpt_model(key):
+def _cut_cfg(arch, layers):
+    """``arch``'s config: whole (None), its reduced config ("reduced")
+    or at full width cut to ``layers``."""
     from repro_torch.configs import get_config
+    if layers == "reduced":
+        return get_config(arch).reduced()
+    return _lm_cfg(arch, layers) if layers else get_config(arch)
+
+
+def _tpt_model(key):
     from repro_torch.models.model import build_model
-    arch, layers = key[:2]
-    return build_model(_lm_cfg(arch, layers) if layers else get_config(arch))
+    return build_model(_cut_cfg(*key[:2]))
 
 
 def _tpt_batch(torch, key, device):
@@ -4325,19 +4426,25 @@ def _tpt_rank(rank, world, out_dir, runs, smi, bw, f32):
                                for p in off)}
     tdist.barrier()
     if rank == 0:
-        kr = res["runs"]["tinyllama_kernel"]
-        rows = _tpt_kernel_rows(torch, kr["norms_shapes"][0],
-                                kr["apply_shapes"][0], smi, bw, f32)
-        res["kernel_rows"] = [dict(r, key=[k[0], list(k[1])])
-                              for k, r in rows.items()]
+        res["kernel_rows"] = []
+        for run in runs:
+            if not run[7]:
+                continue
+            kr = res["runs"][run[0]]
+            rows = _tpt_kernel_rows(torch, kr["norms_shapes"][0],
+                                    kr["apply_shapes"][0], smi, bw, f32)
+            res["kernel_rows"] += [dict(r, key=[k[0], list(k[1])], run=run[0])
+                                   for k, r in rows.items()]
     np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
 
 
-def run_tp_train_path(torch, smi, bw, f32):
-    """Phase 4g. Returns (its launch counts (the ranks' Δ-SGD launches on
-    the card, summed), the Δ-SGD rows at a rank's local slab)."""
+def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
+    """Phase 4g over ``runs`` (TPT_RUNS' rows, every one of them: the
+    remat gate reads its pair). Returns (its launch counts (the ranks'
+    Δ-SGD launches on the card, summed), the Δ-SGD rows at a rank's
+    local slab)."""
     import os
     import tempfile
     import numpy as np
@@ -4348,7 +4455,7 @@ def run_tp_train_path(torch, smi, bw, f32):
     t0 = time.perf_counter()
     backend, _, why = dist.choose_backend(SHARD_WORLD, "cuda")
     mesh = dist.AbstractMesh(dict(zip(SHARD_MESH[1], SHARD_MESH[0])))
-    for run in TPT_RUNS:
+    for run in runs:
         model = _tpt_model(_tpt_key(run))
         rules = train_rules(model, mesh, params_struct(model),
                             spec=get_federation_spec(run[3], mesh))
@@ -4369,11 +4476,11 @@ def run_tp_train_path(torch, smi, bw, f32):
             text=True)
         try:
             torch.cuda.empty_cache()
-            keys = sorted({_tpt_key(r) for r in TPT_RUNS}, key=str)
+            keys = sorted({_tpt_key(r) for r in runs}, key=str)
             ref = {k: _tpt_unsharded(torch, k, tmp) for k in keys}
             t_ref = time.perf_counter() - t0
             dist.spawn(_tpt_rank, SHARD_WORLD,
-                       (tmp, TPT_RUNS, smi, bw, f32), device="cuda")
+                       (tmp, runs, smi, bw, f32), device="cuda")
             t_ranks = time.perf_counter() - t0 - t_ref
             ranks = []
             for r in range(SHARD_WORLD):
@@ -4390,7 +4497,7 @@ def run_tp_train_path(torch, smi, bw, f32):
             if dry.poll() is None:
                 dry.kill()
                 dry.wait()
-    for run in TPT_RUNS:
+    for run in runs:
         name, key = run[0], _tpt_key(run)
         want = ref[key]
         recs = [res["runs"][name] for res in ranks]
@@ -4463,6 +4570,7 @@ def run_tp_train_path(torch, smi, bw, f32):
     rows = {}
     for row in ranks[0]["kernel_rows"]:
         k = row.pop("key")
+        row.pop("run")
         rows[(k[0], tuple(k[1]))] = row
     print(f"tp train dry run {LM_ARCH} train_4k 32x8", json.dumps({
         "analytic_memory": dry_res["analytic_memory"],
@@ -4476,8 +4584,11 @@ def run_tp_train_path(torch, smi, bw, f32):
                 "gate"}), flush=True)
     launches = {}
     for res in ranks:
-        for k, n in res["runs"]["tinyllama_kernel"]["launches"].items():
-            launches[(k, "cuda")] = launches.get((k, "cuda"), 0) + n
+        for run in runs:
+            if not run[7]:
+                continue
+            for k, n in res["runs"][run[0]]["launches"].items():
+                launches[(k, "cuda")] = launches.get((k, "cuda"), 0) + n
     print(f"tp train: {time.perf_counter() - t0:.1f} s (unsharded runs "
           f"{t_ref:.1f} s, ranks {t_ranks:.1f} s)", flush=True)
     return launches, rows
@@ -4816,6 +4927,572 @@ def run_tp_serve_path(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6c, the MoE and MLA decoders: world-4 ranks, tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+def _tpm_model(run):
+    import torch
+    from repro_torch.models.model import build_model
+    return build_model(_cut_cfg(run[1], run[2]), getattr(torch, run[3]))
+
+
+class _RouteTap:
+    """While on, every ``moe.apply_moe`` call also keeps, at each row's
+    last position (the one whose logits the step returns), the router's
+    input and its probabilities, computed as ``apply_moe`` computes them
+    (the same product on the same tensors). Kept on the card until
+    ``arrays``; a bf16 run's routing gate reads them."""
+
+    def __init__(self, moe, on):
+        self.moe, self.on, self.taps = moe, on, []
+
+    def __enter__(self):
+        import torch
+        inner = self.inner = self.moe.apply_moe
+
+        def tapped(params, x, cfg):
+            xt = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax((xt @ params["router"]).float(), dim=-1)
+            last = torch.arange(x.shape[0], device=x.device) * x.shape[1] \
+                + x.shape[1] - 1
+            self.taps.append((x[:, -1].float(), probs[last]))
+            return inner(params, x, cfg)
+
+        if self.on:
+            self.moe.apply_moe = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.apply_moe = self.inner
+
+    def arrays(self):
+        """{"route_x": (calls, B, D), "route_probs": (calls, B, E)}."""
+        import torch
+        if not self.taps:
+            return {}
+        return {"route_x": torch.stack([x for x, _ in self.taps]
+                                       ).cpu().numpy(),
+                "route_probs": torch.stack([p for _, p in self.taps]
+                                           ).cpu().numpy()}
+
+
+def _tpm_params(torch, run, dev):
+    """The run's weights from TP_SEED on ``dev``; DeepSeek-V3 reduced's
+    router leans on expert 0 over a shifted embedding table, so the
+    served capacity drops choices."""
+    model = _tpm_model(run)
+    params = model.init(torch.Generator(device=dev).manual_seed(TP_SEED))
+    if run[0] == "deepseek_reduced":
+        params["embed"].add_(TPM_SHIFT)
+        params["stack"]["run0"]["moe"]["router"][..., 0].add_(TPM_LEAN)
+    return params
+
+
+def _tpm_unsharded(torch, run, out_dir):
+    """The run's unsharded prefill and greedy decode on the card at the
+    served capacity; for the gate runs also the full forward of the
+    prompts and generated tokens, and the prefill, at
+    GATE_CAPACITY_FACTOR. Arrays to ``out_dir/<run>.npz``. Returns (its
+    numbers, its params where the ranks read them, else None)."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_leaves
+    name, gen = run[0], run[6]
+    model = _tpm_model(run)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _tpm_params(torch, run, "cuda")
+    init_peak = torch.cuda.max_memory_allocated()
+    prompts = torch.from_numpy(_tp_prompts(model.cfg)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tap = _RouteTap(moe, run[3] == "bfloat16")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        with tap:
+            logits, cache = model.prefill(params, {"tokens": prompts},
+                                          cache_len=TP_PROMPT + gen)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        steps, toks = [logits[:, 0]], []
+        tok = torch.argmax(logits, -1)
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            toks.append(tok)
+            with tap:
+                logits, cache = model.decode_step(params, cache, tok)
+            steps.append(logits[:, 0])
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / gen
+        peak = torch.cuda.max_memory_allocated()
+        arrays = tap.arrays()
+        arrays["logits"] = torch.stack(steps).float().cpu().numpy()
+        arrays["tokens"] = torch.cat(toks, 1).cpu().numpy()
+        del cache, logits, steps
+        if name in TPM_GATE_RUNS:
+            seq = torch.cat([prompts] + toks, 1)
+            factor = moe.CAPACITY_FACTOR
+            moe.CAPACITY_FACTOR = GATE_CAPACITY_FACTOR
+            try:
+                full, _ = model.apply(params, {"tokens": seq[:, :-1]})
+                pre8, _ = model.prefill(params, {"tokens": prompts},
+                                        cache_len=TP_PROMPT + gen)
+            finally:
+                moe.CAPACITY_FACTOR = factor
+            arrays["full"] = full[:, TP_PROMPT - 1:].float().cpu().numpy()
+            arrays["prefill_gate"] = pre8[:, 0].float().cpu().numpy()
+            del full, pre8
+    np.savez(Path(out_dir) / f"{name}.npz", **arrays)
+    n = sum(a.numel() for a in tree_leaves(params))
+    nbytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    out = {"params": n, "param_bytes": nbytes, "init_peak_bytes": init_peak,
+           "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+           "peak_bytes": peak}
+    if not run[7]:
+        del params
+        params = None
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def _tpm_rank_run(torch, run, mesh, dev, out_dir, shared):
+    """One run of the MoE/MLA part of phase 6c on this rank: its blocks
+    (of ``shared``, the parent's params read through CUDA IPC, or of
+    its own draw), flash at its heads against the plain version (GQA),
+    then the counted prefill and the unsharded tokens fed back, and for
+    the gate runs the same at GATE_CAPACITY_FACTOR. Writes its arrays to
+    ``out_dir/<run>.rank<r>.npz``; returns its record."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.launch.steps import (make_prefill_step, place_for_rank,
+                                          serve_collectives, serve_rules)
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.common import logical_rules
+    from repro_torch.sharding import dist, hlo
+    from repro_torch.sharding.spec import get_federation_spec, local_block
+    from repro_torch.utils.tree import tree_leaves
+    name, _, _, _, fed, _, gen, _ = run
+    coord = dist.coords(mesh)
+    model = _tpm_model(run)
+    cfg = model.cfg
+    whole = shared if shared is not None else _tpm_params(torch, run, dev)
+    rules = serve_rules(model, mesh, whole,
+                        spec=get_federation_spec(fed, mesh),
+                        batch_size=TP_ROWS)
+    prompts = torch.from_numpy(_tp_prompts(cfg)).to(dev)
+    placed = place_for_rank(rules, params=whole, batch={"tokens": prompts},
+                            device=dev)
+    del whole
+    torch.cuda.empty_cache()
+    params, batch = placed["params"], placed["batch"]
+    with np.load(Path(out_dir) / f"{name}.npz") as z:
+        forced = local_block(torch.from_numpy(z["tokens"]),
+                             (("data",), None), mesh, coord).to(dev)
+    Bl = batch["tokens"].shape[0]
+    want = [serve_collectives(model, rules, Bl, TP_PROMPT)] + \
+        [serve_collectives(model, rules, Bl, 1)] * gen
+    fa_err, shape = None, None
+    if not cfg.use_mla:
+        with logical_rules(rules):
+            hd = attn.heads_of(params["stack"]["run0"]["attn"], cfg)
+        shape = (Bl, TP_PROMPT, hd.h, hd.a, cfg.head_dim)
+        g = torch.Generator(device=dev).manual_seed(dist.runtime().rank)
+        q = torch.randn(shape[:3] + shape[4:], generator=g, device=dev)
+        k, v = (torch.randn((Bl, TP_PROMPT, hd.a, cfg.head_dim),
+                            generator=g, device=dev) for _ in range(2))
+        fa_err = float((fa.flash_attention(q, k, v, causal=True)
+                        - faref.attention_ref(q, k, v, causal=True)
+                        ).abs().max())
+        if fa_err > 2e-5 * max(1.0, float(v.abs().max())):
+            raise AssertionError(f"tp moe {name}: flash at {shape} differs "
+                                 f"from its plain version by {fa_err}")
+        del q, k, v
+    prefill = make_prefill_step(model, cache_len=TP_PROMPT + gen,
+                                rules=rules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    hlo.reset()
+    tap = _RouteTap(moe, run[3] == "bfloat16")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        with tap:
+            logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+        ops = [hlo.snapshot()]
+        steps, c = [logits[:, 0]], cache
+        t0 = time.perf_counter()
+        for t in range(gen):
+            hlo.reset()
+            with logical_rules(rules), tap:
+                logits, c = model.decode_step(params, c, forced[:, t:t + 1])
+            ops.append(hlo.snapshot())
+            steps.append(logits[:, 0])
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / gen
+    peak = torch.cuda.max_memory_allocated()
+    arrays = tap.arrays()
+    arrays["logits"] = torch.stack(steps).float().cpu().numpy()
+    if cfg.use_mla:
+        for key in ("c_kv", "k_rope"):
+            arrays[key] = c["runs"]["run0"][key].float().cpu().numpy()
+    del cache, c, logits, steps
+    for i, (o, w) in enumerate(zip(ops, want)):
+        got = _tp_roles(o)
+        if got != {r: n for r, n in w.items() if n}:
+            raise AssertionError(f"tp moe {name} step {i}: collectives "
+                                 f"{got}, derived {w}")
+    if fed == "cross_device":
+        for o in ops:
+            hlo.assert_no_param_gather(o, rules.spec)
+    n_flash = 0 if cfg.use_mla else cfg.num_layers
+    if launches != ({("flash_attention", dev.type): n_flash} if n_flash
+                    else {}):
+        raise AssertionError(f"tp moe {name}: prefill launched {launches}, "
+                             f"expected {n_flash} flash launches")
+    if name in TPM_GATE_RUNS:
+        factor = moe.CAPACITY_FACTOR
+        moe.CAPACITY_FACTOR = GATE_CAPACITY_FACTOR
+        try:
+            with torch.no_grad():
+                lg, c8 = prefill(params, batch)
+                g8 = [lg[:, 0]]
+                for t in range(gen - 1):
+                    with logical_rules(rules):
+                        lg, c8 = model.decode_step(params, c8,
+                                                   forced[:, t:t + 1])
+                    g8.append(lg[:, 0])
+        finally:
+            moe.CAPACITY_FACTOR = factor
+        arrays["gate"] = torch.stack(g8, 1).float().cpu().numpy()
+        del lg, c8, g8
+    np.savez(Path(out_dir) / f"{name}.rank{dist.runtime().rank}.npz",
+             **arrays)
+    rec = {"collectives_prefill": {r: n for r, n in want[0].items() if n},
+           "collectives_decode_step": {r: n for r, n in want[-1].items()
+                                       if n},
+           "collective_bytes_per_step": [sum(x.bytes for x in o)
+                                         for o in ops[:2]],
+           "staged_per_step": [sum(x.staged for x in o) for o in ops[:2]],
+           "flash_launches_prefill": n_flash,
+           "flash_shape": list(shape) if shape else None,
+           "flash_max_abs_err_vs_plain": fa_err,
+           "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+           "peak_bytes": peak,
+           "local_params": sum(a.numel() for a in tree_leaves(params)),
+           "local_param_bytes": sum(a.numel() * a.element_size()
+                                    for a in tree_leaves(params))}
+    del params, placed, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tpm_rank(rank, world, out_dir, runs, box):
+    """One rank of the MoE/MLA part of phase 6c: ``runs`` (one mesh),
+    each through ``_tpm_rank_run``; its records to
+    ``out_dir/tpm.rank<rank>.json``. ``box`` holds the parent's params
+    (CUDA IPC) or nothing: they are taken out of it and dropped before
+    the rank ends, so that the parent gets their memory back (a
+    process started by multiprocessing ends without finalizing what its
+    arguments still hold)."""
+    import gc
+    import torch
+    from repro_torch.sharding import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shared = box.pop() if box else None
+    mesh = dist.make_mesh(runs[0][5], ("data", "model"))
+    dev = dist.runtime().device
+    res = {"device": str(dev), "coord": dist.coords(mesh), "runs": {}}
+    for run in runs:
+        res["runs"][run[0]] = _tpm_rank_run(torch, run, mesh, dev, out_dir,
+                                            shared)
+    del shared
+    gc.collect()
+    torch.cuda.synchronize()
+    with open(Path(out_dir) / f"tpm.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _tpm_close(got, want):
+    """The largest |got − want| beyond torch.testing's rtol = atol =
+    2e-3 (the decode == full forward gate's), 0 when within."""
+    import numpy as np
+    excess = np.abs(got - want) - (2e-3 + 2e-3 * np.abs(want))
+    return float(max(excess.max(), 0.0))
+
+
+def _tpm_routing(name, cfg, z, a, sl, row_err):
+    """A bf16 run's routing against the unsharded run's, from the
+    ``_RouteTap`` arrays: raises unless the router's input at every row
+    and step is within TPM_BF16_REL·max of the unsharded one and at
+    least half the rows and steps pick the unsharded run's K experts in
+    every MoE layer. Returns (alike (steps, rows), the input's error and
+    tolerance, the rows and steps routed otherwise with the unsharded
+    router's K-th and (K+1)-th probabilities and their logits' error)."""
+    import numpy as np
+    K, steps, rows = cfg.num_experts_per_tok, row_err.shape[0], \
+        row_err.shape[1]
+    xu, pu = z["route_x"][:, sl], z["route_probs"][:, sl]
+    xr, pr = a["route_x"], a["route_probs"]
+    x_err = float(np.abs(xr - xu).max())
+    x_tol = TPM_BF16_REL * float(np.abs(xu).max())
+    if x_err > x_tol:
+        raise AssertionError(f"tp moe {name}: the router's input differs "
+                             f"by {x_err} (tolerance {x_tol})")
+
+    def chosen(p):
+        return np.sort(np.argsort(-p, -1, kind="stable")[..., :K], -1)
+
+    # (steps, MoE layers, rows): every step runs each MoE layer once
+    alike = (chosen(pr) == chosen(pu)).all(-1).reshape(steps, -1, rows)
+    alike = alike.all(1)
+    if 2 * alike.sum() < alike.size:
+        raise AssertionError(f"tp moe {name}: only {alike.sum()} of "
+                             f"{alike.size} rows and steps routed alike")
+    ps = -np.sort(-pu, -1).reshape(steps, -1, rows, pu.shape[-1])
+    other = [{"step": int(t), "row": int(b),
+              "logits_err": float(row_err[t, b]),
+              "unsharded_kth_k1th_prob": [
+                  [float(ps[t, layer, b, K - 1]), float(ps[t, layer, b, K])]
+                  for layer in range(ps.shape[1])]}
+             for t, b in zip(*np.nonzero(~alike))]
+    return alike, x_err, x_tol, other
+
+
+def _tpm_check(run, ref, ranks, out_dir, smi):
+    """The gates of one MoE/MLA run, then its line."""
+    import numpy as np
+    name, arch, _, dname, fed, mshape, gen, shared = run
+    cfg = _cut_cfg(arch, run[2])
+    V = cfg.vocab_size
+    z = dict(np.load(Path(out_dir) / f"{name}.npz"))
+    want, tokens = z["logits"], z["tokens"]
+    f32 = dname == "float32"
+    tol = (TP_REL if f32 else TPM_BF16_REL) * float(
+        np.abs(want[..., :V]).max())
+    nd = mshape[0]
+    worst, worst_decode, sure_steps, gate_err = 0.0, 0.0, 0, None
+    routing = None
+    recs = [r["runs"][name] for r in ranks]
+    arrs = [dict(np.load(Path(out_dir) / f"{name}.rank{i}.npz"))
+            for i in range(len(ranks))]
+    for res, a in zip(ranks, arrs):
+        d = res["coord"]["data"]
+        sl = slice(d * TP_ROWS // nd, (d + 1) * TP_ROWS // nd)
+        got = a["logits"]
+        if not np.isfinite(got[..., :V]).all():
+            raise AssertionError(f"tp moe {name}: non-finite logits")
+        row_err = np.abs(got[..., :V] - want[:, sl, :V]).max(-1)
+        alike = np.ones(row_err.shape, bool)
+        if not f32:
+            alike, x_err, x_tol, other = _tpm_routing(name, cfg, z, a, sl,
+                                                      row_err)
+            routing = {"router_input_max_abs_err": x_err,
+                       "router_input_tolerance": x_tol,
+                       "rows_steps_routed_alike": int(alike.sum()),
+                       "rows_steps": int(alike.size),
+                       "routed_otherwise": other}
+        worst = max(worst, float(row_err[0][alike[0]].max(initial=0.0)))
+        worst_decode = max(worst_decode,
+                           float(row_err[1:][alike[1:]].max(initial=0.0)))
+        if worst > tol or worst_decode > tol:
+            raise AssertionError(f"tp moe {name} rank {res['coord']}: logits "
+                                 f"differ by {worst} / {worst_decode} "
+                                 f"(tolerance {tol})")
+        for t in range(gen + 1):
+            mine = np.argmax(got[t, :, :V], -1)
+            if not (mine < V).all():
+                raise AssertionError(f"tp moe {name}: a token past the vocab")
+            if t == gen:
+                break
+            sure = _tp_margin_sure(want[t, sl, :V], tol) & alike[t]
+            if not np.array_equal(mine[sure], tokens[sl, t][sure]):
+                raise AssertionError(f"tp moe {name} step {t}: tokens "
+                                     f"{mine} vs {tokens[sl, t]}")
+            sure_steps += int(sure.sum())
+        if "gate" in a:
+            e = _tpm_close(a["gate"][..., :V], z["full"][sl, :, :V])
+            gate_err = max(gate_err or 0.0, float(np.abs(
+                a["gate"][..., :V] - z["full"][sl, :, :V]).max()))
+            if e > 0:
+                raise AssertionError(f"tp moe {name}: decode at capacity "
+                                     f"{GATE_CAPACITY_FACTOR} differs from "
+                                     f"the full forward by {gate_err}")
+    # the MLA latent cache: the same bits on every model rank of a data
+    # coordinate
+    latent_pairs = 0
+    for i, a in enumerate(ranks):
+        for j, b in enumerate(ranks):
+            if j <= i or a["coord"]["data"] != b["coord"]["data"]:
+                continue
+            for key in ("c_kv", "k_rope"):
+                if key in arrs[i]:
+                    latent_pairs += 1
+                    if not np.array_equal(arrs[i][key], arrs[j][key]):
+                        raise AssertionError(f"tp moe {name}: {key} differs "
+                                             f"between {a['coord']} and "
+                                             f"{b['coord']}")
+    if cfg.use_mla and not latent_pairs:
+        raise AssertionError(f"tp moe {name}: no latent cache compared")
+    drops = None
+    if "prefill_gate" in z:
+        # the served capacity drops choices: its prefill is not the
+        # prefill at GATE_CAPACITY_FACTOR
+        drops = float(np.abs(z["prefill_gate"][:, :V] - want[0, :, :V]).max())
+        if name == "deepseek_reduced" and drops <= tol:
+            raise AssertionError(f"tp moe {name}: no choice dropped at the "
+                                 f"served capacity ({drops} <= {tol})")
+    peaks_ = [r["peak_bytes"] for r in recs]
+    if not shared and max(peaks_) >= ref["peak_bytes"]:
+        raise AssertionError(f"tp moe {name}: a rank's peak {max(peaks_)} B "
+                             "is not below the unsharded run's "
+                             f"{ref['peak_bytes']} B")
+    print(f"tp moe {name}", json.dumps({
+        "card": smi, "arch": arch, "layers": cfg.num_layers,
+        "dtype": dname, "federation": fed,
+        "mesh": dict(zip(("data", "model"), mshape)), "rows": TP_ROWS,
+        "prompt": TP_PROMPT, "new_tokens": gen,
+        "capacity_factor": 1.25,
+        "prefill_logits_max_abs_err": worst,
+        "decode_logits_max_abs_err": worst_decode, "tolerance": tol,
+        "routing_vs_unsharded": routing,
+        "tokens_checked": sure_steps,
+        "decode_eq_full_forward_max_abs_err": gate_err,
+        "served_vs_gate_capacity_prefill_diff": drops,
+        "latent_cache_pairs_bitwise": latent_pairs,
+        "collectives_prefill": recs[0]["collectives_prefill"],
+        "collectives_decode_step": recs[0]["collectives_decode_step"],
+        "collective_bytes_per_step": recs[0]["collective_bytes_per_step"],
+        "staged_per_step": recs[0]["staged_per_step"],
+        "flash_launches_prefill_each_rank": recs[0]["flash_launches_prefill"],
+        "flash_shape": recs[0]["flash_shape"],
+        "flash_max_abs_err_vs_plain": max(
+            (r["flash_max_abs_err_vs_plain"] or 0.0) for r in recs),
+        "prefill_ms_by_rank": [r["prefill_ms"] for r in recs],
+        "decode_ms_per_step_by_rank": [r["decode_ms_per_step"]
+                                       for r in recs],
+        "peak_bytes_by_rank": peaks_,
+        "local_param_bytes_by_rank": [r["local_param_bytes"] for r in recs],
+        "params_from_the_parent_by_cuda_ipc": shared,
+        "unsharded": ref,
+        "note": "all ranks on one card at once over gloo: a collective is a "
+                "host round trip, so the step times say nothing of NCCL"
+                + ("; the ranks' blocks are views of the parent's params "
+                   "(CUDA IPC), which their peaks do not count" if shared
+                   else "")}), flush=True)
+    return sum(r["flash_launches_prefill"] for r in recs)
+
+
+def start_tp_moe_dry_runs(tmp):
+    """The dry runs of OLMoE's and DeepSeek-V3's train_4k (one local
+    step: the analytic memory does not depend on K) and decode_32k on
+    the (32, 8) H100 mesh, on fake tensors in a CPU process of their own
+    (one thread, at the lowest scheduling priority, so the host-bound
+    phases it runs beside keep their cores); read by
+    ``report_tp_moe_dry_runs``."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         f"{MOE_ARCH},{MLA_ARCH}", "--shape", "decode_32k,train_4k",
+         "--mesh", "single", "--local-steps", "1", "--out", tmp], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(19))
+    # stopped with the script, whichever phase fails
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def report_tp_moe_dry_runs(proc, tmp):
+    try:
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"tp moe dry runs failed:\n{out}")
+    for arch in (MOE_ARCH, MLA_ARCH):
+        for shape in ("train_4k", "decode_32k"):
+            with open(Path(tmp) / f"{arch}_{shape}_single.json") as f:
+                r = json.load(f)
+            print(f"tp moe dry run {arch} {shape} 32x8", json.dumps({
+                k: r[k] for k in ("federation", "analytic_memory", "memory",
+                                  "collectives", "roofline", "lower_s",
+                                  "model_flops", "hlo_flops_total")}),
+                flush=True)
+
+
+def run_tp_moe_serve_path(torch, smi, runs=TPM_RUNS):
+    """Phase 6c's MoE and MLA runs (``runs``: TPM_RUNS' rows, each
+    gated on its own). Returns its launch counts (the ranks' flash
+    launches on the card, summed)."""
+    import tempfile
+    from repro_torch.launch.specs import params_struct
+    from repro_torch.launch.steps import serve_collectives, serve_rules
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.spec import get_federation_spec
+    t0 = time.perf_counter()
+    for run in runs:
+        mesh = dist.AbstractMesh(dict(zip(("data", "model"), run[5])))
+        model = _tpm_model(run)
+        rules = serve_rules(model, mesh, params_struct(model),
+                            spec=get_federation_spec(run[4], mesh),
+                            batch_size=TP_ROWS)
+        rows = TP_ROWS // run[5][0]
+        print(f"tp moe {run[0]}: expected collectives on each rank",
+              json.dumps({what: {k: n for k, n in serve_collectives(
+                  model, rules, rows, seq).items() if n}
+                  for what, seq in (("prefill", TP_PROMPT),
+                                    ("decode step", 1))}), flush=True)
+    flash = 0
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the runs whose ranks draw their own weights, in one spawn; then
+        # each run whose ranks read the parent's, a spawn each
+        own = [r for r in runs if not r[7]]
+        groups = [(own, None)] * bool(own) + [([r], True) for r in runs
+                                              if r[7]]
+        for group, shared in groups:
+            t1 = time.perf_counter()
+            refs, params = {}, None
+            for run in group:
+                refs[run[0]], params = _tpm_unsharded(torch, run, tmp)
+            t_ref = time.perf_counter() - t1
+            dist.spawn(_tpm_rank, SHARD_WORLD,
+                       (tmp, group, [] if params is None else [params]),
+                       device="cuda")
+            del params
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+            left = torch.cuda.memory_allocated()
+            if left > 2 ** 30:
+                raise AssertionError(f"tp moe: {left} B still allocated "
+                                     "after the ranks ended")
+            ranks = []
+            for r in range(SHARD_WORLD):
+                with open(Path(tmp) / f"tpm.rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            for run in group:
+                flash += _tpm_check(run, refs[run[0]], ranks, tmp, smi)
+            times["+".join(r[0] for r in group)] = {
+                "unsharded_s": t_ref,
+                "ranks_s": time.perf_counter() - t1 - t_ref,
+                "parent_allocated_after_bytes": left}
+    print(f"tp moe: {time.perf_counter() - t0:.1f} s", json.dumps(times),
+          flush=True)
+    return {("flash_attention", "cuda"): flash}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels").is_dir():
@@ -4856,6 +5533,11 @@ def main() -> int:
           f"python {sys.version.split()[0]} device {name}", flush=True)
     resolve_device("cuda")
     bw, f32 = peaks(name)
+    # each phase's seconds, printed before the script's total
+    marks = [("start", time.perf_counter())]
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
 
     # 2. build: one nvcc per namespace, all started together
     t0 = time.perf_counter()
@@ -4893,6 +5575,7 @@ def main() -> int:
     rows.update(check_round_tail_kernels(torch, tcomp, tcref, tra, traref,
                                          bw, f32))
     rows.update(check_slice4_kernels(torch, tk, tref, tt, ttref, bw, f32))
+    mark("1-3 build and kernels")
 
     # 4. paths
     paths = {}
@@ -4908,37 +5591,56 @@ def main() -> int:
     paths.update(run_fleet_path(torch, mods, train, smi))
     paths.update(run_resume_paths(torch, mods, train))
     paths["serve_checkpoint"] = run_serve_checkpoint(torch, mods, smi)
+    mark("4a-4d")
     # 4e. LM training
     torch.cuda.empty_cache()
     lm_paths, lm_rows = run_lm_train_path(torch, mods, train, tk, tref, bw,
                                           f32, smi)
     paths.update(lm_paths)
     rows.update(lm_rows)
+    mark("4e")
     # 4f. multi-device Δ-SGD
     torch.cuda.empty_cache()
     paths["sharded"] = run_sharded_path(torch, tk, tref, bw, f32, smi)
-    # 4g. tensor-parallel training
+    mark("4f")
+    # 4g. tensor-parallel training; the MoE and MLA dry runs start
+    import tempfile
+    moe_dry_dir = tempfile.TemporaryDirectory()
+    moe_dry = start_tp_moe_dry_runs(moe_dry_dir.name)
     torch.cuda.empty_cache()
     paths["tp_train"], tpt_rows = run_tp_train_path(torch, smi, bw, f32)
     rows.update(tpt_rows)
+    mark("4g")
 
     # 5. lm kernels
     rows.update(check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32))
+    mark("5")
 
     # 6. serving
     for arch, (layers, dtype_name) in SERVE_PATHS.items():
         paths[arch] = run_serve_path(torch, mods, arch, layers, dtype_name,
                                      smi)
+    mark("6")
 
     # 6b. the serving plane
     paths.update(run_serving_plane(torch, mods, smi))
+    mark("6b")
 
-    # 6c. tensor-parallel serving
+    # 6c. tensor-parallel serving: the dense decoders, then the MoE and
+    # MLA ones, the latter's dry runs read last
     torch.cuda.empty_cache()
     paths["tp_serve"] = run_tp_serve_path(torch, smi)
+    mark("6c dense")
+    torch.cuda.empty_cache()
+    paths["tp_moe_serve"] = run_tp_moe_serve_path(torch, smi)
+    mark("6c MoE and MLA")
+    report_tp_moe_dry_runs(moe_dry, moe_dry_dir.name)
+    moe_dry_dir.cleanup()
+    mark("waiting for the MoE dry runs")
 
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)
+    mark("7")
 
     # 8. summary: each kernel at its main-path shape
     main_case = {"flash_attention": FA_CASES[0], "ssd_chunks": SSD_CASES[0],
@@ -4960,6 +5662,8 @@ def main() -> int:
             bound_route=row.get("bound_route")))
         if kernels[-1]["launches"] == 0:
             raise AssertionError(f"{kname} was not launched on any path")
+    print("phase seconds", json.dumps({
+        b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}))
     print(f"script total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -19,12 +19,15 @@ Usage:
 bf16) with the Δ-SGD client, the state placed by
 ``launch.steps.state_placements`` (the reference's ``_state_shardings``)
 and the batch by ``batch_shardings``. The dense GQA decoders
-(TinyLlama-1.1B, CodeQwen1.5-7B, Qwen2.5-14B, Granite-20B) run at
-``train_4k``, ``prefill_32k`` and ``decode_32k``. Refused, each naming
+(TinyLlama-1.1B, CodeQwen1.5-7B, Qwen2.5-14B, Granite-20B) and the MoE
+ones (OLMoE-1B-7B; DeepSeek-V3-671B with MLA and its MTP block: 8 and
+32 experts a rank on the single pod, 2 and 16 heads) run at
+``train_4k``, ``prefill_32k`` and ``decode_32k``; an expert GEMM counts
+E/tp·C·D·F, C the capacity of the global batch. Refused, each naming
 its ROADMAP item: ``long_500k`` (its B = 1 cache is sharded over the
-sequence on ``model``, which needs a sequence-parallel decode), the
-other archs, and a global batch that does not split over the mesh's
-data axes. ``--all`` lists refusals apart from failures.
+sequence on ``model``, which needs a sequence-parallel decode), Zamba2,
+xLSTM, Whisper and InternVL2, and a global batch that does not split
+over the mesh's data axes. ``--all`` lists refusals apart from failures.
 
 ``--scenario-smoke`` runs the reference's CI leg of sharded flat rounds
 (``scenario_smoke``) for real, on 8 gloo CPU ranks.
@@ -57,7 +60,7 @@ from repro_torch.launch.steps import (abstract_fl_state, make_prefill_step,
                                       serve_rules, state_placements,
                                       train_rules)
 from repro_torch.models.common import logical_rules
-from repro_torch.models.model import build_model, tp_supported
+from repro_torch.models.model import TP_REFUSAL, build_model, tp_supported
 from repro_torch.sharding import dist
 from repro_torch.sharding.spec import (batch_shardings, cache_shardings,
                                        get_federation_spec, local_shape,
@@ -131,9 +134,7 @@ def check_lowerable(arch: str, shape_id: str, multi_pod: bool) -> None:
                       "sequence on model, which needs a sequence-parallel "
                       "decode (ROADMAP A17)")
     if not tp_supported(cfg):
-        raise Refused(f"{arch}: tensor-parallel training and serving of "
-                      "MoE, MLA, Mamba2, xLSTM, Whisper and InternVL2 is "
-                      "ROADMAP A17")
+        raise Refused(f"{arch}: {TP_REFUSAL}")
     sizes = production_shape(multi_pod)
     d = sizes.get("pod", 1) * sizes["data"]
     if shape.kind != "train" and shape.global_batch % d:
@@ -284,7 +285,8 @@ def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas):
     sizes = mesh_shape(mesh)
     pstruct = params_struct(model, mode)
     rules = serve_rules(model, mesh, pstruct, spec=spec,
-                        coords={a: 0 for a in sizes})
+                        coords={a: 0 for a in sizes},
+                        batch_size=shape.global_batch)
     cache = cache_sh = None
     with mode:
         params = _local(pstruct, rules.param_axes, mesh)
@@ -454,8 +456,10 @@ def scenario_smoke(verbose: bool = True):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="an arch id, or several joined by commas")
+    ap.add_argument("--shape", default=None,
+                    help="an input shape, or several joined by commas")
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
     ap.add_argument("--all", action="store_true")
@@ -475,9 +479,10 @@ def main(argv=None):
         scenario_smoke()
         return
 
-    archs = list(ARCH_IDS) if args.all or not args.arch else [args.arch]
+    archs = list(ARCH_IDS) if args.all or not args.arch \
+        else args.arch.split(",")
     shapes = list(INPUT_SHAPES) if args.all or not args.shape \
-        else [args.shape]
+        else args.shape.split(",")
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 

@@ -40,8 +40,8 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.models.common import logical_rules, remat_blocks
-from repro_torch.models.model import (Model, local_vocab, moves_rows,
-                                      tp_supported)
+from repro_torch.models.model import (TP_REFUSAL, Model, local_vocab,
+                                      moves_rows, tp_supported)
 from repro_torch.sharding.spec import (FederationSpec, LogicalRules,
                                        batch_shardings, cache_shardings,
                                        client_axes_on, entry_axes,
@@ -87,22 +87,31 @@ def make_serve_step(model: Model, *, window: Optional[int] = None,
 
 def serve_rules(model: Model, mesh, params, *,
                 spec: Optional[FederationSpec] = None, coords=None,
-                seq_shard: bool = False) -> LogicalRules:
+                seq_shard: bool = False,
+                batch_size: Optional[int] = None) -> LogicalRules:
     """The serve rules of ``model`` on ``mesh`` for the rank at
     ``coords`` (the mesh's own by default). ``params`` is the whole
     params tree or its fake-tensor struct (``launch.specs.params_struct``):
     only shapes are read. ``spec`` defaults to the config's federation
-    (``launch.specs.federation_kind``). Refuses a config that
-    tensor-parallel serving does not run."""
+    (``launch.specs.federation_kind``). ``batch_size`` is the global
+    batch the steps serve (``LogicalRules``: one row is not split). An
+    MoE layer's capacity order depends on whether the data axes split
+    the rows, so an MoE config on data axes of size > 1 needs it.
+    Refuses a config that tensor-parallel serving does not run."""
     from repro_torch.launch.specs import federation_kind
     if not tp_supported(model.cfg):
-        raise ValueError(f"{model.cfg.name}: tensor-parallel serving runs "
-                         "the dense GQA decoders only; MoE, MLA, Mamba2, "
-                         "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+        raise ValueError(f"{model.cfg.name}: {TP_REFUSAL}")
     spec = spec or get_federation_spec(federation_kind(model.cfg), mesh)
-    return LogicalRules(spec, mesh, serve=True, seq_shard=seq_shard,
-                        coords=coords,
-                        param_axes=param_placements(spec, mesh, params))
+    rules = LogicalRules(spec, mesh, serve=True, seq_shard=seq_shard,
+                         coords=coords, batch_size=batch_size,
+                         param_axes=param_placements(spec, mesh, params))
+    if batch_size is None and "moe" in model.cfg.layer_types \
+            and rules.batch_axes:
+        raise ValueError(f"{model.cfg.name}: serving an MoE on data axes "
+                         "of size > 1 needs the global batch_size (a "
+                         "batch of one row is not split, and its "
+                         "capacity order is then the rank's own)")
+    return rules
 
 
 def _cut(tree, axes, rules, device):
@@ -118,10 +127,17 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     by the reference's rules (``param_placements``,
     ``serve_batch_shardings``, ``cache_shardings`` with ``batch_size``,
     the global batch), each copied to ``device`` (its own by default).
-    Returns {"params", "batch", "cache"}: those given."""
+    Returns {"params", "batch", "cache"}: those given. Refuses a batch
+    or ``batch_size`` other than the rules' own ``batch_size``."""
     out = {}
     if params is not None:
         out["params"] = _cut(params, rules.param_axes, rules, device)
+    rows = [x.shape[0] for x in tree_flatten(batch or {})[0]]
+    if cache is not None and batch_size is not None:
+        rows.append(batch_size)
+    if rules.batch_size is not None and set(rows) - {rules.batch_size}:
+        raise ValueError(f"a batch of {rows} rows under rules made for "
+                         f"{rules.batch_size}")
     if batch is not None:
         out["batch"] = _cut(batch, serve_batch_shardings(rules.mesh, batch),
                             rules, device)
@@ -139,14 +155,83 @@ def _live(rules: LogicalRules, entry) -> tuple:
     return tuple(a for a in entry_axes(entry) if rules.size(a) > 1)
 
 
+def _layers(model: Model, ax) -> list:
+    """(block type, the layer's placement entries) of every layer of
+    the stack, in order: a stacked run's entries without their layer
+    axis."""
+    from repro_torch.models.transformer import segment_runs
+    out = []
+    for i, (btype, n) in enumerate(segment_runs(model.cfg.layer_types)):
+        at = (lambda e: e[1:]) if n > 1 else (lambda e: e)
+        out += [(btype, tree_map(at, ax["stack"][f"run{i}"]))] * n
+    return out
+
+
+def _layer_ops(rules: LogicalRules, cfg, btype: str, layer) -> Dict:
+    """The collectives one attention block's forward makes on a rank
+    (``fwd``: per role) and its backward's ``tp_grad`` count (``grad``)
+    under ``rules``: a ``tp_reduce`` after attention where its heads are
+    split and after the MLP or MoE layer where its units or experts
+    are (the routed and shared experts' partials in one), a
+    ``kv_gather`` where GQA's KV heads are split, an ``fsdp_gather``
+    for each fsdp dim of the layer's params, and in an MoE layer the
+    counts' ``moe_counts`` gather and, under training rules, the aux
+    loss's ``moe_aux`` sum where the batch splits over ranks. The
+    backward sums a partial gradient (``tp_grad``) where a replicated
+    tensor entered a split layer: GQA's input (and its QKV biases and
+    whole-KV ``wk``/``wv``), MLA's latents, the MLP's input, the MoE's
+    tokens and its gate values."""
+    tp = rules.tp if rules.size(rules.tp) > 1 else None
+    on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
+    a = layer["attn"]
+    fwd = {"tp_reduce": 0, "kv_gather": 0, "moe_counts": 0, "moe_aux": 0,
+           "fsdp_gather": sum(bool(tuple(x for x in _live(rules, e)
+                                         if x != rules.tp))
+                              for e in tree_flatten(layer)[0])}
+    if cfg.use_mla:
+        split = on_tp(a["wq_b"][1])
+        fwd["tp_reduce"] += split
+        grad = int(split)
+    else:
+        split = on_tp(a["wq"][1])
+        kv_whole = split and not on_tp(a["wk"][1])
+        fwd["tp_reduce"] += split
+        fwd["kv_gather"] += on_tp(a["wk"][1])
+        grad = split + (3 * split if cfg.qkv_bias else 0) + 2 * kv_whole
+    if btype == "moe":
+        m = layer["moe"]
+        ex = on_tp(m["w_gate"][0])
+        sh = "shared" in m and on_tp(m["shared"]["w_out"][0])
+        fwd["tp_reduce"] += ex or sh
+        batch = bool(rules.batch_axes)
+        fwd["moe_counts"] += batch
+        fwd["moe_aux"] += batch and not rules.serve
+        grad += (ex or sh) + ex
+    else:
+        split = on_tp(layer["mlp"]["w_out"][0])
+        fwd["tp_reduce"] += split
+        grad += split
+    return {"fwd": fwd, "grad": grad}
+
+
+def _sum_ops(ops) -> Dict[str, int]:
+    out = {}
+    for o in ops:
+        for r, n in o.items():
+            out[r] = out.get(r, 0) + n
+    return out
+
+
 def serve_collectives(model: Model, rules: LogicalRules, rows: int,
                       seq: int) -> Dict[str, int]:
     """The collectives one tensor-parallel step issues on a rank whose
     batch has ``rows`` rows of ``seq`` tokens (prefill: the prompt; a
-    decode step: 1), by role: per layer a ``tp_reduce`` after attention
-    and after the MLP where their heads or hidden units are split, a
-    ``kv_gather`` where the KV heads are (the cache holds them all), an
-    ``fsdp_gather`` for every fsdp dim of the layer's params; a
+    decode step: 1), by role: each layer's (``_layer_ops``: a
+    ``tp_reduce`` after attention and after the MLP or MoE layer where
+    they are split, a ``kv_gather`` where GQA's KV heads are (the cache
+    holds them all; MLA caches its replicated latent), an MoE layer's
+    ``moe_counts`` where the batch splits over the data axes, an
+    ``fsdp_gather`` for every fsdp dim of the layer's params); a
     ``vocab`` all-reduce of the embedding and a ``vocab`` gather of the
     logits where the vocab is split; for each vocab table whose model
     dim is fsdp-sharded, its ``fsdp_gather`` or, where moving the fsdp
@@ -155,9 +240,6 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
     cfg, ax = model.cfg, rules.param_axes
     tp = rules.tp if rules.size(rules.tp) > 1 else None
     on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
-    # run0's entries lead with the layer axis where the run is stacked
-    at = (lambda e: e[1:]) if cfg.num_layers > 1 else (lambda e: e)
-    layer = tree_map(at, ax["stack"]["run0"])
 
     def fsdp_axes(entry):
         return tuple(a for a in _live(rules, entry) if a != rules.tp)
@@ -165,12 +247,12 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
     def fsdp(entries):
         return sum(bool(fsdp_axes(e)) for e in entries)
 
-    L = cfg.num_layers
-    n = {"tp_reduce": L * (on_tp(layer["attn"]["wq"][1])
-                           + on_tp(layer["mlp"]["w_out"][0])),
-         "kv_gather": L * on_tp(layer["attn"]["wk"][1]),
-         "fsdp_gather": L * sum(fsdp(e) for e in tree_flatten(layer)[0]),
-         "fsdp_rows": 0}
+    n = _sum_ops(_layer_ops(rules, cfg, bt, layer)["fwd"]
+                 for bt, layer in _layers(model, ax))
+    for r in ("moe_counts", "moe_aux"):   # an MoE's, where it makes them
+        if not n[r]:
+            del n[r]
+    n["fsdp_rows"] = 0
     v_loc = local_vocab(cfg, rules)
 
     def table(key, vdim, tokens, head):
@@ -380,9 +462,7 @@ def train_rules(model: Model, mesh, params, *,
     run."""
     from repro_torch.launch.specs import federation_kind
     if not tp_supported(model.cfg):
-        raise ValueError(f"{model.cfg.name}: tensor-parallel training runs "
-                         "the dense GQA decoders only; MoE, MLA, Mamba2, "
-                         "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+        raise ValueError(f"{model.cfg.name}: {TP_REFUSAL}")
     spec = spec or get_federation_spec(federation_kind(model.cfg), mesh)
     return LogicalRules(spec, mesh, serve=False, coords=coords,
                         param_axes=param_placements(spec, mesh, params))
@@ -456,56 +536,71 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
                       weighted: bool = False) -> Dict[str, int]:
     """The collectives one tensor-parallel vmap round of ``local_steps``
     Δ-SGD steps makes on a rank, by role (each op runs once on the
-    rank's stacked clients). A local step's forward makes, per layer,
-    a ``tp_reduce`` after attention and after the MLP where their heads
-    or hidden units are split, and an ``fsdp_gather`` for each fsdp
-    dim of its params; its backward a ``tp_grad`` where a block's input
-    entered through ``tp_enter`` (attention and MLP) and for each
-    replicated leaf read in part (the QKV biases under split heads;
-    ``wk``/``wv`` where the KV heads are whole), and an ``fsdp_scatter``
-    for each gather. Remat runs each layer's forward collectives again
-    in the backward. The embedding and head: a ``vocab`` reduce of the
-    vocab-parallel lookup, the cross-entropy's max and its one stacked
-    ``vocab`` sum, a ``tp_grad`` at the head's input, an fsdp gather
-    and scatter for each vocab table's fsdp dim, and a ``loss`` sum
-    where the rows split over an fsdp axis. Then one ``grad_sync``
-    where a leaf's gradient is partial over the fsdp axes, and one
-    ``norms`` sum of Δ-SGD's two sums. A round adds one ``fedavg`` sum
-    and one ``metrics`` gather over the client axes. Axes of size 1
-    make none."""
+    rank's stacked clients). A local step's forward makes each layer's
+    (``_layer_ops``: ``tp_reduce``, an MoE layer's ``moe_counts`` and
+    ``moe_aux`` where the rows split over the fsdp axes, an
+    ``fsdp_gather`` for each fsdp dim of its params); its backward a
+    ``tp_grad`` where a replicated tensor entered a split layer, and an
+    ``fsdp_scatter`` for each gather. Remat runs each layer's forward
+    collectives again in the backward. The embedding and head: a
+    ``vocab`` reduce of the vocab-parallel lookup, the cross-entropy's
+    max and its one stacked ``vocab`` sum, a ``tp_grad`` at the head's
+    input, an fsdp gather and scatter for each vocab table's fsdp dim,
+    and a ``loss`` sum where the rows split over an fsdp axis.
+    DeepSeek-V3's MTP block (never rematerialised) adds its own lookup,
+    its column-parallel ``proj`` (a ``tp_grad`` at its input, one
+    ``mtp_gather`` of its output), its block's collectives, its head's
+    as above, and the fsdp gathers of its params and of the tables it
+    reads again. Then one ``grad_sync`` where a leaf's gradient is
+    partial over the fsdp axes, and one ``norms`` sum of Δ-SGD's two
+    sums. A round adds one ``fedavg`` sum and one ``metrics`` gather
+    over the client axes. Axes of size 1 make none."""
     cfg, ax = model.cfg, rules.param_axes
     tp = rules.tp if rules.size(rules.tp) > 1 else None
     on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
-    at = (lambda e: e[1:]) if cfg.num_layers > 1 else (lambda e: e)
-    layer = tree_map(at, ax["stack"]["run0"])
 
     def fsdp(entries):
         return sum(bool(tuple(a for a in _live(rules, e) if a != rules.tp))
                    for e in entries)
 
-    L, K = cfg.num_layers, local_steps
-    attn_split = on_tp(layer["attn"]["wq"][1])
-    mlp_split = on_tp(layer["mlp"]["w_out"][0])
-    kv_whole = attn_split and not on_tp(layer["attn"]["wk"][1])
-    per_layer_gather = sum(fsdp(e) for e in tree_flatten(layer)[0])
+    K = local_steps
     tables = ("embed",) if cfg.tie_embeddings else ("embed", "lm_head")
     table_gather = sum(fsdp(ax[t]) for t in tables)
     vocab_split = on_tp(ax["embed"][0]) if cfg.tie_embeddings \
         else on_tp(ax["lm_head"][1])
-    step = {
-        "tp_reduce": L * (attn_split + mlp_split) * (2 if remat else 1),
-        "tp_grad": (L * (attn_split + mlp_split
-                         + (3 * attn_split if cfg.qkv_bias else 0)
-                         + 2 * kv_whole) + vocab_split),
-        "fsdp_gather": (L * per_layer_gather * (2 if remat else 1)
-                        + table_gather),
-        "fsdp_scatter": L * per_layer_gather + table_gather,
-        "vocab": on_tp(ax["embed"][0]) + 2 * vocab_split,
-        "loss": int(rules.size(rules.map["batch"]) > 1),
-        "grad_sync": len({a for a in tree_flatten(grad_sync_axes(
-            rules.spec, rules.mesh, ax))[0] if a}),
-        "norms": int(bool(norm_axes(rules.spec, rules.mesh))),
-    }
+    rows_split = int(rules.size(rules.map["batch"]) > 1)
+    step = {"tp_reduce": 0, "moe_counts": 0, "moe_aux": 0,
+            "fsdp_gather": table_gather, "fsdp_scatter": table_gather,
+            "tp_grad": vocab_split,
+            "vocab": on_tp(ax["embed"][0]) + 2 * vocab_split,
+            "loss": rows_split}
+
+    def add(layer_ops, reps):
+        # training builds no cache: GQA gathers no KV heads
+        for r, n in layer_ops["fwd"].items():
+            if r != "kv_gather":
+                step[r] += reps * n
+        step["fsdp_scatter"] += layer_ops["fwd"]["fsdp_gather"]
+        step["tp_grad"] += layer_ops["grad"]
+
+    for bt, layer in _layers(model, ax):
+        add(_layer_ops(rules, cfg, bt, layer), 2 if remat else 1)
+    if cfg.mtp_depth:
+        mtp = ax["mtp"]
+        add(_layer_ops(rules, cfg, cfg.layer_types[-1], mtp["block"]), 1)
+        proj = on_tp(mtp["proj"][1])
+        gathers = table_gather + fsdp(tree_flatten({k: v for k, v in
+                                                    mtp.items()
+                                                    if k != "block"})[0])
+        step["fsdp_gather"] += gathers
+        step["fsdp_scatter"] += gathers
+        step["tp_grad"] += proj + vocab_split
+        step["mtp_gather"] = int(proj)
+        step["vocab"] += on_tp(ax["embed"][0]) + 2 * vocab_split
+        step["loss"] += rows_split
+    step["grad_sync"] = len({a for a in tree_flatten(grad_sync_axes(
+        rules.spec, rules.mesh, ax))[0] if a})
+    step["norms"] = int(bool(norm_axes(rules.spec, rules.mesh)))
     out = {r: K * n for r, n in step.items()}
     clients = int(bool(client_axes_on(rules.spec, rules.mesh)))
     out.update(fedavg=clients, metrics=clients)

@@ -52,6 +52,18 @@ same code differentiates: the block's input enters the rank's heads
 through ``tp_enter``, and a replicated leaf the rank reads only in part
 (the QKV biases; ``wk``/``wv`` where the KV heads are whole) through
 ``tp_enter`` too, so its gradient is summed over the tensor axis.
+
+MLA under rules (the reference's rules: ``wq_b``, ``wk_b``, ``wv_b``
+split over ``model`` on their head dim, ``wo`` row-parallel): the
+latent projections ``wq_a``, ``wkv_a`` and their norms are replicated,
+so every rank computes the same ``cq``, ``c_kv`` and ``k_rope`` and
+caches the same latent (the cache has no head dim: the reference's
+``cache_shardings`` leaves it whole over ``model``); the rank's heads
+are expanded from it, and ``wo``'s partial sums are reduced in one
+``tp_reduce``. Under training rules the split point is the latent:
+``cq``, ``c_kv`` and ``k_rope`` enter the rank's heads in one
+``tp_enter`` after the replicated projections, and ``x`` does not
+(entering both would count the latent path twice).
 """
 from __future__ import annotations
 
@@ -368,19 +380,44 @@ def _quantize(x: torch.Tensor):
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V3): compressed KV latent cache
 # ---------------------------------------------------------------------------
+def _mla_split(params: dict, cfg) -> bool:
+    """The rank holds a block of MLA's heads (its local ``wq_b`` has
+    fewer than H): its output projection is a partial sum."""
+    return params["wq_b"].shape[-2] < cfg.num_heads
+
+
 def _mla_proj(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """-> (q_nope (B,S,H,dn), q_rope (B,S,H,dr), latent c_kv (B,S,kvr),
-    k_rope (B,S,1,dr)), rope applied at ``positions``."""
+    """-> (q_nope (B,S,h,dn), q_rope (B,S,h,dr), latent c_kv (B,S,kvr),
+    k_rope (B,S,1,dr)), rope applied at ``positions``; h is the rank's
+    heads. The latents (the query's ``cq``, ``c_kv``, ``k_rope``) are
+    replicated over the tensor axis; under training rules, where the
+    heads are a block, they enter the rank's heads through one
+    ``tp_enter`` (their gradients from the rank's heads are partial),
+    and the returned ``c_kv``/``k_rope`` are the entered ones."""
     dn, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
     cq = rmsnorm(torch.einsum("bsd,dr->bsr", x, params["wq_a"]),
                  params["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])   # (B,S,H,dn+dr)
     kv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])     # (B,S,kvr+dr)
     c_kv = rmsnorm(kv[..., :kvr], params["kv_norm"])
-    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
                         cfg.rope_theta)
+    rules = get_logical_rules()
+    if rules is not None and not rules.serve and _mla_split(params, cfg):
+        qr = cq.shape[-1]
+        lat = tp_enter(torch.cat([cq, c_kv, k_rope[:, :, 0, :]], dim=-1))
+        cq, c_kv = lat[..., :qr], lat[..., qr:qr + kvr]
+        k_rope = lat[..., qr + kvr:][:, :, None, :]
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])   # (B,S,h,dn+dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     return q[..., :dn], q_rope, c_kv, k_rope
+
+
+def _mla_out(out: torch.Tensor, params: dict, cfg,
+             eq: str) -> torch.Tensor:
+    """The output projection of the rank's heads, summed over the
+    tensor axis where they are a block."""
+    y = torch.einsum(eq, out, params["wo"])
+    return tp_reduce(y) if _mla_split(params, cfg) else y
 
 
 def mla_full(params: dict, x: torch.Tensor, cfg, *,
@@ -388,18 +425,21 @@ def mla_full(params: dict, x: torch.Tensor, cfg, *,
              build_cache: bool = False, use_pallas: bool = True):
     """Expanded form (prefill, the full forward); the cache holds the
     latent only. ``use_pallas`` is taken and ignored, as the
-    reference's is. Returns (out (B,S,D), {"c_kv", "k_rope"} | None)."""
+    reference's is. Returns (out (B,S,D), {"c_kv", "k_rope"} | None).
+    Under rules, the rank's heads against the whole latent."""
     B, S, _ = x.shape
-    H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_rope, c_kv, k_rope = _mla_proj(params, x, cfg, positions)
+    H = q_nope.shape[2]
+    shard_logical(q_nope, ("batch", "seq", "heads", None),
+                  (None, S, cfg.num_heads, dn))
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"])
     v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"])
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
     out = _sdpa(qf.reshape(B, S, H, 1, dn + dr), kf, v,
                 window=window).reshape(B, S, H, dv)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = _mla_out(out, params, cfg, "bshk,hkd->bsd")
     return y, ({"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
                if build_cache else None)
 
@@ -410,7 +450,8 @@ def mla_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     """Absorbed decode form: the query absorbs W_uk and attends against
     the latent cache (c_kv (B,W,kvr), k_rope (B,W,dr)) without expanding
     per-head K/V over the history. t, slot, positions_buf as in
-    :func:`gqa_step`."""
+    :func:`gqa_step`. Under rules, the rank's heads against its rows'
+    whole latent cache, which every tensor rank writes alike."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope, c_new, kr_new = _mla_proj(params, x, cfg, t[:, None])
     c_kv = _cache_write(cache["c_kv"], c_new, slot)
@@ -428,7 +469,7 @@ def mla_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
                       dim=-1)
     ctx = torch.einsum("bht,btr->bhr", w, c_kv.float())
     out = torch.einsum("bhr,rhk->bhk", ctx.to(x.dtype), params["wv_b"])
-    y = torch.einsum("bhk,hkd->bd", out, params["wo"])[:, None, :]
+    y = _mla_out(out, params, cfg, "bhk,hkd->bd")[:, None, :]
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 

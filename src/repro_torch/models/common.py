@@ -14,7 +14,8 @@ init does.
 Logical sharding rules (``set_logical_rules``, ``logical_rules``): a
 launcher installs a ``repro_torch.sharding.spec.LogicalRules`` and the
 model functions then run one rank's share of a tensor-parallel step on
-its local params (ROADMAP A17: the dense GQA decoders' serving). Where
+its local params (the decoders of GQA or MLA attention with dense or
+MoE blocks). Where
 the reference's ``shard_logical`` is a constraint that GSPMD turns into
 collectives, the port's checks that a tensor's local shape is what the
 rules give and raises if not; the collectives sit where the math needs

@@ -59,11 +59,15 @@ Tensor-parallel training (``LogicalRules(serve=False)``): ``apply`` and
 and rows, differentiably. The tables are gathered at use (the rows
 route stays serving's), the head's input enters through ``tp_enter``,
 and ``loss`` is a vocab-parallel cross-entropy on the rank's block of
-the logits (``_ce_parallel``), which are never gathered whole. Only the
-dense GQA decoders run under rules (TinyLlama, CodeQwen1.5, Qwen2.5,
-Granite); any other config is refused naming its ROADMAP item, as are
-prefill and decode under training rules and the full forward under
-serving rules.
+the logits (``_ce_parallel``), which are never gathered whole. The
+decoders of GQA or MLA attention with dense MLP or MoE blocks run under
+rules (TinyLlama, CodeQwen1.5, Qwen2.5, Granite, OLMoE, DeepSeek-V3
+with its MTP block: ``mtp/proj`` is column-parallel, its output
+gathered whole with a backward that keeps the rank's block,
+``dist.gather_split``, and the MTP head's cross-entropy is
+vocab-parallel as the main head's); any other config is refused naming
+its ROADMAP item, as are prefill and decode under training rules and
+the full forward under serving rules.
 """
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       fsdp_gather, get_logical_rules,
+                                       fsdp_gather, fsdp_gather_tree,
+                                       get_logical_rules,
                                        init_norm, sinusoidal_position_at,
                                        sinusoidal_positions, tp_enter,
                                        tp_gather, tp_index, tp_reduce)
@@ -290,7 +295,8 @@ class Model:
     # ---------------------------------------------------------- full forward
     def _check_rules(self, what: str) -> None:
         """Refuse what tensor parallelism does not run yet (ROADMAP
-        A17): any config but a dense GQA decoder, the sequence-sharded
+        A17): any config but a decoder of GQA or MLA attention with
+        dense MLP or MoE blocks (``tp_supported``), the sequence-sharded
         rules, the full forward (training's) under serving rules and
         serving under training rules."""
         rules = get_logical_rules()
@@ -301,9 +307,7 @@ class Model:
             raise ValueError("sequence-sharded rules (seq_shard) are "
                              "ROADMAP A17: the long-context decode")
         if not tp_supported(cfg):
-            raise ValueError(f"{cfg.name}: tensor parallelism runs the "
-                             "dense GQA decoders only; MoE, MLA, Mamba2, "
-                             "xLSTM, Whisper and InternVL2 are ROADMAP A17")
+            raise ValueError(f"{cfg.name}: {TP_REFUSAL}")
         if (what == "apply") == rules.serve:
             raise ValueError(
                 f"{what} under {'serving' if rules.serve else 'training'} "
@@ -344,15 +348,36 @@ class Model:
         block of the last layer's type, on the plain route as the
         reference runs it. Returns weight·CE + the block's aux."""
         cfg = self.cfg
+        rules = get_logical_rules()
+        mtp = params["mtp"]
+        if rules is not None and rules.fsdp_live:
+            mtp = fsdp_gather_tree(mtp, rules.param_axes["mtp"])
         nxt = self._tok_embed(params, batch["tokens"][:, 1:])
-        x = torch.einsum("bsd,dk->bsk", torch.cat([h[:, :-1], nxt], dim=-1),
-                         params["mtp"]["proj"])
+        hcat = torch.cat([h[:, :-1], nxt], dim=-1)
+        # under rules ``proj`` is column-parallel: the rank's block of D,
+        # gathered whole for the block (its gradient, whole on every
+        # rank, is split back to the block, not reduce-scattered)
+        split = rules is not None and mtp["proj"].shape[1] < cfg.d_model
+        if split:
+            hcat = tp_enter(hcat)
+        x = torch.einsum("bsd,dk->bsk", hcat, mtp["proj"])
+        if split:
+            x = dist.gather_split(x, rules.mesh, (rules.tp,), -1,
+                                  role="mtp_gather")
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _, aux = tfm.block_full(params["mtp"]["block"], x, cfg,
+        x, _, aux = tfm.block_full(mtp["block"], x, cfg,
                                    cfg.layer_types[-1], positions=positions,
                                    use_pallas=False)
-        x = apply_norm(params["mtp"]["norm"], x, cfg)
-        ll = _ce(self._project_vocab(params, x), batch["labels"][:, 1:])
+        x = apply_norm(mtp["norm"], x, cfg)
+        labels = batch["labels"][:, 1:]
+        if rules is None:
+            ll = _ce(self._project_vocab(params, x), labels)
+        else:
+            vsplit = self._vocab_split(params)
+            if vsplit:
+                x = tp_enter(x)
+            logits, v0 = self._project_vocab(params, x, whole=False)
+            ll = _ce_parallel(logits, labels, v0, rules, vsplit)
         return weight * ll + (aux if aux is not None else 0.0)
 
     def loss(self, params: Dict, batch: Dict, *, use_pallas: bool = True):
@@ -520,12 +545,20 @@ def local_vocab(cfg: ModelConfig, rules) -> int:
     return rules.local_extent("vocab", cfg.padded_vocab)
 
 
+# what a config tensor parallelism refuses is told
+TP_REFUSAL = ("tensor parallelism runs the decoders of GQA or MLA "
+              "attention with dense MLP or MoE blocks (and MTP); Mamba2 "
+              "(Zamba2), xLSTM, Whisper's encoder and InternVL2's image "
+              "tokens are ROADMAP A17")
+
+
 def tp_supported(cfg: ModelConfig) -> bool:
-    """A config tensor-parallel serving runs: a decoder of dense GQA
-    attention blocks, with no encoder and no image tokens."""
-    return (set(cfg.layer_types) == {"attn"} and not cfg.use_mla
-            and not cfg.num_experts and not cfg.encoder_layers
-            and not cfg.num_image_tokens and not cfg.mtp_depth)
+    """A config tensor parallelism runs: a decoder of attention (GQA or
+    MLA) blocks with a dense MLP or an MoE layer, DeepSeek-V3's MTP
+    block included, with no recurrent mixer, no encoder and no image
+    tokens."""
+    return (set(cfg.layer_types) <= {"attn", "moe"}
+            and not cfg.encoder_layers and not cfg.num_image_tokens)
 
 
 def batch_extras(cfg: ModelConfig) -> Dict[str, tuple]:

@@ -27,9 +27,13 @@ Under installed logical rules (``models.common``) the dense MLP is
 Megatron's: its input enters through ``tp_enter`` (under training
 rules), ``w_gate``/``w_in`` (and ``b_in``) column-parallel, ``w_out``
 row-parallel, followed by one ``tp_reduce``; ``b_out`` is added once,
-after the sum. Where the rules' spec shards params over an
-fsdp axis, each layer's params are gathered whole over it at use
-(``fsdp_gather``) and dropped after the layer.
+after the sum. An MoE block's layer runs its own TP branch
+(``moe.apply_moe``: the rank's experts, the global capacity order).
+Where the rules' spec shards params over an fsdp axis, each layer's
+params (an MoE block's experts, router and shared expert among them)
+are gathered whole over it at use (``fsdp_gather``) and dropped after
+the layer; a remat'd block reruns its gathers and collectives, MoE
+and MLA ones included, in the backward pass.
 """
 from __future__ import annotations
 

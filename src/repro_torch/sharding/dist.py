@@ -36,15 +36,19 @@ tensors, and each ``jax.lax.psum``/``pmin`` of the reference becomes an
 Every collective takes a ``role``, kept in its record: the serving
 path's are ``tp_reduce`` (a row-parallel product's partial sums),
 ``kv_gather`` (KV heads for the cache), ``vocab`` (the vocab-parallel
-embedding and the logits) and ``fsdp_gather`` (a layer's fsdp dims at
-use); training's are listed in ``hlo.TRAIN_ROLES``.
+embedding and the logits), ``fsdp_gather`` (a layer's fsdp dims at
+use) and ``moe_counts`` (an MoE layer's per-expert counts over the
+batch axes); training's are listed in ``hlo.TRAIN_ROLES``.
 
 Training differentiates through collectives: ``copy_to`` (identity
 forward, sum backward: Megatron's f), ``reduce_from`` (sum forward,
 identity backward: g), ``gather_from`` (all-gather forward,
 reduce-scatter backward; gloo has no reduce-scatter, so
 ``reduce_scatter`` is an all-reduce of a copy and a slice, recorded as
-one op) and ``max_over`` (no gradient). Each is a
+one op), ``gather_split`` (all-gather forward, this rank's block of the
+gradient backward: Megatron's split, for a gather whose result feeds
+replicated work), ``max_over`` and ``stack_over`` (every rank's tensor
+stacked; both without gradient). Each is a
 ``torch.autograd.Function`` with an explicit ``vmap`` rule, so under
 ``torch.func.vmap(grad)`` one collective serves the rank's stacked
 clients; none writes its input.
@@ -466,6 +470,62 @@ class _Max(torch.autograd.Function):
         return _Max.apply(_front(x, in_dims[0]), mesh, axes, role), 0
 
 
+class _GatherSplit(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward keeps this rank's
+    block of the incoming gradient (Megatron's split), with no
+    collective: for a gather whose result feeds work replicated over
+    ``axes``, whose gradient is already whole on every rank."""
+
+    @staticmethod
+    def forward(x, mesh, axes, dim, role):
+        return all_gather(x, mesh, axes, dim, role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, _ = ctx.spec
+        n = axes_size(mesh, _live(mesh, axes))
+        m = g.shape[dim] // n
+        b = block_index(mesh, _live(mesh, axes), coords(mesh))
+        return g.narrow(dim, b * m, m), None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, dim, role):
+        d = in_dims[0]
+        return _GatherSplit.apply(_front(x, d), mesh, axes,
+                                  dim if d is None else _shift(dim),
+                                  role), 0 if d is not None else None
+
+
+class _Stack(torch.autograd.Function):
+    """Every rank's ``x`` over ``axes``, stacked on a new leading dim in
+    block order; no gradient (integer counts)."""
+
+    @staticmethod
+    def forward(x, mesh, axes, role):
+        return all_gather(x.detach().unsqueeze(0), mesh, axes, 0,
+                          role=role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, role):
+        x = _front(x, in_dims[0])
+        if in_dims[0] is None:
+            return _Stack.apply(x, mesh, axes, role), None
+        out = all_gather(x.detach().unsqueeze(1), mesh, axes, 1, role=role)
+        return out, 0
+
+
 def copy_to(x: torch.Tensor, mesh, axes: Sequence[str], *,
             role: str = "tp_grad") -> torch.Tensor:
     """Identity forward; backward sums the gradient over ``axes``
@@ -487,6 +547,22 @@ def gather_from(x: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
     """The blocks of ``x`` over ``axes`` concatenated along ``dim``;
     backward reduce-scatters the gradient (``bwd_role``)."""
     return _Gather.apply(x, mesh, tuple(axes), dim, role, bwd_role)
+
+
+def gather_split(x: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
+                 role: str = "mtp_gather") -> torch.Tensor:
+    """The blocks of ``x`` over ``axes`` concatenated along ``dim``;
+    backward takes this rank's block of the gradient (no collective)."""
+    return _GatherSplit.apply(x, mesh, tuple(axes), dim, role)
+
+
+def stack_over(x: torch.Tensor, mesh, axes: Sequence[str], *,
+               role: str = "moe_counts") -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x`` over ``axes`` in block order,
+    detached; ``x`` itself as one block over axes of size 1."""
+    if not _live(mesh, axes):
+        return x.detach().unsqueeze(0)
+    return _Stack.apply(x, mesh, tuple(axes), role)
 
 
 def max_over(x: torch.Tensor, mesh, axes: Sequence[str], *,

@@ -19,8 +19,9 @@ module's log, and the checks read the log:
     ``assert_peak_within_local`` bounds it by the rank's own slabs.
 
   * ``assert_no_param_gather``: a ``cross_device`` tensor-parallel
-    serve step moves no param and crosses no data axis: its ops are the
-    roles ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``; a
+    serve step moves no param and crosses no data axis but with an MoE
+    layer's per-expert counts (``moe_counts``): its ops are the roles
+    ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``; a
     training round's forward and backward ops likewise stay on
     ``model`` and move no param, and only ``fedavg`` and ``metrics``
     cross the client axes (``TRAIN_ROLES`` names every role).
@@ -181,21 +182,29 @@ def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
 
 # the roles a tensor-parallel serve step's collectives may have on a
 # cross_device mesh: none moves a param
-SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab")
+SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab", "moe_counts")
+# the roles that cross the batch axes to make an MoE layer's capacity
+# order (``moe_counts``: each rank's per-expert counts) and aux loss
+# (``moe_aux``: Σprobs and the routed counts) global: they move (E,)
+# vectors, no param
+BATCH_ROLES = ("moe_counts", "moe_aux")
 # the roles of a tensor-parallel training round's collectives: forward
 # partial sums (``tp_reduce``; ``vocab`` for the vocab-parallel
 # embedding and cross-entropy; ``loss`` for its mean over rows split on
 # an fsdp axis), the backward's sums of partial gradients (``tp_grad``),
 # the fsdp gather at use and its reduce-scatter (``fsdp_gather``,
 # ``fsdp_scatter``), the gradient sums over the fsdp axes of leaves they
-# do not shard (``grad_sync``), Δ-SGD's norm sums (``norms``), and over
-# the client axes the FedAvg sum (``fedavg``) and the metrics' gather
-# (``metrics``)
+# do not shard (``grad_sync``), Δ-SGD's norm sums (``norms``), an MoE
+# layer's ``moe_counts`` and ``moe_aux`` over the rows' fsdp axes, the
+# MTP projection's gather (``mtp_gather``), and over the client axes
+# the FedAvg sum (``fedavg``) and the metrics' gather (``metrics``)
 TRAIN_ROLES = ("tp_reduce", "tp_grad", "vocab", "loss", "fsdp_gather",
-               "fsdp_scatter", "grad_sync", "norms", "fedavg", "metrics")
+               "fsdp_scatter", "grad_sync", "norms", "moe_counts",
+               "moe_aux", "mtp_gather", "fedavg", "metrics")
 # the training roles that move no param and stay inside a model replica
 # on a cross_device mesh, and the two that cross the client axes
-TRAIN_REPLICA_ROLES = ("tp_reduce", "tp_grad", "vocab", "norms")
+TRAIN_REPLICA_ROLES = ("tp_reduce", "tp_grad", "vocab", "norms",
+                       "mtp_gather")
 CLIENT_ROLES = ("fedavg", "metrics")
 
 
@@ -205,10 +214,12 @@ def assert_no_param_gather(ops: Sequence[CollectiveOp], spec, *,
     model replica lives within one ``model`` group. A serve step's ops
     are partial-sum reduces, KV gathers and vocab ops (none an fsdp
     gather), none over the data axes (the client axes of ``spec``, a
-    FederationSpec). A training round's (``train=True``) forward and
-    backward ops are partial sums of activations or gradients and
-    Δ-SGD's norm sums over ``model``; only ``fedavg`` and ``metrics``
-    cross the client axes."""
+    FederationSpec) but an MoE layer's ``moe_counts``, which makes the
+    capacity order of the rows the data axes split global. A training
+    round's (``train=True``) forward and backward ops are partial sums
+    of activations or gradients, the MTP gather and Δ-SGD's norm sums
+    over ``model``; only ``fedavg`` and ``metrics`` cross the client
+    axes."""
     if spec.fsdp_axes:
         raise ValueError("assert_no_param_gather checks a cross_device "
                          f"step; this spec shards params over "
@@ -221,7 +232,8 @@ def assert_no_param_gather(ops: Sequence[CollectiveOp], spec, *,
         roles = TRAIN_REPLICA_ROLES + CLIENT_ROLES
     else:
         bad = [c for c in ops if c.role not in SERVE_ROLES
-               or data.intersection(c.axes)]
+               or (c.role not in BATCH_ROLES
+                   and data.intersection(c.axes))]
         roles = SERVE_ROLES
     if bad:
         raise AssertionError(f"{len(bad)} of {len(ops)} collectives move a "

@@ -459,14 +459,25 @@ class LogicalRules:
 
     ``param_axes`` is the params tree's placement
     (``param_placements``): the models read it to gather a layer's fsdp
-    dims at use. ``coords`` defaults to the mesh's (``dist.coords``)."""
+    dims at use. ``batch_axes`` are the live axes that split the rows
+    (an MoE layer gathers its capacity counts and sums its aux loss
+    over them); ``experts`` maps the expert dim (``model``, as the
+    reference's default ``expert_2d=False`` has it). ``coords``
+    defaults to the mesh's (``dist.coords``).
+
+    ``batch_size``, under serving rules, is the global batch the steps
+    serve: a batch of one row stays whole on every data rank
+    (``serve_batch_shardings``), so then nothing splits the rows."""
 
     def __init__(self, spec: FederationSpec, mesh, *, serve: bool = False,
-                 seq_shard: bool = False, coords=None, param_axes=None):
+                 seq_shard: bool = False, coords=None, param_axes=None,
+                 batch_size: Optional[int] = None):
         shape = mesh_shape(mesh)
         fsdp = spec.fsdp_axes[0] if spec.fsdp_axes else None
         tp = spec.tp_axes[0] if spec.tp_axes else None
-        if serve:
+        if serve and batch_size == 1:
+            batch = None
+        elif serve:
             batch = _entry(tuple(a for a in ("pod", "data") if a in shape))
         else:
             batch = fsdp
@@ -480,6 +491,7 @@ class LogicalRules:
         if seq_shard:
             self.map.update(heads=None, ffn=None, experts=tp, vocab=None)
         self.spec, self.mesh, self.serve = spec, mesh, serve
+        self.batch_size = batch_size
         self.seq_shard = seq_shard
         self.tp = tp
         self.param_axes = param_axes
@@ -501,6 +513,13 @@ class LogicalRules:
         """This rank's block index over ``axes``."""
         ax = entry_axes(axes)
         return block_index(self.mesh, ax, self.coords) if ax else 0
+
+    @property
+    def batch_axes(self) -> Axes:
+        """The axes of size > 1 that split the batch rows: the data axes
+        under serving rules, the fsdp axes under training rules."""
+        return tuple(a for a in entry_axes(self.map["batch"])
+                     if self.size(a) > 1)
 
     def local_extent(self, name: Optional[str], n: int) -> int:
         """The local extent of a dim of global extent ``n`` named

@@ -25,7 +25,9 @@ from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
 from repro_torch.models.common import logical_rules
 from repro_torch.models.model import build_model
 from repro_torch.sharding import dist, hlo
-from repro_torch.sharding.spec import get_federation_spec, local_block
+from repro_torch.sharding.spec import (get_federation_spec, local_block,
+                                       serve_batch_shardings)
+from repro_torch.utils.tree import tree_leaves
 
 MESH = ((2, 2), ("data", "model"))
 
@@ -44,10 +46,11 @@ def _serve(case, mesh, coords):
     model = build_model(cfg)
     spec = get_federation_spec(case["federation"], mesh)
     struct = interop.params_from_numpy(case["params"])
-    rules = serve_rules(model, mesh, struct, spec=spec)
+    rules = serve_rules(model, mesh, struct, spec=spec,
+                        batch_size=case["prompts"].shape[0])
     params = interop.params_local_from_numpy(case["params"],
                                              rules.param_axes, mesh)
-    axes = (("data",), None)
+    axes = serve_batch_shardings(mesh, {"p": case["prompts"]})["p"]
     prompts = local_block(torch.from_numpy(case["prompts"]), axes, mesh,
                           coords)
     forced = local_block(torch.from_numpy(case["forced"]), axes, mesh,
@@ -73,7 +76,11 @@ def _serve(case, mesh, coords):
     for _ in range(case["greedy"]):
         res["tokens"].append(tok[:, 0].numpy())
         tok, cache = step(params, cache, tok)
-    res["cache_rows"] = int(cache["runs"]["run0"]["k"].shape[1])
+    res["cache_rows"] = int(tree_leaves(cache["runs"]["run0"])[0].shape[1])
+    if case.get("keep_cache"):
+        # the greedy run's last cache (MLA: the latent every model rank
+        # writes alike)
+        res["cache"] = interop.params_to_numpy(cache["runs"])
     rows = prompts.shape[0]
     res["want_ops"] = {
         "prefill": serve_collectives(model, rules, rows, prompts.shape[1]),

@@ -30,8 +30,10 @@ from repro_torch import roofline
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.steps import serve_collectives, serve_rules
+from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.sharding import dist, hlo
+from repro_torch.sharding.spec import get_federation_spec
 
 ARCH = "tinyllama-1.1b"
 
@@ -144,9 +146,9 @@ def test_dryrun_cli_lists_refusals_apart(tmp_path, capsys):
                  str(tmp_path)])
     dryrun.main(["--arch", "granite-20b", "--shape", "long_500k",
                  "--out", str(tmp_path)])
-    dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
+    dryrun.main(["--arch", "zamba2-7b", "--shape", "decode_32k",
                  "--mesh", "both", "--out", str(tmp_path)])
-    dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "train_4k",
+    dryrun.main(["--arch", "xlstm-1.3b", "--shape", "train_4k",
                  "--out", str(tmp_path)])
     out = capsys.readouterr().out
     assert "1 dry runs passed" in out
@@ -172,3 +174,127 @@ def test_production_mesh_without_ranks_is_abstract():
         {"pod": 1, "data": 0, "model": 0})
     with pytest.raises(ValueError, match="off the mesh"):
         dist.AbstractMesh({"data": 2}, {"data": 2})
+
+
+# ------------------------------------------------- the MoE and MLA decoders
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b")
+
+
+@pytest.fixture(scope="module")
+def moe_runs():
+    return {(a, s): dryrun.lower_one(a, s, False, verbose=False)
+            for a in MOE_ARCHS for s in ("prefill_32k", "decode_32k")}
+
+
+def _moe_flops(cfg, shape):
+    """One rank's matmul FLOPs at (data 32, model 8), the rank's 1/8 of
+    the heads, experts, shared units and vocab: attention's projections
+    (GQA's; MLA's replicated latents and its heads' up-projections, the
+    prefill expanding K and V, the decode absorbing them), attention
+    (the full S×S scores and values at prefill, one query against the
+    32,768-entry cache at decode), the replicated router, the E/8
+    experts' three GEMMs at the capacity of the global batch (the slots
+    of other data ranks' tokens stay empty, as in the reference's
+    buffer), the shared expert, and the head at the last position."""
+    D, L, E, K = cfg.d_model, cfg.num_layers, cfg.num_experts, \
+        cfg.num_experts_per_tok
+    h, v, El = cfg.num_heads // 8, cfg.padded_vocab // 8, E // 8
+    B = shape.global_batch // 32
+    prefill = shape.kind == "prefill"
+    tokens = B * shape.seq_len if prefill else B
+    T = shape.seq_len
+    if cfg.use_mla:
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+            cfg.v_head_dim
+        proj = D * qr + qr * h * (dn + dr) + D * (kvr + dr) + h * dv * D
+        if prefill:
+            proj += kvr * h * (dn + dv)
+            attn = 2 * B * h * shape.seq_len * T * (dn + dr + dv)
+        else:
+            proj += h * dn * kvr + h * kvr * dv
+            attn = 2 * B * h * T * (kvr + dr + kvr)
+    else:
+        hd = cfg.head_dim
+        proj = 4 * D * h * hd
+        attn = 2 * 2 * B * h * (shape.seq_len if prefill else 1) * T * hd
+    C = moe._capacity(shape.global_batch * (shape.seq_len if prefill
+                                            else 1), E, K)
+    shared = 3 * D * cfg.expert_d_ff * cfg.num_shared_experts // 8
+    per_token = proj + D * E + shared
+    experts = 3 * 2 * El * C * D * cfg.expert_d_ff
+    return 2 * L * per_token * tokens + L * (attn + experts) + 2 * D * v * B
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_moe_dryrun_counts_the_work_of_one_rank(arch, shape, moe_runs):
+    """OLMoE (8 experts and 2 heads a rank) and DeepSeek-V3 (32 experts
+    and 16 heads a rank) on the production mesh: the counted FLOPs
+    within 1 % of ``_moe_flops``, the collectives ``serve_collectives``',
+    the analytic memory the reference's."""
+    from repro_torch.launch.specs import params_struct
+    res = moe_runs[(arch, shape)]
+    cfg = get_config(arch)
+    want = _moe_flops(cfg, dryrun.INPUT_SHAPES[shape])
+    assert abs(res["roofline"]["flops"] - want) <= 0.01 * want
+    model = build_model(cfg, torch.bfloat16)
+    mesh = dist.AbstractMesh({"data": 32, "model": 8})
+    rules = serve_rules(model, mesh, params_struct(model),
+                        batch_size=dryrun.INPUT_SHAPES[shape].global_batch)
+    rows, seq = (1, 32768) if shape == "prefill_32k" else (4, 1)
+    want_ops = {k: n for k, n in serve_collectives(model, rules, rows,
+                                                   seq).items() if n}
+    assert res["collectives"] == want_ops
+    assert want_ops["moe_counts"] == cfg.num_layers
+    rm = AbstractMesh((32, 8), ("data", "model"))
+    jmodel = jbuild_model(jget_config(arch), jnp.bfloat16)
+    pstruct = jax.eval_shape(jmodel.init, jax.random.key(0))
+    spec = rspec.get_federation_spec(res["federation"], rm)
+    psh = rspec.make_param_shardings(spec, rm, pstruct)
+    cache = csh = None
+    rshape = R_SHAPES[shape]
+    if rshape.kind == "decode":
+        cache, _ = rspecs.decode_specs(jmodel, rshape, None)
+        csh = rspec.cache_shardings(spec, rm, cache,
+                                    batch_size=rshape.global_batch)
+    assert res["analytic_memory"] == r_analytic(
+        jmodel.cfg, rshape, spec, rm, pstruct, psh, RFL(), cache, csh)
+
+
+def test_moe_dryrun_train_4k_completes():
+    """OLMoE's and DeepSeek-V3's ``train_4k`` vmap rounds (remat on; K =
+    2 for OLMoE, the CLI's default, and K = 1 for DeepSeek-V3, whose 61
+    layers take about 100 s a local step on fake tensors here) on one
+    rank's fake blocks: the collectives ``train_collectives``' (OLMoE
+    ``cross_device``: no count crosses data; DeepSeek-V3 ``cross_silo``:
+    its rows split over the 32 data ranks, so each MoE layer gathers its
+    counts and sums its aux over ``data``, and the MTP block gathers
+    ``proj``'s output), the analytic memory the reference's."""
+    from repro_torch.launch.specs import params_struct
+    from repro_torch.launch.steps import train_collectives, train_rules
+    for arch, K in zip(MOE_ARCHS, (2, 1)):
+        res = dryrun.lower_one(arch, "train_4k", False, local_steps=K,
+                               verbose=False)
+        cfg = get_config(arch)
+        model = build_model(cfg, torch.bfloat16)
+        mesh = dist.AbstractMesh({"data": 32, "model": 8})
+        spec = get_federation_spec(res["federation"], mesh)
+        rules = train_rules(model, mesh, params_struct(model), spec=spec)
+        want = train_collectives(model, rules, local_steps=K, remat=True)
+        assert res["collectives"] == want
+        silo = res["federation"] == "cross_silo"
+        assert (want.get("moe_counts", 0) == K * (2 * cfg.num_layers
+                                                  + bool(cfg.mtp_depth))
+                ) == silo
+        assert ("mtp_gather" in want) == bool(cfg.mtp_depth)
+        assert res["roofline"]["flops"] > 0
+        rm = AbstractMesh((32, 8), ("data", "model"))
+        jmodel = jbuild_model(jget_config(arch), jnp.bfloat16)
+        pstruct = jax.eval_shape(jmodel.init, jax.random.key(0))
+        rsp = rspec.get_federation_spec(res["federation"], rm)
+        psh = rspec.make_param_shardings(rsp, rm, pstruct)
+        assert res["analytic_memory"] == r_analytic(
+            jmodel.cfg, R_SHAPES["train_4k"], rsp, rm, pstruct, psh,
+            RFL(), None, None)
+        assert res["local_steps"] == K

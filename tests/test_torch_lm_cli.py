@@ -23,6 +23,17 @@ from repro_torch.models.model import build_model
 from repro_torch.configs import get_config
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # a small LM run: C = 2 clients of K = 2 steps on 2 sequences of 16
 SMALL = ["--reduced", "--layers", "2", "--d-model", "64",
          "--clients-per-round", "2", "--local-steps", "2", "--batch", "2",

@@ -38,6 +38,17 @@ from repro_torch.models import ssm
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, D = 500, 64
 MODELS = [("tinyllama-1.1b", 2), ("zamba2-7b", 7)]
 C, B, S = 2, 2, 16

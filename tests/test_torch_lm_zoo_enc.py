@@ -45,6 +45,17 @@ from repro_torch.models.model import batch_extras, build_model
 from repro_torch.serving import DecodeEngine
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 STEP_TOL = dict(rtol=1e-4, atol=1e-4)
 VOCAB, D = 500, 64

@@ -31,6 +31,17 @@ from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 NEW_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b", "codeqwen1.5-7b",
              "qwen2.5-14b", "granite-20b"]

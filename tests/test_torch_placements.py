@@ -239,3 +239,40 @@ def test_local_block_is_the_shard(mname):
         assert torch.equal(seen, torch.full_like(x, int(n_rep)))
     with pytest.raises(ValueError, match="does not split"):
         tspec.local_shape((31, 16), ("data", None), _tmesh(mname))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_moe_and_mla_prefill_caches_are_placed_as_the_references(
+        arch, mesh_shape):
+    """The cache the MoE and MLA decoders build at prefill (reduced
+    configs, 4 prompts of 16): the port's ``cache_shardings`` of its
+    cache against the reference's of ``jax.eval_shape`` of its prefill,
+    under both federations, on (data 2, model 2) and (data 1, model 4):
+    the rows over data where 4 splits them, and the MLA latent (no head
+    dim) never split over model but where no data axis takes the rows
+    (there the reference's rule puts the next dim over model)."""
+    shape = dict(zip(("data", "model"), mesh_shape))
+    rm = AbstractMesh(mesh_shape, ("data", "model"))
+    tm = dist.AbstractMesh(shape)
+    cfg = get_config(arch).reduced(num_layers=2, d_model=64)
+    jmodel = jbuild_model(jget_config(arch).reduced(num_layers=2,
+                                                    d_model=64))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((4, 16), dtype=torch.long)
+    _, cache = model.prefill(params, {"tokens": toks}, cache_len=24)
+    jparams = jax.eval_shape(jmodel.init, jax.random.key(0))
+    _, jc = jax.eval_shape(lambda p, t: jmodel.prefill(
+        p, {"tokens": t}, cache_len=24), jparams,
+        jax.ShapeDtypeStruct((4, 16), jnp.int32))
+    for kind in KINDS:
+        want = _ref_entries(rspec.cache_shardings(
+            rspec.get_federation_spec(kind, rm), rm, jc, batch_size=4), jc)
+        got = _port_entries(tspec.cache_shardings(
+            tspec.get_federation_spec(kind, tm), tm, cache, batch_size=4),
+            cache, tm)
+        _check(got, want)
+        if cfg.use_mla and mesh_shape[0] > 1:
+            assert got[("runs", "run0", "c_kv")][0] == ((), ("data",), (),
+                                                         ())

@@ -63,6 +63,17 @@ from repro_torch.models.small import make_small_model, softmax_ce
 from repro_torch.utils.tree import tree_leaves
 from test_torch_slice import ReplayScheduler
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 # the golden fixtures' federation (tests/_golden_common.py)
 CLIENTS, BATCH, K, SEED, ALPHA, R = 20, 8, 3, 7, 0.5, 3

@@ -319,8 +319,21 @@ def get_config_reduced(arch):
     return tp_config(arch, *SHAPE)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b",
-                                  "zamba2-7b", "xlstm-1.3b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_and_mla_decoders_are_admitted_under_a_mesh(arch):
+    """The MoE and MLA decoders run under rules
+    (tests/test_torch_tp_moe.py) where the archs below are refused:
+    their serve rules, dry run and cache (the rank's rows)."""
+    model, params, mesh = _rules(arch)
+    rules = serve_rules(model, mesh, params, batch_size=4)
+    dryrun.check_lowerable(arch, "decode_32k", False)
+    with logical_rules(rules):
+        cache = model.init_cache(4, 8, device="cpu")
+    assert cache["runs"]["run0"]["c_kv" if model.cfg.use_mla
+                                 else "k"].shape[1] == 2
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "whisper-tiny",
                                   "internvl2-1b"])
 def test_other_archs_are_refused_under_a_mesh(arch):
     model, params, mesh = _rules(arch)
@@ -347,8 +360,9 @@ def test_serving_refusals(what):
         # tensor-parallel training lowers the dense decoders' train_4k;
         # the other archs' stays refused
         dryrun.check_lowerable("tinyllama-1.1b", what, False)
+        dryrun.check_lowerable("olmoe-1b-7b", what, False)
         with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
-            dryrun.check_lowerable("olmoe-1b-7b", what, False)
+            dryrun.check_lowerable("zamba2-7b", what, False)
     elif what == "multi_pod_prefill":
         with pytest.raises(dryrun.Refused, match="64 data ranks"):
             dryrun.check_lowerable("tinyllama-1.1b", "prefill_32k", True)

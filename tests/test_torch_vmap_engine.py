@@ -52,6 +52,17 @@ from repro_torch.models.small import make_small_model
 from repro_torch.models.small import softmax_ce
 from repro_torch.utils.tree import tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one CPU thread while this module runs: eight threads a
+    worker contend with the other test workers and with XLA's pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CLIENTS, BATCH, K, SEED, ALPHA, R, PART = 20, 8, 3, 7, 0.5, 3, 0.2
 C = 4                                       # cohort_size(0.2, 20)

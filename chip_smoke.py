@@ -74,11 +74,15 @@ without its final line:
               (1, 64, 6, 6, 64), InternVL2-1B over its image and text
               positions (1, 320, 14, 2, 64), and the heads one rank of
               phase 6c holds: TinyLlama (2, 64, 16, 2, 64), Qwen2.5 (2,
-              64, 20, 4, 128), Granite (2, 64, 24, 1, 128) (f32 within
+              64, 20, 4, 128), Granite (2, 64, 24, 1, 128), OLMoE (2,
+              64, 8, 8, 128), Zamba2's shared block (2, 64, 16, 16,
+              112), InternVL2 (2, 320, 7, 1, 64), Whisper's decoder (2,
+              64, 3, 3, 64) (f32 within
               2e-5, bf16 within atol 4e-3 + rtol 8e-3, about one bf16
               ulp of the output; two calls bitwise equal); the SSD chunk
-              kernel at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48)
-              and S = 67 (L = 1), rtol 1e-3 / atol 1e-4, two calls
+              kernel at (1, 64, 112, 64, 64), S = 2048, S = 96 (L = 48),
+              S = 67 (L = 1) and at the 56 heads a rank of phase 6c
+              holds (2, 64, 56, 64, 64), rtol 1e-3 / atol 1e-4, two calls
               bitwise equal. Timed and bounded like phase 3; the SSD's bound is
               the lesser of its f32-FMA route's and its tensor-core
               route's (three TF32 products per f32 product at 494.7
@@ -294,9 +298,11 @@ without its final line:
               4 split over data; remat off, which spares a second gather
               of each layer's fsdp dims), TinyLlama at 2 layers (remat
               off). The ranks run TinyLlama whole on the plain route and
-              on the Δ-SGD kernel route (2·K launches a rank), Qwen2.5
-              and Granite, and TinyLlama at 2 layers with remat off and
-              on. Gates: loss and η within 1e-4 relative of the
+              at 2 layers on the Δ-SGD kernel route (2·K launches a
+              rank), Qwen2.5 and Granite, and TinyLlama at 2 layers with
+              remat off and on, on allocators that grow their segments
+              in place (expandable_segments), the parent holding under
+              1 GiB of the card. Gates: loss and η within 1e-4 relative of the
               unsharded round; each rank's round-end blocks within
               1e-5·max|p| of each leaf's unsharded block; every leaf
               replicated over model bitwise equal on the model ranks;
@@ -316,10 +322,18 @@ without its final line:
               OLMoE slab), DeepSeek-V3 at its reduced config with MTP
               (cross_silo, one client's 4 rows over data, so the MoE
               counts and aux sums cross data; wq_a, wkv_a, q_norm,
-              kv_norm and the router among the replicas compared). The
-              dry runs of OLMoE's and DeepSeek-V3's train_4k and
-              decode_32k start here, in a CPU process of their own, and
-              are printed after 6c.
+              kv_norm and the router among the replicas compared).
+              Zamba2-7B at full width and 7 layers (6 Mamba2 layers and
+              the shared block; b = 1), Whisper-tiny whole and
+              InternVL2-1B at full width and 2 layers (b = 2;
+              cross_device, C = 2), with
+              their frames and image embeddings beside the tokens, under
+              the same gates (the Mamba2 layers' ssm_zx, ssm_conv and
+              ssm_norm among the collectives). The dry runs of OLMoE's
+              and DeepSeek-V3's train_4k and decode_32k, and of Zamba2's
+              prefill_32k, decode_32k and train_4k, start here, in a CPU
+              process each, and are printed after 6c (Zamba2's with
+              every Mamba2 role among their collectives).
   6b. serving plane  TinyLlama-1.1B whole (22 layers, f32, random
               weights from seed 0), every count at 0 before each part
               and read after. (1) Hot swap: seed 0's params saved as
@@ -343,11 +357,11 @@ without its final line:
               the global ones, 22 flash launches a request; the peak
               allocation printed. (3) The serve CLI with the watched
               --ckpt-dir of (1) (it serves step 2), --batch 4
-              --prompt-len 64 --gen 32 --loadgen 16 --personalize 2
-              --events F, closed, then Poisson at 2 requests/s: 16
+              --prompt-len 64 --gen 32 --loadgen 8 --personalize 1
+              --events F, closed, then Poisson at 2 requests/s: 8
               requests, p99 >= p50 > 0, occupancy in (0, 1], one
               serve_flush row a flush and one serve_load row, 22 flash
-              launches for each of the 20 requests; tok/s, p50 and p99
+              launches for each of the 12 requests; tok/s, p50 and p99
               printed. (4) The int8 KV cache: 4 prompts of 64 tokens fed
               through decode_step from init_cache(4, 96, quant_kv=True),
               then 32 greedy steps, and the same from the f32 cache:
@@ -366,19 +380,32 @@ without its final line:
               seed 0): TinyLlama-1.1B whole (cross_device, KV heads split
               over model), 32 new tokens; Qwen2.5-14B and Granite-20B at
               full width and 2 layers (cross_silo: params FSDP over
-              data; Granite's MQA head on every rank), 8 new tokens.
-              Each rank builds the same weights, keeps its block
-              (launch.steps.place_for_rank), holds flash at its local
-              heads against the plain version, then prefills through
+              data; Granite's MQA head on every rank), 8 new tokens;
+              Zamba2-7B at full width and 14 layers (12 Mamba2 layers,
+              the shared block at two sites), InternVL2-1B whole (256
+              image rows before the prompt) and Whisper-tiny whole (its
+              1500 frames), cross_device, 8 new tokens, their frames and
+              image embeddings standard normals from seed 1 placed with
+              the rows; for these three the unsharded run also takes the
+              teacher-forced full forward. Each rank builds the same
+              weights, keeps its block (launch.steps.place_for_rank),
+              holds flash at its local heads (and, Zamba2, the SSD chunk
+              kernel at its 56 heads) against the plain version, then
+              prefills through
               make_prefill_step(rules=) and decodes the unsharded run's
               tokens (TinyLlama also greedy through make_serve_step):
               prefill's and every step's logits within 1e-4·max|logits|
               of the unsharded (the worst printed), tokens equal where
               the top-two margin passes that tolerance, each step's
               collectives by role exactly the derived ones,
-              assert_no_param_gather on TinyLlama, flash launched once a
-              layer a prefill at the rank's head shape, each rank's peak
-              below the unsharded model's. Then the dry run of
+              assert_no_param_gather on the cross_device paths, flash
+              launched once an attention layer a prefill at the rank's
+              head shape (the encoder's non-causal attention takes the
+              plain route) and the SSD chunk kernel once a Mamba2 layer
+              at the rank's heads, each rank's prefill and decode logits
+              within 2e-3 of the full forward (Zamba2, InternVL2,
+              Whisper), each rank's peak below the unsharded model's.
+              Then the dry run of
               TinyLlama's prefill_32k and decode_32k on the (32, 8) H100
               mesh, its analytic memory beside the measured peaks.
               Then the MoE and MLA decoders (TPM_RUNS; experts and heads
@@ -413,8 +440,8 @@ without its final line:
               federations, DeepSeek-V3 reduced), the MLA latent cache
               bitwise equal on the
               model ranks, a rank's peak below the unsharded run's
-              where the ranks drew their own weights. Then the MoE
-              dry runs' lines.
+              where the ranks drew their own weights. Then the dry
+              runs' lines.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
@@ -540,10 +567,18 @@ FA_CASES = ((1, 64, 32, 4, 64, None, "float32"),
             (2, 64, 24, 1, 128, None, "float32"),
             # OLMoE's 8 heads and 8 KV heads at a rank of (data 2,
             # model 2)
-            (2, 64, 8, 8, 128, None, "float32"))
-# SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape
+            (2, 64, 8, 8, 128, None, "float32"),
+            # Zamba2's shared block (16/16 of 32/32), InternVL2 over its
+            # 320 positions (7/1 of 14/2) and Whisper's decoder (3/3 of
+            # 6/6) at a rank of (data 2, model 2)
+            (2, 64, 16, 16, 112, None, "float32"),
+            (2, 320, 7, 1, 64, None, "float32"),
+            (2, 64, 3, 3, 64, None, "float32"))
+# SSD chunk cases (B, S, H, P, G, N), the first the Zamba2 prefill shape,
+# the last its 56 of 112 heads at a rank of (data 2, model 2)
 SSD_CASES = ((1, 64, 112, 64, 1, 64), (1, 2048, 112, 64, 1, 64),
-             (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64))
+             (1, 96, 112, 64, 1, 64), (1, 67, 112, 64, 1, 64),
+             (2, 64, 56, 64, 1, 64))
 # bf16 and TF32 dense tensor-core rates of the H100 SXM (the bound of
 # bf16 inputs, and of the SSD kernel's 3xTF32 products)
 BF16_FLOPS = 989e12
@@ -659,16 +694,16 @@ CPU_CHECK_LAYERS = {"tinyllama-1.1b": 2, "zamba2-7b": 7, "olmoe-1b-7b": 2,
 CHECK_DEPTH_GATES = ("xlstm-1.3b", "whisper-tiny", "internvl2-1b")
 # phase 6b, the serving plane: TinyLlama whole; requests of 64 + 17
 # tokens on 4 slots, flush 8 (so a request spans the swap of part 1);
-# the personalized overlay's scale; the CLI's load run (16 requests, the
+# the personalized overlay's scale; the CLI's load run (8 requests, the
 # Poisson rate in requests/s, under the 4 slots' throughput); the int8
 # cache's run (4 prompts of 64 teacher-forced steps, 32 greedy ones)
 PLANE_ARCH = "tinyllama-1.1b"
 PLANE_PROMPT, PLANE_GEN = 64, 17
 PLANE_SCALE = 5e-2
-PLANE_LOADGEN, PLANE_RATE = 16, 2.0
+PLANE_LOADGEN, PLANE_RATE = 8, 2.0
 PLANE_BATCH = 4
 PLANE_CLI = ["--arch", PLANE_ARCH, "--batch", str(PLANE_BATCH),
-             "--prompt-len", "64", "--gen", "32", "--personalize", "2",
+             "--prompt-len", "64", "--gen", "32", "--personalize", "1",
              "--device", "cuda"]
 QUANT_ROWS, QUANT_PROMPT, QUANT_GEN = 4, 64, 32
 # the int8 cache's decode logits against the f32 cache's (and the card's
@@ -677,13 +712,23 @@ QUANT_ROWS, QUANT_PROMPT, QUANT_GEN = 4, 64, 32
 QUANT_KV_TOL = 0.05
 # phase 6c, tensor-parallel serving on 4 ranks over (data 2, model 2)
 # (SHARD_MESH): arch -> (layers kept (None: all), federation, new
-# tokens); TP_ROWS prompts of TP_PROMPT tokens, f32, random weights from
-# TP_SEED; logits held to the unsharded port's within TP_REL·max|logits|
+# tokens); TP_ROWS prompts of TP_PROMPT tokens (with Whisper's frames or
+# InternVL2's image embeddings, standard normals from TP_SEED, placed
+# with the rows), f32, random weights from TP_SEED; logits held to the
+# unsharded port's within TP_REL·max|logits|. Zamba2 at full width cut
+# to 14 layers: 12 Mamba2 layers and the shared block at two sites
 TP_PATHS = {"tinyllama-1.1b": (None, "cross_device", 32),
             "qwen2.5-14b": (2, "cross_silo", 8),
-            "granite-20b": (2, "cross_silo", 8)}
+            "granite-20b": (2, "cross_silo", 8),
+            "zamba2-7b": (14, "cross_device", 8),
+            "internvl2-1b": (None, "cross_device", 8),
+            "whisper-tiny": (None, "cross_device", 8)}
 TP_ROWS, TP_PROMPT, TP_SEED = 4, 64, 0
 TP_REL = 1e-4
+# the paths whose ranks' decode logits are also held against the
+# unsharded teacher-forced full forward (decode == full forward, within
+# the 2e-3 of _decode_matches_full)
+TP_GATE_PATHS = ("zamba2-7b", "internvl2-1b", "whisper-tiny")
 # phase 4g, tensor-parallel training on 4 ranks over (data 2, model 2)
 # (SHARD_MESH): (run, arch, layers kept (None: all), federation, C, b,
 # remat, the Δ-SGD kernel route); TPT_K local steps of TPT_SEQ tokens,
@@ -693,8 +738,8 @@ TP_REL = 1e-4
 TPT_RUNS = (
     ("tinyllama", "tinyllama-1.1b", None, "cross_device", 2, 2, True,
      False),
-    ("tinyllama_kernel", "tinyllama-1.1b", None, "cross_device", 2, 2,
-     True, True),
+    ("tinyllama_kernel", "tinyllama-1.1b", 2, "cross_device", 2, 2,
+     False, True),
     ("qwen2.5-14b", "qwen2.5-14b", 2, "cross_silo", 1, 4, False, False),
     ("granite-20b", "granite-20b", 2, "cross_silo", 1, 4, False, False),
     ("tinyllama_l2_remat_off", "tinyllama-1.1b", 2, "cross_device", 2, 2,
@@ -710,6 +755,14 @@ TPT_RUNS = (
      True),
     ("deepseek_reduced_silo", "deepseek-v3-671b", "reduced", "cross_silo",
      1, 4, False, False),
+    # Zamba2 at full width cut to 7 layers (6 Mamba2 and the shared
+    # block), Whisper whole and InternVL2 at full width cut to 2 layers,
+    # with their frames and image embeddings (standard normals from
+    # TPT_SEED) beside the tokens
+    ("zamba2_l7", "zamba2-7b", 7, "cross_device", 2, 1, False, False),
+    ("whisper", "whisper-tiny", None, "cross_device", 2, 2, False, False),
+    ("internvl2_l2", "internvl2-1b", 2, "cross_device", 2, 2, False,
+     False),
 )
 TPT_K, TPT_SEQ, TPT_SEED = 2, 256, 0
 TPT_REL, TPT_PARAM_REL, TPT_REMAT_REL = 1e-4, 1e-5, 1e-6
@@ -4199,15 +4252,29 @@ def _tpt_model(key):
     return build_model(_cut_cfg(*key[:2]))
 
 
+def _extras_np(cfg, lead, seed):
+    """The stub frontends' inputs of ``lead`` rows (Whisper's frames,
+    InternVL2's image embeddings): f32 standard normals from ``seed``."""
+    import numpy as np
+    from repro_torch.models.model import batch_extras
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(lead + shape, dtype=np.float32)
+            for k, shape in batch_extras(cfg).items()}
+
+
 def _tpt_batch(torch, key, device):
-    """A round's (C, K, b, S) tokens and labels, from TPT_SEED."""
+    """A round's (C, K, b, S) tokens and labels, from TPT_SEED, and the
+    config's frontend extras."""
     import numpy as np
     model = _tpt_model(key)
     C, b = key[3], key[4]
     toks = np.random.default_rng(TPT_SEED).integers(
         0, model.cfg.vocab_size, (C, TPT_K, b, TPT_SEQ + 1))
     t = torch.from_numpy(toks).to(device)
-    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    batch.update({k: torch.from_numpy(v).to(device) for k, v in _extras_np(
+        model.cfg, (C, TPT_K, b), TPT_SEED + 1).items()})
+    return batch
 
 
 def _tpt_metrics(m):
@@ -4275,6 +4342,8 @@ def _tpt_run(torch, run, mesh, dev, out_dir):
     """One run of phase 4g on this rank -> (its record, its blocks of
     the leaves replicated over model, its round-end params on the host
     where the remat comparison needs them)."""
+    import gc
+
     import numpy as np
     from repro_torch.configs import FLConfig
     from repro_torch.core import fed_round, init_fl_state
@@ -4361,10 +4430,12 @@ def _tpt_run(torch, run, mesh, dev, out_dir):
         if name.startswith("tinyllama_l2"):
             host[p] = leaf.cpu()
     del ref
+    reserved = torch.cuda.max_memory_reserved()
     rec = {"metrics": _tpt_metrics(m), "errs": errs, "wall_s": wall,
            "fedavg_s": sum(fedavg_s),
            "step_ms": (wall - sum(fedavg_s)) * 1e3 / TPT_K,
-           "peak_bytes": peak, "collectives": got,
+           "peak_bytes": peak, "peak_reserved_bytes": reserved,
+           "collectives": got,
            "collective_bytes": sum(o.bytes for o in ops),
            "staged": sum(o.staged for o in ops),
            "backward_ops": sum(o.backward for o in ops),
@@ -4373,6 +4444,7 @@ def _tpt_run(torch, run, mesh, dev, out_dir):
            "apply_shapes": sorted(set(ash.shapes)),
            "local_params": sum(x.numel() for x in leaves)}
     del new, state, batch, leaves, m
+    gc.collect()
     torch.cuda.empty_cache()
     return rec, replicated, host
 
@@ -4419,11 +4491,14 @@ def _tpt_rank(rank, world, out_dir, runs, smi, bw, f32):
         arrays.update(rep)
         if host:
             remat[run[0]] = host
-    off, on = remat["tinyllama_l2_remat_off"], remat["tinyllama_l2_remat_on"]
-    res["remat"] = {"bitwise": all(torch.equal(off[p], on[p]) for p in off),
-                    "rel": max(float((off[p] - on[p]).abs().max())
-                               / max(float(off[p].abs().max()), 1e-30)
-                               for p in off)}
+    if len(remat) == 2:      # both of the remat pair ran
+        off = remat["tinyllama_l2_remat_off"]
+        on = remat["tinyllama_l2_remat_on"]
+        res["remat"] = {"bitwise": all(torch.equal(off[p], on[p])
+                                       for p in off),
+                        "rel": max(float((off[p] - on[p]).abs().max())
+                                   / max(float(off[p].abs().max()), 1e-30)
+                                   for p in off)}
     tdist.barrier()
     if rank == 0:
         res["kernel_rows"] = []
@@ -4445,6 +4520,7 @@ def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
     remat gate reads its pair). Returns (its launch counts (the ranks'
     Δ-SGD launches on the card, summed), the Δ-SGD rows at a rank's
     local slab)."""
+    import gc
     import os
     import tempfile
     import numpy as np
@@ -4479,8 +4555,29 @@ def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
             keys = sorted({_tpt_key(r) for r in runs}, key=str)
             ref = {k: _tpt_unsharded(torch, k, tmp) for k in keys}
             t_ref = time.perf_counter() - t0
-            dist.spawn(_tpt_rank, SHARD_WORLD,
-                       (tmp, runs, smi, bw, f32), device="cuda")
+            # the card is the ranks': this process keeps nothing on it,
+            # and each rank's allocator grows its segments in place (its
+            # runs' shapes differ, and 4 ranks' fragments add up)
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            print(f"tp train: the parent holds {held} B on the card "
+                  f"({torch.cuda.memory_reserved()} B reserved) before "
+                  "the spawn", flush=True)
+            if held > 2 ** 30:
+                raise AssertionError(f"tp train: {held} B still allocated "
+                                     "before the ranks start")
+            alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = \
+                "expandable_segments:True"
+            try:
+                dist.spawn(_tpt_rank, SHARD_WORLD,
+                           (tmp, runs, smi, bw, f32), device="cuda")
+            finally:
+                if alloc_conf is None:
+                    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+                else:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
             t_ranks = time.perf_counter() - t0 - t_ref
             ranks = []
             for r in range(SHARD_WORLD):
@@ -4551,16 +4648,20 @@ def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
             "step_ms_by_rank": [rec["step_ms"] for rec in recs],
             "fedavg_s_by_rank": [rec["fedavg_s"] for rec in recs],
             "peak_bytes_by_rank": peaks_,
+            "peak_reserved_bytes_by_rank": [rec["peak_reserved_bytes"]
+                                            for rec in recs],
             "local_params_by_rank": [rec["local_params"] for rec in recs],
             "unsharded": {k: want[k] for k in ("round_ms", "peak_bytes",
                                                "params")},
             "note": "all ranks on one card at once over gloo: a collective "
                     "is a host round trip, so the times say nothing of "
                     "NCCL"}), flush=True)
-    rm = [res["remat"] for res in ranks]
-    if max(r["rel"] for r in rm) > TPT_REMAT_REL:
+    rm = [res["remat"] for res in ranks if "remat" in res]
+    if len(rm) != len(ranks) and len(runs) == len(TPT_RUNS):
+        raise AssertionError("tp train: the remat pair did not run")
+    if rm and max(r["rel"] for r in rm) > TPT_REMAT_REL:
         raise AssertionError(f"tp train: remat on vs off {rm}")
-    print("tp train remat", json.dumps({
+    print("tp train remat", rm and json.dumps({
         "bitwise_by_rank": [r["bitwise"] for r in rm],
         "max_err_over_maxp": max(r["rel"] for r in rm),
         "peak_bytes_off_by_rank": [res["runs"]["tinyllama_l2_remat_off"][
@@ -4579,7 +4680,8 @@ def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
         "model_flops": dry_res["model_flops"],
         "hlo_flops_total": dry_res["hlo_flops_total"],
         "measured_peak_bytes_by_rank_tinyllama_4_ranks": [
-            r["runs"]["tinyllama"]["peak_bytes"] for r in ranks],
+            r["runs"]["tinyllama"]["peak_bytes"] for r in ranks
+            if "tinyllama" in r["runs"]],
         "note": "other shapes (C = 2, b = 2, S = 256 on 2 x 2 here): no "
                 "gate"}), flush=True)
     launches = {}
@@ -4610,10 +4712,18 @@ def _tp_prompts(cfg):
         0, cfg.vocab_size, (TP_ROWS, TP_PROMPT))
 
 
+def _tp_extras(torch, cfg, device):
+    """Phase 6c's frontend extras of the TP_ROWS prompts on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in _extras_np(
+        cfg, (TP_ROWS,), TP_SEED + 1).items()}
+
+
 def _tp_unsharded(torch, arch, out_dir):
     """Phase 6c's unsharded run of ``arch`` on the card: prefill and
     greedy decode; its logits (prefill's last position, then each step)
-    and tokens go to ``out_dir/<arch>.npz``. Returns its numbers."""
+    and tokens go to ``out_dir/<arch>.npz``, and for TP_GATE_PATHS the
+    teacher-forced full forward's logits at the same positions
+    (``full``). Returns its numbers."""
     import numpy as np
     from repro_torch.models.model import build_model
     from repro_torch.utils.tree import tree_leaves
@@ -4622,11 +4732,13 @@ def _tp_unsharded(torch, arch, out_dir):
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED))
     prompts = torch.from_numpy(_tp_prompts(cfg)).cuda()
+    extras = _tp_extras(torch, cfg, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts},
-                                  cache_len=TP_PROMPT + gen)
+    logits, cache = model.prefill(
+        params, {"tokens": prompts, **extras},
+        cache_len=TP_PROMPT + cfg.num_image_tokens + gen)
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
     steps, toks = [logits[:, 0]], []
@@ -4640,11 +4752,18 @@ def _tp_unsharded(torch, arch, out_dir):
     torch.cuda.synchronize()
     dec_ms = (time.perf_counter() - t0) * 1e3 / gen
     peak = torch.cuda.max_memory_allocated()
-    np.savez(Path(out_dir) / f"{arch}.npz",
-             logits=torch.stack(steps).cpu().numpy(),
-             tokens=torch.cat(toks, 1).cpu().numpy())
+    arrays = {"logits": torch.stack(steps).cpu().numpy(),
+              "tokens": torch.cat(toks, 1).cpu().numpy()}
+    del cache
+    if arch in TP_GATE_PATHS:
+        seq = torch.cat([prompts] + toks, 1)
+        with torch.no_grad():
+            full, _ = model.apply(params, {"tokens": seq[:, :-1], **extras})
+        arrays["full"] = full[:, TP_PROMPT - 1:].cpu().numpy()
+        del full
+    np.savez(Path(out_dir) / f"{arch}.npz", **arrays)
     n = sum(a.numel() for a in tree_leaves(params))
-    del params, cache, logits
+    del params, logits
     torch.cuda.empty_cache()
     return {"params": n, "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
             "peak_bytes": peak}
@@ -4657,20 +4776,26 @@ def _tp_roles(ops):
     return out
 
 
-def _tp_rank(rank, world, out_dir):
-    """One rank of phase 6c (see run_tp_serve_path). Writes its logits
+def _tp_rank(rank, world, out_dir, archs):
+    """One rank of phase 6c (see run_tp_serve_path): each of ``archs``
+    (TP_PATHS' keys). Writes its logits
     and tokens to ``out_dir/rank<rank>.npz`` and its numbers to
     ``out_dir/rank<rank>.json``."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.kernels.mamba2_scan import mamba2_scan as m2
+    from repro_torch.kernels.mamba2_scan import ops as m2ops
+    from repro_torch.kernels.mamba2_scan import ref as m2ref
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                           place_for_rank, serve_collectives,
                                           serve_rules)
     from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
     from repro_torch.models.common import logical_rules
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import ATTN_TYPES
     from repro_torch.sharding import dist, hlo
     from repro_torch.sharding.spec import get_federation_spec, local_block
     from repro_torch.utils.tree import tree_leaves
@@ -4679,15 +4804,18 @@ def _tp_rank(rank, world, out_dir):
     coord = dist.coords(mesh)
     res, arrays = {"device": str(dev), "coord": coord, "cases": {}}, {}
     rows = (("data",), None)
-    for arch, (_, fed, gen) in TP_PATHS.items():
+    for arch in archs:
+        _, fed, gen = TP_PATHS[arch]
         cfg = _tp_cfg(arch)
         model = build_model(cfg)
         whole = model.init(torch.Generator(device=dev).manual_seed(TP_SEED))
         rules = serve_rules(model, mesh, whole,
                             spec=get_federation_spec(fed, mesh))
         prompts = torch.from_numpy(_tp_prompts(cfg)).to(dev)
-        placed = place_for_rank(rules, params=whole,
-                                batch={"tokens": prompts}, device=dev)
+        placed = place_for_rank(
+            rules, params=whole,
+            batch={"tokens": prompts, **_tp_extras(torch, cfg, dev)},
+            device=dev)
         del whole
         params, batch = placed["params"], placed["batch"]
         with np.load(Path(out_dir) / f"{arch}.npz") as z:
@@ -4696,15 +4824,24 @@ def _tp_rank(rank, world, out_dir):
         Bl = batch["tokens"].shape[0]
         want = [serve_collectives(model, rules, Bl, TP_PROMPT)] + \
             [serve_collectives(model, rules, Bl, 1)] * gen
-        # the kernel at the rank's local-head shape against its plain
-        # version (outside the counted run)
+        # the kernels at the rank's local-head shapes against their
+        # plain versions (outside the counted run): flash at the first
+        # attention block's heads over the prompt (and the image rows),
+        # the SSD chunks at the Mamba2 heads
+        stack = params["stack"]
+        ap = (stack["shared_attn"] if "shared_attn" in stack else
+              next(stack[k] for k in stack if "attn" in stack[k]))["attn"]
         with logical_rules(rules):
-            hd = attn.heads_of(params["stack"]["run0"]["attn"], cfg)
-        shape = (Bl, TP_PROMPT, hd.h, hd.a, cfg.head_dim)
+            hd = attn.heads_of(ap, cfg)
+            mx = next((stack[k]["mixer"] for k in stack
+                       if "mixer" in stack[k]), None)
+            mix = ssm.mixer_of(mx, cfg) if mx is not None else None
+        S_att = TP_PROMPT + cfg.num_image_tokens
+        shape = (Bl, S_att, hd.h, hd.a, cfg.head_dim)
         gen_ = torch.Generator(device=dev).manual_seed(rank)
-        q = torch.randn((Bl, TP_PROMPT, hd.h, cfg.head_dim), generator=gen_,
+        q = torch.randn((Bl, S_att, hd.h, cfg.head_dim), generator=gen_,
                         device=dev)
-        k, v = (torch.randn((Bl, TP_PROMPT, hd.a, cfg.head_dim),
+        k, v = (torch.randn((Bl, S_att, hd.a, cfg.head_dim),
                             generator=gen_, device=dev) for _ in range(2))
         fa_err = float((fa.flash_attention(q, k, v, causal=True)
                         - faref.attention_ref(q, k, v, causal=True)
@@ -4713,29 +4850,52 @@ def _tp_rank(rank, world, out_dir):
             raise AssertionError(f"tp {arch}: flash at {shape} differs from "
                                  f"its plain version by {fa_err}")
         del q, k, v
+        ssd_shape, ssd_err = None, None
+        if mix is not None:
+            P, N = cfg.ssm_head_dim, cfg.ssm_state
+            ssd_shape = (Bl, TP_PROMPT, mix.h, P, mix.g, N)
+            x = torch.randn(ssd_shape[:4], generator=gen_, device=dev)
+            dt = torch.rand(ssd_shape[:3], generator=gen_, device=dev) * 0.1
+            dA = (dt * -torch.rand((mix.h,), generator=gen_,
+                                   device=dev) * 16).contiguous()
+            Bm, Cm = (torch.randn((Bl, TP_PROMPT, mix.g, N), generator=gen_,
+                                  device=dev) for _ in range(2))
+            got = m2.ssd_chunks(x, dt, dA, Bm, Cm, chunk=64)
+            ref_ = m2ref.ssd_chunks_ref(x, dt, dA, Bm, Cm, 64)
+            ssd_err = max(float((a - b).abs().max()) for a, b in
+                          zip(got, ref_))
+            for a, b in zip(got, ref_):
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+            del x, dt, dA, Bm, Cm, got, ref_
         torch.cuda.empty_cache()
         # the counted run: prefill, then the unsharded run's tokens fed
         # back (every step's logits comparable)
-        seen = []
-        real_fa = attn.flash_attention
+        seen, seen_ssd = [], []
+        real_fa, real_ssd = attn.flash_attention, m2ops.ssd_chunks
 
         def recording(q, k, v, **kw):
             seen.append((tuple(q.shape), tuple(k.shape)))
             return real_fa(q, k, v, **kw)
+
+        def recording_ssd(x, *a, **kw):
+            seen_ssd.append(tuple(x.shape) + tuple(a[2].shape[2:]))
+            return real_ssd(x, *a, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_count()
+        m2.reset_launch_count()
         hlo.reset()
-        attn.flash_attention = recording
+        attn.flash_attention, m2ops.ssd_chunks = recording, recording_ssd
         try:
             t0 = time.perf_counter()
             logits, cache = make_prefill_step(
-                model, cache_len=TP_PROMPT + gen, rules=rules)(params, batch)
+                model, cache_len=S_att + gen, rules=rules)(params, batch)
             torch.cuda.synchronize()
             pre_ms = (time.perf_counter() - t0) * 1e3
         finally:
-            attn.flash_attention = real_fa
+            attn.flash_attention, m2ops.ssd_chunks = real_fa, real_ssd
         launches = dict(fa.LAUNCHES)
+        launches.update(m2.LAUNCHES)
         ops = [hlo.snapshot()]
         steps, c = [logits[:, 0]], cache
         t0 = time.perf_counter()
@@ -4765,14 +4925,22 @@ def _tp_rank(rank, world, out_dir):
         if fed == "cross_device":
             for o in ops:
                 hlo.assert_no_param_gather(o, rules.spec)
-        n_layers = cfg.num_layers
-        if launches != {("flash_attention", dev.type): n_layers} or \
+        # flash in every attention block of the decoder (the encoder's
+        # attention is non-causal: the plain route), the SSD chunks in
+        # every Mamba2 layer
+        n_layers = sum(t in ATTN_TYPES for t in cfg.layer_types)
+        n_mamba = cfg.layer_types.count("mamba2")
+        want_l = {("flash_attention", dev.type): n_layers}
+        if n_mamba:
+            want_l[("ssd_chunks", dev.type)] = n_mamba
+        if launches != want_l or \
                 any(sq != shape[:3] + (cfg.head_dim,) or
                     sk != (shape[0], shape[1], shape[3], shape[4])
-                    for sq, sk in seen):
+                    for sq, sk in seen) or \
+                any(s != ssd_shape for s in seen_ssd):
             raise AssertionError(f"tp {arch}: prefill launched {launches} "
-                                 f"at {seen[:2]}, expected {n_layers} at "
-                                 f"{shape}")
+                                 f"at {seen[:2]}, {seen_ssd[:2]}, expected "
+                                 f"{want_l} at {shape}, {ssd_shape}")
         arrays[f"{arch}.logits"] = torch.stack(steps).cpu().numpy()
         res["cases"][arch] = {
             "collectives_prefill": {r: n for r, n in want[0].items() if n},
@@ -4783,6 +4951,9 @@ def _tp_rank(rank, world, out_dir):
             "staged_per_step": [sum(x.staged for x in o) for o in ops[:2]],
             "flash_launches_prefill": n_layers, "flash_shape": list(shape),
             "flash_max_abs_err_vs_plain": fa_err,
+            "ssd_launches_prefill": n_mamba,
+            "ssd_shape": list(ssd_shape) if ssd_shape else None,
+            "ssd_max_abs_err_vs_plain": ssd_err,
             "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
             "peak_bytes": peak,
             "local_params": sum(a.numel() for a in tree_leaves(params))}
@@ -4800,9 +4971,10 @@ def _tp_margin_sure(logits, tol):
     return (srt[:, -1] - srt[:, -2]) > tol
 
 
-def run_tp_serve_path(torch, smi):
-    """Phase 6c. Returns its launch counts (the ranks' flash launches on
-    the card, summed)."""
+def run_tp_serve_path(torch, smi, archs=tuple(TP_PATHS)):
+    """Phase 6c's dense part over ``archs`` (TP_PATHS' keys). Returns its
+    launch counts (the ranks' flash and SSD launches on the card,
+    summed)."""
     import tempfile
     import numpy as np
     from repro_torch.launch import dryrun
@@ -4817,7 +4989,8 @@ def run_tp_serve_path(torch, smi):
     # the collectives a step of each path makes on a rank, derived from
     # the placement before the run
     rows = TP_ROWS // mesh.shape["data"]
-    for arch, (_, fed, gen) in TP_PATHS.items():
+    paths = {a: TP_PATHS[a] for a in archs}
+    for arch, (_, fed, gen) in paths.items():
         model = build_model(_tp_cfg(arch))
         rules = serve_rules(model, mesh, params_struct(model),
                             spec=get_federation_spec(fed, mesh))
@@ -4830,25 +5003,28 @@ def run_tp_serve_path(torch, smi):
           f"({why}); card {smi}", flush=True)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ref = {arch: _tp_unsharded(torch, arch, tmp) for arch in TP_PATHS}
+        ref = {arch: _tp_unsharded(torch, arch, tmp) for arch in paths}
         t_ref = time.perf_counter() - t0
-        dist.spawn(_tp_rank, SHARD_WORLD, (tmp,), device="cuda")
+        dist.spawn(_tp_rank, SHARD_WORLD, (tmp, tuple(paths)),
+                   device="cuda")
         ranks = []
         for r in range(SHARD_WORLD):
             with open(Path(tmp) / f"rank{r}.json") as f:
                 ranks.append(json.load(f))
             with np.load(Path(tmp) / f"rank{r}.npz") as z:
                 ranks[-1]["arrays"] = {k: z[k] for k in z.files}
-        want = {}
-        for arch in TP_PATHS:
+        want, full = {}, {}
+        for arch in paths:
             with np.load(Path(tmp) / f"{arch}.npz") as z:
                 want[arch] = (z["logits"], z["tokens"])
+                if "full" in z.files:
+                    full[arch] = z["full"]
     t_ranks = time.perf_counter() - t0 - t_ref
-    for arch, (_, fed, gen) in TP_PATHS.items():
+    for arch, (_, fed, gen) in paths.items():
         logits, tokens = want[arch]
         V = _tp_cfg(arch).vocab_size
         tol = TP_REL * float(np.abs(logits[..., :V]).max())
-        worst, sure_steps, greedy_equal = 0.0, 0, 0
+        worst, sure_steps, greedy_equal, gate_err = 0.0, 0, 0, None
         for res in ranks:
             d = res["coord"]["data"]
             sl = slice(d * TP_ROWS // 2, (d + 1) * TP_ROWS // 2)
@@ -4858,6 +5034,17 @@ def run_tp_serve_path(torch, smi):
             if err > tol:
                 raise AssertionError(f"tp {arch} rank {res['coord']}: logits "
                                      f"differ by {err} (tolerance {tol})")
+            if arch in TP_GATE_PATHS:
+                # the rank's prefill and decode logits, fed the unsharded
+                # run's tokens, against the teacher-forced full forward
+                mine = got[:gen, :, :V].transpose(1, 0, 2)
+                ref_ = full[arch][sl, :, :V]
+                gate_err = max(gate_err or 0.0,
+                               float(np.abs(mine - ref_).max()))
+                if _tpm_close(mine, ref_) > 0:
+                    raise AssertionError(f"tp {arch} rank {res['coord']}: "
+                                         "decode differs from the full "
+                                         f"forward by {gate_err}")
             # the sharded argmax after each fed token against the
             # unsharded greedy token, where the margin is clear
             for t in range(1, gen):
@@ -4890,6 +5077,7 @@ def run_tp_serve_path(torch, smi):
             "logits_max_abs_err": worst, "tolerance": tol,
             "tokens_checked": sure_steps,
             "greedy_steps_equal": greedy_equal,
+            "decode_vs_full_forward_max_abs_err": gate_err,
             "collectives_prefill": cs[0]["collectives_prefill"],
             "collectives_decode_step": cs[0]["collectives_decode_step"],
             "collective_bytes_per_step": cs[0]["collective_bytes_per_step"],
@@ -4899,6 +5087,10 @@ def run_tp_serve_path(torch, smi):
             "flash_shape": cs[0]["flash_shape"],
             "flash_max_abs_err_vs_plain": max(
                 c["flash_max_abs_err_vs_plain"] for c in cs),
+            "ssd_launches_prefill_each_rank": cs[0]["ssd_launches_prefill"],
+            "ssd_shape": cs[0]["ssd_shape"],
+            "ssd_max_abs_err_vs_plain": max(
+                (c["ssd_max_abs_err_vs_plain"] or 0.0) for c in cs),
             "prefill_ms_by_rank": [c["prefill_ms"] for c in cs],
             "decode_ms_per_step_by_rank": [c["decode_ms_per_step"]
                                            for c in cs],
@@ -4909,7 +5101,7 @@ def run_tp_serve_path(torch, smi):
                     "is a host round trip, so the step times say nothing "
                     "of NCCL"}), flush=True)
     # the dry run of the production mesh beside the measured peaks
-    for shape in ("prefill_32k", "decode_32k"):
+    for shape in ("prefill_32k", "decode_32k") if LM_ARCH in paths else ():
         res = dryrun.lower_one(LM_ARCH, shape, False, verbose=False)
         print(f"tp dry run {LM_ARCH} {shape} 32x8", json.dumps({
             "analytic_memory": res["analytic_memory"],
@@ -4919,9 +5111,10 @@ def run_tp_serve_path(torch, smi):
                 r["cases"][LM_ARCH]["peak_bytes"] for r in ranks],
             "note": "other shapes (4 x 64 tokens on 2 x 2 here): no gate"}),
             flush=True)
-    launches = {("flash_attention", "cuda"): sum(
-        r["cases"][a]["flash_launches_prefill"] for r in ranks
-        for a in r["cases"])}
+    launches = {(k, "cuda"): sum(r["cases"][a][f"{n}_launches_prefill"]
+                                 for r in ranks for a in r["cases"])
+                for k, n in (("flash_attention", "flash"),
+                             ("ssd_chunks", "ssd"))}
     print(f"tp: {time.perf_counter() - t0:.1f} s (unsharded runs "
           f"{t_ref:.1f} s, ranks {t_ranks:.1f} s)", flush=True)
     return launches
@@ -5390,46 +5583,60 @@ def _tpm_check(run, ref, ranks, out_dir, smi):
     return sum(r["flash_launches_prefill"] for r in recs)
 
 
-def start_tp_moe_dry_runs(tmp):
-    """The dry runs of OLMoE's and DeepSeek-V3's train_4k (one local
-    step: the analytic memory does not depend on K) and decode_32k on
-    the (32, 8) H100 mesh, on fake tensors in a CPU process of their own
-    (one thread, at the lowest scheduling priority, so the host-bound
-    phases it runs beside keep their cores); read by
-    ``report_tp_moe_dry_runs``."""
+# the dry runs beside phases 4g to 6c, one CPU process each: (archs,
+# shapes); train_4k at one local step (the analytic memory does not
+# depend on K)
+TP_DRY_RUNS = (((MOE_ARCH, MLA_ARCH), ("decode_32k", "train_4k")),
+               (("zamba2-7b",), ("prefill_32k", "decode_32k", "train_4k")))
+
+
+def start_tp_dry_runs(tmp):
+    """The dry runs of TP_DRY_RUNS on the (32, 8) H100 mesh, on fake
+    tensors, each group in a CPU process of its own (one thread, at the
+    lowest scheduling priority, so the host-bound phases they run beside
+    keep their cores); read by ``report_tp_dry_runs``."""
     import atexit
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         f"{MOE_ARCH},{MLA_ARCH}", "--shape", "decode_32k,train_4k",
-         "--mesh", "single", "--local-steps", "1", "--out", tmp], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        preexec_fn=lambda: os.nice(19))
+    procs = []
+    for archs, shapes in TP_DRY_RUNS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ",".join(archs), "--shape", ",".join(shapes), "--mesh",
+             "single", "--local-steps", "1", "--out", tmp], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19)))
     # stopped with the script, whichever phase fails
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
 
 
-def report_tp_moe_dry_runs(proc, tmp):
-    try:
-        out, _ = proc.communicate(timeout=900)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if proc.returncode:
-        raise AssertionError(f"tp moe dry runs failed:\n{out}")
-    for arch in (MOE_ARCH, MLA_ARCH):
-        for shape in ("train_4k", "decode_32k"):
-            with open(Path(tmp) / f"{arch}_{shape}_single.json") as f:
-                r = json.load(f)
-            print(f"tp moe dry run {arch} {shape} 32x8", json.dumps({
-                k: r[k] for k in ("federation", "analytic_memory", "memory",
-                                  "collectives", "roofline", "lower_s",
-                                  "model_flops", "hlo_flops_total")}),
-                flush=True)
+def report_tp_dry_runs(procs, tmp):
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode:
+            raise AssertionError(f"tp dry runs failed:\n{out}")
+    for archs, shapes in TP_DRY_RUNS:
+        for arch in archs:
+            for shape in shapes:
+                with open(Path(tmp) / f"{arch}_{shape}_single.json") as f:
+                    r = json.load(f)
+                if arch == "zamba2-7b" and not all(
+                        r["collectives"].get(k) for k in
+                        ("ssm_zx", "ssm_conv", "ssm_norm", "tp_reduce")):
+                    raise AssertionError(f"tp dry run {arch} {shape}: "
+                                         f"collectives {r['collectives']}")
+                print(f"tp dry run {arch} {shape} 32x8", json.dumps({
+                    k: r[k] for k in ("federation", "analytic_memory",
+                                      "memory", "collectives", "roofline",
+                                      "lower_s", "model_flops",
+                                      "hlo_flops_total")}), flush=True)
 
 
 def run_tp_moe_serve_path(torch, smi, runs=TPM_RUNS):
@@ -5605,8 +5812,8 @@ def main() -> int:
     mark("4f")
     # 4g. tensor-parallel training; the MoE and MLA dry runs start
     import tempfile
-    moe_dry_dir = tempfile.TemporaryDirectory()
-    moe_dry = start_tp_moe_dry_runs(moe_dry_dir.name)
+    dry_dir = tempfile.TemporaryDirectory()
+    dry = start_tp_dry_runs(dry_dir.name)
     torch.cuda.empty_cache()
     paths["tp_train"], tpt_rows = run_tp_train_path(torch, smi, bw, f32)
     rows.update(tpt_rows)
@@ -5634,9 +5841,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["tp_moe_serve"] = run_tp_moe_serve_path(torch, smi)
     mark("6c MoE and MLA")
-    report_tp_moe_dry_runs(moe_dry, moe_dry_dir.name)
-    moe_dry_dir.cleanup()
-    mark("waiting for the MoE dry runs")
+    report_tp_dry_runs(dry, dry_dir.name)
+    dry_dir.cleanup()
+    mark("waiting for the dry runs")
 
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)

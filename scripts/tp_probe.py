@@ -2,16 +2,18 @@
 """One tensor-parallel phase of chip_smoke.py alone, with every gate of
 that phase: 4 gloo ranks on the one card.
 
-    python3 scripts/tp_probe.py --phase serve [--sharded]
-    python3 scripts/tp_probe.py --phase train [--layers N]
+    python3 scripts/tp_probe.py --phase serve [--sharded] [--only ARCH,...]
+    python3 scripts/tp_probe.py --phase train [--layers N] [--only RUN,...]
     python3 scripts/tp_probe.py --phase moe [--quick] [--only RUN,...]
 
-``serve``: phase 5's flash rows at the heads a rank of (data 2, model 2)
-holds of TinyLlama, Qwen2.5 and Granite (the last three FA_CASES), then
-phase 6c's dense decoders (``run_tp_serve_path``); ``--sharded`` adds
-phase 4f (``run_sharded_path``). ``train``: phase 4g
-(``run_tp_train_path``), every run of TPT_RUNS, each cut to N layers
-with ``--layers N``. ``moe``: the MoE and MLA part of phase 6c
+``serve``: phase 5's flash and SSD rows at the heads a rank of (data 2,
+model 2) holds (the FA_CASES and SSD_CASES of two rows), then phase
+6c's dense part (``run_tp_serve_path``: the dense decoders, Zamba2,
+InternVL2, Whisper), ``--only`` the named archs of TP_PATHS;
+``--sharded`` adds phase 4f (``run_sharded_path``). ``train``: phase 4g
+(``run_tp_train_path``), every run of TPT_RUNS (``--only``: the named
+ones; the remat gate needs its pair), each cut to N layers with
+``--layers N``. ``moe``: the MoE and MLA part of phase 6c
 (``run_tp_moe_serve_path``) and the MoE dry runs beside it;
 ``--quick`` runs every model at its reduced config (a first check that
 compiles and passes the gates in about a minute), ``--only`` the named
@@ -60,18 +62,24 @@ def main():
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     resolve_device("cuda")
     bw, f32 = cs.peaks(torch.cuda.get_device_name(0))
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m.library(), (tk, fa)))
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m.library(), (tk, fa, m2)))
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     t1 = time.perf_counter()
     if args.phase == "serve":
         cs.check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32,
-                            fa_cases=cs.FA_CASES[-3:], ssd_cases=())
-        print("launches", cs.run_tp_serve_path(torch, smi))
+                            fa_cases=[c for c in cs.FA_CASES if c[0] == 2],
+                            ssd_cases=[c for c in cs.SSD_CASES
+                                       if c[0] == 2])
+        archs = tuple(a for a in cs.TP_PATHS
+                      if not args.only or a in args.only.split(","))
+        print("launches", cs.run_tp_serve_path(torch, smi, archs))
         if args.sharded:
             cs.run_sharded_path(torch, tk, tref, bw, f32, smi)
     elif args.phase == "train":
         runs = cs.TPT_RUNS
+        if args.only:
+            runs = tuple(r for r in runs if r[0] in args.only.split(","))
         if args.layers:
             runs = tuple(r[:2] + (args.layers,) + r[3:] for r in runs)
         launches, rows = cs.run_tp_train_path(torch, smi, bw, f32, runs)
@@ -86,10 +94,10 @@ def main():
             print("launches", cs.run_tp_moe_serve_path(torch, smi, runs))
         else:
             dry_dir = tempfile.TemporaryDirectory()
-            dry = cs.start_tp_moe_dry_runs(dry_dir.name)
+            dry = cs.start_tp_dry_runs(dry_dir.name)
             print("launches", cs.run_tp_moe_serve_path(torch, smi, runs))
             t2 = time.perf_counter()
-            cs.report_tp_moe_dry_runs(dry, dry_dir.name)
+            cs.report_tp_dry_runs(dry, dry_dir.name)
             dry_dir.cleanup()
             print(f"dry runs waited {time.perf_counter() - t2:.1f} s")
     print(f"phase {args.phase} {time.perf_counter() - t1:.1f} s; probe "

@@ -19,15 +19,21 @@ Usage:
 bf16) with the Δ-SGD client, the state placed by
 ``launch.steps.state_placements`` (the reference's ``_state_shardings``)
 and the batch by ``batch_shardings``. The dense GQA decoders
-(TinyLlama-1.1B, CodeQwen1.5-7B, Qwen2.5-14B, Granite-20B) and the MoE
+(TinyLlama-1.1B, CodeQwen1.5-7B, Qwen2.5-14B, Granite-20B), the MoE
 ones (OLMoE-1B-7B; DeepSeek-V3-671B with MLA and its MTP block: 8 and
-32 experts a rank on the single pod, 2 and 16 heads) run at
-``train_4k``, ``prefill_32k`` and ``decode_32k``; an expert GEMM counts
-E/tp·C·D·F, C the capacity of the global batch. Refused, each naming
-its ROADMAP item: ``long_500k`` (its B = 1 cache is sharded over the
-sequence on ``model``, which needs a sequence-parallel decode), Zamba2,
-xLSTM, Whisper and InternVL2, and a global batch that does not split
-over the mesh's data axes. ``--all`` lists refusals apart from failures.
+32 experts a rank on the single pod, 2 and 16 heads) and Zamba2-7B (14
+Mamba2 heads and 4 shared-block heads a rank) run at ``train_4k``,
+``prefill_32k`` and ``decode_32k``; an expert GEMM counts E/tp·C·D·F,
+C the capacity of the global batch. Serving lowers on the plain route
+(``use_pallas=False``), so the SSD scan's work is counted (a ctypes
+kernel's launch is not a torch op). A decode cache is the rank's block
+as ``launch.steps.place_for_rank`` cuts it (a Mamba2 state narrowed
+to the rank's heads). Refused, each naming why: ``long_500k`` (its
+B = 1 cache is sharded over the sequence on ``model``, which needs a
+sequence-parallel decode, ROADMAP A17), xLSTM (ROADMAP A17), Whisper's
+6 and InternVL2's 14 heads (they do not split over 8 ranks), and a
+global batch that does not split over the mesh's data axes. ``--all``
+lists refusals apart from failures.
 
 ``--scenario-smoke`` runs the reference's CI leg of sharded flat rounds
 (``scenario_smoke``) for real, on 8 gloo CPU ranks.
@@ -57,10 +63,10 @@ from repro_torch.launch.specs import (decode_specs, decode_window,
                                       train_specs)
 from repro_torch.launch.steps import (abstract_fl_state, make_prefill_step,
                                       make_serve_step, make_train_step,
-                                      serve_rules, state_placements,
-                                      train_rules)
+                                      place_for_rank, serve_rules,
+                                      state_placements, train_rules)
 from repro_torch.models.common import logical_rules
-from repro_torch.models.model import TP_REFUSAL, build_model, tp_supported
+from repro_torch.models.model import build_model, tp_refusal
 from repro_torch.sharding import dist
 from repro_torch.sharding.spec import (batch_shardings, cache_shardings,
                                        get_federation_spec, local_shape,
@@ -133,9 +139,10 @@ def check_lowerable(arch: str, shape_id: str, multi_pod: bool) -> None:
         raise Refused("long_500k: its B = 1 cache is sharded over the "
                       "sequence on model, which needs a sequence-parallel "
                       "decode (ROADMAP A17)")
-    if not tp_supported(cfg):
-        raise Refused(f"{arch}: {TP_REFUSAL}")
     sizes = production_shape(multi_pod)
+    why = tp_refusal(cfg, sizes["model"])
+    if why:
+        raise Refused(why)
     d = sizes.get("pod", 1) * sizes["data"]
     if shape.kind != "train" and shape.global_batch % d:
         raise Refused(f"{shape_id}: its global batch {shape.global_batch} "
@@ -303,7 +310,9 @@ def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas):
             cache_sh = cache_shardings(spec, mesh, cache,
                                        batch_size=shape.global_batch)
             tsh = serve_batch_shardings(mesh, {"t": tokens})["t"]
-            args = (params, _local(cache, cache_sh, mesh),
+            local_cache = place_for_rank(
+                rules, cache=cache, batch_size=shape.global_batch)["cache"]
+            args = (params, local_cache,
                     tokens.new_empty(local_shape(tuple(tokens.shape), tsh,
                                                  mesh)))
             step = make_serve_step(model, window=window, rules=rules)

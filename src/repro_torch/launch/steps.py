@@ -40,14 +40,15 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.models.common import logical_rules, remat_blocks
-from repro_torch.models.model import (TP_REFUSAL, Model, local_vocab,
-                                      moves_rows, tp_supported)
+from repro_torch.sharding.hlo import SSM_ROLES
+from repro_torch.models.model import (Model, local_vocab, moves_rows,
+                                      refuse_seq_cut, tp_refusal)
 from repro_torch.sharding.spec import (FederationSpec, LogicalRules,
                                        batch_shardings, cache_shardings,
                                        client_axes_on, entry_axes,
                                        get_federation_spec, grad_sync_axes,
-                                       local_block, norm_axes,
-                                       param_placements,
+                                       local_block, mesh_shape, norm_axes,
+                                       param_placements, seq_cut_leaves,
                                        serve_batch_shardings)
 from repro_torch.utils.tree import tree_flatten, tree_map
 
@@ -97,11 +98,11 @@ def serve_rules(model: Model, mesh, params, *,
     batch the steps serve (``LogicalRules``: one row is not split). An
     MoE layer's capacity order depends on whether the data axes split
     the rows, so an MoE config on data axes of size > 1 needs it.
-    Refuses a config that tensor-parallel serving does not run."""
+    Refuses a config that tensor-parallel serving does not run
+    (``models.model.tp_refusal``)."""
     from repro_torch.launch.specs import federation_kind
-    if not tp_supported(model.cfg):
-        raise ValueError(f"{model.cfg.name}: {TP_REFUSAL}")
     spec = spec or get_federation_spec(federation_kind(model.cfg), mesh)
+    _refuse(model, spec, mesh)
     rules = LogicalRules(spec, mesh, serve=True, seq_shard=seq_shard,
                          coords=coords, batch_size=batch_size,
                          param_axes=param_placements(spec, mesh, params))
@@ -112,6 +113,15 @@ def serve_rules(model: Model, mesh, params, *,
                          "batch of one row is not split, and its "
                          "capacity order is then the rank's own)")
     return rules
+
+
+def _refuse(model: Model, spec: FederationSpec, mesh) -> None:
+    """Raise where tensor parallelism on ``mesh`` does not run the
+    model (``tp_refusal``)."""
+    tp = spec.tp_axes[0] if spec.tp_axes else None
+    why = tp_refusal(model.cfg, mesh_shape(mesh).get(tp, 1) if tp else 1)
+    if why:
+        raise ValueError(why)
 
 
 def _cut(tree, axes, rules, device):
@@ -128,7 +138,17 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     ``serve_batch_shardings``, ``cache_shardings`` with ``batch_size``,
     the global batch), each copied to ``device`` (its own by default).
     Returns {"params", "batch", "cache"}: those given. Refuses a batch
-    or ``batch_size`` other than the rules' own ``batch_size``."""
+    or ``batch_size`` other than the rules' own ``batch_size``, and a
+    cache whose placement cuts a time dim over the tensor axis (rows
+    that do not split over the data axes: ``seq_cut_leaves``; ROADMAP
+    A17, the sequence-parallel decode).
+
+    A Mamba2 run's cache is then narrowed to the rank's heads and conv
+    channels (``_mamba2_rank_cache``), a difference by design: where
+    the rows split over the data axes, the reference's table leaves
+    ``ssm`` and ``conv`` whole on every ``model`` rank, and with one
+    data rank it cuts ``ssm``'s heads over ``model``, the same block;
+    the port's rank keeps only the state its heads read."""
     out = {}
     if params is not None:
         out["params"] = _cut(params, rules.param_axes, rules, device)
@@ -144,10 +164,38 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     if cache is not None:
         if batch_size is None:
             raise ValueError("a cache is placed by its global batch_size")
-        out["cache"] = _cut(cache, cache_shardings(
+        cut = seq_cut_leaves(rules.spec, rules.mesh, cache,
+                             batch_size=batch_size,
+                             seq_shard=rules.seq_shard)
+        if cut:
+            raise ValueError(refuse_seq_cut(cut))
+        local = _cut(cache, cache_shardings(
             rules.spec, rules.mesh, cache, batch_size=batch_size,
             seq_shard=rules.seq_shard), rules, device)
+        for key, run in local.get("runs", {}).items():
+            if set(run) == {"ssm", "conv"}:
+                local["runs"][key] = _mamba2_rank_cache(
+                    rules, run, cache["runs"][key])
+        out["cache"] = local
     return out
+
+
+def _mamba2_rank_cache(rules: LogicalRules, local: Dict, whole: Dict):
+    """A Mamba2 run's cache ``local`` (its rows cut) narrowed to the
+    rank's heads (``ssm``: (n, B, h, P, N)) and conv channels (``conv``:
+    its heads' x, its groups' B and C), the dims read from the ``whole``
+    cache's shapes."""
+    from repro_torch.models import ssm
+    _, _, H, P, N = whole["ssm"].shape
+    G = (whole["conv"].shape[-1] - H * P) // (2 * N)
+    h0, h, g0, g = ssm.rank_heads(H, G, rules.size(rules.tp),
+                                  rules.index(rules.tp))
+    s = local["ssm"]
+    if s.shape[2] == H:
+        s = s.narrow(2, h0, h)
+    conv = ssm.pick_channels(local["conv"], ssm.rank_channels(
+        ssm.Mixer(h0, h, g0, g, H, False, False), P, G, N))
+    return {"ssm": s.contiguous(), "conv": conv.contiguous()}
 
 
 def _live(rules: LogicalRules, entry) -> tuple:
@@ -155,39 +203,79 @@ def _live(rules: LogicalRules, entry) -> tuple:
     return tuple(a for a in entry_axes(entry) if rules.size(a) > 1)
 
 
-def _layers(model: Model, ax) -> list:
+def _layers(model: Model, ax, where=("stack",), layer_types=None) -> list:
     """(block type, the layer's placement entries) of every layer of
-    the stack, in order: a stacked run's entries without their layer
-    axis."""
-    from repro_torch.models.transformer import segment_runs
+    the stack at ``where`` (the decoder's; the encoder's is
+    ``("encoder", "stack")`` with its ``layer_types``), in order: a
+    stacked run's entries without their layer axis, the shared block's
+    at each of its sites."""
+    from repro_torch.models.transformer import layer_axes, segment_runs
+    for k in where:
+        ax = ax[k]
     out = []
-    for i, (btype, n) in enumerate(segment_runs(model.cfg.layer_types)):
-        at = (lambda e: e[1:]) if n > 1 else (lambda e: e)
-        out += [(btype, tree_map(at, ax["stack"][f"run{i}"]))] * n
+    for i, (btype, n) in enumerate(segment_runs(layer_types
+                                                or model.cfg.layer_types)):
+        out += [(btype, layer_axes(ax, i, btype, n))] * n
     return out
 
 
-def _layer_ops(rules: LogicalRules, cfg, btype: str, layer) -> Dict:
-    """The collectives one attention block's forward makes on a rank
-    (``fwd``: per role) and its backward's ``tp_grad`` count (``grad``)
-    under ``rules``: a ``tp_reduce`` after attention where its heads are
-    split and after the MLP or MoE layer where its units or experts
-    are (the routed and shared experts' partials in one), a
-    ``kv_gather`` where GQA's KV heads are split, an ``fsdp_gather``
-    for each fsdp dim of the layer's params, and in an MoE layer the
-    counts' ``moe_counts`` gather and, under training rules, the aux
-    loss's ``moe_aux`` sum where the batch splits over ranks. The
+def _enc_layers(model: Model, ax) -> list:
+    """The encoder's layers (``_layers``), none without an encoder."""
+    n = model.cfg.encoder_layers
+    return _layers(model, ax, ("encoder", "stack"), ("attn",) * n) \
+        if n else []
+
+
+
+
+def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
+               encoder: bool = False) -> Dict:
+    """The collectives one block's forward makes on a rank (``fwd``: per
+    role), its backward's ``tp_grad`` count (``grad``) and its other
+    backward ops (``bwd``: per role) under ``rules``. An attention
+    block: a ``tp_reduce`` after attention where its heads are split
+    and after the MLP or MoE layer where its units or experts are (the
+    routed and shared experts' partials in one), a ``kv_gather`` where
+    GQA's KV heads are split (its cache's; none in an ``encoder``
+    block, which builds none), an ``fsdp_gather`` for each fsdp dim of
+    the layer's params, and in an MoE layer the counts' ``moe_counts``
+    gather and, under training rules, the aux loss's ``moe_aux`` sum
+    where the batch splits over ranks. A decoder block's
+    cross-attention adds its ``tp_reduce``; its K/V from the encoder
+    (``x_kv_gather``: the cache's gather of a split projection under
+    serving rules, ``x_fsdp_gather``: the gathers of its K/V
+    projections at use, which the block does not gather) run once a
+    prefill or a forward, outside the block. A Mamba2 block
+    makes ``ssm_zx``, ``ssm_conv`` and ``ssm_norm`` where its columns,
+    conv channels and heads are split, and a ``tp_reduce``. The
     backward sums a partial gradient (``tp_grad``) where a replicated
     tensor entered a split layer: GQA's input (and its QKV biases and
     whole-KV ``wk``/``wv``), MLA's latents, the MLP's input, the MoE's
-    tokens and its gate values."""
+    tokens and its gate values, cross-attention's queries and the
+    encoder output it projects (and their biases and whole-KV
+    ``wk``/``wv``), the Mamba2 mixer's input."""
+    from repro_torch.models.attention import CROSS_KV
     tp = rules.tp if rules.size(rules.tp) > 1 else None
     on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
-    a = layer["attn"]
+
+    def fsdp(tree):
+        return sum(bool(tuple(x for x in _live(rules, e) if x != rules.tp))
+                   for e in tree_flatten(tree)[0])
+
+    # the block gathers its params but the cross K/V projections
+    x_kv = {k: v for k, v in layer.get("xattn", {}).items() if k in CROSS_KV}
     fwd = {"tp_reduce": 0, "kv_gather": 0, "moe_counts": 0, "moe_aux": 0,
-           "fsdp_gather": sum(bool(tuple(x for x in _live(rules, e)
-                                         if x != rules.tp))
-                              for e in tree_flatten(layer)[0])}
+           "fsdp_gather": fsdp(layer) - fsdp(x_kv)}
+    fwd.update({r: 0 for r in SSM_ROLES})
+    if btype == "mamba2":
+        mx = layer["mixer"]
+        heads = on_tp(mx["A_log"][0])
+        fwd.update(ssm_zx=int(on_tp(mx["w_zx"][1])),
+                   ssm_conv=int(on_tp(mx["conv_w"][1])),
+                   ssm_norm=int(heads), tp_reduce=int(heads))
+        return {"fwd": fwd, "grad": int(heads),
+                "bwd": {r: fwd[r] for r in SSM_ROLES}}
+    a = layer["attn"]
     if cfg.use_mla:
         split = on_tp(a["wq_b"][1])
         fwd["tp_reduce"] += split
@@ -196,8 +284,17 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer) -> Dict:
         split = on_tp(a["wq"][1])
         kv_whole = split and not on_tp(a["wk"][1])
         fwd["tp_reduce"] += split
-        fwd["kv_gather"] += on_tp(a["wk"][1])
+        fwd["kv_gather"] += on_tp(a["wk"][1]) and not encoder
         grad = split + (3 * split if cfg.qkv_bias else 0) + 2 * kv_whole
+    if "xattn" in layer:
+        x = layer["xattn"]
+        xsplit = on_tp(x["wq"][1])
+        x_whole = xsplit and not on_tp(x["wk"][1])
+        fwd["tp_reduce"] += xsplit
+        fwd["x_kv_gather"] = int(on_tp(x["wk"][1]))
+        fwd["x_fsdp_gather"] = fsdp(x_kv)
+        grad += 2 * xsplit + (3 * xsplit if cfg.qkv_bias else 0) \
+            + 2 * x_whole
     if btype == "moe":
         m = layer["moe"]
         ex = on_tp(m["w_gate"][0])
@@ -211,7 +308,7 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer) -> Dict:
         split = on_tp(layer["mlp"]["w_out"][0])
         fwd["tp_reduce"] += split
         grad += split
-    return {"fwd": fwd, "grad": grad}
+    return {"fwd": fwd, "grad": grad, "bwd": {}}
 
 
 def _sum_ops(ops) -> Dict[str, int]:
@@ -223,15 +320,20 @@ def _sum_ops(ops) -> Dict[str, int]:
 
 
 def serve_collectives(model: Model, rules: LogicalRules, rows: int,
-                      seq: int) -> Dict[str, int]:
+                      seq: int, *, prefill: Optional[bool] = None
+                      ) -> Dict[str, int]:
     """The collectives one tensor-parallel step issues on a rank whose
-    batch has ``rows`` rows of ``seq`` tokens (prefill: the prompt; a
-    decode step: 1), by role: each layer's (``_layer_ops``: a
-    ``tp_reduce`` after attention and after the MLP or MoE layer where
-    they are split, a ``kv_gather`` where GQA's KV heads are (the cache
-    holds them all; MLA caches its replicated latent), an MoE layer's
-    ``moe_counts`` where the batch splits over the data axes, an
-    ``fsdp_gather`` for every fsdp dim of the layer's params); a
+    batch has ``rows`` rows of ``seq`` tokens (``prefill``, by default
+    ``seq > 1``: the prompt; a decode step: 1), by role: each layer's
+    (``_layer_ops``: a ``tp_reduce`` after attention and after the MLP
+    or MoE layer where they are split, a ``kv_gather`` where GQA's KV
+    heads are (the cache holds them all; MLA caches its replicated
+    latent), an MoE layer's ``moe_counts`` where the batch splits over
+    the data axes, an ``fsdp_gather`` for every fsdp dim of the layer's
+    params; a Mamba2 layer's ``ssm_zx``, ``ssm_conv``, ``ssm_norm`` and
+    ``tp_reduce``; a decoder layer's cross-attention ``tp_reduce``, and
+    at prefill its K/V's ``kv_gather`` and the gathers of its params);
+    at prefill the encoder's layers (no ``kv_gather``); a
     ``vocab`` all-reduce of the embedding and a ``vocab`` gather of the
     logits where the vocab is split; for each vocab table whose model
     dim is fsdp-sharded, its ``fsdp_gather`` or, where moving the fsdp
@@ -247,9 +349,20 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
     def fsdp(entries):
         return sum(bool(fsdp_axes(e)) for e in entries)
 
-    n = _sum_ops(_layer_ops(rules, cfg, bt, layer)["fwd"]
-                 for bt, layer in _layers(model, ax))
-    for r in ("moe_counts", "moe_aux"):   # an MoE's, where it makes them
+    if prefill is None:
+        prefill = seq > 1
+    ops = [_layer_ops(rules, cfg, bt, layer)["fwd"]
+           for bt, layer in _layers(model, ax)]
+    if prefill:
+        ops += [_layer_ops(rules, cfg, bt, layer, encoder=True)["fwd"]
+                for bt, layer in _enc_layers(model, ax)]
+    n = _sum_ops(ops)
+    x_kv, x_fsdp = n.pop("x_kv_gather", 0), n.pop("x_fsdp_gather", 0)
+    if prefill:     # the cross K/V, once a prefill
+        n["kv_gather"] += x_kv
+        n["fsdp_gather"] += x_fsdp
+    # an MoE's and a Mamba2 mixer's, where they make them
+    for r in ("moe_counts", "moe_aux") + SSM_ROLES:
         if not n[r]:
             del n[r]
     n["fsdp_rows"] = 0
@@ -459,11 +572,10 @@ def train_rules(model: Model, mesh, params, *,
     axis) with the params' placement. ``params`` is the whole tree or
     its fake-tensor struct. ``spec`` defaults to the config's
     federation. Refuses a config that tensor-parallel training does not
-    run."""
+    run (``models.model.tp_refusal``)."""
     from repro_torch.launch.specs import federation_kind
-    if not tp_supported(model.cfg):
-        raise ValueError(f"{model.cfg.name}: {TP_REFUSAL}")
     spec = spec or get_federation_spec(federation_kind(model.cfg), mesh)
+    _refuse(model, spec, mesh)
     return LogicalRules(spec, mesh, serve=False, coords=coords,
                         param_axes=param_placements(spec, mesh, params))
 
@@ -538,11 +650,15 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
     Δ-SGD steps makes on a rank, by role (each op runs once on the
     rank's stacked clients). A local step's forward makes each layer's
     (``_layer_ops``: ``tp_reduce``, an MoE layer's ``moe_counts`` and
-    ``moe_aux`` where the rows split over the fsdp axes, an
-    ``fsdp_gather`` for each fsdp dim of its params); its backward a
-    ``tp_grad`` where a replicated tensor entered a split layer, and an
-    ``fsdp_scatter`` for each gather. Remat runs each layer's forward
-    collectives again in the backward. The embedding and head: a
+    ``moe_aux`` where the rows split over the fsdp axes, a Mamba2
+    layer's ``ssm_zx``, ``ssm_conv`` and ``ssm_norm``, an
+    ``fsdp_gather`` for each fsdp dim of its params), the encoder's
+    layers' and each decoder layer's cross K/V (the gathers of its
+    projections at use); its backward a ``tp_grad`` where a replicated
+    tensor entered a split layer, an ``fsdp_scatter`` for each gather
+    and one op of each Mamba2 role (the gathers' reduce-scatters, the
+    norm's sum). Remat runs each layer's forward collectives again in
+    the backward. The embedding and head: a
     ``vocab`` reduce of the vocab-parallel lookup, the cross-entropy's
     max and its one stacked ``vocab`` sum, a ``tp_grad`` at the head's
     input, an fsdp gather and scatter for each vocab table's fsdp dim,
@@ -575,16 +691,27 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
             "vocab": on_tp(ax["embed"][0]) + 2 * vocab_split,
             "loss": rows_split}
 
+    step.update({r: 0 for r in SSM_ROLES})
+
     def add(layer_ops, reps):
-        # training builds no cache: GQA gathers no KV heads
-        for r, n in layer_ops["fwd"].items():
-            if r != "kv_gather":
-                step[r] += reps * n
-        step["fsdp_scatter"] += layer_ops["fwd"]["fsdp_gather"]
+        # training builds no cache: GQA gathers no KV heads; the cross
+        # K/V's param gathers run once a forward, outside the block
+        fwd = dict(layer_ops["fwd"])
+        fwd.pop("kv_gather"), fwd.pop("x_kv_gather", 0)
+        x_fsdp = fwd.pop("x_fsdp_gather", 0)
+        for r, n in fwd.items():
+            step[r] += reps * n
+        for r, n in layer_ops["bwd"].items():
+            step[r] += n
+        step["fsdp_gather"] += x_fsdp
+        step["fsdp_scatter"] += fwd["fsdp_gather"] + x_fsdp
         step["tp_grad"] += layer_ops["grad"]
 
     for bt, layer in _layers(model, ax):
         add(_layer_ops(rules, cfg, bt, layer), 2 if remat else 1)
+    for bt, layer in _enc_layers(model, ax):
+        add(_layer_ops(rules, cfg, bt, layer, encoder=True),
+            2 if remat else 1)
     if cfg.mtp_depth:
         mtp = ax["mtp"]
         add(_layer_ops(rules, cfg, cfg.layer_types[-1], mtp["block"]), 1)

@@ -26,7 +26,10 @@ the latent cache directly.
 Cross-attention (the Whisper decoder) reads K and V that ``cross_kv``
 computes once from the encoder output; ``cross_attend`` runs the plain
 ``_sdpa`` without a causal mask, as the reference does (the flash
-kernel keeps its refusal of non-causal attention).
+kernel keeps its refusal of non-causal attention). Under rules both
+take GQA's tensor-parallel branch (the ``xattn/*`` rules: query heads
+split, KV heads where they divide, ``wo`` row-parallel); the cached
+``enc_kv`` holds every KV head of the rank's rows.
 
 The GQA cache has an int8 form (``init_gqa_cache(quant=True)``, reached
 through ``Model.init_cache(quant_kv=True)``): int8 K and V entries with
@@ -490,23 +493,63 @@ def init_cross_attention(gen: torch.Generator, cfg,
     return init_attention(gen, cfg, dtype)
 
 
+# the cross-attention params that ``cross_kv`` reads, once a prefill or
+# a forward; ``cross_attend`` reads the others
+CROSS_KV = ("wk", "wv", "bk", "bv")
+
+
 def cross_kv(params: dict, enc_out: torch.Tensor, cfg) -> dict:
-    """enc_out: (B,T,D) -> {"xk", "xv"}: (B,T,KV,hd) each."""
-    k = torch.einsum("btd,dhk->bthk", enc_out, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", enc_out, params["wv"])
+    """enc_out: (B,T,D) -> {"xk", "xv"}: (B,T,KV,hd) each. Under rules,
+    the rank's KV heads (``heads_of``), ``enc_out`` entering them through
+    ``tp_enter``; under serving rules a sharded projection is gathered
+    over the tensor axis (one ``kv_gather``), as the decode cache's
+    ``enc_kv`` holds every KV head (``cache_shardings``)."""
+    heads = heads_of(params, cfg)
+    wk, wv = params["wk"], params["wv"]
+    if heads.partial:
+        enc_out = tp_enter(enc_out)
+        if not heads.kv_sharded:
+            wk, wv = tp_enter(wk), tp_enter(wv)
+    k = torch.einsum("btd,dhk->bthk", enc_out, wk)
+    v = torch.einsum("btd,dhk->bthk", enc_out, wv)
     if cfg.qkv_bias:
-        k, v = k + params["bk"], v + params["bv"]
+        bk, bv = params["bk"], params["bv"]
+        if heads.partial:
+            bk = tp_enter(bk).narrow(0, heads.p0, heads.p)
+            bv = tp_enter(bv).narrow(0, heads.p0, heads.p)
+        k, v = k + bk, v + bv
+    rules = get_logical_rules()
+    if rules is not None and rules.serve:
+        k, v = _whole_kv(k, v, heads)
     return {"xk": k, "xv": v}
+
+
+def _read_kv(k: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """The KV heads the rank's queries read, of ``k`` holding either the
+    rank's projected heads or every KV head (a cached ``enc_kv``)."""
+    p0 = heads.p0 if k.shape[2] == heads.p else 0
+    if heads.a == k.shape[2]:
+        return k
+    return k.narrow(2, heads.a0 - p0, heads.a)
 
 
 def cross_attend(params: dict, x: torch.Tensor, cfg,
                  kv: dict) -> torch.Tensor:
-    """x: (B,S,D) queries against the encoder's K/V -> (B,S,D)."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    """x: (B,S,D) queries against the encoder's K/V -> (B,S,D). Under
+    rules, the rank's query heads against the KV heads they read, ``x``
+    entering them through ``tp_enter``, ``wo``'s partial sums reduced
+    (one ``tp_reduce``)."""
+    heads = heads_of(params, cfg)
+    if heads.partial:
+        x = tp_enter(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if cfg.qkv_bias:
-        q = q + params["bq"]
-    out = _sdpa(q.reshape(B, S, KV, H // KV, hd), kv["xk"], kv["xv"],
-                causal=False).reshape(B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        bq = params["bq"]
+        if heads.partial:
+            bq = tp_enter(bq).narrow(0, heads.h0, heads.h)
+        q = q + bq
+    B, S, h, hd = q.shape
+    out = _sdpa(q.reshape(B, S, heads.a, h // heads.a, hd),
+                _read_kv(kv["xk"], heads), _read_kv(kv["xv"], heads),
+                causal=False).reshape(B, S, h, hd)
+    return _out_proj(out, params, heads)

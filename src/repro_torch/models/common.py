@@ -14,13 +14,13 @@ init does.
 Logical sharding rules (``set_logical_rules``, ``logical_rules``): a
 launcher installs a ``repro_torch.sharding.spec.LogicalRules`` and the
 model functions then run one rank's share of a tensor-parallel step on
-its local params (the decoders of GQA or MLA attention with dense or
-MoE blocks). Where
-the reference's ``shard_logical`` is a constraint that GSPMD turns into
-collectives, the port's checks that a tensor's local shape is what the
-rules give and raises if not; the collectives sit where the math needs
-them (``tp_reduce``, ``tp_gather``, ``fsdp_gather``), each through
-``repro_torch.sharding.dist``'s recorded ops. With no rules installed
+its local params (every arch but xLSTM: ``models.model.tp_supported``).
+Where the reference's ``shard_logical`` is a constraint that GSPMD
+turns into collectives, the port's checks that a tensor's local shape
+is what the rules give and raises if not; the collectives sit where the
+math needs them (``tp_reduce``, ``tp_gather``, ``tp_sum``,
+``fsdp_gather``), each through ``repro_torch.sharding.dist``'s recorded
+ops. With no rules installed
 every model function runs as it does on one card. Under training rules
 (``serve=False``) the same code differentiates: the collectives are
 ``repro_torch.sharding.dist``'s differentiable operators, and a
@@ -117,6 +117,19 @@ def tp_enter(x: torch.Tensor) -> torch.Tensor:
     if not _tp_live(rules) or rules.serve:
         return x
     return dist.copy_to(x, rules.mesh, (rules.tp,), role="tp_grad")
+
+
+def tp_sum(x: torch.Tensor, role: str) -> torch.Tensor:
+    """The sum of ``x``'s partial sums over the tensor axis where every
+    rank's block of a layer reads the whole sum (a norm's statistics
+    over channels split by rank): under training rules its gradient, a
+    partial sum on each rank, is summed over the axis too (Megatron's g,
+    then f; both recorded with ``role``)."""
+    rules = get_logical_rules()
+    y = dist.reduce_from(x, rules.mesh, (rules.tp,), role=role)
+    if _tp_live(rules) and not rules.serve:
+        y = dist.copy_to(y, rules.mesh, (rules.tp,), role=role)
+    return y
 
 
 def tp_index() -> int:

@@ -39,7 +39,7 @@ Sinusoidal positions take the reference's two routes: the full-sequence
 table in numpy f64 rounded to f32 (``_embed``, ``_encode``), and each
 row's own position in f32 on the device in ``decode_step``.
 
-Tensor-parallel serving (ROADMAP A17): under installed logical rules
+Tensor-parallel serving: under installed logical rules
 (``models.common.logical_rules``) ``prefill``, ``decode_step`` and
 ``init_cache`` run one rank's share on its local params, batch rows and
 cache (``repro_torch.launch.steps.place_for_rank`` cuts them): the
@@ -59,14 +59,21 @@ Tensor-parallel training (``LogicalRules(serve=False)``): ``apply`` and
 and rows, differentiably. The tables are gathered at use (the rows
 route stays serving's), the head's input enters through ``tp_enter``,
 and ``loss`` is a vocab-parallel cross-entropy on the rank's block of
-the logits (``_ce_parallel``), which are never gathered whole. The
-decoders of GQA or MLA attention with dense MLP or MoE blocks run under
-rules (TinyLlama, CodeQwen1.5, Qwen2.5, Granite, OLMoE, DeepSeek-V3
-with its MTP block: ``mtp/proj`` is column-parallel, its output
-gathered whole with a backward that keeps the rank's block,
-``dist.gather_split``, and the MTP head's cross-entropy is
-vocab-parallel as the main head's); any other config is refused naming
-its ROADMAP item, as are prefill and decode under training rules and
+the logits (``_ce_parallel``), which are never gathered whole. Every
+arch but xLSTM runs under rules (``tp_supported``): the decoders of GQA
+or MLA attention with dense MLP or MoE blocks (TinyLlama, CodeQwen1.5,
+Qwen2.5, Granite, OLMoE, DeepSeek-V3 with its MTP block: ``mtp/proj``
+is column-parallel, its output gathered whole with a backward that
+keeps the rank's block, ``dist.gather_split``, and the MTP head's
+cross-entropy is vocab-parallel as the main head's); Zamba2's Mamba2
+mixer (``ssm``'s TP branch) and its shared block, whose one set of
+params every site reads (gathered at each site under an fsdp axis, its
+gradient the sites' sum); Whisper's encoder (its non-causal attention
+on the rank's heads) and cross-attention (the cached ``enc_kv`` holds
+every KV head of the rank's rows); InternVL2's image rows, placed with
+the batch and prepended after the vocab-parallel embedding. xLSTM, and
+heads that do not split over the tensor axis (``tp_refusal``), are
+refused naming why, as are prefill and decode under training rules and
 the full forward under serving rules.
 """
 from __future__ import annotations
@@ -83,13 +90,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        fsdp_gather, fsdp_gather_tree,
-                                       get_logical_rules,
+                                       get_logical_rules, logical_rules,
                                        init_norm, sinusoidal_position_at,
                                        sinusoidal_positions, tp_enter,
                                        tp_gather, tp_index, tp_reduce)
 from repro_torch.utils.numerics import reciprocal
 from repro_torch.sharding import dist
-from repro_torch.sharding.spec import entry_axes
+from repro_torch.sharding.spec import entry_axes, seq_cut_leaves
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
@@ -217,19 +224,30 @@ class Model:
         positions = torch.arange(S, device=x.device)[None]
         x, _, _ = tfm.stack_full(params["encoder"]["stack"], x, cfg,
                                  layer_types=self._enc_types,
-                                 positions=positions, causal=False)
+                                 positions=positions, causal=False,
+                                 where=("encoder", "stack"))
         return apply_norm(params["encoder"]["norm"], x, cfg)
 
     def _cross_kv(self, params: Dict, enc_out: torch.Tensor) -> Dict:
         """Each decoder layer's cross K/V, stacked (num_layers, B, T, KV,
-        hd). The decoder stack is one run of blocks."""
+        hd). The decoder stack is one run of blocks. Under rules with an
+        fsdp axis, each layer's K/V projections (``attention.CROSS_KV``)
+        are gathered at use."""
         runs = tfm.segment_runs(self.cfg.layer_types)
         if len(runs) != 1:
             raise ValueError("an encoder-decoder config needs a uniform "
                              f"decoder stack, got runs {runs}")
         btype, n = runs[0]
-        kvs = [attn.cross_kv(p["xattn"], enc_out, self.cfg)
-               for p in tfm._run_params(params["stack"], 0, btype, n)]
+        rules = get_logical_rules()
+        kvs = []
+        for p in tfm._run_params(params["stack"], 0, btype, n):
+            xp = p["xattn"]
+            if rules is not None and rules.fsdp_live:
+                axes = tfm.layer_axes(tfm.stack_axes(), 0, btype, n)["xattn"]
+                kv = [k for k in xp if k in attn.CROSS_KV]
+                xp = {**xp, **fsdp_gather_tree({k: xp[k] for k in kv},
+                                               {k: axes[k] for k in kv})}
+            kvs.append(attn.cross_kv(xp, enc_out, self.cfg))
         return tfm._stack(kvs)
 
     def _enc_kv(self, params: Dict, batch: Dict):
@@ -295,10 +313,10 @@ class Model:
     # ---------------------------------------------------------- full forward
     def _check_rules(self, what: str) -> None:
         """Refuse what tensor parallelism does not run yet (ROADMAP
-        A17): any config but a decoder of GQA or MLA attention with
-        dense MLP or MoE blocks (``tp_supported``), the sequence-sharded
-        rules, the full forward (training's) under serving rules and
-        serving under training rules."""
+        A17): xLSTM (``tp_refusal``: ``tp_supported``, and heads that do
+        not split over the tensor axis), the sequence-sharded rules, the
+        full forward (training's) under serving rules and serving under
+        training rules."""
         rules = get_logical_rules()
         if rules is None:
             return
@@ -306,8 +324,9 @@ class Model:
         if rules.seq_shard:
             raise ValueError("sequence-sharded rules (seq_shard) are "
                              "ROADMAP A17: the long-context decode")
-        if not tp_supported(cfg):
-            raise ValueError(f"{cfg.name}: {TP_REFUSAL}")
+        why = tp_refusal(cfg, rules.size(rules.tp))
+        if why:
+            raise ValueError(why)
         if (what == "apply") == rules.serve:
             raise ValueError(
                 f"{what} under {'serving' if rules.serve else 'training'} "
@@ -462,10 +481,21 @@ class Model:
         recurrent states ignore it, as in the reference. Under rules,
         ``B`` is the global batch and the cache the rank's block of it
         (``sharding.spec.cache_shardings``: the rows over the data axes
-        where B divides them)."""
+        where B divides them; a Mamba2 state holds the rank's heads and
+        conv channels, ``ssm.init_mamba2_cache``). Where the rows do not
+        split and that placement cuts a time dim over the tensor axis
+        (``sharding.spec.seq_cut_leaves``), the cache is refused: the
+        decode keeps every rank's time dim whole (ROADMAP A17, the
+        sequence-parallel decode)."""
         self._check_rules("init_cache")
         rules = get_logical_rules()
         if rules is not None:
+            with logical_rules(None):
+                whole = self.init_cache(B, cache_len, device="meta",
+                                        quant_kv=quant_kv)
+            cut = seq_cut_leaves(rules.spec, rules.mesh, whole, batch_size=B)
+            if cut:
+                raise ValueError(refuse_seq_cut(cut))
             B = rules.cache_rows(B)
         cfg, dtype = self.cfg, self.dtype
         runs = {}
@@ -546,19 +576,44 @@ def local_vocab(cfg: ModelConfig, rules) -> int:
 
 
 # what a config tensor parallelism refuses is told
-TP_REFUSAL = ("tensor parallelism runs the decoders of GQA or MLA "
-              "attention with dense MLP or MoE blocks (and MTP); Mamba2 "
-              "(Zamba2), xLSTM, Whisper's encoder and InternVL2's image "
-              "tokens are ROADMAP A17")
+TP_REFUSAL = ("tensor parallelism runs every arch but xLSTM: its sLSTM's "
+              "recurrent matrix r is split over hd_t, which would put a "
+              "collective in every step of its time loop (ROADMAP A17)")
 
 
 def tp_supported(cfg: ModelConfig) -> bool:
-    """A config tensor parallelism runs: a decoder of attention (GQA or
-    MLA) blocks with a dense MLP or an MoE layer, DeepSeek-V3's MTP
-    block included, with no recurrent mixer, no encoder and no image
-    tokens."""
-    return (set(cfg.layer_types) <= {"attn", "moe"}
-            and not cfg.encoder_layers and not cfg.num_image_tokens)
+    """A config tensor parallelism runs: GQA or MLA attention blocks
+    with a dense MLP or an MoE layer (DeepSeek-V3's MTP block included),
+    Zamba2's Mamba2 mixer and shared block, Whisper's encoder and
+    cross-attention, InternVL2's image tokens; not the xLSTM mixers."""
+    return not set(cfg.layer_types) & {"mlstm", "slstm"}
+
+
+def tp_refusal(cfg: ModelConfig, tp: int) -> Optional[str]:
+    """Why tensor parallelism over a tensor axis of ``tp`` ranks does not
+    run ``cfg``, or None: an arch it does not run (``TP_REFUSAL``), or
+    attention or Mamba2 heads that do not split into ``tp`` blocks (the
+    reference's placement then leaves a layer's heads whole while it
+    splits its other dims)."""
+    if not tp_supported(cfg):
+        return f"{cfg.name}: {TP_REFUSAL}"
+    heads = {"attention": cfg.num_heads}
+    if "mamba2" in cfg.layer_types:
+        heads["Mamba2"] = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    for what, n in heads.items():
+        if n % tp:
+            return (f"{cfg.name}: its {n} {what} heads do not split over a "
+                    f"tensor axis of {tp} ranks ({n} % {tp} = {n % tp})")
+    return None
+
+
+def refuse_seq_cut(paths) -> str:
+    """The refusal of a decode cache whose time dim is cut over the
+    tensor axis (``sharding.spec.seq_cut_leaves``)."""
+    return (f"the cache leaves {list(paths)} are cut over the tensor axis "
+            "along their time dim (rows that do not split over the data "
+            "axes): the port's decode keeps every rank's time dim whole; "
+            "the sequence-parallel decode is ROADMAP A17")
 
 
 def batch_extras(cfg: ModelConfig) -> Dict[str, tuple]:

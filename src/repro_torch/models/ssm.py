@@ -23,17 +23,41 @@ stacks the per-step outputs rather than writing into a buffer, so
 ``torch.func.vmap`` and autograd trace it. Neither has a kernel on the
 TPU either; both run in plain torch, and their recurrent states stay
 f32 whatever the model's dtype.
+
+Tensor-parallel Mamba2 (under installed logical rules,
+``models.common``): the reference's placement splits ``w_zx`` over the
+tensor axis into contiguous column blocks of ``[z | x | B | C]`` and
+``conv_w``/``conv_b`` into channel blocks; neither lines up with the
+heads. ``w_dt``, ``A_log``, ``dt_bias`` and ``D_skip`` are split by
+heads, and ``norm`` and ``w_out``'s rows by the heads' channels. A rank
+(``mixer_of``: its heads [h0, h0 + h) and B/C groups) multiplies by its
+column block of ``w_zx`` and gathers the product whole over the tensor
+axis (``ssm_zx``), gathers the conv's small weights at use
+(``ssm_conv``), and runs the conv, the SSD scan and the skip on its
+heads: its heads' z and x channels and its groups' B and C
+(``rank_channels``). The gated RMSNorm normalises over the whole d_in,
+so its sum of squares is summed over the tensor axis (``ssm_norm``),
+and ``w_out`` is row-parallel (one ``tp_reduce``). Each collective is
+one of ``sharding.dist``'s differentiable operators: under training
+rules the block's input enters through ``tp_enter``, the gathers'
+backward reduce-scatters, and the norm's sum is summed again in the
+backward (every rank's normalised channels read it). The decode cache
+is the rank's: ``ssm`` (B, h, P, N) and ``conv`` (B, K−1, h·P + 2·g·N),
+its heads' x channels and its groups' B and C before the conv.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_scan.ops import ssd_scan
-from repro_torch.models.common import (dense_init, ones_init, rmsnorm,
-                                       zeros_init)
+from repro_torch.models.common import (dense_init, get_logical_rules,
+                                       ones_init, rmsnorm, tp_enter,
+                                       tp_gather, tp_index, tp_reduce,
+                                       tp_sum, zeros_init)
 
 
 def mamba2_dims(cfg):
@@ -145,6 +169,123 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y.to(xh.dtype), h
 
 
+class Mixer(NamedTuple):
+    """A rank's share of a Mamba2 mixer of ``H`` heads: heads
+    [h0, h0 + h) and B/C groups [g0, g0 + g); ``zx_split`` and
+    ``conv_split``: its ``w_zx`` columns and conv channels are its block
+    of the tensor axis's. Without rules, every head."""
+    h0: int
+    h: int
+    g0: int
+    g: int
+    H: int
+    zx_split: bool
+    conv_split: bool
+
+    @property
+    def partial(self) -> bool:
+        """The rank holds a block of the heads: ``w_out``'s product is a
+        partial sum and the norm's sum of squares is the rank's part."""
+        return self.h < self.H
+
+
+def rank_heads(H: int, G: int, tp: int, t: int):
+    """(h0, h, g0, g): the heads and B/C groups, of ``H`` heads in ``G``
+    groups, of tensor rank ``t`` of ``tp`` where the heads split
+    (``heads_t``), else every head. A rank's heads lie within one group
+    or cover whole groups."""
+    if tp == 1 or H % tp:
+        return 0, H, 0, G
+    h = H // tp
+    h0, rep = t * h, H // G
+    if h % rep == 0:
+        return h0, h, h0 // rep, h // rep
+    if rep % h:
+        raise ValueError(f"{h} Mamba2 heads a rank straddle the groups of "
+                         f"{rep} heads")
+    return h0, h, h0 // rep, 1
+
+
+def mixer_of(params: dict, cfg) -> Mixer:
+    """This rank's share of the mixer, read from its local ``A_log``,
+    ``w_zx`` and ``conv_w`` shapes."""
+    d_in, H, P, G, N = mamba2_dims(cfg)
+    conv_ch = d_in + 2 * G * N
+    h = params["A_log"].shape[-1]
+    rules = get_logical_rules()
+    if rules is None:
+        return Mixer(0, H, 0, G, H, False, False)
+    zx = params["w_zx"].shape[-1] < d_in + conv_ch
+    conv = params["conv_w"].shape[-1] < conv_ch
+    if h == H:
+        if zx or conv or params["w_out"].shape[-2] < d_in:
+            raise ValueError(f"{cfg.name}: its {H} Mamba2 heads do not "
+                             "split over the tensor axis, its channels do")
+        return Mixer(0, H, 0, G, H, False, False)
+    h0, h, g0, g = rank_heads(H, G, H // h, tp_index())
+    return Mixer(h0, h, g0, g, H, zx, conv)
+
+
+def rank_channels(m: Mixer, P: int, G: int, N: int):
+    """(start, length) of each run of the conv's (x | B | C) channels
+    the rank reads (heads of P channels, G groups of N): its heads' x,
+    its groups' B, its groups' C."""
+    d_in = m.H * P
+    return ((m.h0 * P, m.h * P), (d_in + m.g0 * N, m.g * N),
+            (d_in + (G + m.g0) * N, m.g * N))
+
+
+def pick_channels(t: torch.Tensor, runs) -> torch.Tensor:
+    """The channels ``runs`` ((start, length) each) of ``t``'s last dim,
+    in order."""
+    return torch.cat([t.narrow(-1, a, n) for a, n in runs], dim=-1)
+
+
+def _zx(params: dict, x: torch.Tensor, cfg, m: Mixer):
+    """(z, xBC) of the rank's heads: the product with ``w_zx``, gathered
+    whole over the tensor axis where ``w_zx``'s columns are a block
+    (``ssm_zx``), then the rank's z and (x | B | C) channels."""
+    d_in = mamba2_dims(cfg)[0]
+    zx = torch.einsum("...d,de->...e", x, params["w_zx"])
+    if m.zx_split:
+        zx = tp_gather(zx, zx.dim() - 1, "ssm_zx")
+    if not m.partial:
+        return zx[..., :d_in], zx[..., d_in:]
+    _, _, P, G, N = mamba2_dims(cfg)
+    return (zx.narrow(-1, m.h0 * P, m.h * P),
+            pick_channels(zx[..., d_in:], rank_channels(m, P, G, N)))
+
+
+def _conv_params(params: dict, cfg, m: Mixer):
+    """(conv_w, conv_b) of the rank's channels: the blocks gathered
+    whole over the tensor axis where they are blocks (one ``ssm_conv``
+    gather of both), then the rank's."""
+    w, b = params["conv_w"], params["conv_b"]
+    if m.conv_split:
+        wb = tp_gather(torch.cat([w, b[None]], dim=0), 1, "ssm_conv")
+        w, b = wb[:-1], wb[-1]
+    if not m.partial:
+        return w, b
+    _, _, P, G, N = mamba2_dims(cfg)
+    runs = rank_channels(m, P, G, N)
+    return pick_channels(w, runs), pick_channels(b, runs)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                cfg, m: Mixer) -> torch.Tensor:
+    """``rmsnorm(y·silu(z))`` over the whole d_in: where the rank holds a
+    block of the channels, the mean square is its sum of squares summed
+    over the tensor axis (``ssm_norm``) over d_in."""
+    u = y * F.silu(z)
+    if not m.partial:
+        return rmsnorm(u, scale)
+    dt, uf = u.dtype, u.float()
+    ss = tp_sum(torch.sum(torch.square(uf), dim=-1, keepdim=True),
+                "ssm_norm")
+    var = ss / mamba2_dims(cfg)[0]
+    return (uf * torch.rsqrt(var + 1e-6)).to(dt) * scale
+
+
 def _split_conv(xc: torch.Tensor, d_in: int, G: int, N: int):
     """The conv output -> (x, B, C) with B and C by group."""
     lead = xc.shape[:-1]
@@ -153,68 +294,84 @@ def _split_conv(xc: torch.Tensor, d_in: int, G: int, N: int):
     return xc[..., :d_in], Bm, Cm
 
 
+def _out(params: dict, y: torch.Tensor, m: Mixer) -> torch.Tensor:
+    """The output projection of the rank's channels, summed over the
+    tensor axis where they are a block."""
+    out = torch.einsum("...e,ed->...d", y, params["w_out"])
+    return tp_reduce(out) if m.partial else out
+
+
 def mamba2_full(params: dict, x: torch.Tensor, cfg, *,
                 build_cache: bool = False, use_pallas: bool = True):
     """x: (B,S,D). Returns (out (B,S,D), {"ssm", "conv"} | None).
-    ``use_pallas``: the SSD chunk kernel (True) or ``_ssd_chunked``."""
+    ``use_pallas``: the SSD chunk kernel (True) or ``_ssd_chunked``.
+    Under rules, the rank's heads; under training rules ``x`` enters
+    them through ``tp_enter``."""
     B, S, D = x.shape
     d_in, H, P, G, N = mamba2_dims(cfg)
-    zx = torch.einsum("bsd,de->bse", x, params["w_zx"])
-    z, xc = zx[..., :d_in], zx[..., d_in:]
-    xc = F.silu(_causal_conv_full(xc, params["conv_w"], params["conv_b"]))
-    xs, Bm, Cm = _split_conv(xc, d_in, G, N)
-    xs = xs.reshape(B, S, H, P)
+    m = mixer_of(params, cfg)
+    if m.partial:
+        x = tp_enter(x)
+    z, xbc = _zx(params, x, cfg, m)
+    cw, cb = _conv_params(params, cfg, m)
+    xc = F.silu(_causal_conv_full(xbc, cw, cb))
+    xs, Bm, Cm = _split_conv(xc, m.h * P, m.g, N)
+    xs = xs.reshape(B, S, m.h, P)
     dt = F.softplus(torch.einsum("bsd,dh->bsh", x, params["w_dt"]).float()
                     + params["dt_bias"].float())
     scan = ssd_scan if use_pallas else _ssd_chunked
     y, h_fin = scan(xs, dt, params["A_log"], Bm, Cm)
     y = y + xs * params["D_skip"].to(x.dtype)[None, None, :, None]
-    y = rmsnorm(y.reshape(B, S, d_in) * F.silu(z), params["norm"])
-    out = torch.einsum("bse,ed->bsd", y, params["w_out"])
+    y = _gated_norm(y.reshape(B, S, m.h * P), z, params["norm"], cfg, m)
+    out = _out(params, y, m)
     cache = None
     if build_cache:
         K = cfg.ssm_conv
-        tail = zx[..., d_in:]
-        tail = (tail[:, S - (K - 1):, :] if S >= K - 1
-                else F.pad(tail, (0, 0, K - 1 - S, 0)))
+        tail = (xbc[:, S - (K - 1):, :] if S >= K - 1
+                else F.pad(xbc, (0, 0, K - 1 - S, 0)))
         cache = {"ssm": h_fin.to(x.dtype), "conv": tail}
     return out, cache
 
 
 def mamba2_step(params: dict, x: torch.Tensor, cfg, cache: dict):
-    """x: (B,1,D). cache: ssm (B,H,P,N), conv (B,K−1,conv_ch)."""
+    """x: (B,1,D). cache: ssm (B,H,P,N), conv (B,K−1,conv_ch); under
+    rules the rank's (``init_mamba2_cache``)."""
     B = x.shape[0]
     d_in, H, P, G, N = mamba2_dims(cfg)
-    zx = torch.einsum("bsd,de->bse", x, params["w_zx"])[:, 0]
-    z, xc_new = zx[..., :d_in], zx[..., d_in:]
+    m = mixer_of(params, cfg)
+    z, xc_new = _zx(params, x[:, 0], cfg, m)
+    cw, cb = _conv_params(params, cfg, m)
     conv_in = torch.cat([cache["conv"], xc_new[:, None, :]], dim=1)
-    xc = (torch.einsum("bkc,kc->bc", conv_in, params["conv_w"])
-          + params["conv_b"])
-    xs, Bm, Cm = _split_conv(F.silu(xc), d_in, G, N)
-    xs = xs.reshape(B, H, P)
+    xc = torch.einsum("bkc,kc->bc", conv_in, cw) + cb
+    xs, Bm, Cm = _split_conv(F.silu(xc), m.h * P, m.g, N)
+    xs = xs.reshape(B, m.h, P)
     dt = F.softplus(torch.einsum("bd,dh->bh", x[:, 0], params["w_dt"])
                     .float() + params["dt_bias"].float())
     dA = torch.exp(dt * (-torch.exp(params["A_log"].float())))
-    rep = H // G
-    Bh = Bm.repeat_interleave(rep, dim=1).float()            # (B,H,N)
+    rep = m.h // m.g
+    Bh = Bm.repeat_interleave(rep, dim=1).float()            # (B,h,N)
     Ch = Cm.repeat_interleave(rep, dim=1).float()
     h = cache["ssm"].float()
     h = dA[:, :, None, None] * h + torch.einsum(
         "bh,bhp,bhn->bhpn", dt, xs.float(), Bh)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch).to(x.dtype)
     y = y + xs * params["D_skip"].to(x.dtype)[None, :, None]
-    y = rmsnorm(y.reshape(B, d_in) * F.silu(z), params["norm"])
-    out = torch.einsum("be,ed->bd", y, params["w_out"])[:, None, :]
+    y = _gated_norm(y.reshape(B, m.h * P), z, params["norm"], cfg, m)
+    out = _out(params, y, m)[:, None, :]
     return out, {"ssm": h.to(cache["ssm"].dtype), "conv": conv_in[:, 1:]}
 
 
 def init_mamba2_cache(cfg, B: int, dtype: torch.dtype, device) -> dict:
+    """Under rules, the rank's heads and conv channels (``rank_heads``)
+    of its ``B`` rows."""
     d_in, H, P, G, N = mamba2_dims(cfg)
-    conv_ch = d_in + 2 * G * N
-    return {"ssm": torch.zeros((B, H, P, N), dtype=torch.float32,
+    rules = get_logical_rules()
+    h0, h, g0, g = (rank_heads(H, G, rules.size(rules.tp), tp_index())
+                    if rules is not None else (0, H, 0, G))
+    return {"ssm": torch.zeros((B, h, P, N), dtype=torch.float32,
                                device=device),
-            "conv": torch.zeros((B, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
-                                device=device)}
+            "conv": torch.zeros((B, cfg.ssm_conv - 1, h * P + 2 * g * N),
+                                dtype=dtype, device=device)}
 
 
 # ===========================================================================

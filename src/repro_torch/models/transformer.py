@@ -28,12 +28,16 @@ Megatron's: its input enters through ``tp_enter`` (under training
 rules), ``w_gate``/``w_in`` (and ``b_in``) column-parallel, ``w_out``
 row-parallel, followed by one ``tp_reduce``; ``b_out`` is added once,
 after the sum. An MoE block's layer runs its own TP branch
-(``moe.apply_moe``: the rank's experts, the global capacity order).
+(``moe.apply_moe``: the rank's experts, the global capacity order), a
+Mamba2 block its mixer's (``ssm.mamba2_full``/``mamba2_step``: the
+rank's heads), and the encoder's non-causal attention the rank's heads
+(``_bidir_attn``).
 Where the rules' spec shards params over an fsdp axis, each layer's
 params (an MoE block's experts, router and shared expert among them)
-are gathered whole over it at use (``fsdp_gather``) and dropped after
-the layer; a remat'd block reruns its gathers and collectives, MoE
-and MLA ones included, in the backward pass.
+are gathered whole over it at use (``fsdp_gather``; the shared block's
+at each of its sites) and dropped after the layer; a remat'd block
+reruns its gathers and collectives, MoE, MLA and Mamba2 ones included,
+in the backward pass.
 """
 from __future__ import annotations
 
@@ -181,13 +185,18 @@ def _bidir_attn(params: dict, x: torch.Tensor, cfg,
                 positions: torch.Tensor):
     """Non-causal attention (the Whisper encoder), on the plain
     ``_sdpa``: the flash kernel keeps its refusal of non-causal
-    attention. Returns (out, None)."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = attn._qkv(params, x, cfg, positions)
-    out = attn._sdpa(q.reshape(B, S, KV, H // KV, hd), k, v,
-                     causal=False).reshape(B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+    attention. Under rules, the rank's heads (``attention.heads_of``),
+    ``x`` entering them through ``tp_enter``, ``wo``'s partial sums
+    reduced. Returns (out, None)."""
+    heads = attn.heads_of(params, cfg)
+    if heads.partial:
+        x = tp_enter(x)
+    q, k, v = attn._qkv(params, x, cfg, positions, heads)
+    B, S, h, hd = q.shape
+    out = attn._sdpa(q.reshape(B, S, heads.a, h // heads.a, hd),
+                     attn._attended(k, heads), attn._attended(v, heads),
+                     causal=False).reshape(B, S, h, hd)
+    return attn._out_proj(out, params, heads), None
 
 
 def block_step(params: dict, x: torch.Tensor, cfg, btype: str, cache: dict,
@@ -231,17 +240,47 @@ def _run_params(params: dict, i: int, btype: str, n: int):
     return [tree_unflatten(treedef, list(ls)) for ls in layers]
 
 
-def _at_use(p: dict, i: int, n: int) -> dict:
-    """Layer params ``p`` of run i with their fsdp dims gathered whole
-    (the installed rules' ``param_axes``); ``p`` itself without rules or
-    without an fsdp axis."""
+def layer_axes(axes: dict, i: int, btype: str, n: int) -> dict:
+    """The placement entries of one layer of run i of a stack whose
+    placement tree is ``axes``: the shared block's (one set, never
+    stacked), or the run's without its stacked layer axis."""
+    if btype == "shared_attn":
+        return axes["shared_attn"]
+    axes = axes[f"run{i}"]
+    return tree_map(lambda a: a[1:], axes) if n > 1 else axes
+
+
+def stack_axes(where: Tuple[str, ...] = ("stack",)) -> dict:
+    """The installed rules' placement tree of the stack at ``where`` in
+    the params (the decoder's ``("stack",)``, the encoder's
+    ``("encoder", "stack")``)."""
+    axes = get_logical_rules().param_axes
+    for k in where:
+        axes = axes[k]
+    return axes
+
+
+def _at_use(p: dict, i: int, n: int, btype: str,
+            where: Tuple[str, ...] = ("stack",)) -> dict:
+    """Layer params ``p`` of run i of the stack at ``where`` with their
+    fsdp dims gathered whole (the installed rules' ``param_axes``); ``p``
+    itself without rules or without an fsdp axis. The shared block's
+    params are gathered at each of its sites; a decoder block's
+    cross-attention K/V projections are not (``attention.CROSS_KV``:
+    ``Model._cross_kv`` reads them once, before the stack)."""
     rules = get_logical_rules()
     if rules is None or not rules.fsdp_live:
         return p
-    axes = rules.param_axes["stack"][f"run{i}"]
-    if n > 1:   # the stacked layer axis was unbound away
-        axes = tree_map(lambda a: a[1:], axes)
-    return fsdp_gather_tree(p, axes)
+    axes = layer_axes(stack_axes(where), i, btype, n)
+    if "xattn" not in p:
+        return fsdp_gather_tree(p, axes)
+    kv = {k: v for k, v in p["xattn"].items() if k in attn.CROSS_KV}
+    q = {k: v for k, v in p["xattn"].items() if k not in attn.CROSS_KV}
+    out = fsdp_gather_tree({**p, "xattn": q},
+                           {**axes, "xattn": {k: axes["xattn"][k]
+                                              for k in q}})
+    out["xattn"].update(kv)
+    return out
 
 
 def _slice_enc(enc_kv, j: int):
@@ -267,7 +306,7 @@ def init_stack(gen: torch.Generator, cfg, dtype: torch.dtype, *,
 
 
 def _remat_block(p: dict, x: torch.Tensor, i: int, n: int, cfg, btype,
-                 enc_kv=None, **kw):
+                 enc_kv=None, where=("stack",), **kw):
     """``block_full`` of layer params ``p`` (with their fsdp gather at
     use) through ``common.remat_call``: the backward recomputes the
     block, its gathers and collectives included. Every tensor the block
@@ -282,7 +321,8 @@ def _remat_block(p: dict, x: torch.Tensor, i: int, n: int, cfg, btype,
     S = kw.pop("positions").shape[-1]
 
     def fn(*ts):
-        lp = _at_use(tree_unflatten(treedef, list(ts[:k])), i, n)
+        lp = _at_use(tree_unflatten(treedef, list(ts[:k])), i, n, btype,
+                     where)
         e = (tree_unflatten(ekv_def, list(ts[k:-1])) if ekv_def is not None
              else None)
         pos = torch.arange(S, device=ts[-1].device)[None]
@@ -297,7 +337,7 @@ def _remat_block(p: dict, x: torch.Tensor, i: int, n: int, cfg, btype,
 def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
                positions: torch.Tensor, window=None,
                build_cache: bool = False, enc_kv=None, causal: bool = True,
-               use_pallas: bool = True):
+               use_pallas: bool = True, where=("stack",)):
     """Returns (x, {run: cache stacked on the layer axis} | None, aux);
     ``aux`` is the MoE blocks' auxiliary losses summed in f32 in layer
     order, 0 without MoE blocks. ``enc_kv`` (cross K/V stacked on the
@@ -305,7 +345,9 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
     the reference's scan hands it out. With ``common.remat_on()`` (and
     no cache to build) each block is rematerialised, as the reference's
     ``jax.checkpoint`` of its block: only the residual stream between
-    blocks is kept for the backward pass."""
+    blocks is kept for the backward pass. ``where`` is the stack's place
+    in the params tree (``stack_axes``), read under rules with an fsdp
+    axis."""
     caches = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat_on() and not build_cache
@@ -317,10 +359,12 @@ def stack_full(params: dict, x: torch.Tensor, cfg, *, layer_types=None,
                       enc_kv=_slice_enc(enc_kv, j), causal=causal,
                       use_pallas=use_pallas)
             if remat:
-                x, a = _remat_block(p, x, i, n, cfg, btype, **kw)
+                x, a = _remat_block(p, x, i, n, cfg, btype, where=where,
+                                    **kw)
                 c = None
             else:
-                x, c, a = block_full(_at_use(p, i, n), x, cfg, btype,
+                x, c, a = block_full(_at_use(p, i, n, btype, where), x,
+                                     cfg, btype,
                                      build_cache=build_cache, **kw)
             cs.append(c)
             if a is not None:
@@ -339,7 +383,8 @@ def stack_step(params: dict, x: torch.Tensor, cfg, caches: dict, *, t, slot,
         cs = []
         for j, p in enumerate(_run_params(params, i, btype, n)):
             x, c = block_step(
-                _at_use(p, i, n), x, cfg, btype, _layer(caches[key], j),
+                _at_use(p, i, n, btype), x, cfg, btype,
+                _layer(caches[key], j),
                 t=t, slot=slot, positions_buf=positions_buf, window=window,
                 enc_kv=_slice_enc(enc_kv, j))
             cs.append(c)

@@ -19,9 +19,10 @@ module's log, and the checks read the log:
     ``assert_peak_within_local`` bounds it by the rank's own slabs.
 
   * ``assert_no_param_gather``: a ``cross_device`` tensor-parallel
-    serve step moves no param and crosses no data axis but with an MoE
-    layer's per-expert counts (``moe_counts``): its ops are the roles
-    ``tp_reduce``, ``kv_gather`` and ``vocab`` over ``model``; a
+    serve step moves no param (but the Mamba2 conv's small weights) and
+    crosses no data axis but with an MoE layer's per-expert counts
+    (``moe_counts``): its ops are the roles ``tp_reduce``,
+    ``kv_gather``, ``vocab`` and the Mamba2 mixer's over ``model``; a
     training round's forward and backward ops likewise stay on
     ``model`` and move no param, and only ``fedavg`` and ``metrics``
     cross the client axes (``TRAIN_ROLES`` names every role).
@@ -180,9 +181,15 @@ def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
     return rep
 
 
+# the Mamba2 mixer's roles over the tensor axis: its column block's
+# product gathered whole (``ssm_zx``), its conv's weights gathered at use
+# (``ssm_conv``: the one param a cross_device step moves, 5 rows of
+# conv_ch, because its channel blocks do not line up with the heads) and
+# its gated norm's sum of squares (``ssm_norm``)
+SSM_ROLES = ("ssm_zx", "ssm_conv", "ssm_norm")
 # the roles a tensor-parallel serve step's collectives may have on a
-# cross_device mesh: none moves a param
-SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab", "moe_counts")
+# cross_device mesh: none moves a param but the Mamba2 conv's weights
+SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab", "moe_counts") + SSM_ROLES
 # the roles that cross the batch axes to make an MoE layer's capacity
 # order (``moe_counts``: each rank's per-expert counts) and aux loss
 # (``moe_aux``: Σprobs and the routed counts) global: they move (E,)
@@ -196,15 +203,18 @@ BATCH_ROLES = ("moe_counts", "moe_aux")
 # ``fsdp_scatter``), the gradient sums over the fsdp axes of leaves they
 # do not shard (``grad_sync``), Δ-SGD's norm sums (``norms``), an MoE
 # layer's ``moe_counts`` and ``moe_aux`` over the rows' fsdp axes, the
-# MTP projection's gather (``mtp_gather``), and over the client axes
-# the FedAvg sum (``fedavg``) and the metrics' gather (``metrics``)
+# MTP projection's gather (``mtp_gather``), the Mamba2 mixer's
+# (``SSM_ROLES``, each with one op in the backward: the gathers'
+# reduce-scatters, the norm's sum), and over the client axes the FedAvg
+# sum (``fedavg``) and the metrics' gather (``metrics``)
 TRAIN_ROLES = ("tp_reduce", "tp_grad", "vocab", "loss", "fsdp_gather",
                "fsdp_scatter", "grad_sync", "norms", "moe_counts",
-               "moe_aux", "mtp_gather", "fedavg", "metrics")
-# the training roles that move no param and stay inside a model replica
-# on a cross_device mesh, and the two that cross the client axes
+               "moe_aux", "mtp_gather") + SSM_ROLES + ("fedavg", "metrics")
+# the training roles that stay inside a model replica on a cross_device
+# mesh (none moves a param but the Mamba2 conv's weights), and the two
+# that cross the client axes
 TRAIN_REPLICA_ROLES = ("tp_reduce", "tp_grad", "vocab", "norms",
-                       "mtp_gather")
+                       "mtp_gather") + SSM_ROLES
 CLIENT_ROLES = ("fedavg", "metrics")
 
 

@@ -352,6 +352,35 @@ def cache_shardings(spec: FederationSpec, mesh, cache, *, batch_size: int,
     return _map_with_path(one, cache)
 
 
+# cache leaves whose dim after the batch is a time dim: the attention
+# caches' sequence (GQA's K/V and their int8 scales, MLA's latent and
+# rope key, the encoder's cross K/V) and the Mamba2 conv's taps. The
+# Mamba2 ``ssm`` state's is its heads
+SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope", "xk", "xv",
+              "conv")
+
+
+def seq_cut_leaves(spec: FederationSpec, mesh, cache, *, batch_size: int,
+                   seq_shard: bool = False) -> list:
+    """The paths of the leaves of ``cache`` whose time dim
+    ``cache_shardings`` cuts over the tensor axis (rows that do not split
+    over the data axes, or ``seq_shard``): a cache the port's decode,
+    which keeps every rank's time dim whole, cannot read (ROADMAP A17,
+    the sequence-parallel decode)."""
+    tp = spec.tp_axes[0] if spec.tp_axes else None
+    if tp is None or mesh_shape(mesh).get(tp, 1) == 1:
+        return []
+    leaves, treedef = tree_flatten(cache_shardings(
+        spec, mesh, cache, batch_size=batch_size, seq_shard=seq_shard))
+    out = []
+    for path, entries in zip(treedef, leaves):
+        bdim = 1 if path[0] in ("runs", "enc_kv") else 0
+        if path[-1] in SEQ_LEAVES and len(entries) > bdim + 1 \
+                and tp in entry_axes(entries[bdim + 1]):
+            out.append("/".join(path))
+    return out
+
+
 def local_shape(shape, axes: tuple, mesh) -> Tuple[int, ...]:
     """A rank's block shape of a whole ``shape`` under ``axes`` (one
     entry a dim); raises where a dim does not split evenly, as

@@ -146,7 +146,7 @@ def test_dryrun_cli_lists_refusals_apart(tmp_path, capsys):
                  str(tmp_path)])
     dryrun.main(["--arch", "granite-20b", "--shape", "long_500k",
                  "--out", str(tmp_path)])
-    dryrun.main(["--arch", "zamba2-7b", "--shape", "decode_32k",
+    dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k",
                  "--mesh", "both", "--out", str(tmp_path)])
     dryrun.main(["--arch", "xlstm-1.3b", "--shape", "train_4k",
                  "--out", str(tmp_path)])

@@ -2,8 +2,9 @@
 ``sharding`` package and the dry run's ``launch`` modules included), not
 ``chip_smoke.py`` and not the sharded tests' rank workers
 (``tests/_torch_dist_worker.py``, ``_torch_tp_worker.py``,
-``_torch_tp_train_worker.py``, ``_torch_tp_grad_worker.py`` and
-``_torch_tp_moe_worker.py``) and not the card probe of the
+``_torch_tp_train_worker.py``, ``_torch_tp_grad_worker.py``,
+``_torch_tp_moe_worker.py`` and ``_torch_tp_hybrid_worker.py``) and not
+the card probe of the
 tensor-parallel phases, ``scripts/tp_probe.py``, imports ``jax`` or the
 reference package ``repro``."""
 import ast
@@ -18,6 +19,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_tp_train_worker.py",
     ROOT / "tests" / "_torch_tp_grad_worker.py",
     ROOT / "tests" / "_torch_tp_moe_worker.py",
+    ROOT / "tests" / "_torch_tp_hybrid_worker.py",
     ROOT / "scripts" / "tp_probe.py"]
 
 

@@ -34,7 +34,8 @@ reference's params, batches and prompts injected:
     layer under ``cross_silo`` training rules against the unsharded
     port's; the MTP gather's gradient (``dist.gather_split``) against
     the unsharded port's, and ``gather_from``'s tp times it;
-  * the refusals of Zamba2, xLSTM, Whisper and InternVL2.
+  * the refusal of xLSTM (Zamba2, Whisper and InternVL2 are admitted:
+    tests/test_torch_tp_hybrid.py, tests/test_torch_tp_enc.py).
 """
 import functools
 import pickle
@@ -98,7 +99,7 @@ ROUNDS = {"olmoe_device": ("olmoe-1b-7b", "cross_device", False, False),
           "deepseek_device_kernel": ("deepseek-v3-671b", "cross_device",
                                      False, True)}
 METRICS = ("loss", "loss_last_step", "eta_mean", "eta_min", "eta_max")
-REFUSED = ("zamba2-7b", "xlstm-1.3b", "whisper-tiny", "internvl2-1b")
+REFUSED = ("xlstm-1.3b",)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -42,6 +42,7 @@ from repro.sharding.spec import get_federation_spec as r_fed
 from repro.sharding.spec import make_param_shardings as r_param_sh
 from repro.sharding.spec import serve_batch_shardings as r_batch_sh
 from repro_torch import interop
+from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.steps import serve_rules
 from repro_torch.models.common import logical_rules
@@ -319,22 +320,49 @@ def get_config_reduced(arch):
     return tp_config(arch, *SHAPE)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
-def test_moe_and_mla_decoders_are_admitted_under_a_mesh(arch):
-    """The MoE and MLA decoders run under rules
-    (tests/test_torch_tp_moe.py) where the archs below are refused:
-    their serve rules, dry run and cache (the rank's rows)."""
+ADMITTED = ("tinyllama-1.1b", "codeqwen1.5-7b", "qwen2.5-14b",
+            "granite-20b", "olmoe-1b-7b", "deepseek-v3-671b", "zamba2-7b",
+            "whisper-tiny", "internvl2-1b")
+
+
+@pytest.mark.parametrize("arch", ADMITTED)
+def test_admitted_archs_run_under_a_mesh(arch):
+    """Every arch but xLSTM runs under rules (the dense decoders here
+    and in tests/test_torch_tp_train.py, the MoE and MLA ones in
+    tests/test_torch_tp_moe.py, Zamba2 in tests/test_torch_tp_hybrid.py,
+    Whisper and InternVL2 in tests/test_torch_tp_enc.py): its serve
+    rules on (data 2, model 2), and its cache under them, the rank's
+    rows of every run (a Mamba2 run: its heads, and its heads' x
+    channels and B and C in the conv tail). The dry run lowers
+    ``decode_32k`` on (data 32, model 8) where the heads split 8 ways;
+    Whisper's 6 and InternVL2's 14 do not, and it says so."""
+    from repro_torch.models.ssm import mamba2_dims
     model, params, mesh = _rules(arch)
     rules = serve_rules(model, mesh, params, batch_size=4)
-    dryrun.check_lowerable(arch, "decode_32k", False)
+    heads = get_config(arch).num_heads
+    if heads % 8:
+        with pytest.raises(dryrun.Refused, match=f"its {heads} attention "
+                                                 "heads do not split"):
+            dryrun.check_lowerable(arch, "decode_32k", False)
+    else:
+        dryrun.check_lowerable(arch, "decode_32k", False)
     with logical_rules(rules):
         cache = model.init_cache(4, 8, device="cpu")
-    assert cache["runs"]["run0"]["c_kv" if model.cfg.use_mla
-                                 else "k"].shape[1] == 2
+    for run in cache["runs"].values():
+        for leaf in run.values():
+            assert leaf.shape[1] == 2
+        if "ssm" in run:
+            d_in, H, P, G, N = mamba2_dims(model.cfg)
+            assert run["ssm"].shape[2] == H // 2
+            assert run["conv"].shape[-1] == d_in // 2 + 2 * G * N
+    want = set()
+    for btype in model.cfg.layer_types:
+        want |= ({"ssm", "conv"} if btype == "mamba2" else
+                 {"c_kv", "k_rope"} if model.cfg.use_mla else {"k", "v"})
+    assert {k for r in cache["runs"].values() for k in r} == want
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "whisper-tiny",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_other_archs_are_refused_under_a_mesh(arch):
     model, params, mesh = _rules(arch)
     with pytest.raises(ValueError, match="ROADMAP A17"):
@@ -357,12 +385,13 @@ def test_serving_refusals(what):
         with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
             dryrun.check_lowerable("tinyllama-1.1b", what, False)
     elif what == "train_4k":
-        # tensor-parallel training lowers the dense decoders' train_4k;
-        # the other archs' stays refused
+        # tensor-parallel training lowers every arch's train_4k but
+        # xLSTM's
         dryrun.check_lowerable("tinyllama-1.1b", what, False)
         dryrun.check_lowerable("olmoe-1b-7b", what, False)
+        dryrun.check_lowerable("zamba2-7b", what, False)
         with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
-            dryrun.check_lowerable("zamba2-7b", what, False)
+            dryrun.check_lowerable("xlstm-1.3b", what, False)
     elif what == "multi_pod_prefill":
         with pytest.raises(dryrun.Refused, match="64 data ranks"):
             dryrun.check_lowerable("tinyllama-1.1b", "prefill_32k", True)
@@ -417,12 +446,18 @@ def test_heads_straddling_two_kv_heads_are_refused():
 def test_init_cache_under_rules_is_the_ranks_block():
     """Under serve rules ``init_cache`` takes the global batch and
     holds the rank's rows (over data) with every KV head, as
-    ``cache_shardings`` places the cache."""
+    ``cache_shardings`` places the cache. Three rows do not split over
+    the two data ranks: the rows stay whole, and where the 8 cache
+    entries then split over ``model`` (the reference's placement of the
+    sequence), the cache is refused (ROADMAP A17); 9 entries stay
+    whole."""
     model, params, mesh = _rules("tinyllama-1.1b")
     cfg = model.cfg
     with logical_rules(serve_rules(model, mesh, params)):
         cache = model.init_cache(4, 8, device="cpu")
-        odd = model.init_cache(3, 8, device="cpu")
+        odd = model.init_cache(3, 9, device="cpu")
+        with pytest.raises(ValueError, match="ROADMAP A17"):
+            model.init_cache(3, 8, device="cpu")
     assert tuple(cache["runs"]["run0"]["k"].shape) == (
         cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.head_dim)
     assert odd["runs"]["run0"]["k"].shape[1] == 3

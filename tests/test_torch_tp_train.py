@@ -83,7 +83,7 @@ CASES = {
     "qwen_silo": ("qwen2.5-14b", "cross_silo", False, False, None),
 }
 CROSS_DEVICE = [n for n, c in CASES.items() if c[1] == "cross_device"]
-OTHER_ARCHS = ("zamba2-7b", "xlstm-1.3b", "whisper-tiny", "internvl2-1b")
+OTHER_ARCHS = ("xlstm-1.3b",)
 REFUSED_FL = {"sps": {"client_opt": "sps"},
               "fedprox": {"fedprox_mu": 0.1}}
 METRICS = ("loss", "loss_last_step", "eta_mean", "eta_min", "eta_max")

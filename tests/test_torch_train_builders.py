@@ -215,9 +215,11 @@ def test_train_4k_memory_is_the_references(train_4k):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-1.3b"])
 def test_train_4k_refuses_the_other_archs(arch):
     if arch == "olmoe-1b-7b":
-        # the MoE decoders lower since their TP slice; Zamba2 stays out
+        # the MoE decoders lower since their TP slice, Zamba2 since its
+        # own; xLSTM stays out
         dryrun.check_lowerable(arch, "train_4k", False)
-        arch = "zamba2-7b"
+        dryrun.check_lowerable("zamba2-7b", "train_4k", False)
+        arch = "xlstm-1.3b"
     with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
         dryrun.check_lowerable(arch, "train_4k", False)
     dryrun.check_lowerable("granite-20b", "train_4k", True)

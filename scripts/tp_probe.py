@@ -3,13 +3,15 @@
 that phase: 4 gloo ranks on the one card.
 
     python3 scripts/tp_probe.py --phase serve [--sharded] [--only ARCH,...]
+                                              [--only one_row]
     python3 scripts/tp_probe.py --phase train [--layers N] [--only RUN,...]
     python3 scripts/tp_probe.py --phase moe [--quick] [--only RUN,...]
 
-``serve``: phase 5's flash and SSD rows at the heads a rank of (data 2,
-model 2) holds (the FA_CASES and SSD_CASES of two rows), then phase
-6c's dense part (``run_tp_serve_path``: the dense decoders, Zamba2,
-InternVL2, Whisper), ``--only`` the named archs of TP_PATHS;
+``serve``: phase 5's flash and SSD rows at the heads a rank holds (the
+FA_CASES and SSD_CASES of two rows, and the one row's flash case), then
+phase 6c's dense part (``run_tp_serve_path``: the dense decoders,
+Zamba2, InternVL2, Whisper, xLSTM, and the one-row run on (data 1,
+model 4)), ``--only`` the named archs of TP_PATHS and ``one_row``;
 ``--sharded`` adds phase 4f (``run_sharded_path``). ``train``: phase 4g
 (``run_tp_train_path``), every run of TPT_RUNS (``--only``: the named
 ones; the remat gate needs its pair), each cut to N layers with
@@ -68,12 +70,14 @@ def main():
     t1 = time.perf_counter()
     if args.phase == "serve":
         cs.check_lm_kernels(torch, fa, faref, m2, m2ref, bw, f32,
-                            fa_cases=[c for c in cs.FA_CASES if c[0] == 2],
+                            fa_cases=[c for c in cs.FA_CASES if c[0] == 2
+                                      or c[2:4] == (8, 1)],
                             ssd_cases=[c for c in cs.SSD_CASES
                                        if c[0] == 2])
-        archs = tuple(a for a in cs.TP_PATHS
-                      if not args.only or a in args.only.split(","))
-        print("launches", cs.run_tp_serve_path(torch, smi, archs))
+        only = args.only.split(",") if args.only else None
+        archs = tuple(a for a in cs.TP_PATHS if not only or a in only)
+        print("launches", cs.run_tp_serve_path(
+            torch, smi, archs, one_row=not only or "one_row" in only))
         if args.sharded:
             cs.run_sharded_path(torch, tk, tref, bw, f32, smi)
     elif args.phase == "train":

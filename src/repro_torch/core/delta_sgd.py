@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import flat as flatlib
 from repro_torch.kernels.delta_sgd import delta_sgd as kernels
+from repro_torch.utils import numerics
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 # Numerical guard ceiling on η: Eq. (4)'s cand1 can blow up when
@@ -56,7 +57,7 @@ class DeltaSGDState(NamedTuple):
 
 
 def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum((l.to(torch.float32) ** 2).sum()
+    return numerics.sqrt(sum((l.to(torch.float32) ** 2).sum()
                           for l in tree_leaves(tree)))
 
 
@@ -176,7 +177,7 @@ def delta_sgd_update(params, grads, state: DeltaSGDState, *, gamma: float,
         dg_norm, g_norm = (_diff_norm(grads, state.prev_grads),
                            _global_norm(grads))
     else:
-        sums = torch.sqrt(sharded_sq_sums(grads, state.prev_grads, rules))
+        sums = numerics.sqrt(sharded_sq_sums(grads, state.prev_grads, rules))
         dg_norm, g_norm = sums[0], sums[1]
     eta, theta = _eta_rule(state.eta, state.theta, dx_norm, dg_norm, gamma,
                            delta)
@@ -223,7 +224,7 @@ def _eta_rule(eta_prev, theta_prev, dx_norm, dg_norm, gamma, delta):
     """Eq. (4) with the δ-damped growth condition (Appendix B.1)."""
     cand1 = torch.where(dg_norm > 0.0, gamma * dx_norm / (2.0 * dg_norm),
                         float("inf"))
-    cand2 = torch.sqrt(1.0 + delta * theta_prev) * eta_prev
+    cand2 = numerics.sqrt(1.0 + delta * theta_prev) * eta_prev
     eta = torch.minimum(cand1, cand2)
     return eta, eta / eta_prev
 
@@ -302,8 +303,8 @@ def _finish_step(P, G, state: FlatDeltaSGDState, dg2, gg2, *, gamma, delta,
     """η by Eq. (4) from the per-client sums, the guards, the lane mask,
     and the apply kernel. ``g_inplace``: ``G`` is the caller's own copy,
     and its invalid lanes are zeroed in place (no second slab)."""
-    dg_norm = torch.sqrt(dg2)
-    grad_norm = torch.sqrt(gg2)
+    dg_norm = numerics.sqrt(dg2)
+    grad_norm = numerics.sqrt(gg2)
     # a client's first local step takes η₀ (Alg. 1 line 6), θ unchanged.
     # ``first`` is a Python bool on the flat engines, whose counter is a
     # host int shared by all clients: their first step skips the rule's

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.federation.schedulers import keyed_rng
 from repro_torch.kernels.robust_agg import robust_agg as kernels
+from repro_torch.utils import numerics
 
 _RATE_FIELDS = ("drop_rate", "nan_rate", "byzantine_rate",
                 "overstale_rate")
@@ -181,7 +182,7 @@ def robust_aggregate(delta: torch.Tensor, spec: RobustAgg,
         return _sorted_window_mean(zeroed, spec.trim_count(C)), info
     vw = v if weights is None else v * weights.to(torch.float32)
     if spec.kind == "clip":
-        norms = torch.sqrt((zeroed * zeroed).sum(dim=1))
+        norms = numerics.sqrt((zeroed * zeroed).sum(dim=1))
         factors = _clip_factors(norms, spec.clip_norm)
         info["agg_clip_rate"] = (((factors < 1.0) * v).sum()
                                  / torch.clamp(v.sum(), min=1.0))
@@ -219,7 +220,7 @@ def robust_aggregate_sharded(delta: torch.Tensor, spec: RobustAgg,
     if spec.kind == "clip":
         n2 = (zeroed * zeroed).sum(dim=1)
         dist.all_reduce(n2, mesh, na)
-        factors = _clip_factors(torch.sqrt(n2), spec.clip_norm)
+        factors = _clip_factors(numerics.sqrt(n2), spec.clip_norm)
         tail += [vf.sum(), ((factors < 1.0) * vf).sum()]
         zeroed = zeroed * factors[:, None]
     part = torch.tensordot(vw, zeroed, dims=([0], [0]))

@@ -28,12 +28,30 @@ C the capacity of the global batch. Serving lowers on the plain route
 (``use_pallas=False``), so the SSD scan's work is counted (a ctypes
 kernel's launch is not a torch op). A decode cache is the rank's block
 as ``launch.steps.place_for_rank`` cuts it (a Mamba2 state narrowed
-to the rank's heads). Refused, each naming why: ``long_500k`` (its
-B = 1 cache is sharded over the sequence on ``model``, which needs a
-sequence-parallel decode, ROADMAP A17), xLSTM (ROADMAP A17), Whisper's
-6 and InternVL2's 14 heads (they do not split over 8 ranks), and a
-global batch that does not split over the mesh's data axes. ``--all``
-lists refusals apart from failures.
+to the rank's heads). xLSTM-1.3B runs its three shapes with its
+recurrences whole on every rank. ``long_500k`` (one row, its 8,192-slot
+window; the xLSTM states) lowers one decode step on a cache whose time
+dim, or xLSTM state, the placement cuts over ``model``: every arch of
+the zoo has a sliding window or a recurrent mixer, as the reference's
+long-context rule asks. Refused, each naming why: Whisper's 6 and
+InternVL2's 14 heads (they do not split over 8 ranks), and a global
+batch of more than one row that does not split over the mesh's data
+axes. ``--all`` lists refusals apart from failures.
+
+The sLSTM's time loop is a Python loop of one cell a token: 32,768
+tokens × 12 layers would dispatch about 10⁷ ops on fake tensors. An
+xLSTM prefill or round is therefore counted at three points and its
+work extrapolated to the shape's length (``_lower_scaled``): at two
+lengths, two and three of the mLSTM's chunks (``seq_counts``), with the
+sLSTM loop cut to its first ``CELL_COUNTS[0]`` cells
+(``models.ssm.counted_cells``), and at the first length with
+``CELL_COUNTS[1]`` cells. From two chunks on the program is affine in S
+(every op is per token or per chunk, and the collectives' count does not
+depend on S; at one chunk a reshape of size-1 dims is free, and the
+count lies off the line) and, apart from that, affine in the cells the
+loop runs (the loop makes no collective), so the three counts fix it at
+S tokens and S cells exactly; ``tests/test_torch_tp_xlstm.py`` holds
+the extrapolation to the full count at a third length.
 
 ``--scenario-smoke`` runs the reference's CI leg of sharded flat rounds
 (``scenario_smoke``) for real, on 8 gloo CPU ranks.
@@ -46,6 +64,7 @@ is the capacity-planning number, as in the reference.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -70,8 +89,8 @@ from repro_torch.models.model import build_model, tp_refusal
 from repro_torch.sharding import dist
 from repro_torch.sharding.spec import (batch_shardings, cache_shardings,
                                        get_federation_spec, local_shape,
-                                       mesh_shape, serve_batch_shardings,
-                                       shard_bytes)
+                                       mesh_shape, param_placements,
+                                       serve_batch_shardings, shard_bytes)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -135,16 +154,13 @@ def analytic_memory(cfg, shape, spec, mesh, pstruct, param_sh, fl,
 def check_lowerable(arch: str, shape_id: str, multi_pod: bool) -> None:
     """Raise ``Refused`` for a program the port does not lower yet."""
     cfg, shape = get_config(arch), INPUT_SHAPES[shape_id]
-    if shape_id == "long_500k":
-        raise Refused("long_500k: its B = 1 cache is sharded over the "
-                      "sequence on model, which needs a sequence-parallel "
-                      "decode (ROADMAP A17)")
     sizes = production_shape(multi_pod)
     why = tp_refusal(cfg, sizes["model"])
     if why:
         raise Refused(why)
     d = sizes.get("pod", 1) * sizes["data"]
-    if shape.kind != "train" and shape.global_batch % d:
+    if shape.kind != "train" and shape.global_batch > 1 \
+            and shape.global_batch % d:
         raise Refused(f"{shape_id}: its global batch {shape.global_batch} "
                       f"does not split over the {d} data ranks of this "
                       "mesh (the H100 mesh keeps 8 GPUs a host on model)")
@@ -182,15 +198,16 @@ def _state_bytes(state, axes, mesh) -> int:
 
 
 def _lower_train(model, shape, fl, mesh, spec, mode, *, remat: bool,
-                 use_pallas: bool):
+                 use_pallas: bool, seq: int = None):
     """One rank's vmap round of ``make_train_step`` on fake blocks,
-    counted. Returns (work, memory fields, analytic memory)."""
+    counted (its batches ``seq`` tokens long, the shape's by default).
+    Returns (work, memory fields, analytic memory)."""
     cfg = model.cfg
     step, sopt, scn, comp = make_train_step(model, fl, use_pallas=use_pallas,
                                             remat=remat, flat=False)
     C = spec.clients_on(mesh)
     state = abstract_fl_state(model, sopt, scn, comp, C, mode=mode)
-    batch = train_specs(model, shape, fl, C, mode)
+    batch = train_specs(model, _at(shape, seq), fl, C, mode)
     sizes = mesh_shape(mesh)
     rules = train_rules(model, mesh, state.params, spec=spec,
                         coords={a: 0 for a in sizes})
@@ -210,6 +227,74 @@ def _lower_train(model, shape, fl, mesh, spec, mode, *, remat: bool,
     analytic = analytic_memory(cfg, shape, spec, mesh, state.params,
                                rules.param_axes, fl)
     return work, mem, analytic
+
+
+def _at(shape, seq):
+    """``shape`` with ``seq`` tokens (itself where ``seq`` is None)."""
+    return shape if seq is None else dataclasses.replace(shape,
+                                                         seq_len=seq)
+
+
+def seq_counts():
+    """The xLSTM programs' two counted lengths: two and three of the
+    mLSTM's chunks."""
+    from repro_torch.models.ssm import MLSTM_CHUNK
+    return 2 * MLSTM_CHUNK, 3 * MLSTM_CHUNK
+
+
+# the sLSTM cells run at the counted points (``_lower_scaled``)
+CELL_COUNTS = (2, 3)
+
+
+def _loop_scaled(cfg, shape) -> bool:
+    """A program whose sLSTM time loop is counted at three points and
+    extrapolated (``_lower_scaled``)."""
+    return "slstm" in cfg.layer_types and shape.kind != "decode" \
+        and shape.seq_len > seq_counts()[1]
+
+
+def _lower_scaled(lower, model, shape, fl, mesh, spec, mode, **kw):
+    """``lower`` (``_lower_train`` or ``_lower_serve``) counted at the two
+    lengths of ``seq_counts`` with the sLSTM loop cut to ``CELL_COUNTS[0]``
+    cells, and at the first length with ``CELL_COUNTS[1]``, and
+    extrapolated to the shape's length and as many cells: a program
+    a + b·S + c·cells. FLOPs, bytes, argument and output bytes and each
+    collective's bytes and shape lie on that plane (the same ops in the
+    same order at the three points). The analytic memory is the
+    shape's own."""
+    from repro_torch.models.ssm import counted_cells
+    s1, s2 = seq_counts()
+    n1, n2 = CELL_COUNTS
+
+    def count(seq, cells):
+        with counted_cells(cells):
+            return lower(model, shape, fl, mesh, spec, mode, seq=seq,
+                         **kw)[:2]
+    (w1, m1), (w2, m2), (w3, m3) = (count(s1, n1), count(s2, n1),
+                                    count(s1, n2))
+    S = shape.seq_len
+    ks, kn = (S - s1) / (s2 - s1), (S - n1) / (n2 - n1)
+    plane = lambda a, b, c: a + (b - a) * ks + (c - a) * kn
+    sig = lambda w: [(o.kind, o.role, o.axes) for o in w.collectives]
+    if not sig(w1) == sig(w2) == sig(w3):
+        raise AssertionError("the collectives differ between the counted "
+                             "points: the program is not affine in S")
+    ops = [dataclasses.replace(
+        a, bytes=int(round(plane(a.bytes, b.bytes, c.bytes))),
+        shape=tuple(int(round(plane(x, y, z)))
+                    for x, y, z in zip(a.shape, b.shape, c.shape)))
+        for a, b, c in zip(w1.collectives, w2.collectives, w3.collectives)]
+    work = roofline.Work(plane(w1.flops, w2.flops, w3.flops),
+                         plane(w1.hbm_bytes, w2.hbm_bytes, w3.hbm_bytes),
+                         ops)
+    mem = {f: int(round(plane(m1[f], m2[f], m3[f])))
+           for f in ("argument_size_in_bytes", "output_size_in_bytes")}
+    mem["counted_at_seq"] = [s1, s2]
+    mem["counted_at_cells"] = [n1, n2]
+    pstruct = params_struct(model, mode)
+    return work, mem, analytic_memory(
+        model.cfg, shape, spec, mesh, pstruct,
+        param_placements(spec, mesh, pstruct), fl)
 
 
 def _nbytes(tree) -> int:
@@ -240,13 +325,15 @@ def lower_one(arch: str, shape_id: str, multi_pod: bool, *,
     model = build_model(cfg, torch.bfloat16)
     mode = FakeTensorMode()
     t0 = time.time()
-    if shape.kind == "train":
-        work, mem, analytic = _lower_train(model, shape, fl, mesh, spec,
-                                           mode, remat=remat,
-                                           use_pallas=use_pallas)
+    lower, kw = ((_lower_train, dict(remat=remat)) if shape.kind == "train"
+                 else (_lower_serve, {}))
+    if _loop_scaled(cfg, shape):
+        work, mem, analytic = _lower_scaled(lower, model, shape, fl, mesh,
+                                            spec, mode,
+                                            use_pallas=use_pallas, **kw)
     else:
-        work, mem, analytic = _lower_serve(model, shape, fl, mesh, spec,
-                                           mode, use_pallas=use_pallas)
+        work, mem, analytic = lower(model, shape, fl, mesh, spec, mode,
+                                    use_pallas=use_pallas, **kw)
     mem["note"] = ("eager mode has no buffer assignment: no temp size; "
                    "see analytic_memory")
     t_lower = time.time() - t0
@@ -285,9 +372,11 @@ def lower_one(arch: str, shape_id: str, multi_pod: bool, *,
     return result
 
 
-def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas):
-    """One rank's prefill or decode step on fake blocks, counted.
-    Returns (work, memory fields, analytic memory)."""
+def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas,
+                 seq: int = None):
+    """One rank's prefill or decode step on fake blocks, counted (a
+    prompt of ``seq`` tokens, the shape's by default). Returns (work,
+    memory fields, analytic memory)."""
     cfg = model.cfg
     sizes = mesh_shape(mesh)
     pstruct = params_struct(model, mode)
@@ -298,7 +387,7 @@ def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas):
     with mode:
         params = _local(pstruct, rules.param_axes, mesh)
         if shape.kind == "prefill":
-            batch = prefill_specs(model, shape, mode)
+            batch = prefill_specs(model, _at(shape, seq), mode)
             bsh = serve_batch_shardings(mesh, batch)
             args = (params, _local(batch, bsh, mesh))
             step = make_prefill_step(model, use_pallas=use_pallas,

@@ -27,9 +27,10 @@ Tensor-parallel serving: ``serve_rules`` makes the serve
 ``LogicalRules`` of a model on a mesh (the reference's
 ``LogicalRules(spec, mesh, serve=True)`` with the params' placement),
 ``place_for_rank`` cuts whole params, a batch and a cache to one rank's
-blocks by the reference's rules, and a builder given ``rules`` runs its
-step under them on those local trees. ``serve_collectives`` is what one
-such step issues on a rank, by role.
+blocks by the reference's rules (``place_prefill_cache`` a prefill's
+cache, whole over its time dim, to the same blocks), and a builder given
+``rules`` runs its step under them on those local trees.
+``serve_collectives`` is what one such step issues on a rank, by role.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.models.common import logical_rules, remat_blocks
-from repro_torch.sharding.hlo import SSM_ROLES
+from repro_torch.sharding.hlo import SEQ_ROLES, SSM_ROLES, XLSTM_ROLES
 from repro_torch.models.model import (Model, local_vocab, moves_rows,
                                       refuse_seq_cut, tp_refusal)
 from repro_torch.sharding.spec import (FederationSpec, LogicalRules,
@@ -48,8 +49,8 @@ from repro_torch.sharding.spec import (FederationSpec, LogicalRules,
                                        client_axes_on, entry_axes,
                                        get_federation_spec, grad_sync_axes,
                                        local_block, mesh_shape, norm_axes,
-                                       param_placements, seq_cut_leaves,
-                                       serve_batch_shardings)
+                                       param_placements,
+                                       serve_batch_shardings, unread_seq_cut)
 from repro_torch.utils.tree import tree_flatten, tree_map
 
 
@@ -139,9 +140,11 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     the global batch), each copied to ``device`` (its own by default).
     Returns {"params", "batch", "cache"}: those given. Refuses a batch
     or ``batch_size`` other than the rules' own ``batch_size``, and a
-    cache whose placement cuts a time dim over the tensor axis (rows
-    that do not split over the data axes: ``seq_cut_leaves``; ROADMAP
-    A17, the sequence-parallel decode).
+    cache whose placement cuts the Mamba2 conv's taps over the tensor
+    axis (``unread_seq_cut``, ROADMAP A17). Where the rows do not split
+    over the data axes, an attention cache's time dim and an xLSTM
+    state's heads or units are cut over ``model``, as the reference's
+    table cuts them, and the decode reads those blocks.
 
     A Mamba2 run's cache is then narrowed to the rank's heads and conv
     channels (``_mamba2_rank_cache``), a difference by design: where
@@ -164,7 +167,7 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     if cache is not None:
         if batch_size is None:
             raise ValueError("a cache is placed by its global batch_size")
-        cut = seq_cut_leaves(rules.spec, rules.mesh, cache,
+        cut = unread_seq_cut(rules.spec, rules.mesh, cache,
                              batch_size=batch_size,
                              seq_shard=rules.seq_shard)
         if cut:
@@ -177,6 +180,35 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
                 local["runs"][key] = _mamba2_rank_cache(
                     rules, run, cache["runs"][key])
         out["cache"] = local
+    return out
+
+
+def place_prefill_cache(rules: LogicalRules, cache: Dict,
+                        batch_size: int) -> Dict:
+    """A prefill's decode cache on this rank narrowed to the rank's
+    block of it (``cache_shardings`` with the global ``batch_size``).
+    Prefill keeps every time entry of the rank's rows; where the rows do
+    not split over the data axes, the placement cuts the attention
+    caches' time dims and the xLSTM states' heads or units over
+    ``model``, and this takes the rank's blocks of them. Where the rows
+    split, the prefill's cache is the rank's block already. A Mamba2
+    run (the rank's heads and channels) is kept as it is; a cache whose
+    Mamba2 conv taps the placement cuts is refused (``unread_seq_cut``,
+    ROADMAP A17)."""
+    if rules.cache_rows(batch_size) < batch_size:
+        return cache
+    cut = unread_seq_cut(rules.spec, rules.mesh, cache,
+                         batch_size=batch_size)
+    if cut:
+        raise ValueError(refuse_seq_cut(cut))
+    axes = cache_shardings(rules.spec, rules.mesh, cache,
+                           batch_size=batch_size)
+    out = dict(cache)
+    out["runs"] = {k: run if set(run) == {"ssm", "conv"} else
+                   _cut(run, axes["runs"][k], rules, None)
+                   for k, run in cache["runs"].items()}
+    if "enc_kv" in cache:
+        out["enc_kv"] = _cut(cache["enc_kv"], axes["enc_kv"], rules, None)
     return out
 
 
@@ -229,7 +261,8 @@ def _enc_layers(model: Model, ax) -> list:
 
 
 def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
-               encoder: bool = False) -> Dict:
+               encoder: bool = False, decode: bool = False,
+               cut=frozenset()) -> Dict:
     """The collectives one block's forward makes on a rank (``fwd``: per
     role), its backward's ``tp_grad`` count (``grad``) and its other
     backward ops (``bwd``: per role) under ``rules``. An attention
@@ -253,7 +286,23 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
     whole-KV ``wk``/``wv``), MLA's latents, the MLP's input, the MoE's
     tokens and its gate values, cross-attention's queries and the
     encoder output it projects (and their biases and whole-KV
-    ``wk``/``wv``), the Mamba2 mixer's input."""
+    ``wk``/``wv``), the Mamba2 mixer's input.
+
+    An mLSTM block makes ``xlstm_up``, ``xlstm_qkv`` and a ``tp_reduce``
+    where its d_in is split (the ``xlstm_up`` reduce-scatter and two
+    ``tp_grad`` in the backward: its input and its recurrence's output),
+    and a decode step on a cache of the rank's heads (``cut`` holds
+    ``"mlstm"``) an ``xlstm_norm``. An sLSTM block: at prefill and in
+    training ``xlstm_wx`` and, where ``r``'s rows are a block,
+    ``xlstm_r`` (no backward op: the cells are replicated; a
+    ``tp_grad`` at its input); a ``decode`` step ``xlstm_rec`` (or
+    ``xlstm_wx`` with ``r`` whole), and ``xlstm_state`` on a cache cut
+    over its units (``"slstm"`` in ``cut``); a ``tp_reduce`` (and a
+    ``tp_grad``) where its feed-forward is split. A decode step on an
+    attention cache cut over its time dim (``"attn"`` in ``cut``; the
+    cross-attention's cached encoder K/V: ``"enc"``) adds each
+    attention's ``seq_q`` (where its heads are split), ``seq_max`` and
+    ``seq_sum``."""
     from repro_torch.models.attention import CROSS_KV
     tp = rules.tp if rules.size(rules.tp) > 1 else None
     on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
@@ -266,7 +315,26 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
     x_kv = {k: v for k, v in layer.get("xattn", {}).items() if k in CROSS_KV}
     fwd = {"tp_reduce": 0, "kv_gather": 0, "moe_counts": 0, "moe_aux": 0,
            "fsdp_gather": fsdp(layer) - fsdp(x_kv)}
-    fwd.update({r: 0 for r in SSM_ROLES})
+    fwd.update({r: 0 for r in SSM_ROLES + XLSTM_ROLES + SEQ_ROLES})
+    if btype == "mlstm":
+        mx = layer["mixer"]
+        split = on_tp(mx["wq"][0])
+        fwd.update(xlstm_up=int(on_tp(mx["w_up"][1])),
+                   xlstm_qkv=int(split), tp_reduce=int(split),
+                   xlstm_norm=int(split and decode and "mlstm" in cut))
+        return {"fwd": fwd, "grad": 2 * split,
+                "bwd": {"xlstm_up": fwd["xlstm_up"]}}
+    if btype == "slstm":
+        mx = layer["mixer"]
+        wx, r, ff = (on_tp(mx[k][i]) for k, i in
+                     (("w_x", 1), ("r", 1), ("ff_gate", 1)))
+        fwd.update(tp_reduce=int(ff), xlstm_state=int(decode
+                                                      and "slstm" in cut))
+        if decode:
+            fwd.update(xlstm_rec=int(r), xlstm_wx=int(wx and not r))
+        else:
+            fwd.update(xlstm_wx=int(wx), xlstm_r=int(r))
+        return {"fwd": fwd, "grad": int(wx) + int(ff), "bwd": {}}
     if btype == "mamba2":
         mx = layer["mixer"]
         heads = on_tp(mx["A_log"][0])
@@ -276,6 +344,7 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
         return {"fwd": fwd, "grad": int(heads),
                 "bwd": {r: fwd[r] for r in SSM_ROLES}}
     a = layer["attn"]
+    seq = decode and "attn" in cut
     if cfg.use_mla:
         split = on_tp(a["wq_b"][1])
         fwd["tp_reduce"] += split
@@ -286,11 +355,17 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
         fwd["tp_reduce"] += split
         fwd["kv_gather"] += on_tp(a["wk"][1]) and not encoder
         grad = split + (3 * split if cfg.qkv_bias else 0) + 2 * kv_whole
+    fwd.update(seq_q=int(seq and split), seq_max=int(seq),
+               seq_sum=int(seq))
     if "xattn" in layer:
         x = layer["xattn"]
         xsplit = on_tp(x["wq"][1])
         x_whole = xsplit and not on_tp(x["wk"][1])
+        xseq = decode and "enc" in cut
         fwd["tp_reduce"] += xsplit
+        fwd["seq_q"] += xseq and xsplit
+        fwd["seq_max"] += xseq
+        fwd["seq_sum"] += xseq
         fwd["x_kv_gather"] = int(on_tp(x["wk"][1]))
         fwd["x_fsdp_gather"] = fsdp(x_kv)
         grad += 2 * xsplit + (3 * xsplit if cfg.qkv_bias else 0) \
@@ -311,6 +386,32 @@ def _layer_ops(rules: LogicalRules, cfg, btype: str, layer, *,
     return {"fwd": fwd, "grad": grad, "bwd": {}}
 
 
+def cut_blocks(model: Model, cache: Dict) -> frozenset:
+    """Which of a rank's decode ``cache`` the placement cut over
+    ``model`` (``cache_shardings`` at rows that do not split over the
+    data axes), read from its shapes: ``"attn"`` (an attention cache's
+    time dim), ``"enc"`` (the cached encoder K/V's positions),
+    ``"mlstm"`` (an mLSTM state's heads), ``"slstm"`` (an sLSTM state's
+    units)."""
+    from repro_torch.models.transformer import ATTN_TYPES, segment_runs
+    cfg, out = model.cfg, set()
+    W = cache["positions"].shape[-1]
+    for i, (btype, _) in enumerate(segment_runs(cfg.layer_types)):
+        run = cache["runs"][f"run{i}"]
+        if btype in ATTN_TYPES:
+            leaf = run["c_kv"] if cfg.use_mla else run["k"]
+            if leaf.shape[2] < W:
+                out.add("attn")
+        elif btype == "mlstm" and run["C"].shape[2] < cfg.num_heads:
+            out.add("mlstm")
+        elif btype == "slstm" and run["h"].shape[-1] < cfg.d_model:
+            out.add("slstm")
+    if "enc_kv" in cache and \
+            cache["enc_kv"]["xk"].shape[2] < cfg.encoder_seq:
+        out.add("enc")
+    return frozenset(out)
+
+
 def _sum_ops(ops) -> Dict[str, int]:
     out = {}
     for o in ops:
@@ -320,8 +421,8 @@ def _sum_ops(ops) -> Dict[str, int]:
 
 
 def serve_collectives(model: Model, rules: LogicalRules, rows: int,
-                      seq: int, *, prefill: Optional[bool] = None
-                      ) -> Dict[str, int]:
+                      seq: int, *, prefill: Optional[bool] = None,
+                      cache: Optional[Dict] = None) -> Dict[str, int]:
     """The collectives one tensor-parallel step issues on a rank whose
     batch has ``rows`` rows of ``seq`` tokens (``prefill``, by default
     ``seq > 1``: the prompt; a decode step: 1), by role: each layer's
@@ -338,7 +439,13 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
     logits where the vocab is split; for each vocab table whose model
     dim is fsdp-sharded, its ``fsdp_gather`` or, where moving the fsdp
     group's rows costs less (``models.model.moves_rows``), two
-    ``fsdp_rows`` ops. Axes of size 1 make none."""
+    ``fsdp_rows`` ops; an xLSTM layer's mixer roles
+    (``hlo.XLSTM_ROLES``). A decode step reads ``cache``, the rank's
+    decode cache, for the dims its placement cut over ``model``
+    (``cut_blocks``): a time block's ``seq_q``, ``seq_max`` and
+    ``seq_sum`` in each attention, an mLSTM's ``xlstm_norm``, an
+    sLSTM's ``xlstm_state``; without it, a cache with no dim cut (the
+    prefill's). Axes of size 1 make none."""
     cfg, ax = model.cfg, rules.param_axes
     tp = rules.tp if rules.size(rules.tp) > 1 else None
     on_tp = lambda entry: tp is not None and tp in entry_axes(entry)
@@ -351,7 +458,10 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
 
     if prefill is None:
         prefill = seq > 1
-    ops = [_layer_ops(rules, cfg, bt, layer)["fwd"]
+    cut = frozenset() if prefill or cache is None else cut_blocks(model,
+                                                                  cache)
+    ops = [_layer_ops(rules, cfg, bt, layer, decode=not prefill,
+                      cut=cut)["fwd"]
            for bt, layer in _layers(model, ax)]
     if prefill:
         ops += [_layer_ops(rules, cfg, bt, layer, encoder=True)["fwd"]
@@ -361,8 +471,10 @@ def serve_collectives(model: Model, rules: LogicalRules, rows: int,
     if prefill:     # the cross K/V, once a prefill
         n["kv_gather"] += x_kv
         n["fsdp_gather"] += x_fsdp
-    # an MoE's and a Mamba2 mixer's, where they make them
-    for r in ("moe_counts", "moe_aux") + SSM_ROLES:
+    # an MoE's, a recurrent mixer's and a time block's, where they make
+    # them
+    for r in ("moe_counts", "moe_aux") + SSM_ROLES + XLSTM_ROLES \
+            + SEQ_ROLES:
         if not n[r]:
             del n[r]
     n["fsdp_rows"] = 0
@@ -652,12 +764,14 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
     (``_layer_ops``: ``tp_reduce``, an MoE layer's ``moe_counts`` and
     ``moe_aux`` where the rows split over the fsdp axes, a Mamba2
     layer's ``ssm_zx``, ``ssm_conv`` and ``ssm_norm``, an
-    ``fsdp_gather`` for each fsdp dim of its params), the encoder's
+    ``fsdp_gather`` for each fsdp dim of its params; an xLSTM layer's
+    mixer roles), the encoder's
     layers' and each decoder layer's cross K/V (the gathers of its
     projections at use); its backward a ``tp_grad`` where a replicated
     tensor entered a split layer, an ``fsdp_scatter`` for each gather
     and one op of each Mamba2 role (the gathers' reduce-scatters, the
-    norm's sum). Remat runs each layer's forward collectives again in
+    norm's sum), one ``xlstm_up`` (the mLSTM gather's reduce-scatter).
+    Remat runs each layer's forward collectives again in
     the backward. The embedding and head: a
     ``vocab`` reduce of the vocab-parallel lookup, the cross-entropy's
     max and its one stacked ``vocab`` sum, a ``tp_grad`` at the head's
@@ -691,7 +805,7 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
             "vocab": on_tp(ax["embed"][0]) + 2 * vocab_split,
             "loss": rows_split}
 
-    step.update({r: 0 for r in SSM_ROLES})
+    step.update({r: 0 for r in SSM_ROLES + XLSTM_ROLES + SEQ_ROLES})
 
     def add(layer_ops, reps):
         # training builds no cache: GQA gathers no KV heads; the cross

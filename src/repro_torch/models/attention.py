@@ -67,6 +67,20 @@ are expanded from it, and ``wo``'s partial sums are reduced in one
 ``cq``, ``c_kv`` and ``k_rope`` enter the rank's heads in one
 ``tp_enter`` after the replicated projections, and ``x`` does not
 (entering both would count the latent path twice).
+
+The decode on a time block: where the rows do not split over the data
+axes (one row, or one data rank), the reference's ``cache_shardings``
+cuts the time dim of the GQA K/V and their int8 scales, of MLA's latent
+and rope key and of Whisper's cached ``enc_kv`` over ``model``. A rank's
+cache then holds its block of the ring's slots (``time_block``): the
+rank that owns a row's slot writes the new entry (``_block_write``),
+every query head attends the block (the rank's heads gathered,
+``seq_q``; MLA gathers its absorbed queries), and the blocks' softmax
+parts are combined by the log-sum-exp rule (``_lse_combine``: the max
+over ``model``, ``seq_max``, then each rank's rescaled sums and outputs
+summed in one collective, ``seq_sum``). The rank keeps its heads'
+output for the row-parallel ``wo``. Prefill's cache stays whole over
+the sequence; ``launch.steps.place_prefill_cache`` narrows it.
 """
 from __future__ import annotations
 
@@ -82,6 +96,7 @@ from repro_torch.models.common import (apply_rope, dense_init,
                                        rmsnorm, shard_logical, tp_enter,
                                        tp_gather, tp_index, tp_reduce,
                                        zeros_init)
+from repro_torch.sharding import dist
 
 NEG_INF = -1e30
 
@@ -309,6 +324,75 @@ def _cache_write(buf: torch.Tensor, val: torch.Tensor,
     return buf.index_put((rows, slot.long()), val[:, 0])
 
 
+def _block_write(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor,
+                 t0: int) -> torch.Tensor:
+    """``_cache_write`` into a rank's time block ``buf``, slots
+    [t0, t0 + Wl) of the whole ring: a row whose slot lies outside the
+    block keeps its entries (the rank that owns the slot writes it)."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    loc = slot.long() - t0
+    mine = (loc >= 0) & (loc < buf.shape[1])
+    loc = torch.where(mine, loc, 0)
+    keep = buf[rows, loc]
+    new = torch.where(mine.view((-1,) + (1,) * (keep.dim() - 1)),
+                      val[:, 0].to(buf.dtype), keep)
+    return buf.index_put((rows, loc), new)
+
+
+def time_block(cache_len: int, W: int) -> Optional[int]:
+    """The first slot of this rank's block of a ring of ``W`` slots of
+    which its cache holds ``cache_len``, or None where it holds them
+    all. A block is the reference's ``cache_shardings`` at rows that do
+    not split over the data axes: the time dim cut over ``model``."""
+    if cache_len == W:
+        return None
+    return tp_index() * cache_len
+
+
+def _partials(scores: torch.Tensor):
+    """(max, exp(scores − max), their sum) over the last dim of masked
+    f32 ``scores``: the rank's part of a softmax over a time block."""
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    return m, p, p.sum(dim=-1, keepdim=True)
+
+
+def _lse_combine(o: torch.Tensor, m: torch.Tensor,
+                 l: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted output over the whole time dim from each
+    rank's block: ``o`` its unnormalised output, ``m`` and ``l`` its max
+    and sum of exponentials (broadcast to o with a last dim of 1). The
+    max over the tensor axis (``seq_max``), then each rank's sums
+    rescaled to it and summed in one collective (``seq_sum``), the
+    outputs and the sums stacked."""
+    rules = get_logical_rules()
+    M = dist.max_over(m, rules.mesh, (rules.tp,), role="seq_max")
+    a = torch.exp(m - M)
+    s = tp_reduce(torch.cat([o * a, l * a], dim=-1), "seq_sum")
+    return s[..., :-1] / s[..., -1:]
+
+
+def _sdpa_time_block(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, mask) -> torch.Tensor:
+    """``_sdpa_masked`` on the rank's time block of k/v (B,Wl,KV,hd),
+    combined over the tensor axis (``_lse_combine``). q: (B,S,KV,G,hd)
+    every query head; mask broadcast to (B,KV,G,S,Wl), or True."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    if mask is not True:
+        scores = torch.where(mask, scores, NEG_INF)
+    m, p, l = _partials(scores)
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    lay = lambda t: t.permute(0, 3, 1, 2, 4)        # (B,S,KV,G,1)
+    return _lse_combine(o, lay(m), lay(l)).to(v.dtype)
+
+
+def _all_heads(q: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """Every query head of q (B,S,h,hd): the rank's heads gathered over
+    the tensor axis where they are a block (``seq_q``)."""
+    return tp_gather(q, 2, "seq_q") if heads.partial else q
+
+
 def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
              t: torch.Tensor, slot: torch.Tensor,
              positions_buf: torch.Tensor, window: Optional[int] = None):
@@ -319,30 +403,43 @@ def gqa_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     slot (−1 = empty), already updated for this step. Every row decodes
     at its own position and masks against its own positions. Under
     rules, the rank's query heads against the KV heads they read; the
-    cache holds every KV head of the rank's rows."""
+    cache holds every KV head of the rank's rows. A cache of Wl < W
+    slots is the rank's time block (``time_block``): the rank that owns
+    a row's slot writes its new K/V, every query head attends the block
+    (``seq_q``), and the blocks' parts are combined over the tensor
+    axis (``_sdpa_time_block``); the rank keeps its heads for ``wo``."""
     B = x.shape[0]
     heads = heads_of(params, cfg)
     q, k, v = _qkv(params, x, cfg, t[:, None], heads)
     k, v = _whole_kv(k, v, heads)
+    W = positions_buf.shape[-1]
+    t0 = time_block(cache["k"].shape[1], W)
+    put = (lambda buf, val: _cache_write(buf, val, slot)) if t0 is None \
+        else (lambda buf, val: _block_write(buf, val, slot, t0))
     if "k_scale" in cache:
         kq, ks = _quantize(k)
         vq, vs = _quantize(v)
-        ck = _cache_write(cache["k"], kq, slot)
-        cv = _cache_write(cache["v"], vq, slot)
-        cks = _cache_write(cache["k_scale"], ks, slot)
-        cvs = _cache_write(cache["v_scale"], vs, slot)
+        ck, cv = put(cache["k"], kq), put(cache["v"], vq)
+        cks, cvs = put(cache["k_scale"], ks), put(cache["v_scale"], vs)
         kd = (ck.float() * cks.float()[..., None]).to(k.dtype)
         vd = (cv.float() * cvs.float()[..., None]).to(v.dtype)
         new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
     else:
-        kd = _cache_write(cache["k"], k, slot)
-        vd = _cache_write(cache["v"], v, slot)
+        kd, vd = put(cache["k"], k), put(cache["v"], v)
         new_cache = {"k": kd, "v": vd}
     tt = t[:, None]
     valid = (positions_buf >= 0) & (positions_buf <= tt)
     if window is not None:
         valid &= (tt - positions_buf) < window
     H, dh = q.shape[2], q.shape[3]
+    if t0 is not None:
+        qa = _all_heads(q, heads)
+        KV = kd.shape[2]
+        mask = valid.narrow(1, t0, kd.shape[1])[:, None, None, None, :]
+        out = _sdpa_time_block(qa.reshape(B, 1, KV, heads.H // KV, dh), kd, vd,
+                          mask).reshape(B, 1, heads.H, dh)
+        out = out.narrow(2, heads.h0, H)
+        return _out_proj(out, params, heads), new_cache
     if heads.a < kd.shape[2]:
         kd = kd.narrow(2, heads.a0, heads.a)
         vd = vd.narrow(2, heads.a0, heads.a)
@@ -454,12 +551,27 @@ def mla_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     the latent cache (c_kv (B,W,kvr), k_rope (B,W,dr)) without expanding
     per-head K/V over the history. t, slot, positions_buf as in
     :func:`gqa_step`. Under rules, the rank's heads against its rows'
-    whole latent cache, which every tensor rank writes alike."""
+    whole latent cache, which every tensor rank writes alike; or against
+    the rank's time block of it (``time_block``), whose slot's owner
+    writes the new latent: the rank's absorbed queries and rope queries
+    are gathered over the tensor axis (``seq_q``), every head attends
+    the block, the blocks' parts are combined (``_lse_combine``) and the
+    rank keeps its heads' context for ``wv_b`` and ``wo``."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope, c_new, kr_new = _mla_proj(params, x, cfg, t[:, None])
-    c_kv = _cache_write(cache["c_kv"], c_new, slot)
-    k_rope = _cache_write(cache["k_rope"], kr_new[:, :, 0, :], slot)
+    t0 = time_block(cache["c_kv"].shape[1], positions_buf.shape[-1])
+    if t0 is None:
+        c_kv = _cache_write(cache["c_kv"], c_new, slot)
+        k_rope = _cache_write(cache["k_rope"], kr_new[:, :, 0, :], slot)
+    else:
+        c_kv = _block_write(cache["c_kv"], c_new, slot, t0)
+        k_rope = _block_write(cache["k_rope"], kr_new[:, :, 0, :], slot, t0)
     q_abs = torch.einsum("bshk,rhk->bhr", q_nope, params["wk_b"])
+    h = q_abs.shape[1]
+    if t0 is not None and _mla_split(params, cfg):
+        both = tp_gather(torch.cat([q_abs, q_rope[:, 0].to(q_abs.dtype)],
+                                   dim=-1), 1, "seq_q")
+        q_abs, q_rope = both[..., :-dr], both[:, None, :, -dr:]
     scores = (torch.einsum("bhr,btr->bht", q_abs.float(), c_kv.float())
               + torch.einsum("bshk,btk->bht", q_rope.float(),
                              k_rope.float()))
@@ -468,9 +580,16 @@ def mla_step(params: dict, x: torch.Tensor, cfg, cache: dict, *,
     valid = (positions_buf >= 0) & (positions_buf <= tt)
     if window is not None:
         valid &= (tt - positions_buf) < window
-    w = torch.softmax(torch.where(valid[:, None, :], scores, NEG_INF),
-                      dim=-1)
-    ctx = torch.einsum("bht,btr->bhr", w, c_kv.float())
+    if t0 is None:
+        w = torch.softmax(torch.where(valid[:, None, :], scores, NEG_INF),
+                          dim=-1)
+        ctx = torch.einsum("bht,btr->bhr", w, c_kv.float())
+    else:
+        mask = valid.narrow(1, t0, c_kv.shape[1])[:, None, :]
+        m, p, l = _partials(torch.where(mask, scores, NEG_INF))
+        ctx = _lse_combine(torch.einsum("bht,btr->bhr", p, c_kv.float()),
+                           m, l).narrow(1, tp_index() * h if
+                                        _mla_split(params, cfg) else 0, h)
     out = torch.einsum("bhr,rhk->bhk", ctx.to(x.dtype), params["wv_b"])
     y = _mla_out(out, params, cfg, "bhk,hkd->bd")[:, None, :]
     return y, {"c_kv": c_kv, "k_rope": k_rope}
@@ -538,7 +657,11 @@ def cross_attend(params: dict, x: torch.Tensor, cfg,
     """x: (B,S,D) queries against the encoder's K/V -> (B,S,D). Under
     rules, the rank's query heads against the KV heads they read, ``x``
     entering them through ``tp_enter``, ``wo``'s partial sums reduced
-    (one ``tp_reduce``)."""
+    (one ``tp_reduce``). A cached ``enc_kv`` of fewer positions than the
+    encoder's is the rank's block of them (the reference's
+    ``cache_shardings`` at rows that do not split over the data axes):
+    every query head (``seq_q``) attends the block and the blocks'
+    parts are combined over the tensor axis (``_sdpa_time_block``)."""
     heads = heads_of(params, cfg)
     if heads.partial:
         x = tp_enter(x)
@@ -549,6 +672,13 @@ def cross_attend(params: dict, x: torch.Tensor, cfg,
             bq = tp_enter(bq).narrow(0, heads.h0, heads.h)
         q = q + bq
     B, S, h, hd = q.shape
+    if get_logical_rules() is not None \
+            and kv["xk"].shape[1] < cfg.encoder_seq:
+        KV = kv["xk"].shape[2]
+        out = _sdpa_time_block(_all_heads(q, heads).reshape(
+            B, S, KV, heads.H // KV, hd), kv["xk"], kv["xv"], True)
+        out = out.reshape(B, S, heads.H, hd).narrow(2, heads.h0, h)
+        return _out_proj(out, params, heads)
     out = _sdpa(q.reshape(B, S, heads.a, h // heads.a, hd),
                 _read_kv(kv["xk"], heads), _read_kv(kv["xv"], heads),
                 causal=False).reshape(B, S, h, hd)

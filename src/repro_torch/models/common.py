@@ -14,7 +14,8 @@ init does.
 Logical sharding rules (``set_logical_rules``, ``logical_rules``): a
 launcher installs a ``repro_torch.sharding.spec.LogicalRules`` and the
 model functions then run one rank's share of a tensor-parallel step on
-its local params (every arch but xLSTM: ``models.model.tp_supported``).
+its local params (every arch; ``models.model.tp_refusal`` refuses heads
+that do not split over the tensor axis).
 Where the reference's ``shard_logical`` is a constraint that GSPMD
 turns into collectives, the port's checks that a tensor's local shape
 is what the rules give and raises if not; the collectives sit where the

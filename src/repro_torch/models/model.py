@@ -60,8 +60,7 @@ and rows, differentiably. The tables are gathered at use (the rows
 route stays serving's), the head's input enters through ``tp_enter``,
 and ``loss`` is a vocab-parallel cross-entropy on the rank's block of
 the logits (``_ce_parallel``), which are never gathered whole. Every
-arch but xLSTM runs under rules (``tp_supported``): the decoders of GQA
-or MLA attention with dense MLP or MoE blocks (TinyLlama, CodeQwen1.5,
+arch runs under rules: the decoders of GQA or MLA attention with dense MLP or MoE blocks (TinyLlama, CodeQwen1.5,
 Qwen2.5, Granite, OLMoE, DeepSeek-V3 with its MTP block: ``mtp/proj``
 is column-parallel, its output gathered whole with a backward that
 keeps the rank's block, ``dist.gather_split``, and the MTP head's
@@ -71,10 +70,22 @@ params every site reads (gathered at each site under an fsdp axis, its
 gradient the sites' sum); Whisper's encoder (its non-causal attention
 on the rank's heads) and cross-attention (the cached ``enc_kv`` holds
 every KV head of the rank's rows); InternVL2's image rows, placed with
-the batch and prepended after the vocab-parallel embedding. xLSTM, and
-heads that do not split over the tensor axis (``tp_refusal``), are
-refused naming why, as are prefill and decode under training rules and
-the full forward under serving rules.
+the batch and prepended after the vocab-parallel embedding; xLSTM's
+mLSTM and sLSTM (``ssm``'s TP branches: the recurrences run whole on
+every rank, with no collective inside the sLSTM's time loop). Heads
+that do not split over the tensor axis (``tp_refusal``) are refused
+naming why, as are prefill and decode under training rules and the
+full forward under serving rules.
+
+Where the rows of a decode cache do not split over the data axes (one
+row, or a batch the data ranks do not divide), the reference's
+``cache_shardings`` cuts each leaf's next dim over ``model``: an
+attention cache's time dim, an xLSTM state's heads or units. ``init_cache``
+and ``launch.steps.place_for_rank`` give each rank that block, and the
+decode reads it: attention on the rank's time block combined over
+``model`` by the log-sum-exp rule (``attention``), the new token
+written by the rank that owns its ring slot; the xLSTM steps on the
+rank's mLSTM heads or its gathered sLSTM state (``ssm``).
 """
 from __future__ import annotations
 
@@ -96,7 +107,8 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        tp_gather, tp_index, tp_reduce)
 from repro_torch.utils.numerics import reciprocal
 from repro_torch.sharding import dist
-from repro_torch.sharding.spec import entry_axes, seq_cut_leaves
+from repro_torch.sharding.spec import (cache_shardings, entry_axes,
+                                       local_shape, unread_seq_cut)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
@@ -312,18 +324,19 @@ class Model:
 
     # ---------------------------------------------------------- full forward
     def _check_rules(self, what: str) -> None:
-        """Refuse what tensor parallelism does not run yet (ROADMAP
-        A17): xLSTM (``tp_refusal``: ``tp_supported``, and heads that do
-        not split over the tensor axis), the sequence-sharded rules, the
-        full forward (training's) under serving rules and serving under
-        training rules."""
+        """Refuse what tensor parallelism does not run: heads that do
+        not split over the tensor axis (``tp_refusal``), the
+        sequence-sharded rules (ROADMAP A17, with ``launch/perf.py``),
+        the full forward (training's) under serving rules and serving
+        under training rules."""
         rules = get_logical_rules()
         if rules is None:
             return
         cfg = self.cfg
         if rules.seq_shard:
             raise ValueError("sequence-sharded rules (seq_shard) are "
-                             "ROADMAP A17: the long-context decode")
+                             "ROADMAP A17: the Megatron-SP residual of "
+                             "launch/perf.py's variants")
         why = tp_refusal(cfg, rules.size(rules.tp))
         if why:
             raise ValueError(why)
@@ -481,22 +494,16 @@ class Model:
         recurrent states ignore it, as in the reference. Under rules,
         ``B`` is the global batch and the cache the rank's block of it
         (``sharding.spec.cache_shardings``: the rows over the data axes
-        where B divides them; a Mamba2 state holds the rank's heads and
-        conv channels, ``ssm.init_mamba2_cache``). Where the rows do not
-        split and that placement cuts a time dim over the tensor axis
-        (``sharding.spec.seq_cut_leaves``), the cache is refused: the
-        decode keeps every rank's time dim whole (ROADMAP A17, the
-        sequence-parallel decode)."""
+        where B divides them, else each leaf's next dim over ``model``
+        where it divides: an attention cache's time dim, an xLSTM
+        state's heads or units); a Mamba2 state holds the rank's heads
+        and conv channels (``ssm.init_mamba2_cache``). A Mamba2 conv
+        whose taps that placement cuts (tp divides ``ssm_conv`` − 1) is
+        refused (``sharding.spec.unread_seq_cut``, ROADMAP A17)."""
         self._check_rules("init_cache")
         rules = get_logical_rules()
         if rules is not None:
-            with logical_rules(None):
-                whole = self.init_cache(B, cache_len, device="meta",
-                                        quant_kv=quant_kv)
-            cut = seq_cut_leaves(rules.spec, rules.mesh, whole, batch_size=B)
-            if cut:
-                raise ValueError(refuse_seq_cut(cut))
-            B = rules.cache_rows(B)
+            return self._rank_cache(rules, B, cache_len, device, quant_kv)
         cfg, dtype = self.cfg, self.dtype
         runs = {}
         for i, (btype, n) in enumerate(tfm.segment_runs(cfg.layer_types)):
@@ -509,6 +516,37 @@ class Model:
                 one = tfm.RECURRENT[btype][3](cfg, B, dtype, device)
             runs[f"run{i}"] = tree_map(
                 lambda x: x[None].repeat((n,) + (1,) * x.dim()), one)
+        return {"runs": runs,
+                "t": torch.tensor(0, dtype=torch.int32, device=device),
+                "positions": torch.full((cache_len,), -1, dtype=torch.int32,
+                                        device=device)}
+
+    def _rank_cache(self, rules, B: int, cache_len: int, device,
+                    quant_kv: bool) -> Dict:
+        """``init_cache`` under ``rules``: each leaf of the whole cache
+        allocated at its block's shape (``cache_shardings``), a Mamba2
+        run at the rank's heads and conv channels."""
+        with logical_rules(None):
+            whole = self.init_cache(B, cache_len, device="meta",
+                                    quant_kv=quant_kv)
+        cut = unread_seq_cut(rules.spec, rules.mesh, whole, batch_size=B)
+        if cut:
+            raise ValueError(refuse_seq_cut(cut))
+        axes = cache_shardings(rules.spec, rules.mesh, whole, batch_size=B)
+        runs = {}
+        for i, (btype, n) in enumerate(tfm.segment_runs(self.cfg.layer_types)):
+            key = f"run{i}"
+            if btype == "mamba2":
+                one = tfm.RECURRENT[btype][3](self.cfg, rules.cache_rows(B),
+                                              self.dtype, device)
+                runs[key] = tree_map(
+                    lambda x: x[None].repeat((n,) + (1,) * x.dim()), one)
+                continue
+            runs[key] = tree_map(
+                lambda x, a: torch.zeros(
+                    local_shape(tuple(x.shape), a, rules.mesh),
+                    dtype=x.dtype, device=device),
+                whole["runs"][key], axes["runs"][key])
         return {"runs": runs,
                 "t": torch.tensor(0, dtype=torch.int32, device=device),
                 "positions": torch.full((cache_len,), -1, dtype=torch.int32,
@@ -575,29 +613,16 @@ def local_vocab(cfg: ModelConfig, rules) -> int:
     return rules.local_extent("vocab", cfg.padded_vocab)
 
 
-# what a config tensor parallelism refuses is told
-TP_REFUSAL = ("tensor parallelism runs every arch but xLSTM: its sLSTM's "
-              "recurrent matrix r is split over hd_t, which would put a "
-              "collective in every step of its time loop (ROADMAP A17)")
-
-
-def tp_supported(cfg: ModelConfig) -> bool:
-    """A config tensor parallelism runs: GQA or MLA attention blocks
-    with a dense MLP or an MoE layer (DeepSeek-V3's MTP block included),
-    Zamba2's Mamba2 mixer and shared block, Whisper's encoder and
-    cross-attention, InternVL2's image tokens; not the xLSTM mixers."""
-    return not set(cfg.layer_types) & {"mlstm", "slstm"}
-
-
 def tp_refusal(cfg: ModelConfig, tp: int) -> Optional[str]:
     """Why tensor parallelism over a tensor axis of ``tp`` ranks does not
-    run ``cfg``, or None: an arch it does not run (``TP_REFUSAL``), or
-    attention or Mamba2 heads that do not split into ``tp`` blocks (the
-    reference's placement then leaves a layer's heads whole while it
-    splits its other dims)."""
-    if not tp_supported(cfg):
-        return f"{cfg.name}: {TP_REFUSAL}"
-    heads = {"attention": cfg.num_heads}
+    run ``cfg``, or None: attention or Mamba2 heads that do not split
+    into ``tp`` blocks (the reference's placement then leaves a layer's
+    heads whole while it splits its other dims). The xLSTM mixers split
+    no param by heads (their recurrences run whole on every rank), so
+    their heads are not read."""
+    heads = {}
+    if set(cfg.layer_types) & set(tfm.ATTN_TYPES) or cfg.encoder_layers:
+        heads["attention"] = cfg.num_heads
     if "mamba2" in cfg.layer_types:
         heads["Mamba2"] = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     for what, n in heads.items():
@@ -608,12 +633,12 @@ def tp_refusal(cfg: ModelConfig, tp: int) -> Optional[str]:
 
 
 def refuse_seq_cut(paths) -> str:
-    """The refusal of a decode cache whose time dim is cut over the
-    tensor axis (``sharding.spec.seq_cut_leaves``)."""
-    return (f"the cache leaves {list(paths)} are cut over the tensor axis "
-            "along their time dim (rows that do not split over the data "
-            "axes): the port's decode keeps every rank's time dim whole; "
-            "the sequence-parallel decode is ROADMAP A17")
+    """The refusal of a decode cache whose Mamba2 conv taps are cut over
+    the tensor axis (``sharding.spec.unread_seq_cut``)."""
+    return (f"the cache leaves {list(paths)} are the Mamba2 conv's taps, "
+            "cut over the tensor axis (rows that do not split over the "
+            "data axes, and a tensor axis that divides ssm_conv - 1): the "
+            "decode reads every tap of its channels (ROADMAP A17)")
 
 
 def batch_extras(cfg: ModelConfig) -> Dict[str, tuple]:

@@ -44,9 +44,41 @@ backward reduce-scatters, and the norm's sum is summed again in the
 backward (every rank's normalised channels read it). The decode cache
 is the rank's: ``ssm`` (B, h, P, N) and ``conv`` (B, K−1, h·P + 2·g·N),
 its heads' x channels and its groups' B and C before the conv.
+
+Tensor-parallel xLSTM keeps the reference's placement, which splits no
+param by heads: the mLSTM's ``w_up`` into column blocks of ``[xi | z]``
+(at two ranks, rank 0 holds all of xi and rank 1 all of z), its
+``wq``/``wk``/``wv``/``w_if``, ``norm`` and ``w_out`` by the rows of
+d_in; the sLSTM's ``w_x`` into column blocks of ``[i | f | z | o]``,
+``r`` by the rows of each head's hd (where the tensor axis divides hd),
+``ff_gate`` by columns and ``ff_out`` by rows (where it divides d_ff).
+The mLSTM gathers its ``w_up`` product whole (``xlstm_up``), multiplies
+its block of xi by its rows of the four projections and sums the
+partial products in one collective (``xlstm_qkv``): q, k, v and the
+gates are whole on every rank, so the chunked recurrence runs whole on
+every rank, with no collective. The gated norm's mean square is taken
+over the whole d_in, and the rank keeps its d_in block for its rows of
+``w_out`` (one ``tp_reduce``). The sLSTM's time loop makes no
+collective: ``x @ w_x``'s column block is gathered once (``xlstm_wx``)
+and ``r`` once (``xlstm_r``) before it, and every rank runs the cells
+whole; its feed-forward is Megatron's. A decode step multiplies the
+rank's ``r`` rows by its block of each head's units of h and sums that
+partial product with its block of ``x @ w_x`` in one collective
+(``xlstm_rec``). Where the rows of a decode cache do not split over the
+data axes, the reference's ``cache_shardings`` cuts the mLSTM state's
+heads (where H divides the tensor axis) and the sLSTM state's units
+over ``model``: the mLSTM step then runs on the rank's heads, its norm's
+sum of squares summed over the tensor axis (``xlstm_norm``), and the
+sLSTM step gathers its state once (``xlstm_state``) and keeps its
+block. Under training rules the mixers' inputs enter through
+``tp_enter``, the mLSTM's recurrence output too (its gradient is a
+partial sum on each rank), and the sLSTM's gathers keep the rank's
+block of the gradient (``dist.gather_split``: the replicated cells make
+it whole on every rank).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -54,6 +86,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_scan.ops import ssd_scan
+from repro_torch.sharding import dist
 from repro_torch.models.common import (dense_init, get_logical_rules,
                                        ones_init, rmsnorm, tp_enter,
                                        tp_gather, tp_index, tp_reduce,
@@ -404,9 +437,13 @@ def init_mlstm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
+# the mLSTM's chunk length (the reference's); the dry run reads it
+MLSTM_CHUNK = 256
+
+
 def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    i_pre: torch.Tensor, f_pre: torch.Tensor,
-                   chunk: int = 256):
+                   chunk: int = None):
     """Chunkwise stabilised mLSTM: the recurrent semantics of
     ``mlstm_step``, L tokens at a time. q,k: (B,S,H,hk), v: (B,S,H,hv),
     i_pre/f_pre: (B,S,H) gate pre-activations.
@@ -419,7 +456,7 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for decode to continue from."""
     B, S, H, hk = q.shape
     hv = v.shape[-1]
-    L = _chunk_len(S, chunk)
+    L = _chunk_len(S, chunk or MLSTM_CHUNK)
     nc = S // L
     q = q.float()
     k = k.float() / math.sqrt(hk)
@@ -442,18 +479,20 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_c = torch.einsum("cblh,cblhk->cbhk", wexp, kc)
 
     # the running state over the chunks; each chunk reads the state
-    # before it
+    # before it. The chunks' terms are taken apart with one unbind each
+    # (whose backward stacks their gradients once; an index a chunk
+    # would make a whole-size gradient for each)
     C = torch.zeros((B, H, hk, hv), dtype=torch.float32, device=q.device)
     n = torch.zeros((B, H, hk), dtype=torch.float32, device=q.device)
     m = torch.zeros((B, H), dtype=torch.float32, device=q.device)
     pre = []
-    for c in range(nc):
+    for Gc, ml, Cc, nc_ in zip(*(t.unbind(0) for t in (G, mloc, C_c, n_c))):
         pre.append((C, n, m))
-        m_new = torch.maximum(G[c] + m, mloc[c])
-        a = torch.exp(G[c] + m - m_new)
-        b = torch.exp(mloc[c] - m_new)
-        C = a[..., None, None] * C + b[..., None, None] * C_c[c]
-        n = a[..., None] * n + b[..., None] * n_c[c]
+        m_new = torch.maximum(Gc + m, ml)
+        a = torch.exp(Gc + m - m_new)
+        b = torch.exp(ml - m_new)
+        C = a[..., None, None] * C + b[..., None, None] * Cc
+        n = a[..., None] * n + b[..., None] * nc_
         m = m_new
     Cp, np_, mp = (torch.stack(xs) for xs in zip(*pre))
 
@@ -476,41 +515,111 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.movedim(0, 1).reshape(B, S, H, hv), (C, n, m)
 
 
-def _mlstm_proj(params: dict, x: torch.Tensor, cfg):
-    """x: (..., D) -> (z, q, k, v, i_pre, f_pre), heads split."""
+def _mlstm_split(params: dict, cfg) -> bool:
+    """The rank holds a block of the mLSTM's d_in under the installed
+    rules: its column block of ``w_up`` and its rows of ``wq``, ``wk``,
+    ``wv``, ``w_if``, ``norm`` and ``w_out`` (they split together: each
+    divides by the tensor axis where d_in does)."""
+    return get_logical_rules() is not None \
+        and params["wq"].shape[-2] < mlstm_dims(cfg)[0]
+
+
+def _mlstm_proj(params: dict, x: torch.Tensor, cfg, split: bool = False):
+    """x: (..., D) -> (z, q, k, v, i_pre, f_pre), heads split; z is
+    (..., d_in). With ``split`` (``_mlstm_split``) the rank's column block
+    of ``w_up`` is gathered whole over the tensor axis (``xlstm_up``),
+    its rows of ``wq | wk | wv | w_if`` multiply its block of ``xi``, and
+    the four partial products are summed in one collective
+    (``xlstm_qkv``): q, k, v and the gates are then whole on every rank.
+    Under training rules ``x`` enters the rank's block through
+    ``tp_enter``."""
     d_in, H, d_qk, hd_v, hd_k = mlstm_dims(cfg)
+    if split:
+        x = tp_enter(x)
     up = x @ params["w_up"]
+    if split:
+        up = tp_gather(up, up.dim() - 1, "xlstm_up")
     xi, z = up[..., :d_in], up[..., d_in:]
     lead = x.shape[:-1]
-    q = (xi @ params["wq"]).reshape(*lead, H, hd_k)
-    k = (xi @ params["wk"]).reshape(*lead, H, hd_k)
-    v = (xi @ params["wv"]).reshape(*lead, H, hd_v)
-    gif = xi @ params["w_if"] + params["b_if"]
+    names = ("wq", "wk", "wv", "w_if")
+    if split:
+        n = params["wq"].shape[-2]
+        xb = xi.narrow(-1, tp_index() * n, n)
+        parts = tp_reduce(torch.cat([xb @ params[k] for k in names], -1),
+                          "xlstm_qkv")
+        q, k, v, gif = torch.split(parts, [d_qk, d_qk, d_in, 2 * H], -1)
+    else:
+        q, k, v, gif = (xi @ params[k] for k in names)
+    q = q.reshape(*lead, H, hd_k)
+    k = k.reshape(*lead, H, hd_k)
+    v = v.reshape(*lead, H, hd_v)
+    gif = gif + params["b_if"]
     return z, q, k, v, gif[..., :H], gif[..., H:]
 
 
 def _mlstm_out(params: dict, y: torch.Tensor, z: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
-    y = rmsnorm(y.to(x.dtype).reshape(z.shape) * F.silu(z), params["norm"])
-    return y @ params["w_out"]
+               x: torch.Tensor, cfg, split: bool = False,
+               own_heads: bool = False) -> torch.Tensor:
+    """The gated RMSNorm and the output projection. y: (..., H, hv) f32,
+    or with ``own_heads`` the rank's heads only; z: (..., d_in) whole. With ``split``: where y holds every head (the recurrence ran
+    whole on the rank), the norm's mean square is taken over the whole
+    d_in and the rank keeps its block, ``y`` entering it through
+    ``tp_enter`` (its gradient is a partial sum on each rank); where y
+    holds the rank's heads, which are its d_in block, the sum of squares
+    is summed over the tensor axis (``xlstm_norm``). Then the rank's
+    ``norm`` block and its rows of ``w_out``, whose partial products are
+    summed (one ``tp_reduce``)."""
+    if not split:
+        y = rmsnorm(y.to(x.dtype).reshape(z.shape) * F.silu(z),
+                    params["norm"])
+        return y @ params["w_out"]
+    n = params["norm"].shape[-1]
+    b0 = tp_index() * n
+    if not own_heads:
+        u = tp_enter(y.to(x.dtype)).reshape(z.shape) * F.silu(z)
+        dt, uf = u.dtype, u.float()
+        var = torch.mean(torch.square(uf), dim=-1, keepdim=True)
+        u = (uf * torch.rsqrt(var + 1e-6)).to(dt).narrow(-1, b0, n)
+    else:
+        u = y.to(x.dtype).reshape(*z.shape[:-1], n) \
+            * F.silu(z.narrow(-1, b0, n))
+        dt, uf = u.dtype, u.float()
+        ss = tp_sum(torch.sum(torch.square(uf), dim=-1, keepdim=True),
+                    "xlstm_norm")
+        var = ss / mlstm_dims(cfg)[0]
+        u = (uf * torch.rsqrt(var + 1e-6)).to(dt)
+    return tp_reduce((u * params["norm"]) @ params["w_out"])
 
 
 def mlstm_full(params: dict, x: torch.Tensor, cfg, *,
                build_cache: bool = False):
-    """x: (B,S,D). Returns (out (B,S,D), {"C", "n", "m"} | None)."""
-    z, q, k, v, i_pre, f_pre = _mlstm_proj(params, x, cfg)
+    """x: (B,S,D). Returns (out (B,S,D), {"C", "n", "m"} | None). Under
+    rules the chunked recurrence runs whole on every rank (q, k and v
+    are whole after ``_mlstm_proj``'s sum), and the cache holds every
+    head."""
+    split = _mlstm_split(params, cfg)
+    z, q, k, v, i_pre, f_pre = _mlstm_proj(params, x, cfg, split)
     y, (C, n, m) = _mlstm_chunked(q, k, v, i_pre, f_pre)
-    out = _mlstm_out(params, y, z, x)
+    out = _mlstm_out(params, y, z, x, cfg, split)
     return out, ({"C": C, "n": n, "m": m} if build_cache else None)
 
 
 def mlstm_step(params: dict, x: torch.Tensor, cfg, cache: dict):
-    """x: (B,1,D); cache C (B,H,hk,hv), n (B,H,hk), m (B,H), f32."""
-    z, q, k, v, logi, f_pre = _mlstm_proj(params, x[:, 0], cfg)
+    """x: (B,1,D); cache C (B,H,hk,hv), n (B,H,hk), m (B,H), f32. Under
+    rules a cache of h < H heads holds the rank's heads (the reference's
+    ``cache_shardings`` at one data rank): the step runs on those and
+    keeps them."""
+    split = _mlstm_split(params, cfg)
+    z, q, k, v, logi, f_pre = _mlstm_proj(params, x[:, 0], cfg, split)
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    h = C.shape[1]
+    own = h < q.shape[1]
+    if own:
+        q, k, v, logi, f_pre = (a.narrow(1, tp_index() * h, h)
+                                for a in (q, k, v, logi, f_pre))
     q, v = q.float(), v.float()
     k = k.float() / math.sqrt(k.shape[-1])
     logi, logf = logi.float(), F.logsigmoid(f_pre.float())
-    C, n, m = cache["C"], cache["n"], cache["m"]
     m_new = torch.maximum(logf + m, logi)                       # (B,H)
     fp = torch.exp(logf + m - m_new)
     ip = torch.exp(logi - m_new)
@@ -520,7 +629,8 @@ def mlstm_step(params: dict, x: torch.Tensor, cfg, cache: dict):
     num = torch.einsum("bhkd,bhk->bhd", C, q)
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q)),
                         torch.exp(-m_new))
-    out = _mlstm_out(params, num / den[..., None], z, x[:, 0])
+    out = _mlstm_out(params, num / den[..., None], z, x[:, 0], cfg, split,
+                     own)
     return out[:, None, :], {"C": C, "n": n, "m": m_new}
 
 
@@ -553,19 +663,25 @@ def init_slstm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
-def _slstm_cell(params: dict, pre_x: torch.Tensor, state: dict,
-                cfg) -> dict:
-    """pre_x: (B,4D) = x_t @ W_x, computed outside the time loop (the
-    input projection is the heavy part). state: h, c, n, m, each (B,D)
-    f32."""
-    D, H = cfg.d_model, cfg.num_heads
-    hd = D // H
-    B = pre_x.shape[0]
-    rec = torch.einsum("bhk,hkg->bhg",
-                       state["h"].reshape(B, H, hd).to(params["r"].dtype),
-                       params["r"]).reshape(B, 4 * D)
-    pre = (pre_x + rec + params["b"]).float()
-    i_pre, f_pre, z_pre, o_pre = torch.chunk(pre, 4, dim=-1)
+def _slstm_rec(h: torch.Tensor, r: torch.Tensor, cfg) -> torch.Tensor:
+    """The recurrent pre-activation (B, 4D) of h (B, D) through the
+    per-head blocks of ``r`` (H, k, 4hd): all of each head's hd input
+    rows, or with k < hd the rank's block of them (``h`` then its
+    block of each head's units), a partial sum."""
+    H = cfg.num_heads
+    B, k = h.shape[0], r.shape[1]
+    hd = cfg.d_model // H
+    hh = h.reshape(B, H, hd)
+    if k < hd:
+        hh = hh.narrow(2, tp_index() * k, k)
+    return torch.einsum("bhk,hkg->bhg", hh.to(r.dtype), r).reshape(B, -1)
+
+
+def _slstm_gates(pre: torch.Tensor, state: dict) -> dict:
+    """The cell's elementwise update from its whole pre-activation
+    ``pre`` (B, 4D) = x_t·W_x + h_{t−1}·r + b. state: h, c, n, m, each
+    (B, D) f32."""
+    i_pre, f_pre, z_pre, o_pre = torch.chunk(pre.float(), 4, dim=-1)
     logf = F.logsigmoid(f_pre)
     m_new = torch.maximum(logf + state["m"], i_pre)
     fp = torch.exp(logf + state["m"] - m_new)
@@ -576,33 +692,136 @@ def _slstm_cell(params: dict, pre_x: torch.Tensor, state: dict,
     return {"h": hy, "c": c, "n": n, "m": m_new}
 
 
+def _slstm_cell(params: dict, pre_x: torch.Tensor, state: dict, cfg,
+                r: torch.Tensor) -> dict:
+    """pre_x: (B,4D) = x_t @ W_x, computed outside the time loop (the
+    input projection is the heavy part); ``r`` whole."""
+    return _slstm_gates(pre_x + _slstm_rec(state["h"], r, cfg) + params["b"],
+                        state)
+
+
 def _slstm_ff(params: dict, y: torch.Tensor) -> torch.Tensor:
-    """The block's feed-forward on the cell output, in its dtype."""
+    """The block's feed-forward on the cell output, in its dtype. Under
+    rules with ``ff_gate``'s columns a block of d_ff (where the tensor
+    axis divides it), column-parallel then row-parallel: the normed
+    input enters the rank's block through ``tp_enter`` and ``ff_out``'s
+    partial products are summed (one ``tp_reduce``); otherwise whole on
+    every rank."""
     y = rmsnorm(y, params["ff_norm"])
+    split = get_logical_rules() is not None and params["ff_gate"].shape[-1] \
+        < int(params["ff_norm"].shape[-1] * 4 / 3)
+    if split:
+        y = tp_enter(y)
     # jax.nn.gelu's default is the tanh approximation
     ff = F.gelu((y @ params["ff_gate"]).float(), approximate="tanh")
-    return ff.to(y.dtype) @ params["ff_out"]
+    out = ff.to(y.dtype) @ params["ff_out"]
+    return tp_reduce(out) if split else out
+
+
+def _slstm_split(params: dict, cfg) -> bool:
+    """The rank holds a column block of ``w_x`` under the installed
+    rules (its ``r`` rows are then a block of each head's hd where the
+    tensor axis divides hd)."""
+    return get_logical_rules() is not None \
+        and params["w_x"].shape[-1] < 4 * cfg.d_model
+
+
+# the sLSTM cells a time loop runs (``counted_cells``; None: every one)
+_COUNTED_CELLS = None
+
+
+@contextlib.contextmanager
+def counted_cells(n: int):
+    """For an op count only (``launch.dryrun``): inside, ``slstm_full``
+    runs the first ``n`` cells of its time loop, and each later step's
+    h is the last cell's, detached (a view: no op and no gradient), so
+    the loop's work is counted at ``n`` cells and extrapolated."""
+    global _COUNTED_CELLS
+    prev, _COUNTED_CELLS = _COUNTED_CELLS, n
+    try:
+        yield
+    finally:
+        _COUNTED_CELLS = prev
 
 
 def slstm_full(params: dict, x: torch.Tensor, cfg, *,
                build_cache: bool = False):
     """x: (B,S,D). Returns (out (B,S,D), final {"h","c","n","m"} | None).
-    The time loop stacks each step's h."""
+    The time loop stacks each step's h; it takes the steps' input
+    products apart with one unbind.
+
+    Under rules the loop makes no collective: the rank's column block of
+    ``x @ w_x`` is gathered whole once (``xlstm_wx``), and ``r`` once
+    where its rows are a block (``xlstm_r``), both before the loop; the
+    cell then runs whole on every rank. Both gathers keep the rank's
+    block of the gradient, which the replicated cells make whole on
+    every rank (``dist.gather_split``); ``x`` enters through
+    ``tp_enter``."""
     B, S, _ = x.shape
+    split = _slstm_split(params, cfg)
     state = init_slstm_cache(cfg, B, x.dtype, x.device)
+    r = params["r"]
+    if split:
+        rules = get_logical_rules()
+        x = tp_enter(x)
     pre_x = torch.einsum("bsd,dg->bsg", x, params["w_x"])   # hoisted
+    if split:
+        pre_x = dist.gather_split(pre_x, rules.mesh, (rules.tp,), -1,
+                                  role="xlstm_wx")
+        if r.shape[1] < cfg.d_model // cfg.num_heads:
+            r = dist.gather_split(r, rules.mesh, (rules.tp,), 1,
+                                  role="xlstm_r")
     hs = []
-    for t in range(S):
-        state = _slstm_cell(params, pre_x[:, t], state, cfg)
+    # one unbind of the time dim (an index a step would make a
+    # whole-size gradient for each step: quadratic in S)
+    steps = pre_x.unbind(1)
+    n = S if _COUNTED_CELLS is None else min(_COUNTED_CELLS, S)
+    for px in steps[:n]:
+        state = _slstm_cell(params, px, state, cfg, r)
         hs.append(state["h"])
+    hs += [state["h"].detach()] * (S - n)
     out = _slstm_ff(params, torch.stack(hs, dim=1).to(x.dtype))
     return out, (state if build_cache else None)
 
 
 def slstm_step(params: dict, x: torch.Tensor, cfg, cache: dict):
-    """x: (B,1,D); cache h, c, n, m (B,D) f32."""
-    state = _slstm_cell(params, x[:, 0] @ params["w_x"], cache, cfg)
+    """x: (B,1,D); cache h, c, n, m (B,D) f32.
+
+    Under rules: the rank's column block of ``x @ w_x``, put in place in
+    a (B, 4D) of zeros, and its rows of ``r`` times its block of each
+    head's units of h, a partial sum, are summed in one collective
+    (``xlstm_rec``: the whole pre-activation on every rank; where ``r``
+    is whole, the block is gathered, ``xlstm_wx``). A cache of (B, D/tp)
+    (the reference's ``cache_shardings`` at one data rank) is gathered
+    whole once a step (``xlstm_state``, the four stacked) and the rank
+    keeps its block of the new state."""
+    D = cfg.d_model
+    state = cache
+    cut = cache["h"].shape[-1] < D
+    if cut:
+        n = cache["h"].shape[-1]
+        st = tp_gather(torch.stack([cache[k] for k in "hcnm"]), 2,
+                       "xlstm_state")
+        state = dict(zip("hcnm", st.unbind(0)))
+    pre_x = x[:, 0] @ params["w_x"]
+    if _slstm_split(params, cfg):
+        rules = get_logical_rules()
+        if params["r"].shape[1] < D // cfg.num_heads:
+            w, t = pre_x.shape[-1], tp_index()
+            pre = F.pad(pre_x, (t * w, 4 * D - (t + 1) * w)) \
+                + _slstm_rec(state["h"], params["r"], cfg)
+            pre = tp_reduce(pre, "xlstm_rec")
+        else:
+            pre = dist.gather_split(pre_x, rules.mesh, (rules.tp,), -1,
+                                    role="xlstm_wx") \
+                + _slstm_rec(state["h"], params["r"], cfg)
+        state = _slstm_gates(pre + params["b"], state)
+    else:
+        state = _slstm_cell(params, pre_x, state, cfg, params["r"])
     out = _slstm_ff(params, state["h"].to(x.dtype))
+    if cut:
+        t = tp_index()
+        state = {k: v.narrow(-1, t * n, n) for k, v in state.items()}
     return out[:, None, :], state
 
 

@@ -38,8 +38,9 @@ path's are ``tp_reduce`` (a row-parallel product's partial sums),
 ``kv_gather`` (KV heads for the cache), ``vocab`` (the vocab-parallel
 embedding and the logits), ``fsdp_gather`` (a layer's fsdp dims at
 use), ``moe_counts`` (an MoE layer's per-expert counts over the
-batch axes) and the Mamba2 mixer's ``hlo.SSM_ROLES``; training's are
-listed in ``hlo.TRAIN_ROLES``.
+batch axes), the Mamba2 mixer's ``hlo.SSM_ROLES``, the xLSTM mixers'
+``hlo.XLSTM_ROLES`` and the time-block decode's ``hlo.SEQ_ROLES``;
+training's are listed in ``hlo.TRAIN_ROLES``.
 
 Training differentiates through collectives: ``copy_to`` (identity
 forward, sum backward: Megatron's f), ``reduce_from`` (sum forward,

@@ -19,10 +19,12 @@ module's log, and the checks read the log:
     ``assert_peak_within_local`` bounds it by the rank's own slabs.
 
   * ``assert_no_param_gather``: a ``cross_device`` tensor-parallel
-    serve step moves no param (but the Mamba2 conv's small weights) and
+    serve step moves no param (but the Mamba2 conv's small weights and
+    the sLSTM's recurrent matrix, gathered once a layer) and
     crosses no data axis but with an MoE layer's per-expert counts
     (``moe_counts``): its ops are the roles ``tp_reduce``,
-    ``kv_gather``, ``vocab`` and the Mamba2 mixer's over ``model``; a
+    ``kv_gather``, ``vocab``, the Mamba2 and xLSTM mixers' and the
+    time-block decode's over ``model``; a
     training round's forward and backward ops likewise stay on
     ``model`` and move no param, and only ``fedavg`` and ``metrics``
     cross the client axes (``TRAIN_ROLES`` names every role).
@@ -187,9 +189,29 @@ def assert_no_fullprec_delta_collective(ops: Sequence[CollectiveOp],
 # conv_ch, because its channel blocks do not line up with the heads) and
 # its gated norm's sum of squares (``ssm_norm``)
 SSM_ROLES = ("ssm_zx", "ssm_conv", "ssm_norm")
+# the xLSTM mixers': the mLSTM's ``w_up`` product gathered whole
+# (``xlstm_up``), its four partial products with ``wq | wk | wv | w_if``
+# summed in one (``xlstm_qkv``) and, where a decode cache holds the
+# rank's heads, its norm's sum of squares (``xlstm_norm``); the sLSTM's
+# ``w_x`` product gathered once a layer (``xlstm_wx``), its recurrent
+# matrix ``r`` gathered once a layer before the time loop (``xlstm_r``:
+# the one param besides the Mamba2 conv's that a cross_device step
+# moves, 4·D·hd values, so that the loop makes no collective), a decode
+# step's partial recurrent product summed with the input's block
+# (``xlstm_rec``), and a decode cache cut over its units gathered once
+# a step (``xlstm_state``)
+XLSTM_ROLES = ("xlstm_up", "xlstm_qkv", "xlstm_norm", "xlstm_wx", "xlstm_r",
+               "xlstm_rec", "xlstm_state")
+# the decode on a cache whose time dim is cut over ``model`` (rows that
+# do not split over the data axes): every query head gathered
+# (``seq_q``), the blocks' maxima (``seq_max``) and their rescaled sums
+# and outputs (``seq_sum``)
+SEQ_ROLES = ("seq_q", "seq_max", "seq_sum")
 # the roles a tensor-parallel serve step's collectives may have on a
 # cross_device mesh: none moves a param but the Mamba2 conv's weights
-SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab", "moe_counts") + SSM_ROLES
+# and the sLSTM's r
+SERVE_ROLES = ("tp_reduce", "kv_gather", "vocab", "moe_counts") \
+    + SSM_ROLES + XLSTM_ROLES + SEQ_ROLES
 # the roles that cross the batch axes to make an MoE layer's capacity
 # order (``moe_counts``: each rank's per-expert counts) and aux loss
 # (``moe_aux``: Σprobs and the routed counts) global: they move (E,)
@@ -205,16 +227,21 @@ BATCH_ROLES = ("moe_counts", "moe_aux")
 # layer's ``moe_counts`` and ``moe_aux`` over the rows' fsdp axes, the
 # MTP projection's gather (``mtp_gather``), the Mamba2 mixer's
 # (``SSM_ROLES``, each with one op in the backward: the gathers'
-# reduce-scatters, the norm's sum), and over the client axes the FedAvg
-# sum (``fedavg``) and the metrics' gather (``metrics``)
+# reduce-scatters, the norm's sum), the xLSTM mixers' (``XLSTM_TRAIN``:
+# the mLSTM's gather, with its reduce-scatter in the backward, and its
+# sum; the sLSTM's two gathers, whose backward keeps the rank's block
+# with no collective), and over the client axes the FedAvg sum
+# (``fedavg``) and the metrics' gather (``metrics``)
+XLSTM_TRAIN = ("xlstm_up", "xlstm_qkv", "xlstm_wx", "xlstm_r")
 TRAIN_ROLES = ("tp_reduce", "tp_grad", "vocab", "loss", "fsdp_gather",
                "fsdp_scatter", "grad_sync", "norms", "moe_counts",
-               "moe_aux", "mtp_gather") + SSM_ROLES + ("fedavg", "metrics")
+               "moe_aux", "mtp_gather") + SSM_ROLES + XLSTM_TRAIN \
+    + ("fedavg", "metrics")
 # the training roles that stay inside a model replica on a cross_device
-# mesh (none moves a param but the Mamba2 conv's weights), and the two
-# that cross the client axes
+# mesh (none moves a param but the Mamba2 conv's weights and the sLSTM's
+# r), and the two that cross the client axes
 TRAIN_REPLICA_ROLES = ("tp_reduce", "tp_grad", "vocab", "norms",
-                       "mtp_gather") + SSM_ROLES
+                       "mtp_gather") + SSM_ROLES + XLSTM_TRAIN
 CLIENT_ROLES = ("fedavg", "metrics")
 
 

@@ -358,15 +358,20 @@ def cache_shardings(spec: FederationSpec, mesh, cache, *, batch_size: int,
 # Mamba2 ``ssm`` state's is its heads
 SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope", "xk", "xv",
               "conv")
+# of those, the ones the decode does not read cut: the Mamba2 conv's
+# taps (its step reads all K − 1 of them)
+UNREAD_SEQ_LEAVES = ("conv",)
 
 
 def seq_cut_leaves(spec: FederationSpec, mesh, cache, *, batch_size: int,
                    seq_shard: bool = False) -> list:
     """The paths of the leaves of ``cache`` whose time dim
     ``cache_shardings`` cuts over the tensor axis (rows that do not split
-    over the data axes, or ``seq_shard``): a cache the port's decode,
-    which keeps every rank's time dim whole, cannot read (ROADMAP A17,
-    the sequence-parallel decode)."""
+    over the data axes, or ``seq_shard``): each rank holds a block of
+    the time dim. The attention caches' blocks the decode reads as they
+    are (``models.attention``: attention on the rank's time block,
+    combined over the tensor axis); the Mamba2 conv's taps it does not
+    (``unread_seq_cut``)."""
     tp = spec.tp_axes[0] if spec.tp_axes else None
     if tp is None or mesh_shape(mesh).get(tp, 1) == 1:
         return []
@@ -379,6 +384,17 @@ def seq_cut_leaves(spec: FederationSpec, mesh, cache, *, batch_size: int,
                 and tp in entry_axes(entries[bdim + 1]):
             out.append("/".join(path))
     return out
+
+
+def unread_seq_cut(spec: FederationSpec, mesh, cache, *, batch_size: int,
+                   seq_shard: bool = False) -> list:
+    """The leaves of ``seq_cut_leaves`` the decode cannot read cut: the
+    Mamba2 conv's taps, which ``cache_shardings`` cuts where the tensor
+    axis divides ``ssm_conv`` − 1 (ROADMAP A17)."""
+    return [p for p in seq_cut_leaves(spec, mesh, cache,
+                                      batch_size=batch_size,
+                                      seq_shard=seq_shard)
+            if p.rsplit("/", 1)[-1] in UNREAD_SEQ_LEAVES]
 
 
 def local_shape(shape, axes: tuple, mesh) -> Tuple[int, ...]:

@@ -12,6 +12,12 @@ JAX also gives a Python float the dtype of the array it meets (a weak
 type): ``0.9 * m`` on a bf16 ``m`` multiplies by bf16(0.9), where torch
 would multiply by the f32 value. ``weak`` makes the port's scalar the
 same.
+
+``sqrt`` is a correctly rounded square root. XLA's f32 sqrt is correctly
+rounded; torch's CPU kernel is not on every host (its vectorised path on
+an AVX-512 CPU is one ulp off on about a fifth of f32 inputs, and so is
+its f64 path now and then). Taken in f64 and rounded once to f32 the root
+is correctly rounded (53 ≥ 2·24 + 2), on the CPU and on the card alike.
 """
 from __future__ import annotations
 
@@ -49,3 +55,11 @@ def weak(x: float, like: torch.Tensor) -> torch.Tensor:
     takes a 0-d CPU tensor as a scalar operand of a CUDA op, so it costs
     no copy to the device and no host sync."""
     return torch.tensor(x, dtype=like.dtype)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an f32 tensor, as XLA takes
+    ``jnp.sqrt``: the root in f64, rounded once to x's dtype. For the
+    scalars and (C,) vectors of the Δ-SGD rule and the clip norms, where
+    the f64 costs nothing measurable."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)

@@ -144,11 +144,14 @@ def test_roofline_terms_are_the_references():
 def test_dryrun_cli_lists_refusals_apart(tmp_path, capsys):
     dryrun.main(["--arch", ARCH, "--shape", "decode_32k", "--out",
                  str(tmp_path)])
-    dryrun.main(["--arch", "granite-20b", "--shape", "long_500k",
-                 "--out", str(tmp_path)])
+    # a global batch of 32 rows does not split over the multi-pod
+    # mesh's 64 data ranks
+    dryrun.main(["--arch", "granite-20b", "--shape", "prefill_32k",
+                 "--mesh", "multi", "--out", str(tmp_path)])
     dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k",
                  "--mesh", "both", "--out", str(tmp_path)])
-    dryrun.main(["--arch", "xlstm-1.3b", "--shape", "train_4k",
+    # InternVL2's 14 heads do not split over 8 ranks
+    dryrun.main(["--arch", "internvl2-1b", "--shape", "train_4k",
                  "--out", str(tmp_path)])
     out = capsys.readouterr().out
     assert "1 dry runs passed" in out

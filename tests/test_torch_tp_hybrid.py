@@ -1,6 +1,6 @@
 """Port parity for tensor parallelism of Zamba2's Mamba2 mixer and
-shared attention block: gloo ranks on the CPU; and the decode cache's
-refusal where its time dim would be cut over ``model``.
+shared attention block: gloo ranks on the CPU; and the decode cache
+whose time dim is cut over ``model``.
 
 Four ranks of ``torch.distributed`` (gloo, one torch thread each) over
 a (data 2, model 2) mesh run every case once, in one spawn for the
@@ -38,9 +38,10 @@ batches and prompts injected:
   * at (data 1, model 4) the one DeepSeek-V3 layer's prefill cache,
     whole over the sequence on each rank, still serves;
   * the decode cache at (data 1, model 4), where the reference puts its
-    time dim over ``model``: ``place_for_rank`` and ``init_cache``
-    refuse the GQA and MLA caches, naming ROADMAP A17, and accept a
-    Mamba2 state cut over its heads;
+    time dim over ``model``: the GQA and MLA caches placed by
+    ``place_for_rank`` or made by ``init_cache`` hold the rank's time
+    block and decode as the unsharded port does; a Mamba2 state cut
+    over its heads is accepted;
   * the dry run admits Zamba2's three shapes on a rank of (32, 8) and
     lowers its ``decode_32k`` here (its ``prefill_32k`` and ``train_4k``
     take about 90 s each on fake tensors here: ``chip_smoke.py`` lowers
@@ -105,6 +106,10 @@ ROUNDS = {"zamba2_device": ("cross_device", False),
 METRICS = ("loss", "loss_last_step", "eta_mean", "eta_min", "eta_max")
 ONE_DATA = ((1, 4), ("data", "model"))
 MLA_L1 = ("deepseek-v3-671b", 1, 256, 512)
+# the caches cut over their time dim at (data 1, model 4): 8 slots, 2 a
+# rank, a prefill of 4 prompt tokens before the forced steps
+CUT_ARCHS = (("tinyllama-1.1b", (2, 64, 512)), (MLA_L1[0], MLA_L1[1:]))
+CUT_LEN, CUT_PROMPT = 8, 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,6 +183,15 @@ def _cases():
                                  federation="cross_silo", params=mla,
                                  prompts=prompts, forced=forced,
                                  greedy=GREEDY)
+    for arch, shape in CUT_ARCHS:
+        for how in ("place_for_rank", "init_cache"):
+            case = dict(kind="cut_decode", cfg=(arch,) + shape,
+                        mesh=ONE_DATA, federation="cross_silo",
+                        params=_params(arch, shape), forced=forced,
+                        how=how, cache_len=CUT_LEN)
+            if how == "place_for_rank":
+                case["whole_cache"] = _cut_start(arch, shape)[1]
+            cases[f"cut_{arch}_{how}"] = case
     return cases
 
 
@@ -565,28 +579,64 @@ def _one_data_rules(arch, shape, coords=None):
     return model, params, serve_rules(model, mesh, params, batch_size=B)
 
 
-@pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", (2, 64, 512)),
-                                        (MLA_L1[0], MLA_L1[1:])])
+@functools.lru_cache(maxsize=None)
+def _cut_start(arch, shape):
+    """The port's unsharded prefill of the prompts' first CUT_PROMPT
+    tokens into CUT_LEN slots: (the model, its cache as numpy)."""
+    prompts, _ = _prompts()
+    model = build_model(tp_config(arch, *shape))
+    params = interop.params_from_numpy(_params(arch, shape))
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(
+        prompts[:, :CUT_PROMPT])}, cache_len=CUT_LEN)
+    return model, interop.params_to_numpy(cache)
+
+
+@functools.lru_cache(maxsize=None)
+def _cut_unsharded(arch, shape, how):
+    """The port's unsharded forced steps from the same start: the
+    prefill's cache or an empty one."""
+    _, forced = _prompts()
+    model = build_model(tp_config(arch, *shape))
+    params = interop.params_from_numpy(_params(arch, shape))
+    cache = (interop.params_from_numpy(_cut_start(arch, shape)[1])
+             if how == "place_for_rank"
+             else model.init_cache(B, CUT_LEN, device="cpu"))
+    steps = []
+    for t in range(FORCED):
+        logits, cache = model.decode_step(
+            params, cache, torch.from_numpy(forced[:, t:t + 1]))
+        steps.append(logits[:, 0].numpy())
+    return steps
+
+
+@pytest.mark.parametrize("arch,shape", list(CUT_ARCHS))
 @pytest.mark.parametrize("how", ["place_for_rank", "init_cache"])
-def test_attention_caches_are_refused_at_one_data_rank(arch, shape, how):
+def test_attention_caches_are_refused_at_one_data_rank(arch, shape, how,
+                                                       port):
     """At (data 1, model 4) the rows do not split, so the reference's
     ``cache_shardings`` puts the GQA K/V's and the MLA latent's sequence
-    dim over ``model``: the port's decode, which keeps every rank's
-    sequence whole, refuses such a cache, naming ROADMAP A17."""
-    model, _, rules = _one_data_rules(arch, shape)
-    whole = model.init_cache(B, 8, device="cpu")
+    dim over ``model``. Such a cache, placed by ``place_for_rank`` (the
+    port's whole prefill cache) or made by ``init_cache`` under the
+    rules, holds the rank's 2 of the 8 slots and decodes as the
+    unsharded port does, each rank's logits within 1e-5·max|logits|
+    (the rank that owns a slot writes it; the blocks' softmax parts are
+    combined over ``model``)."""
+    model, _ = _cut_start(arch, shape)
+    _, _, rules = _one_data_rules(arch, shape)
+    whole = model.init_cache(B, CUT_LEN, device="cpu")
     leaves = {"k", "v"} if not model.cfg.use_mla else {"c_kv", "k_rope"}
     cut = seq_cut_leaves(rules.spec, rules.mesh, whole, batch_size=B)
     assert {p.rsplit("/", 1)[1] for p in cut} == leaves
-    with pytest.raises(ValueError, match="ROADMAP A17"):
-        if how == "place_for_rank":
-            place_for_rank(rules, cache=whole, batch_size=B)
-        else:
-            with logical_rules(rules):
-                model.init_cache(B, 8, device="cpu")
-    # a sequence that does not split four ways stays whole: accepted
+    want = _cut_unsharded(arch, shape, how)
+    for r in port[f"cut_{arch}_{how}"]:
+        for p in cut:
+            assert r["shapes"][p][2] == CUT_LEN // 4, p
+        for t in range(FORCED):
+            _close(r["logits"][t], want[t], f"{how} step {t}", REL)
+    # a sequence that does not split four ways stays whole
     with logical_rules(rules):
-        model.init_cache(B, 9, device="cpu")
+        odd = model.init_cache(B, 9, device="cpu")
+    assert tree_flatten(odd["runs"])[0][0].shape[2] == 9
 
 
 def test_mamba2_state_cut_over_heads_is_accepted_at_one_data_rank():
@@ -594,7 +644,8 @@ def test_mamba2_state_cut_over_heads_is_accepted_at_one_data_rank():
     over its heads (the rank's own block) and leaves the conv's three
     taps whole: not refused. ``place_for_rank`` narrows the conv to the
     rank's channels, and ``init_cache`` makes the same shapes. With the
-    shared block, only its K and V are refused."""
+    shared block, only its K and V are cut over their time dim (which
+    the decode reads)."""
     shape = (6, 64, 512)             # six Mamba2 layers, no shared site
     cfg = tp_config(ARCH, *shape)
     P, N = cfg.ssm_head_dim, cfg.ssm_state

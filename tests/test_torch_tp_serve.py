@@ -364,16 +364,23 @@ def test_admitted_archs_run_under_a_mesh(arch):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_other_archs_are_refused_under_a_mesh(arch):
+    """xLSTM, the last arch tensor parallelism refused, runs under rules
+    since its own slice (tests/test_torch_tp_xlstm.py): its serve rules
+    on (data 2, model 2), its cache the rank's rows of every state, its
+    ``decode_32k`` admitted on (data 32, model 8) whatever its 4 heads
+    (no param of it splits by them). What stays refused, for every
+    arch, is the sequence-sharded rules (ROADMAP A17, with
+    launch/perf.py's variants)."""
     model, params, mesh = _rules(arch)
-    with pytest.raises(ValueError, match="ROADMAP A17"):
-        serve_rules(model, mesh, params)
-    with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
-        dryrun.check_lowerable(arch, "decode_32k", False)
-    # the rules installed by hand: the model refuses too
-    tl, tparams, _ = _rules("tinyllama-1.1b")
-    rules = serve_rules(tl, mesh, tparams)
-    with logical_rules(rules), pytest.raises(ValueError,
-                                             match="ROADMAP A17"):
+    rules = serve_rules(model, mesh, params, batch_size=4)
+    dryrun.check_lowerable(arch, "decode_32k", False)
+    with logical_rules(rules):
+        cache = model.init_cache(4, 8, device="cpu")
+    for run in cache["runs"].values():
+        for leaf in run.values():
+            assert leaf.shape[1] == 2
+    with logical_rules(serve_rules(model, mesh, params, seq_shard=True)), \
+            pytest.raises(ValueError, match="ROADMAP A17"):
         model.init_cache(4, 8, device="cpu")
 
 
@@ -382,16 +389,21 @@ def test_other_archs_are_refused_under_a_mesh(arch):
 def test_serving_refusals(what):
     model, params, mesh = _rules("tinyllama-1.1b")
     if what == "long_500k":
-        with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
-            dryrun.check_lowerable("tinyllama-1.1b", what, False)
+        # lowers since the decode on a time-cut cache
+        # (tests/test_torch_seq_decode.py); heads that do not split
+        # over 8 ranks stay refused there as at every shape
+        dryrun.check_lowerable("tinyllama-1.1b", what, False)
+        with pytest.raises(dryrun.Refused, match="heads do not split"):
+            dryrun.check_lowerable("whisper-tiny", what, False)
     elif what == "train_4k":
-        # tensor-parallel training lowers every arch's train_4k but
-        # xLSTM's
+        # tensor-parallel training lowers every arch's train_4k whose
+        # heads split over 8 ranks, xLSTM's since its TP slice
         dryrun.check_lowerable("tinyllama-1.1b", what, False)
         dryrun.check_lowerable("olmoe-1b-7b", what, False)
         dryrun.check_lowerable("zamba2-7b", what, False)
-        with pytest.raises(dryrun.Refused, match="ROADMAP A17"):
-            dryrun.check_lowerable("xlstm-1.3b", what, False)
+        dryrun.check_lowerable("xlstm-1.3b", what, False)
+        with pytest.raises(dryrun.Refused, match="heads do not split"):
+            dryrun.check_lowerable("internvl2-1b", what, False)
     elif what == "multi_pod_prefill":
         with pytest.raises(dryrun.Refused, match="64 data ranks"):
             dryrun.check_lowerable("tinyllama-1.1b", "prefill_32k", True)
@@ -449,15 +461,17 @@ def test_init_cache_under_rules_is_the_ranks_block():
     ``cache_shardings`` places the cache. Three rows do not split over
     the two data ranks: the rows stay whole, and where the 8 cache
     entries then split over ``model`` (the reference's placement of the
-    sequence), the cache is refused (ROADMAP A17); 9 entries stay
-    whole."""
+    sequence), the rank holds its block of 4 of them (the decode reads
+    it: tests/test_torch_seq_decode.py); 9 entries stay whole."""
     model, params, mesh = _rules("tinyllama-1.1b")
     cfg = model.cfg
     with logical_rules(serve_rules(model, mesh, params)):
         cache = model.init_cache(4, 8, device="cpu")
         odd = model.init_cache(3, 9, device="cpu")
-        with pytest.raises(ValueError, match="ROADMAP A17"):
-            model.init_cache(3, 8, device="cpu")
+        cut = model.init_cache(3, 8, device="cpu")
     assert tuple(cache["runs"]["run0"]["k"].shape) == (
         cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.head_dim)
     assert odd["runs"]["run0"]["k"].shape[1] == 3
+    assert tuple(cut["runs"]["run0"]["k"].shape) == (
+        cfg.num_layers, 3, 4, cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(cut["positions"].shape) == (8,)

@@ -317,7 +317,9 @@ def test_kernel_route_launches_two_kernels_a_step(port):
 def test_tp_training_refusals(port):
     for res in port["refusals"]:
         for arch in OTHER_ARCHS:
-            assert "ROADMAP A17" in res[arch], (arch, res[arch])
+            # xLSTM trains under rules since its TP slice
+            # (tests/test_torch_tp_xlstm.py): admitted
+            assert res[arch] is None, (arch, res[arch])
         assert "under training rules" in res["prefill"]
         assert "sps under tensor-parallel rules" in res["sps"]
         assert "FedProx and MOON" in res["fedprox"]

@@ -256,13 +256,25 @@ without its final line:
               gloo CPU ranks on the same inputs (loss and eta_mean rel
               1e-5, counts exact, the round-end params within
               1e-5·max|p| and the EF21 slab within 1e-5·max|p|);
-              the sharded step on the (4, 219,414,528) LM slab (phase
-              4e's TinyLlama slab padded for 2 shards): η and Σ|p| after
-              2 steps against the unsharded step on the card (rel 1e-5),
-              each rank's step ms and norms all_reduce ms, the unsharded
-              step's ms, peaks below the global slabs and within 6 local
-              slabs (the 5 of the step, the caller holding 2 gradients,
-              plus one of slack).
+              the flat round on the ranks' tensor-parallel blocks
+              (core.sharded: each rank's TP slab, one flat_reshard
+              all-to-all a round): TinyLlama at full width cut to 2
+              layers, K = 2, 4 rows of 128 tokens a client, under
+              cross_device (C = 4, dirichlet_dropouts + trimmed +
+              int8/EF21) and cross_silo (one client, N over data ×
+              model), each against the unsharded flat round on the card
+              (loss and η rel 1e-5; each leaf within 1e-5·max|p| but
+              int8 code flips, each within one code step of each
+              client's chunk over the clients the mean keeps, on at
+              most 0.1 % of the model); the collectives by role are
+              flat_train_collectives', no local-step op holds a
+              client's whole N and a rank's peak is within the slabs
+              its round holds (assert_peak_within_local: 6 local slabs,
+              6 whole-N vectors, 2 of slack); printed: each rank's
+              round seconds, the
+              collectives by role with their bytes, the reshard's
+              seconds, each rank's peak beside the unsharded round's
+              (the sharded lm lines).
               Zamba2-7B at full width cut to 7 layers (6 Mamba2 and the
               shared block), C = 2, b = 2, one fused round: finite, its
               launches, the peak allocation. OLMoE-1B-7B at full width
@@ -292,13 +304,15 @@ without its final line:
               (launch.steps.train_collectives) are printed. Unsharded
               rounds on the card first, each finished and its memory
               freed before the spawn, their round-end params kept on
-              the host's disk for the ranks: TinyLlama-1.1B whole
-              (cross_device, one client a data rank: C = 2, b = 2, S =
-              256, remat on), Qwen2.5-14B and Granite-20B at full width
-              and 2 layers (cross_silo: one client, FSDP over data, b =
+              the host's disk for the ranks: TinyLlama-1.1B at full
+              width cut to 11 of its 22 layers (cross_device, one client
+              a data rank: C = 2, b = 2, S = 256, remat on), Qwen2.5-14B
+              and Granite-20B at full width
+              and 1 layer (cross_silo: one client, FSDP over data, b =
               4 split over data; remat off, which spares a second gather
               of each layer's fsdp dims), TinyLlama at 2 layers (remat
-              off). The ranks run TinyLlama whole on the plain route and
+              off). The ranks run TinyLlama at 11 layers on the plain
+              route and
               at 2 layers on the Δ-SGD kernel route (2·K launches a
               rank), Qwen2.5 and Granite, and TinyLlama at 2 layers with
               remat off and on, on allocators that grow their segments
@@ -468,7 +482,16 @@ without its final line:
               the 72 slots, the blocks in model order within the run's
               tolerance of the unsharded latent), a rank's peak below
               the unsharded run's where the ranks drew their own
-              weights. Then the dry runs' lines.
+              weights. Then the dry runs' lines, and launch/perf.py's
+              (PERF_RUNS, started beside phase 4 on the host: the
+              sharded flat round's variants on TinyLlama and on
+              Qwen2.5-14B at full width, each holding
+              assert_flat_buffer_sharded, the compressed ones their
+              wire record; OLMoE's capacity1 and expert_2d; the decode
+              cache's quant_kv+cache_seq_shard; softmax_bf16), each
+              counted at two depths and extrapolated: one line a
+              variant, then launch/report.py's dry-run, roofline and
+              perf tables over what they wrote.
   7. matrix   the port's kernel parity matrix (repro_torch.conformance,
               32 cells, every kernel namespace) on cuda through check_cell,
               every count at 0 before and read after: every cell passes
@@ -657,7 +680,28 @@ ASYNC_PRESETS = ("zipf_async", "byzantine_async")
 SHARD_WORLD = 4
 SHARD_MESH = ((2, 2), ("data", "model"))
 SHARD_ROUNDS = 2
-LM_SLAB = (4, 219_283_456)
+# phase 4f's LM rounds: the flat round on the ranks' tensor-parallel
+# blocks (core.sharded), LM_ARCH at full width cut to SHARD_LM_LAYERS
+# layers, f32, random weights from TPT_SEED, TPT_K local steps on
+# SHARD_LM_B rows of SHARD_LM_SEQ tokens a client: (federation, C, the
+# guarded tail: dirichlet_dropouts + trimmed + int8/EF21). cross_silo
+# puts N over data × model with one client (the slab's 0.88 GB through
+# gloo). Each is held to the unsharded flat round on the card: loss and
+# η within SHARD_LM_REL relative, each leaf within SHARD_LM_REL·max|p|
+# but, under int8, the elements whose code fell the other way: each
+# within SHARD_LM_REL·max|p| plus its flip bound (one code step of each
+# client's chunk, over the clients the mean keeps), on at most
+# SHARD_LM_FLIP_SHARE of the model's elements (on an H100 80GB HBM3 at
+# 700 W: 51,343 of 219.3e6, 2.3e-4)
+SHARD_LM = (("cross_device", 4, True), ("cross_silo", 1, False))
+SHARD_LM_LAYERS, SHARD_LM_B, SHARD_LM_SEQ = 2, 4, 128
+SHARD_LM_REL = 1e-5
+SHARD_LM_FLIP_SHARE = 1e-3
+# a rank's peak bytes of the same cross_device round on the gather
+# route it replaced (each chunk of clients' params gathered to full N):
+# scripts/flat_tp_probe.py --src on the parent commit's tree, H100 80GB
+# HBM3 at 700 W
+SHARD_LM_GATHER_PEAK = {"cross_device": 9_292_225_024}
 _PART = TRAIN_ARGS.index("--participation")
 FLEET_ARGS = TRAIN_ARGS[:_PART] + TRAIN_ARGS[_PART + 2:]
 FLEET_REGISTERED, FLEET_C = 100_000, 50
@@ -692,6 +736,8 @@ LM_NEW = {"xlstm-1.3b": dict(layers=4, C=2, K=2, b=1, S=256),
           "internvl2-1b": dict(layers=24, C=2, K=2, b=1, S=256)}
 LM_ROUNDS = 2
 LM_TIMED_BLOCKS = 3
+# profiled calls of one block before its busy time counts as not measured
+PROFILE_TRIES = 3
 # the f64 check of the 22-layer run's sums reads the row in slices of
 # LM_F64_SLICE elements; the run's slab must pass LM_PAST elements
 LM_F64_SLICE = 2 ** 26
@@ -782,12 +828,12 @@ ONE_ROW_CACHE, ONE_ROW_GEN, ONE_ROW_INT8 = 1024, 8, 8
 # round's within TPT_REL relative, params within TPT_PARAM_REL·max|p|,
 # remat on to remat off within TPT_REMAT_REL·max|p|
 TPT_RUNS = (
-    ("tinyllama", "tinyllama-1.1b", None, "cross_device", 2, 2, True,
+    ("tinyllama_l11", "tinyllama-1.1b", 11, "cross_device", 2, 2, True,
      False),
     ("tinyllama_kernel", "tinyllama-1.1b", 2, "cross_device", 2, 2,
      False, True),
-    ("qwen2.5-14b", "qwen2.5-14b", 2, "cross_silo", 1, 4, False, False),
-    ("granite-20b", "granite-20b", 2, "cross_silo", 1, 4, False, False),
+    ("qwen2.5-14b", "qwen2.5-14b", 1, "cross_silo", 1, 4, False, False),
+    ("granite-20b", "granite-20b", 1, "cross_silo", 1, 4, False, False),
     ("tinyllama_l2_remat_off", "tinyllama-1.1b", 2, "cross_device", 2, 2,
      False, False),
     ("tinyllama_l2_remat_on", "tinyllama-1.1b", 2, "cross_device", 2, 2,
@@ -2434,6 +2480,7 @@ def _lm_round_time(torch, train, cfg, sh, smi, label, arch=LM_ARCH):
     torch.cuda.synchronize()
     walls = [_host_ms(torch, block, 1) for _ in range(LM_TIMED_BLOCKS)]
     wall, busy, split = _profile_ms(torch, block)
+    busy, idle = _idle_share(busy, wall)
     tokens = sh["C"] * sh["K"] * sh["b"] * sh["S"]
     print(f"{label} time", json.dumps({
         "card": smi, "round_ms": walls,
@@ -2442,7 +2489,7 @@ def _lm_round_time(torch, train, cfg, sh, smi, label, arch=LM_ARCH):
         "image_tokens_per_round": tokens // sh["S"] * cfg.num_image_tokens,
         "train_tokens_per_s": tokens / (statistics.median(walls) / 1e3),
         "profiled_round_ms": wall, "device_busy_ms": busy,
-        "idle_share": 1 - busy / wall}), flush=True)
+        "idle_share": idle}), flush=True)
     print(f"{label} profile", json.dumps(split), flush=True)
     del run, box, staged
     torch.cuda.empty_cache()
@@ -3072,25 +3119,43 @@ def _self_us(events):
     return out
 
 
-def _profile_ms(torch, fn, top=5):
+def _profile_ms(torch, fn, top=5, tries=PROFILE_TRIES):
     """(wall ms, device busy ms, {top kernels and host ops by time}) of
     one synchronised call of ``fn`` under torch.profiler. It reads the
     profiler's raw events: building its event tree (``prof.events()``)
-    takes about 90 µs an event, 15 s for one round of xLSTM."""
+    takes about 90 µs an event, 15 s for one round of xLSTM. Now and
+    then the profiler on this card records no device activity for a
+    whole call: ``fn`` is then profiled again, up to ``tries`` calls,
+    and after that the wall comes from the host clock and the device
+    span from CUDA events, and busy is None (not measured)."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile import busy_us
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        raw = prof.profiler.kineto_results.events()
+        events = [e for e in raw if e.device_type() == DeviceType.CUDA]
+        if events:
+            break
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    raw = prof.profiler.kineto_results.events()
-    events = [e for e in raw if e.device_type() == DeviceType.CUDA]
-    if not events:
-        raise AssertionError("the profiler recorded no device activity")
+        print(f"profiler: no device activity in {tries} profiled calls; "
+              "busy not measured, times from CUDA events", flush=True)
+        return wall * 1e3, None, {"device_ops": None,
+                                  "device_span_ms": start.elapsed_time(end)}
     by_name = defaultdict(float)
     for e in events:
         by_name[e.name()[:60]] += e.duration_ns() / 1e6
@@ -3106,6 +3171,12 @@ def _profile_ms(torch, fn, top=5):
             busy_us([(e.start_ns() / 1e3,
                       (e.start_ns() + e.duration_ns()) / 1e3)
                      for e in events]) / 1e3, split)
+
+
+def _idle_share(busy, wall, per=1):
+    """(busy / per, 1 - busy / wall), or (None, None) where the profiler
+    measured no busy time (``_profile_ms``)."""
+    return (None, None) if busy is None else (busy / per, 1 - busy / wall)
 
 
 def _host_ms(torch, fn, n):
@@ -3311,15 +3382,17 @@ def run_serve_path(torch, mods, arch, layers, dtype_name, smi):
     pre_ms, blk_ms = _host_ms(torch, prefill, 5), _host_ms(torch, block, 3)
     pre_wall, pre_busy, pre_split = _profile_ms(torch, prefill)
     blk_wall, blk_busy, blk_split = _profile_ms(torch, block)
+    pre_busy, pre_idle = _idle_share(pre_busy, pre_wall)
+    blk_busy, blk_idle = _idle_share(blk_busy, blk_wall, SERVE_FLUSH)
     print(f"serve {name} time", json.dumps({
         "card": smi, "prefill_ms": pre_ms, "prefill_tokens": SERVE_PROMPT,
         "prefill_positions": SERVE_PROMPT + cfg.num_image_tokens,
         "prefill_device_busy_ms": pre_busy,
-        "prefill_idle_share": 1 - pre_busy / pre_wall,
+        "prefill_idle_share": pre_idle,
         "decode_block_ms": blk_ms, "decode_ms_per_step": blk_ms / SERVE_FLUSH,
         "decode_rows": SERVE_SLOTS,
-        "decode_device_busy_ms_per_step": blk_busy / SERVE_FLUSH,
-        "decode_idle_share": 1 - blk_busy / blk_wall}), flush=True)
+        "decode_device_busy_ms_per_step": blk_busy,
+        "decode_idle_share": blk_idle}), flush=True)
     print(f"serve {name} prefill profile", json.dumps(pre_split))
     print(f"serve {name} decode block profile", json.dumps(blk_split),
           flush=True)
@@ -3973,78 +4046,217 @@ def _shard_cases(torch, train, mesh, device):
     return out, states, n
 
 
-def _shard_large(torch, mesh, fed, dev, lines):
-    """The sharded step on the LM slab over the mesh: per rank the step's
-    ms and the norms all_reduce's ms (all ranks on one card at once),
-    η after 2 steps and the slab's sum, and the peak allocation."""
+def _shard_lm_parts(kind, guarded):
+    """(model, FLConfig, scenario, compression) of a 4f LM round."""
+    from repro_torch.compression import CompressionSpec
+    from repro_torch.configs import FLConfig
+    from repro_torch.federation import get_scenario
+    from repro_torch.models.model import build_model
+    model = build_model(_lm_cfg(LM_ARCH, SHARD_LM_LAYERS))
+    fl = FLConfig(local_steps=TPT_K, flat_engine=True)
+    if not guarded:
+        return model, fl, None, None
+    return (model, fl, get_scenario("dirichlet_dropouts",
+                                    robust_agg="trimmed"),
+            CompressionSpec(kind="int8", error_feedback=True))
+
+
+def _shard_lm_batch(torch, C, vocab, device):
+    """A round's (C, K, b, S) tokens and labels, from TPT_SEED."""
+    import numpy as np
+    toks = np.random.default_rng(TPT_SEED).integers(
+        0, vocab, (C, TPT_K, SHARD_LM_B, SHARD_LM_SEQ + 1))
+    t = torch.from_numpy(toks).to(device)
+    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+
+
+def _shard_lm_run(torch, mesh, dev, kind, C, guarded):
+    """One rank's LM round of 4f through the entry points a caller
+    uses: the flat round on the mesh under the training rules ->
+    (model, spec, rules, layout, state, metrics, seconds, peak bytes,
+    the recorder's ops)."""
     from repro_torch.core import flat as flatlib
-    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
-                                            flat_delta_sgd_step_sharded)
-    from repro_torch.sharding import dist
-    from repro_torch.sharding.hlo import (assert_peak_below_global,
-                                          assert_peak_within_local)
-    from repro_torch.sharding.spec import block_index
-    C, n = LM_SLAB
-    N = flatlib._padded(n, fed.flat_shards(mesh))
-    C_loc, N_loc = fed.local_shape(mesh, C, N)
-    ca, na = fed.flat_axes(mesh)
-    here = dist.coords(mesh)
-    blk = (block_index(mesh, ca, here), block_index(mesh, na, here))
+    from repro_torch.core import init_fl_state
+    from repro_torch.launch.steps import (make_train_step,
+                                          place_train_for_rank, train_rules)
+    from repro_torch.models.common import logical_rules
+    from repro_torch.sharding import dist, hlo
+    from repro_torch.sharding.spec import get_federation_spec
+    model, fl, scn, comp = _shard_lm_parts(kind, guarded)
+    spec = get_federation_spec(kind, mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(TPT_SEED))
+    rules = train_rules(model, mesh, params, spec=spec)
+    step, sopt, scn, comp = make_train_step(
+        model, fl, flat=True, mesh=mesh, federation=spec, scenario=scn,
+        compression=comp)
+    state = init_fl_state(params, sopt, scn, comp, cohort=C, mesh=mesh,
+                          federation=spec)
+    batch = place_train_for_rank(rules, batch=_shard_lm_batch(
+        torch, C, model.cfg.vocab_size, dev))["batch"]
+    layout = flatlib.layout_of(params, shards=spec.flat_shards(mesh))
+    del params
+    dist.all_reduce(torch.zeros(1, device=dev), mesh, ("data", "model"))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hlo.reset()
+    t0 = time.perf_counter()
+    with logical_rules(rules):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del batch
+    return (model, spec, rules, scn, layout, state, m, secs, peak,
+            hlo.snapshot())
+
+
+def _shard_lm_rank(torch, mesh, dev, kind, C, guarded, out_dir, rank):
+    """One rank's LM round of 4f (``_shard_lm_run``) on the rank's TP
+    slab -> its record (metrics, seconds, peak, collectives by role and
+    bytes, the reshard's seconds); rank 0 saves the round-end params
+    (whole on every rank) and, under int8, each element's flip bound to
+    ``out_dir``. The recorded roles must be
+    ``launch.steps.flat_train_collectives``'."""
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core.sharded import tp_slab
+    from repro_torch.launch.steps import flat_train_collectives
+    from repro_torch.sharding import dist, hlo
+    from repro_torch.utils.tree import tree_flatten
+    (model, spec, rules, scn, layout, state, m, secs, peak,
+     ops) = _shard_lm_run(torch, mesh, dev, kind, C, guarded)
+    roles = {}
+    for o in ops:
+        n, b = roles.get(o.role, (0, 0))
+        roles[o.role] = (n + 1, b + o.bytes)
+    rec = {"metrics": {k: float(m[k]) for k in (
+               "loss", "loss_last_step", "eta_mean", "eta_min", "eta_max")},
+           "round_s": secs, "peak_bytes": peak,
+           "collectives": {r: list(v) for r, v in roles.items()},
+           "staged": sum(o.staged for o in ops),
+           "skipped": float(m.get("round_skipped", 0.0))}
+    slab = tp_slab(layout, mesh, spec, rules)
+    want = flat_train_collectives(
+        model, rules, slab, local_steps=TPT_K, clients=C,
+        robust="trimmed" if guarded else None,
+        skipped=bool(rec["skipped"]))
+    got = {r: v[0] for r, v in roles.items()}
+    if got != want:
+        raise AssertionError(f"sharded lm {kind}: collectives {got}, "
+                             f"flat_train_collectives {want}")
+    hlo.assert_flat_buffer_sharded(ops, C, layout.padded_size,
+                                   client_n=layout.size)
+    C_loc = C // spec.clients_on(mesh) if spec.client_axes else C
+    # the slabs the round holds live, in (C_loc, N/S) f32 slabs: the
+    # TP slab's P, G and previous G and the reshard's send, receive
+    # and column buffers (6); the tail's whole-N vectors, S/C_loc
+    # slabs each: the caller's params, their packing, the
+    # aggregate's gather (its staged copy and its ordered blocks),
+    # the server's new params and their packing (6); two of slack
+    S = spec.flat_shards(mesh)
+    rec["peak_local_slabs"] = hlo.assert_peak_within_local(
+        peak, C_loc, layout.padded_size // S,
+        slabs=6 + 6 * S // C_loc + 2)["local_slabs"]
+    P = torch.randn((C_loc, slab.width), device=dev)
+    slab.to_columns(P)            # its maps, made once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slab.to_columns(P)
+    torch.cuda.synchronize()
+    rec.update(reshard_s=time.perf_counter() - t0,
+               tp_slab=[C_loc, slab.width], tp_valid=slab.valid,
+               gathered=slab.gathered, chunk=slab.chunk(C_loc),
+               N=layout.padded_size)
+    del P
+    bound = None
+    if guarded:
+        # each element's flip bound: one code step of each client's
+        # chunk, max|ef chunk| / 127 (the round starts from ef = 0),
+        # summed over the clients, over the fewest the mean keeps
+        ca, na = spec.flat_axes(mesh)
+        step = state.ef.abs().reshape(C_loc, -1, 128).amax(-1).sum(0) / 127.0
+        step = dist.all_gather(dist.all_reduce(step, mesh, ca), mesh, na,
+                               dim=0)
+        kept = float(m["valid_count"]) - 2 * scn.robust_model.trim_count(C)
+        bound = flatlib.unpack(step.repeat_interleave(128) / max(kept, 1.0),
+                               layout, cast=False)
+    if rank == 0:
+        for what, tree in (("params", state.params), ("bound", bound)):
+            if tree is None:
+                continue
+            leaves, treedef = tree_flatten(tree)
+            torch.save({"/".join(p): x.cpu()
+                        for p, x in zip(treedef, leaves)},
+                       Path(out_dir) / f"lm_{kind}_{what}.pt")
+    del state
     torch.cuda.empty_cache()
+    return rec
+
+
+def _shard_lm_unsharded(torch, kind, C, guarded):
+    """The unsharded flat round of a 4f LM run on the card: (metrics,
+    params on the host, seconds, peak)."""
+    from repro_torch.core import init_fl_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.utils.tree import tree_flatten
+    model, fl, scn, comp = _shard_lm_parts(kind, guarded)
+    params = model.init(torch.Generator(device="cuda").manual_seed(TPT_SEED))
+    step, sopt, scn, comp = make_train_step(model, fl, flat=True,
+                                            scenario=scn, compression=comp)
+    state = init_fl_state(params, sopt, scn, comp, cohort=C)
+    batch = _shard_lm_batch(torch, C, model.cfg.vocab_size, "cuda")
+    del params
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    P = _large_block(torch, "P", blk, C_loc, N_loc, dev)
-    Gs = [_large_block(torch, f"G{i}", blk, C_loc, N_loc, dev)
-          for i in range(2)]
-    layout = flatlib.FlatLayout(None, (), N, N, fed.flat_shards(mesh))
-    S = flat_delta_sgd_init(C, layout, eta0=0.2, theta0=1.0, device=dev,
-                            mesh=mesh, federation=fed)
-    kw = dict(gamma=2.0, delta=0.1, eta0=0.2, mesh=mesh,
-              pspec=fed.flat_spec(mesh))
-    for G in Gs:
-        P, S = flat_delta_sgd_step_sharded(P, G, S, **kw)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
     torch.cuda.synchronize()
-    # the steps' peak; the f64 checksum below takes 4 slabs of its own
+    secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
-    eta = S.eta.cpu().numpy().tolist()
-    total = float(P.double().abs().sum())
-    torch.cuda.reset_peak_memory_stats()
-    ms = []
-    for i in range(6):
-        dist.all_reduce(torch.zeros(1, device=dev), mesh, ("data", "model"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        P, S = flat_delta_sgd_step_sharded(P, Gs[i % 2], S, **kw)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    cms = []
-    for _ in range(6):
-        x = torch.ones((2, C_loc), device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dist.all_reduce(x, mesh, na)
-        torch.cuda.synchronize()
-        cms.append((time.perf_counter() - t0) * 1e3)
-    peak = max(peak, torch.cuda.max_memory_allocated() - base)
-    mem = assert_peak_below_global(peak, C, N)
-    loc = assert_peak_within_local(peak, C_loc, N_loc, slabs=6)
-    del P, Gs, S
+    leaves, treedef = tree_flatten(state.params)
+    out = ({k: float(m[k]) for k in ("loss", "loss_last_step", "eta_mean",
+                                     "eta_min", "eta_max")},
+           {"/".join(p): x.cpu() for p, x in zip(treedef, leaves)}, secs,
+           peak)
+    del state, batch, leaves, m
     torch.cuda.empty_cache()
-    return {"block": blk, "eta": eta, "sum": total,
-            "step_ms": statistics.median(ms[1:]),
-            "collective_ms": statistics.median(cms[1:]),
-            "peak_bytes": peak, "peak_local_slabs": loc["local_slabs"],
-            "global_slab_bytes": mem["global_bytes"],
-            "local_slab": [C_loc, N_loc], "N": N}
+    return out
 
 
-def _large_block(torch, what, blk, rows, cols, dev):
-    """One (rows, cols) block of the large slab's ``what`` (P, G0, G1),
-    drawn on the card from a seed keyed on the block."""
-    seed = {"P": 0, "G0": 1, "G1": 2}[what] * 1000 + 10 * blk[0] + blk[1]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randn((rows, cols), generator=gen, device=dev)
+def _shard_lm_gate(torch, kind, recs, want, got_params, bound=None):
+    """A 4f LM run's ranks against the unsharded round -> the worst
+    errors. ``bound``: each element's int8 flip bound (SHARD_LM)."""
+    metrics, params = want
+    for rec in recs:
+        for k, w in metrics.items():
+            g = rec["metrics"][k]
+            if abs(g - w) > SHARD_LM_REL * abs(w):
+                raise AssertionError(f"sharded lm {kind}: {k} {g} vs the "
+                                     f"unsharded {w}")
+    worst, flips, total, over = 0.0, 0, 0, 0.0
+    for path, w in params.items():
+        g = got_params[path]
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        off = int((err > SHARD_LM_REL * scale).sum())
+        worst = max(worst, float(err.max()) / scale)
+        flips, total = flips + off, total + err.numel()
+        if bound is None:
+            if off:
+                raise AssertionError(f"sharded lm {kind}: {path} differs "
+                                     f"by {float(err.max())} (max |p| "
+                                     f"{scale})")
+            continue
+        excess = err - SHARD_LM_REL * scale - bound[path].view_as(err)
+        over = max(over, float(excess.max()))
+        if over > 0.0:
+            raise AssertionError(f"sharded lm {kind}: {path}: "
+                                 f"{over} beyond its flip bound")
+    if flips > SHARD_LM_FLIP_SHARE * total:
+        raise AssertionError(f"sharded lm {kind}: {flips} of {total} "
+                             "elements off")
+    return {"max_err_over_max_p": worst, "int8_flipped_elements": flips,
+            "flipped_share": flips / total}
 
 
 def _sharded_rank(rank, world, out_dir, device):
@@ -4140,49 +4352,24 @@ def _sharded_rank(rank, world, out_dir, device):
             "block path": "repeats its bits",
             "rounds": SHARD_ROUNDS, "collectives_per_round": 2,
             "launches_per_round": 2 * K}))
-        res["large"] = _shard_large(torch, mesh, cd, dev, lines)
+        res["lm"] = {}
+        for kind, C, guarded in SHARD_LM:
+            t0 = time.perf_counter()
+            _reset(_shard_mods())
+            res["lm"][kind] = _shard_lm_rank(torch, mesh, dev, kind, C,
+                                             guarded, out_dir, rank)
+            n = _counts(_shard_mods())
+            if (n.get(("batched_norms", "cuda")), n.get(
+                    ("batched_apply", "cuda"))) != (TPT_K, TPT_K):
+                raise AssertionError(f"sharded lm {kind}: {n} launches, "
+                                     f"expected {TPT_K} of the pair's each")
+            _add_counts(launches, n)
+            if rank == 0:
+                took(f"4f rank 0 lm {kind}", t0)
     res["lines"] = lines
     res["launches"] = [[k[0], n] for k, n in launches.items()]
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
-
-
-def _large_unsharded(torch, N, n_blocks):
-    """The unsharded step on the large slab (the same blocks put
-    together) -> (η after 2 steps, the slab's sum, step ms)."""
-    from repro_torch.core import flat as flatlib
-    from repro_torch.core.delta_sgd import (flat_delta_sgd_init,
-                                            flat_delta_sgd_step)
-    C = LM_SLAB[0]
-    cb, nb = n_blocks
-    rows, cols = C // cb, N // nb
-
-    def whole(what):
-        out = torch.empty((C, N), device="cuda")
-        for i in range(cb):
-            for j in range(nb):
-                out[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols] = \
-                    _large_block(torch, what, (i, j), rows, cols, "cuda")
-        return out
-    P, Gs = whole("P"), [whole("G0"), whole("G1")]
-    S = flat_delta_sgd_init(C, flatlib.FlatLayout(None, (), N, N, 1),
-                            eta0=0.2, theta0=1.0, device="cuda")
-    kw = dict(gamma=2.0, delta=0.1, eta0=0.2)
-    for G in Gs:
-        P, S = flat_delta_sgd_step(P, G, S, **kw)
-    torch.cuda.synchronize()
-    eta = S.eta.cpu().numpy().tolist()
-    total = float(P.double().abs().sum())
-    ms = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        P, S = flat_delta_sgd_step(P, Gs[i % 2], S, **kw)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    del P, Gs, S
-    torch.cuda.empty_cache()
-    return eta, total, statistics.median(ms[1:])
 
 
 def _read_ranks(tmp, world):
@@ -4264,6 +4451,10 @@ def run_sharded_path(torch, tk, tref, bw, f32, smi):
         dist.spawn(_sharded_rank, SHARD_WORLD, (gpu_dir, "cuda"),
                    device="cuda")
         gpu = _read_ranks(gpu_dir, SHARD_WORLD)
+        lm_params = {kind: torch.load(Path(gpu_dir) / f"lm_{kind}_params.pt")
+                     for kind, _, _ in SHARD_LM}
+        lm_bounds = {kind: torch.load(Path(gpu_dir) / f"lm_{kind}_bound.pt")
+                     for kind, _, guarded in SHARD_LM if guarded}
         t_gpu = time.perf_counter() - t0
         dist.spawn(_sharded_rank, SHARD_WORLD, (cpu_dir, "cpu"),
                    device="cpu", threads=2)
@@ -4296,34 +4487,44 @@ def run_sharded_path(torch, tk, tref, bw, f32, smi):
           "and EF21 slabs within 1e-5·max|p| but for int8 code flips, one "
           "code step each, on at most 0.1 % of elements):", json.dumps(worst),
           flush=True)
-    # the large slab: the ranks' η and sums against the unsharded step
-    large = [res["large"] for res in gpu]
-    N = large[0]["N"]
-    eta, total, ms = _large_unsharded(torch, N, (2, 2))
-    blocks = {tuple(x["block"]): x for x in large}
-    got_sum = sum(x["sum"] for x in blocks.values())
-    got_eta = [e for i in range(2) for e in blocks[(i, 0)]["eta"]]
-    if not all(math.isclose(a, b, rel_tol=1e-5)
-               for a, b in zip(got_eta, eta)) or not math.isclose(
-                   got_sum, total, rel_tol=1e-5):
-        raise AssertionError(f"large slab: sharded eta {got_eta} sum "
-                             f"{got_sum} vs unsharded {eta} {total}")
-    print("sharded large slab", json.dumps({
-        "card": smi, "backend": backend, "world": SHARD_WORLD,
-        "slab": [LM_SLAB[0], N], "local_slab": large[0]["local_slab"],
-        "step_ms_by_rank": [x["step_ms"] for x in large],
-        "collective_ms_by_rank": [x["collective_ms"] for x in large],
-        "unsharded_step_ms": ms,
-        "peak_bytes_by_rank": [x["peak_bytes"] for x in large],
-        "global_slab_bytes": large[0]["global_slab_bytes"],
-        "eta": got_eta, "unsharded_eta": eta,
-        "note": "all ranks on one card at once; gloo stages through the "
-                "host, so the collective's ms says nothing of NCCL"}),
-        flush=True)
-    # the kernel pair alone at the ranks' local-slab shapes
+    # the LM rounds on the ranks' TP blocks, against the unsharded round
+    lm_slab = None
+    for kind, C, guarded in SHARD_LM:
+        t1 = time.perf_counter()
+        want = _shard_lm_unsharded(torch, kind, C, guarded)
+        took(f"4f unsharded lm {kind}", t1)
+        recs = [res["lm"][kind] for res in gpu]
+        errs = _shard_lm_gate(torch, kind, recs, want[:2], lm_params[kind],
+                              lm_bounds.get(kind))
+        lm_slab = lm_slab or recs[0]["tp_slab"]
+        print("sharded lm", json.dumps({
+            "card": smi, "backend": backend, "federation": kind,
+            "arch": LM_ARCH, "layers": SHARD_LM_LAYERS, "C": C,
+            "rows": SHARD_LM_B, "seq": SHARD_LM_SEQ, "K": TPT_K,
+            "guarded_tail": "dirichlet_dropouts + trimmed + int8/EF21"
+                            if guarded else None,
+            "N": recs[0]["N"], "tp_slab": recs[0]["tp_slab"],
+            "tp_valid_by_rank": [r["tp_valid"] for r in recs],
+            "gathered_at_use": recs[0]["gathered"],
+            "chunk": recs[0]["chunk"],
+            "metrics": recs[0]["metrics"], "unsharded": want[0],
+            **errs,
+            "round_s_by_rank": [r["round_s"] for r in recs],
+            "unsharded_round_s": want[2],
+            "reshard_s_by_rank": [r["reshard_s"] for r in recs],
+            "collectives_by_role_count_bytes": recs[0]["collectives"],
+            "staged": recs[0]["staged"],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in recs],
+            "peak_local_slabs": recs[0]["peak_local_slabs"],
+            "gather_route_peak_bytes": SHARD_LM_GATHER_PEAK.get(kind),
+            "unsharded_peak_bytes": want[3],
+            "note": "all ranks on one card at once; gloo stages through "
+                    "the host"}), flush=True)
+    # the kernel pair alone at the ranks' local-slab shapes: the CNN's
+    # contiguous block and the LM's TP slab
     from repro_torch.core.flat import _padded
     shapes = ((MAIN_SHAPE[0] // 2, _padded(MAIN_SHAPE[1], 2) // 2),
-              tuple(large[0]["local_slab"]))
+              tuple(lm_slab))
     for C_loc, N_loc in shapes:
         gen = torch.Generator(device="cuda").manual_seed(5)
         g, gp, p = (torch.randn((C_loc, N_loc), generator=gen,
@@ -4819,8 +5020,8 @@ def run_tp_train_path(torch, smi, bw, f32, runs=TPT_RUNS):
         "model_flops": dry_res["model_flops"],
         "hlo_flops_total": dry_res["hlo_flops_total"],
         "measured_peak_bytes_by_rank_tinyllama_4_ranks": [
-            r["runs"]["tinyllama"]["peak_bytes"] for r in ranks
-            if "tinyllama" in r["runs"]],
+            r["runs"]["tinyllama_l11"]["peak_bytes"] for r in ranks
+            if "tinyllama_l11" in r["runs"]],
         "note": "other shapes (C = 2, b = 2, S = 256 on 2 x 2 here): no "
                 "gate"}), flush=True)
     launches = {}
@@ -6044,6 +6245,71 @@ TP_DRY_RUNS = ((("xlstm-1.3b",), ("prefill_32k", "decode_32k", "train_4k")),
                (("zamba2-7b",), ("prefill_32k", "decode_32k", "train_4k")))
 
 
+# launch/perf.py's variants, one pair a family, each pair a CPU process
+# beside phase 4 (as the dry runs): the sharded flat round's, on
+# TinyLlama and on Qwen2.5-14B at full width (cross_silo: one client
+# whose N is cut 256 ways), the MoE switches, the decode cache's and the
+# bf16 softmax
+PERF_RUNS = (("tinyllama-1.1b/train_4k",
+              "flat_fed_sharded,flat_fed_compressed,flat_fed_rounds_fused"),
+             ("qwen2.5-14b/train_4k", "flat_fed_faults"),
+             ("olmoe-1b-7b/train_4k", "capacity1,expert_2d"),
+             ("tinyllama-1.1b/decode_32k", "quant_kv+cache_seq_shard"),
+             ("tinyllama-1.1b/prefill_32k", "softmax_bf16"))
+
+
+def _cpu_env():
+    import os
+    return dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+                OMP_NUM_THREADS="1")
+
+
+def start_perf_runs(tmp):
+    """``PERF_RUNS`` on the (32, 8) H100 mesh's dry run, each pair in a
+    CPU process of its own (one thread, the lowest priority), writing
+    into ``tmp``; read by ``report_perf_runs``."""
+    import atexit
+    import os
+    procs = []
+    for pair, variants in PERF_RUNS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.perf", "--pair", pair,
+             "--variants", variants, "--out", tmp], env=_cpu_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19)))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def report_perf_runs(procs, tmp, dry_tmp):
+    """Each perf pair's output and variants (a refusal fails: every
+    variant asked for lowers), then ``launch/report.py``'s tables over
+    the dry runs' and perf's artifacts."""
+    for (pair, variants), proc in zip(PERF_RUNS, procs):
+        try:
+            out, _ = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode:
+            raise AssertionError(f"perf {pair} failed:\n{out}")
+        print(f"perf {pair}:\n{out.strip()}", flush=True)
+        with open(Path(tmp) / (pair.replace("/", "_") + ".json")) as f:
+            res = json.load(f)
+        for v in variants.split(","):
+            if "refused" in res[v]:
+                raise AssertionError(f"perf {pair} {v}: {res[v]}")
+            print(f"perf {pair} {v} 32x8", json.dumps(res[v]), flush=True)
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", "--dir",
+         dry_tmp, "--perf", tmp], env=_cpu_env(), capture_output=True,
+        text=True, timeout=300)
+    if rep.returncode:
+        raise AssertionError(f"report failed:\n{rep.stdout}{rep.stderr}")
+    print(rep.stdout, flush=True)
+
+
 def start_tp_dry_runs(tmp, groups=TP_DRY_RUNS):
     """The dry runs of ``groups`` (TP_DRY_RUNS' rows) on the (32, 8)
     H100 mesh, on fake tensors, each group in a CPU process of its own
@@ -6256,6 +6522,8 @@ def main() -> int:
     import tempfile
     dry_dir = tempfile.TemporaryDirectory()
     dry = start_tp_dry_runs(dry_dir.name)
+    perf_dir = tempfile.TemporaryDirectory()
+    perf = start_perf_runs(perf_dir.name)
 
     # 4. paths
     paths = {}
@@ -6332,8 +6600,10 @@ def main() -> int:
         torch, smi, runs=[r for r in TPM_RUNS if r[7]])
     mark("6c through CUDA IPC")
     report_tp_dry_runs(dry, dry_dir.name)
+    report_perf_runs(perf, perf_dir.name, dry_dir.name)
     dry_dir.cleanup()
-    mark("waiting for the dry runs")
+    perf_dir.cleanup()
+    mark("waiting for the dry runs and perf")
 
     # 7. the kernel parity matrix
     paths["matrix"] = run_matrix(torch, mods)

@@ -275,7 +275,8 @@ def flat_delta_sgd_step_sharded(P: torch.Tensor, G: torch.Tensor,
                                 delta: float,
                                 eta0: Union[float, torch.Tensor], mesh,
                                 pspec, mask: Optional[torch.Tensor] = None,
-                                active: Optional[torch.Tensor] = None):
+                                active: Optional[torch.Tensor] = None,
+                                g_inplace: bool = False):
     """One Δ-SGD local step on this rank's block of a mesh-sharded
     packed (C, N) buffer.
 
@@ -288,14 +289,19 @@ def flat_delta_sgd_step_sharded(P: torch.Tensor, G: torch.Tensor,
     per-client (dg², gg²) sums finish with ONE all_reduce of a stacked
     (2, C_loc) tensor over the N-shard axes, so η is exact while N is
     never gathered. Every rank of an N-shard group then takes the same
-    η. ``P`` is updated in place. Returns (P, new_state)."""
+    η. ``P`` is updated in place; with ``g_inplace`` (``G`` is the
+    caller's own) the invalid lanes of ``G`` are zeroed in place and
+    ``G`` becomes the new state's previous gradients, with no second
+    slab. Returns (P, new_state)."""
     from repro_torch.sharding import dist
     dg2, gg2 = kernels.batched_norms(G, state.prev_grads)
     if pspec[1]:
-        sums = dist.all_reduce(torch.stack([dg2, gg2]), mesh, pspec[1])
+        sums = dist.all_reduce(torch.stack([dg2, gg2]), mesh, pspec[1],
+                               role="norms")
         dg2, gg2 = sums[0], sums[1]
     return _finish_step(P, G, state, dg2, gg2, gamma=gamma, delta=delta,
-                        eta0=eta0, mask=mask, active=active)
+                        eta0=eta0, mask=mask, active=active,
+                        g_inplace=g_inplace)
 
 
 def _finish_step(P, G, state: FlatDeltaSGDState, dg2, gg2, *, gamma, delta,

@@ -22,8 +22,10 @@ Under a mesh (``mesh=``, ``federation=``) the loop runs the round's body
 on this rank's block (``repro_torch.core.fed_round``) and carries the
 rank's ``FlatFLState``: the (N,) params whole, the EF21 slab as the
 rank's (C_loc, N_loc) block; ``round_data`` holds the rank's clients'
-batches (R, C_loc, K, ...) and ``client_weights`` the whole (R, C)
-block. The reference's block path (``block_sharded=True``) folds the R
+batches (R, C_loc, K, ...) (under training rules their rows cut by
+``launch.steps.place_train_for_rank``, the local steps then on the
+rank's tensor-parallel blocks, ``core.sharded``) and ``client_weights``
+the whole (R, C) block. The reference's block path (``block_sharded=True``) folds the R
 rounds into one ``shard_map`` to enter the mesh once a block; a rank here
 runs the same body either way, so ``block_sharded`` keeps the reference's
 API, its refusals (clients only, ``flat_shards(mesh) == 1``; no fault,

@@ -92,10 +92,24 @@ over the N-shard axes (``FederationSpec.flat_spec``), the layout built
 with ``shards=FederationSpec.flat_shards(mesh)``; the global (C, N) slab
 never exists on one rank. Each ``psum``/``pmin`` of the reference's
 ``shard_map`` is an ``all_reduce`` (``repro_torch.sharding.dist``):
-  * a local step evaluates the rank's clients' model whole, a chunk of
-    clients at a time, each chunk's params gathered to full N over the
-    N-shard axes, and runs ``flat_delta_sgd_step_sharded`` (the kernel
-    pair on the local slab, one (2, C_loc) sum over the N-shard axes);
+  * the local steps run on the rank's TP slab (``core.sharded``), cut
+    from the round-start params: each element of N on exactly one rank
+    of the N-shard group, a leaf the placement cuts as the rank's
+    placement block, the rest split over the axes that leave it whole.
+    A local step runs the model on the rank's placement blocks under
+    the training rules the caller installed (``launch.steps
+    .train_rules``: tensor-parallel layers, vocab-parallel CE, the fsdp
+    gather at use), the split leaves gathered at use (``flat_gather``)
+    a chunk of clients at a time; each gradient is summed over its
+    ``grad_sync`` axes and the rank keeps its pieces; then
+    ``flat_delta_sgd_step_sharded`` (the kernel pair on the TP slab,
+    one (2, C_loc) ``norms`` sum over the N-shard axes, each element
+    counted once). Without rules the model is gathered whole at use;
+  * one ``all_to_all`` over the N-shard axes (``flat_reshard``) moves
+    the round-end local params to the reference's contiguous (C_loc,
+    N_loc) columns before the tail, so compression's chunks, EF21's
+    slab, the robust ladder and the FedBuff buffer see the reference's
+    layout;
   * the scenario's host draws stay whole (C,) vectors on every rank,
     which slices its own lanes (the reference's replicated pins);
   * every client-axis sum of the round's tail rides ONE packed
@@ -113,8 +127,8 @@ rank's (C_loc, N_loc) EF21 slab (``init_fl_state(..., mesh=,
 federation=)``), and the third value ``round_fn`` returns is the rank's
 (C_loc, N_loc) slab of round-end local params (``core.flat.gather_slab``
 puts the ranks' slabs together). ``repro_torch.core.sharded`` counts the
-collectives a round makes. The flat engine evaluates each client's
-model whole: it runs its loss with no logical rules applied.
+collectives a round makes. Off a mesh the flat engine evaluates each
+client's model whole: it runs its loss with no logical rules applied.
 
 Tensor-parallel vmap round: where a caller installs training rules
 (``LogicalRules(serve=False)`` with the params' placement, through
@@ -144,6 +158,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import is_fake
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import flat as flatlib
@@ -552,13 +567,14 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                      mesh=None, federation=None):
     from repro_torch.compression import compress_flat
     from repro_torch.models.common import logical_rules
-    whole_loss = loss_fn
+    rank_loss = loss_fn
 
-    def loss_fn(*args):
-        # the flat engine evaluates each client's model whole: no
-        # logical rules apply to it, whatever a caller installed
+    def whole_loss(*args):
+        # off a mesh the flat engine evaluates each client's model
+        # whole: no logical rules apply to it, whatever a caller
+        # installed
         with logical_rules(None):
-            return whole_loss(*args)
+            return rank_loss(*args)
 
     from repro_torch.federation.buffer import (buffer_merge, buffer_step,
                                                staleness_weights)
@@ -570,7 +586,9 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                          f"client optimizer, got {client_opt.name!r}")
     gamma, delta_ = hyper["gamma"], hyper["delta"]
     eta0, theta0 = hyper["eta0"], hyper["theta0"]
-    vgrad = _client_grads(loss_fn)
+    # under a mesh the local steps run the model on the rank's blocks,
+    # under the rules the caller installed (none: the whole model)
+    vgrad = _client_grads(rank_loss if mesh is not None else whole_loss)
 
     # build-time flags: with all of them off every branch below is the
     # slice-1 code path
@@ -599,9 +617,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
     # N-shard axes ``na``; off-mesh the block is the whole buffer
     sharded = mesh is not None
     shards, n_cshards, c_blk, n_blk = 1, 1, 0, 0
+    slabs = {}
     if sharded:
         from repro_torch.compression import compress_flat_sharded
-        from repro_torch.core.sharded import grad_chunk
+        from repro_torch.core.delta_sgd import training_rules
+        from repro_torch.core.sharded import tp_slab
         from repro_torch.federation.faults import robust_aggregate_sharded
         from repro_torch.federation.heterogeneity import active_mask
         from repro_torch.kernels.telemetry import telemetry as tk
@@ -616,9 +636,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
 
     def step(P, G, S, mask, active, eta0_c):
         if sharded:
+            # G is the round's own slab (local_grads'): its invalid
+            # lanes are zeroed in place
             return flat_delta_sgd_step_sharded(
                 P, G, S, gamma=gamma, delta=delta_, eta0=eta0, mesh=mesh,
-                pspec=pspec, mask=mask, active=active)
+                pspec=pspec, mask=mask, active=active, g_inplace=True)
         return flat_delta_sgd_step(
             P, G, S, gamma=gamma, delta=delta_,
             eta0=eta0 if eta0_c is None else eta0_c, mask=mask,
@@ -640,42 +662,61 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         """The rank's (N_loc,) columns -> (N,) over the N-shard axes."""
         if shards == 1:
             return x
-        return dist.all_gather(x.contiguous(), mesh, na, dim=0)
+        return dist.all_gather(x.contiguous(), mesh, na, dim=0,
+                               role="flat_params")
 
-    def local_grads(P, layout, batch_k, gp, prev):
-        """Packed gradients and losses of the block's clients. With N
-        sharded a rank evaluates its clients' model whole (tensor-
-        parallel model compute comes with the placement rules, ROADMAP
-        A17, second half), ceil(C_loc / S) clients at a time: a chunk's
-        params are gathered to full N over the N-shard axes (within one
-        client coordinate), its gradients packed with the sharded
-        layout, and the rank keeps its own N_loc columns. A chunk's
-        full-N rows are the local slab's size, so no rank holds more."""
-        if shards == 1:
+    def rank_slab(layout):
+        """(TPSlab, the leaves' grad_sync axes) of this rank under the
+        installed training rules, made once for a layout and rules."""
+        from repro_torch.core.sharded import placement_key
+        rules = training_rules()
+        key = (layout, None if rules is None else
+               (placement_key(rules.param_axes), tuple(sorted(
+                   rules.coords.items()))))
+        hit = slabs.get(key)
+        if hit is None:
+            sync = []
+            if rules is not None:
+                from repro_torch.sharding.spec import grad_sync_axes
+                sync = tree_leaves(grad_sync_axes(rules.spec, mesh,
+                                                  rules.param_axes))
+            hit = slabs[key] = (tp_slab(layout, mesh, federation, rules),
+                                sync)
+        return hit
+
+    def local_grads(P, layout, batch_k, gp, prev, slab=None, sync=()):
+        """Packed gradients and losses of the block's clients. Off a
+        mesh: the whole model of every client, vmapped. Under a mesh
+        ``P`` is the rank's (C_loc, width) TP slab (``core.sharded``):
+        a chunk of ``slab.chunk(C_loc)`` clients at a time, the model
+        runs on the rank's placement blocks (the split leaves' pieces
+        gathered at use), each gradient is summed over its
+        ``grad_sync`` axes and the rank keeps its pieces. MOON's ``prev``
+        (whole leaves, the block's clients) is cut to each chunk."""
+        if not sharded:
             g, (loss, _) = vgrad(flatlib.unpack_batched(P, layout), batch_k,
                                  gp, prev)
             # the gradient tree (a (C, N) slab in all) is freed on
             # return, not when the next step reassigns it: an LM's slab
             # is gigabytes
             return flatlib.pack_batched(g, layout), loss
-        C_loc, n_loc = P.shape
-        ch = grad_chunk(C_loc, shards)
-        G = torch.empty_like(P)
+        C_loc = P.shape[0]
+        ch = slab.chunk(C_loc)
+        G = torch.zeros_like(P)
         losses = []
         for a in range(0, C_loc, ch):
             b = min(a + ch, C_loc)
-            full = dist.all_gather(P[a:b], mesh, na, dim=1)
+            params = slab.blocks(P[a:b])
             g, (loss, _) = vgrad(
-                flatlib.unpack_batched(full, layout),
-                tree_map(lambda x: x[a:b], batch_k), gp,
+                params, tree_map(lambda x: x[a:b], batch_k), gp,
                 None if prev is None else tree_map(lambda x: x[a:b], prev))
-            del full
-            Gc = flatlib.pack_batched(g, layout)
+            del params
+            if any(sync):
+                g = _grad_sync(g, sync)
+            slab.pack(tree_leaves(g), G[a:b])
             del g
-            G[a:b] = Gc[:, n_blk * n_loc:(n_blk + 1) * n_loc]
-            del Gc
             losses.append(loss)
-        return G, torch.cat(losses)
+        return G, (losses[0] if len(losses) == 1 else torch.cat(losses))
 
     def flat_body(fstate, client_batches, layout, client_weights=None,
                   prev_local_params=None, gp=None, eta0_c=None):
@@ -695,6 +736,12 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             if layout.shards != shards:
                 raise ValueError(f"layout has shards={layout.shards}, the "
                                  f"mesh needs shards={shards}")
+            if (prev_local_params is not None
+                    and training_rules() is not None):
+                raise ValueError("previous local params (MOON) on the "
+                                 "sharded flat round under training "
+                                 "rules: its distances over the rank's "
+                                 "blocks are not ported")
         if gp is None:
             gp = flatlib.unpack(fstate.P, layout)
         device = fstate.P.device
@@ -704,8 +751,6 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         cols = slice(n_blk * n_loc, (n_blk + 1) * n_loc)
         lanes_of = slice(c_blk * C_loc, (c_blk + 1) * C_loc)
         mask = flatlib.round_mask(layout, device)
-        if sharded and mask is not None:
-            mask = mask[cols].contiguous()
 
         def on_device(a):
             # the round's host draws, queued with no host sync
@@ -735,19 +780,28 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         budget = mine(budget)
 
         # the client slab is owned by this round: the apply kernel
-        # updates it in place, step after step
+        # updates it in place, step after step. Under a mesh the local
+        # steps run on the rank's TP slab, cut from the whole params
         P0 = fstate.P[cols] if sharded else fstate.P
-        P = P0[None].expand(C_loc, n_loc).clone()
         P_start = (P0[None].expand(C_loc, n_loc)
                    if (is_async or comp is not None or guard_tail)
                    else None)
-        S = flat_delta_sgd_init(C, layout, eta0=eta0, theta0=theta0,
-                                device=device, mesh=mesh,
-                                federation=federation)
+        slab, sync = rank_slab(layout) if sharded else (None, ())
+        if sharded:
+            P = slab.cut(fstate.P)[None].expand(C_loc, slab.width).clone()
+            mask = slab.mask(device)
+            S = flat_delta_sgd_init(
+                C_loc, flatlib.FlatLayout(None, (), slab.width, slab.width),
+                eta0=eta0, theta0=theta0, device=device)
+        else:
+            P = P0[None].expand(C_loc, n_loc).clone()
+            S = flat_delta_sgd_init(C, layout, eta0=eta0, theta0=theta0,
+                                    device=device)
         losses = []
         for k in range(K):
             batch_k = tree_map(lambda x: x[:, k], client_batches)
-            G, loss = local_grads(P, layout, batch_k, gp, prev_local_params)
+            G, loss = local_grads(P, layout, batch_k, gp, prev_local_params,
+                                  slab, sync)
             if nan_on:
                 # NaN gradients from the drawn step on, injected on the
                 # wire side of the guard: the in-step guard must catch
@@ -759,6 +813,12 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             del G
             losses.append(loss)
         losses = torch.stack(losses, dim=1)       # (C_loc, K)
+        if sharded:
+            # the round-end local params back to the contiguous columns
+            # of the reference's layout, for the round's tail (the
+            # previous gradients are dead by now)
+            S = S._replace(prev_grads=None)
+            P = slab.to_columns(P)
 
         extra = _scenario_extras(scenario, fstate.round, C, num_clients,
                                  client_sizes, step_counts, device)
@@ -909,9 +969,10 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
             if tele_on:
                 parts.append(tk.lane_histogram(S.eta, edges[device]).to(
                     torch.float32))
-            packed = dist.all_reduce(torch.cat(parts), mesh, ca)
+            packed = dist.all_reduce(torch.cat(parts), mesh, ca,
+                                     role="flat_sum")
             ext = dist.all_reduce(torch.stack([S.eta.min(), -S.eta.max()]),
-                                  mesh, ca, op="min")
+                                  mesh, ca, op="min", role="flat_min")
             off = 0 if guard_tail else n_loc
             sg = packed[off:]
             metrics = {"loss": sg[0] / loss_den,
@@ -927,7 +988,8 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
                     # the clients' (C_loc,) mean losses, gathered over
                     # the client axes for the ranked values
                     client_loss = dist.all_gather(
-                        xla_mean(losses.to(torch.float32), dim=1), mesh, ca)
+                        xla_mean(losses.to(torch.float32), dim=1), mesh, ca,
+                        role="metrics")
                     extra["loss_deciles"] = tk.lane_quantiles(
                         client_loss, tele.quantiles)
             if guard_tail:
@@ -945,8 +1007,11 @@ def _make_flat_round(loss_fn, client_opt: ClientOpt, server_opt: ServerOpt,
         # quorum degradation: with < Q valid clients the round keeps the
         # previous params, server state, buffer and EF21 state (the
         # tail's one host read; under a mesh the count is whole on
-        # every rank, so every rank takes the same branch)
-        skipped = guard_tail and quorum > 0 and float(n_valid) < quorum
+        # every rank, so every rank takes the same branch). A fake
+        # tensor (the dry run) has no count to read: it counts the path
+        # that steps
+        skipped = (guard_tail and quorum > 0 and not is_fake(n_valid)
+                   and float(n_valid) < quorum)
         if skipped:
             newP, sstate = fstate.P, fstate.server_state
             flushed = n_valid.new_zeros(())

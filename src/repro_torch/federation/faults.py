@@ -213,18 +213,19 @@ def robust_aggregate_sharded(delta: torch.Tensor, spec: RobustAgg,
     if spec.kind in ("trimmed", "median"):
         shard_agg = _sorted_window_mean(zeroed, spec.trim_count(
             zeroed.shape[0]))
-        dist.all_reduce(shard_agg, mesh, ca)
+        dist.all_reduce(shard_agg, mesh, ca, role="robust")
         return shard_agg / float(axes_size(mesh, ca)), info
     vw = vf if weights is None else vf * weights.to(torch.float32)
     tail = [vw.sum()]
     if spec.kind == "clip":
         n2 = (zeroed * zeroed).sum(dim=1)
-        dist.all_reduce(n2, mesh, na)
+        dist.all_reduce(n2, mesh, na, role="robust")
         factors = _clip_factors(numerics.sqrt(n2), spec.clip_norm)
         tail += [vf.sum(), ((factors < 1.0) * vf).sum()]
         zeroed = zeroed * factors[:, None]
     part = torch.tensordot(vw, zeroed, dims=([0], [0]))
-    packed = dist.all_reduce(torch.cat([part, torch.stack(tail)]), mesh, ca)
+    packed = dist.all_reduce(torch.cat([part, torch.stack(tail)]), mesh, ca,
+                             role="robust")
     n = part.shape[0]
     if spec.kind == "clip":
         info["agg_clip_rate"] = (packed[n + 2]

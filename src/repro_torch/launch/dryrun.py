@@ -64,6 +64,7 @@ is the capacity-planning number, as in the reference.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -198,17 +199,31 @@ def _state_bytes(state, axes, mesh) -> int:
 
 
 def _lower_train(model, shape, fl, mesh, spec, mode, *, remat: bool,
-                 use_pallas: bool, seq: int = None):
-    """One rank's vmap round of ``make_train_step`` on fake blocks,
-    counted (its batches ``seq`` tokens long, the shape's by default).
-    Returns (work, memory fields, analytic memory)."""
+                 use_pallas: bool, seq: int = None, flat_fed: bool = False,
+                 flat_sharded: bool = False, scenario=None, compression=None,
+                 rounds_per_call: int = 1):
+    """One rank's round on fake blocks, counted (its batches ``seq``
+    tokens long, the shape's by default): ``make_train_step``'s vmap
+    round; with ``flat_fed`` the flat engine off the mesh (N whole on the
+    rank's clients: the rank's (C_loc, K, b_loc) rows, each client's
+    model whole, no rules); with ``flat_sharded`` too the sharded flat
+    round on the rank's tensor-parallel blocks (``core.sharded``) under
+    the training rules, ``rounds_per_call`` > 1 its fused block
+    (``make_train_loop``). ``scenario`` and ``compression`` reach the
+    flat rounds. Returns (work, memory fields, analytic memory)."""
     cfg = model.cfg
+    C = spec.clients_on(mesh)
+    sizes = mesh_shape(mesh)
+    if flat_fed:
+        return _lower_flat(model, shape, fl, mesh, spec, mode, remat=remat,
+                           use_pallas=use_pallas, seq=seq,
+                           sharded=flat_sharded, scenario=scenario,
+                           compression=compression,
+                           rounds_per_call=rounds_per_call)
     step, sopt, scn, comp = make_train_step(model, fl, use_pallas=use_pallas,
                                             remat=remat, flat=False)
-    C = spec.clients_on(mesh)
     state = abstract_fl_state(model, sopt, scn, comp, C, mode=mode)
     batch = train_specs(model, _at(shape, seq), fl, C, mode)
-    sizes = mesh_shape(mesh)
     rules = train_rules(model, mesh, state.params, spec=spec,
                         coords={a: 0 for a in sizes})
     state_sh = state_placements(spec, mesh, state, rules.param_axes)
@@ -225,6 +240,68 @@ def _lower_train(model, shape, fl, mesh, spec, mode, *, remat: bool,
                "server_state": out_state.server_state,
                "metrics": metrics})}
     analytic = analytic_memory(cfg, shape, spec, mesh, state.params,
+                               rules.param_axes, fl)
+    return work, mem, analytic
+
+
+def _lower_flat(model, shape, fl, mesh, spec, mode, *, remat, use_pallas,
+                seq, sharded, scenario, compression, rounds_per_call):
+    """``_lower_train``'s flat rounds (its docstring). The quorum test
+    reads the survivor count on the host, which a fake tensor cannot
+    give: on fake tensors the round counts the path that steps."""
+    from repro_torch.core import init_fl_state
+    from repro_torch.core import flat as flatlib
+    from repro_torch.core.fed_loop import FlatFLState
+    from repro_torch.launch.steps import make_train_loop
+    cfg = model.cfg
+    C = spec.clients_on(mesh)
+    sizes = mesh_shape(mesh)
+    R = max(1, int(rounds_per_call))
+    pstruct = params_struct(model, mode)
+    rules = train_rules(model, mesh, pstruct, spec=spec,
+                        coords={a: 0 for a in sizes})
+    batch = train_specs(model, _at(shape, seq), fl, C, mode)
+    batch_sh = batch_shardings(spec, mesh, batch)
+    kw = dict(use_pallas=use_pallas, remat=remat, scenario=scenario,
+              compression=compression)
+    if sharded and R > 1:
+        run, sopt, scn, comp = make_train_loop(
+            model, fl, rounds_per_call=R, mesh=mesh, federation=spec, **kw)
+    elif sharded:
+        run, sopt, scn, comp = make_train_step(
+            model, fl, flat=True, mesh=mesh, federation=spec, **kw)
+    elif R > 1:
+        raise ValueError("rounds_per_call > 1 on a mesh requires the "
+                         "sharded flat engine (flat_sharded)")
+    else:
+        run, sopt, scn, comp = make_train_step(model, fl, flat=True, **kw)
+    with mode:
+        loc_batch = _local(batch, batch_sh, mesh)
+        if sharded:
+            state = init_fl_state(pstruct, sopt, scn, comp, cohort=C,
+                                  mesh=mesh, federation=spec)
+        else:
+            C_loc = tree_leaves(loc_batch)[0].shape[0]
+            state = init_fl_state(pstruct, sopt, scn, comp, cohort=C_loc)
+        if R > 1:
+            carry = FlatFLState(flatlib.pack(state.params, run.layout),
+                                state.server_state, 0, state.buffer,
+                                state.ef)
+            args = (carry, tree_map(lambda x: x.new_empty((R,) + tuple(
+                x.shape)), loc_batch))
+        else:
+            args = (state, loc_batch)
+        with roofline.count_work() as work:
+            with logical_rules(rules if sharded else None):
+                out, metrics = run(*args)
+    params_out = out.P if R > 1 else out.params
+    mem = {"argument_size_in_bytes": _nbytes({
+               "params": state.params, "server_state": state.server_state,
+               "ef": state.ef}) + shard_bytes(batch, batch_sh, mesh) * R,
+           "output_size_in_bytes": _nbytes({"params": params_out,
+                                            "metrics": metrics}),
+           "rounds_per_call": R}
+    analytic = analytic_memory(cfg, shape, spec, mesh, pstruct,
                                rules.param_axes, fl)
     return work, mem, analytic
 
@@ -302,6 +379,77 @@ def _nbytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
+# the knobs of ``launch/perf.py``'s variants (the reference's
+# ``_compile_step`` arguments) and the lowering they reach
+TRAIN_KNOBS = ("flat_fed", "flat_sharded", "scenario", "compression",
+               "rounds_per_call")
+SERVE_KNOBS = ("quant_kv", "cache_seq_shard")
+SWITCHES = ("softmax_bf16", "capacity", "expert_2d", "seq_shard")
+
+
+def refuse_knobs(knobs) -> None:
+    """Raise ``Refused`` for a knob the port does not lower, ValueError
+    for one no variant has."""
+    unknown = set(knobs) - set(TRAIN_KNOBS + SERVE_KNOBS + SWITCHES)
+    if unknown:
+        raise ValueError(f"unknown knobs {sorted(unknown)}")
+    if knobs.get("seq_shard"):
+        raise Refused("seq_shard: the Megatron-SP residual (the residual "
+                      "stream cut over model along the sequence) is not "
+                      "ported; every mixer needs its all-gather and "
+                      "reduce-scatter (ROADMAP A17)")
+
+
+@contextlib.contextmanager
+def switches(softmax_bf16: bool = False, capacity=None):
+    """The model-level switches of a variant, each restored on exit:
+    ``attention.SOFTMAX_BF16`` and ``moe.CAPACITY_FACTOR``."""
+    from repro_torch.models import attention, moe
+    prev = attention.SOFTMAX_BF16, moe.CAPACITY_FACTOR
+    attention.SOFTMAX_BF16 = bool(softmax_bf16)
+    if capacity is not None:
+        moe.CAPACITY_FACTOR = capacity
+    try:
+        yield
+    finally:
+        attention.SOFTMAX_BF16, moe.CAPACITY_FACTOR = prev
+
+
+def count_program(cfg, shape, fl, mesh, spec, *, use_pallas: bool = False,
+                  remat: bool = True, knobs=None):
+    """Rank (0, ..., 0)'s program of ``cfg`` at ``shape`` on fake tensors,
+    counted under a variant's ``knobs`` (``launch/perf.py``;
+    ``expert_2d`` is the caller's ``spec``): a training shape's round
+    (``_lower_train``), a serve shape's step (``_lower_serve``); an
+    xLSTM program's sLSTM loop counted at three points
+    (``_lower_scaled``). Returns (work, memory fields, analytic memory,
+    rounds the work counts)."""
+    knobs = dict(knobs or {})
+    refuse_knobs(knobs)
+    model = build_model(cfg, torch.bfloat16)
+    mode = FakeTensorMode()
+    if shape.kind == "train":
+        lower = _lower_train
+        kw = dict(remat=remat, **{k: knobs[k] for k in TRAIN_KNOBS
+                                  if k in knobs})
+        rounds = int(knobs.get("rounds_per_call", 1)) \
+            if knobs.get("flat_sharded") else 1
+    else:
+        lower = _lower_serve
+        kw = {k: knobs[k] for k in SERVE_KNOBS
+              if k in knobs and shape.kind == "decode"}
+        rounds = 1
+    with switches(knobs.get("softmax_bf16", False), knobs.get("capacity")):
+        if _loop_scaled(cfg, shape):
+            work, mem, analytic = _lower_scaled(lower, model, shape, fl,
+                                                mesh, spec, mode,
+                                                use_pallas=use_pallas, **kw)
+        else:
+            work, mem, analytic = lower(model, shape, fl, mesh, spec, mode,
+                                        use_pallas=use_pallas, **kw)
+    return work, mem, analytic, rounds
+
+
 def lower_one(arch: str, shape_id: str, multi_pod: bool, *,
               fl: FLConfig = None, local_steps: int = 2,
               use_pallas: bool = False, remat: bool = True,
@@ -322,22 +470,13 @@ def lower_one(arch: str, shape_id: str, multi_pod: bool, *,
         chips *= n
     fed_kind = federation_kind(cfg)
     spec = get_federation_spec(fed_kind, mesh)
-    model = build_model(cfg, torch.bfloat16)
-    mode = FakeTensorMode()
     t0 = time.time()
-    lower, kw = ((_lower_train, dict(remat=remat)) if shape.kind == "train"
-                 else (_lower_serve, {}))
-    if _loop_scaled(cfg, shape):
-        work, mem, analytic = _lower_scaled(lower, model, shape, fl, mesh,
-                                            spec, mode,
-                                            use_pallas=use_pallas, **kw)
-    else:
-        work, mem, analytic = lower(model, shape, fl, mesh, spec, mode,
-                                    use_pallas=use_pallas, **kw)
+    work, mem, analytic, rounds = count_program(
+        cfg, shape, fl, mesh, spec, use_pallas=use_pallas, remat=remat)
     mem["note"] = ("eager mode has no buffer assignment: no temp size; "
                    "see analytic_memory")
     t_lower = time.time() - t0
-    rl = roofline.analyze(work, chips)
+    rl = roofline.analyze(work, chips, rounds)
     if shape.kind == "train":
         tokens_per_step = shape.global_batch * shape.seq_len * fl.local_steps
         mf = roofline.model_flops(cfg, tokens_per_step)
@@ -373,10 +512,14 @@ def lower_one(arch: str, shape_id: str, multi_pod: bool, *,
 
 
 def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas,
-                 seq: int = None):
+                 seq: int = None, quant_kv: bool = False,
+                 cache_seq_shard: bool = False):
     """One rank's prefill or decode step on fake blocks, counted (a
-    prompt of ``seq`` tokens, the shape's by default). Returns (work,
-    memory fields, analytic memory)."""
+    prompt of ``seq`` tokens, the shape's by default). A decode step
+    reads the int8 cache with ``quant_kv`` and, with
+    ``cache_seq_shard``, a cache whose time dim ``cache_shardings``
+    also cuts over ``model`` where the rows split over the data axes.
+    Returns (work, memory fields, analytic memory)."""
     cfg = model.cfg
     sizes = mesh_shape(mesh)
     pstruct = params_struct(model, mode)
@@ -395,12 +538,15 @@ def _lower_serve(model, shape, fl, mesh, spec, mode, *, use_pallas,
             in_bytes = shard_bytes(batch, bsh, mesh)
         else:
             window = decode_window(cfg, shape)
-            cache, tokens = decode_specs(model, shape, window, mode=mode)
+            cache, tokens = decode_specs(model, shape, window,
+                                         quant_kv=quant_kv, mode=mode)
             cache_sh = cache_shardings(spec, mesh, cache,
-                                       batch_size=shape.global_batch)
+                                       batch_size=shape.global_batch,
+                                       seq_shard=cache_seq_shard)
             tsh = serve_batch_shardings(mesh, {"t": tokens})["t"]
             local_cache = place_for_rank(
-                rules, cache=cache, batch_size=shape.global_batch)["cache"]
+                rules, cache=cache, batch_size=shape.global_batch,
+                cache_seq_shard=cache_seq_shard)["cache"]
             args = (params, local_cache,
                     tokens.new_empty(local_shape(tuple(tokens.shape), tsh,
                                                  mesh)))

@@ -133,7 +133,8 @@ def _cut(tree, axes, rules, device):
 
 def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
                    cache=None, batch_size: Optional[int] = None,
-                   device=None) -> Dict:
+                   device=None, cache_seq_shard: Optional[bool] = None
+                   ) -> Dict:
     """One rank's blocks of whole ``params``, ``batch`` and ``cache``
     by the reference's rules (``param_placements``,
     ``serve_batch_shardings``, ``cache_shardings`` with ``batch_size``,
@@ -144,7 +145,10 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     axis (``unread_seq_cut``, ROADMAP A17). Where the rows do not split
     over the data axes, an attention cache's time dim and an xLSTM
     state's heads or units are cut over ``model``, as the reference's
-    table cuts them, and the decode reads those blocks.
+    table cuts them, and the decode reads those blocks;
+    ``cache_seq_shard`` (by default the rules' ``seq_shard``:
+    ``cache_shardings``' switch) cuts a batch-split cache's time dim
+    over ``model`` too.
 
     A Mamba2 run's cache is then narrowed to the rank's heads and conv
     channels (``_mamba2_rank_cache``), a difference by design: where
@@ -167,14 +171,15 @@ def place_for_rank(rules: LogicalRules, *, params=None, batch=None,
     if cache is not None:
         if batch_size is None:
             raise ValueError("a cache is placed by its global batch_size")
+        seq = rules.seq_shard if cache_seq_shard is None \
+            else cache_seq_shard
         cut = unread_seq_cut(rules.spec, rules.mesh, cache,
-                             batch_size=batch_size,
-                             seq_shard=rules.seq_shard)
+                             batch_size=batch_size, seq_shard=seq)
         if cut:
             raise ValueError(refuse_seq_cut(cut))
         local = _cut(cache, cache_shardings(
             rules.spec, rules.mesh, cache, batch_size=batch_size,
-            seq_shard=rules.seq_shard), rules, device)
+            seq_shard=seq), rules, device)
         for key, run in local.get("runs", {}).items():
             if set(run) == {"ssm", "conv"}:
                 local["runs"][key] = _mamba2_rank_cache(
@@ -559,10 +564,13 @@ def make_train_step(model: Model, fl: FLConfig, *, num_rounds: int = 1000,
     ``flat`` defaults to ``fl.flat_engine``; async, fault, robust and
     quorum scenarios and an active compression switch the flat engine
     on, as in the reference. ``mesh`` + ``federation`` (flat engine
-    only) run the round on a rank's block of the sharded (C, N) buffer,
-    with no logical rules applied to the model. The vmap engine runs
-    tensor-parallel where the caller installs training rules
-    (``train_rules``) around the call. ``remat`` turns on per-block
+    only) run the round on a rank's block of the sharded (C, N) buffer:
+    its local steps run the model on the rank's tensor-parallel blocks
+    under the training rules the caller installs (``train_rules``,
+    the batches cut by ``place_train_for_rank``; ``core.sharded``), the
+    whole model gathered at use where none are installed. The vmap
+    engine runs tensor-parallel where the caller installs training
+    rules around the call. ``remat`` turns on per-block
     rematerialisation inside the loss. Returns (train_step, sopt,
     scenario, compression): the resolved scenario and compression, so
     the caller can allocate a matching ``init_fl_state``."""
@@ -846,3 +854,52 @@ def train_collectives(model: Model, rules: LogicalRules, *, local_steps: int,
     clients = int(bool(client_axes_on(rules.spec, rules.mesh)))
     out.update(fedavg=clients, metrics=clients)
     return {r: n for r, n in out.items() if n}
+
+
+def flat_train_collectives(model: Model, rules: LogicalRules, slab, *,
+                           local_steps: int, clients: int,
+                           robust: Optional[str] = None,
+                           deciles: bool = False,
+                           skipped: bool = False) -> Dict[str, int]:
+    """The collectives one sharded flat round of ``local_steps`` Δ-SGD
+    steps makes on a rank under training ``rules``, by role, for a
+    cohort of ``clients`` and the rank's ``slab`` (``core.sharded
+    .TPSlab``). A local step evaluates ``slab.chunk(C_loc)`` clients at
+    a time: for each chunk a ``flat_gather`` a group of split leaves
+    and the model's own forward and backward collectives with its
+    ``grad_sync`` (``train_collectives`` at one step, without the vmap
+    round's own sums), then one ``norms`` sum. The tail: one
+    ``flat_reshard``; the ``robust`` ladder's sums (``robust``: one over
+    the client axes, and for clip one over the N-shard axes); the packed
+    ``flat_sum`` and the η extrema's ``flat_min`` over the client axes
+    (with ``deciles`` the losses' ``metrics`` gather); the aggregate's
+    ``flat_params`` gather (none when a quorum skip keeps the params).
+    Axes of size 1 make none."""
+    fed, mesh = slab.federation, slab.mesh
+    ca = client_axes_on(fed, mesh)
+    shards = fed.flat_shards(mesh)
+    C_loc = clients // max(1, rules.size(ca)) if ca else clients
+    chunks = -(-C_loc // slab.chunk(C_loc))
+    model_ops = train_collectives(model, rules, local_steps=1)
+    for r in ("norms", "fedavg", "metrics"):
+        model_ops.pop(r, None)
+    out: Dict[str, int] = {}
+
+    def add(role, n):
+        if n:
+            out[role] = out.get(role, 0) + n
+    K = local_steps
+    if shards > 1:
+        add("flat_gather", K * chunks * len(slab.groups))
+        for r, n in model_ops.items():
+            add(r, K * chunks * n)
+        add("norms", K)
+        add("flat_reshard", 1)
+        add("flat_params", int(not skipped))
+    if robust is not None:
+        add("robust", int(bool(ca)) + int(robust == "clip" and shards > 1))
+    if ca:
+        add("flat_sum", 1)
+        add("flat_min", 1)
+        add("metrics", int(deciles))
+    return out

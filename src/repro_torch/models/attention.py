@@ -206,6 +206,13 @@ def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 # never whole
 _NQ_TARGET = 8
 
+# the reference's beyond-paper switch (``launch/perf.py``'s
+# ``softmax_bf16``): the softmax's probabilities are stored in bf16
+# between the two attention products, halving that term's bytes; the
+# exponent of the max-subtracted scores keeps them in [0, 1]. Off by
+# default
+SOFTMAX_BF16 = False
+
 
 def _sdpa_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 rows: torch.Tensor, *, causal: bool,
@@ -222,6 +229,15 @@ def _sdpa_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window is not None:
             mask = mask & ((rows[:, None] - cols) < window)
         scores = torch.where(mask[None, None], scores, NEG_INF)
+    if SOFTMAX_BF16:
+        # bf16 probabilities into a bf16 product; their f32 sum divides
+        # the result
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp(scores - m).to(torch.bfloat16)
+        denom = p.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        out = torch.einsum("bhst,bthd->bshd", p,
+                           v.to(torch.bfloat16)).float()
+        return (out / denom.transpose(1, 2)).to(v.dtype)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w, v.float())
     return out.to(v.dtype)
@@ -235,8 +251,9 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     every query against all T keys (the Whisper encoder, cross-attention).
     K and V are repeated to the H = KV·G heads; the queries run in
     chunks of S/_NQ_TARGET rows at S ≥ 2048 (a Python loop where the
-    reference scans). The reference's query offset has no caller here,
-    and its bf16-softmax switch (off by default) is not ported."""
+    reference scans). The reference's query offset has no caller here.
+    ``SOFTMAX_BF16`` (off by default) stores the probabilities in bf16
+    between the two products, as the reference's switch does."""
     B, S, KV, G, hd = q.shape
     H = KV * G
     qq = q.reshape(B, S, H, hd)

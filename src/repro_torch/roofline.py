@@ -18,9 +18,10 @@ input and output bytes (the counterpart of XLA's ``bytes accessed``,
 which also counts operands and results; views move nothing and are not
 counted), and the collectives from the recorder
 (``repro_torch.sharding.hlo``) with the ring ``wire_bytes``. Eager
-mode runs every layer, so the counts are the full depth's: the
-reference's two-depth ``extrapolate`` has no caller here and comes
-with ``perf.py`` (ROADMAP A17).
+mode runs every layer, so the dry run's counts are the full depth's;
+``launch/perf.py`` counts its variants at the reference's two
+calibration depths and takes the full depth from them with
+``extrapolate``, as the reference does.
 """
 from __future__ import annotations
 
@@ -143,14 +144,41 @@ def count_work():
     work.collectives = hlo.LOG[start:]
 
 
-def analyze(work: Work, chips: int) -> Roofline:
+def analyze(work: Work, chips: int, rounds: int = 1) -> Roofline:
+    """The roofline of ``work``; counted over ``rounds`` rounds (a fused
+    block), its terms are one round's, as the reference's cost analysis
+    counts a scanned round once."""
     ops = work.collectives
     by_kind: Dict[str, float] = {}
     for o in ops:
-        by_kind[o.kind] = by_kind.get(o.kind, 0.0) + o.wire_bytes
-    return Roofline(work.flops, work.hbm_bytes,
-                    sum(o.wire_bytes for o in ops), chips, by_kind,
-                    coll_seconds=sum(o.wire_bytes / link_bw(o) for o in ops))
+        by_kind[o.kind] = by_kind.get(o.kind, 0.0) + o.wire_bytes / rounds
+    return Roofline(work.flops / rounds, work.hbm_bytes / rounds,
+                    sum(o.wire_bytes for o in ops) / rounds, chips, by_kind,
+                    coll_seconds=sum(o.wire_bytes / link_bw(o)
+                                     for o in ops) / rounds)
+
+
+def extrapolate(r1: Roofline, r2: Roofline, l1: int, l2: int,
+                L: int) -> Roofline:
+    """Affine-in-depth extrapolation (the reference's): a program is a
+    fixed part plus L times a layer's, so the counts at depths ``l1``
+    and ``l2`` fix the count at ``L``; each term is clamped at 0. The
+    collectives' bytes by kind and their seconds (each op's bytes over
+    its link's bandwidth, summed) are extrapolated like the bytes."""
+    def ext(a, b):
+        slope = (b - a) / (l2 - l1)
+        return max(0.0, a + slope * (L - l1))
+
+    kinds = set(r1.coll_by_kind) | set(r2.coll_by_kind)
+    by_kind = {k: ext(r1.coll_by_kind.get(k, 0.0),
+                      r2.coll_by_kind.get(k, 0.0)) for k in kinds}
+    seconds = (None if r1.coll_seconds is None or r2.coll_seconds is None
+               else ext(r1.coll_seconds, r2.coll_seconds))
+    return Roofline(ext(r1.flops, r2.flops),
+                    ext(r1.hbm_bytes, r2.hbm_bytes),
+                    ext(r1.coll_bytes, r2.coll_bytes),
+                    r1.chips, by_kind, per_device=r1.per_device,
+                    coll_seconds=seconds)
 
 
 def model_flops(cfg, tokens: int) -> float:

@@ -16,13 +16,16 @@ tensors, and each ``jax.lax.psum``/``pmin`` of the reference becomes an
     ``make_debug_mesh``), plus one process group for every set of its
     dimensions, so a collective over the tuple ("data", "model") is one
     call.
-  * ``all_reduce(x, mesh, axes, op)`` (sum or min) and
-    ``all_gather(x, mesh, axes, dim)`` are the collectives. Each records
-    a ``CollectiveOp`` in ``repro_torch.sharding.hlo``. Over no axes, or
+  * ``all_reduce(x, mesh, axes, op)`` (sum or min),
+    ``all_gather(x, mesh, axes, dim)`` and ``all_to_all(send,
+    send_counts, recv_counts, mesh, axes)`` (segments of a 1-D buffer,
+    in block order) are the collectives. Each records a
+    ``CollectiveOp`` in ``repro_torch.sharding.hlo``. Over no axes, or
     axes of size 1, they are the identity and record nothing. gloo has
-    no all-gather of CUDA tensors: under gloo that op is staged through
-    one pinned host buffer (the blocks, then a single copy to the card,
-    ordered there) and recorded as staged. NCCL never stages.
+    no all-gather or all-to-all of CUDA tensors: under gloo those ops
+    are staged through pinned host buffers (for the gather the blocks,
+    then a single copy to the card, ordered there) and recorded as
+    staged. NCCL never stages.
   * ``spawn(fn, world, args, device)`` runs ``fn(rank, world, *args)``
     in ``world`` fresh processes on a ``file://`` rendezvous, so
     parallel test workers never share a port.
@@ -314,6 +317,18 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
         parts = [torch.empty_like(src) for _ in ranks]
         dist.all_gather(parts, src, group=group)
     # group ranks -> blocks in the order of ``axes``
+    block = _block_of(mesh, axes)
+    order = sorted(range(len(ranks)), key=lambda i: block(ranks[i]))
+    out = torch.cat([parts[i] for i in order], dim=dim)
+    hlo.record(hlo.CollectiveOp(
+        "all-gather", out.numel() * out.element_size(), len(ranks), axes,
+        _dtype(x), tuple(out.shape), "", staged, role))
+    return out
+
+
+def _block_of(mesh, axes) -> callable:
+    """rank -> its block index over ``axes`` (blocked row-major in the
+    order of ``axes``)."""
     shape = mesh_shape(mesh)
     names = list(mesh.mesh_dim_names)
     sizes = [shape[a] for a in names]
@@ -324,12 +339,65 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
         for a in axes:
             b = b * shape[a] + c[names.index(a)]
         return b
+    return block
 
-    order = sorted(range(len(ranks)), key=lambda i: block(ranks[i]))
-    out = torch.cat([parts[i] for i in order], dim=dim)
+
+def all_to_all(send: torch.Tensor, send_counts: Sequence[int],
+               recv_counts: Sequence[int], mesh, axes: Sequence[str], *,
+               role: str = "") -> torch.Tensor:
+    """Every rank spanned by ``axes`` sends each of the others a segment
+    of the 1-D ``send``: its segments lie in block order (blocked
+    row-major in the order of ``axes``, as ``all_gather`` orders
+    blocks), ``send_counts[b]`` elements for the rank of block b.
+    Returns the 1-D concatenation, in block order, of the segments this
+    rank received (``recv_counts[b]`` from block b). gloo has no
+    all-to-all of CUDA tensors: under gloo the exchange is staged
+    through pinned host buffers (one copy each way) and recorded as
+    staged. On an ``AbstractMesh`` it records the op and returns an
+    empty tensor of the received length."""
+    axes = _live(mesh, axes)
+    n_out = int(sum(recv_counts))
+    if not axes:
+        return send
+    if isinstance(mesh, AbstractMesh):
+        out = send.new_empty((n_out,))
+        hlo.record(hlo.CollectiveOp(
+            "all-to-all", out.numel() * out.element_size(),
+            axes_size(mesh, axes), axes, _dtype(send), tuple(out.shape),
+            "", False, role))
+        return out
+    group, ranks = _group(mesh, axes)
+    block = _block_of(mesh, axes)
+    blocks = [block(r) for r in ranks]          # group order -> block
+    ins = [int(send_counts[b]) for b in blocks]
+    outs = [int(recv_counts[b]) for b in blocks]
+    src = send.contiguous()
+    if blocks != sorted(blocks):
+        # segments in the group's rank order
+        starts = [0]
+        for c in send_counts:
+            starts.append(starts[-1] + int(c))
+        src = torch.cat([src[starts[b]:starts[b + 1]] for b in blocks])
+    rt = runtime()
+    staged = rt.backend == "gloo" and send.device.type == "cuda"
+    if staged:
+        host = torch.empty(src.shape, dtype=src.dtype,
+                           pin_memory=True).copy_(src)
+        buf = torch.empty((n_out,), dtype=src.dtype, pin_memory=True)
+        dist.all_to_all_single(buf, host, outs, ins, group=group)
+        out = buf.to(send.device, non_blocking=True)
+    else:
+        out = src.new_empty((n_out,))
+        dist.all_to_all_single(out, src, outs, ins, group=group)
+    if blocks != sorted(blocks):
+        starts = [0]
+        for c in outs:
+            starts.append(starts[-1] + c)
+        seg = {b: out[starts[i]:starts[i + 1]] for i, b in enumerate(blocks)}
+        out = torch.cat([seg[b] for b in sorted(blocks)])
     hlo.record(hlo.CollectiveOp(
-        "all-gather", out.numel() * out.element_size(), len(ranks), axes,
-        _dtype(x), tuple(out.shape), "", staged, role))
+        "all-to-all", out.numel() * out.element_size(), len(ranks), axes,
+        _dtype(send), tuple(out.shape), "", staged, role))
     return out
 
 

@@ -7,7 +7,9 @@ module's log, and the checks read the log:
 
   * ``assert_flat_buffer_sharded``: no collective moves a payload of
     the global (C, N) f32 slab's size — the slab never exists on one
-    rank (the reference's ``flat_buffer_report``);
+    rank (the reference's ``flat_buffer_report``); with ``client_n``
+    no local-step op of the flat round holds a client's whole N either
+    (the round on the ranks' tensor-parallel blocks, ``core.sharded``);
   * ``assert_no_fullprec_delta_collective``: no collective over a
     client axis moves an f32 payload of a (C_loc, N_loc) per-client
     slab or more — compression and the robust ladder finish before any
@@ -120,19 +122,61 @@ def summary(ops: Sequence[CollectiveOp], rounds: int = 1) -> Dict:
             "collective_staged": sum(c.staged for c in ops)}
 
 
-def flat_buffer_report(ops: Sequence[CollectiveOp], C: int, N: int) -> Dict:
+# the sharded flat round's own roles: a local step's gathers of the
+# leaves its placement leaves whole over some N-shard axes
+# (``flat_gather``) and its Δ-SGD ``norms`` sum; the tail's reshard of
+# the round-end local params to contiguous columns (``flat_reshard``),
+# the robust ladder's sums (``robust``), the packed client-axis sum and
+# the η extrema (``flat_sum``, ``flat_min``), telemetry's loss gather
+# (``metrics``) and the aggregate's gather over the N-shard axes
+# (``flat_params``: the server's params, whole on every rank)
+FLAT_STEP_ROLES = ("flat_gather", "norms")
+FLAT_TAIL_ROLES = ("flat_reshard", "robust", "flat_sum", "flat_min",
+                   "metrics", "flat_params")
+
+
+def _per_client(c: CollectiveOp) -> int:
+    """A record's elements a leading row: the clients' stacked dim of a
+    local step's op; all of a vector's."""
+    return c.elems // max(1, c.shape[0]) if len(c.shape) > 1 else c.elems
+
+
+def flat_buffer_report(ops: Sequence[CollectiveOp], C: int, N: int, *,
+                       client_n: Optional[int] = None) -> Dict:
     """Collectives whose f32 payload is the global (C, N) slab or more:
-    {"full_shape": count, "sample": the first few}."""
-    bad = [c for c in ops if c.dtype == "float32" and c.elems >= C * N]
-    return {"full_shape": len(bad), "sample": bad[:4]}
+    {"full_shape": count, "sample": the first few}. With ``client_n``
+    (a client's whole N, the layout's valid elements) also
+    ``client_whole_n``: the local steps' f32 ops (every role but the
+    tail's ``FLAT_TAIL_ROLES``) that hold ``client_n`` elements or more
+    of one client (of a leading row: the clients' stacked dim). The
+    aggregate's ``flat_params`` gather is the server's (N,) params,
+    whole on every rank by design: with one client it has the slab's
+    size, and it is not counted."""
+    bad = [c for c in ops if c.dtype == "float32" and c.elems >= C * N
+           and c.role != "flat_params"]
+    rep = {"full_shape": len(bad), "sample": bad[:4]}
+    if client_n is not None:
+        whole = [c for c in ops if c.dtype == "float32"
+                 and c.role not in FLAT_TAIL_ROLES
+                 and _per_client(c) >= client_n]
+        rep.update(client_whole_n=len(whole), client_sample=whole[:4])
+    return rep
 
 
 def assert_flat_buffer_sharded(ops: Sequence[CollectiveOp], C: int,
-                               N: int) -> Dict:
-    rep = flat_buffer_report(ops, C, N)
+                               N: int, *,
+                               client_n: Optional[int] = None) -> Dict:
+    """No collective moves the global (C, N) slab; with ``client_n``,
+    none of a local step holds a client's whole N (the tensor-parallel
+    route: a model with no placement gathers its leaves whole)."""
+    rep = flat_buffer_report(ops, C, N, client_n=client_n)
     if rep["full_shape"]:
         raise AssertionError(
             f"a collective moved the global ({C}, {N}) flat slab: {rep}")
+    if rep.get("client_whole_n"):
+        raise AssertionError(
+            f"a local step's collective held a client's whole N "
+            f"({client_n} elements): {rep['client_sample']}")
     return rep
 
 

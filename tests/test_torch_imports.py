@@ -3,10 +3,11 @@
 ``chip_smoke.py`` and not the sharded tests' rank workers
 (``tests/_torch_dist_worker.py``, ``_torch_tp_worker.py``,
 ``_torch_tp_train_worker.py``, ``_torch_tp_grad_worker.py``,
-``_torch_tp_moe_worker.py`` and ``_torch_tp_hybrid_worker.py``) and not
-the card probe of the
-tensor-parallel phases, ``scripts/tp_probe.py``, imports ``jax`` or the
-reference package ``repro``."""
+``_torch_tp_moe_worker.py``, ``_torch_tp_hybrid_worker.py`` and
+``_torch_flat_tp_worker.py``) and not the card probes of the
+tensor-parallel phases, ``scripts/tp_probe.py`` and
+``scripts/flat_tp_probe.py``, imports ``jax`` or the reference package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -20,7 +21,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_tp_grad_worker.py",
     ROOT / "tests" / "_torch_tp_moe_worker.py",
     ROOT / "tests" / "_torch_tp_hybrid_worker.py",
-    ROOT / "scripts" / "tp_probe.py"]
+    ROOT / "tests" / "_torch_flat_tp_worker.py",
+    ROOT / "scripts" / "tp_probe.py", ROOT / "scripts" / "flat_tp_probe.py"]
 
 
 def _banned(name: str) -> bool:
@@ -83,7 +85,8 @@ def test_port_package_is_complete():
                 "federation/arena.py", "serving/registry.py",
                 "serving/personalize.py", "serving/loadgen.py",
                 "sharding/spec.py", "sharding/hlo.py", "launch/dryrun.py",
-                "launch/mesh.py", "launch/specs.py", "roofline.py"):
+                "launch/mesh.py", "launch/specs.py", "roofline.py",
+                "launch/perf.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
     # the port's own process-group runtime and rank-local round
